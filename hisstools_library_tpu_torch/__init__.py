@@ -1,0 +1,19 @@
+"""hisstools_library_tpu_torch: the PyTorch / NVIDIA Hopper port.
+
+A second package beside ``hisstools_library_tpu`` (the JAX reference, which
+it never imports), with the same layout and names:
+
+- :mod:`.core`   split-complex types, packed-spectrum products, error codes
+- :mod:`.fft`    packed real FFTs; hand-written Hopper kernels in
+                 ``fft/hopper_fft.py`` and ``fft/hopper_kernels.py``, CUDA
+                 sources in ``csrc/``, built on first use by :mod:`._build`
+- :mod:`.models` the offline partitioned engine and FastFIR
+
+Kernels run on CUDA tensors; CPU tensors take each kernel's plain PyTorch
+version.
+"""
+
+__version__ = "0.1.0"
+
+from .core.types import Split  # noqa: F401
+from .core.errors import ConvolveError, ConvolveException  # noqa: F401

@@ -1,0 +1,127 @@
+"""Builds and loads the port's Hopper kernels (``csrc/*.cu``).
+
+All ``.cu`` files are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, under ``build/hisstools_torch_kernels/`` next
+to the package, named by a hash of the sources and flags, so an edit to any
+source gives a new build. The library is built at first use (never at import)
+and loaded with ``ctypes``. Every C entry point launches on the stream it is
+given and returns ``cudaGetLastError()``; :func:`check` raises when that is not
+0. Nothing prebuilt is used: the sources in ``csrc/`` are the only input.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "hisstools_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# Pointer arguments and the stream are c_void_p: without argtypes ctypes would
+# pass them as 32-bit ints and cut them.
+_SIGNATURES = {
+    # x, re, im, scratch_y, tw, batch, n, stream
+    "hst_rfft_packed": [_P, _P, _P, _P, _P, _L, _I, _P],
+    # x, re, im, scratch_y, tw, channels, hops, n, stream
+    "hst_rfft_packed_stream": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
+    # re, im, out, scratch_y, tw, frames, n, scale, stream
+    "hst_rifft_packed_tail": [_P, _P, _P, _P, _P, _L, _I, _F, _P],
+    # xr, xi, hr, hi, yr, yi, channels, t, p, k, stream
+    "hst_lag_mac_causal": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources is (or will be) built."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libhisstools_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the Hopper kernels need the CUDA toolkit")
+
+
+def _build(out: Path) -> None:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built from ``csrc/`` on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.exists():
+                _build(path)
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.hst_error_string.argtypes = [ctypes.c_int]
+            lib.hst_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check_tensors(kernel: str, *tensors) -> None:
+    """Raise unless every tensor is float32, contiguous and on one CUDA device
+    (float64 raises NotImplementedError: no float64 kernel is ported)."""
+    for t in tensors:
+        if t.dtype == torch.float64:
+            raise NotImplementedError(
+                f"{kernel}: no float64 kernel is ported to the GPU yet")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{kernel}: needs float32, got {t.dtype}")
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != tensors[0].device:
+            raise ValueError(f"{kernel}: tensors must share one CUDA device "
+                             f"(or all be on the CPU), got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: tensors must be contiguous")
+
+
+def stream(device) -> int:
+    """The current CUDA stream of ``device``, as the C entry points take it."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(rc: int, kernel: str) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if rc != 0:
+        msg = load().hst_error_string(rc).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {rc} ({msg})")

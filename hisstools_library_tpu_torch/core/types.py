@@ -1,0 +1,77 @@
+"""Split-complex types and packed-spectrum products, on torch tensors.
+
+Counterpart of ``hisstools_library_tpu/core/types.py``. Spectra are two real
+planes, never complex tensors, in the HISSTools/vDSP packed convention: a real
+FFT of size N yields N/2 bins, DC in ``re[..., 0]``, Nyquist in
+``im[..., 0]``, forward scaled x2 against the textbook DFT.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class Split:
+    """Split-complex pair of tensors of one shape, dtype and device. The last
+    axis is the bin axis by convention."""
+
+    re: torch.Tensor
+    im: torch.Tensor
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.re.shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.re.dtype
+
+    def to(self, device) -> "Split":
+        return Split(self.re.to(device), self.im.to(device))
+
+    def astype(self, dtype: torch.dtype) -> "Split":
+        return Split(self.re.to(dtype), self.im.to(dtype))
+
+    def __add__(self, other: "Split") -> "Split":
+        return Split(self.re + other.re, self.im + other.im)
+
+    def __mul__(self, scale) -> "Split":
+        return Split(self.re * scale, self.im * scale)
+
+    def conj(self) -> "Split":
+        return Split(self.re, -self.im)
+
+
+def cmul(a: Split, b: Split) -> Split:
+    """Complex multiply in split layout (reference SpectralFunctions.hpp:274-281)."""
+    return Split(a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re)
+
+
+def cmul_conj(a: Split, b: Split) -> Split:
+    """a * conj(b), the correlation product (reference
+    SpectralFunctions.hpp:265-272)."""
+    return Split(a.re * b.re + a.im * b.im, a.im * b.re - a.re * b.im)
+
+
+def _packed(prod: Split, a: Split, b: Split, scale) -> Split:
+    # Bin 0 holds two real values (DC, Nyquist) that multiply independently.
+    re = torch.cat([a.re[..., :1] * b.re[..., :1], prod.re[..., 1:]], dim=-1)
+    im = torch.cat([a.im[..., :1] * b.im[..., :1], prod.im[..., 1:]], dim=-1)
+    if scale != 1.0:
+        re, im = re * scale, im * scale
+    return Split(re, im)
+
+
+def packed_mul(a: Split, b: Split, scale=1.0) -> Split:
+    """Multiply two packed real spectra (reference ``ir_convolve_real``,
+    SpectralFunctions.hpp:63-84, and PartitionedConvolve.cpp:387-426)."""
+    return _packed(cmul(a, b), a, b, scale)
+
+
+def packed_mul_conj(a: Split, b: Split, scale=1.0) -> Split:
+    """Correlation a * conj(b) of packed real spectra (reference
+    ``ir_correlate_real``, SpectralFunctions.hpp:433-436)."""
+    return _packed(cmul_conj(a, b), a, b, scale)

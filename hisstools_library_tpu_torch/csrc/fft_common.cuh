@@ -1,0 +1,383 @@
+// Shared FFT core for the real transforms on Hopper (K1 rfft_packed,
+// K2 rfft_packed_stream, K4 rifft_packed_tail).
+//
+// A real transform of length N is an M = N/2 point complex FFT of
+// z[n] = x[2n] + i x[2n+1], plus the split step that pairs bins k and M-k.
+// At the sizes served here (N = 4096..2^17, M = 2048..2^16) a complex frame
+// is 16-512 KB, more than one block's shared memory at the top of the range,
+// so the complex FFT is a two-pass four-step, M = M1 * M2 with both factors
+// <= 256 (2^15 = 128 x 256 at the FastFIR main path's N = 2^16):
+//
+//   pass 1: for each column n1 < M1, the M2-point FFT of z[n1 + M1*n2] over
+//           n2, times the inter-pass twiddle W_M^(n1*k2); written to a scratch
+//           frame as Y[k2*M1 + n1].
+//   pass 2: for each row k2 < M2, the M1-point FFT of Y[k2*M1 + n1] over n1,
+//           which is Z[k2 + M2*k1].
+//
+// A block runs kTile = 16 neighbouring sub-FFTs of length L = A*B, each as a
+// four-step of its own: every thread takes one B-point DFT in registers
+// (radix-2, fully unrolled), the block exchanges the twiddled results through
+// shared memory once, and every thread takes one A-point DFT in registers.
+// Pass 1 reads the signal and pass 2 writes the outputs straight from
+// registers, in runs of consecutive addresses. Unpack of the real layout
+// (inverse) is pass 1's loader. The forward split step is pass 2's store: a
+// pass-2 block holds rows k2 and M2-k2 together (8 such pairs), so every bin k
+// meets its partner M-k in shared memory and Z never goes to HBM. The
+// inverse's overlap-save tail (keep samples [N/2, N), times `scale`) is pass
+// 2's store too.
+//
+// Bound on the H100: HBM bytes. Each pass reads and writes one complex frame
+// (8*M bytes each way); the butterflies are ~5*M*log2(M) FP32 operations per
+// frame, kept in registers. Twiddles come from one table
+// tw[e] = exp(-2*pi*i*e/N), e < N, computed in float64 on the host and stored
+// as float32; no fast-math intrinsics are used anywhere.
+//
+// Packed layout (HISSTools/vDSP): N/2 bins, forward scaled x2, DC in re[0],
+// Nyquist in im[0]. Unscaled inverse: rifft(rfft(x)) = 2N x.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace hst {
+
+constexpr int kTile = 16;         // sub-FFTs per block
+constexpr int kMaxSub = 256;      // longest sub-FFT
+constexpr int kLd = kMaxSub + 1;  // odd row stride of the shared tile: no bank conflicts
+constexpr int kThreads = 256;     // = kTile * 16, one thread per DFT in each step
+
+enum LoadMode { kLoadReal = 0, kLoadStream = 1, kLoadUnpack = 2 };
+enum StoreMode { kStorePack = 0, kStoreTail = 1 };
+
+struct Plan {
+  int n;       // real size N
+  int log_n;
+  int m;       // complex size M = N/2
+  int n1;      // pass-2 sub-FFT length M1
+  int n2;      // pass-1 sub-FFT length M2
+};
+
+inline int ilog2(long long v) {
+  int l = 0;
+  while ((1LL << (l + 1)) <= v) ++l;
+  return l;
+}
+
+inline Plan make_plan(int n) {
+  Plan p;
+  p.n = n;
+  p.log_n = ilog2(n);
+  p.m = n / 2;
+  const int lm = ilog2(p.m);
+  p.n1 = 1 << (lm / 2);
+  p.n2 = 1 << (lm - lm / 2);
+  return p;
+}
+
+__host__ __device__ constexpr int log2_c(int v) { return v <= 1 ? 0 : 1 + log2_c(v / 2); }
+
+__host__ __device__ constexpr int brev_c(int v, int bits) {
+  int r = 0;
+  for (int i = 0; i < bits; ++i) r = (r << 1) | ((v >> i) & 1);
+  return r;
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// One radix-2 stage (half-span 2^LH) of an in-register R-point DFT, then the
+// next stage. Template recursion keeps every register index a compile-time
+// constant, so the arrays stay in registers. W_{2h}^j = tw[j * n/(2h)].
+template <int R, int LH, bool kDone = ((1 << LH) >= R)>
+struct RegStage {
+  static __device__ __forceinline__ void run(float2 (&v)[R],
+                                             const float2* __restrict__ tw,
+                                             int log_n) {
+    constexpr int H = 1 << LH;
+#pragma unroll
+    for (int b = 0; b < R / 2; ++b) {
+      const int j = b & (H - 1);
+      const int a = ((b >> LH) << (LH + 1)) + j;
+      const float2 u = v[a];
+      const float2 t = j == 0 ? v[a + H]
+                              : cmul(__ldg(&tw[j << (log_n - 1 - LH)]), v[a + H]);
+      v[a] = make_float2(u.x + t.x, u.y + t.y);
+      v[a + H] = make_float2(u.x - t.x, u.y - t.y);
+    }
+    RegStage<R, LH + 1>::run(v, tw, log_n);
+  }
+};
+
+template <int R, int LH>
+struct RegStage<R, LH, true> {
+  static __device__ __forceinline__ void run(float2 (&)[R], const float2* __restrict__,
+                                             int) {}
+};
+
+// In-register R-point forward DFT, natural order in and out (radix-2,
+// decimation in time).
+template <int R>
+__device__ __forceinline__ void reg_dft(float2 (&v)[R],
+                                        const float2* __restrict__ tw,
+                                        int log_n) {
+  constexpr int kLog = log2_c(R);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int j = brev_c(i, kLog);
+    if (j > i) {
+      const float2 t = v[i];
+      v[i] = v[j];
+      v[j] = t;
+    }
+  }
+  RegStage<R, 0>::run(v, tw, log_n);
+}
+
+// Split of a sub-FFT length L = A * B into the two register DFT sizes.
+template <int L>
+struct Sub {
+  static constexpr int kLog = log2_c(L);
+  static constexpr int kA = 1 << (kLog / 2);   // step-2 DFT size
+  static constexpr int kB = L / kA;            // step-1 DFT size
+};
+
+// Step-1 twiddle W_L^(j1*k2) times v, stored at s[f*kLd + k2*A + j1].
+template <int L>
+__device__ __forceinline__ void step1_store(float2* s, const float2 (&v)[Sub<L>::kB],
+                                            int f, int j1,
+                                            const float2* __restrict__ tw,
+                                            int log_n) {
+  constexpr int A = Sub<L>::kA, B = Sub<L>::kB, kLog = Sub<L>::kLog;
+#pragma unroll
+  for (int k2 = 0; k2 < B; ++k2) {
+    s[f * kLd + k2 * A + j1] =
+        k2 == 0 ? v[0] : cmul(v[k2], __ldg(&tw[(j1 * k2) << (log_n - kLog)]));
+  }
+}
+
+// Element `idx` (< M) of frame `frame`'s complex input.
+//   kLoadReal:   z[idx] of a contiguous real frame (float2 view of x).
+//   kLoadStream: frame = hop block b of (C, T, H) blocks; the frame is
+//                [x[b-1] | x[b]] read in place, with block -1 taken as zeros
+//                when b is a channel's first hop (`first`).
+//   kLoadUnpack: conj(Z'[idx]) from packed planes (a = re, a_im = im), where
+//                Z' is the complex spectrum whose unscaled inverse is the
+//                real signal's (even, odd) pairs; the conj turns the forward
+//                passes into the unscaled inverse.
+template <int kLoad>
+__device__ __forceinline__ float2 load_elem(const float* __restrict__ a,
+                                            const float* __restrict__ a_im,
+                                            const float2* __restrict__ tw,
+                                            long long frame, int idx, int m,
+                                            bool first) {
+  if (kLoad == kLoadReal) {
+    const float2* a2 = reinterpret_cast<const float2*>(a);
+    return a2[frame * m + idx];
+  } else if (kLoad == kLoadStream) {
+    const int half = m >> 1;
+    if (idx < half && first) return make_float2(0.f, 0.f);
+    const float2* a2 = reinterpret_cast<const float2*>(a);
+    return a2[frame * half + (idx - half)];
+  } else {
+    const long long base = frame * m;
+    if (idx == 0) {
+      const float dc = a[base];
+      const float ny = a_im[base];
+      return make_float2(dc + ny, -(dc - ny));
+    }
+    const long long j = base + (m - idx);
+    const float2 p = make_float2(a[base + idx], a_im[base + idx]);
+    const float2 q = make_float2(a[j], -a_im[j]);  // conj(P[M - idx])
+    const float2 sum = make_float2(p.x + q.x, p.y + q.y);
+    const float2 dif = make_float2(p.x - q.x, p.y - q.y);
+    const float2 w = __ldg(&tw[idx]);
+    const float2 wd = cmul(make_float2(w.x, -w.y), dif);  // W_N^-idx * dif
+    // Z' = sum + i*wd; return its conjugate.
+    return make_float2(sum.x - wd.y, -(sum.y + wd.x));
+  }
+}
+
+// Pass 1, sub-FFT length L = M2: grid = frames * (M1 / kTile) blocks. Writes
+// Y[k2*M1 + n1] = W_M^(n1*k2) * FFT_M2(z[n1 + M1*n2])[k2].
+template <int kLoad, int L>
+__global__ void __launch_bounds__(kThreads)
+fft_pass1(const float* __restrict__ a, const float* __restrict__ a_im,
+          float2* __restrict__ y, const float2* __restrict__ tw, int log_n,
+          int n1, int hops) {
+  constexpr int A = Sub<L>::kA, B = Sub<L>::kB;
+  __shared__ float2 s[kTile * kLd];
+  const int m = 1 << (log_n - 1);
+  const int tiles = n1 / kTile;
+  const long long frame = blockIdx.x / tiles;
+  const int c0 = (int)(blockIdx.x - frame * tiles) * kTile;
+  const bool first = kLoad == kLoadStream && frame % hops == 0;
+  const int tid = threadIdx.x;
+  // Step 1: thread (f, j1), f fastest so loads run along columns.
+  if (tid < kTile * A) {
+    const int f = tid % kTile;
+    const int j1 = tid / kTile;
+    float2 v[B];
+#pragma unroll
+    for (int j2 = 0; j2 < B; ++j2)
+      v[j2] = load_elem<kLoad>(a, a_im, tw, frame, c0 + f + n1 * (j1 + A * j2), m,
+                               first);
+    reg_dft<B>(v, tw, log_n);
+    step1_store<L>(s, v, f, j1, tw, log_n);
+  }
+  __syncthreads();
+  // Step 2: thread (f, k2), outputs k = k2 + B*k1 straight to Y.
+  if (tid < kTile * B) {
+    const int f = tid % kTile;
+    const int k2 = tid / kTile;
+    float2 v[A];
+#pragma unroll
+    for (int j1 = 0; j1 < A; ++j1) v[j1] = s[f * kLd + k2 * A + j1];
+    reg_dft<A>(v, tw, log_n);
+    float2* yf = y + frame * m;
+    const int col = c0 + f;
+#pragma unroll
+    for (int k1 = 0; k1 < A; ++k1) {
+      const int k = k2 + B * k1;
+      const int e = (col * k) & (m - 1);  // W_M^e = W_N^(2e)
+      yf[(long long)k * n1 + col] = cmul(v[k1], __ldg(&tw[2 * e]));
+    }
+  }
+}
+
+// Row of pass-2 slot f in block `tile` when packing: slots 0-7 hold rows
+// 8*tile + (0..7), slots 8-15 their partners M2 - row; block 0 holds the two
+// self-paired rows 0 (slot 0) and M2/2 (slot 8).
+__device__ __forceinline__ int pack_row(int tile, int f, int n2) {
+  const int lo = f & 7;
+  if (f < 8) return 8 * tile + lo;
+  if (tile == 0 && lo == 0) return n2 >> 1;
+  return n2 - (8 * tile + lo);
+}
+
+// Pass 2, sub-FFT length L = M1: grid = frames * (M2 / kTile) blocks.
+// Z[k2 + M2*k1] = FFT_M1(Y[k2*M1 + n1])[k1].
+//   kStorePack: the packed planes `out` (re) and `out_im` (im), M per frame:
+//               P[k] = (Z[k] + conj Z[M-k]) - i W_N^k (Z[k] - conj Z[M-k]),
+//               k >= 1; re[0] = 2(Re Z0 + Im Z0) (DC), im[0] =
+//               2(Re Z0 - Im Z0) (Nyquist). Z[M-k] is at row M2-k2, column
+//               M1-1-k1 (row 0: column M1-k1), in the same block.
+//   kStoreTail: the inverse's kept half: for k >= M/2, output samples
+//               (2k - N/2, 2k + 1 - N/2) of the (frames, N/2) real `out` are
+//               scale * conj(Z[k]).
+template <int kStore, int L>
+__global__ void __launch_bounds__(kThreads)
+fft_pass2(const float2* __restrict__ y, float* __restrict__ out,
+          float* __restrict__ out_im, const float2* __restrict__ tw, int log_n,
+          int n2, float scale) {
+  constexpr int A = Sub<L>::kA, B = Sub<L>::kB;
+  __shared__ float2 s[kTile * kLd];
+  const int m = 1 << (log_n - 1);
+  const int tiles = n2 / kTile;
+  const long long frame = blockIdx.x / tiles;
+  const int tile = (int)(blockIdx.x - frame * tiles);
+  const int r0 = tile * kTile;
+  const int tid = threadIdx.x;
+  // Step 1: thread (j1, f), j1 fastest so loads run along rows.
+  if (tid < kTile * A) {
+    const int j1 = tid % A;
+    const int f = tid / A;
+    const int row = kStore == kStorePack ? pack_row(tile, f, n2) : r0 + f;
+    const float2* yr = y + frame * m + (long long)row * L;
+    float2 v[B];
+#pragma unroll
+    for (int j2 = 0; j2 < B; ++j2) v[j2] = yr[j1 + A * j2];
+    reg_dft<B>(v, tw, log_n);
+    step1_store<L>(s, v, f, j1, tw, log_n);
+  }
+  __syncthreads();
+  // Step 2: thread (f, k2) holds outputs k = k2 + B*k1 of sub-FFT f.
+  const bool active = tid < kTile * B;
+  const int f = tid % kTile;
+  const int k2 = tid / kTile;
+  float2 v[A];
+  if (active) {
+#pragma unroll
+    for (int j1 = 0; j1 < A; ++j1) v[j1] = s[f * kLd + k2 * A + j1];
+    reg_dft<A>(v, tw, log_n);
+  }
+  if (kStore == kStoreTail) {
+    if (active) {
+      float2* of = reinterpret_cast<float2*>(out) + frame * (m >> 1);
+#pragma unroll
+      for (int k1 = A / 2; k1 < A; ++k1) {
+        const int k = k2 + B * k1;
+        of[r0 + f + n2 * k - (m >> 1)] =
+            make_float2(scale * v[k1].x, -scale * v[k1].y);
+      }
+    }
+    return;
+  }
+  __syncthreads();  // every step-2 read of s is done
+  if (active) {
+#pragma unroll
+    for (int k1 = 0; k1 < A; ++k1) s[f * kLd + k2 + B * k1] = v[k1];
+  }
+  __syncthreads();
+  float* re = out + frame * m;
+  float* im = out_im + frame * m;
+  for (int i = tid; i < kTile * L; i += blockDim.x) {
+    const int sf = i % kTile;
+    const int k1 = i / kTile;
+    const int row = pack_row(tile, sf, n2);
+    const int k = row + n2 * k1;
+    const float2 zk = s[sf * kLd + k1];
+    if (k == 0) {
+      re[0] = 2.f * (zk.x + zk.y);
+      im[0] = 2.f * (zk.x - zk.y);
+      continue;
+    }
+    const int g = (row == 0 || row == (n2 >> 1)) ? sf : (sf ^ 8);
+    const int c = row == 0 ? L - k1 : L - 1 - k1;
+    const float2 zm = s[g * kLd + c];
+    const float2 sum = make_float2(zk.x + zm.x, zk.y - zm.y);
+    const float2 dif = make_float2(zk.x - zm.x, zk.y + zm.y);
+    const float2 wd = cmul(__ldg(&tw[k]), dif);
+    re[k] = sum.x + wd.y;
+    im[k] = sum.y - wd.x;
+  }
+}
+
+// Host launchers: the sub-FFT lengths are template arguments.
+template <int kLoad>
+inline void launch_pass1(const Plan& p, long long frames, const float* a,
+                         const float* a_im, float2* y, const float2* tw,
+                         int hops, cudaStream_t st) {
+  const unsigned grid = (unsigned)(frames * (p.n1 / kTile));
+  switch (p.n2) {
+    case 64:
+      fft_pass1<kLoad, 64><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, p.log_n, p.n1, hops);
+      break;
+    case 128:
+      fft_pass1<kLoad, 128><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, p.log_n, p.n1, hops);
+      break;
+    default:
+      fft_pass1<kLoad, 256><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, p.log_n, p.n1, hops);
+  }
+}
+
+template <int kStore>
+inline void launch_pass2(const Plan& p, long long frames, const float2* y,
+                         float* out, float* out_im, const float2* tw,
+                         float scale, cudaStream_t st) {
+  const unsigned grid = (unsigned)(frames * (p.n2 / kTile));
+  switch (p.n1) {
+    case 32:
+      fft_pass2<kStore, 32><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, p.n2, scale);
+      break;
+    case 64:
+      fft_pass2<kStore, 64><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, p.n2, scale);
+      break;
+    case 128:
+      fft_pass2<kStore, 128><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, p.n2, scale);
+      break;
+    default:
+      fft_pass2<kStore, 256><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, p.n2, scale);
+  }
+}
+
+}  // namespace hst

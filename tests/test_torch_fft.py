@@ -1,0 +1,173 @@
+"""Port parity: the real-FFT and MAC kernels (fft/hopper_fft.py,
+fft/hopper_kernels.py) and fft/api.py.
+
+Inputs are made with numpy from a seed and handed to both sides. On the CPU
+the port's wrappers run their plain PyTorch versions (torch.fft and a lag
+loop); the JAX side runs its Pallas kernels in interpret mode, in "highest"
+mode. Tolerances: transforms >= 120 dB SNR (float32 FFTs whose sums are taken
+in another order give ~130 dB); MAC atol 1e-4 (float32 sums of up to P
+products in another order), as tests/test_pallas_mac.py uses. The kernels
+themselves are compared with their plain versions on the card in
+tests/test_torch_cuda.py.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from hisstools_library_tpu.fft import api as jax_api  # noqa: E402
+from hisstools_library_tpu.fft import pallas_fft, pallas_kernels  # noqa: E402
+from hisstools_library_tpu_torch.fft import api, hopper_fft, hopper_kernels  # noqa: E402
+
+SNR_MIN_DB = 120.0
+
+
+def snr_db(ref, test):
+    ref = np.asarray(ref, np.float64)
+    err = np.asarray(test, np.float64) - ref
+    d = np.sum(err * err)
+    return np.inf if d == 0 else 10 * np.log10(np.sum(ref * ref) / d)
+
+
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_rfft_packed_matches_pallas(rng, n):
+    x = rng.standard_normal((3, n)).astype(np.float32)
+    jre, jim = pallas_fft.rfft_packed(jnp.asarray(x), mode="highest")
+    tre, tim = hopper_fft.rfft_packed(torch.from_numpy(x))
+    assert tre.shape == (3, n // 2) and tre.dtype == torch.float32
+    assert snr_db(jre, tre) >= SNR_MIN_DB
+    assert snr_db(jim, tim) >= SNR_MIN_DB
+
+
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_rfft_packed_stream_matches_pallas(rng, n):
+    x2d = rng.standard_normal((2, 4, n // 2)).astype(np.float32)
+    jre, jim = pallas_fft.rfft_packed_stream(jnp.asarray(x2d), mode="highest")
+    tre, tim = hopper_fft.rfft_packed_stream(torch.from_numpy(x2d))
+    assert tre.shape == (2, 4, n // 2)
+    assert snr_db(jre, tre) >= SNR_MIN_DB
+    assert snr_db(jim, tim) >= SNR_MIN_DB
+
+
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_rifft_packed_tail_matches_pallas(rng, n):
+    re = rng.standard_normal((2, 3, n // 2)).astype(np.float32)
+    im = rng.standard_normal((2, 3, n // 2)).astype(np.float32)
+    scale = 1.0 / (4.0 * n)
+    jy = pallas_fft.rifft_packed_tail(jnp.asarray(re), jnp.asarray(im),
+                                      scale=scale, mode="highest")
+    ty = hopper_fft.rifft_packed_tail(torch.from_numpy(re), torch.from_numpy(im),
+                                      scale)
+    assert ty.shape == (2, 3, n // 2)
+    assert snr_db(jy, ty) >= SNR_MIN_DB
+
+
+@pytest.mark.parametrize("t,p", [(5, 7), (7, 3)])
+def test_lag_mac_causal_matches_pallas(rng, t, p):
+    """P > T and P < T; a DC-heavy bin 0 makes an error in the packed
+    (DC, Nyquist) lane visible."""
+    c, k = 2, 256
+    xr, xi = rng.standard_normal((2, c, t, k)).astype(np.float32)
+    hr, hi = rng.standard_normal((2, c, p, k)).astype(np.float32)
+    xr[..., 0] += 8.0
+    hr[..., 0] += 8.0
+    jr, ji = pallas_kernels.lag_mac_causal(
+        *(jnp.asarray(a) for a in (xr, xi, hr, hi)), interpret=True)
+    tr, ti = hopper_kernels.lag_mac_causal(
+        *(torch.from_numpy(a) for a in (xr, xi, hr, hi)))
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-4)
+    np.testing.assert_allclose(ti.numpy(), np.asarray(ji), atol=1e-4)
+    assert not tr[:, 0].any() and not ti[:, 0].any()
+
+
+def test_fastfir_chain_matches_pallas(rng):
+    """K5's signature and result: the port runs K2 -> K3 -> K4."""
+    n = 16384
+    x2d = rng.standard_normal((2, 4, n // 2)).astype(np.float32)
+    hr, hi = rng.standard_normal((2, 2, 3, n // 2)).astype(np.float32)
+    scale = 1.0 / (4.0 * n)
+    jy = pallas_fft.fastfir_chain(jnp.asarray(x2d), jnp.asarray(hr),
+                                  jnp.asarray(hi), scale, mode="highest")
+    ty = hopper_fft.fastfir_chain(torch.from_numpy(x2d), torch.from_numpy(hr),
+                                  torch.from_numpy(hi), scale)
+    assert snr_db(jy, ty) >= SNR_MIN_DB
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_api_xla_backend_matches_jax(rng, dtype):
+    """backend=None on the CPU is torch.fft on both sides' "xla" path."""
+    x = rng.standard_normal((2, 1024)).astype(dtype)
+    jre, jim = jax_api.rfft(jnp.asarray(x), backend="xla")
+    tre, tim = api.rfft(torch.from_numpy(x))
+    assert tre.dtype == torch.from_numpy(x).dtype
+    floor = 120.0 if dtype == np.float32 else 250.0
+    assert snr_db(jre, tre) >= floor and snr_db(jim, tim) >= floor
+    jy = jax_api.rifft(jre, jim, backend="xla")
+    ty = api.rifft(tre, tim, backend="matmul")
+    assert snr_db(jy, ty) >= floor
+    assert snr_db(2 * 1024 * x, ty) >= floor
+
+
+def test_backend_resolution():
+    assert api._resolve(None, torch.device("cpu")) == "xla"
+    assert api._resolve(None, torch.device("cuda")) == "pallas"
+    assert api._resolve("matmul", torch.device("cuda")) == "xla"
+    assert api._resolve("pallas", torch.device("cpu")) == "pallas"
+    with pytest.raises(ValueError):
+        api.set_default_backend("cufft")
+    try:
+        api.set_default_backend("xla")
+        assert api.get_default_backend() == "xla"
+        assert api._resolve(None, torch.device("cuda")) == "xla"
+    finally:
+        api.set_default_backend(None)
+    assert api.get_default_backend() is None
+
+
+@pytest.mark.parametrize("n", [0, 3, 1 << 29])
+def test_log2_size_errors_match_jax(n):
+    with pytest.raises(ValueError) as jerr:
+        jax_api._log2_size(n)
+    with pytest.raises(ValueError) as terr:
+        api._log2_size(n)
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_set_mode():
+    assert hopper_fft.get_mode() == "highest"
+    try:
+        hopper_fft.set_mode("bf16x3")
+        assert hopper_fft.get_mode() == "bf16x3"
+    finally:
+        hopper_fft.set_mode("highest")
+    with pytest.raises(ValueError):
+        hopper_fft.set_mode("tf32")
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: hopper_fft.rfft_packed(torch.empty(2, 4096, dtype=torch.float64,
+                                                device="meta")), "float64"),
+    (lambda: hopper_fft.rfft_packed(torch.empty(2, 2048, device="meta")), "K10"),
+    (lambda: hopper_fft.rfft_packed(torch.empty(2, 1 << 18, device="meta")), "K13"),
+    (lambda: hopper_fft.rifft_packed_tail(
+        *(torch.empty(2, 3, 1024, device="meta") for _ in range(2))), "K10"),
+    (lambda: hopper_kernels.lag_mac_causal(
+        *(torch.empty(2, 3, 256, dtype=torch.float64, device="meta")
+          for _ in range(4))), "float64"),
+    (lambda: api.rifft(*(torch.empty(2, 4096, device="meta") for _ in range(2)),
+                       backend="pallas"), "K6"),
+])
+def test_outside_gpu_envelope_raises(call, match):
+    """Off the CPU the wrappers launch a kernel or raise; calls outside the
+    ported envelope name the kernel still to be ported (a meta tensor takes
+    the GPU branch without a card)."""
+    with pytest.raises(NotImplementedError, match=match):
+        call()
+
+
+def test_non_cuda_device_is_refused():
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_fft.rfft_packed(torch.empty(2, 4096, device="meta"))
