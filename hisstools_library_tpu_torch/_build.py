@@ -1,6 +1,7 @@
 """Builds and loads the port's Hopper kernels (``csrc/*.cu``).
 
-All ``.cu`` files are compiled with ``nvcc`` for ``sm_90a`` into one shared
+Each ``.cu`` file is compiled with ``nvcc`` for ``sm_90a`` in its own
+process, all started together, and the objects are linked into one shared
 library with a plain C interface, under ``build/hisstools_torch_kernels/`` next
 to the package, named by a hash of the sources and flags, so an edit to any
 source gives a new build. The library is built at first use (never at import)
@@ -24,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "hisstools_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # Pointer arguments and the stream are c_void_p: without argtypes ctypes would
@@ -38,6 +39,16 @@ _SIGNATURES = {
     "hst_rifft_packed_tail": [_P, _P, _P, _P, _P, _L, _I, _F, _P],
     # xr, xi, hr, hi, yr, yi, channels, t, p, k, stream
     "hst_lag_mac_causal": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    # x, re, im, tw, batch, n, stream
+    "hst_rfft_small": [_P, _P, _P, _P, _L, _I, _P],
+    # sr, si, xr, xi, hr, hi, h_cstride, yr, yi, nr, ni, channels, t, p, k, stream
+    "hst_lag_mac_ring": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _L, _I, _I,
+                         _I, _P],
+    # x, prev, rin_re, rin_im, h_re, h_im, h_cstride, l0_re, l0_im,
+    # l0_cstride, y, rout_re, rout_im, s_re, s_im, tw, channels, t, p, n,
+    # scale, stream
+    "hst_fastfir_chain_stream": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _L, _P, _P,
+                                 _P, _P, _P, _P, _L, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -69,13 +80,30 @@ def _nvcc() -> str:
 
 def _build(out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out.parent / f"{tag}.{src.stem}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for obj, proc in jobs:
+        text = proc.communicate()[0]
+        logs.append(text)
+        if proc.returncode != 0:
+            failed.append(text)
+    out.with_suffix(".log").write_text("".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *[str(o) for o, _ in jobs]],
+                          capture_output=True, text=True)
+    for obj, _ in jobs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
 
 
@@ -98,9 +126,10 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def check_tensors(kernel: str, *tensors) -> None:
-    """Raise unless every tensor is float32, contiguous and on one CUDA device
-    (float64 raises NotImplementedError: no float64 kernel is ported)."""
+def check_tensors(kernel: str, *tensors, contiguous: bool = True) -> None:
+    """Raise unless every tensor is float32, contiguous (when asked) and on
+    one CUDA device (float64 raises NotImplementedError: no float64 kernel is
+    ported)."""
     for t in tensors:
         if t.dtype == torch.float64:
             raise NotImplementedError(
@@ -111,8 +140,18 @@ def check_tensors(kernel: str, *tensors) -> None:
         if t.device.type != "cuda" or t.device != tensors[0].device:
             raise ValueError(f"{kernel}: tensors must share one CUDA device "
                              f"(or all be on the CPU), got {t.device}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{kernel}: tensors must be contiguous")
+
+
+def channel_rows(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """A (C, R, K) operand as the kernels read it: rows of K contiguous floats,
+    K apart, channels ``stride`` floats apart. Slices along R and views
+    broadcast along C (stride 0) pass as they are; other layouts are copied.
+    Returns (tensor, channel stride)."""
+    if t.stride(2) != 1 or (t.shape[1] > 1 and t.stride(1) != t.shape[2]):
+        t = t.contiguous()
+    return t, t.stride(0)
 
 
 def stream(device) -> int:

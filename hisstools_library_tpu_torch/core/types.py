@@ -10,7 +10,19 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+
+def tensor_from(a, device=None) -> torch.Tensor:
+    """A new tensor holding a copy of the array ``a`` (numpy, a JAX array or
+    anything ``np.asarray`` takes), dtype kept, on ``device``."""
+    return torch.tensor(np.asarray(a), device=device)
+
+
+def array_from(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of the tensor ``t``."""
+    return t.detach().cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -31,6 +43,21 @@ class Split:
 
     def to(self, device) -> "Split":
         return Split(self.re.to(device), self.im.to(device))
+
+    @staticmethod
+    def zeros(shape, dtype: torch.dtype = torch.float32, device=None) -> "Split":
+        return Split(torch.zeros(shape, dtype=dtype, device=device),
+                     torch.zeros(shape, dtype=dtype, device=device))
+
+    @staticmethod
+    def from_numpy(src, device=None) -> "Split":
+        """A Split from any pair with ``re``/``im`` arrays (numpy, or a JAX
+        package Split), copied onto ``device``."""
+        return Split(tensor_from(src.re, device), tensor_from(src.im, device))
+
+    def numpy(self) -> "Split":
+        """The same pair as host numpy arrays."""
+        return Split(array_from(self.re), array_from(self.im))
 
     def astype(self, dtype: torch.dtype) -> "Split":
         return Split(self.re.to(dtype), self.im.to(dtype))

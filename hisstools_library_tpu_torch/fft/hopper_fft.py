@@ -1,23 +1,27 @@
 """Real FFT kernels for Hopper: the counterpart of ``fft/pallas_fft.py``.
 
-Each TPU kernel of the FastFIR path has a hand-written CUDA kernel here
+Each TPU kernel of the ported paths has a hand-written CUDA kernel here
 (sources in ``csrc/``, built by :mod:`.._build`) and a plain PyTorch version
 beside it, in ``torch.fft``:
 
-==============================  =====================================  ============================
-function                        replaces (hisstools_library_tpu/...)   CUDA source
-==============================  =====================================  ============================
-:func:`rfft_packed`       (K1)  fft/pallas_fft.py: rfft_packed         csrc/rfft_packed.cu
-:func:`rfft_packed_stream` (K2) fft/pallas_fft.py: rfft_packed_stream  csrc/rfft_packed_stream.cu
-:func:`rifft_packed_tail` (K4)  fft/pallas_fft.py: rifft_packed_tail   csrc/rifft_packed_tail.cu
-:func:`fastfir_chain`     (K5)  fft/pallas_fft.py: fastfir_chain       K2 -> K3 -> K4 in turn
-==============================  =====================================  ============================
+=================================  ========================================  ==============================
+function                           replaces (hisstools_library_tpu/...)      CUDA source
+=================================  ========================================  ==============================
+:func:`rfft_packed`          (K1)  fft/pallas_fft.py: rfft_packed            csrc/rfft_packed.cu
+:func:`rfft_packed_stream`   (K2)  fft/pallas_fft.py: rfft_packed_stream     csrc/rfft_packed_stream.cu
+:func:`rifft_packed_tail`    (K4)  fft/pallas_fft.py: rifft_packed_tail      csrc/rifft_packed_tail.cu
+:func:`fastfir_chain`        (K5)  fft/pallas_fft.py: fastfir_chain          K2 -> K3 -> K4 in turn
+:func:`fastfir_chain_stream` (K8)  fft/pallas_fft.py: fastfir_chain_stream   csrc/fastfir_chain_stream.cu
+:func:`rfft_small`          (K10)  fft/pallas_fft.py: _small_fwd_call        csrc/rfft_small.cu
+=================================  ========================================  ==============================
 
 A wrapper runs the plain version only for a tensor on the CPU. For a CUDA
 tensor it launches its kernel or raises: ``NotImplementedError`` names the
 kernel still to be ported when the call is outside the ported envelope
-(float64, or N outside 4096..2^17), and no path falls back to ``torch.fft``.
-Each wrapper counts its launches in ``<wrapper>.launches``.
+(float64, N above 2^17, K8 above 2^15), and no path falls back to
+``torch.fft``. Each wrapper counts its launches in ``<wrapper>.launches``.
+:func:`rfft_packed` sends N = 32..2048 to K10 and N = 4096..2^17 to K1, as
+the TPU package's ``rfft_packed`` sends its small sizes to ``_rfft_small``.
 
 ``fastfir_chain`` keeps the TPU function's signature and result but runs K2,
 K3 and K4 in turn: the TPU kernel keeps each channel's spectra ring and
@@ -25,6 +29,8 @@ impulse spectra on chip (~7.9 MB at the main path's N = 2^16, P = 15), far
 beyond a Hopper block's 227 KB of shared memory. A fused Hopper kernel (for
 example a bin-tiled MAC across thread-block clusters) is open work; it would
 keep the hop spectra, ~2.1 GB of traffic per main-path pass, out of HBM.
+``fastfir_chain_stream`` is one kernel: at the streaming near tier's
+N = 2^14..2^15 one frame fits a block's shared memory (see its source).
 
 Precision: :func:`set_mode` keeps the TPU package's knob (``"bf16x3"`` or
 ``"highest"``). On Hopper both modes run the same FP32 SIMT kernels, with
@@ -35,16 +41,20 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import _build
-from .hopper_kernels import lag_mac_causal
+from ..core.types import Split, packed_mul
+from .hopper_kernels import lag_mac_causal, lag_mac_ring_plain
 
 MIN_REAL_SIZE = 4096
 MAX_SINGLE_REAL = 1 << 17
+SMALL_MIN_REAL = 32          # K10 serves N = 32..2048
+STREAM_CHAIN_MIN = 1 << 14   # the TPU package routes N = 2^14..2^17 to K8
+STREAM_CHAIN_MAX = 1 << 15   # the Hopper K8 serves N = 2^14..2^15
 
 _MODE = "highest"  # or "bf16x3"; both run the same FP32 kernels on Hopper
 
@@ -67,6 +77,18 @@ def real_eligible(n: int) -> bool:
     return MIN_REAL_SIZE <= n <= MAX_SINGLE_REAL and (n & (n - 1)) == 0
 
 
+def small_eligible(n: int) -> bool:
+    """True when the small-FFT kernel (K10) serves real size ``n``."""
+    return SMALL_MIN_REAL <= n < MIN_REAL_SIZE and (n & (n - 1)) == 0
+
+
+def stream_chain_eligible(n: int) -> bool:
+    """True for the sizes the TPU package's process_block sends to its whole
+    streaming chain (N = 2^14..2^17, at P <= 8). The Hopper K8 serves
+    2^14..2^15; above that :func:`fastfir_chain_stream` raises on CUDA."""
+    return STREAM_CHAIN_MIN <= n <= MAX_SINGLE_REAL and (n & (n - 1)) == 0
+
+
 def stream_feasible(n: int) -> bool:
     """True when the streaming forward (K2) and tail inverse (K4) serve real
     size ``n``. The four-step is multi-pass, so no on-chip memory model
@@ -85,11 +107,12 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
 def _check(kernel: str, n: int, *tensors: torch.Tensor) -> None:
     """Raise unless the kernel takes these tensors at real size ``n``."""
     if not real_eligible(n):
-        missing = ("K10/K11 (_small_fwd_call/_small_inv_call)" if n < MIN_REAL_SIZE
+        missing = ("K10 serves forward N = 32..2048; the small inverse K11 "
+                   "(_small_inv_call) and N < 32" if n < MIN_REAL_SIZE
                    else "K13/K14 (_rfft_packed_split/_rifft_packed_split)")
         raise NotImplementedError(
-            f"{kernel}: serves N = {MIN_REAL_SIZE}..{MAX_SINGLE_REAL}; N = {n} "
-            f"needs {missing}, not yet ported")
+            f"{kernel}: serves N = {MIN_REAL_SIZE}..{MAX_SINGLE_REAL}; N = {n}: "
+            f"{missing} not yet ported")
     _build.check_tensors(kernel, *tensors)
 
 
@@ -127,16 +150,39 @@ def rifft_packed_tail_plain(re: torch.Tensor, im: torch.Tensor,
     return rifft_packed_plain(re, im)[..., re.shape[-1]:] * scale
 
 
+# K10's plain version is the packed real FFT itself.
+rfft_small_plain = rfft_packed_plain
+
+
+def fastfir_chain_stream_plain(x2d, prev, ring_re, ring_im, h_re, h_im,
+                               scale: float, l0_re=None, l0_im=None):
+    """The streaming chain by ``torch.fft`` and the ring MAC's plain version:
+    spectra of [x2d[t-1] | x2d[t]] (x2d[-1] = prev), Y_t = ring MAC over
+    [ring | spectra] (+ X_t * l0), scale * rifft(Y_t)[H:]; returns
+    (y, new_ring_re, new_ring_im)."""
+    prev_rows = torch.cat([prev[:, None, :], x2d[:, :-1, :]], dim=1)
+    x_re, x_im = rfft_packed_plain(torch.cat([prev_rows, x2d], dim=-1))
+    y_re, y_im, n_re, n_im = lag_mac_ring_plain(ring_re, ring_im, x_re, x_im,
+                                                h_re, h_im)
+    if l0_re is not None:
+        prod = packed_mul(Split(x_re, x_im), Split(l0_re[:, None, :], l0_im[:, None, :]))
+        y_re = y_re + prod.re
+        y_im = y_im + prod.im
+    return rifft_packed_tail_plain(y_re, y_im, scale), n_re, n_im
+
+
 # -----------------------------------------------------------------------------
 # Kernel wrappers
 # -----------------------------------------------------------------------------
 
 def rfft_packed(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: real FFT -> packed N/2 bins (x2 scale, Nyquist in im[0]), batched
-    over the leading axes, natural bin order."""
+    over the leading axes, natural bin order. N = 32..2048 go to K10."""
     if x.device.type == "cpu":
         return rfft_packed_plain(x)
     n = x.shape[-1]
+    if small_eligible(n):
+        return rfft_small(x)
     _check("K1 rfft_packed", n, x)
     lead = x.shape[:-1]
     b = math.prod(lead)
@@ -154,6 +200,34 @@ def rfft_packed(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 rfft_packed.launches = 0
+
+
+def rfft_small(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10: small real FFT (N = 32..2048) -> packed N/2 bins, batched over
+    the leading axes, natural bin order."""
+    if x.device.type == "cpu":
+        return rfft_small_plain(x)
+    kernel = "K10 rfft_small"
+    n = x.shape[-1]
+    if not small_eligible(n):
+        raise NotImplementedError(
+            f"{kernel}: serves N = {SMALL_MIN_REAL}..{MIN_REAL_SIZE // 2}, got N = {n}")
+    _build.check_tensors(kernel, x)
+    lead = x.shape[:-1]
+    b = math.prod(lead)
+    re = torch.empty(*lead, n // 2, dtype=torch.float32, device=x.device)
+    im = torch.empty_like(re)
+    if b == 0:
+        return re, im
+    rc = _build.load().hst_rfft_small(
+        x.data_ptr(), re.data_ptr(), im.data_ptr(),
+        _twiddles(n, x.device).data_ptr(), b, n, _build.stream(x.device))
+    _build.check(rc, kernel)
+    rfft_small.launches += 1
+    return re, im
+
+
+rfft_small.launches = 0
 
 
 def rfft_packed_stream(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -221,3 +295,75 @@ def fastfir_chain(x2d: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,
     x_re, x_im = rfft_packed_stream(x2d)
     y_re, y_im = lag_mac_causal(x_re, x_im, h_re, h_im)
     return rifft_packed_tail(y_re, y_im, scale)
+
+
+def fastfir_chain_stream(x2d: torch.Tensor, prev: torch.Tensor,
+                         ring_re: torch.Tensor, ring_im: torch.Tensor,
+                         h_re: torch.Tensor, h_im: torch.Tensor, scale: float,
+                         l0_re: Optional[torch.Tensor] = None,
+                         l0_im: Optional[torch.Tensor] = None):
+    """K8: a whole streaming process_block as one kernel launch.
+
+    ``x2d``: (C, T, H) hop blocks; ``prev``: (C, H) the carried previous
+    block; ``ring_*``: (C, P, N/2) oldest-first spectra ring; ``h_*``:
+    (C, P, N/2) packed impulse spectra; ``l0_*``: optional (C, N/2) zero-delay
+    partition multiplied with each hop's own spectrum. Returns (y (C, T, H),
+    new_ring_re, new_ring_im) with the new ring oldest-first, in new tensors.
+    ``h_*`` and ``l0_*`` may be row slices or channel-broadcast views."""
+    if x2d.device.type == "cpu":
+        return fastfir_chain_stream_plain(x2d, prev, ring_re, ring_im, h_re,
+                                          h_im, scale, l0_re, l0_im)
+    kernel = "K8 fastfir_chain_stream"
+    c, t, hop = x2d.shape
+    n = 2 * hop
+    p = ring_re.shape[-2]
+    if not (STREAM_CHAIN_MIN <= n <= STREAM_CHAIN_MAX) or n & (n - 1):
+        raise NotImplementedError(
+            f"{kernel}: the Hopper kernel serves N = {STREAM_CHAIN_MIN}.."
+            f"{STREAM_CHAIN_MAX} (one frame in a block's shared memory); "
+            f"N = {n} needs K8's wider envelope (a multi-pass frame), not yet "
+            "ported")
+    _build.check_tensors(kernel, x2d, prev, ring_re, ring_im)
+    lag0 = l0_re is not None
+    planes = (h_re, h_im) + ((l0_re, l0_im) if lag0 else ())
+    _build.check_tensors(kernel, x2d, *planes, contiguous=False)
+    k = n // 2
+    if (prev.shape != (c, hop) or ring_re.shape != (c, p, k)
+            or ring_im.shape != ring_re.shape or h_re.shape != ring_re.shape
+            or h_im.shape != ring_re.shape
+            or (lag0 and (l0_re.shape != (c, k) or l0_im.shape != (c, k)))):
+        raise ValueError(f"{kernel}: shapes x2d {tuple(x2d.shape)}, prev "
+                         f"{tuple(prev.shape)}, ring {tuple(ring_re.shape)}, H "
+                         f"{tuple(h_re.shape)} do not fit (C, T, H), (C, H), "
+                         f"(C, P, H), (C, P, H)")
+    h_re, hcs = _build.channel_rows(h_re)
+    h_im, hcs_im = _build.channel_rows(h_im)
+    if hcs_im != hcs:
+        h_re, h_im, hcs = h_re.contiguous(), h_im.contiguous(), p * k
+    l0_ptrs, lcs = (None, None), 0
+    if lag0:
+        l0_re, lcs = _build.channel_rows(l0_re[:, None, :])
+        l0_im, lcs_im = _build.channel_rows(l0_im[:, None, :])
+        if lcs_im != lcs:
+            l0_re, l0_im, lcs = l0_re.contiguous(), l0_im.contiguous(), k
+        l0_ptrs = (l0_re.data_ptr(), l0_im.data_ptr())
+    y = torch.empty_like(x2d)
+    n_re = torch.empty_like(ring_re)
+    n_im = torch.empty_like(ring_im)
+    if c * t == 0:
+        return y, ring_re.clone(), ring_im.clone()
+    # Spectra that leave the ring within this call (T > P) need a row each.
+    s_re = torch.empty(c, max(t - p, 0), k, dtype=torch.float32, device=x2d.device)
+    s_im = torch.empty_like(s_re)
+    rc = _build.load().hst_fastfir_chain_stream(
+        x2d.data_ptr(), prev.data_ptr(), ring_re.data_ptr(), ring_im.data_ptr(),
+        h_re.data_ptr(), h_im.data_ptr(), hcs, l0_ptrs[0], l0_ptrs[1], lcs,
+        y.data_ptr(), n_re.data_ptr(), n_im.data_ptr(), s_re.data_ptr(),
+        s_im.data_ptr(), _twiddles(n, x2d.device).data_ptr(), c, t, p, n,
+        float(scale), _build.stream(x2d.device))
+    _build.check(rc, kernel)
+    fastfir_chain_stream.launches += 1
+    return y, n_re, n_im
+
+
+fastfir_chain_stream.launches = 0

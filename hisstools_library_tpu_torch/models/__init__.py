@@ -1,3 +1,5 @@
-from . import offline, partitioned  # noqa: F401
+from . import mono, offline, partitioned, time_domain  # noqa: F401
+from .mono import LatencyMode, MonoConvolve, PartitionScheme  # noqa: F401
 from .offline import FastFIR, choose_fft_size, fast_fir  # noqa: F401
-from .partitioned import PartitionedConvolve  # noqa: F401
+from .partitioned import PartitionedConvolve, PartitionedState  # noqa: F401
+from .time_domain import TimeDomainConvolve  # noqa: F401

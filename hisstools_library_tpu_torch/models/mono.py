@@ -1,0 +1,587 @@
+"""Non-uniform partitioned convolution schemes: the hop-aligned streaming engine.
+
+Counterpart of ``hisstools_library_tpu/models/mono.py`` (reference
+``HISSTools::MonoConvolve``): an optional time-domain head plus up to four
+partitioned sections of increasing FFT size (``PartitionScheme``, the presets
+of MonoConvolve.cpp:26-31), prepared once (:func:`prepare_ir`) and streamed in
+blocks that are whole multiples of the largest hop (:func:`process`).
+
+:func:`process` runs one of three paths, chosen by the state it is given:
+
+- a :class:`MonoBlockState` (:func:`init_block_state`): the TWO-TIER path. A
+  near ring (the final section's first G-1 partitions plus the zero-delay
+  ``block0`` term) runs as one K8 launch; the far ring (the IR past G hops,
+  re-partitioned at hop G*h) runs as K1 -> K7 -> K4.
+- a :class:`MonoState` and an IR with ``block0``: the COLLAPSED path. The final
+  section plus ``block0`` replace every section (K1 -> K7 -> lag-0 product ->
+  K4); the smaller sections' states are refreshed from the block's tail (K10
+  at N = 256, 1024 and K1 at 4096).
+- otherwise the per-section path: the head (``time_domain``) and each section
+  through :meth:`PartitionedConvolve.process`.
+
+Every function returns new states and leaves the ones it was given as they
+were. States and prepared IRs convert to and from numpy (``from_numpy`` /
+``numpy``), so a stream of the JAX package continues here and the reverse.
+
+Not ported yet (they need K6 and K9): ``process_any``, ``init_stream_state``,
+``stream_state_from_aligned`` / ``stream_state_from_block`` and
+``process_offline``; the ``debug_stages`` hook of ``MonoConvolve.set``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..core.errors import ConvolveError, ConvolveException
+from ..core.types import Split, array_from, tensor_from
+from ..fft import api as fft_api
+from . import partitioned as part
+from . import time_domain as td
+from .offline import choose_fft_size
+
+
+class LatencyMode(enum.Enum):
+    Zero = 0
+    Short = 1
+    Medium = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class SectionPlan:
+    """One partitioned section: FFT size + the IR window it owns."""
+    fft_size: int
+    offset: int
+    length: int  # 0 = remainder of the IR
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionScheme:
+    """Static partition plan (reference setPartitions, MonoConvolve.cpp:203-258)."""
+
+    sizes: Tuple[int, ...]
+    zero_latency: bool
+
+    def __post_init__(self):
+        prev = 0
+        for s in self.sizes:
+            log2s = s.bit_length() - 1
+            if (1 << log2s) != s or not (5 <= log2s <= 20) or s <= prev:
+                raise ConvolveException(ConvolveError.FFT_SIZE_OUT_OF_RANGE,
+                                        f"invalid FFT size/order {self.sizes}")
+            prev = s
+        if not self.sizes:
+            raise ConvolveException(ConvolveError.FFT_SIZE_OUT_OF_RANGE,
+                                    "no valid FFT sizes given")
+        if len(self.sizes) > 4:
+            # sections() builds plans for at most four sizes (A < B < C < D);
+            # extra sizes would silently drop IR coverage.
+            raise ConvolveException(ConvolveError.FFT_SIZE_OUT_OF_RANGE,
+                                    f"at most 4 FFT sizes supported, got "
+                                    f"{len(self.sizes)}")
+
+    @classmethod
+    def from_latency(cls, mode: LatencyMode) -> "PartitionScheme":
+        if mode == LatencyMode.Zero:
+            return cls((256, 1024, 4096, 16384), True)
+        if mode == LatencyMode.Short:
+            return cls((256, 1024, 4096, 16384), False)
+        return cls((1024, 4096, 16384), False)
+
+    @classmethod
+    def for_latency_budget(cls, samples: int) -> "PartitionScheme":
+        """Throughput-optimal scheme whose output latency fits the budget: a
+        single uniform section at N = 2 * budget (hop <= budget, N <= 2^17);
+        budgets below the Medium preset's latency fall back to the reference
+        presets (MonoConvolve.cpp:26-31)."""
+        if samples < 128:
+            return cls.from_latency(LatencyMode.Zero)
+        if samples < 512:
+            return cls.from_latency(LatencyMode.Short)
+        if samples < 1024:
+            return cls.from_latency(LatencyMode.Medium)
+        n = 1 << min(samples.bit_length(), 17)  # hop = N/2 <= budget
+        return cls((n,), zero_latency=False)
+
+    @property
+    def latency(self) -> int:
+        """Output delay in samples (0 for zero-latency, else A/2)."""
+        return 0 if self.zero_latency else self.sizes[0] >> 1
+
+    @property
+    def head_taps(self) -> int:
+        return self.sizes[0] >> 1 if self.zero_latency else 0
+
+    def sections(self) -> List[SectionPlan]:
+        """The per-section IR windows (reference createPart logic)."""
+        sizes = self.sizes
+        n = len(sizes)
+        offset = sizes[0] >> 1 if self.zero_latency else 0
+        plans: List[SectionPlan] = []
+
+        def add(size: int, nxt: int):
+            nonlocal offset
+            cover = (nxt - size) >> 1
+            plans.append(SectionPlan(size, offset, cover))
+            offset += cover
+
+        if n == 4:
+            add(sizes[0], sizes[1])
+        if n > 2:
+            add(sizes[n - 3], sizes[n - 2])
+        if n > 1:
+            add(sizes[n - 2], sizes[n - 1])
+        plans.append(SectionPlan(sizes[-1], offset, 0))  # resizable final section
+        return plans
+
+
+def _split_or_none(src, device) -> Optional[Split]:
+    return None if src is None else Split.from_numpy(src, device)
+
+
+@dataclasses.dataclass
+class MonoState:
+    """Hop-aligned streaming state: TD-head tail + one PartitionedState per
+    section."""
+    head: torch.Tensor
+    sections: Tuple[part.PartitionedState, ...]
+
+    @classmethod
+    def from_numpy(cls, src, device=None) -> "MonoState":
+        """From any object with these fields holding arrays (the JAX
+        package's ``MonoState``, or :meth:`numpy`'s result)."""
+        return cls(tensor_from(src.head, device),
+                   tuple(part.PartitionedState.from_numpy(s, device)
+                         for s in src.sections))
+
+    def numpy(self) -> "MonoState":
+        return MonoState(array_from(self.head), tuple(s.numpy() for s in self.sections))
+
+
+@dataclasses.dataclass
+class MonoIR:
+    """Prepared impulse on the device: head taps + per-section spectra.
+
+    ``tail``/``tail_shift`` (optional) re-partition the whole IR at the
+    offline-optimal uniform FFT size for offline processing; streaming never
+    touches them. ``block0`` (optional) is the zero-delay partition of the
+    collapsed and two-tier block paths: the packed spectrum, at the final
+    section's FFT size, of the IR taps that the head and the non-final
+    sections cover, shifted by the scheme latency. ``far`` (optional) is the
+    IR past G final hops re-partitioned at hop G*h for the two-tier path."""
+    head_taps: torch.Tensor
+    spectra: Tuple[Split, ...]
+    tail: Optional[Split] = None
+    tail_shift: int = 0
+    block0: Optional[Split] = None
+    far: Optional[Split] = None
+
+    @classmethod
+    def from_numpy(cls, src, device=None) -> "MonoIR":
+        """From any object with these fields holding arrays (the JAX
+        package's ``MonoIR``, or :meth:`numpy`'s result)."""
+        return cls(tensor_from(src.head_taps, device),
+                   tuple(Split.from_numpy(s, device) for s in src.spectra),
+                   _split_or_none(src.tail, device), int(src.tail_shift),
+                   _split_or_none(src.block0, device),
+                   _split_or_none(src.far, device))
+
+    def numpy(self) -> "MonoIR":
+        opt = (lambda s: None if s is None else s.numpy())
+        return MonoIR(array_from(self.head_taps), tuple(s.numpy() for s in self.spectra),
+                      opt(self.tail), self.tail_shift, opt(self.block0), opt(self.far))
+
+
+@dataclasses.dataclass
+class MonoBlockState:
+    """Two-tier hop-aligned streaming state (see :func:`_process_block_two_tier`).
+
+    ``near``: ring of the final section's first G-1 partitions (hop h);
+    ``far``: ring of the far-IR re-partition (hop G*h, :attr:`MonoIR.far`);
+    ``hist``/``hpos``: raw input history as a hop ring, (..., S, h) rows, next
+    write row ``hpos`` (a host int), oldest row at ``hpos``, carrying the last
+    S*h input samples so a hand-off to the per-section path
+    (:func:`aligned_state_from_block`) rebuilds every section state."""
+    near: part.PartitionedState
+    far: part.PartitionedState
+    hist: torch.Tensor
+    hpos: int = 0
+
+    @classmethod
+    def from_numpy(cls, src, device=None) -> "MonoBlockState":
+        """From any object with these fields holding arrays (the JAX
+        package's ``MonoBlockState``, or :meth:`numpy`'s result)."""
+        return cls(part.PartitionedState.from_numpy(src.near, device),
+                   part.PartitionedState.from_numpy(src.far, device),
+                   tensor_from(src.hist, device), int(np.asarray(src.hpos)))
+
+    def numpy(self) -> "MonoBlockState":
+        return MonoBlockState(self.near.numpy(), self.far.numpy(),
+                              array_from(self.hist), self.hpos)
+
+
+class MonoConvolve:
+    """Non-uniform partitioned convolver for one IR. Pure processing
+    functions; configuration is host-side."""
+
+    def __init__(self, max_length: int = 16384,
+                 latency: LatencyMode = LatencyMode.Zero,
+                 scheme: Optional[PartitionScheme] = None):
+        self.scheme = scheme if scheme is not None else PartitionScheme.from_latency(latency)
+        self.max_length = max_length
+        self.plans = self.scheme.sections()
+        self.ir: Optional[MonoIR] = None
+        self.length = 0
+
+    def resize(self, length: int) -> ConvolveError:
+        """Grow the final section's capacity (reference MonoConvolve::resize,
+        :101-111). Functionally a no-op here: spectra are rebuilt by set()."""
+        self.max_length = max(self.max_length, length)
+        return ConvolveError.NONE
+
+    def set(self, ir, dtype: torch.dtype = torch.float32, request_resize: bool = True,
+            backend: Optional[str] = None, offline_tail: Optional[bool] = None,
+            device=None) -> ConvolveError:
+        """Prepare the IR on ``device``: head taps + per-section partition
+        spectra (reference MonoConvolve::set, :118-140). The offline tail is
+        built only with ``offline_tail=True`` (offline processing is not
+        ported yet, so nothing here reads it)."""
+        ir = np.asarray(ir)
+        err = ConvolveError.NONE
+        if ir.shape[-1] > self.max_length:
+            if request_resize:
+                self.resize(ir.shape[-1])
+            else:
+                # Reference semantics (MonoConvolve.cpp:117-139): without a
+                # resize the IR is still loaded, clamped to the declared
+                # capacity, and the error reports the truncation.
+                err = ConvolveError.MEM_ALLOC_TOO_SMALL
+                ir = ir[..., :self.max_length]
+        self.ir = prepare_ir(self.scheme, ir, self.max_length, dtype, backend,
+                             offline_tail=bool(offline_tail), device=device)
+        self.length = ir.shape[-1]
+        return err
+
+    def init_state(self, batch_shape=(), dtype: torch.dtype = torch.float32) -> MonoState:
+        if self.ir is None:
+            raise ConvolveException(ConvolveError.MEM_UNAVAILABLE, "no IR set")
+        return init_state(self.scheme, self.ir, batch_shape, dtype)
+
+    def init_block_state(self, batch_shape=(), dtype: torch.dtype = torch.float32
+                         ) -> MonoBlockState:
+        """State for the two-tier block path (requires a far-tier IR; blocks
+        must be multiples of ``ir.far.shape[-1]`` samples)."""
+        if self.ir is None:
+            raise ConvolveException(ConvolveError.MEM_UNAVAILABLE, "no IR set")
+        return init_block_state(self.scheme, self.ir, batch_shape, dtype)
+
+    @property
+    def block_size(self) -> int:
+        """Block quantum of :meth:`process` (the largest section's hop)."""
+        return self.scheme.sizes[-1] >> 1
+
+    def process(self, state, x: torch.Tensor, backend: Optional[str] = None):
+        return process(self.ir, state, x, backend=backend)
+
+
+# -- pure functional API ---------------------------------------------------------
+
+def prepare_ir(scheme: PartitionScheme, ir, max_length: int = 0,
+               dtype: torch.dtype = torch.float32, backend: Optional[str] = None,
+               offline_tail: bool = True, device=None) -> MonoIR:
+    """Build the prepared IR for a scheme on ``device``. ``ir``: (..., L)
+    host array. ``max_length`` > 0 clamps the IR to that many taps. With
+    ``offline_tail`` the whole IR is also partitioned at the offline-optimal
+    uniform FFT size (:attr:`MonoIR.tail`)."""
+    ir = np.asarray(ir)
+    if max_length and ir.shape[-1] > max_length:
+        ir = ir[..., :max_length]
+    head = td.make_taps(ir, 0, scheme.head_taps) if scheme.head_taps else \
+        np.zeros(ir.shape[:-1] + (0,), ir.dtype)
+    spectra = tuple(
+        part.impulse_spectra(ir, plan.fft_size, plan.offset, plan.length, dtype,
+                             backend, device=device)
+        for plan in scheme.sections())
+    tail, tail_shift = (_make_offline_tail(scheme, ir, dtype, backend, device)
+                        if offline_tail else (None, 0))
+    block0 = _block_lag0_spectra(scheme, ir, dtype, backend, device)
+    far = (_far_tier_spectra(scheme, ir, dtype, backend, device)
+           if block0 is not None else None)
+    return MonoIR(torch.as_tensor(head).to(device=device, dtype=dtype), spectra,
+                  tail, tail_shift, block0, far)
+
+
+def _block_lag0_spectra(scheme: PartitionScheme, ir, dtype, backend,
+                        device=None) -> Optional[Split]:
+    """Zero-delay partition for the block paths: at block granularity
+    B = largest hop, head + non-final sections sum to ``conv(x, ir[0 : B -
+    latency])`` delayed by the scheme latency, which the final section's own
+    [prev | current] frame can compute. One packed spectrum of those taps
+    (latency-shifted, FFT size 2B) therefore replaces every small engine."""
+    b = scheme.sizes[-1] >> 1
+    cover = b - scheme.latency
+    if cover <= 0:
+        return None  # single-section scheme: nothing below the final section
+    ir = np.asarray(ir)
+    shifted = np.zeros(ir.shape[:-1] + (b,), np.float64)
+    take = min(cover, ir.shape[-1])
+    shifted[..., scheme.latency:scheme.latency + take] = ir[..., :take]
+    return part.impulse_spectra(shifted, 2 * b, 0, 0, dtype, backend, device=device)
+
+
+def _far_hop(scheme: PartitionScheme, ir_len: int) -> int:
+    """Far-tier hop for the two-tier path: the offline-optimal uniform hop
+    (``choose_fft_size / 2``) snapped to a power-of-two multiple G >= 2 of the
+    final section's hop, with the far FFT size 2*G*h inside the engine range.
+    Returns 0 when no valid multiple exists. (G is clamped to at least 2 even
+    where the offline-optimal hop is not above the final hop, as in the JAX
+    package.)"""
+    h = scheme.sizes[-1] >> 1
+    g = max(choose_fft_size(ir_len) // (2 * h), 2)
+    while g >= 2 and 2 * g * h > (1 << part.MAX_FFT_SIZE_LOG2):
+        g >>= 1
+    return g * h if g >= 2 else 0
+
+
+def _far_tier_spectra(scheme: PartitionScheme, ir, dtype, backend,
+                      device=None) -> Optional[Split]:
+    """Far-IR re-partition for the two-tier path: the IR beyond G final hops,
+    chunked at hop H2 = G*h (FFT size 2*H2, IR offset H2 - latency), so its
+    conv is delayed by the scheme latency exactly like the near tier."""
+    ir = np.asarray(ir)
+    h2 = _far_hop(scheme, ir.shape[-1])
+    if not h2:
+        return None
+    o2 = h2 - scheme.latency
+    if ir.shape[-1] <= o2:
+        return None  # far tier would be empty
+    return part.impulse_spectra(ir, 2 * h2, o2, 0, dtype, backend, device=device)
+
+
+def _make_offline_tail(scheme: PartitionScheme, ir, dtype, backend, device=None):
+    """The offline tail: the whole IR re-partitioned at the throughput-optimal
+    uniform FFT size, with the ``tail_shift`` realignment."""
+    ir = np.asarray(ir)
+    if ir.shape[-1] == 0:
+        return None, 0
+    nprime = choose_fft_size(ir.shape[-1])
+    shift = (nprime >> 1) - scheme.latency
+    if shift < 0:
+        return None, 0
+    return part.impulse_spectra(ir, nprime, 0, 0, dtype, backend, device=device), shift
+
+
+def init_state(scheme: PartitionScheme, ir: MonoIR, batch_shape=(),
+               dtype: torch.dtype = torch.float32, device=None) -> MonoState:
+    """Fresh per-section state, on the IR's device unless ``device`` is given."""
+    device = ir.head_taps.device if device is None else device
+    shape = tuple(batch_shape)
+    head_len = max(int(ir.head_taps.shape[-1]) - 1, 1)
+    sections = []
+    for plan, spec in zip(scheme.sections(), ir.spectra):
+        h = plan.fft_size >> 1
+        p = spec.shape[-2]
+        sections.append(part.PartitionedState(
+            prev=torch.zeros(shape + (h,), dtype=dtype, device=device),
+            ring=Split.zeros(shape + (p, h), dtype, device), pos=0))
+    return MonoState(torch.zeros(shape + (head_len,), dtype=dtype, device=device),
+                     tuple(sections))
+
+
+def init_block_state(scheme: PartitionScheme, ir: MonoIR, batch_shape=(),
+                     dtype: torch.dtype = torch.float32, device=None) -> MonoBlockState:
+    """Fresh state for the two-tier path (requires an IR prepared with a far
+    tier). Blocks fed to :func:`process` with it must be multiples of the far
+    hop (``ir.far.shape[-1]`` samples)."""
+    if ir.far is None or ir.block0 is None:
+        raise ConvolveException(
+            ConvolveError.MEM_UNAVAILABLE,
+            "IR has no far tier: prepare_ir builds one for multi-section "
+            "schemes whose IR extends past the far hop")
+    del scheme  # the prepared IR fully determines the state shapes
+    device = ir.head_taps.device if device is None else device
+    shape = tuple(batch_shape)
+    h = ir.spectra[-1].shape[-1]
+    p = ir.spectra[-1].shape[-2]
+    h2 = ir.far.shape[-1]
+    p2 = ir.far.shape[-2]
+    g = h2 // h
+    near = part.PartitionedState(
+        prev=torch.zeros(shape + (h,), dtype=dtype, device=device),
+        ring=Split.zeros(shape + (g - 1, h), dtype, device), pos=0)
+    far = part.PartitionedState(
+        prev=torch.zeros(shape + (h2,), dtype=dtype, device=device),
+        ring=Split.zeros(shape + (p2, h2), dtype, device), pos=0)
+    # Hop rows covering both rebuild reach-backs: the final section's state
+    # ((P+1)*h samples) for the per-section hand-off, and the far ring's
+    # ((P2+1)*H2 samples) for block_state_from_hist.
+    s = max(p + 1, (p2 + 1) * g)
+    hist = torch.zeros(shape + (s, h), dtype=dtype, device=device)
+    return MonoBlockState(near, far, hist, 0)
+
+
+def _hist_push(hist: torch.Tensor, hpos: int, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, int]:
+    """Append ``x``'s hop rows to the raw-history ring (oldest at ``hpos``),
+    as a new tensor."""
+    s = hist.shape[-2]
+    h = hist.shape[-1]
+    t = x.shape[-1] // h
+    rows = x.reshape(*x.shape[:-1], t, h).to(hist.dtype)
+    if t >= s:
+        return rows[..., t - s:, :].clone(), 0
+    idx = torch.tensor([(hpos + j) % s for j in range(t)], device=hist.device)
+    return hist.index_copy(hist.dim() - 2, idx, rows), (hpos + t) % s
+
+
+def _hist_linear(hist: torch.Tensor, hpos: int) -> torch.Tensor:
+    """Unroll the raw-history ring oldest-first into (..., S*h) samples."""
+    lin = torch.roll(hist, -hpos, dims=-2)
+    return lin.reshape(*lin.shape[:-2], hist.shape[-2] * hist.shape[-1])
+
+
+def _process_block_two_tier(ir: MonoIR, state: MonoBlockState, x: torch.Tensor,
+                            backend: Optional[str]
+                            ) -> Tuple[MonoBlockState, torch.Tensor]:
+    """Two-tier hop-aligned processing: near ring + far ring + zero-delay term.
+
+    Coverage: ``block0`` ir[0 : h - latency] (lag 0 on the hop's own frame),
+    the near ring ir[h - latency : G*h - latency] (the final section's first
+    G-1 partitions at hop h) and the far ring ir[G*h - latency :] re-chunked at
+    hop G*h. Each term delays its conv by the scheme latency, so the sum is
+    the scheme's exact output, while the dominant far MAC runs at the offline
+    engine's hop."""
+    h = ir.spectra[-1].shape[-1]
+    h2 = ir.far.shape[-1]
+    g = h2 // h
+    if x.shape[-1] % h2:
+        raise ValueError(
+            f"two-tier block length {x.shape[-1]} must be a multiple of the "
+            f"far hop {h2}")
+    near_spec = Split(ir.spectra[-1].re[..., :g - 1, :],
+                      ir.spectra[-1].im[..., :g - 1, :])
+    # assume_pos0: both tier states come from init_block_state or a previous
+    # process_block, which are slot-normalised (pos == 0).
+    near, y = part.PartitionedConvolve.process_block(
+        near_spec, state.near, x, backend=backend, lag0=ir.block0,
+        assume_pos0=True)
+    far, y_far = part.PartitionedConvolve.process_block(
+        ir.far, state.far, x, backend=backend, assume_pos0=True)
+    hist, hpos = _hist_push(state.hist, state.hpos, x)
+    return MonoBlockState(near, far, hist, hpos), y + y_far
+
+
+def aligned_state_from_block(ir: MonoIR, state: MonoBlockState,
+                             backend: Optional[str] = None) -> MonoState:
+    """Project a two-tier block state onto the per-section :class:`MonoState`.
+
+    Every section's state is a function of the last (P_final+1)*h input
+    samples, which ``state.hist`` carries, so the rebuild transforms the same
+    frames the per-section engine would have and the hand-off continues as if
+    the per-section path had run throughout."""
+    tail = _hist_linear(state.hist, state.hpos)
+    keep = max(int(ir.head_taps.shape[-1]) - 1, 1)
+    if ir.head_taps.shape[-1]:
+        head = tail[..., tail.shape[-1] - keep:].clone()
+    else:
+        head = tail.new_zeros(tail.shape[:-1] + (keep,))
+    sections = tuple(_refresh_aligned_section(spec, tail, backend)
+                     for spec in ir.spectra)
+    return MonoState(head, sections)
+
+
+def block_state_from_hist(ir: MonoIR, hist: torch.Tensor,
+                          backend: Optional[str] = None) -> MonoBlockState:
+    """Build a two-tier block state from raw input history.
+
+    ``hist``: the last max(P_final+1, (P2+1)*G)*h raw input samples ending at
+    the stream head (zero-padded on the left when the stream is younger). The
+    near and far rings are rebuilt from it by the same frame refresh the
+    per-section hand-off uses."""
+    h = ir.spectra[-1].shape[-1]
+    p = ir.spectra[-1].shape[-2]
+    p2 = ir.far.shape[-2]
+    g = ir.far.shape[-1] // h
+    need = max(p + 1, (p2 + 1) * g) * h
+    if hist.shape[-1] != need:
+        raise ValueError(f"hist must carry {need} samples, got {hist.shape[-1]}")
+    near_full = _refresh_aligned_section(
+        Split(ir.spectra[-1].re[..., :g - 1, :],
+              ir.spectra[-1].im[..., :g - 1, :]), hist, backend)
+    far_full = _refresh_aligned_section(ir.far, hist, backend)
+    rows = hist.reshape(*hist.shape[:-1], need // h, h).clone()
+    return MonoBlockState(near_full, far_full, rows, 0)
+
+
+def process(ir: MonoIR, state: Union[MonoState, MonoBlockState], x: torch.Tensor,
+            backend: Optional[str] = None
+            ) -> Tuple[Union[MonoState, MonoBlockState], torch.Tensor]:
+    """Stream a block whose length is a multiple of the largest hop.
+
+    With a :class:`MonoBlockState` the scheme runs as the two-tier engine
+    (block quantum = the far hop) and a new :class:`MonoBlockState` comes
+    back. With ``ir.block0`` present the whole scheme runs as one uniform
+    engine per block (:func:`_process_block_collapsed`); otherwise each
+    section and the head run on their own."""
+    if isinstance(state, MonoBlockState):
+        return _process_block_two_tier(ir, state, x, backend)
+    if (ir.block0 is not None and x.shape[-1] > 0
+            and x.shape[-1] % (ir.spectra[-1].shape[-1]) == 0):
+        return _process_block_collapsed(ir, state, x, backend)
+    out = torch.zeros_like(x)
+    head_state = state.head
+    if ir.head_taps.shape[-1]:
+        head_state, y = td.TimeDomainConvolve.process(ir.head_taps, state.head, x)
+        out = out + y
+    new_sections = []
+    for spec, sec_state in zip(ir.spectra, state.sections):
+        sec_state, y = part.PartitionedConvolve.process(spec, sec_state, x,
+                                                        backend=backend)
+        new_sections.append(sec_state)
+        out = out + y
+    return MonoState(head_state, tuple(new_sections)), out
+
+
+def _refresh_aligned_section(spec: Split, tail: torch.Tensor,
+                             backend: Optional[str]) -> part.PartitionedState:
+    """Rebuild a section's hop-aligned state from the last input samples
+    ``tail``: its ring holds the newest P frame spectra, reaching back
+    (P-1)*h + N samples, oldest-first with pos = 0 (process_block's layout)."""
+    h = spec.shape[-1]
+    n = 2 * h
+    p = spec.shape[-2]
+    b = tail.shape[-1]
+    frames = torch.stack(
+        [tail[..., b - (p - 1 - k) * h - n: b - (p - 1 - k) * h] for k in range(p)],
+        dim=-2)
+    re, im = fft_api.rfft(frames, backend=backend)
+    return part.PartitionedState(prev=tail[..., b - h:].clone(), ring=Split(re, im),
+                                 pos=0)
+
+
+def _process_block_collapsed(ir: MonoIR, state: MonoState, x: torch.Tensor,
+                             backend: Optional[str]
+                             ) -> Tuple[MonoState, torch.Tensor]:
+    """Hop-aligned processing of the whole scheme as one uniform engine.
+
+    The final section's ring MAC (lags >= 1) plus the ``block0`` zero-delay
+    partition equals the sum of every section and the TD head once the caller
+    hands over whole largest-hop blocks. The non-final section states and the
+    head tail are refreshed from the block's tail, so a later hand-off to
+    another path continues as if the per-section path had run."""
+    b = ir.spectra[-1].shape[-1]  # largest hop = final section's N/2
+    new_big, out = part.PartitionedConvolve.process_block(
+        ir.spectra[-1], state.sections[-1], x, backend=backend, lag0=ir.block0)
+    tail = x[..., x.shape[-1] - b:]
+    head_state = state.head
+    if ir.head_taps.shape[-1]:
+        keep = state.head.shape[-1]
+        head_state = tail[..., b - keep:].clone()
+    new_sections = [_refresh_aligned_section(spec, tail, backend)
+                    for spec in ir.spectra[:-1]]
+    new_sections.append(new_big)
+    return MonoState(head_state, tuple(new_sections)), out

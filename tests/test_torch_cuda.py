@@ -7,8 +7,10 @@ imports jax, so run it there with
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance: >= 120 dB SNR for each kernel against its plain version (float32
-sums taken in another order give ~130 dB), >= 110 dB for the FastFIR chain
-against the CPU path.
+sums taken in another order give ~130 dB), >= 110 dB for the FastFIR chain and
+the streaming engine against the CPU path, >= 100 dB for the streaming engine
+and >= 120 dB for the time-domain FIR against float64 (a TF32 convolution
+would give ~60 dB).
 """
 
 import numpy as np
@@ -17,7 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from hisstools_library_tpu_torch.fft import hopper_fft, hopper_kernels  # noqa: E402
-from hisstools_library_tpu_torch.models import offline  # noqa: E402
+from hisstools_library_tpu_torch.models import mono, offline, time_domain  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -100,8 +102,8 @@ def test_fastfir_on_cuda_matches_cpu(cuda):
     (lambda d: hopper_fft.rfft_packed(torch.zeros(2, 4096, dtype=torch.float64,
                                                   device=d)),
      NotImplementedError, "float64"),
-    (lambda d: hopper_fft.rfft_packed(torch.zeros(2, 2048, device=d)),
-     NotImplementedError, "K10"),
+    (lambda d: hopper_fft.rfft_packed(torch.zeros(2, 1 << 18, device=d)),
+     NotImplementedError, "K13"),
     (lambda d: hopper_fft.rfft_packed(torch.zeros(4096, 2, device=d).t()),
      ValueError, "contiguous"),
     (lambda d: hopper_kernels.lag_mac_causal(
@@ -112,3 +114,115 @@ def test_fastfir_on_cuda_matches_cpu(cuda):
 def test_kernel_wrappers_refuse_on_cuda(cuda, call, exc, match):
     with pytest.raises(exc, match=match):
         call(cuda)
+
+
+def _stream_inputs(name, shape, dev):
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*sh):
+        return torch.randn(*sh, generator=g, device=dev)
+
+    if name == "rfft_small":
+        b, n = shape
+        return (randn(b, n),), {}
+    if name == "lag_mac_ring":
+        c, t, p, k = shape
+        # H as a row slice of a wider spectra tensor, read in place.
+        h = [randn(c, p + 2, k)[:, 1:p + 1] for _ in range(2)]
+        return (randn(c, p, k), randn(c, p, k), randn(c, t, k), randn(c, t, k),
+                *h), {}
+    c, t, p, n, lag0 = shape
+    k = n // 2
+    kw = {}
+    if lag0:
+        kw = dict(l0_re=randn(c, k) * 1e-3, l0_im=randn(c, k) * 1e-3)
+    return (randn(c, t, k), randn(c, k), randn(c, p, k), randn(c, p, k),
+            randn(c, p, k) * 1e-3, randn(c, p, k) * 1e-3, 1.0 / (4.0 * n)), kw
+
+
+STREAM_CASES = [
+    ("rfft_small", (384, 32)), ("rfft_small", (385, 128)), ("rfft_small", (384, 256)),
+    ("rfft_small", (7, 1024)), ("rfft_small", (384, 2048)),
+    ("lag_mac_ring", (2, 1, 3, 128)), ("lag_mac_ring", (2, 3, 3, 1024)),
+    ("lag_mac_ring", (3, 4, 14, 4096)),
+    ("fastfir_chain_stream", (2, 3, 2, 1 << 14, True)),
+    ("fastfir_chain_stream", (2, 2, 3, 1 << 14, False)),
+    ("fastfir_chain_stream", (1, 5, 8, 1 << 15, True)),
+    ("fastfir_chain_stream", (2, 1, 1, 1 << 14, False)),
+]
+
+
+@pytest.mark.parametrize("name,shape", STREAM_CASES)
+def test_stream_kernel_matches_plain(cuda, name, shape):
+    mod = hopper_kernels if name == "lag_mac_ring" else hopper_fft
+    fn = getattr(mod, name)
+    args, kw = _stream_inputs(name, shape, cuda)
+    before = fn.launches
+    got = fn(*args, **kw)
+    want = getattr(mod, name + "_plain")(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.device.type == "cuda"
+        assert bool(torch.isfinite(g).all())
+        assert snr_db(w.cpu().numpy(), g.cpu().numpy()) >= SNR_KERNEL_DB
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda d: hopper_fft.fastfir_chain_stream(
+        torch.zeros(1, 2, 1 << 15, device=d), torch.zeros(1, 1 << 15, device=d),
+        *(torch.zeros(1, 2, 1 << 15, device=d) for _ in range(4)), 1.0), "K8"),
+    (lambda d: hopper_fft.rfft_small(torch.zeros(2, 16, device=d)), "K10"),
+])
+def test_stream_wrappers_refuse_on_cuda(cuda, call, match):
+    with pytest.raises(NotImplementedError, match=match):
+        call(cuda)
+
+
+def test_two_tier_stream_on_cuda(cuda):
+    """The Zero preset's two-tier path on the card (near tier K8, far tier
+    K1 -> K7 -> K4, IR preparation K10 and K1) matches the CPU path and a
+    float64 convolution over three carried blocks. 160 000 taps give a far
+    tier of G = 2 and P2 = 9 partitions, above K8's P <= 8."""
+    rng = np.random.default_rng(0x57E4)
+    ir = (rng.standard_normal((2, 160000)) * np.exp(-np.arange(160000) / 24000)
+          ).astype(np.float32)
+    scheme = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+    counted = (hopper_fft.rfft_packed, hopper_fft.rfft_small, hopper_kernels.lag_mac_ring,
+               hopper_fft.fastfir_chain_stream, hopper_fft.rifft_packed_tail)
+    before = [fn.launches for fn in counted]
+    mir = mono.prepare_ir(scheme, ir, offline_tail=False, device=cuda)
+    mir_cpu = mono.prepare_ir(scheme, ir, offline_tail=False)
+    st = mono.init_block_state(scheme, mir, batch_shape=(2,))
+    st_cpu = mono.init_block_state(scheme, mir_cpu, batch_shape=(2,))
+    h2 = mir.far.shape[-1]
+    xs, ys, ys_cpu = [], [], []
+    for _ in range(3):
+        x = rng.standard_normal((2, 2 * h2)).astype(np.float32)
+        st, y = mono.process(mir, st, torch.from_numpy(x).to(cuda))
+        st_cpu, y_cpu = mono.process(mir_cpu, st_cpu, torch.from_numpy(x))
+        xs.append(x)
+        ys.append(y.cpu().numpy())
+        ys_cpu.append(y_cpu.numpy())
+    grew = [fn.launches - b for fn, b in zip(counted, before)]
+    assert all(n >= 1 for n in grew), grew
+    assert grew[3] == 3  # one K8 launch per near-tier call
+    y, y_cpu, x = (np.concatenate(a, axis=-1) for a in (ys, ys_cpu, xs))
+    assert snr_db(y_cpu, y) >= SNR_CHAIN_DB
+    for c in range(2):
+        size = 1 << (x.shape[-1] + ir.shape[-1]).bit_length()
+        ref = np.fft.irfft(np.fft.rfft(x[c].astype(np.float64), size)
+                           * np.fft.rfft(ir[c].astype(np.float64), size), size)
+        assert snr_db(ref[:x.shape[-1]], y[c]) >= 100.0
+
+
+def test_time_domain_fir_full_fp32_on_cuda(cuda):
+    """The head's grouped conv1d runs in full FP32 on the card (cuDNN's TF32
+    default would cost ~60 dB)."""
+    rng = np.random.default_rng(0x7D)
+    x = rng.standard_normal((4, 20000)).astype(np.float32)
+    h = rng.standard_normal((4, 128)).astype(np.float32)
+    y = time_domain.fir_offline(torch.from_numpy(x).to(cuda), torch.from_numpy(h).to(cuda))
+    for c in range(4):
+        ref = np.convolve(x[c].astype(np.float64), h[c].astype(np.float64))[:20000]
+        assert snr_db(ref, y[c].cpu().numpy()) >= 120.0
