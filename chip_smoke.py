@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch / Hopper port (hisstools_library_tpu_torch).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
 
@@ -9,47 +9,63 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
 2. builds the kernels from ``hisstools_library_tpu_torch/csrc`` and prints the
    seconds it took;
 3. compares each kernel of the FastFIR path (K1-K4) with its plain PyTorch
-   version on the card, at the main path's shapes and at N = 4096, and times
-   both with CUDA events (median of a few runs);
+   version on the card, at the main path's shapes and at N = 4096;
 4. drives the main path: ``FastFIR`` at 128 channels x 480 000 taps (a 10 s
    IR at 48 kHz, N = 2^16) built from seed 0 as ``bench.py`` builds it, then
-   three ``apply`` calls on the 128 x 483 328 signal. It checks that every
-   kernel's launch count grew during that run and that channel 0's first
-   65 536 samples hold >= 99 dB SNR against a float64 ``np.convolve``;
+   three ``apply`` calls on the 128 x 483 328 signal; channel 0's first
+   65 536 samples must hold >= 99 dB SNR against a float64 ``np.convolve``;
 5. times ten further passes with CUDA events (steady state);
 6. compares each kernel of the hop-aligned streaming path (K7 lag_mac_ring,
-   K8 fastfir_chain_stream, K10 rfft_small) with its plain PyTorch version on
-   the card, at that path's shapes and at a small shape, and times both;
-7. drives the streaming path as ``bench.py``'s ``stream`` mode configures it:
-   the Zero preset (TD head + 256/1024/4096/16384), ``prepare_ir`` of the same
-   128 x 480 000 IRs, then ``mono.process`` on calls of 131 072 samples with
-   the state carried, through three paths, each with the launch counts set to
-   0 just before it and read just after:
-   - two-tier (``init_block_state``, the ``stream`` default): IR preparation
-     and three calls; K1, K4, K7, K8 and K10 must each launch;
-   - collapsed (``init_state``, ``BENCH_TIER=single``): two calls; K1, K4, K7
-     and K10 must each launch;
-   - matched (``PartitionScheme.for_latency_budget(8192)``, one section,
-     ``BENCH_SCHEME=matched``): IR preparation and two calls; K1, K4 and K7
-     must each launch.
-   Each path's output (channel 0, every sample) must hold >= 99 dB SNR
-   against a float64 FFT convolution; each is then timed over ten further
-   calls (CUDA events, median) as ms per call, samples/s and the real-time
-   factor (131 072 / 48 000 s of audio per call over the time taken), beside
-   the path's peak device memory;
-8. checks the time-domain head's grouped conv1d on the card in full FP32
-   against float64.
+   K8 fastfir_chain_stream, K10 rfft_small) with its plain version;
+7. drives ``mono.process`` as ``bench.py``'s ``stream`` mode configures it
+   (Zero preset, ``prepare_ir(offline_tail=False)`` of the same IRs, calls of
+   131 072 samples) through the two-tier, collapsed and matched paths;
+8. checks the time-domain head's grouped conv1d on the card in full FP32;
+9. compares each kernel of the sample-granular and staged offline paths (K6
+   rifft_packed, K9 hop_fire, K11 rifft_small, K15 lag_mac) with its plain
+   version, at those paths' shapes and at small shapes;
+10. drives ``mono.process_any`` as ``bench.py``'s ``latency`` mode configures
+    it: Zero preset, ``prepare_ir(offline_tail=False)``, ``init_stream_state``
+    and 128 sequential 256-sample callbacks (K9, K6, K1 and K10 must launch);
+    channel 0's whole output must hold >= 99 dB against a float64 FFT
+    convolution; then times 128 further callbacks: ms per callback (CUDA
+    events over the chain over the calls), host ms per call, the real-time
+    factor (256 / 48 000 s over ms per callback) and peak memory;
+11. hands a hop-aligned stream over to ``process_any``: one two-tier
+    ``mono.process`` call of 131 072 samples then ``stream_state_from_block``,
+    and one collapsed call then ``stream_state_from_aligned``, each followed by
+    128 callbacks of 256 samples (K11 and K6 must launch); the joined output
+    must hold >= 99 dB;
+12. runs ``mono.process_offline`` on the 128 x 483 328 signal as ``bench.py``'s
+    ``scheme`` mode does, with the offline tail (K2 -> K3 -> K4) and without it
+    (direct sections through K11 and conv1d, the 4096 and 16384 sections
+    through the fused chain), >= 99 dB each, and times each;
+13. runs the staged offline path: ``FastFIR`` of the first 48 000 taps at
+    N = 2048 (outside the fused chain) on one second of signal, K10 -> K15 ->
+    K11 (each must launch), >= 99 dB.
 
-``--profile`` adds a ``torch.profiler`` window over five steady-state calls of
-each streaming path and prints each kernel's device time and the device busy
-share. Any failed phase exits non-zero. The line before the last is a JSON
-object with each kernel's launches, error and times; the last line is
+Every path runs with every kernel's launch count set to 0 just before it and
+read just after; a kernel the path needs that was not launched fails the run,
+and so does any kernel below 110 dB against its plain version, any path below
+99 dB against float64, and any non-finite output. Launches made to compare a
+kernel with its plain version do not count. Each kernel's times are taken at
+its first path shape: the median of 5 by CUDA events after a warm-up, around
+the wrapper's call (so the wrapper's host time is in it), and the device time
+of its launches by ``torch.profiler``; beside them its bound, the larger of
+its bytes (each input read once, each output written once) over 3.35 TB/s and
+its operations over 67 TFLOP/s (H100 SXM HBM and FP32 peaks), and the time of
+one PyTorch call that computes the same function where there is one
+(``torch.fft`` / ``torch.stft``; the port never calls it). ``--profile``
+adds a ``torch.profiler`` window over the streaming paths and
+``process_any``. The line before the last is a JSON object with each
+kernel's launches by path, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -63,6 +79,25 @@ SNR_MIN_PATH_DB = 99.0      # main path vs float64 oracle
 SNR_MIN_TD_DB = 120.0       # conv1d head vs float64 (TF32 would give ~60 dB)
 CHANNELS, FS, IR_LEN, SIG_LEN = 128, 48000, 480000, 483328
 STREAM_BLOCK = 131072       # bench.py's stream call: 16 hops of 8192
+CALLBACK, CALLS = 256, 128  # bench.py's latency mode: 256-sample callbacks, 2 x 64
+STAGED_TAPS, STAGED_N = 48000, 2048
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak rate
+FP32_FLOPS = 67e12          # H100 SXM FP32 outside the tensor cores
+
+# Every kernel of the port: (wrapper module, CUDA source, TPU kernel replaced).
+KERNELS = {
+    "rfft_packed": ("hopper_fft", "rfft_packed.cu", "fft/pallas_fft.py:461"),
+    "rfft_packed_stream": ("hopper_fft", "rfft_packed_stream.cu", "fft/pallas_fft.py:1368"),
+    "lag_mac_causal": ("hopper_kernels", "lag_mac_causal.cu", "fft/pallas_kernels.py:231"),
+    "rifft_packed_tail": ("hopper_fft", "rifft_packed_tail.cu", "fft/pallas_fft.py:1440"),
+    "rifft_packed": ("hopper_fft", "rifft_packed.cu", "fft/pallas_fft.py:518"),
+    "lag_mac_ring": ("hopper_kernels", "lag_mac_ring.cu", "fft/pallas_kernels.py:566"),
+    "fastfir_chain_stream": ("hopper_fft", "fastfir_chain_stream.cu", "fft/pallas_fft.py:1943"),
+    "hop_fire": ("hopper_kernels", "hop_fire.cu", "fft/pallas_kernels.py:383"),
+    "rfft_small": ("hopper_fft", "rfft_small.cu", "fft/pallas_fft.py:1079"),
+    "rifft_small": ("hopper_fft", "rifft_small.cu", "fft/pallas_fft.py:1114"),
+    "lag_mac": ("hopper_kernels", "lag_mac_ring.cu", "fft/pallas_kernels.py:109"),
+}
 
 
 def fail(msg: str) -> None:
@@ -92,6 +127,21 @@ def median_ms(fn, runs: int = 5) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, runs: int = 5) -> float:
+    """Device time per call by ``torch.profiler``: the sum of the CUDA
+    kernels one call launches, without the host time between them (which
+    ``median_ms`` includes, as the events wait for the wrapper's enqueue)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / runs / 1e3
+
+
 def convolve_f64(x: np.ndarray, h: np.ndarray, n: int) -> np.ndarray:
     """conv(x, h)[:n] in float64 through one FFT longer than the full result."""
     size = 1 << (len(x) + len(h) - 2).bit_length()
@@ -99,10 +149,81 @@ def convolve_f64(x: np.ndarray, h: np.ndarray, n: int) -> np.ndarray:
     return np.fft.irfft(spec, size)[:n]
 
 
+def fft_flops(n: int, frames: int) -> float:
+    """Operations of ``frames`` real transforms of size n: 2.5 N log2 N each
+    (half a complex N-point FFT's 5 N log2 N)."""
+    return 2.5 * n * math.log2(n) * frames
+
+
+def kernel_flops(name, args, kwargs) -> float:
+    """Operations the kernel's function does on these inputs (for a MAC, the
+    valid lags only: 8 real operations per complex multiply-add)."""
+    a = args[0]
+    if name in ("rfft_packed", "rfft_small"):
+        return fft_flops(a.shape[-1], a.numel() // a.shape[-1])
+    if name in ("rifft_packed", "rifft_small", "rifft_packed_tail"):
+        return fft_flops(2 * a.shape[-1], a.numel() // a.shape[-1])
+    if name == "rfft_packed_stream":
+        return fft_flops(2 * a.shape[-1], a.numel() // a.shape[-1])
+    if name == "lag_mac_causal":
+        c, t, k = a.shape
+        p = args[2].shape[-2]
+        return 8.0 * c * k * sum(min(p, i) for i in range(t))
+    if name == "lag_mac_ring":
+        c, p, k = a.shape
+        return 8.0 * c * args[2].shape[1] * p * k
+    if name == "lag_mac":
+        c, _, k = a.shape
+        return 8.0 * c * args[4] * args[2].shape[-2] * k
+    if name == "hop_fire":
+        c, n = a.shape
+        p = args[1].shape[-2]
+        return c * (2 * fft_flops(n, 1) + 8.0 * p * (n // 2))
+    # fastfir_chain_stream: two transforms and the P-lag MAC per hop (+ lag 0)
+    c, t, h = a.shape
+    p = args[2].shape[1]
+    return c * t * (2 * fft_flops(2 * h, 1) + 8.0 * (p + ("l0_re" in kwargs)) * h)
+
+
+def bound(name, args, kwargs, got) -> tuple:
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    tensors = [a for a in list(args) + list(kwargs.values()) if isinstance(a, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors + list(got))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = kernel_flops(name, args, kwargs) / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _complex_of_packed(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """The N/2 + 1-bin complex spectrum the packed planes stand for."""
+    zero = torch.zeros_like(re[..., :1])
+    return torch.complex(torch.cat([re, im[..., :1]], -1),
+                         torch.cat([zero, im[..., 1:], zero], -1))
+
+
+def library_call(name, args):
+    """One PyTorch call computing the kernel's function on the same inputs
+    (in torch's own layout, converted before the timing), or None."""
+    a = args[0]
+    if name in ("rfft_packed", "rfft_small"):
+        return lambda: torch.fft.rfft(a, dim=-1)
+    if name in ("rifft_packed", "rifft_small", "rifft_packed_tail"):
+        z = _complex_of_packed(args[0], args[1])
+        n = 2 * a.shape[-1]
+        return lambda: torch.fft.irfft(z, n=n, dim=-1)
+    if name == "rfft_packed_stream":
+        c, t, h = a.shape
+        sig = torch.nn.functional.pad(a.reshape(c, t * h), (h, 0))
+        win = torch.ones(2 * h, device=a.device)
+        return lambda: torch.stft(sig, 2 * h, hop_length=h, window=win, center=False,
+                                  return_complex=True)
+    return None
+
+
 def compare(name, fn, plain, args, kwargs, big, smi):
     """Kernel vs plain version on the same inputs: SNR, max abs error and, at
-    a path shape, both times. Fails below SNR_MIN_KERNEL_DB or on non-finite
-    output."""
+    a path shape, both times, the library call's time and the bound. Fails
+    below SNR_MIN_KERNEL_DB or on non-finite output."""
     got = fn(*args, **kwargs)
     want = plain(*args, **kwargs)
     torch.cuda.synchronize()
@@ -111,17 +232,50 @@ def compare(name, fn, plain, args, kwargs, big, smi):
     snr = min(snr_db(w, g) for w, g in zip(want, got))
     err = max(float((g - w).abs().max()) for w, g in zip(want, got))
     shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
-    print(f"{name} {shapes}{' lag0' if kwargs else ''}: SNR vs plain {snr:.2f} dB, "
-          f"max abs err {err:.3e}", flush=True)
+    print(f"{name} {shapes}{' ' + str(sorted(kwargs)) if kwargs else ''}: SNR vs plain "
+          f"{snr:.2f} dB, max abs err {err:.3e}", flush=True)
     if not (snr >= SNR_MIN_KERNEL_DB and all(bool(torch.isfinite(g).all()) for g in got)):
         fail(f"{name} at {shapes}: SNR {snr:.2f} dB < {SNR_MIN_KERNEL_DB}")
-    out = dict(shapes=shapes, lag0=bool(kwargs), snr_db=snr, max_abs_err=err)
+    out = dict(shapes=shapes, snr_db=snr, max_abs_err=err)
     if big:
         out["ms"] = median_ms(lambda: fn(*args, **kwargs))
+        out["device_ms"] = device_ms(lambda: fn(*args, **kwargs))
         out["plain_ms"] = median_ms(lambda: plain(*args, **kwargs))
-        print(f"  time at path shape: kernel {out['ms']:.4f} ms, plain "
-              f"{out['plain_ms']:.4f} ms [{smi}]", flush=True)
+        lib = library_call(name, args)
+        out["library_ms"] = None if lib is None else median_ms(lib)
+        out["bound_ms"], out["bound_by"] = bound(name, args, kwargs, got)
+        lib_txt = "" if lib is None else f", library {out['library_ms']:.4f} ms"
+        print(f"  time at path shape: kernel {out['ms']:.4f} ms (device "
+              f"{out['device_ms']:.4f} ms by the profiler), plain "
+              f"{out['plain_ms']:.4f} ms{lib_txt}, bound {out['bound_ms']:.4f} ms "
+              f"({out['bound_by']}) [{smi}]", flush=True)
     return out
+
+
+def check_kernels(specs, mods, smi) -> dict:
+    """Each kernel against its plain version over its cases; the first path
+    shape (``big``) gives the kernel's times and bound."""
+    results = {}
+    for name, cases in specs:
+        mod = mods[KERNELS[name][0]]
+        entries = []
+        for make, big in cases:
+            args, kwargs = make()
+            entries.append(compare(name, getattr(mod, name), getattr(mod, name + "_plain"),
+                                   args, kwargs, big, smi))
+            del args, kwargs
+            torch.cuda.empty_cache()
+        main = next(e for e in entries if "ms" in e)
+        _, src, rep = KERNELS[name]
+        results[name] = dict(
+            name=name, route="cuda", source=f"hisstools_library_tpu_torch/csrc/{src}",
+            replaces=f"hisstools_library_tpu/{rep}",
+            max_abs_err=max(e["max_abs_err"] for e in entries),
+            snr_db=min(e["snr_db"] for e in entries),
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                                    "bound_by")},
+            shapes=entries)
+    return results
 
 
 def time_calls(step, runs: int = 10):
@@ -160,78 +314,184 @@ def profile_calls(step, label: str, ms_per_call: float, smi: str, calls: int = 5
               flush=True)
 
 
-def stream_kernels(randn, smi) -> dict:
-    """Phase 6: K7, K8 and K10 against their plain versions on the card."""
-    from hisstools_library_tpu_torch.fft import hopper_fft, hopper_kernels
+class Launches:
+    """Every kernel wrapper's launch count, set to 0 before a path and read
+    after it."""
 
+    def __init__(self, mods):
+        self.fns = {name: getattr(mods[mod], name) for name, (mod, _, _) in KERNELS.items()}
+        self.by_path = {}
+
+    def reset(self) -> None:
+        for fn in self.fns.values():
+            fn.launches = 0
+
+    def read(self, path: str, need, smi: str) -> dict:
+        counts = {k: fn.launches for k, fn in self.fns.items()}
+        self.by_path[path] = counts
+        print(f"{path}: launches {({k: v for k, v in counts.items() if v})} [{smi}]",
+              flush=True)
+        for k in need:
+            if counts[k] < 1:
+                fail(f"{path}: kernel {k} was not launched")
+        return counts
+
+
+def fastfir_kernels(randn, mods, smi) -> dict:
+    """Phase 3: K1-K4 at the main path's shapes and at N = 4096. Main path:
+    N = 2^16, hop H = 32 768, C = 128 channels, T = ceil((SIG_LEN + H) / H)
+    = 16 hops, P = ceil(IR_LEN / H) = 15 partitions, min(P, T - 1) = 15 lags.
+    The small shape (N = 4096) has more partitions than hops."""
+    n_main = 1 << 16
+    hop = n_main // 2
+    t_main = -(-(SIG_LEN + hop) // hop)
+    p_main = -(-IR_LEN // hop)
+
+    def inputs(name, n, big):
+        c, t, lags = ((CHANNELS, t_main, min(p_main, t_main - 1)) if big else (2, 5, 7))
+        k = n // 2
+
+        def make():
+            if name == "rfft_packed":
+                return (randn(c * p_main if big else 3, n),), {}
+            if name == "rfft_packed_stream":
+                return (randn(c, t, k),), {}
+            if name == "lag_mac_causal":
+                return (randn(c, t, k), randn(c, t, k), randn(c, lags, k),
+                        randn(c, lags, k)), {}
+            return (randn(c, t, k), randn(c, t, k), 1.0 / (4.0 * n)), {}
+        return make, big
+
+    return check_kernels(
+        [(name, [inputs(name, 4096, False), inputs(name, n_main, True)])
+         for name in ("rfft_packed", "rfft_packed_stream", "lag_mac_causal",
+                      "rifft_packed_tail")], mods, smi)
+
+
+def stream_kernels(randn, mods, smi) -> dict:
+    """Phase 6: K7, K8 and K10 at the hop-aligned paths' shapes: the two-tier
+    far tier (T = 4, P = 14, K = 32768) and the collapsed final section
+    (T = 16, P = 58, K = 8192) for K7; the near tier (T = 16, H = 8192, P = 3)
+    with and without lag0 for K8; the IR preparation and refresh sizes (384
+    rows) for K10."""
     def ring(c, t, p, k):
-        return tuple(randn(c, r, k) for r in (p, p, t, t, p, p)), {}
+        return lambda: (tuple(randn(c, r, k) for r in (p, p, t, t, p, p)), {})
 
     def chain(c, t, p, n, lag0):
-        k = n // 2
-        kw = dict(l0_re=randn(c, k) * 1e-3, l0_im=randn(c, k) * 1e-3) if lag0 else {}
-        return (randn(c, t, k), randn(c, k), randn(c, p, k), randn(c, p, k),
-                randn(c, p, k) * 1e-3, randn(c, p, k) * 1e-3, 1.0 / (4.0 * n)), kw
+        def make():
+            k = n // 2
+            kw = dict(l0_re=randn(c, k) * 1e-3, l0_im=randn(c, k) * 1e-3) if lag0 else {}
+            return (randn(c, t, k), randn(c, k), randn(c, p, k), randn(c, p, k),
+                    randn(c, p, k) * 1e-3, randn(c, p, k) * 1e-3, 1.0 / (4.0 * n)), kw
+        return make
 
     def small(b, n):
-        return (randn(b, n),), {}
+        return lambda: ((randn(b, n),), {})
 
-    # (name, module, source, replaces, input maker, [(shape, at a path shape)]):
-    # the two-tier far tier (T = 4, P = 14, K = 32768) and the collapsed final
-    # section (T = 16, P = 58, K = 8192) for K7; the near tier (T = 16, H = 8192,
-    # P = 3) with and without lag0 for K8; the IR preparation and refresh sizes
-    # (384 rows) for K10. The first path shape of each gives ms and plain_ms.
-    specs = [
-        ("lag_mac_ring", hopper_kernels, "lag_mac_ring.cu", "pallas_kernels.py:566", ring,
-         [((2, 3, 5, 1024), False), ((CHANNELS, 4, 14, 32768), True),
-          ((CHANNELS, 16, 58, 8192), True)]),
-        ("fastfir_chain_stream", hopper_fft, "fastfir_chain_stream.cu", "pallas_fft.py:1943",
-         chain, [((2, 3, 2, 1 << 14, True), False), ((CHANNELS, 16, 3, 1 << 14, True), True),
-                 ((CHANNELS, 16, 3, 1 << 14, False), True)]),
-        ("rfft_small", hopper_fft, "rfft_small.cu", "pallas_fft.py:1079", small,
-         [((7, 32), False), ((384, 256), True), ((384, 128), True), ((384, 1024), True),
-          ((384, 2048), True)]),
-    ]
-    results = {}
-    for name, mod, src, rep, make, cases in specs:
-        entries = []
-        for shape, big in cases:
-            args, kwargs = make(*shape)
-            entries.append(compare(name, getattr(mod, name), getattr(mod, name + "_plain"),
-                                   args, kwargs, big, smi))
-            del args, kwargs
-            torch.cuda.empty_cache()
-        main_case = next(e for e in entries if "ms" in e)
-        results[name] = dict(
-            name=name, route="cuda", source=f"hisstools_library_tpu_torch/csrc/{src}",
-            replaces=f"hisstools_library_tpu/fft/{rep}",
-            max_abs_err=max(e["max_abs_err"] for e in entries),
-            snr_db=min(e["snr_db"] for e in entries),
-            ms=main_case["ms"], plain_ms=main_case["plain_ms"], shapes=entries)
-    return results
+    return check_kernels([
+        ("lag_mac_ring", [(ring(2, 3, 5, 1024), False), (ring(CHANNELS, 4, 14, 32768), True),
+                          (ring(CHANNELS, 16, 58, 8192), True)]),
+        ("fastfir_chain_stream", [(chain(2, 3, 2, 1 << 14, True), False),
+                                  (chain(CHANNELS, 16, 3, 1 << 14, True), True),
+                                  (chain(CHANNELS, 16, 3, 1 << 14, False), True)]),
+        ("rfft_small", [(small(7, 32), False), (small(384, 256), True), (small(384, 128), True),
+                        (small(384, 1024), True), (small(384, 2048), True)]),
+    ], mods, smi)
 
 
-def stream_paths(dev, irs, x, smi, profile) -> dict:
+def slice_kernels(randn, mods, smi) -> dict:
+    """Phase 9: K6, K9, K11 and K15. Path shapes: K6 at 128 rows of N = 4096
+    and 16384 (``_emit`` of the Zero preset's two large sections); K11 at
+    (128, 256) and (128, 1024) (hand-offs, direct-section taps) and at the
+    staged FastFIR's 128 x 48 frames of 2048; K9 at (C = 128, N = 256, P = 3)
+    and (128, 1024, 3); K15 at the staged FastFIR's (C = 128, T = 48, P = 47,
+    K = 1024). Small and edge shapes: K6 at (3, 4096) and (2, 2^17), K11 at
+    (7, 32), K9 at (3, 32, P = 1) and (9, 64, P = 20), K15 with lead_skip 1."""
+    def inverse(b, n):
+        return lambda: ((randn(b, n // 2), randn(b, n // 2)), {})
+
+    def fire(c, n, p):
+        k = n // 2
+        return lambda: ((randn(c, n), randn(c, p, k), randn(c, p, k), randn(c, p, k) * 1e-3,
+                         randn(c, p, k) * 1e-3), {})
+
+    def mac(c, skip, t, p, k):
+        return lambda: ((randn(c, skip + t + p, k), randn(c, skip + t + p, k),
+                         randn(c, p, k), randn(c, p, k), t), dict(lead_skip=skip))
+
+    t_staged = -(-(STAGED_TAPS + STAGED_N // 2) // (STAGED_N // 2))
+    p_staged = -(-STAGED_TAPS // (STAGED_N // 2))
+    return check_kernels([
+        ("rifft_packed", [(inverse(3, 4096), False), (inverse(2, 1 << 17), False),
+                          (inverse(CHANNELS, 16384), True), (inverse(CHANNELS, 4096), True)]),
+        ("hop_fire", [(fire(3, 32, 1), False), (fire(9, 64, 20), False),
+                      (fire(CHANNELS, 256, 3), True), (fire(CHANNELS, 1024, 3), True)]),
+        ("rifft_small", [(inverse(7, 32), False), (inverse(CHANNELS, 256), True),
+                         (inverse(CHANNELS, 1024), True),
+                         (inverse(CHANNELS * t_staged, STAGED_N), True)]),
+        ("lag_mac", [(mac(2, 1, 5, 7, 256), False),
+                     (mac(CHANNELS, 0, t_staged, p_staged, STAGED_N // 2), True)]),
+    ], mods, smi)
+
+
+def fastfir_path(dev, irs, x, launches, smi) -> None:
+    """Phases 4 and 5: the FastFIR main path."""
+    from hisstools_library_tpu_torch.models.offline import FastFIR
+
+    xd = torch.from_numpy(x).to(dev)
+    launches.reset()
+    t0 = time.perf_counter()
+    eng = FastFIR(irs, device=dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    pass_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        y = FastFIR.apply(eng.spectra, xd)
+        torch.cuda.synchronize()
+        pass_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"main path: FastFIR N={eng.fft_size}, P={eng.spectra.shape[-2]}, "
+          f"IR prep {prep_s:.3f} s, passes {[round(v, 3) for v in pass_ms]} ms [{smi}]",
+          flush=True)
+    launches.read("fastfir", ("rfft_packed", "rfft_packed_stream", "lag_mac_causal",
+                              "rifft_packed_tail"), smi)
+    if tuple(y.shape) != (CHANNELS, SIG_LEN) or not bool(torch.isfinite(y).all()):
+        fail(f"main path output: shape {tuple(y.shape)}, finite "
+             f"{bool(torch.isfinite(y).all())}")
+    check = 1 << 16
+    ref = np.convolve(x[0, :check].astype(np.float64),
+                      irs[0, :check].astype(np.float64))[:check]
+    snr = snr_db(torch.from_numpy(ref), y[0, :check].cpu())
+    ms = float(np.median(pass_ms))
+    print(f"main path: SNR vs float64 np.convolve (ch0, {check} samples) "
+          f"{snr:.2f} dB; {ms:.3f} ms/pass (median of 3), "
+          f"{CHANNELS * SIG_LEN / (ms * 1e-3):.6e} samples/s [{smi}]", flush=True)
+    if not snr >= SNR_MIN_PATH_DB:
+        fail(f"main path SNR {snr:.2f} dB < {SNR_MIN_PATH_DB}")
+    steady = median_ms(lambda: FastFIR.apply(eng.spectra, xd), runs=10)
+    print(f"main path steady state: {steady:.4f} ms/pass (CUDA events, median "
+          f"of 10 after a warm-up), {CHANNELS * SIG_LEN / (steady * 1e-3):.6e} "
+          f"samples/s [{smi}]", flush=True)
+    del eng, y, xd
+    torch.cuda.empty_cache()
+
+
+def stream_paths(dev, irs, x, launches, smi, profile) -> None:
     """Phase 7: mono.process through the two-tier, collapsed and matched
-    paths. Returns each path's launch counts."""
-    from hisstools_library_tpu_torch.fft import hopper_fft, hopper_kernels
+    paths (two-tier: IR prep + 3 calls; K1, K4, K7, K8, K10 must launch;
+    collapsed: 2 calls; K1, K4, K7, K10; matched: IR prep + 2 calls; K1, K4,
+    K7), each >= 99 dB on channel 0's whole output, then timed over ten calls."""
     from hisstools_library_tpu_torch.models import mono
 
-    counted = {fn.__name__: fn for fn in (
-        hopper_fft.rfft_packed, hopper_fft.rfft_packed_stream, hopper_kernels.lag_mac_causal,
-        hopper_fft.rifft_packed_tail, hopper_kernels.lag_mac_ring,
-        hopper_fft.fastfir_chain_stream, hopper_fft.rfft_small)}
     blk = STREAM_BLOCK
     xd = torch.from_numpy(np.ascontiguousarray(x[:, :3 * blk])).to(dev)
     blocks = [xd[:, i * blk:(i + 1) * blk].contiguous() for i in range(3)]
     del xd
     zero = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
     matched = mono.PartitionScheme.for_latency_budget(8192)
-    out = {}
 
     def run(label, scheme, ir, init, calls, need):
-        for fn in counted.values():
-            fn.launches = 0
+        launches.reset()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         if ir is None:
@@ -250,14 +510,10 @@ def stream_paths(dev, irs, x, smi, profile) -> dict:
                      f"{bool(torch.isfinite(y).all())}")
             ys.append(y[0].cpu().numpy())
             del y
-        launches = {k: fn.launches for k, fn in counted.items()}
         print(f"{label}: sections {[tuple(s.shape) for s in ir.spectra]}, far "
               f"{None if ir.far is None else tuple(ir.far.shape)}, IR prep {prep_s:.3f} s, "
-              f"calls {[round(v, 3) for v in host_ms]} ms (host clock), launches "
-              f"{launches} [{smi}]", flush=True)
-        for k in need:
-            if launches[k] < 1:
-                fail(f"{label}: kernel {k} was not launched")
+              f"calls {[round(v, 3) for v in host_ms]} ms (host clock) [{smi}]", flush=True)
+        launches.read(label, need, smi)
         n = calls * blk
         lat = scheme.latency
         ref = convolve_f64(x[0, :n], irs[0], n - lat)
@@ -277,7 +533,6 @@ def stream_paths(dev, irs, x, smi, profile) -> dict:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]", flush=True)
         if profile:
             profile_calls(step, label, ms, smi)
-        out[label] = launches
         del carry, state
         return ir
 
@@ -289,7 +544,6 @@ def stream_paths(dev, irs, x, smi, profile) -> dict:
     torch.cuda.empty_cache()
     run("matched", matched, None, mono.init_state, 2, k_all)
     torch.cuda.empty_cache()
-    return out
 
 
 def time_domain_check(dev, smi) -> None:
@@ -308,6 +562,156 @@ def time_domain_check(dev, smi) -> None:
         fail(f"time-domain head SNR {snr:.2f} dB < {SNR_MIN_TD_DB}: TF32 still on?")
 
 
+def callbacks(ir, state, xd, start: int, calls: int):
+    """``calls`` sequential process_any callbacks of CALLBACK samples from
+    sample ``start`` of ``xd``; returns the state, channel 0's output (on the
+    card) and the host ms of each call (the enqueue: no synchronisation)."""
+    from hisstools_library_tpu_torch.models import mono
+
+    blocks = [xd[:, start + i * CALLBACK:start + (i + 1) * CALLBACK].contiguous()
+              for i in range(calls)]
+    ys, host_ms = [], []
+    for blk in blocks:
+        t0 = time.perf_counter()
+        state, y = mono.process_any(ir, state, blk)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ys.append(y[0])
+    return state, torch.cat(ys), host_ms
+
+
+def check_path_snr(label, y0: torch.Tensor, x0: np.ndarray, h: np.ndarray, smi) -> float:
+    """Channel 0's whole output against a float64 FFT convolution."""
+    y0 = y0.cpu()
+    if not bool(torch.isfinite(y0).all()):
+        fail(f"{label}: non-finite output")
+    n = y0.shape[-1]
+    snr = snr_db(torch.from_numpy(convolve_f64(x0[:n], h, n)), y0)
+    print(f"{label}: SNR vs float64 FFT convolution (ch0, {n} samples) {snr:.2f} dB [{smi}]",
+          flush=True)
+    if not snr >= SNR_MIN_PATH_DB:
+        fail(f"{label}: SNR {snr:.2f} dB < {SNR_MIN_PATH_DB}")
+    return snr
+
+
+def subhop_paths(dev, irs, x, launches, smi, profile) -> None:
+    """Phases 10 and 11: process_any at 256-sample callbacks, and the
+    hop-aligned -> sample-granular hand-offs."""
+    from hisstools_library_tpu_torch.models import mono
+
+    zero = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+    n_any = 2 * CALLS * CALLBACK
+    xd = torch.from_numpy(np.ascontiguousarray(x[:, :STREAM_BLOCK + n_any])).to(dev)
+
+    launches.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ir = mono.prepare_ir(zero, irs, offline_tail=False, device=dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    state = mono.init_stream_state(zero, ir, batch_shape=(CHANNELS,))
+    state, y0, _ = callbacks(ir, state, xd, 0, CALLS)
+    torch.cuda.synchronize()
+    print(f"process_any: Zero preset {zero.sizes}, IR prep {prep_s:.3f} s, {CALLS} "
+          f"callbacks of {CALLBACK} samples [{smi}]", flush=True)
+    launches.read("process_any", ("hop_fire", "rifft_packed", "rfft_packed", "rfft_small"),
+                  smi)
+    check_path_snr("process_any", y0, x[0], irs[0], smi)
+
+    # Steady state: the next CALLS callbacks as one chain, CUDA events around it.
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    state, y1, host_ms = callbacks(ir, state, xd, CALLS * CALLBACK, CALLS)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / CALLS
+    check_path_snr("process_any (continued)", torch.cat([y0, y1]), x[0], irs[0], smi)
+    print(f"process_any: {ms:.4f} ms/callback (CUDA events over {CALLS} sequential "
+          f"callbacks / {CALLS}), host {float(np.mean(host_ms)):.4f} ms/call mean, "
+          f"{float(np.median(host_ms)):.4f} median, {max(host_ms):.4f} max (enqueue, "
+          f"no sync); real-time factor {CALLBACK / FS / (ms * 1e-3):.2f} for {CHANNELS} "
+          f"channels; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[{smi}]", flush=True)
+    if profile:
+        carry = {"s": state}
+
+        def step():
+            for i in range(32):
+                carry["s"], _ = mono.process_any(
+                    ir, carry["s"], xd[:, i * CALLBACK:(i + 1) * CALLBACK].contiguous())
+
+        profile_calls(step, "process_any (32 callbacks per call)", ms * 32, smi, calls=2)
+        del carry
+    del state, y0, y1
+
+    def handoff(label, init, lift):
+        launches.reset()
+        torch.cuda.reset_peak_memory_stats()
+        st = init(zero, ir, batch_shape=(CHANNELS,))
+        st, yb = mono.process(ir, st, xd[:, :STREAM_BLOCK].contiguous())
+        ss = lift(ir, st)
+        ss, ya, _ = callbacks(ir, ss, xd, STREAM_BLOCK, CALLS)
+        torch.cuda.synchronize()
+        launches.read(label, ("rifft_small", "rifft_packed", "hop_fire"), smi)
+        check_path_snr(label, torch.cat([yb[0], ya]), x[0], irs[0], smi)
+        print(f"{label}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"[{smi}]", flush=True)
+
+    handoff("handoff-two-tier", mono.init_block_state, mono.stream_state_from_block)
+    handoff("handoff-collapsed", mono.init_state, mono.stream_state_from_aligned)
+    del ir, xd
+    torch.cuda.empty_cache()
+
+
+def offline_paths(dev, irs, x, launches, smi) -> None:
+    """Phases 12 and 13: mono.process_offline with and without the offline
+    tail, and the staged FastFIR at N = 2048."""
+    from hisstools_library_tpu_torch.models import mono
+    from hisstools_library_tpu_torch.models.offline import FastFIR
+
+    zero = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+    xd = torch.from_numpy(x).to(dev)
+    for label, tail, need in (
+            ("offline-tail", True, ("rfft_packed", "rfft_packed_stream", "lag_mac_causal",
+                                    "rifft_packed_tail")),
+            ("offline-no-tail", False, ("rifft_small", "rfft_packed_stream",
+                                        "lag_mac_causal", "rifft_packed_tail"))):
+        launches.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ir = mono.prepare_ir(zero, irs, offline_tail=tail, device=dev)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        y = mono.process_offline(ir, xd)
+        torch.cuda.synchronize()
+        launches.read(label, need, smi)
+        if tuple(y.shape) != (CHANNELS, SIG_LEN):
+            fail(f"{label}: output shape {tuple(y.shape)}")
+        check_path_snr(label, y[0], x[0], irs[0], smi)
+        del y
+        ms = median_ms(lambda: mono.process_offline(ir, xd), runs=3)
+        print(f"{label}: tail {None if ir.tail is None else tuple(ir.tail.shape)}, IR prep "
+              f"{prep_s:.3f} s, {ms:.4f} ms/pass (CUDA events, median of 3 after a "
+              f"warm-up), {CHANNELS * SIG_LEN / (ms * 1e-3):.6e} samples/s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]", flush=True)
+        del ir
+        torch.cuda.empty_cache()
+
+    launches.reset()
+    eng = FastFIR(irs[:, :STAGED_TAPS], fft_size=STAGED_N, device=dev)
+    xs = xd[:, :FS].contiguous()
+    y = eng(xs)
+    torch.cuda.synchronize()
+    launches.read("staged-offline", ("rfft_small", "lag_mac", "rifft_small"), smi)
+    check_path_snr("staged-offline", y[0], x[0], irs[0, :STAGED_TAPS], smi)
+    ms = median_ms(lambda: eng(xs), runs=3)
+    print(f"staged-offline: FastFIR N={eng.fft_size}, P={eng.spectra.shape[-2]}, "
+          f"{CHANNELS} x {FS} samples, {ms:.4f} ms/pass (CUDA events, median of 3), "
+          f"{CHANNELS * FS / (ms * 1e-3):.6e} samples/s [{smi}]", flush=True)
+    del eng, y, xs, xd
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -319,8 +723,8 @@ def main() -> None:
     sys.path.insert(0, root)
     from hisstools_library_tpu_torch import _build
     from hisstools_library_tpu_torch.fft import hopper_fft, hopper_kernels
-    from hisstools_library_tpu_torch.models.offline import FastFIR
 
+    mods = {"hopper_fft": hopper_fft, "hopper_kernels": hopper_kernels}
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -348,136 +752,28 @@ def main() -> None:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    # Main-path shapes: N = 2^16, hop H = 32768, C = 128 channels,
-    # T = ceil((SIG_LEN + H) / H) = 16 hops, P = ceil(IR_LEN / H) = 15
-    # partitions and min(P, T - 1) = 15 lags. The small shape (N = 4096) has
-    # more partitions than hops.
-    n_main = 1 << 16
-    hop = n_main // 2
-    t_main = -(-(SIG_LEN + hop) // hop)
-    p_main = -(-IR_LEN // hop)
-
-    def inputs(name, n, big):
-        c, t, lags = ((CHANNELS, t_main, min(p_main, t_main - 1)) if big
-                      else (2, 5, 7))
-        k = n // 2
-        if name == "rfft_packed":
-            return (randn(c * p_main if big else 3, n),)
-        if name == "rfft_packed_stream":
-            return (randn(c, t, k),)
-        if name == "lag_mac_causal":
-            return (randn(c, t, k), randn(c, t, k), randn(c, lags, k),
-                    randn(c, lags, k))
-        return (randn(c, t, k), randn(c, t, k), 1.0 / (4.0 * n))
-
-    kernels = {
-        "rfft_packed": dict(
-            fn=hopper_fft.rfft_packed, plain=hopper_fft.rfft_packed_plain,
-            source="hisstools_library_tpu_torch/csrc/rfft_packed.cu",
-            replaces="hisstools_library_tpu/fft/pallas_fft.py:461"),
-        "rfft_packed_stream": dict(
-            fn=hopper_fft.rfft_packed_stream,
-            plain=hopper_fft.rfft_packed_stream_plain,
-            source="hisstools_library_tpu_torch/csrc/rfft_packed_stream.cu",
-            replaces="hisstools_library_tpu/fft/pallas_fft.py:1368"),
-        "lag_mac_causal": dict(
-            fn=hopper_kernels.lag_mac_causal,
-            plain=hopper_kernels.lag_mac_causal_plain,
-            source="hisstools_library_tpu_torch/csrc/lag_mac_causal.cu",
-            replaces="hisstools_library_tpu/fft/pallas_kernels.py:231"),
-        "rifft_packed_tail": dict(
-            fn=hopper_fft.rifft_packed_tail, plain=hopper_fft.rifft_packed_tail_plain,
-            source="hisstools_library_tpu_torch/csrc/rifft_packed_tail.cu",
-            replaces="hisstools_library_tpu/fft/pallas_fft.py:1440"),
-    }
-
-    results = {}
-    for name, k in kernels.items():
-        for n, big in ((4096, False), (n_main, True)):
-            args = inputs(name, n, big)
-            got = k["fn"](*args)
-            want = k["plain"](*args)
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            snr = min(snr_db(w, g) for w, g in zip(want, got))
-            err = max(float((g - w).abs().max()) for w, g in zip(want, got))
-            shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
-            print(f"{name} N={n} {shapes}: SNR vs plain {snr:.2f} dB, "
-                  f"max abs err {err:.3e}", flush=True)
-            if not (snr >= SNR_MIN_KERNEL_DB and all(torch.isfinite(g).all() for g in got)):
-                fail(f"{name} at N={n}: SNR {snr:.2f} dB < {SNR_MIN_KERNEL_DB}")
-            if big:
-                ms = median_ms(lambda: k["fn"](*args))
-                plain_ms = median_ms(lambda: k["plain"](*args))
-                print(f"  time at main-path shape: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms [{smi}]", flush=True)
-                results[name] = dict(name=name, route="cuda", source=k["source"],
-                                     replaces=k["replaces"], max_abs_err=err,
-                                     snr_db=snr, ms=ms, plain_ms=plain_ms)
-            del args, got, want
-        torch.cuda.empty_cache()
-
-    # Main path, built from seed 0 as bench.py builds it.
+    results = fastfir_kernels(randn, mods, smi)
+    # Main paths, built from seed 0 as bench.py builds them.
     rng = np.random.default_rng(0)
     irs = (rng.standard_normal((CHANNELS, IR_LEN)) *
            np.exp(-np.arange(IR_LEN) / (0.5 * FS))).astype(np.float32)
     x = rng.standard_normal((CHANNELS, SIG_LEN)).astype(np.float32)
-    xd = torch.from_numpy(x).to(dev)
-    counted = (hopper_fft.rfft_packed, hopper_fft.rfft_packed_stream,
-               hopper_kernels.lag_mac_causal, hopper_fft.rifft_packed_tail)
-    for fn in counted:
-        fn.launches = 0
-    t0 = time.perf_counter()
-    eng = FastFIR(irs, device=dev)
-    torch.cuda.synchronize()
-    prep_s = time.perf_counter() - t0
-    pass_ms = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        y = FastFIR.apply(eng.spectra, xd)
-        torch.cuda.synchronize()
-        pass_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {fn.__name__: fn.launches for fn in counted}
-    print(f"main path: FastFIR N={eng.fft_size}, P={eng.spectra.shape[-2]}, "
-          f"IR prep {prep_s:.3f} s, passes {[round(v, 3) for v in pass_ms]} ms, "
-          f"launches {launches} [{smi}]", flush=True)
-    for name, count in launches.items():
-        if count < 1:
-            fail(f"kernel {name} was not launched on the main path")
-        results[name]["launches"] = count
-
-    if tuple(y.shape) != (CHANNELS, SIG_LEN) or not bool(torch.isfinite(y).all()):
-        fail(f"main path output: shape {tuple(y.shape)}, finite "
-             f"{bool(torch.isfinite(y).all())}")
-    check = 1 << 16
-    ref = np.convolve(x[0, :check].astype(np.float64),
-                      irs[0, :check].astype(np.float64))[:check]
-    snr = snr_db(torch.from_numpy(ref), y[0, :check].cpu())
-    ms = float(np.median(pass_ms))
-    print(f"main path: SNR vs float64 np.convolve (ch0, {check} samples) "
-          f"{snr:.2f} dB; {ms:.3f} ms/pass (median of 3), "
-          f"{CHANNELS * SIG_LEN / (ms * 1e-3):.6e} samples/s [{smi}]", flush=True)
-    if not snr >= SNR_MIN_PATH_DB:
-        fail(f"main path SNR {snr:.2f} dB < {SNR_MIN_PATH_DB}")
-    steady = median_ms(lambda: FastFIR.apply(eng.spectra, xd), runs=10)
-    print(f"main path steady state: {steady:.4f} ms/pass (CUDA events, median "
-          f"of 10 after a warm-up), {CHANNELS * SIG_LEN / (steady * 1e-3):.6e} "
-          f"samples/s [{smi}]", flush=True)
-    by_path = {"fastfir": launches}
-    del eng, y, xd
-    torch.cuda.empty_cache()
-
-    results.update(stream_kernels(randn, smi))
-    by_path.update(stream_paths(dev, irs, x, smi, profile))
+    launches = Launches(mods)
+    fastfir_path(dev, irs, x, launches, smi)
+    results.update(stream_kernels(randn, mods, smi))
+    stream_paths(dev, irs, x, launches, smi, profile)
     time_domain_check(dev, smi)
+    results.update(slice_kernels(randn, mods, smi))
+    subhop_paths(dev, irs, x, launches, smi, profile)
+    offline_paths(dev, irs, x, launches, smi)
 
-    order = ("rfft_packed", "rfft_packed_stream", "lag_mac_causal", "rifft_packed_tail",
-             "lag_mac_ring", "fastfir_chain_stream", "rfft_small")
-    for name in order:
-        results[name]["launches_by_path"] = {p: c.get(name, 0) for p, c in by_path.items()}
-        results[name]["launches"] = sum(results[name]["launches_by_path"].values())
-    print(json.dumps({"kernels": [results[k] for k in order]}))
+    for name in KERNELS:
+        by_path = {p: c[name] for p, c in launches.by_path.items()}
+        if not sum(by_path.values()):
+            fail(f"kernel {name} was launched on no path")
+        results[name]["launches_by_path"] = by_path
+        results[name]["launches"] = sum(by_path.values())
+    print(json.dumps({"kernels": [results[k] for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -49,6 +49,15 @@ _SIGNATURES = {
     # scale, stream
     "hst_fastfir_chain_stream": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _L, _P, _P,
                                  _P, _P, _P, _P, _L, _I, _I, _I, _F, _P],
+    # re, im, out, scratch_y, tw, frames, n, stream
+    "hst_rifft_packed": [_P, _P, _P, _P, _P, _L, _I, _P],
+    # re, im, y, tw, batch, n, stream
+    "hst_rifft_small": [_P, _P, _P, _P, _L, _I, _P],
+    # frame, frame_cstride, rin_re, rin_im, h_re, h_im, h_cstride, rout_re,
+    # rout_im, y, tw, channels, p, n, scale, stream
+    "hst_hop_fire": [_P, _L, _P, _P, _P, _P, _L, _P, _P, _P, _P, _L, _I, _I, _F, _P],
+    # xr, xi, hr, hi, h_cstride, yr, yi, channels, tp, t, p, k, skip, stream
+    "hst_lag_mac": [_P, _P, _P, _P, _L, _P, _P, _L, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

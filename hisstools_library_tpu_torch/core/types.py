@@ -14,10 +14,23 @@ import numpy as np
 import torch
 
 
+def default_device() -> torch.device:
+    """The device the port's entry points build on when none is named: the
+    CUDA card. A caller who wants the CPU names it (``device="cpu"``); without
+    a card a call that names no device fails in torch's own CUDA error."""
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``, or :func:`default_device` for None."""
+    return default_device() if device is None else torch.device(device)
+
+
 def tensor_from(a, device=None) -> torch.Tensor:
     """A new tensor holding a copy of the array ``a`` (numpy, a JAX array or
-    anything ``np.asarray`` takes), dtype kept, on ``device``."""
-    return torch.tensor(np.asarray(a), device=device)
+    anything ``np.asarray`` takes), dtype kept, on ``device`` (the card
+    unless named)."""
+    return torch.tensor(np.asarray(a), device=resolve_device(device))
 
 
 def array_from(t: torch.Tensor) -> np.ndarray:
@@ -46,6 +59,7 @@ class Split:
 
     @staticmethod
     def zeros(shape, dtype: torch.dtype = torch.float32, device=None) -> "Split":
+        device = resolve_device(device)
         return Split(torch.zeros(shape, dtype=dtype, device=device),
                      torch.zeros(shape, dtype=dtype, device=device))
 

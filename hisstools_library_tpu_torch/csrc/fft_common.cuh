@@ -1,5 +1,5 @@
 // Shared FFT core for the real transforms on Hopper (K1 rfft_packed,
-// K2 rfft_packed_stream, K4 rifft_packed_tail).
+// K2 rfft_packed_stream, K4 rifft_packed_tail, K6 rifft_packed).
 //
 // A real transform of length N is an M = N/2 point complex FFT of
 // z[n] = x[2n] + i x[2n+1], plus the split step that pairs bins k and M-k.
@@ -23,8 +23,8 @@
 // (inverse) is pass 1's loader. The forward split step is pass 2's store: a
 // pass-2 block holds rows k2 and M2-k2 together (8 such pairs), so every bin k
 // meets its partner M-k in shared memory and Z never goes to HBM. The
-// inverse's overlap-save tail (keep samples [N/2, N), times `scale`) is pass
-// 2's store too.
+// inverse's overlap-save tail (keep samples [N/2, N), times `scale`) and its
+// full output (all N samples) are pass 2's store too.
 //
 // Bound on the H100: HBM bytes. Each pass reads and writes one complex frame
 // (8*M bytes each way); the butterflies are ~5*M*log2(M) FP32 operations per
@@ -46,7 +46,7 @@ constexpr int kLd = kMaxSub + 1;  // odd row stride of the shared tile: no bank 
 constexpr int kThreads = 256;     // = kTile * 16, one thread per DFT in each step
 
 enum LoadMode { kLoadReal = 0, kLoadStream = 1, kLoadUnpack = 2 };
-enum StoreMode { kStorePack = 0, kStoreTail = 1 };
+enum StoreMode { kStorePack = 0, kStoreTail = 1, kStoreFull = 2 };
 
 struct Plan {
   int n;       // real size N
@@ -264,6 +264,8 @@ __device__ __forceinline__ int pack_row(int tile, int f, int n2) {
 //   kStoreTail: the inverse's kept half: for k >= M/2, output samples
 //               (2k - N/2, 2k + 1 - N/2) of the (frames, N/2) real `out` are
 //               scale * conj(Z[k]).
+//   kStoreFull: the whole inverse: output samples (2k, 2k + 1) of the
+//               (frames, N) real `out` are scale * conj(Z[k]), every k.
 template <int kStore, int L>
 __global__ void __launch_bounds__(kThreads)
 fft_pass2(const float2* __restrict__ y, float* __restrict__ out,
@@ -300,14 +302,16 @@ fft_pass2(const float2* __restrict__ y, float* __restrict__ out,
     for (int j1 = 0; j1 < A; ++j1) v[j1] = s[f * kLd + k2 * A + j1];
     reg_dft<A>(v, tw, log_n);
   }
-  if (kStore == kStoreTail) {
+  if (kStore != kStorePack) {
+    // Tail: outputs k >= M/2 only, into frames of M/2 float2; full: all.
+    constexpr int kLo = kStore == kStoreTail ? A / 2 : 0;
+    const int skip = kStore == kStoreTail ? (m >> 1) : 0;
     if (active) {
-      float2* of = reinterpret_cast<float2*>(out) + frame * (m >> 1);
+      float2* of = reinterpret_cast<float2*>(out) + frame * (m - skip);
 #pragma unroll
-      for (int k1 = A / 2; k1 < A; ++k1) {
+      for (int k1 = kLo; k1 < A; ++k1) {
         const int k = k2 + B * k1;
-        of[r0 + f + n2 * k - (m >> 1)] =
-            make_float2(scale * v[k1].x, -scale * v[k1].y);
+        of[r0 + f + n2 * k - skip] = make_float2(scale * v[k1].x, -scale * v[k1].y);
       }
     }
     return;

@@ -83,14 +83,11 @@ def rfft(x: torch.Tensor, backend: Optional[str] = None
 
 def rifft(re: torch.Tensor, im: torch.Tensor, backend: Optional[str] = None
           ) -> torch.Tensor:
-    """Unscaled inverse of the packed real spectrum: ``rifft(rfft(x)) == 2N x``.
-
-    The packed full inverse (K6, ``pallas_fft.py: rifft_packed``) has no
-    Hopper kernel yet, so ``"pallas"`` on a CUDA tensor raises."""
+    """Unscaled inverse of the packed real spectrum: ``rifft(rfft(x)) == 2N x``,
+    along the last axis. ``"pallas"`` on a CUDA tensor launches K6 (N =
+    4096..2^17) or K11 (N = 32..2048); above 2^17 it raises, naming K14."""
     n = re.shape[-1] * 2
     _log2_size(n)
-    if _resolve(backend, re.device) == "pallas" and re.device.type != "cpu":
-        raise NotImplementedError(
-            "rifft: K6 rifft_packed (fft/pallas_fft.py:518) is not ported to "
-            "the GPU yet; pass backend='xla' for torch.fft")
+    if _resolve(backend, re.device) == "pallas":
+        return hopper_fft.rifft_packed(re, im)
     return hopper_fft.rifft_packed_plain(re, im)

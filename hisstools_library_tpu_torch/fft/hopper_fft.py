@@ -11,8 +11,10 @@ function                           replaces (hisstools_library_tpu/...)      CUD
 :func:`rfft_packed_stream`   (K2)  fft/pallas_fft.py: rfft_packed_stream     csrc/rfft_packed_stream.cu
 :func:`rifft_packed_tail`    (K4)  fft/pallas_fft.py: rifft_packed_tail      csrc/rifft_packed_tail.cu
 :func:`fastfir_chain`        (K5)  fft/pallas_fft.py: fastfir_chain          K2 -> K3 -> K4 in turn
+:func:`rifft_packed`         (K6)  fft/pallas_fft.py: rifft_packed           csrc/rifft_packed.cu
 :func:`fastfir_chain_stream` (K8)  fft/pallas_fft.py: fastfir_chain_stream   csrc/fastfir_chain_stream.cu
 :func:`rfft_small`          (K10)  fft/pallas_fft.py: _small_fwd_call        csrc/rfft_small.cu
+:func:`rifft_small`         (K11)  fft/pallas_fft.py: _small_inv_call        csrc/rifft_small.cu
 =================================  ========================================  ==============================
 
 A wrapper runs the plain version only for a tensor on the CPU. For a CUDA
@@ -20,8 +22,10 @@ tensor it launches its kernel or raises: ``NotImplementedError`` names the
 kernel still to be ported when the call is outside the ported envelope
 (float64, N above 2^17, K8 above 2^15), and no path falls back to
 ``torch.fft``. Each wrapper counts its launches in ``<wrapper>.launches``.
-:func:`rfft_packed` sends N = 32..2048 to K10 and N = 4096..2^17 to K1, as
-the TPU package's ``rfft_packed`` sends its small sizes to ``_rfft_small``.
+:func:`rfft_packed` sends N = 32..2048 to K10 and N = 4096..2^17 to K1, and
+:func:`rifft_packed` sends N = 32..2048 to K11 and N = 4096..2^17 to K6, as
+the TPU package's ``rfft_packed`` / ``rifft_packed`` send their small sizes to
+``_rfft_small`` / ``_rifft_small``.
 
 ``fastfir_chain`` keeps the TPU function's signature and result but runs K2,
 K3 and K4 in turn: the TPU kernel keeps each channel's spectra ring and
@@ -96,9 +100,13 @@ def stream_feasible(n: int) -> bool:
     return real_eligible(n)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """(n, 2) float32 table tw[e] = exp(-2 pi i e / n), computed in float64."""
+    """(n, 2) float32 table tw[e] = exp(-2 pi i e / n), computed in float64.
+
+    Kept per (n, device) for the life of the process, so only the first
+    launch at a size copies its table to the card: the powers of two up to
+    2^17 take under 2 MB per device, so nothing is ever evicted."""
     ang = np.arange(n, dtype=np.float64) * (-2.0 * np.pi / n)
     tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
     return torch.from_numpy(tw).to(device)
@@ -107,8 +115,9 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
 def _check(kernel: str, n: int, *tensors: torch.Tensor) -> None:
     """Raise unless the kernel takes these tensors at real size ``n``."""
     if not real_eligible(n):
-        missing = ("K10 serves forward N = 32..2048; the small inverse K11 "
-                   "(_small_inv_call) and N < 32" if n < MIN_REAL_SIZE
+        missing = ("K10 (forward) and K11 (inverse) serve N = 32..2048 through "
+                   "rfft_packed / rifft_packed; a small form of this kernel and "
+                   "N < 32" if n < MIN_REAL_SIZE
                    else "K13/K14 (_rfft_packed_split/_rifft_packed_split)")
         raise NotImplementedError(
             f"{kernel}: serves N = {MIN_REAL_SIZE}..{MAX_SINGLE_REAL}; N = {n}: "
@@ -150,8 +159,9 @@ def rifft_packed_tail_plain(re: torch.Tensor, im: torch.Tensor,
     return rifft_packed_plain(re, im)[..., re.shape[-1]:] * scale
 
 
-# K10's plain version is the packed real FFT itself.
+# The plain versions of K10 and K11 are the packed real transforms themselves.
 rfft_small_plain = rfft_packed_plain
+rifft_small_plain = rifft_packed_plain
 
 
 def fastfir_chain_stream_plain(x2d, prev, ring_re, ring_im, h_re, h_im,
@@ -228,6 +238,65 @@ def rfft_small(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 rfft_small.launches = 0
+
+
+def rifft_packed(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """K6: unscaled inverse of packed N/2-bin planes, rifft(rfft(x)) == 2N x,
+    batched over the leading axes; returns (..., N). N = 32..2048 go to
+    K11."""
+    if re.device.type == "cpu":
+        return rifft_packed_plain(re, im)
+    n = 2 * re.shape[-1]
+    if small_eligible(n):
+        return rifft_small(re, im)
+    kernel = "K6 rifft_packed"
+    _check(kernel, n, re, im)
+    if im.shape != re.shape:
+        raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")
+    lead = re.shape[:-1]
+    b = math.prod(lead)
+    out = torch.empty(*lead, n, dtype=torch.float32, device=re.device)
+    if b == 0:
+        return out
+    scratch = torch.empty(b, n, dtype=torch.float32, device=re.device)
+    rc = _build.load().hst_rifft_packed(
+        re.data_ptr(), im.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        _twiddles(n, re.device).data_ptr(), b, n, _build.stream(re.device))
+    _build.check(rc, kernel)
+    rifft_packed.launches += 1
+    return out
+
+
+rifft_packed.launches = 0
+
+
+def rifft_small(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """K11: small unscaled inverse (N = 32..2048) of packed N/2-bin planes,
+    batched over the leading axes; returns (..., N)."""
+    if re.device.type == "cpu":
+        return rifft_small_plain(re, im)
+    kernel = "K11 rifft_small"
+    n = 2 * re.shape[-1]
+    if not small_eligible(n):
+        raise NotImplementedError(
+            f"{kernel}: serves N = {SMALL_MIN_REAL}..{MIN_REAL_SIZE // 2}, got N = {n}")
+    _build.check_tensors(kernel, re, im)
+    if im.shape != re.shape:
+        raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")
+    lead = re.shape[:-1]
+    b = math.prod(lead)
+    out = torch.empty(*lead, n, dtype=torch.float32, device=re.device)
+    if b == 0:
+        return out
+    rc = _build.load().hst_rifft_small(
+        re.data_ptr(), im.data_ptr(), out.data_ptr(),
+        _twiddles(n, re.device).data_ptr(), b, n, _build.stream(re.device))
+    _build.check(rc, kernel)
+    rifft_small.launches += 1
+    return out
+
+
+rifft_small.launches = 0
 
 
 def rfft_packed_stream(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -5,21 +5,32 @@ function                      replaces (hisstools_library_tpu/...)    CUDA sourc
 ============================  ======================================  ======================
 :func:`lag_mac_causal` (K3)   fft/pallas_kernels.py: lag_mac_causal   csrc/lag_mac_causal.cu
 :func:`lag_mac_ring` (K7)     fft/pallas_kernels.py: lag_mac_ring     csrc/lag_mac_ring.cu
+:func:`hop_fire` (K9)         fft/pallas_kernels.py: hop_fire         csrc/hop_fire.cu
+:func:`lag_mac` (K15)         fft/pallas_kernels.py: lag_mac          csrc/lag_mac_ring.cu
 ============================  ======================================  ======================
 
-Each wrapper runs its plain PyTorch version (``<name>_plain``) only for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+K7 and K15 are two entry points of one MAC kernel (rows from one source or
+two, the new ring written or not). Each wrapper runs its plain PyTorch
+version (``<name>_plain``) only for tensors on the CPU; for CUDA tensors it
+launches the kernel or raises.
 Launches are counted in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 
 from .. import _build
 from ..core.types import Split, packed_mul
+
+# K9's envelope: the TPU kernel's sizes (N <= 1024, P <= 256, its unroll
+# bound) without its VMEM model; N >= 32 is the engine's smallest FFT size.
+HOP_FIRE_MIN_N = 32
+HOP_FIRE_MAX_N = 1024
+HOP_FIRE_MAX_P = 256
 
 
 def lag_mac_causal_plain(x_re: torch.Tensor, x_im: torch.Tensor,
@@ -140,3 +151,155 @@ def lag_mac_ring(hist_re: torch.Tensor, hist_im: torch.Tensor,
 
 
 lag_mac_ring.launches = 0
+
+
+def lag_mac_plain(xpad_re: torch.Tensor, xpad_im: torch.Tensor,
+                  h_re: torch.Tensor, h_im: torch.Tensor, t: int,
+                  lead_skip: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Y_t = sum_p V[P-1-p+t] * H_p over V = xpad[..., lead_skip:, :], one
+    packed product per lag, accumulated in place. Any leading axes; ``h_*``
+    broadcasts against ``xpad_*``'s."""
+    p = h_re.shape[-2]
+    acc_re = torch.zeros(xpad_re.shape[:-2] + (t, xpad_re.shape[-1]),
+                         dtype=xpad_re.dtype, device=xpad_re.device)
+    acc_im = torch.zeros_like(acc_re)
+    for lag in range(p):
+        start = lead_skip + p - 1 - lag
+        prod = packed_mul(Split(xpad_re[..., start:start + t, :],
+                                xpad_im[..., start:start + t, :]),
+                          Split(h_re[..., lag:lag + 1, :], h_im[..., lag:lag + 1, :]))
+        acc_re += prod.re
+        acc_im += prod.im
+    return acc_re, acc_im
+
+
+def lag_mac(xpad_re: torch.Tensor, xpad_im: torch.Tensor, h_re: torch.Tensor,
+            h_im: torch.Tensor, t: int, lead_skip: int = 0
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K15: partition MAC over zero-padded spectra.
+
+    ``xpad_*``: (C, S+T+P, K), X_t at row S+t+P (P zeros or history in front,
+    S = ``lead_skip`` ignored leading rows); ``h_*``: (C, P, K) partition
+    spectra (a row slice or a channel-broadcast view is read in place).
+    Returns (C, T, K) packed-correct accumulations Y_t = sum_p
+    V[P-1-p+t] * H_p, V = xpad[:, S:]. Any T and P."""
+    if xpad_re.device.type == "cpu":
+        return lag_mac_plain(xpad_re, xpad_im, h_re, h_im, t, lead_skip)
+    kernel = "K15 lag_mac"
+    _build.check_tensors(kernel, xpad_re, xpad_im)
+    _build.check_tensors(kernel, xpad_re, h_re, h_im, contiguous=False)
+    if xpad_re.dim() != 3 or xpad_im.shape != xpad_re.shape:
+        raise ValueError(f"{kernel}: X planes must be (C, S+T+P, K) of one shape")
+    c, tp, k = xpad_re.shape
+    p = h_re.shape[1] if h_re.dim() == 3 else -1
+    if h_re.shape != (c, p, k) or h_im.shape != h_re.shape:
+        raise ValueError(f"{kernel}: H planes must be (C, P, K) = ({c}, P, {k}), "
+                         f"got {tuple(h_re.shape)} and {tuple(h_im.shape)}")
+    if tp != lead_skip + t + p:
+        raise ValueError(f"{kernel}: {tp} X rows, but lead_skip + T + P = "
+                         f"{lead_skip} + {t} + {p}")
+    h_re, cs = _build.channel_rows(h_re)
+    h_im, cs_im = _build.channel_rows(h_im)
+    if cs_im != cs:
+        h_re, h_im, cs = h_re.contiguous(), h_im.contiguous(), p * k
+    y_re = torch.empty(c, t, k, dtype=torch.float32, device=xpad_re.device)
+    y_im = torch.empty_like(y_re)
+    if c * t * k == 0:
+        return y_re, y_im
+    if p == 0:
+        return y_re.zero_(), y_im.zero_()
+    rc = _build.load().hst_lag_mac(
+        xpad_re.data_ptr(), xpad_im.data_ptr(), h_re.data_ptr(), h_im.data_ptr(),
+        cs, y_re.data_ptr(), y_im.data_ptr(), c, tp, t, p, k, lead_skip,
+        _build.stream(xpad_re.device))
+    _build.check(rc, kernel)
+    lag_mac.launches += 1
+    return y_re, y_im
+
+
+lag_mac.launches = 0
+
+
+def hop_fire_eligible(n: int, p: int) -> bool:
+    """True when K9 serves a section of FFT size ``n`` with ``p`` partitions."""
+    return (HOP_FIRE_MIN_N <= n <= HOP_FIRE_MAX_N and (n & (n - 1)) == 0
+            and 1 <= p <= HOP_FIRE_MAX_P)
+
+
+def hop_fire_plain(frame: torch.Tensor, ring_re: torch.Tensor, ring_im: torch.Tensor,
+                   spec_re: torch.Tensor, spec_im: torch.Tensor):
+    """One firing by ``torch.fft`` and a lag loop: the frame's spectrum joins
+    the oldest-first ring as its newest slot (the oldest leaves), Y = sum_s
+    ring'[s] * H[P-1-s], y = rifft(Y)[N/2:] / (4N)."""
+    from .hopper_fft import rfft_packed_plain, rifft_packed_plain
+
+    n = frame.shape[-1]
+    p = ring_re.shape[-2]
+    xre, xim = rfft_packed_plain(frame)
+    new_re = torch.cat([ring_re[..., 1:, :], xre[..., None, :]], dim=-2)
+    new_im = torch.cat([ring_im[..., 1:, :], xim[..., None, :]], dim=-2)
+    acc_re = torch.zeros_like(xre)
+    acc_im = torch.zeros_like(xim)
+    for s in range(p):
+        prod = packed_mul(Split(new_re[..., s, :], new_im[..., s, :]),
+                          Split(spec_re[..., p - 1 - s, :], spec_im[..., p - 1 - s, :]))
+        acc_re = acc_re + prod.re
+        acc_im = acc_im + prod.im
+    y = rifft_packed_plain(acc_re, acc_im)[..., n // 2:] * (1.0 / (4.0 * n))
+    return new_re, new_im, y
+
+
+def hop_fire(frame: torch.Tensor, ring_re: torch.Tensor, ring_im: torch.Tensor,
+             spec_re: torch.Tensor, spec_im: torch.Tensor):
+    """K9: one hop-boundary firing of a small section (N = 32..1024, P <= 256).
+
+    ``frame``: (..., N) the completed [prev | cur] frame, read in place when
+    its channels lie a constant stride apart (a slice of a staging buffer);
+    ``ring_*``: (..., P, N/2) oldest-first (the pos == 0 layout); ``spec_*``:
+    (..., P, N/2) partition spectra (broadcast over the leading axes, read in
+    place).
+    Returns (new_ring_re, new_ring_im, y) with the new ring in new tensors and
+    y (..., N/2) the kept output samples, scaled by 1/(4N)."""
+    if frame.device.type == "cpu":
+        return hop_fire_plain(frame, ring_re, ring_im, spec_re, spec_im)
+    from .hopper_fft import _twiddles
+
+    kernel = "K9 hop_fire"
+    n = frame.shape[-1]
+    k = n // 2
+    p = ring_re.shape[-2]
+    if not hop_fire_eligible(n, p):
+        raise NotImplementedError(
+            f"{kernel}: serves N = {HOP_FIRE_MIN_N}..{HOP_FIRE_MAX_N}, P = 1.."
+            f"{HOP_FIRE_MAX_P}; got N = {n}, P = {p}")
+    _build.check_tensors(kernel, ring_re, ring_im)
+    _build.check_tensors(kernel, ring_re, frame, spec_re, spec_im, contiguous=False)
+    lead = frame.shape[:-1]
+    c = math.prod(lead)
+    rows = frame.reshape(c, n) if frame.stride(-1) == 1 and frame.dim() <= 2 else \
+        frame.reshape(c, n).contiguous()
+    if ring_re.shape != lead + (p, k) or ring_im.shape != ring_re.shape:
+        raise ValueError(f"{kernel}: ring {tuple(ring_re.shape)} does not fit "
+                         f"the frame {tuple(frame.shape)} as (..., P, N/2)")
+    hr = spec_re.expand(lead + (p, k)).reshape(c, p, k)
+    hi = spec_im.expand(lead + (p, k)).reshape(c, p, k)
+    hr, cs = _build.channel_rows(hr)
+    hi, cs_im = _build.channel_rows(hi)
+    if cs_im != cs:
+        hr, hi, cs = hr.contiguous(), hi.contiguous(), p * k
+    new_re = torch.empty_like(ring_re)
+    new_im = torch.empty_like(ring_im)
+    y = torch.empty(lead + (k,), dtype=torch.float32, device=frame.device)
+    if c == 0:
+        return new_re, new_im, y
+    rc = _build.load().hst_hop_fire(
+        rows.data_ptr(), rows.stride(0), ring_re.data_ptr(), ring_im.data_ptr(), hr.data_ptr(),
+        hi.data_ptr(), cs, new_re.data_ptr(), new_im.data_ptr(), y.data_ptr(),
+        _twiddles(n, frame.device).data_ptr(), c, p, n, 1.0 / (4.0 * n),
+        _build.stream(frame.device))
+    _build.check(rc, kernel)
+    hop_fire.launches += 1
+    return new_re, new_im, y
+
+
+hop_fire.launches = 0

@@ -19,13 +19,22 @@ blocks that are whole multiples of the largest hop (:func:`process`).
 - otherwise the per-section path: the head (``time_domain``) and each section
   through :meth:`PartitionedConvolve.process`.
 
+:func:`process_any` is the sample-granular path: blocks of ANY length (an
+audio callback's), each section firing only where its own hop boundary falls
+(:meth:`partitioned.PartitionedConvolve.step_any`; K9 for the sections at N <=
+1024, K1 -> MAC -> K6 above). :func:`stream_state_from_aligned` and
+:func:`stream_state_from_block` hand a hop-aligned stream over to it.
+:func:`process_offline` convolves a whole signal with no sequential
+dependency: through the prepared offline tail (one uniform engine, K2 -> K3
+-> K4), or section by section (the small ones as direct FIRs whose taps come
+back through K11, the large ones through the fused chain).
+
 Every function returns new states and leaves the ones it was given as they
 were. States and prepared IRs convert to and from numpy (``from_numpy`` /
 ``numpy``), so a stream of the JAX package continues here and the reverse.
+Entry points build on the card unless ``device`` names another.
 
-Not ported yet (they need K6 and K9): ``process_any``, ``init_stream_state``,
-``stream_state_from_aligned`` / ``stream_state_from_block`` and
-``process_offline``; the ``debug_stages`` hook of ``MonoConvolve.set``.
+Not ported yet: the ``debug_stages`` hook of ``MonoConvolve.set``.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ import numpy as np
 import torch
 
 from ..core.errors import ConvolveError, ConvolveException
-from ..core.types import Split, array_from, tensor_from
+from ..core.types import Split, array_from, resolve_device, tensor_from
 from ..fft import api as fft_api
 from . import partitioned as part
 from . import time_domain as td
@@ -153,13 +162,36 @@ class MonoState:
     @classmethod
     def from_numpy(cls, src, device=None) -> "MonoState":
         """From any object with these fields holding arrays (the JAX
-        package's ``MonoState``, or :meth:`numpy`'s result)."""
+        package's ``MonoState``, or :meth:`numpy`'s result), copied onto
+        ``device`` (the card unless named)."""
         return cls(tensor_from(src.head, device),
                    tuple(part.PartitionedState.from_numpy(s, device)
                          for s in src.sections))
 
     def numpy(self) -> "MonoState":
         return MonoState(array_from(self.head), tuple(s.numpy() for s in self.sections))
+
+
+@dataclasses.dataclass
+class MonoStreamState:
+    """Sample-granular streaming state: TD-head tail + one
+    :class:`partitioned.StreamState` per section. :func:`process_any` takes
+    blocks of any length with it (reference Convolver::process semantics,
+    Convolver.cpp:138-154: the engine, not the caller, owns hop alignment)."""
+    head: torch.Tensor
+    sections: Tuple[part.StreamState, ...]
+
+    @classmethod
+    def from_numpy(cls, src, device=None) -> "MonoStreamState":
+        """From any object with these fields holding arrays (the JAX
+        package's ``MonoStreamState``, or :meth:`numpy`'s result), copied
+        onto ``device`` (the card unless named)."""
+        return cls(tensor_from(src.head, device),
+                   tuple(part.StreamState.from_numpy(s, device) for s in src.sections))
+
+    def numpy(self) -> "MonoStreamState":
+        return MonoStreamState(array_from(self.head),
+                               tuple(s.numpy() for s in self.sections))
 
 
 @dataclasses.dataclass
@@ -183,7 +215,8 @@ class MonoIR:
     @classmethod
     def from_numpy(cls, src, device=None) -> "MonoIR":
         """From any object with these fields holding arrays (the JAX
-        package's ``MonoIR``, or :meth:`numpy`'s result)."""
+        package's ``MonoIR``, or :meth:`numpy`'s result), copied onto
+        ``device`` (the card unless named)."""
         return cls(tensor_from(src.head_taps, device),
                    tuple(Split.from_numpy(s, device) for s in src.spectra),
                    _split_or_none(src.tail, device), int(src.tail_shift),
@@ -214,7 +247,8 @@ class MonoBlockState:
     @classmethod
     def from_numpy(cls, src, device=None) -> "MonoBlockState":
         """From any object with these fields holding arrays (the JAX
-        package's ``MonoBlockState``, or :meth:`numpy`'s result)."""
+        package's ``MonoBlockState``, or :meth:`numpy`'s result), copied
+        onto ``device`` (the card unless named)."""
         return cls(part.PartitionedState.from_numpy(src.near, device),
                    part.PartitionedState.from_numpy(src.far, device),
                    tensor_from(src.hist, device), int(np.asarray(src.hpos)))
@@ -236,6 +270,7 @@ class MonoConvolve:
         self.plans = self.scheme.sections()
         self.ir: Optional[MonoIR] = None
         self.length = 0
+        self._ir_host = None  # held only until a lazy offline tail is built
 
     def resize(self, length: int) -> ConvolveError:
         """Grow the final section's capacity (reference MonoConvolve::resize,
@@ -246,10 +281,15 @@ class MonoConvolve:
     def set(self, ir, dtype: torch.dtype = torch.float32, request_resize: bool = True,
             backend: Optional[str] = None, offline_tail: Optional[bool] = None,
             device=None) -> ConvolveError:
-        """Prepare the IR on ``device``: head taps + per-section partition
-        spectra (reference MonoConvolve::set, :118-140). The offline tail is
-        built only with ``offline_tail=True`` (offline processing is not
-        ported yet, so nothing here reads it)."""
+        """Prepare the IR on ``device`` (the card unless named): head taps +
+        per-section partition spectra (reference MonoConvolve::set,
+        :118-140).
+
+        ``offline_tail``: None (the default) builds the throughput-optimal
+        offline tail lazily, on the first :meth:`process_offline` (an extra
+        full-IR transform and about an IR's worth of device memory that
+        streaming never touches); True builds it now; False never builds it
+        (per-section offline processing)."""
         ir = np.asarray(ir)
         err = ConvolveError.NONE
         if ir.shape[-1] > self.max_length:
@@ -261,6 +301,9 @@ class MonoConvolve:
                 # capacity, and the error reports the truncation.
                 err = ConvolveError.MEM_ALLOC_TOO_SMALL
                 ir = ir[..., :self.max_length]
+        # The host IR is kept only to build a lazy tail, and released then.
+        self._ir_host = ir if offline_tail is None else None
+        self._dtype, self._backend = dtype, backend
         self.ir = prepare_ir(self.scheme, ir, self.max_length, dtype, backend,
                              offline_tail=bool(offline_tail), device=device)
         self.length = ir.shape[-1]
@@ -287,16 +330,42 @@ class MonoConvolve:
     def process(self, state, x: torch.Tensor, backend: Optional[str] = None):
         return process(self.ir, state, x, backend=backend)
 
+    def init_stream_state(self, batch_shape=(), dtype: torch.dtype = torch.float32
+                          ) -> MonoStreamState:
+        if self.ir is None:
+            raise ConvolveException(ConvolveError.MEM_UNAVAILABLE, "no IR set")
+        return init_stream_state(self.scheme, self.ir, batch_shape, dtype)
+
+    def process_any(self, state: MonoStreamState, x: torch.Tensor,
+                    backend: Optional[str] = None
+                    ) -> Tuple[MonoStreamState, torch.Tensor]:
+        """Stream a block of ANY length (the sample-granular real-time path)."""
+        return process_any(self.ir, state, x, backend=backend)
+
+    def process_offline(self, x: torch.Tensor,
+                        backend: Optional[str] = None) -> torch.Tensor:
+        """Convolve a whole signal (:func:`process_offline`). After a
+        ``set(..., offline_tail=None)`` the first call attaches the offline
+        tail to the prepared IR; the head and section spectra do not depend
+        on it and are kept."""
+        if self.ir is not None and self.ir.tail is None and self._ir_host is not None:
+            tail, shift = _make_offline_tail(self.scheme, self._ir_host, self._dtype,
+                                             self._backend, self.ir.head_taps.device)
+            self.ir = dataclasses.replace(self.ir, tail=tail, tail_shift=shift)
+            self._ir_host = None
+        return process_offline(self.ir, x, backend=backend)
+
 
 # -- pure functional API ---------------------------------------------------------
 
 def prepare_ir(scheme: PartitionScheme, ir, max_length: int = 0,
                dtype: torch.dtype = torch.float32, backend: Optional[str] = None,
                offline_tail: bool = True, device=None) -> MonoIR:
-    """Build the prepared IR for a scheme on ``device``. ``ir``: (..., L)
-    host array. ``max_length`` > 0 clamps the IR to that many taps. With
-    ``offline_tail`` the whole IR is also partitioned at the offline-optimal
-    uniform FFT size (:attr:`MonoIR.tail`)."""
+    """Build the prepared IR for a scheme on ``device`` (the card unless
+    named). ``ir``: (..., L) host array. ``max_length`` > 0 clamps the IR to
+    that many taps. With ``offline_tail`` the whole IR is also partitioned at
+    the offline-optimal uniform FFT size (:attr:`MonoIR.tail`)."""
+    device = resolve_device(device)
     ir = np.asarray(ir)
     if max_length and ir.shape[-1] > max_length:
         ir = ir[..., :max_length]
@@ -392,6 +461,22 @@ def init_state(scheme: PartitionScheme, ir: MonoIR, batch_shape=(),
                      tuple(sections))
 
 
+def init_stream_state(scheme: PartitionScheme, ir: MonoIR, batch_shape=(),
+                      dtype: torch.dtype = torch.float32, device=None) -> MonoStreamState:
+    """Fresh sample-granular state (the any-block-size path), on the IR's
+    device unless ``device`` is given."""
+    device = ir.head_taps.device if device is None else device
+    shape = tuple(batch_shape)
+    head_len = max(int(ir.head_taps.shape[-1]) - 1, 1)
+    sections = []
+    for plan, spec in zip(scheme.sections(), ir.spectra):
+        eng = part.PartitionedConvolve(plan.fft_size)
+        eng.spectra = spec
+        sections.append(eng.init_stream_state(shape, dtype, device))
+    return MonoStreamState(torch.zeros(shape + (head_len,), dtype=dtype, device=device),
+                           tuple(sections))
+
+
 def init_block_state(scheme: PartitionScheme, ir: MonoIR, batch_shape=(),
                      dtype: torch.dtype = torch.float32, device=None) -> MonoBlockState:
     """Fresh state for the two-tier path (requires an IR prepared with a far
@@ -427,15 +512,19 @@ def init_block_state(scheme: PartitionScheme, ir: MonoIR, batch_shape=(),
 def _hist_push(hist: torch.Tensor, hpos: int, x: torch.Tensor
                ) -> Tuple[torch.Tensor, int]:
     """Append ``x``'s hop rows to the raw-history ring (oldest at ``hpos``),
-    as a new tensor."""
+    as a new tensor: at most two slice copies, no index tensor built on the
+    host."""
     s = hist.shape[-2]
     h = hist.shape[-1]
     t = x.shape[-1] // h
     rows = x.reshape(*x.shape[:-1], t, h).to(hist.dtype)
     if t >= s:
         return rows[..., t - s:, :].clone(), 0
-    idx = torch.tensor([(hpos + j) % s for j in range(t)], device=hist.device)
-    return hist.index_copy(hist.dim() - 2, idx, rows), (hpos + t) % s
+    out = hist.clone()
+    first = min(t, s - hpos)  # rows up to the ring's end, the rest wrap to 0
+    out[..., hpos:hpos + first, :] = rows[..., :first, :]
+    out[..., :t - first, :] = rows[..., first:, :]
+    return out, (hpos + t) % s
 
 
 def _hist_linear(hist: torch.Tensor, hpos: int) -> torch.Tensor:
@@ -492,6 +581,48 @@ def aligned_state_from_block(ir: MonoIR, state: MonoBlockState,
     sections = tuple(_refresh_aligned_section(spec, tail, backend)
                      for spec in ir.spectra)
     return MonoState(head, sections)
+
+
+def stream_state_from_block(ir: MonoIR, state: MonoBlockState,
+                            backend: Optional[str] = None) -> MonoStreamState:
+    """Hand a two-tier block state to the sample-granular path."""
+    return stream_state_from_aligned(
+        ir, aligned_state_from_block(ir, state, backend), backend)
+
+
+def stream_state_from_aligned(ir: MonoIR, state: MonoState,
+                              backend: Optional[str] = None) -> MonoStreamState:
+    """Lift a hop-aligned :class:`MonoState` into the sample-granular form;
+    streaming continues from the hop boundary as if it had never left the
+    aligned form (each section's output store comes from its ring: K11 at
+    N = 256, 1024 and K6 at 4096, 16384 on the card)."""
+    sections = tuple(
+        part.PartitionedConvolve.stream_from_aligned(spec, sec, backend)
+        for spec, sec in zip(ir.spectra, state.sections))
+    return MonoStreamState(state.head, sections)
+
+
+def process_any(ir: MonoIR, state: MonoStreamState, x: torch.Tensor,
+                backend: Optional[str] = None
+                ) -> Tuple[MonoStreamState, torch.Tensor]:
+    """Stream a block of ANY length through the scheme. Each section fires
+    only on its own hop boundaries: the reference's per-section RW counters
+    (PartitionedConvolve.cpp:243-385) threaded through MonoConvolve::process
+    (MonoConvolve.cpp:179-201). The head is the grouped conv1d of
+    :mod:`time_domain`, in full FP32 (TF32 off). The outputs are summed in
+    place into the head's (a new tensor), never into a section's."""
+    head_state = state.head
+    if ir.head_taps.shape[-1]:
+        head_state, out = td.TimeDomainConvolve.process(ir.head_taps, state.head, x)
+    else:
+        out = torch.zeros_like(x)
+    new_sections = []
+    for spec, sec_state in zip(ir.spectra, state.sections):
+        sec_state, y = part.PartitionedConvolve.step_any(spec, sec_state, x,
+                                                         backend=backend)
+        new_sections.append(sec_state)
+        out += y
+    return MonoStreamState(head_state, tuple(new_sections)), out
 
 
 def block_state_from_hist(ir: MonoIR, hist: torch.Tensor,
@@ -585,3 +716,71 @@ def _process_block_collapsed(ir: MonoIR, state: MonoState, x: torch.Tensor,
                     for spec in ir.spectra[:-1]]
     new_sections.append(new_big)
     return MonoState(head_state, tuple(new_sections)), out
+
+
+# Sections at or below this FFT size run as direct FIRs offline (the TPU
+# package's threshold, kept so both packages split a scheme alike): a
+# few-thousand-tap depthwise convolution instead of thousands of tiny hops.
+_DIRECT_SECTION_MAX_FFT = 1024
+_DIRECT_SECTION_MAX_TAPS = 4096
+
+
+def _direct_eligible(fft_size: int, partitions: int) -> bool:
+    """The offline direct-FIR predicate (shared by every caller, so no
+    section is dropped or counted twice)."""
+    h = fft_size >> 1
+    return (fft_size <= _DIRECT_SECTION_MAX_FFT
+            and h * (partitions + 1) <= _DIRECT_SECTION_MAX_TAPS)
+
+
+def section_taps_from_spectra(spec: Split) -> torch.Tensor:
+    """A section's equivalent direct-FIR taps from its partition spectra: H
+    zero taps (the section emits window tap m at delay H + m) followed by the
+    IR window (rifft(rfft(c)) = 2N c; K11 at N = 256, 1024 on the card)."""
+    h = spec.shape[-1]
+    n = 2 * h
+    chunks = fft_api.rifft(spec.re, spec.im) * (1.0 / (2.0 * n))  # (..., P, N)
+    lead = spec.re.shape[:-2]
+    window = chunks[..., :h].reshape(*lead, spec.shape[-2] * h)
+    return torch.cat([window.new_zeros(lead + (h,)), window], dim=-1)
+
+
+def _section_offline_direct(spec: Split, x: torch.Tensor) -> torch.Tensor:
+    """One small section evaluated as a direct FIR instead of overlap-save
+    (a grouped conv1d in full FP32, TF32 off)."""
+    return td.fir_offline(x, section_taps_from_spectra(spec)).to(x.dtype)
+
+
+def _tail_offline(tail: Split, x: torch.Tensor, shift: int,
+                  backend: Optional[str]) -> torch.Tensor:
+    """The re-partitioned IR as one uniform engine, its output realigned by
+    dropping ``shift`` leading samples. With the "pallas" backend (the
+    default on CUDA) it is the fused chain K2 -> K3 -> K4."""
+    if fft_api._resolve(backend, x.device) == "pallas":
+        y = part.PartitionedConvolve._process_offline_fused(tail, x, shift=shift)
+        if y is not None:
+            return y
+    L = x.shape[-1]
+    y = part.PartitionedConvolve.process_offline(
+        tail, torch.nn.functional.pad(x, (0, shift)), backend=backend)
+    return y[..., shift:shift + L]
+
+
+def process_offline(ir: MonoIR, x: torch.Tensor,
+                    backend: Optional[str] = None) -> torch.Tensor:
+    """Whole-signal convolution through the scheme, with no sequential
+    dependency. With the prepared offline tail it is one uniform engine over
+    the whole IR; otherwise the head and the small sections run as direct
+    FIRs and the larger sections through the partitioned offline engine
+    (the fused chain with the "pallas" backend)."""
+    if ir.tail is not None:
+        return _tail_offline(ir.tail, x, ir.tail_shift, backend)
+    out = torch.zeros_like(x)
+    if ir.head_taps.shape[-1]:
+        out = out + td.fir_offline(x, ir.head_taps)
+    for spec in ir.spectra:
+        if _direct_eligible(2 * spec.shape[-1], spec.shape[-2]):
+            out = out + _section_offline_direct(spec, x)
+        else:
+            out = out + part.PartitionedConvolve.process_offline(spec, x, backend=backend)
+    return out

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.types import Split
+from ..core.types import Split, resolve_device
 from ..fft import api as fft_api
 from . import partitioned as part
 
@@ -50,11 +50,12 @@ class FastFIR:
     def from_spectra(cls, re, im, device=None,
                      backend: Optional[str] = None) -> "FastFIR":
         """An engine over packed spectra (..., P, N/2) prepared elsewhere,
-        for example a TPU-package FastFIR's ``spectra`` as numpy arrays.
-        ``ir_len`` is then the partitioned length P * N/2."""
+        for example a TPU-package FastFIR's ``spectra`` as numpy arrays,
+        copied onto ``device`` (the card unless named). ``ir_len`` is then
+        the partitioned length P * N/2."""
         eng = cls.__new__(cls)
         spectra = Split(torch.from_numpy(np.array(re)), torch.from_numpy(np.array(im)))
-        eng.spectra = spectra.to(device)
+        eng.spectra = spectra.to(resolve_device(device))
         eng.hop = spectra.shape[-1]
         eng.fft_size = 2 * eng.hop
         eng.ir_len = spectra.shape[-2] * eng.hop

@@ -2,12 +2,13 @@
 
 Counterpart of ``hisstools_library_tpu/models/partitioned.py``:
 ``validate_fft_size``, ``impulse_spectra``, ``_lag_mac_dispatch``,
-``PartitionedState``, and ``PartitionedConvolve`` with its offline path
-(``process_offline`` / ``_process_offline_fused``) and its hop-aligned
-streaming path (``set``, ``init_state``, ``process``, ``process_block``,
-``_slot_normalise``). The sample-granular path (``step``, ``step_any``,
-``StreamState``, ``stream_from_aligned``) is not ported yet: it needs K6 and
-K9.
+``PartitionedState``, ``StreamState``, and ``PartitionedConvolve`` with its
+offline path (``process_offline`` / ``_process_offline_fused``), its
+hop-aligned streaming path (``set``, ``init_state``, ``process``,
+``process_block``, ``_slot_normalise``) and its sample-granular path
+(``init_stream_state``, ``step_any``, ``step``, ``_fire``, ``_emit``,
+``stream_from_aligned``, ``stream_to_aligned``), which takes blocks of any
+length and fires a section only where a hop boundary falls.
 
 A section with FFT size N (hop H = N/2) emits ``conv(x, ir)`` delayed by one
 hop. Output = inverse of the accumulated spectra x ``1/(4N)``, the reference's
@@ -27,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.errors import ConvolveError, ConvolveException
-from ..core.types import Split, array_from, packed_mul, tensor_from
+from ..core.types import Split, array_from, packed_mul, resolve_device, tensor_from
 from ..fft import api as fft_api
 from ..fft import hopper_fft, hopper_kernels
 
@@ -60,8 +61,9 @@ def impulse_spectra(ir, fft_size: int, offset: int = 0, length: int = 0,
     PartitionedConvolve::set, :173-225).
 
     ``ir``: (..., L) array. Returns a packed Split of shape (..., P, N/2) on
-    ``device``. The chunks are framed in ``dtype`` on the device: zero
-    padding and the cast commute, so this equals framing in float64 first."""
+    ``device`` (the card unless named). The chunks are framed in ``dtype`` on
+    the device: zero padding and the cast commute, so this equals framing in
+    float64 first."""
     validate_fft_size(fft_size)
     h = fft_size >> 1
     ir = np.asarray(ir)
@@ -70,7 +72,8 @@ def impulse_spectra(ir, fft_size: int, offset: int = 0, length: int = 0,
     if length:
         take = min(take, length)
     p = max(1, -(-take // h))  # at least one (zero) partition
-    chunk = torch.as_tensor(ir[..., offset:offset + take]).to(device=device, dtype=dtype)
+    chunk = torch.as_tensor(ir[..., offset:offset + take]).to(
+        device=resolve_device(device), dtype=dtype)
     frames = F.pad(chunk, (0, p * h - take)).reshape(ir.shape[:-1] + (p, h))
     frames = F.pad(frames, (0, h))  # zero-pad each chunk to N
     re, im = fft_api.rfft(frames.contiguous(), backend=backend)
@@ -80,33 +83,27 @@ def impulse_spectra(ir, fft_size: int, offset: int = 0, length: int = 0,
 def _lag_mac_dispatch(xp_re: torch.Tensor, xp_im: torch.Tensor,
                       h_re: torch.Tensor, h_im: torch.Tensor, t: int,
                       mac_backend: str):
-    """Partition MAC over zero-padded spectra, one pass per lag.
+    """Partition MAC over zero-padded spectra.
 
     ``xp_*``: (..., T+P, K) zero-padded spectra; ``h_*``: (..., P, K).
     Returns packed-correct (..., T, K) accumulations. Routed as the TPU
-    package routes it: off the CPU, ``mac_backend="pallas"``, and ``"auto"``
-    at P <= 512, take the Pallas form (K15, ``pallas_kernels.py: lag_mac``),
-    which is not ported, so they raise on a CUDA tensor; ``"xla"`` (and
-    every call on the CPU) runs the loop form in torch ops."""
+    package routes it: ``mac_backend="pallas"``, and ``"auto"`` at P <= 512
+    off the CPU, take K15 :func:`hopper_kernels.lag_mac` (its plain version
+    on a CPU tensor); ``"xla"``, and ``"auto"`` on the CPU or above the
+    bound, run the loop form in torch ops."""
     p = h_re.shape[-2]
-    if xp_re.device.type != "cpu" and (
-            mac_backend == "pallas"
-            or (mac_backend == "auto" and p <= MAX_MAC_PARTITIONS)):
-        raise NotImplementedError(
-            f"mac_backend={mac_backend!r} off the CPU: K15 lag_mac "
-            "(fft/pallas_kernels.py:109) is not ported to the GPU yet; pass "
-            "mac_backend='xla' for the torch loop")
-    acc_re = torch.zeros(xp_re.shape[:-2] + (t, xp_re.shape[-1]),
-                         dtype=xp_re.dtype, device=xp_re.device)
-    acc_im = torch.zeros_like(acc_re)
-    for lag in range(p):
-        start = p - 1 - lag
-        prod = packed_mul(Split(xp_re[..., start:start + t, :],
-                                xp_im[..., start:start + t, :]),
-                          Split(h_re[..., lag:lag + 1, :], h_im[..., lag:lag + 1, :]))
-        acc_re += prod.re
-        acc_im += prod.im
-    return acc_re, acc_im
+    k = xp_re.shape[-1]
+    if mac_backend == "pallas" or (
+            mac_backend == "auto" and xp_re.device.type != "cpu"
+            and p <= MAX_MAC_PARTITIONS):
+        lead = xp_re.shape[:-2]
+        c = math.prod(lead)
+        y_re, y_im = hopper_kernels.lag_mac(
+            xp_re.reshape(c, t + p, k), xp_im.reshape(c, t + p, k),
+            h_re.expand(lead + (p, k)).reshape(c, p, k),
+            h_im.expand(lead + (p, k)).reshape(c, p, k), t)
+        return y_re.reshape(lead + (t, k)), y_im.reshape(lead + (t, k))
+    return hopper_kernels.lag_mac_plain(xp_re, xp_im, h_re, h_im, t)
 
 
 @dataclasses.dataclass
@@ -130,6 +127,38 @@ class PartitionedState:
     def numpy(self) -> "PartitionedState":
         """The same state with host numpy arrays in place of tensors."""
         return PartitionedState(array_from(self.prev), self.ring.numpy(), self.pos)
+
+
+@dataclasses.dataclass
+class StreamState:
+    """Sample-granular streaming state for any callback block size: the
+    reference's RW-counter main loop (PartitionedConvolve.cpp:243-385) made
+    explicit. ``win``: the last N input samples; ``out_buf``: the H-sample
+    output store of the current hop period; ``phase``: samples consumed since
+    the last hop boundary; ``ring``/``pos``: the spectra ring, as in
+    :class:`PartitionedState`. ``phase`` and ``pos`` are host ints, so no
+    call reads a scalar back from the card."""
+
+    win: torch.Tensor      # (..., N)
+    out_buf: torch.Tensor  # (..., H)
+    phase: int
+    ring: Split            # (..., P, N/2)
+    pos: int
+
+    @classmethod
+    def from_numpy(cls, src, device=None) -> "StreamState":
+        """A state from any object with these fields holding arrays: the JAX
+        package's ``StreamState`` (to continue its stream here) or
+        :meth:`numpy`'s result, copied onto ``device`` (the card unless
+        named)."""
+        return cls(tensor_from(src.win, device), tensor_from(src.out_buf, device),
+                   int(np.asarray(src.phase)), Split.from_numpy(src.ring, device),
+                   int(np.asarray(src.pos)))
+
+    def numpy(self) -> "StreamState":
+        """The same state with host numpy arrays in place of tensors."""
+        return StreamState(array_from(self.win), array_from(self.out_buf), self.phase,
+                           self.ring.numpy(), self.pos)
 
 
 class PartitionedConvolve:
@@ -170,9 +199,11 @@ class PartitionedConvolve:
 
     def init_state(self, batch_shape=(), dtype: torch.dtype = torch.float32,
                    device=None) -> PartitionedState:
-        """A fresh state, on the spectra's device unless ``device`` is given."""
+        """A fresh state, on the spectra's device unless ``device`` is given
+        (the card when neither is)."""
         if device is None and self.spectra is not None:
             device = self.spectra.re.device
+        device = resolve_device(device)
         p = max(self.num_partitions, 1)
         shape = tuple(batch_shape)
         return PartitionedState(
@@ -180,13 +211,179 @@ class PartitionedConvolve:
             ring=Split.zeros(shape + (p, self.hop), dtype, device),
             pos=0)
 
+    def init_stream_state(self, batch_shape=(), dtype: torch.dtype = torch.float32,
+                          device=None) -> StreamState:
+        """A fresh sample-granular state, on the spectra's device unless
+        ``device`` is given (the card when neither is)."""
+        if device is None and self.spectra is not None:
+            device = self.spectra.re.device
+        device = resolve_device(device)
+        p = max(self.num_partitions, 1)
+        shape = tuple(batch_shape)
+        return StreamState(
+            win=torch.zeros(shape + (self.fft_size,), dtype=dtype, device=device),
+            out_buf=torch.zeros(shape + (self.hop,), dtype=dtype, device=device),
+            phase=0, ring=Split.zeros(shape + (p, self.hop), dtype, device), pos=0)
+
     @staticmethod
     def _slot_normalise(ring: Split, pos: int) -> Split:
         """Reorder ring slots oldest-first (the pos == 0 layout): slot
-        (pos + k) mod P holds the spectrum of age P - k."""
-        p = ring.shape[-2]
-        order = torch.tensor([(pos + k) % p for k in range(p)], device=ring.re.device)
-        return Split(ring.re.index_select(-2, order), ring.im.index_select(-2, order))
+        (pos + k) mod P holds the spectrum of age P - k. A roll, so no index
+        tensor is built on the host."""
+        return Split(torch.roll(ring.re, -pos, dims=-2), torch.roll(ring.im, -pos, dims=-2))
+
+    # -- sample-granular path ------------------------------------------------
+
+    @staticmethod
+    def _emit(spectra: Split, ring: Split, pos: int,
+              backend: Optional[str] = None) -> torch.Tensor:
+        """Output store for the hop period starting now: the MAC across
+        partitions with :meth:`step`'s slot mapping (slot s holds lag
+        (pos - 1 - s) mod P), the inverse (K6 at N >= 4096, K11 below, on
+        the card), the kept half, 1/(4N).
+
+        The TPU package runs this MAC as plain XLA; here it is torch ops
+        accumulated lag by lag in place, so no (..., P, K) product is ever
+        materialised (at the Zero preset's final section, (128, 58, 8192),
+        that would be two 487 MB temporaries per firing)."""
+        p = spectra.shape[-2]
+        h = spectra.shape[-1]
+        n = 2 * h
+        lead = torch.broadcast_shapes(ring.re.shape[:-2], spectra.re.shape[:-2])
+        acc_re = torch.zeros(lead + (h,), dtype=ring.re.dtype, device=ring.re.device)
+        acc_im = torch.zeros_like(acc_re)
+        for s in range(p):
+            lag = (pos - 1 - s) % p
+            rr, ri = ring.re[..., s, :], ring.im[..., s, :]
+            hr, hi = spectra.re[..., lag, :], spectra.im[..., lag, :]
+            acc_re.addcmul_(rr, hr).addcmul_(ri, hi, value=-1.0)
+            acc_im.addcmul_(rr, hi).addcmul_(ri, hr)
+        # The packed (DC, Nyquist) lane: two real MACs. Spectra of bin 0 in
+        # slot order: slot s takes H[(pos - 1 - s) mod P] = roll(flip(H), pos).
+        h0_re = torch.roll(torch.flip(spectra.re[..., 0], dims=(-1,)), pos, dims=-1)
+        h0_im = torch.roll(torch.flip(spectra.im[..., 0], dims=(-1,)), pos, dims=-1)
+        acc_re[..., 0] = (ring.re[..., 0] * h0_re).sum(-1)
+        acc_im[..., 0] = (ring.im[..., 0] * h0_im).sum(-1)
+        y = fft_api.rifft(acc_re, acc_im, backend=backend)
+        return y[..., h:] * (1.0 / (4.0 * n))
+
+    @staticmethod
+    def _insert(ring: Split, pos: int, re: torch.Tensor, im: torch.Tensor) -> Split:
+        """A new ring with the spectrum (re, im) at slot ``pos``."""
+        new_re, new_im = ring.re.clone(), ring.im.clone()
+        new_re[..., pos, :] = re
+        new_im[..., pos, :] = im
+        return Split(new_re, new_im)
+
+    @staticmethod
+    def _fire(spectra: Split, ring: Split, pos: int, frame: torch.Tensor,
+              backend: Optional[str] = None) -> Tuple[Split, int, torch.Tensor]:
+        """Hop-boundary work (reference PartitionedConvolve.cpp:352-377): the
+        completed [prev | cur] frame's spectrum joins the ring, then the next
+        hop period's output store is computed. Returns (ring, pos, store).
+
+        With the "pallas" backend (the default on CUDA), float32 and a small
+        section (N = 32..1024, P <= 256) the whole firing is one K9 launch
+        (:func:`hopper_kernels.hop_fire`), which keeps the ring oldest-first
+        (pos == 0). A ring with pos != 0 (a JAX package state whose section
+        did not fit its TPU kernel, or one from :meth:`step`) is
+        slot-normalised once, before its first K9 firing; pos then stays 0.
+        Otherwise the frame is transformed (``fft_api.rfft``), written at
+        slot ``pos`` of a new ring, and :meth:`_emit` runs."""
+        p = spectra.shape[-2]
+        n = frame.shape[-1]
+        resolved = fft_api._resolve(backend, frame.device)
+        if (resolved == "pallas" and frame.dtype == torch.float32
+                and hopper_kernels.hop_fire_eligible(n, p)):
+            if pos % p:
+                ring = PartitionedConvolve._slot_normalise(ring, pos)
+            rr, ri, y = hopper_kernels.hop_fire(frame, ring.re.contiguous(),
+                                                ring.im.contiguous(), spectra.re,
+                                                spectra.im)
+            return Split(rr, ri), 0, y
+        ring = PartitionedConvolve._insert(
+            ring, pos, *fft_api.rfft(frame.contiguous(), backend=resolved))
+        pos = (pos + 1) % p
+        return ring, pos, PartitionedConvolve._emit(spectra, ring, pos, resolved)
+
+    @staticmethod
+    def stream_from_aligned(spectra: Split, state: PartitionedState,
+                            backend: Optional[str] = None) -> StreamState:
+        """Lift a hop-aligned state into the sample-granular form (phase 0).
+
+        The output store is computed from the current ring (what the next
+        :meth:`step` would emit), so streaming continues from the hop
+        boundary as if it had never left the aligned form. The ring is
+        slot-normalised to pos == 0, K9's layout."""
+        win = torch.cat([torch.zeros_like(state.prev), state.prev], dim=-1)
+        out_buf = PartitionedConvolve._emit(spectra, state.ring, state.pos, backend)
+        ring = state.ring
+        if state.pos % spectra.shape[-2]:
+            ring = PartitionedConvolve._slot_normalise(ring, state.pos)
+        return StreamState(win, out_buf, 0, ring, 0)
+
+    @staticmethod
+    def stream_to_aligned(state: StreamState) -> PartitionedState:
+        """Project back to the hop-aligned form. Valid only on a hop boundary
+        (``phase == 0``): between boundaries there is no aligned equivalent,
+        and this raises."""
+        if state.phase:
+            raise ValueError(f"stream_to_aligned needs a hop boundary (phase 0), "
+                             f"got phase {state.phase}")
+        h = state.out_buf.shape[-1]
+        return PartitionedState(prev=state.win[..., h:].clone(), ring=state.ring,
+                                pos=state.pos)
+
+    @staticmethod
+    def step_any(spectra: Split, state: StreamState, x: torch.Tensor,
+                 backend: Optional[str] = None) -> Tuple[StreamState, torch.Tensor]:
+        """Process a block of ANY length, the reference's main loop semantics
+        (PartitionedConvolve.cpp:243-385): stage the input, dole out the
+        output store, and fire (:meth:`_fire`) only where a hop boundary is
+        crossed.
+
+        With phase p the block crosses k = (p + L) // H boundaries. The phase
+        is a host int, so k is known before any work is queued: the TPU
+        package's ``lax.cond`` on the trailing partial hop becomes a Python
+        branch and no scalar is read back from the card. Returns a new state
+        and leaves ``state`` as it was."""
+        h = spectra.shape[-1]
+        n = 2 * h
+        L = x.shape[-1]
+        phase = state.phase
+        k = (phase + L) // h
+        if k == 0:  # inside one hop period: stage the input, dole out the store
+            win = torch.cat([state.win[..., L:], x], dim=-1)
+            out = state.out_buf[..., phase:phase + L].clone()
+            return dataclasses.replace(state, win=win, phase=phase + L), out
+        buf = torch.cat([state.win, x], dim=-1)                 # (..., N + L)
+        ring, pos = state.ring, state.pos
+        ys = []
+        for j in range(k):
+            start = h - phase + j * h
+            ring, pos, y = PartitionedConvolve._fire(spectra, ring, pos,
+                                                     buf[..., start:start + n], backend)
+            ys.append(y)
+        outcat = torch.cat([state.out_buf] + ys, dim=-1)
+        out = outcat[..., phase:phase + L]
+        new_state = StreamState(win=buf[..., buf.shape[-1] - n:].clone(),
+                                out_buf=outcat[..., k * h:(k + 1) * h].clone(),
+                                phase=phase + L - k * h, ring=ring, pos=pos)
+        return new_state, out
+
+    @staticmethod
+    def step(spectra: Split, state: PartitionedState, block: torch.Tensor,
+             backend: Optional[str] = None) -> Tuple[PartitionedState, torch.Tensor]:
+        """One hop: emit from the current ring (spectra X_{t-1}..X_{t-P}),
+        then insert X_t at slot ``pos`` of a new ring. ``block`` is exactly H
+        samples."""
+        p = spectra.shape[-2]
+        out = PartitionedConvolve._emit(spectra, state.ring, state.pos, backend)
+        ring = PartitionedConvolve._insert(
+            state.ring, state.pos,
+            *fft_api.rfft(torch.cat([state.prev, block], dim=-1), backend=backend))
+        return PartitionedState(prev=block.clone(), ring=ring,
+                                pos=(state.pos + 1) % p), out
 
     @staticmethod
     def process(spectra: Split, state: PartitionedState, x: torch.Tensor,
@@ -316,21 +513,15 @@ class PartitionedConvolve:
 
         With the "pallas" backend (the default on CUDA) and eligible shapes
         the chain runs as K2 -> K3 -> K4 (:meth:`_process_offline_fused`).
-        The staged form below needs K6 and K15 on the GPU, which are not
-        ported: on a CUDA tensor it runs only with ``backend="xla",
-        mac_backend="xla"``."""
+        Otherwise the staged form below runs: the forward transform
+        (``fft_api.rfft``: K1, or K10 below 4096), the MAC
+        (:func:`_lag_mac_dispatch`: K15 or the torch loop) and the inverse
+        (``fft_api.rifft``: K6, or K11 below 4096)."""
         resolved = fft_api._resolve(backend, x.device)
         if resolved == "pallas" and mac_backend in ("auto", "pallas"):
             out = PartitionedConvolve._process_offline_fused(spectra, x)
             if out is not None:
                 return out
-        if resolved == "pallas" and x.device.type != "cpu":
-            raise NotImplementedError(
-                "staged offline path on the GPU: K6 rifft_packed "
-                "(fft/pallas_fft.py:518) and K15 lag_mac "
-                "(fft/pallas_kernels.py:109) are not ported yet; the shapes "
-                "are outside the fused chain (N = 4096..2^17, float32), or "
-                "pass backend='xla', mac_backend='xla'")
         h = spectra.shape[-1]
         n = 2 * h
         p = spectra.shape[-2]

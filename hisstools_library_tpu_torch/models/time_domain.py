@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.errors import ConvolveError, ConvolveException
+from ..core.types import resolve_device
 
 MAX_TAPS = 2044
 
@@ -40,26 +41,31 @@ def make_taps(ir: np.ndarray, offset: int = 0, length: int = 0,
     return ir[..., offset:offset + take]
 
 
-def _causal_fir(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """y[n] = sum_j h[j] x[n - j], per leading-dim channel, same length as x.
+def _causal_fir(x: torch.Tensor, h: torch.Tensor, history: int = 0) -> torch.Tensor:
+    """y[n] = sum_j h[j] x[n - j], per leading-dim channel, with x[n] = 0
+    before x's first sample. The first ``history`` samples of x are past
+    input: they feed the sum, and only the outputs of the rest come back
+    (L - history of them), so a caller that carries history pads nothing.
 
     ``x``: (..., L); ``h``: (..., T) with identical leading dims (or 1-D h,
     shared by every channel). A depthwise grouped convolution, in full FP32
     on CUDA (TF32 off)."""
     taps = h.shape[-1]
-    if taps == 0:
-        return torch.zeros_like(x)
     lead = x.shape[:-1]
     L = x.shape[-1]
+    if taps == 0:
+        return x.new_zeros(lead + (L - history,))
     c = int(np.prod(lead)) if lead else 1
-    xr = F.pad(x.reshape(1, c, L), (taps - 1, 0))
+    xr = x.reshape(1, c, L)
+    if taps - 1 > history:
+        xr = F.pad(xr, (taps - 1 - history, 0))
     hb = h.expand(lead + (taps,)) if lead else h
     hr = torch.flip(hb, dims=(-1,)).reshape(c, 1, taps).to(x.dtype)
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                      deterministic=cudnn.deterministic, allow_tf32=False):
         y = F.conv1d(xr, hr, groups=c)
-    return y.reshape(*lead, L)
+    return y.reshape(*lead, y.shape[-1])[..., y.shape[-1] - (L - history):]
 
 
 def fir_offline(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -85,21 +91,24 @@ class TimeDomainConvolve:
 
     def set(self, ir, dtype: torch.dtype = torch.float32,
             device=None) -> ConvolveError:
-        """Load the impulse head (reference :69-87)."""
+        """Load the impulse head (reference :69-87) onto ``device`` (the
+        card unless named)."""
         ir_np = np.asarray(ir)
         self.taps = torch.as_tensor(
             make_taps(ir_np, self.offset, self.length, self.max_taps)).to(
-                device=device, dtype=dtype)
+                device=resolve_device(device), dtype=dtype)
         too_long = (not self.length) and (ir_np.shape[-1] - self.offset) > self.max_taps
         return ConvolveError.TIME_IMPULSE_TOO_LONG if too_long else ConvolveError.NONE
 
     def init_state(self, batch_shape=(), dtype: torch.dtype = torch.float32,
                    device=None) -> torch.Tensor:
+        """A fresh state, on the taps' device unless ``device`` is given (the
+        card when neither is)."""
         taps = int(self.taps.shape[-1]) if self.taps is not None else 1
         if device is None and self.taps is not None:
             device = self.taps.device
         return torch.zeros(tuple(batch_shape) + (max(taps - 1, 1),), dtype=dtype,
-                           device=device)
+                           device=resolve_device(device))
 
     @staticmethod
     def process(taps: torch.Tensor, state: torch.Tensor, x: torch.Tensor
@@ -119,7 +128,7 @@ class TimeDomainConvolve:
                              " after set()")
         tail = state[..., state.shape[-1] - (t - 1):] if t > 1 else state[..., :0]
         ext = torch.cat([tail, x], dim=-1)
-        y = _causal_fir(ext, taps)[..., (t - 1):]
+        y = _causal_fir(ext, taps, history=t - 1)
         keep = max(t - 1, 1)
         new_state = ext[..., ext.shape[-1] - keep:].clone()
         return new_state, y

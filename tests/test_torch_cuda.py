@@ -8,9 +8,9 @@ imports jax, so run it there with
 
 Tolerance: >= 120 dB SNR for each kernel against its plain version (float32
 sums taken in another order give ~130 dB), >= 110 dB for the FastFIR chain and
-the streaming engine against the CPU path, >= 100 dB for the streaming engine
-and >= 120 dB for the time-domain FIR against float64 (a TF32 convolution
-would give ~60 dB).
+the streaming engines against the CPU path, >= 100 dB for the streaming
+engines and >= 120 dB for the time-domain FIR against float64 (a TF32
+convolution would give ~60 dB).
 """
 
 import numpy as np
@@ -24,6 +24,7 @@ from hisstools_library_tpu_torch.models import mono, offline, time_domain  # noq
 pytestmark = pytest.mark.cuda
 
 SNR_KERNEL_DB = 120.0
+CPU = "cpu"  # the port builds on the card unless a call names the CPU
 SNR_CHAIN_DB = 110.0
 KERNELS = {
     "rfft_packed": hopper_fft,
@@ -87,7 +88,7 @@ def test_fastfir_on_cuda_matches_cpu(cuda):
     rng = np.random.default_rng(0x70C4)
     x = rng.standard_normal((2, 40000)).astype(np.float32)
     ir = rng.standard_normal((2, 30000)).astype(np.float32)
-    y_cpu = offline.FastFIR(ir, fft_size=16384)(torch.from_numpy(x))
+    y_cpu = offline.FastFIR(ir, fft_size=16384, device=CPU)(torch.from_numpy(x))
     counted = (hopper_fft.rfft_packed, hopper_fft.rfft_packed_stream,
                hopper_kernels.lag_mac_causal, hopper_fft.rifft_packed_tail)
     before = [fn.launches for fn in counted]
@@ -192,7 +193,7 @@ def test_two_tier_stream_on_cuda(cuda):
                hopper_fft.fastfir_chain_stream, hopper_fft.rifft_packed_tail)
     before = [fn.launches for fn in counted]
     mir = mono.prepare_ir(scheme, ir, offline_tail=False, device=cuda)
-    mir_cpu = mono.prepare_ir(scheme, ir, offline_tail=False)
+    mir_cpu = mono.prepare_ir(scheme, ir, offline_tail=False, device=CPU)
     st = mono.init_block_state(scheme, mir, batch_shape=(2,))
     st_cpu = mono.init_block_state(scheme, mir_cpu, batch_shape=(2,))
     h2 = mir.far.shape[-1]
@@ -226,3 +227,126 @@ def test_time_domain_fir_full_fp32_on_cuda(cuda):
     for c in range(4):
         ref = np.convolve(x[c].astype(np.float64), h[c].astype(np.float64))[:20000]
         assert snr_db(ref, y[c].cpu().numpy()) >= 120.0
+
+
+def _slice_inputs(name, shape, dev):
+    """Arguments of the sample-granular slice's kernels (K6, K9, K11, K15)."""
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*sh):
+        return torch.randn(*sh, generator=g, device=dev)
+
+    if name in ("rifft_packed", "rifft_small"):
+        b, n = shape
+        return (randn(b, n // 2), randn(b, n // 2)), {}
+    if name == "hop_fire":
+        c, n, p, shared = shape
+        k = n // 2
+        lead = () if shared else (c,)
+        return (randn(c, n), randn(c, p, k), randn(c, p, k), randn(*lead, p, k),
+                randn(*lead, p, k)), {}
+    c, skip, t, p, k = shape  # lag_mac; H as a row slice of a wider tensor
+    h = [randn(c, p + 1, k)[:, 1:] for _ in range(2)]
+    return (randn(c, skip + t + p, k), randn(c, skip + t + p, k), *h, t), \
+        dict(lead_skip=skip)
+
+
+SLICE_CASES = [
+    ("rifft_packed", (3, 4096)), ("rifft_packed", (128, 16384)), ("rifft_packed", (2, 1 << 17)),
+    ("rifft_small", (384, 32)), ("rifft_small", (385, 256)), ("rifft_small", (7, 1024)),
+    ("rifft_small", (128, 2048)),
+    ("hop_fire", (128, 256, 3, False)), ("hop_fire", (5, 1024, 3, True)),
+    ("hop_fire", (3, 32, 1, False)), ("hop_fire", (9, 64, 20, False)),
+    ("lag_mac", (2, 0, 5, 7, 256)), ("lag_mac", (3, 1, 48, 47, 1024)),
+    ("lag_mac", (2, 1, 1, 4, 128)),
+]
+
+
+@pytest.mark.parametrize("name,shape", SLICE_CASES)
+def test_slice_kernel_matches_plain(cuda, name, shape):
+    mod = hopper_fft if name.startswith("rifft") else hopper_kernels
+    fn = getattr(mod, name)
+    args, kw = _slice_inputs(name, shape, cuda)
+    before = fn.launches
+    got = fn(*args, **kw)
+    want = getattr(mod, name + "_plain")(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.device.type == "cuda"
+        assert bool(torch.isfinite(g).all())
+        assert snr_db(w.cpu().numpy(), g.cpu().numpy()) >= SNR_KERNEL_DB
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda d: hopper_kernels.hop_fire(torch.zeros(2, 2048, device=d),
+                                       *(torch.zeros(2, 3, 1024, device=d) for _ in range(4))),
+     "K9"),
+    (lambda d: hopper_fft.rifft_small(*(torch.zeros(2, 8, device=d) for _ in range(2))), "K11"),
+    (lambda d: hopper_fft.rifft_packed(*(torch.zeros(2, 1 << 17, device=d) for _ in range(2))),
+     "K14"),
+])
+def test_slice_wrappers_refuse_on_cuda(cuda, call, match):
+    with pytest.raises(NotImplementedError, match=match):
+        call(cuda)
+
+
+def test_process_any_on_cuda(cuda):
+    """The Zero preset's sample-granular path on the card: 48 callbacks of
+    256 samples fire every section (K9 at N = 256, 1024; K1 -> MAC -> K6 at
+    4096, 16384) and match the CPU path and a float64 convolution."""
+    rng = np.random.default_rng(0x5A)
+    ir = (rng.standard_normal((2, 20000)) * np.exp(-np.arange(20000) / 6000)
+          ).astype(np.float32)
+    scheme = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+    mir = mono.prepare_ir(scheme, ir, offline_tail=False, device=cuda)
+    mir_cpu = mono.prepare_ir(scheme, ir, offline_tail=False, device=CPU)
+    st = mono.init_stream_state(scheme, mir, batch_shape=(2,))
+    st_cpu = mono.init_stream_state(scheme, mir_cpu, batch_shape=(2,))
+    counted = (hopper_kernels.hop_fire, hopper_fft.rifft_packed, hopper_fft.rfft_packed)
+    before = [fn.launches for fn in counted]
+    xs, ys, ys_cpu = [], [], []
+    for _ in range(48):
+        x = rng.standard_normal((2, 256)).astype(np.float32)
+        st, y = mono.process_any(mir, st, torch.from_numpy(x).to(cuda))
+        st_cpu, y_cpu = mono.process_any(mir_cpu, st_cpu, torch.from_numpy(x))
+        xs.append(x)
+        ys.append(y.cpu().numpy())
+        ys_cpu.append(y_cpu.numpy())
+    grew = [fn.launches - b for fn, b in zip(counted, before)]
+    # K9: 2 firings per call at N = 256, one per 2 calls at 1024.
+    assert grew[0] == 48 * 2 + 48 // 2, grew
+    assert grew[1] >= 1 and grew[2] >= 1, grew
+    y, y_cpu, x = (np.concatenate(a, axis=-1) for a in (ys, ys_cpu, xs))
+    assert snr_db(y_cpu, y) >= SNR_CHAIN_DB
+    for c in range(2):
+        size = 1 << (x.shape[-1] + ir.shape[-1]).bit_length()
+        ref = np.fft.irfft(np.fft.rfft(x[c].astype(np.float64), size)
+                           * np.fft.rfft(ir[c].astype(np.float64), size), size)
+        assert snr_db(ref[:x.shape[-1]], y[c]) >= 100.0
+
+
+def test_staged_offline_on_cuda(cuda):
+    """FastFIR at N = 2048 (outside the fused chain) runs K10 -> K15 -> K11
+    once each; mono.process_offline without the tail launches K11 (the direct
+    sections' taps) and the fused chain; both match the CPU path."""
+    rng = np.random.default_rng(0x2B)
+    ir = rng.standard_normal((2, 20000)).astype(np.float32)
+    x = rng.standard_normal((2, 30000)).astype(np.float32)
+    counted = (hopper_fft.rfft_small, hopper_kernels.lag_mac, hopper_fft.rifft_small)
+    eng = offline.FastFIR(ir, fft_size=2048, device=cuda)
+    before = [fn.launches for fn in counted]
+    y = eng(torch.from_numpy(x).to(cuda))
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 1, 1]
+    y_cpu = offline.FastFIR(ir, fft_size=2048, device=CPU)(torch.from_numpy(x))
+    assert snr_db(y_cpu, y.cpu()) >= SNR_CHAIN_DB
+    scheme = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+    before = hopper_fft.rifft_small.launches
+    y = mono.process_offline(mono.prepare_ir(scheme, ir, offline_tail=False, device=cuda),
+                             torch.from_numpy(x).to(cuda))
+    assert hopper_fft.rifft_small.launches - before == 2
+    y_cpu = mono.process_offline(mono.prepare_ir(scheme, ir, offline_tail=False, device=CPU),
+                                 torch.from_numpy(x))
+    assert snr_db(y_cpu, y.cpu()) >= SNR_CHAIN_DB

@@ -29,6 +29,7 @@ from hisstools_library_tpu_torch.models import offline as toff  # noqa: E402
 from hisstools_library_tpu_torch.models import partitioned as tpart  # noqa: E402
 
 SNR_JAX_DB = 110.0
+CPU = "cpu"  # the port builds on the card unless a call names the CPU
 SNR_F64_DB = 100.0
 CASES = [(4096, "1"), (16384, "1"), (16384, "0")]
 
@@ -83,7 +84,7 @@ def jax_runs(signals):
 def test_fastfir_matches_jax(signals, jax_runs, n, chain):
     x, ir = signals
     _, y_jax = jax_runs(n, chain)
-    eng = toff.FastFIR(ir, fft_size=n, backend="pallas")
+    eng = toff.FastFIR(ir, fft_size=n, backend="pallas", device=CPU)
     y = eng(torch.from_numpy(x))
     assert y.shape == (2, 40000) and y.dtype == torch.float32
     assert snr_db(y_jax, y) >= SNR_JAX_DB
@@ -92,7 +93,7 @@ def test_fastfir_matches_jax(signals, jax_runs, n, chain):
 @pytest.mark.parametrize("n", [4096, 16384])
 def test_fastfir_matches_float64_convolve(signals, n):
     x, ir = signals
-    y = toff.FastFIR(ir, fft_size=n, backend="pallas")(torch.from_numpy(x)).numpy()
+    y = toff.FastFIR(ir, fft_size=n, backend="pallas", device=CPU)(torch.from_numpy(x)).numpy()
     for c in range(2):
         ref = convolve_f64(x[c], ir[c], 40000)
         assert snr_db(ref, y[c]) >= SNR_F64_DB
@@ -103,7 +104,8 @@ def test_from_spectra_jax_to_port(signals, jax_runs):
     x, _ = signals
     jeng, y_jax = jax_runs(16384, "1")
     eng = toff.FastFIR.from_spectra(np.asarray(jeng.spectra.re),
-                                    np.asarray(jeng.spectra.im), backend="pallas")
+                                    np.asarray(jeng.spectra.im), backend="pallas",
+                                    device=CPU)
     assert eng.fft_size == 16384 and eng.hop == 8192
     assert snr_db(y_jax, eng(torch.from_numpy(x))) >= SNR_JAX_DB
 
@@ -112,7 +114,7 @@ def test_from_spectra_port_to_jax(signals, jax_runs):
     """The port's spectra drive the JAX engine; both spectra agree."""
     x, ir = signals
     jeng, _ = jax_runs(4096, "1")
-    eng = toff.FastFIR(ir, fft_size=4096, backend="pallas")
+    eng = toff.FastFIR(ir, fft_size=4096, backend="pallas", device=CPU)
     re, im = eng.spectra_numpy()
     assert re.shape == (2, 15, 2048) and re.dtype == np.float32
     assert snr_db(jeng.spectra.re, re) >= 120.0
@@ -141,7 +143,7 @@ def test_impulse_spectra_matches_jax(rng):
     js = jpart.impulse_spectra(ir, 2048, offset=300, length=3000,
                                dtype=jnp.float64, backend="xla")
     ts = tpart.impulse_spectra(ir, 2048, offset=300, length=3000,
-                               dtype=torch.float64, backend="xla")
+                               dtype=torch.float64, backend="xla", device=CPU)
     assert tuple(ts.shape) == tuple(js.shape) == (3, 3, 1024)
     assert snr_db(js.re, ts.re) >= 250.0 and snr_db(js.im, ts.im) >= 250.0
 
@@ -178,20 +180,23 @@ def _meta_engine(n, p=3):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(backend="pallas"), "K6"),                   # N = 2048: staged pallas
-    (dict(backend="xla", mac_backend="pallas"), "K15"),
+    (dict(backend="pallas"), "K10 rfft_small"),       # N = 2048: staged pallas
+    (dict(backend="xla", mac_backend="pallas"), "K15 lag_mac"),
 ])
 def test_gpu_staged_path_raises(kwargs, match):
-    """Off the CPU the staged path needs K6 and K15, not yet ported (a meta
-    tensor takes the GPU branch without a card)."""
+    """Off the CPU the staged path runs on kernels (K10 -> K15 -> K11 at
+    N = 2048): a meta tensor takes the GPU branch without a card and reaches
+    the first kernel's wrapper, which refuses a device that is not CUDA."""
     eng = _meta_engine(2048)
     x = torch.empty(2, 5000, device="meta")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=f"{match}: .*CUDA"):
         toff.FastFIR.apply(eng.spectra, x, **kwargs)
 
 
 def test_gpu_float64_raises():
+    """float64 off the CPU: the staged path's forward kernel (K1) has no
+    float64 form and says so."""
     eng = _meta_engine(4096)
     x = torch.empty(2, 5000, dtype=torch.float64, device="meta")
-    with pytest.raises(NotImplementedError, match="K6"):
+    with pytest.raises(NotImplementedError, match="K1 rfft_packed: no float64"):
         toff.FastFIR.apply(eng.spectra, x, backend="pallas")

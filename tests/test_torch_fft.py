@@ -158,8 +158,9 @@ def test_set_mode():
     (lambda: hopper_kernels.lag_mac_causal(
         *(torch.empty(2, 3, 256, dtype=torch.float64, device="meta")
           for _ in range(4))), "float64"),
-    (lambda: api.rifft(*(torch.empty(2, 4096, device="meta") for _ in range(2)),
-                       backend="pallas"), "K6"),
+    # Above 2^17 the packed inverse needs K14 (K6 serves 4096..2^17).
+    (lambda: api.rifft(*(torch.empty(2, 1 << 17, device="meta") for _ in range(2)),
+                       backend="pallas"), "K14"),
 ])
 def test_outside_gpu_envelope_raises(call, match):
     """Off the CPU the wrappers launch a kernel or raise; calls outside the

@@ -32,6 +32,7 @@ from hisstools_library_tpu_torch.models import mono as tmono  # noqa: E402
 SNR_JAX_DB = 110.0
 SNR_F64_DB = 100.0
 IR_LEN = 140_000
+CPU = "cpu"  # the port builds on the card unless a call names the CPU
 
 
 def snr_db(ref, test):
@@ -65,7 +66,7 @@ def zero_preset():
     jir = jmono.prepare_ir(jmono.PartitionScheme.from_latency(jmono.LatencyMode.Zero),
                            ir, dtype=jnp.float32, backend="pallas", offline_tail=False)
     tir = tmono.prepare_ir(tmono.PartitionScheme.from_latency(tmono.LatencyMode.Zero),
-                           ir, backend="pallas", offline_tail=False)
+                           ir, backend="pallas", offline_tail=False, device=CPU)
     return ir, jir, tir
 
 
@@ -88,7 +89,7 @@ def test_mono_process_matches_jax_and_float64(zero_preset, path):
         tscheme = tmono.PartitionScheme.for_latency_budget(8192)
         assert tscheme.sizes == (16384,) and not tscheme.zero_latency
         jir = jmono.prepare_ir(jscheme, ir, dtype=jnp.float32, offline_tail=False)
-        tir = tmono.prepare_ir(tscheme, ir, offline_tail=False)
+        tir = tmono.prepare_ir(tscheme, ir, offline_tail=False, device=CPU)
         assert tir.block0 is None and tuple(tir.spectra[0].shape) == (18, 8192)
     else:
         jscheme = jmono.PartitionScheme.from_latency(jmono.LatencyMode.Zero)

@@ -39,6 +39,7 @@ from hisstools_library_tpu_torch.models import partitioned as tpart  # noqa: E40
 SNR_JAX_DB = 110.0
 SNR_JAX_F64_DB = 250.0
 SNR_F64_DB = 100.0
+CPU = "cpu"  # the port builds on the card unless a call names the CPU
 SMALL = jmono.PartitionScheme((32, 64, 128, 256), zero_latency=True)
 SMALL_T = tmono.PartitionScheme((32, 64, 128, 256), zero_latency=True)
 
@@ -84,7 +85,7 @@ def test_process_block_matches_jax(rng, route):
     jl0, tl0 = _spectra(rng, (c,), 1, h)
     jst = jpart.PartitionedState(jnp.zeros((c, h), jnp.float32),
                                  JSplit.zeros((c, p, h)), jnp.zeros((), jnp.int32))
-    tst = tpart.PartitionedState(torch.zeros(c, h), Split.zeros((c, p, h)), 0)
+    tst = tpart.PartitionedState(torch.zeros(c, h), Split.zeros((c, p, h), device=CPU), 0)
     # One compile for the three calls (interpret mode is slow to trace).
     jblock = jax.jit(lambda sp, st, x, l0: jpart.PartitionedConvolve.process_block(
         sp, st, x, backend=backend, lag0=l0))
@@ -118,7 +119,7 @@ def test_process_block_continues_jax_step_state(rng):
     for _ in range(3):
         jst, _ = jstep(jspec, jst, jnp.asarray(rng.standard_normal((2, h))))
     assert int(jst.pos) == 3
-    tst = tpart.PartitionedState.from_numpy(jst)
+    tst = tpart.PartitionedState.from_numpy(jst, CPU)
     assert tst.pos == 3 and tst.ring.re.dtype == torch.float64
     x = rng.standard_normal((2, 4 * h))
     jst2, jy = jpart.PartitionedConvolve.process_block(jspec, jst, jnp.asarray(x))
@@ -133,7 +134,8 @@ def small_ir():
     rng = np.random.default_rng(0x5E)
     ir = rng.standard_normal((2, 4096)) * np.exp(-np.arange(4096) / 1365.0)
     jir = jmono.prepare_ir(SMALL, ir, dtype=jnp.float64, offline_tail=False)
-    tir = tmono.prepare_ir(SMALL_T, ir, dtype=torch.float64, offline_tail=False)
+    tir = tmono.prepare_ir(SMALL_T, ir, dtype=torch.float64, offline_tail=False,
+                           device=CPU)
     return ir, jir, tir
 
 
@@ -183,7 +185,7 @@ def test_state_handoff_both_ways(small_ir, rng, kind):
     stream taken after two blocks continues in JAX, with the same output.
     The port runs on the JAX package's own prepared IR (MonoIR.from_numpy)."""
     _, jir, _ = small_ir
-    tir = tmono.MonoIR.from_numpy(jir)
+    tir = tmono.MonoIR.from_numpy(jir, CPU)
     assert tir.far.re.dtype == torch.float64 and tir.tail is None
     init_j = jmono.init_block_state if kind == "block" else jmono.init_state
     init_t = tmono.init_block_state if kind == "block" else tmono.init_state
@@ -204,7 +206,7 @@ def test_state_handoff_both_ways(small_ir, rng, kind):
         if len(jys) == 2:
             jst_mid, tst_mid = jst, tst
     # JAX -> port after block 2, then blocks 3 and 4 in the port.
-    st = from_j.from_numpy(jst_mid)
+    st = from_j.from_numpy(jst_mid, CPU)
     for x, jy in zip(xs[2:], jys[2:]):
         st, y = tmono.process(tir, st, torch.from_numpy(x))
         assert snr_db(jy, y) >= SNR_JAX_F64_DB
@@ -254,7 +256,7 @@ def test_mono_convolve_class(rng):
     reports it), block_size, resize, both states against np.convolve."""
     ir = rng.standard_normal(3000)
     conv = tmono.MonoConvolve(max_length=2048, scheme=SMALL_T)
-    assert conv.set(ir, dtype=torch.float64, request_resize=False).name == \
+    assert conv.set(ir, dtype=torch.float64, request_resize=False, device=CPU).name == \
         "MEM_ALLOC_TOO_SMALL"
     assert conv.length == 2048 and conv.block_size == 128
     assert conv.resize(4000).name == "NONE" and conv.max_length == 4000
@@ -272,7 +274,8 @@ def test_partitioned_convolve_class_matches_jax(rng):
     ir = rng.standard_normal((2, 5000))
     jeng = jpart.PartitionedConvolve(512, max_length=3000, offset=256)
     teng = tpart.PartitionedConvolve(512, max_length=3000, offset=256)
-    assert teng.set(ir, dtype=torch.float64).name == jeng.set(ir, jnp.float64).name
+    assert teng.set(ir, dtype=torch.float64, device=CPU).name == \
+        jeng.set(ir, jnp.float64).name
     assert teng.num_partitions == jeng.num_partitions == 12
     x = rng.standard_normal((2, 4 * 256))
     _, jy = jpart.PartitionedConvolve.process(jeng.spectra, jeng.init_state((2,), jnp.float64),
@@ -318,8 +321,10 @@ def _meta_spectra(p, k):
 ])
 def test_lag_mac_dispatch_routing_off_cpu(monkeypatch, p, mac_backend, match):
     """Off the CPU, _lag_mac_dispatch routes as the JAX package does (a meta
-    tensor takes the GPU branch without a card). The partition bound (512)
-    is lowered to 4 so the loop case stays short."""
+    tensor takes the GPU branch without a card): the K15 routes reach the
+    kernel's wrapper, which refuses a device that is not CUDA, and the loop
+    routes run. The partition bound (512) is lowered to 4 so the loop case
+    stays short."""
     monkeypatch.setattr(tpart, "MAX_MAC_PARTITIONS", 4)
     t, k = 4, 64
     xp = [torch.empty(2, t + p, k, device="meta") for _ in range(2)]
@@ -328,7 +333,7 @@ def test_lag_mac_dispatch_routing_off_cpu(monkeypatch, p, mac_backend, match):
         acc_re, _ = tpart._lag_mac_dispatch(*xp, *h, t, mac_backend)
         assert acc_re.shape == (2, t, k) and acc_re.device.type == "meta"
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=f"{match} lag_mac: .*CUDA"):
         tpart._lag_mac_dispatch(*xp, *h, t, mac_backend)
 
 

@@ -17,6 +17,8 @@ from hisstools_library_tpu.models import time_domain as jtd  # noqa: E402
 from hisstools_library_tpu_torch.core.errors import ConvolveError, ConvolveException  # noqa: E402
 from hisstools_library_tpu_torch.models import time_domain as ttd  # noqa: E402
 
+CPU = "cpu"  # the port builds on the card unless a call names the CPU
+
 
 def snr_db(ref, test):
     ref = np.asarray(ref, np.float64)
@@ -45,7 +47,7 @@ def test_streaming_head_matches_jax_and_offline(rng):
     """TimeDomainConvolve over uneven blocks == JAX's == one offline FIR."""
     ir = rng.standard_normal((2, 5000))
     jeng, teng = jtd.TimeDomainConvolve(length=300), ttd.TimeDomainConvolve(length=300)
-    assert teng.set(ir, dtype=torch.float64) is ConvolveError.NONE
+    assert teng.set(ir, dtype=torch.float64, device=CPU) is ConvolveError.NONE
     jeng.set(ir, dtype=jnp.float64)
     assert np.array_equal(np.asarray(jeng.taps), teng.taps.numpy())
     jst = jeng.init_state((2,), jnp.float64)
@@ -72,7 +74,7 @@ def test_make_taps_and_errors(rng):
     for off, length in ((0, 0), (100, 50), (2999, 0), (4000, 0)):
         assert np.array_equal(ttd.make_taps(ir, off, length), jtd.make_taps(ir, off, length))
     eng = ttd.TimeDomainConvolve()
-    assert eng.set(ir) is ConvolveError.TIME_IMPULSE_TOO_LONG
+    assert eng.set(ir, device=CPU) is ConvolveError.TIME_IMPULSE_TOO_LONG
     assert eng.taps.shape == (ttd.MAX_TAPS,) and ttd.MAX_TAPS == jtd.MAX_TAPS == 2044
     with pytest.raises(ConvolveException) as err:
         ttd.TimeDomainConvolve(length=3000)

@@ -65,3 +65,29 @@ def test_split_methods_match_jax(rng):
     moved = ta.to("cpu")
     assert moved.re.device.type == "cpu"
     np.testing.assert_array_equal(moved.im.numpy(), ta.im.numpy())
+
+
+def test_entry_points_build_on_the_card_by_default():
+    """A call that names no device builds on CUDA, never silently on the CPU:
+    with a card the tensors are CUDA tensors; without one the call fails in
+    torch's own CUDA error (a CPU-only build raises AssertionError, a CUDA
+    build without a card RuntimeError). Naming the CPU always works."""
+    from hisstools_library_tpu_torch.models import mono, offline, partitioned
+
+    scheme = mono.PartitionScheme((32, 64), zero_latency=True)
+    ir = np.ones((1, 100), np.float32)
+    calls = [
+        lambda **kw: mono.prepare_ir(scheme, ir, offline_tail=False, **kw).spectra[0].re,
+        lambda **kw: offline.FastFIR(ir, fft_size=64, **kw).spectra.re,
+        lambda **kw: partitioned.impulse_spectra(ir, 64, **kw).re,
+        lambda **kw: tt.Split.zeros((2, 3), **kw).re,
+        lambda **kw: tt.tensor_from(np.zeros(3), **kw),
+    ]
+    assert tt.default_device() == torch.device("cuda")
+    for call in calls:
+        assert call(device="cpu").device.type == "cpu"
+        if torch.cuda.is_available():
+            assert call().device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                call()
