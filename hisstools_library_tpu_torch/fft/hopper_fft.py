@@ -100,13 +100,9 @@ def stream_feasible(n: int) -> bool:
     return real_eligible(n)
 
 
-@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=16)
 def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """(n, 2) float32 table tw[e] = exp(-2 pi i e / n), computed in float64.
-
-    Kept per (n, device) for the life of the process, so only the first
-    launch at a size copies its table to the card: the powers of two up to
-    2^17 take under 2 MB per device, so nothing is ever evicted."""
+    """(n, 2) float32 table tw[e] = exp(-2 pi i e / n), computed in float64."""
     ang = np.arange(n, dtype=np.float64) * (-2.0 * np.pi / n)
     tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
     return torch.from_numpy(tw).to(device)

@@ -34,8 +34,6 @@ from ..fft import hopper_fft, hopper_kernels
 
 MIN_FFT_SIZE_LOG2 = 5
 MAX_FFT_SIZE_LOG2 = 20
-# The TPU package's partition bound for its MAC kernels (pallas_kernels.py:279).
-MAX_MAC_PARTITIONS = 512
 # process_block takes the whole-chain stream kernel (K8) only at P <= 8: the
 # TPU package's default policy (partitioned.py:494-496), kept so both packages
 # route a given shape alike.
@@ -86,16 +84,14 @@ def _lag_mac_dispatch(xp_re: torch.Tensor, xp_im: torch.Tensor,
     """Partition MAC over zero-padded spectra.
 
     ``xp_*``: (..., T+P, K) zero-padded spectra; ``h_*``: (..., P, K).
-    Returns packed-correct (..., T, K) accumulations. Routed as the TPU
-    package routes it: ``mac_backend="pallas"``, and ``"auto"`` at P <= 512
-    off the CPU, take K15 :func:`hopper_kernels.lag_mac` (its plain version
-    on a CPU tensor); ``"xla"``, and ``"auto"`` on the CPU or above the
-    bound, run the loop form in torch ops."""
+    Returns packed-correct (..., T, K) accumulations. ``mac_backend="pallas"``,
+    and ``"auto"`` off the CPU, take K15 :func:`hopper_kernels.lag_mac` (its
+    plain version on a CPU tensor) at any P: the TPU package's partition
+    bound is its VMEM budget, which the card does not share. ``"xla"``, and
+    ``"auto"`` on the CPU, run the loop form in torch ops."""
     p = h_re.shape[-2]
     k = xp_re.shape[-1]
-    if mac_backend == "pallas" or (
-            mac_backend == "auto" and xp_re.device.type != "cpu"
-            and p <= MAX_MAC_PARTITIONS):
+    if mac_backend == "pallas" or (mac_backend == "auto" and xp_re.device.type != "cpu"):
         lead = xp_re.shape[:-2]
         c = math.prod(lead)
         y_re, y_im = hopper_kernels.lag_mac(
@@ -418,7 +414,8 @@ class PartitionedConvolve:
           kernel, K8 :func:`hopper_fft.fastfir_chain_stream`;
         - otherwise the frames [prev | cur] are materialised and transformed
           (``fft_api.rfft``: K1, or K10 below 4096), the MAC runs as K7
-          :func:`hopper_kernels.lag_mac_ring` when T <= P <= 512 and else as
+          :func:`hopper_kernels.lag_mac_ring` when T <= P (any P: the TPU
+          package's bound of 512 is its VMEM budget) and else as
           :func:`_lag_mac_dispatch`, the lag-0 product runs in torch ops, and
           the kept halves come from K4 (N >= 4096) or ``fft_api.rifft``."""
         h = spectra.shape[-1]
@@ -469,7 +466,7 @@ class PartitionedConvolve:
         xre, xim = fft_api.rfft(frames, backend=resolved)      # (..., T, K)
 
         if (mac_backend in ("auto", "pallas") and x.dtype != torch.float64
-                and t <= p <= MAX_MAC_PARTITIONS):
+                and t <= p):
             yre, yim, nre, nim = hopper_kernels.lag_mac_ring(
                 ring.re.reshape(c, p, h).contiguous(),
                 ring.im.reshape(c, p, h).contiguous(),

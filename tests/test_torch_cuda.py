@@ -350,3 +350,30 @@ def test_staged_offline_on_cuda(cuda):
     y_cpu = mono.process_offline(mono.prepare_ir(scheme, ir, offline_tail=False, device=CPU),
                                  torch.from_numpy(x))
     assert snr_db(y_cpu, y.cpu()) >= SNR_CHAIN_DB
+
+
+def test_mac_routes_above_512_partitions_on_cuda(cuda):
+    """Above 512 partitions (the TPU package's VMEM bound, which the card does
+    not share) "auto" still launches the kernels: K15 in the staged FastFIR
+    and K7 in process_block (P = 625 at N = 64), each matching the CPU path."""
+    from hisstools_library_tpu_torch.models import partitioned
+    rng = np.random.default_rng(0x2C)
+    ir = rng.standard_normal((2, 20000)).astype(np.float32)
+    x = rng.standard_normal((2, 30000)).astype(np.float32)
+    before = hopper_kernels.lag_mac.launches
+    y = offline.FastFIR(ir, fft_size=64, device=cuda)(torch.from_numpy(x).to(cuda))
+    assert hopper_kernels.lag_mac.launches - before == 1
+    y_cpu = offline.FastFIR(ir, fft_size=64, device=CPU)(torch.from_numpy(x))
+    assert snr_db(y_cpu, y.cpu()) >= SNR_CHAIN_DB
+    outs = []
+    for dev in (cuda, CPU):
+        eng = partitioned.PartitionedConvolve(64)
+        eng.set(ir, device=dev)
+        assert eng.num_partitions == 625
+        before = hopper_kernels.lag_mac_ring.launches
+        _, y = partitioned.PartitionedConvolve.process_block(
+            eng.spectra, eng.init_state((2,)), torch.from_numpy(x[:, :128]).to(dev))
+        if dev == cuda:
+            assert hopper_kernels.lag_mac_ring.launches - before == 1
+        outs.append(y.cpu())
+    assert snr_db(outs[1], outs[0]) >= SNR_CHAIN_DB

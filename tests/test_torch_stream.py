@@ -314,18 +314,17 @@ def _meta_spectra(p, k):
 
 
 @pytest.mark.parametrize("p,mac_backend,match", [
-    (3, "auto", "K15"),          # "auto" off the CPU at P <= 512 is K15
+    (3, "auto", "K15"),          # "auto" off the CPU is K15
     (3, "pallas", "K15"),
-    (5, "auto", None),           # above the bound "auto" is the loop
+    (5, "auto", "K15"),
+    (600, "auto", "K15"),        # above the TPU package's VMEM bound of 512 too
     (3, "xla", None),            # "xla" is the torch loop on any device
 ])
-def test_lag_mac_dispatch_routing_off_cpu(monkeypatch, p, mac_backend, match):
-    """Off the CPU, _lag_mac_dispatch routes as the JAX package does (a meta
-    tensor takes the GPU branch without a card): the K15 routes reach the
-    kernel's wrapper, which refuses a device that is not CUDA, and the loop
-    routes run. The partition bound (512) is lowered to 4 so the loop case
-    stays short."""
-    monkeypatch.setattr(tpart, "MAX_MAC_PARTITIONS", 4)
+def test_lag_mac_dispatch_routing_off_cpu(p, mac_backend, match):
+    """Off the CPU, _lag_mac_dispatch launches K15 at any P (a meta tensor
+    takes the GPU branch without a card): the K15 routes reach the kernel's
+    wrapper, which refuses a device that is not CUDA, and the loop route
+    runs."""
     t, k = 4, 64
     xp = [torch.empty(2, t + p, k, device="meta") for _ in range(2)]
     h = _meta_spectra(p, k)
@@ -335,6 +334,20 @@ def test_lag_mac_dispatch_routing_off_cpu(monkeypatch, p, mac_backend, match):
         return
     with pytest.raises(ValueError, match=f"{match} lag_mac: .*CUDA"):
         tpart._lag_mac_dispatch(*xp, *h, t, mac_backend)
+
+
+@pytest.mark.parametrize("p", [3, 600])
+def test_process_block_ring_mac_routing_off_cpu(p):
+    """Off the CPU, process_block's MAC takes K7 whenever T <= P, above the
+    TPU package's bound of 512 partitions too: the wrapper refuses the meta
+    device by name, so no torch loop ran in its place."""
+    h, t = 32, 2
+    spectra = Split(*_meta_spectra(p, h))
+    state = tpart.PartitionedState(torch.empty(2, h, device="meta"),
+                                   Split(*_meta_spectra(p, h)), 0)
+    with pytest.raises(ValueError, match="K7 lag_mac_ring: .*CUDA"):
+        tpart.PartitionedConvolve.process_block(
+            spectra, state, torch.empty(2, t * h, device="meta"), backend="xla")
 
 
 @pytest.mark.parametrize("call,match", [
