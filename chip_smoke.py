@@ -42,7 +42,24 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
     through the fused chain), >= 99 dB each, and times each;
 13. runs the staged offline path: ``FastFIR`` of the first 48 000 taps at
     N = 2048 (outside the fused chain) on one second of signal, K10 -> K15 ->
-    K11 (each must launch), >= 99 dB.
+    K11 (each must launch), >= 99 dB;
+14. compares the spectral layer's kernels (K12 fft_split, K13
+    rfft_packed_split, K14 rifft_packed_split) with their plain versions:
+    K12 forward and inverse at (128, 2^17) and at (3, 1024), (2, 2^14); K13
+    and K14 at (128, 2^20), (1, 2^19), (2, 2^18);
+15. drives the spectral layer at 128 channels with the same IRs and 10 s
+    signals: (a) ``spectral_processor.convolve`` (Linear, N = 2^20; K13, K14),
+    (b) ``correlate`` (Wrap) and ``convolve`` (Fold) with the IRs' first
+    48 000 taps (N = 2^20), (c) ``convolve_complex`` / ``correlate_complex``
+    of 65 536-sample complex signals (N = 2^17; K12 three times a call), (d)
+    ``change_phase`` of the IRs at phase 0 and 0.25 (N = 2^19; K13, K14
+    twice each), (e) ``pipeline.ir_deconvolve`` of a 12 s capture of a 10 s
+    log sweep through the IRs (N = 2^20), (f) ``convolve`` of 1 s signals
+    with 1 s IRs (N = 2^17; K1, K6). Each holds channel 0 >= 99 dB against
+    a float64 numpy mirror (d: against the port's float64 CPU path; where the
+    plain float32 CPU path itself is below 99 dB, as the interpolated phase
+    is, the bar is that SNR less 3 dB), and prints ms per call (CUDA events,
+    median of 5 after a warm-up) and peak memory.
 
 Every path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel the path needs that was not launched fails the run,
@@ -97,6 +114,9 @@ KERNELS = {
     "rfft_small": ("hopper_fft", "rfft_small.cu", "fft/pallas_fft.py:1079"),
     "rifft_small": ("hopper_fft", "rifft_small.cu", "fft/pallas_fft.py:1114"),
     "lag_mac": ("hopper_kernels", "lag_mac_ring.cu", "fft/pallas_kernels.py:109"),
+    "fft_split": ("hopper_fft", "fft_split.cu", "fft/pallas_fft.py:856"),
+    "rfft_packed_split": ("hopper_fft", "rfft_packed_split.cu", "fft/pallas_fft.py:664"),
+    "rifft_packed_split": ("hopper_fft", "rifft_packed_split.cu", "fft/pallas_fft.py:775"),
 }
 
 
@@ -159,9 +179,11 @@ def kernel_flops(name, args, kwargs) -> float:
     """Operations the kernel's function does on these inputs (for a MAC, the
     valid lags only: 8 real operations per complex multiply-add)."""
     a = args[0]
-    if name in ("rfft_packed", "rfft_small"):
+    if name in ("rfft_packed", "rfft_small", "rfft_packed_split"):
         return fft_flops(a.shape[-1], a.numel() // a.shape[-1])
-    if name in ("rifft_packed", "rifft_small", "rifft_packed_tail"):
+    if name == "fft_split":  # a complex N-point FFT: 5 N log2 N
+        return 2 * fft_flops(a.shape[-1], a.numel() // a.shape[-1])
+    if name in ("rifft_packed", "rifft_small", "rifft_packed_tail", "rifft_packed_split"):
         return fft_flops(2 * a.shape[-1], a.numel() // a.shape[-1])
     if name == "rfft_packed_stream":
         return fft_flops(2 * a.shape[-1], a.numel() // a.shape[-1])
@@ -201,13 +223,17 @@ def _complex_of_packed(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
                          torch.cat([zero, im[..., 1:], zero], -1))
 
 
-def library_call(name, args):
+def library_call(name, args, kwargs):
     """One PyTorch call computing the kernel's function on the same inputs
     (in torch's own layout, converted before the timing), or None."""
     a = args[0]
-    if name in ("rfft_packed", "rfft_small"):
+    if name in ("rfft_packed", "rfft_small", "rfft_packed_split"):
         return lambda: torch.fft.rfft(a, dim=-1)
-    if name in ("rifft_packed", "rifft_small", "rifft_packed_tail"):
+    if name == "fft_split":
+        z = torch.complex(args[0], args[1])
+        f = torch.fft.ifft if kwargs.get("inverse") else torch.fft.fft
+        return lambda: f(z, dim=-1)
+    if name in ("rifft_packed", "rifft_small", "rifft_packed_tail", "rifft_packed_split"):
         z = _complex_of_packed(args[0], args[1])
         n = 2 * a.shape[-1]
         return lambda: torch.fft.irfft(z, n=n, dim=-1)
@@ -241,7 +267,7 @@ def compare(name, fn, plain, args, kwargs, big, smi):
         out["ms"] = median_ms(lambda: fn(*args, **kwargs))
         out["device_ms"] = device_ms(lambda: fn(*args, **kwargs))
         out["plain_ms"] = median_ms(lambda: plain(*args, **kwargs))
-        lib = library_call(name, args)
+        lib = library_call(name, args, kwargs)
         out["library_ms"] = None if lib is None else median_ms(lib)
         out["bound_ms"], out["bound_by"] = bound(name, args, kwargs, got)
         lib_txt = "" if lib is None else f", library {out['library_ms']:.4f} ms"
@@ -712,6 +738,169 @@ def offline_paths(dev, irs, x, launches, smi) -> None:
     torch.cuda.empty_cache()
 
 
+def spectral_kernels(randn, mods, smi) -> dict:
+    """Phase 14: K12, K13 and K14. Path shapes: K12 at (128, 2^17), forward
+    and inverse (the complex ops of 65 536-sample signals); K13 and K14 at
+    (128, 2^20) (a 10 s x 10 s convolution). Small and edge shapes: K12 at
+    (3, 1024) (shared memory) and (2, 2^14) (two passes); K13 and K14 at
+    (1, 2^19) and (2, 2^18)."""
+    def cplx(b, n, inverse):
+        return lambda: ((randn(b, n), randn(b, n)), dict(inverse=inverse))
+
+    def real(b, n):
+        return lambda: ((randn(b, n),), {})
+
+    def packed(b, n):
+        return lambda: ((randn(b, n // 2), randn(b, n // 2)), {})
+
+    return check_kernels([
+        ("fft_split", [(cplx(3, 1024, False), False), (cplx(2, 1 << 14, True), False),
+                       (cplx(CHANNELS, 1 << 17, False), True),
+                       (cplx(CHANNELS, 1 << 17, True), True)]),
+        ("rfft_packed_split", [(real(1, 1 << 19), False), (real(2, 1 << 18), False),
+                               (real(CHANNELS, 1 << 20), True)]),
+        ("rifft_packed_split", [(packed(1, 1 << 19), False), (packed(2, 1 << 18), False),
+                                (packed(CHANNELS, 1 << 20), True)]),
+    ], mods, smi)
+
+
+def _f64_linear(a: np.ndarray, b: np.ndarray, size: int, correlate: bool) -> np.ndarray:
+    """Circular convolution (or correlation, a * conj(b)) of size ``size`` in
+    float64; complex inputs stay complex. With size >= len(a) + len(b) - 1
+    it holds the linear result, negative lags -d at size - d."""
+    if np.iscomplexobj(a) or np.iscomplexobj(b):
+        fa, fb = np.fft.fft(a, size), np.fft.fft(b, size)
+        return np.fft.ifft(fa * (np.conj(fb) if correlate else fb))
+    fa, fb = np.fft.rfft(a.astype(np.float64), size), np.fft.rfft(b.astype(np.float64), size)
+    return np.fft.irfft(fa * (np.conj(fb) if correlate else fb), size)
+
+
+def spectral_paths(dev, irs, x, launches, smi) -> None:
+    """Phase 15: the spectral layer at 128 channels (see the module
+    docstring); each sub-phase with every launch count set to 0 before it."""
+    from hisstools_library_tpu_torch.core.types import Split
+    from hisstools_library_tpu_torch.models import pipeline
+    from hisstools_library_tpu_torch.ops import spectral_processor as sp
+
+    sig = torch.from_numpy(np.ascontiguousarray(x[:, :IR_LEN])).to(dev)
+    ird = torch.from_numpy(irs).to(dev)
+    short = ird[:, :STAGED_TAPS].contiguous()
+    sig_np = x[0, :IR_LEN].astype(np.float64)
+    k13k14 = ("rfft_packed_split", "rifft_packed_split")
+
+    def run(label, call, need, ref0, bar=SNR_MIN_PATH_DB):
+        """One call with the counts from 0 (launches, SNR of channel 0 against
+        ``ref0``), then the timed calls; returns the output's channel 0."""
+        launches.reset()
+        torch.cuda.reset_peak_memory_stats()
+        out = call()
+        torch.cuda.synchronize()
+        launches.read(label, need, smi)
+        planes = (out.re, out.im) if isinstance(out, Split) else (out,)
+        if not all(bool(torch.isfinite(p).all()) for p in planes):
+            fail(f"{label}: non-finite output")
+        got0 = np.concatenate([p[0].double().cpu().numpy() for p in planes])
+        want0 = np.concatenate([ref0.real, ref0.imag]) if np.iscomplexobj(ref0) else ref0
+        if got0.shape != want0.shape:
+            fail(f"{label}: channel 0 has {got0.shape} samples, the mirror {want0.shape}")
+        snr = snr_db(torch.from_numpy(want0), torch.from_numpy(got0))
+        del out, planes
+        ms = median_ms(call)
+        print(f"{label}: {tuple(sig.shape[:1])} channels, SNR vs float64 (ch0) {snr:.2f} dB "
+              f"(bar {bar:.2f}); {ms:.4f} ms/call (CUDA events, median of 5 after a "
+              f"warm-up), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"[{smi}]", flush=True)
+        if not snr >= bar:
+            fail(f"{label}: SNR {snr:.2f} dB < {bar:.2f}")
+        torch.cuda.empty_cache()
+
+    # (a) Linear convolution of each IR with its channel's 10 s signal, N = 2^20.
+    n_lin = 2 * IR_LEN - 1
+    run("spectral-convolve", lambda: sp.convolve(sig, ird), k13k14,
+        convolve_f64(sig_np, irs[0], n_lin))
+
+    # (b) Wrap correlation and Fold convolution with the first 48 000 taps.
+    h0 = irs[0, :STAGED_TAPS].astype(np.float64)
+    s1, s2 = IR_LEN, STAGED_TAPS
+    c = _f64_linear(sig_np, h0, 1 << 20, correlate=True)
+    wrap = c[:s1].copy()
+    wrap[s1 - (s2 - 1):] += c[(1 << 20) - (s2 - 1):]
+    run("spectral-correlate-wrap",
+        lambda: sp.correlate(sig, short, sp.EdgeMode.Wrap), k13k14, wrap)
+    fold = s2 >> 1
+    padded = np.concatenate([sig_np[1:fold + 1][::-1], sig_np,
+                             sig_np[s1 - fold - 1:s1 - 1][::-1]])
+    lin = _f64_linear(padded, h0, 1 << 21, correlate=False)
+    run("spectral-convolve-fold",
+        lambda: sp.convolve(sig, short, sp.EdgeMode.Fold), k13k14,
+        lin[s2 - 1:s2 - 1 + s1])
+    del short
+
+    # (c) Complex convolution and correlation of 65 536-sample signals, N = 2^17.
+    m = 1 << 16
+    z1 = Split(sig[:, :m].contiguous(), sig[:, m:2 * m].contiguous())
+    z2 = Split(ird[:, :m].contiguous(), ird[:, m:2 * m].contiguous())
+    a0 = x[0, :m].astype(np.float64) + 1j * x[0, m:2 * m]
+    b0 = irs[0, :m].astype(np.float64) + 1j * irs[0, m:2 * m]
+    run("spectral-convolve-complex", lambda: sp.convolve_complex(z1, z2), ("fft_split",),
+        _f64_linear(a0, b0, 1 << 18, correlate=False)[:2 * m - 1])
+    if launches.by_path["spectral-convolve-complex"]["fft_split"] != 3:
+        fail("spectral-convolve-complex: K12 did not launch 3 times")
+    cc = _f64_linear(a0, b0, 1 << 18, correlate=True)
+    run("spectral-correlate-complex", lambda: sp.correlate_complex(z1, z2), ("fft_split",),
+        np.concatenate([cc[:m], cc[(1 << 18) - (m - 1):]]))
+    if launches.by_path["spectral-correlate-complex"]["fft_split"] != 3:
+        fail("spectral-correlate-complex: K12 did not launch 3 times")
+    del z1, z2
+
+    # (d) change_phase of the IRs, N = 2^19, against the float64 CPU path.
+    ir0 = torch.from_numpy(irs[:1])
+    for phase in (0.0, 0.25):
+        ref = sp.change_phase(ir0.double(), phase)[0].numpy()
+        plain = snr_db(torch.from_numpy(ref), sp.change_phase(ir0, phase)[0])
+        bar = SNR_MIN_PATH_DB if plain >= SNR_MIN_PATH_DB else plain - 3.0
+        print(f"spectral-change-phase-{phase}: plain float32 CPU path SNR vs float64 "
+              f"(ch0) {plain:.2f} dB", flush=True)
+        run(f"spectral-change-phase-{phase}", lambda: sp.change_phase(ird, phase), k13k14,
+            ref, bar)
+        for k in k13k14:
+            if launches.by_path[f"spectral-change-phase-{phase}"][k] != 2:
+                fail(f"spectral-change-phase-{phase}: {k} did not launch twice")
+
+    # (e) ir_deconvolve of a 12 s capture: a 10 s log sweep through the IRs
+    # plus a 2 s tail (built in float64 on the card, outside the timing).
+    t = np.arange(IR_LEN) / FS
+    f1, f2, dur = 20.0, 20000.0, IR_LEN / FS
+    rate = np.log(f2 / f1)
+    sweep = np.sin(2 * np.pi * f1 * dur / rate * (np.exp(t * rate / dur) - 1.0))
+    cap_len = IR_LEN + 2 * FS
+    size = 1 << (2 * IR_LEN - 2).bit_length()
+    sw = torch.fft.rfft(torch.from_numpy(sweep).to(dev), size)
+    capture = torch.empty(CHANNELS, cap_len, device=dev)
+    for i in range(0, CHANNELS, 32):
+        spec = torch.fft.rfft(ird[i:i + 32].double(), size) * sw
+        capture[i:i + 32] = torch.fft.irfft(spec, size)[:, :cap_len].float()
+    del sw, spec
+    sweep32 = torch.from_numpy(sweep.astype(np.float32)).to(dev)
+    cap0 = capture[0].double().cpu().numpy()
+    nd = 1 << (cap_len - 1).bit_length()
+    Y = np.fft.rfft(cap0, nd)
+    X = np.fft.rfft(sweep.astype(np.float32).astype(np.float64), nd)
+    power = (X * X.conj()).real
+    ref = np.fft.irfft(Y * X.conj() / (power + 1e-4 * power.max()), nd)
+    run("spectral-ir-deconvolve", lambda: pipeline.ir_deconvolve(capture, sweep32), k13k14,
+        ref)
+    del capture, sweep32
+
+    # (f) 1 s x 1 s convolution, N = 2^17: the two-pass kernels K1 and K6.
+    s1 = sig[:, :FS].contiguous()
+    h1 = ird[:, :FS].contiguous()
+    run("spectral-convolve-1s", lambda: sp.convolve(s1, h1), ("rfft_packed", "rifft_packed"),
+        convolve_f64(x[0, :FS], irs[0, :FS], 2 * FS - 1))
+    del s1, h1, sig, ird
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -766,6 +955,8 @@ def main() -> None:
     results.update(slice_kernels(randn, mods, smi))
     subhop_paths(dev, irs, x, launches, smi, profile)
     offline_paths(dev, irs, x, launches, smi)
+    results.update(spectral_kernels(randn, mods, smi))
+    spectral_paths(dev, irs, x, launches, smi)
 
     for name in KERNELS:
         by_path = {p: c[name] for p, c in launches.by_path.items()}

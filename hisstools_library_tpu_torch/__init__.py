@@ -4,10 +4,14 @@ A second package beside ``hisstools_library_tpu`` (the JAX reference, which
 it never imports), with the same layout and names:
 
 - :mod:`.core`   split-complex types, packed-spectrum products, error codes
-- :mod:`.fft`    packed real FFTs; hand-written Hopper kernels in
-                 ``fft/hopper_fft.py`` and ``fft/hopper_kernels.py``, CUDA
-                 sources in ``csrc/``, built on first use by :mod:`._build`
-- :mod:`.models` the offline partitioned engine and FastFIR
+- :mod:`.fft`    packed real and complex FFTs; hand-written Hopper kernels
+                 in ``fft/hopper_fft.py`` and ``fft/hopper_kernels.py``,
+                 CUDA sources in ``csrc/``, built on first use by
+                 :mod:`._build`
+- :mod:`.ops`    the spectral layer: ``ir_*`` functions and the spectral
+                 processor (edge-mode convolution, ``change_phase``)
+- :mod:`.models` FastFIR, the partitioned and mono engines, the
+                 time-domain head, ``pipeline.ir_deconvolve``
 
 Kernels run on CUDA tensors; CPU tensors take each kernel's plain PyTorch
 version.

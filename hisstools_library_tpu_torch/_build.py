@@ -58,6 +58,12 @@ _SIGNATURES = {
     "hst_hop_fire": [_P, _L, _P, _P, _P, _P, _L, _P, _P, _P, _P, _L, _I, _I, _F, _P],
     # xr, xi, hr, hi, h_cstride, yr, yi, channels, tp, t, p, k, skip, stream
     "hst_lag_mac": [_P, _P, _P, _P, _L, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+    # re, im, out_re, out_im, scratch, tw, batch, n, stream
+    "hst_fft_split": [_P, _P, _P, _P, _P, _P, _L, _I, _P],
+    # x, re, im, scratch, tw, batch, n, stream
+    "hst_rfft_packed_split": [_P, _P, _P, _P, _P, _L, _I, _P],
+    # re, im, out, scratch, tw, frames, n, stream
+    "hst_rifft_packed_split": [_P, _P, _P, _P, _P, _L, _I, _P],
 }
 
 _lock = threading.Lock()

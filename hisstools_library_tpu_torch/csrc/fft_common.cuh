@@ -1,36 +1,58 @@
-// Shared FFT core for the real transforms on Hopper (K1 rfft_packed,
-// K2 rfft_packed_stream, K4 rifft_packed_tail, K6 rifft_packed).
+// Shared multi-pass FFT core on Hopper: the real transforms K1 rfft_packed,
+// K2 rfft_packed_stream, K4 rifft_packed_tail, K6 rifft_packed, K13
+// rfft_packed_split and K14 rifft_packed_split, and the complex K12 fft_split
+// above 1024 points.
 //
 // A real transform of length N is an M = N/2 point complex FFT of
 // z[n] = x[2n] + i x[2n+1], plus the split step that pairs bins k and M-k.
-// At the sizes served here (N = 4096..2^17, M = 2048..2^16) a complex frame
-// is 16-512 KB, more than one block's shared memory at the top of the range,
-// so the complex FFT is a two-pass four-step, M = M1 * M2 with both factors
-// <= 256 (2^15 = 128 x 256 at the FastFIR main path's N = 2^16):
+// The complex K12 is the M-point FFT alone, split planes in and out. A
+// complex frame of M = 2048..2^19 points is 16 KB-4 MB, beyond one block's
+// shared memory at the top of the range, so the FFT runs as passes over HBM
+// scratch frames, each pass a set of sub-FFTs of length <= 256:
 //
-//   pass 1: for each column n1 < M1, the M2-point FFT of z[n1 + M1*n2] over
-//           n2, times the inter-pass twiddle W_M^(n1*k2); written to a scratch
-//           frame as Y[k2*M1 + n1].
-//   pass 2: for each row k2 < M2, the M1-point FFT of Y[k2*M1 + n1] over n1,
-//           which is Z[k2 + M2*k1].
+//   two passes, M = 2048..2^16, M = M1 * M2:
+//     pass 1 (columns): for each column n1 < M1, the M2-point FFT of
+//             z[n1 + M1*n2] over n2, times the inter-pass twiddle W_M^(n1*k2);
+//             written to a scratch frame as Y[k2*M1 + n1].
+//     pass 2 (rows): for each row k2 < M2, the M1-point FFT of Y[k2*M1 + n1]
+//             over n1, which is Z[k2 + M2*k1].
+//   three passes, M = 2^17..2^19, M = M1 * M2 * M3, n = n1 + M1*n2 + M1*M2*n3,
+//   k = k3 + M3*k2 + M3*M2*k1:
+//     pass 1 (columns): for each column c = n1 + M1*n2, the M3-point FFT over
+//             n3 (stride M1*M2), times W_{M2*M3}^(n2*k3) = W_M^((c - n1)*k3);
+//             written as A[k3*M1*M2 + c].
+//     pass 2 (columns of each k3 sub-frame): for each n1, the M2-point FFT
+//             over n2 (stride M1), times W_M^(n1*j), j = k3 + M3*k2; written
+//             as B[j*M1 + n1], rows in the order j.
+//     pass 3 (rows): for each row j < M2*M3, the M1-point FFT of B[j*M1 + n1],
+//             which is Z[j + M2*M3*k1].
+//
+// Pass 2 stores its rows in the order j = k3 + M3*k2 (a digit transpose in
+// the store, at no extra traffic), so the last pass is the two-pass row pass
+// with R = M/M1 rows: bin k = j + R*k1 and its partner M-k = (R-j) + R*(M1-1-k1)
+// sit in rows j and R-j, as before. The forward split step therefore stays in
+// the last pass's store, with no extra pass over the frame: a row-pass block
+// holds rows j and R-j together (8 such pairs), so every bin k meets its
+// partner M-k in shared memory and Z never goes to HBM. The inverse's
+// overlap-save tail (keep samples [N/2, N), times `scale`), its full output
+// (all N samples) and K12's split planes are the last pass's store too; the
+// unpack of the real layout (inverse) and K12's split planes are the first
+// pass's loader.
 //
 // A block runs kTile = 16 neighbouring sub-FFTs of length L = A*B, each as a
 // four-step of its own: every thread takes one B-point DFT in registers
 // (radix-2, fully unrolled), the block exchanges the twiddled results through
 // shared memory once, and every thread takes one A-point DFT in registers.
-// Pass 1 reads the signal and pass 2 writes the outputs straight from
-// registers, in runs of consecutive addresses. Unpack of the real layout
-// (inverse) is pass 1's loader. The forward split step is pass 2's store: a
-// pass-2 block holds rows k2 and M2-k2 together (8 such pairs), so every bin k
-// meets its partner M-k in shared memory and Z never goes to HBM. The
-// inverse's overlap-save tail (keep samples [N/2, N), times `scale`) and its
-// full output (all N samples) are pass 2's store too.
+// Each pass reads and writes straight from registers, in runs of 16
+// consecutive points.
 //
 // Bound on the H100: HBM bytes. Each pass reads and writes one complex frame
 // (8*M bytes each way); the butterflies are ~5*M*log2(M) FP32 operations per
 // frame, kept in registers. Twiddles come from one table
-// tw[e] = exp(-2*pi*i*e/N), e < N, computed in float64 on the host and stored
-// as float32; no fast-math intrinsics are used anywhere.
+// tw[e] = exp(-2*pi*i*e/N), e < N = 2M, computed in float64 on the host and
+// stored as float32 (2^20 entries, 8 MB, at M = 2^19); no fast-math
+// intrinsics are used anywhere. Frame offsets are 64-bit; in-frame indices
+// stay below M <= 2^19.
 //
 // Packed layout (HISSTools/vDSP): N/2 bins, forward scaled x2, DC in re[0],
 // Nyquist in im[0]. Unscaled inverse: rifft(rfft(x)) = 2N x.
@@ -45,15 +67,17 @@ constexpr int kMaxSub = 256;      // longest sub-FFT
 constexpr int kLd = kMaxSub + 1;  // odd row stride of the shared tile: no bank conflicts
 constexpr int kThreads = 256;     // = kTile * 16, one thread per DFT in each step
 
-enum LoadMode { kLoadReal = 0, kLoadStream = 1, kLoadUnpack = 2 };
-enum StoreMode { kStorePack = 0, kStoreTail = 1, kStoreFull = 2 };
+enum LoadMode { kLoadReal = 0, kLoadStream = 1, kLoadUnpack = 2, kLoadSplit = 3 };
+enum StoreMode { kStorePack = 0, kStoreTail = 1, kStoreFull = 2, kStoreSplit = 3 };
 
 struct Plan {
-  int n;       // real size N
+  int n;        // twiddle table size N = 2M (the real transforms' size)
   int log_n;
-  int m;       // complex size M = N/2
-  int n1;      // pass-2 sub-FFT length M1
-  int n2;      // pass-1 sub-FFT length M2
+  int m;        // complex size M
+  int passes;   // 2 (M <= 2^16) or 3 (M = 2^17..2^19)
+  int l_first;  // first (column) pass sub-FFT length
+  int l_mid;    // middle (column) pass sub-FFT length; 1 with two passes
+  int l_last;   // last (row) pass sub-FFT length: rows of l_last points
 };
 
 inline int ilog2(long long v) {
@@ -62,14 +86,29 @@ inline int ilog2(long long v) {
   return l;
 }
 
+// Plan for a real size n (complex size M = n/2), M = 2048..2^19. Two passes
+// up to M = 2^16 (2^15 = 128 x 256 at the FastFIR main path's N = 2^16),
+// three above: 2^17 = 64 x 32 x 64, 2^18 = 64 x 64 x 64, 2^19 = 64 x 64 x 128
+// (first x middle x last).
 inline Plan make_plan(int n) {
   Plan p;
   p.n = n;
   p.log_n = ilog2(n);
   p.m = n / 2;
-  const int lm = ilog2(p.m);
-  p.n1 = 1 << (lm / 2);
-  p.n2 = 1 << (lm - lm / 2);
+  const int lm = p.log_n - 1;
+  if (lm <= 16) {
+    p.passes = 2;
+    p.l_last = 1 << (lm / 2);
+    p.l_mid = 1;
+    p.l_first = 1 << (lm - lm / 2);
+  } else {
+    p.passes = 3;
+    const int ll = (lm + 2) / 3;
+    const int rest = lm - ll;
+    p.l_last = 1 << ll;
+    p.l_mid = 1 << (rest / 2);
+    p.l_first = 1 << (rest - rest / 2);
+  }
   return p;
 }
 
@@ -155,8 +194,9 @@ __device__ __forceinline__ void step1_store(float2* s, const float2 (&v)[Sub<L>:
   }
 }
 
-// Element `idx` (< M) of frame `frame`'s complex input.
-//   kLoadReal:   z[idx] of a contiguous real frame (float2 view of x).
+// Element `idx` (< m) of frame `frame`'s complex input, m points a frame.
+//   kLoadReal:   z[idx] of a contiguous complex frame (the float2 view of a
+//                real signal, or a scratch frame of an earlier pass).
 //   kLoadStream: frame = hop block b of (C, T, H) blocks; the frame is
 //                [x[b-1] | x[b]] read in place, with block -1 taken as zeros
 //                when b is a channel's first hop (`first`).
@@ -164,6 +204,7 @@ __device__ __forceinline__ void step1_store(float2* s, const float2 (&v)[Sub<L>:
 //                Z' is the complex spectrum whose unscaled inverse is the
 //                real signal's (even, odd) pairs; the conj turns the forward
 //                passes into the unscaled inverse.
+//   kLoadSplit:  (a[idx], a_im[idx]), split re/im planes.
 template <int kLoad>
 __device__ __forceinline__ float2 load_elem(const float* __restrict__ a,
                                             const float* __restrict__ a_im,
@@ -178,6 +219,9 @@ __device__ __forceinline__ float2 load_elem(const float* __restrict__ a,
     if (idx < half && first) return make_float2(0.f, 0.f);
     const float2* a2 = reinterpret_cast<const float2*>(a);
     return a2[frame * half + (idx - half)];
+  } else if (kLoad == kLoadSplit) {
+    const long long i = frame * m + idx;
+    return make_float2(a[i], a_im[i]);
   } else {
     const long long base = frame * m;
     if (idx == 0) {
@@ -197,20 +241,26 @@ __device__ __forceinline__ float2 load_elem(const float* __restrict__ a,
   }
 }
 
-// Pass 1, sub-FFT length L = M2: grid = frames * (M1 / kTile) blocks. Writes
-// Y[k2*M1 + n1] = W_M^(n1*k2) * FFT_M2(z[n1 + M1*n2])[k2].
+// Column pass, sub-FFT length L, over sub-frames of F = ncol * L points
+// (ncol columns, each of L points ncol apart): grid = subframes *
+// (ncol / kTile) blocks. Sub-frame sf is part s = sf % subs of frame
+// sf / subs, whose scratch frame holds M = 2^log_m points. Output k of
+// column col's L-point FFT goes to row j = s + subs*k of that frame:
+// Y[j*ncol + col] = W_M^((col & col_mask) * j) * FFT_L(column col)[k].
+// Two passes' pass 1: F = M, subs = 1, col_mask = ~0. Three passes' pass 1:
+// F = M, subs = 1, col_mask = ~(M1 - 1); pass 2: F = M1*M2, subs = M3,
+// ncol = M1, col_mask = ~0.
 template <int kLoad, int L>
 __global__ void __launch_bounds__(kThreads)
-fft_pass1(const float* __restrict__ a, const float* __restrict__ a_im,
-          float2* __restrict__ y, const float2* __restrict__ tw, int log_n,
-          int n1, int hops) {
+fft_cols(const float* __restrict__ a, const float* __restrict__ a_im,
+         float2* __restrict__ y, const float2* __restrict__ tw, int log_n,
+         int log_m, int ncol, int subs, int col_mask, int hops) {
   constexpr int A = Sub<L>::kA, B = Sub<L>::kB;
   __shared__ float2 s[kTile * kLd];
-  const int m = 1 << (log_n - 1);
-  const int tiles = n1 / kTile;
-  const long long frame = blockIdx.x / tiles;
-  const int c0 = (int)(blockIdx.x - frame * tiles) * kTile;
-  const bool first = kLoad == kLoadStream && frame % hops == 0;
+  const int tiles = ncol / kTile;
+  const long long sf = blockIdx.x / tiles;
+  const int c0 = (int)(blockIdx.x - sf * tiles) * kTile;
+  const bool first = kLoad == kLoadStream && sf % hops == 0;
   const int tid = threadIdx.x;
   // Step 1: thread (f, j1), f fastest so loads run along columns.
   if (tid < kTile * A) {
@@ -219,8 +269,8 @@ fft_pass1(const float* __restrict__ a, const float* __restrict__ a_im,
     float2 v[B];
 #pragma unroll
     for (int j2 = 0; j2 < B; ++j2)
-      v[j2] = load_elem<kLoad>(a, a_im, tw, frame, c0 + f + n1 * (j1 + A * j2), m,
-                               first);
+      v[j2] = load_elem<kLoad>(a, a_im, tw, sf, c0 + f + ncol * (j1 + A * j2),
+                               ncol * L, first);
     reg_dft<B>(v, tw, log_n);
     step1_store<L>(s, v, f, j1, tw, log_n);
   }
@@ -233,48 +283,55 @@ fft_pass1(const float* __restrict__ a, const float* __restrict__ a_im,
 #pragma unroll
     for (int j1 = 0; j1 < A; ++j1) v[j1] = s[f * kLd + k2 * A + j1];
     reg_dft<A>(v, tw, log_n);
-    float2* yf = y + frame * m;
+    const long long frame = sf / subs;
+    const int part = (int)(sf - frame * subs);
+    float2* yf = y + (frame << log_m);
     const int col = c0 + f;
+    const int twc = col & col_mask;
+    const int emask = (1 << log_m) - 1;
+    const int tshift = log_n - log_m;  // W_M^e = W_N^(e * N/M)
 #pragma unroll
     for (int k1 = 0; k1 < A; ++k1) {
-      const int k = k2 + B * k1;
-      const int e = (col * k) & (m - 1);  // W_M^e = W_N^(2e)
-      yf[(long long)k * n1 + col] = cmul(v[k1], __ldg(&tw[2 * e]));
+      const int j = part + subs * (k2 + B * k1);
+      const int e = (twc * j) & emask;
+      yf[(long long)j * ncol + col] = cmul(v[k1], __ldg(&tw[e << tshift]));
     }
   }
 }
 
-// Row of pass-2 slot f in block `tile` when packing: slots 0-7 hold rows
-// 8*tile + (0..7), slots 8-15 their partners M2 - row; block 0 holds the two
-// self-paired rows 0 (slot 0) and M2/2 (slot 8).
-__device__ __forceinline__ int pack_row(int tile, int f, int n2) {
+// Row of row-pass slot f in block `tile` when packing: slots 0-7 hold rows
+// 8*tile + (0..7), slots 8-15 their partners R - row; block 0 holds the two
+// self-paired rows 0 (slot 0) and R/2 (slot 8).
+__device__ __forceinline__ int pack_row(int tile, int f, int rows) {
   const int lo = f & 7;
   if (f < 8) return 8 * tile + lo;
-  if (tile == 0 && lo == 0) return n2 >> 1;
-  return n2 - (8 * tile + lo);
+  if (tile == 0 && lo == 0) return rows >> 1;
+  return rows - (8 * tile + lo);
 }
 
-// Pass 2, sub-FFT length L = M1: grid = frames * (M2 / kTile) blocks.
-// Z[k2 + M2*k1] = FFT_M1(Y[k2*M1 + n1])[k1].
-//   kStorePack: the packed planes `out` (re) and `out_im` (im), M per frame:
-//               P[k] = (Z[k] + conj Z[M-k]) - i W_N^k (Z[k] - conj Z[M-k]),
-//               k >= 1; re[0] = 2(Re Z0 + Im Z0) (DC), im[0] =
-//               2(Re Z0 - Im Z0) (Nyquist). Z[M-k] is at row M2-k2, column
-//               M1-1-k1 (row 0: column M1-k1), in the same block.
-//   kStoreTail: the inverse's kept half: for k >= M/2, output samples
-//               (2k - N/2, 2k + 1 - N/2) of the (frames, N/2) real `out` are
-//               scale * conj(Z[k]).
-//   kStoreFull: the whole inverse: output samples (2k, 2k + 1) of the
-//               (frames, N) real `out` are scale * conj(Z[k]), every k.
+// Row pass (the last), sub-FFT length L = M1, over R = M/M1 rows a frame:
+// grid = frames * (R / kTile) blocks. Z[j + R*k1] = FFT_M1(Y[j*M1 + n1])[k1].
+//   kStorePack:  the packed planes `out` (re) and `out_im` (im), M per frame:
+//                P[k] = (Z[k] + conj Z[M-k]) - i W_N^k (Z[k] - conj Z[M-k]),
+//                k >= 1; re[0] = 2(Re Z0 + Im Z0) (DC), im[0] =
+//                2(Re Z0 - Im Z0) (Nyquist). Z[M-k] is at row R-j, column
+//                M1-1-k1 (row 0: column M1-k1), in the same block.
+//   kStoreTail:  the inverse's kept half: for k >= M/2, output samples
+//                (2k - N/2, 2k + 1 - N/2) of the (frames, N/2) real `out` are
+//                scale * conj(Z[k]).
+//   kStoreFull:  the whole inverse: output samples (2k, 2k + 1) of the
+//                (frames, N) real `out` are scale * conj(Z[k]), every k.
+//   kStoreSplit: Z[k] itself into the (frames, M) planes `out` (re) and
+//                `out_im` (im).
 template <int kStore, int L>
 __global__ void __launch_bounds__(kThreads)
-fft_pass2(const float2* __restrict__ y, float* __restrict__ out,
-          float* __restrict__ out_im, const float2* __restrict__ tw, int log_n,
-          int n2, float scale) {
+fft_rows(const float2* __restrict__ y, float* __restrict__ out,
+         float* __restrict__ out_im, const float2* __restrict__ tw, int log_n,
+         int rows, float scale) {
   constexpr int A = Sub<L>::kA, B = Sub<L>::kB;
   __shared__ float2 s[kTile * kLd];
   const int m = 1 << (log_n - 1);
-  const int tiles = n2 / kTile;
+  const int tiles = rows / kTile;
   const long long frame = blockIdx.x / tiles;
   const int tile = (int)(blockIdx.x - frame * tiles);
   const int r0 = tile * kTile;
@@ -283,7 +340,7 @@ fft_pass2(const float2* __restrict__ y, float* __restrict__ out,
   if (tid < kTile * A) {
     const int j1 = tid % A;
     const int f = tid / A;
-    const int row = kStore == kStorePack ? pack_row(tile, f, n2) : r0 + f;
+    const int row = kStore == kStorePack ? pack_row(tile, f, rows) : r0 + f;
     const float2* yr = y + frame * m + (long long)row * L;
     float2 v[B];
 #pragma unroll
@@ -302,6 +359,18 @@ fft_pass2(const float2* __restrict__ y, float* __restrict__ out,
     for (int j1 = 0; j1 < A; ++j1) v[j1] = s[f * kLd + k2 * A + j1];
     reg_dft<A>(v, tw, log_n);
   }
+  if (kStore == kStoreSplit) {
+    if (active) {
+      const long long base = frame * m + r0 + f;
+#pragma unroll
+      for (int k1 = 0; k1 < A; ++k1) {
+        const long long i = base + (long long)rows * (k2 + B * k1);
+        out[i] = v[k1].x;
+        out_im[i] = v[k1].y;
+      }
+    }
+    return;
+  }
   if (kStore != kStorePack) {
     // Tail: outputs k >= M/2 only, into frames of M/2 float2; full: all.
     constexpr int kLo = kStore == kStoreTail ? A / 2 : 0;
@@ -311,7 +380,7 @@ fft_pass2(const float2* __restrict__ y, float* __restrict__ out,
 #pragma unroll
       for (int k1 = kLo; k1 < A; ++k1) {
         const int k = k2 + B * k1;
-        of[r0 + f + n2 * k - skip] = make_float2(scale * v[k1].x, -scale * v[k1].y);
+        of[r0 + f + rows * k - skip] = make_float2(scale * v[k1].x, -scale * v[k1].y);
       }
     }
     return;
@@ -327,15 +396,15 @@ fft_pass2(const float2* __restrict__ y, float* __restrict__ out,
   for (int i = tid; i < kTile * L; i += blockDim.x) {
     const int sf = i % kTile;
     const int k1 = i / kTile;
-    const int row = pack_row(tile, sf, n2);
-    const int k = row + n2 * k1;
+    const int row = pack_row(tile, sf, rows);
+    const int k = row + rows * k1;
     const float2 zk = s[sf * kLd + k1];
     if (k == 0) {
       re[0] = 2.f * (zk.x + zk.y);
       im[0] = 2.f * (zk.x - zk.y);
       continue;
     }
-    const int g = (row == 0 || row == (n2 >> 1)) ? sf : (sf ^ 8);
+    const int g = (row == 0 || row == (rows >> 1)) ? sf : (sf ^ 8);
     const int c = row == 0 ? L - k1 : L - 1 - k1;
     const float2 zm = s[g * kLd + c];
     const float2 sum = make_float2(zk.x + zm.x, zk.y - zm.y);
@@ -348,40 +417,72 @@ fft_pass2(const float2* __restrict__ y, float* __restrict__ out,
 
 // Host launchers: the sub-FFT lengths are template arguments.
 template <int kLoad>
-inline void launch_pass1(const Plan& p, long long frames, const float* a,
-                         const float* a_im, float2* y, const float2* tw,
-                         int hops, cudaStream_t st) {
-  const unsigned grid = (unsigned)(frames * (p.n1 / kTile));
-  switch (p.n2) {
+inline void launch_cols(int len, long long subframes, int ncol, const float* a,
+                        const float* a_im, float2* y, const float2* tw, int log_n,
+                        int log_m, int subs, int col_mask, int hops, cudaStream_t st) {
+  const unsigned grid = (unsigned)(subframes * (ncol / kTile));
+  switch (len) {
+    case 32:
+      fft_cols<kLoad, 32><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, log_n, log_m, ncol,
+                                                     subs, col_mask, hops);
+      break;
     case 64:
-      fft_pass1<kLoad, 64><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, p.log_n, p.n1, hops);
+      fft_cols<kLoad, 64><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, log_n, log_m, ncol,
+                                                     subs, col_mask, hops);
       break;
     case 128:
-      fft_pass1<kLoad, 128><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, p.log_n, p.n1, hops);
+      fft_cols<kLoad, 128><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, log_n, log_m, ncol,
+                                                      subs, col_mask, hops);
       break;
     default:
-      fft_pass1<kLoad, 256><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, p.log_n, p.n1, hops);
+      fft_cols<kLoad, 256><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, log_n, log_m, ncol,
+                                                      subs, col_mask, hops);
   }
 }
 
 template <int kStore>
-inline void launch_pass2(const Plan& p, long long frames, const float2* y,
-                         float* out, float* out_im, const float2* tw,
-                         float scale, cudaStream_t st) {
-  const unsigned grid = (unsigned)(frames * (p.n2 / kTile));
-  switch (p.n1) {
+inline void launch_rows(const Plan& p, long long frames, const float2* y,
+                        float* out, float* out_im, const float2* tw,
+                        float scale, cudaStream_t st) {
+  const int rows = p.m / p.l_last;
+  const unsigned grid = (unsigned)(frames * (rows / kTile));
+  switch (p.l_last) {
     case 32:
-      fft_pass2<kStore, 32><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, p.n2, scale);
+      fft_rows<kStore, 32><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows, scale);
       break;
     case 64:
-      fft_pass2<kStore, 64><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, p.n2, scale);
+      fft_rows<kStore, 64><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows, scale);
       break;
     case 128:
-      fft_pass2<kStore, 128><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, p.n2, scale);
+      fft_rows<kStore, 128><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows, scale);
       break;
     default:
-      fft_pass2<kStore, 256><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, p.n2, scale);
+      fft_rows<kStore, 256><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows, scale);
   }
+}
+
+// The whole transform of `frames` frames: the first column pass loads with
+// kLoad (a, a_im; `hops` for kLoadStream), the row pass stores with kStore
+// (out, out_im, `scale`). `scratch` holds frames * M float2 with two passes,
+// twice that with three (pass 1 -> scratch, pass 2 -> its second half).
+template <int kLoad, int kStore>
+inline void run_fft(const Plan& p, long long frames, const float* a, const float* a_im,
+                    float2* scratch, float* out, float* out_im, const float2* tw,
+                    int hops, float scale, cudaStream_t st) {
+  const int log_m = p.log_n - 1;
+  if (p.passes == 2) {
+    launch_cols<kLoad>(p.l_first, frames, p.m / p.l_first, a, a_im, scratch, tw, p.log_n,
+                       log_m, 1, ~0, hops, st);
+    launch_rows<kStore>(p, frames, scratch, out, out_im, tw, scale, st);
+    return;
+  }
+  float2* y2 = scratch + frames * (long long)p.m;
+  launch_cols<kLoad>(p.l_first, frames, p.m / p.l_first, a, a_im, scratch, tw, p.log_n,
+                     log_m, 1, ~(p.l_last - 1), hops, st);
+  launch_cols<kLoadReal>(p.l_mid, frames * p.l_first, p.l_last,
+                         reinterpret_cast<const float*>(scratch), nullptr, y2, tw,
+                         p.log_n, log_m, p.l_first, ~0, 1, st);
+  launch_rows<kStore>(p, frames, y2, out, out_im, tw, scale, st);
 }
 
 }  // namespace hst

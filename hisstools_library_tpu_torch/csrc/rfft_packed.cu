@@ -23,8 +23,7 @@ extern "C" int hst_rfft_packed(const float* x, float* re, float* im,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float2* y = static_cast<float2*>(scratch_y);
   const float2* w = static_cast<const float2*>(tw);
-  launch_pass1<kLoadReal>(p, batch, x, nullptr, y, w, 1, st);
-  launch_pass2<kStorePack>(p, batch, y, re, im, w, 1.f, st);
+  run_fft<kLoadReal, kStorePack>(p, batch, x, nullptr, y, re, im, w, 1, 1.f, st);
   return (int)cudaGetLastError();
 }
 

@@ -22,7 +22,6 @@ extern "C" int hst_rifft_packed(const float* re, const float* im, float* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float2* y = static_cast<float2*>(scratch_y);
   const float2* w = static_cast<const float2*>(tw);
-  launch_pass1<kLoadUnpack>(p, frames, re, im, y, w, 1, st);
-  launch_pass2<kStoreFull>(p, frames, y, out, nullptr, w, 1.0f, st);
+  run_fft<kLoadUnpack, kStoreFull>(p, frames, re, im, y, out, nullptr, w, 1, 1.f, st);
   return (int)cudaGetLastError();
 }

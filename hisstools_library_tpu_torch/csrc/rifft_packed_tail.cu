@@ -23,7 +23,6 @@ extern "C" int hst_rifft_packed_tail(const float* re, const float* im,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float2* y = static_cast<float2*>(scratch_y);
   const float2* w = static_cast<const float2*>(tw);
-  launch_pass1<kLoadUnpack>(p, frames, re, im, y, w, 1, st);
-  launch_pass2<kStoreTail>(p, frames, y, out, nullptr, w, scale, st);
+  run_fft<kLoadUnpack, kStoreTail>(p, frames, re, im, y, out, nullptr, w, 1, scale, st);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,17 @@
 """FFT public API with HISSTools/vDSP-compatible packing and scaling.
 
-Counterpart of ``hisstools_library_tpu/fft/api.py`` for the real transforms:
+Counterpart of ``hisstools_library_tpu/fft/api.py``:
 
+- ``fft(re, im)``   : unscaled complex DFT of split planes.
+- ``ifft(re, im)``  : unscaled inverse (N x the textbook IDFT), an FFT with the
+                      planes swapped.
 - ``rfft(x)``       : real FFT of size N -> N/2 packed bins, scaled x2 against
                       the textbook DFT; DC in ``re[0]``, Nyquist in ``im[0]``.
+- ``rfft_padded``   : zero-pad (or cut) to the FFT size, then ``rfft``.
 - ``rifft(re, im)`` : unscaled inverse of the packed layout,
                       ``rifft(rfft(x)) == 2N x``.
+- ``unzip`` / ``zip_split`` / ``unzip_zero`` : interleaved <-> split planes.
+- ``pack_spectrum`` / ``unpack_spectrum`` : textbook N/2 + 1 bins <-> packed.
 
 Backends keep the TPU package's names so callers port unchanged:
 
@@ -15,9 +21,16 @@ Backends keep the TPU package's names so callers port unchanged:
   path, which is not a Pallas kernel. ``"matmul"`` is an alias of ``"xla"``.
 
 With no backend given, the tensor's device decides: ``"pallas"`` on CUDA (as
-the TPU package defaults to its kernels on a TPU), ``"xla"`` on the CPU. The
-other transforms of the TPU API (``fft``, ``ifft``, ``rfft_padded``, zip and
-pack helpers) are not ported yet.
+the TPU package defaults to its kernels on a TPU), ``"xla"`` on the CPU.
+With ``"pallas"`` on a CUDA tensor ``fft`` / ``ifft`` launch K12 (N =
+32..2^19) and ``rfft`` / ``rifft`` K10/K11 (N = 32..2048), K1/K6 (4096..2^17)
+or K13/K14 (2^18..2^20); outside those sizes, and for float64, they raise
+``NotImplementedError`` naming what is missing, and nothing on the card calls
+``torch.fft``. The TPU package's large-size routing (``_route_large``, the
+out-of-core and sharded transforms) and its float64 ``TypeError`` do not carry
+over: float64 runs the plain versions on the CPU. The kernels take contiguous
+planes; a strided view (a slice of a packed spectrum, a truncated signal) is
+copied once here.
 """
 
 from __future__ import annotations
@@ -26,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.types import Split
 from . import hopper_fft
 
 # Max size parity with the reference: setups up to 2^28 (HISSTools_FFT.h:87-98).
@@ -68,6 +82,23 @@ def _log2_size(n: int) -> int:
     return log2n
 
 
+def fft(re: torch.Tensor, im: torch.Tensor, backend: Optional[str] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unscaled complex DFT along the last axis (reference hisstools_fft)."""
+    _log2_size(re.shape[-1])
+    if _resolve(backend, re.device) == "pallas":
+        return hopper_fft.fft_split(re.contiguous(), im.contiguous())
+    return hopper_fft.fft_split_plain(re, im)
+
+
+def ifft(re: torch.Tensor, im: torch.Tensor, backend: Optional[str] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unscaled inverse complex DFT (= N x IDFT). Reference hisstools_ifft, an
+    FFT with the real and imaginary planes swapped."""
+    fr, fi = fft(im, re, backend=backend)
+    return fi, fr
+
+
 def rfft(x: torch.Tensor, backend: Optional[str] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Real FFT of size N -> packed N/2-bin split spectrum (x2 scale, Nyquist
@@ -77,7 +108,7 @@ def rfft(x: torch.Tensor, backend: Optional[str] = None
     if n == 1:
         raise ValueError("rfft requires N >= 2")
     if _resolve(backend, x.device) == "pallas":
-        return hopper_fft.rfft_packed(x)
+        return hopper_fft.rfft_packed(x.contiguous())
     return hopper_fft.rfft_packed_plain(x)
 
 
@@ -85,9 +116,74 @@ def rifft(re: torch.Tensor, im: torch.Tensor, backend: Optional[str] = None
           ) -> torch.Tensor:
     """Unscaled inverse of the packed real spectrum: ``rifft(rfft(x)) == 2N x``,
     along the last axis. ``"pallas"`` on a CUDA tensor launches K6 (N =
-    4096..2^17) or K11 (N = 32..2048); above 2^17 it raises, naming K14."""
+    4096..2^17), K11 (N = 32..2048) or K14 (2^18..2^20)."""
     n = re.shape[-1] * 2
     _log2_size(n)
     if _resolve(backend, re.device) == "pallas":
-        return hopper_fft.rifft_packed(re, im)
+        return hopper_fft.rifft_packed(re.contiguous(), im.contiguous())
     return hopper_fft.rifft_packed_plain(re, im)
+
+
+def rfft_padded(x: torch.Tensor, fft_size: int, backend: Optional[str] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero-pad the signal to ``fft_size`` (or cut it there), then
+    :func:`rfft` (reference out-of-place hisstools_rfft,
+    HISSTools_FFT.h:180-208)."""
+    n = x.shape[-1]
+    if n > fft_size:
+        x = x[..., :fft_size]
+    elif n < fft_size:
+        x = torch.nn.functional.pad(x, (0, fft_size - n))
+    return rfft(x, backend=backend)
+
+
+# -----------------------------------------------------------------------------
+# zip / unzip (interleaved <-> split conversions)
+# -----------------------------------------------------------------------------
+
+def unzip(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Even samples -> re, odd samples -> im (reference hisstools_unzip,
+    HISSTools_FFT.h:333-345). Input length must be even."""
+    return x[..., 0::2], x[..., 1::2]
+
+
+def zip_split(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """Interleave split planes back to a single tensor (reference
+    hisstools_zip, HISSTools_FFT.h:357-369)."""
+    return torch.stack([re, im], dim=-1).reshape(*re.shape[:-1], re.shape[-1] * 2)
+
+
+def unzip_zero(x: torch.Tensor, fft_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unzip ``min(len, fft_size)`` samples into an fft_size/2 split buffer,
+    zero padding the remainder (reference hisstools_unzip_zero,
+    HISSTools_FFT.h:295-321); an odd length zeroes the dangling imaginary
+    slot."""
+    take = min(x.shape[-1], fft_size)
+    x = x[..., :take]
+    if take < fft_size:
+        x = torch.nn.functional.pad(x, (0, fft_size - take))
+    return unzip(x)
+
+
+# -----------------------------------------------------------------------------
+# Packed <-> standard complex-bin conversion
+# -----------------------------------------------------------------------------
+
+def pack_spectrum(re_full: torch.Tensor, im_full: torch.Tensor) -> Split:
+    """(N/2+1)-bin textbook spectrum -> packed N/2-bin Split with the x2
+    scale."""
+    re = 2.0 * re_full
+    im = 2.0 * im_full
+    im = torch.cat([re[..., -1:], im[..., 1:-1]], dim=-1)
+    return Split(re[..., :-1], im)
+
+
+def unpack_spectrum(s: Split) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed N/2-bin Split -> (N/2+1)-bin textbook spectrum (the x2 scale
+    undone)."""
+    dc = s.re[..., :1]
+    nyq = s.im[..., :1]
+    re = torch.cat([dc, s.re[..., 1:], nyq], dim=-1) * 0.5
+    zeros = torch.zeros_like(dc)
+    im = torch.cat([zeros, s.im[..., 1:], zeros], dim=-1) * 0.5
+    return re, im

@@ -1,4 +1,4 @@
-"""Real FFT kernels for Hopper: the counterpart of ``fft/pallas_fft.py``.
+"""FFT kernels for Hopper: the counterpart of ``fft/pallas_fft.py``.
 
 Each TPU kernel of the ported paths has a hand-written CUDA kernel here
 (sources in ``csrc/``, built by :mod:`.._build`) and a plain PyTorch version
@@ -15,17 +15,25 @@ function                           replaces (hisstools_library_tpu/...)      CUD
 :func:`fastfir_chain_stream` (K8)  fft/pallas_fft.py: fastfir_chain_stream   csrc/fastfir_chain_stream.cu
 :func:`rfft_small`          (K10)  fft/pallas_fft.py: _small_fwd_call        csrc/rfft_small.cu
 :func:`rifft_small`         (K11)  fft/pallas_fft.py: _small_inv_call        csrc/rifft_small.cu
+:func:`fft_split`           (K12)  fft/pallas_fft.py: fft_split              csrc/fft_split.cu
+:func:`rfft_packed_split`   (K13)  fft/pallas_fft.py: _rfft_packed_split     csrc/rfft_packed_split.cu
+:func:`rifft_packed_split`  (K14)  fft/pallas_fft.py: _rifft_packed_split    csrc/rifft_packed_split.cu
 =================================  ========================================  ==============================
 
 A wrapper runs the plain version only for a tensor on the CPU. For a CUDA
-tensor it launches its kernel or raises: ``NotImplementedError`` names the
-kernel still to be ported when the call is outside the ported envelope
-(float64, N above 2^17, K8 above 2^15), and no path falls back to
-``torch.fft``. Each wrapper counts its launches in ``<wrapper>.launches``.
-:func:`rfft_packed` sends N = 32..2048 to K10 and N = 4096..2^17 to K1, and
-:func:`rifft_packed` sends N = 32..2048 to K11 and N = 4096..2^17 to K6, as
+tensor it launches its kernel or raises: ``NotImplementedError`` names what
+is still to be ported when the call is outside the ported envelope (float64;
+real N above 2^20 and complex N above 2^19, ROADMAP queue 1 item 12; K8
+above 2^15), and no path falls back to ``torch.fft``. Each wrapper counts its
+launches in ``<wrapper>.launches``. :func:`rfft_packed` sends N = 32..2048 to
+K10, N = 4096..2^17 to K1 and N = 2^18..2^20 to K13, and :func:`rifft_packed`
+sends N = 32..2048 to K11, N = 4096..2^17 to K6 and N = 2^18..2^20 to K14, as
 the TPU package's ``rfft_packed`` / ``rifft_packed`` send their small sizes to
-``_rfft_small`` / ``_rifft_small``.
+``_rfft_small`` / ``_rifft_small`` and their large ones to the split pairs.
+:func:`fft_split` (K12) serves complex N = 32..2^19: frames of up to 1024
+points in shared memory, 2048..2^16 in two passes and 2^17..2^19 in three
+passes over HBM scratch (``csrc/fft_common.cuh``, which K1, K2, K4, K6, K13
+and K14 share).
 
 ``fastfir_chain`` keeps the TPU function's signature and result but runs K2,
 K3 and K4 in turn: the TPU kernel keeps each channel's spectra ring and
@@ -38,7 +46,9 @@ N = 2^14..2^15 one frame fits a block's shared memory (see its source).
 
 Precision: :func:`set_mode` keeps the TPU package's knob (``"bf16x3"`` or
 ``"highest"``). On Hopper both modes run the same FP32 SIMT kernels, with
-twiddles computed in float64 on the host and stored as float32.
+twiddles computed in float64 on the host and stored as float32; unlike the
+TPU's "highest", which leaves 2^20 to the staged matmul path, both serve
+2^20 through K13/K14.
 """
 
 from __future__ import annotations
@@ -55,7 +65,13 @@ from ..core.types import Split, packed_mul
 from .hopper_kernels import lag_mac_causal, lag_mac_ring_plain
 
 MIN_REAL_SIZE = 4096
-MAX_SINGLE_REAL = 1 << 17
+MAX_SINGLE_REAL = 1 << 17    # K1 / K6: two passes
+MAX_SPLIT_REAL = 1 << 20     # K13 / K14: three passes, N = 2^18..2^20
+MIN_COMPLEX = 32             # K12 serves complex N = 32..2^19
+MAX_COMPLEX_SMEM = 1024      # K12 in shared memory up to here
+MAX_COMPLEX = 1 << 19
+# Beyond the kernels' sizes: what is still to be ported there.
+LARGE_MISSING = "sizes 2^21..2^28 (ROADMAP queue 1 item 12)"
 SMALL_MIN_REAL = 32          # K10 serves N = 32..2048
 STREAM_CHAIN_MIN = 1 << 14   # the TPU package routes N = 2^14..2^17 to K8
 STREAM_CHAIN_MAX = 1 << 15   # the Hopper K8 serves N = 2^14..2^15
@@ -86,6 +102,16 @@ def small_eligible(n: int) -> bool:
     return SMALL_MIN_REAL <= n < MIN_REAL_SIZE and (n & (n - 1)) == 0
 
 
+def split_eligible(n: int) -> bool:
+    """True when the three-pass real kernels (K13/K14) serve size ``n``."""
+    return MAX_SINGLE_REAL < n <= MAX_SPLIT_REAL and (n & (n - 1)) == 0
+
+
+def complex_eligible(n: int) -> bool:
+    """True when the complex kernel (K12) serves size ``n``."""
+    return MIN_COMPLEX <= n <= MAX_COMPLEX and (n & (n - 1)) == 0
+
+
 def stream_chain_eligible(n: int) -> bool:
     """True for the sizes the TPU package's process_block sends to its whole
     streaming chain (N = 2^14..2^17, at P <= 8). The Hopper K8 serves
@@ -109,16 +135,41 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
 
 
 def _check(kernel: str, n: int, *tensors: torch.Tensor) -> None:
-    """Raise unless the kernel takes these tensors at real size ``n``."""
+    """Raise unless the two-pass real kernel takes these tensors at size ``n``."""
     if not real_eligible(n):
-        missing = ("K10 (forward) and K11 (inverse) serve N = 32..2048 through "
-                   "rfft_packed / rifft_packed; a small form of this kernel and "
-                   "N < 32" if n < MIN_REAL_SIZE
-                   else "K13/K14 (_rfft_packed_split/_rifft_packed_split)")
+        if n < MIN_REAL_SIZE:
+            missing = ("K10 (forward) and K11 (inverse) serve N = 32..2048 through "
+                       "rfft_packed / rifft_packed; a small form of this kernel and "
+                       "N < 32")
+        elif n <= MAX_SPLIT_REAL:
+            missing = ("K13/K14 serve N = 2^18..2^20 through rfft_packed / "
+                       "rifft_packed; a three-pass form of this kernel")
+        else:
+            missing = LARGE_MISSING
         raise NotImplementedError(
             f"{kernel}: serves N = {MIN_REAL_SIZE}..{MAX_SINGLE_REAL}; N = {n}: "
             f"{missing} not yet ported")
     _build.check_tensors(kernel, *tensors)
+
+
+def _check_split(kernel: str, n: int, *tensors: torch.Tensor) -> None:
+    """Raise unless the three-pass real kernel takes these tensors at ``n``."""
+    if not split_eligible(n):
+        missing = (LARGE_MISSING + " not yet ported" if n > MAX_SPLIT_REAL else
+                   "rfft_packed / rifft_packed serve smaller sizes through K1/K6 "
+                   "and K10/K11")
+        raise NotImplementedError(
+            f"{kernel}: serves N = {2 * MAX_SINGLE_REAL}..{MAX_SPLIT_REAL}; N = {n}: "
+            f"{missing}")
+    _build.check_tensors(kernel, *tensors)
+
+
+def _scratch(frames: int, m: int, device) -> torch.Tensor:
+    """HBM scratch of the multi-pass core for ``frames`` complex transforms
+    of M = ``m`` points: one frame of M float2 each with two passes (M <=
+    2^16), two with three."""
+    frames_per = 2 if m > MAX_SINGLE_REAL // 2 else 1
+    return torch.empty(frames_per * frames, 2 * m, dtype=torch.float32, device=device)
 
 
 # -----------------------------------------------------------------------------
@@ -155,9 +206,22 @@ def rifft_packed_tail_plain(re: torch.Tensor, im: torch.Tensor,
     return rifft_packed_plain(re, im)[..., re.shape[-1]:] * scale
 
 
-# The plain versions of K10 and K11 are the packed real transforms themselves.
+# The plain versions of K10, K11, K13 and K14 are the packed real transforms
+# themselves.
 rfft_small_plain = rfft_packed_plain
 rifft_small_plain = rifft_packed_plain
+rfft_packed_split_plain = rfft_packed_plain
+rifft_packed_split_plain = rifft_packed_plain
+
+
+def fft_split_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unscaled complex DFT (or N x IDFT) of split planes by ``torch.fft``."""
+    if inverse:
+        re, im = im, re
+    z = torch.fft.fft(torch.complex(re, im), dim=-1)
+    out_re, out_im = z.real.contiguous(), z.imag.contiguous()
+    return (out_im, out_re) if inverse else (out_re, out_im)
 
 
 def fastfir_chain_stream_plain(x2d, prev, ring_re, ring_im, h_re, h_im,
@@ -183,12 +247,15 @@ def fastfir_chain_stream_plain(x2d, prev, ring_re, ring_im, h_re, h_im,
 
 def rfft_packed(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: real FFT -> packed N/2 bins (x2 scale, Nyquist in im[0]), batched
-    over the leading axes, natural bin order. N = 32..2048 go to K10."""
+    over the leading axes, natural bin order. N = 32..2048 go to K10,
+    N = 2^18..2^20 to K13."""
     if x.device.type == "cpu":
         return rfft_packed_plain(x)
     n = x.shape[-1]
     if small_eligible(n):
         return rfft_small(x)
+    if split_eligible(n):
+        return rfft_packed_split(x)
     _check("K1 rfft_packed", n, x)
     lead = x.shape[:-1]
     b = math.prod(lead)
@@ -239,12 +306,14 @@ rfft_small.launches = 0
 def rifft_packed(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     """K6: unscaled inverse of packed N/2-bin planes, rifft(rfft(x)) == 2N x,
     batched over the leading axes; returns (..., N). N = 32..2048 go to
-    K11."""
+    K11, N = 2^18..2^20 to K14."""
     if re.device.type == "cpu":
         return rifft_packed_plain(re, im)
     n = 2 * re.shape[-1]
     if small_eligible(n):
         return rifft_small(re, im)
+    if split_eligible(n):
+        return rifft_packed_split(re, im)
     kernel = "K6 rifft_packed"
     _check(kernel, n, re, im)
     if im.shape != re.shape:
@@ -293,6 +362,99 @@ def rifft_small(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
 
 
 rifft_small.launches = 0
+
+
+def rfft_packed_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K13: real FFT of N = 2^18..2^20 -> packed N/2 bins (x2 scale, Nyquist
+    in im[0]), batched over the leading axes, natural bin order."""
+    if x.device.type == "cpu":
+        return rfft_packed_split_plain(x)
+    kernel = "K13 rfft_packed_split"
+    n = x.shape[-1]
+    _check_split(kernel, n, x)
+    lead = x.shape[:-1]
+    b = math.prod(lead)
+    re = torch.empty(*lead, n // 2, dtype=torch.float32, device=x.device)
+    im = torch.empty_like(re)
+    if b == 0:
+        return re, im
+    scratch = _scratch(b, n // 2, x.device)
+    rc = _build.load().hst_rfft_packed_split(
+        x.data_ptr(), re.data_ptr(), im.data_ptr(), scratch.data_ptr(),
+        _twiddles(n, x.device).data_ptr(), b, n, _build.stream(x.device))
+    _build.check(rc, kernel)
+    rfft_packed_split.launches += 1
+    return re, im
+
+
+rfft_packed_split.launches = 0
+
+
+def rifft_packed_split(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """K14: unscaled inverse (N = 2^18..2^20) of packed N/2-bin planes,
+    rifft(rfft(x)) == 2N x, batched over the leading axes; returns (..., N)."""
+    if re.device.type == "cpu":
+        return rifft_packed_split_plain(re, im)
+    kernel = "K14 rifft_packed_split"
+    n = 2 * re.shape[-1]
+    _check_split(kernel, n, re, im)
+    if im.shape != re.shape:
+        raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")
+    lead = re.shape[:-1]
+    b = math.prod(lead)
+    out = torch.empty(*lead, n, dtype=torch.float32, device=re.device)
+    if b == 0:
+        return out
+    scratch = _scratch(b, n // 2, re.device)
+    rc = _build.load().hst_rifft_packed_split(
+        re.data_ptr(), im.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        _twiddles(n, re.device).data_ptr(), b, n, _build.stream(re.device))
+    _build.check(rc, kernel)
+    rifft_packed_split.launches += 1
+    return out
+
+
+rifft_packed_split.launches = 0
+
+
+def fft_split(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K12: unscaled complex DFT along the last axis of split planes
+    (hisstools_fft), or with ``inverse`` the unscaled N x IDFT
+    (hisstools_ifft: the forward with the planes swapped in and out, which
+    the launch does by swapping pointers, with no copy). Complex N =
+    32..2^19, batched over the leading axes, natural order."""
+    if re.device.type == "cpu":
+        return fft_split_plain(re, im, inverse)
+    kernel = "K12 fft_split"
+    n = re.shape[-1]
+    if not complex_eligible(n):
+        missing = ("complex " + LARGE_MISSING if n > MAX_COMPLEX
+                   else "complex FFTs below 32 points")
+        raise NotImplementedError(
+            f"{kernel}: serves N = {MIN_COMPLEX}..{MAX_COMPLEX}; N = {n}: {missing} "
+            "not yet ported")
+    _build.check_tensors(kernel, re, im)
+    if im.shape != re.shape:
+        raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")
+    lead = re.shape[:-1]
+    b = math.prod(lead)
+    out_re = torch.empty(re.shape, dtype=torch.float32, device=re.device)
+    out_im = torch.empty_like(out_re)
+    if b == 0:
+        return out_re, out_im
+    src, dst = ((im, re), (out_im, out_re)) if inverse else ((re, im), (out_re, out_im))
+    scratch = None if n <= MAX_COMPLEX_SMEM else _scratch(b, n, re.device)
+    rc = _build.load().hst_fft_split(
+        src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(), dst[1].data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        _twiddles(2 * n, re.device).data_ptr(), b, n, _build.stream(re.device))
+    _build.check(rc, kernel)
+    fft_split.launches += 1
+    return out_re, out_im
+
+
+fft_split.launches = 0
 
 
 def rfft_packed_stream(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -7,10 +7,11 @@ imports jax, so run it there with
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance: >= 120 dB SNR for each kernel against its plain version (float32
-sums taken in another order give ~130 dB), >= 110 dB for the FastFIR chain and
-the streaming engines against the CPU path, >= 100 dB for the streaming
-engines and >= 120 dB for the time-domain FIR against float64 (a TF32
-convolution would give ~60 dB).
+sums taken in another order give ~130 dB; >= 110 dB for the three-pass K12,
+K13 and K14, whose sums run over 2^17..2^20 points), >= 110 dB for the
+FastFIR chain and the streaming engines against the CPU path, >= 100 dB for
+the streaming engines and the spectral ops and >= 120 dB for
+the time-domain FIR against float64 (a TF32 convolution would give ~60 dB).
 """
 
 import numpy as np
@@ -18,8 +19,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from hisstools_library_tpu_torch.core.types import Split  # noqa: E402
 from hisstools_library_tpu_torch.fft import hopper_fft, hopper_kernels  # noqa: E402
-from hisstools_library_tpu_torch.models import mono, offline, time_domain  # noqa: E402
+from hisstools_library_tpu_torch.models import mono, offline, pipeline, time_domain  # noqa: E402
+from hisstools_library_tpu_torch.ops import spectral_processor as sp  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -103,8 +106,8 @@ def test_fastfir_on_cuda_matches_cpu(cuda):
     (lambda d: hopper_fft.rfft_packed(torch.zeros(2, 4096, dtype=torch.float64,
                                                   device=d)),
      NotImplementedError, "float64"),
-    (lambda d: hopper_fft.rfft_packed(torch.zeros(2, 1 << 18, device=d)),
-     NotImplementedError, "K13"),
+    (lambda d: hopper_fft.rfft_packed(torch.zeros(2, 1 << 21, device=d)),
+     NotImplementedError, "item 12"),
     (lambda d: hopper_fft.rfft_packed(torch.zeros(4096, 2, device=d).t()),
      ValueError, "contiguous"),
     (lambda d: hopper_kernels.lag_mac_causal(
@@ -285,8 +288,8 @@ def test_slice_kernel_matches_plain(cuda, name, shape):
                                        *(torch.zeros(2, 3, 1024, device=d) for _ in range(4))),
      "K9"),
     (lambda d: hopper_fft.rifft_small(*(torch.zeros(2, 8, device=d) for _ in range(2))), "K11"),
-    (lambda d: hopper_fft.rifft_packed(*(torch.zeros(2, 1 << 17, device=d) for _ in range(2))),
-     "K14"),
+    (lambda d: hopper_fft.rifft_packed(*(torch.zeros(2, 1 << 20, device=d) for _ in range(2))),
+     "item 12"),
 ])
 def test_slice_wrappers_refuse_on_cuda(cuda, call, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -377,3 +380,97 @@ def test_mac_routes_above_512_partitions_on_cuda(cuda):
             assert hopper_kernels.lag_mac_ring.launches - before == 1
         outs.append(y.cpu())
     assert snr_db(outs[1], outs[0]) >= SNR_CHAIN_DB
+
+
+SPECTRAL_CASES = [
+    ("fft_split", (3, 32), False), ("fft_split", (5, 1024), True),
+    ("fft_split", (3, 2048), False), ("fft_split", (2, 1 << 14), True),
+    ("fft_split", (2, 1 << 16), False), ("fft_split", (2, 1 << 17), True),
+    ("fft_split", (1, 1 << 18), False), ("fft_split", (3, 1 << 19), True),
+    ("rfft_packed_split", (3, 1 << 18), None), ("rfft_packed_split", (1, 1 << 19), None),
+    ("rfft_packed_split", (2, 1 << 20), None),
+    ("rifft_packed_split", (3, 1 << 18), None), ("rifft_packed_split", (1, 1 << 19), None),
+    ("rifft_packed_split", (2, 1 << 20), None),
+]
+
+
+@pytest.mark.parametrize("name,shape,inverse", SPECTRAL_CASES)
+def test_spectral_kernel_matches_plain(cuda, name, shape, inverse):
+    """K12 in shared memory, two and three passes, forward and inverse; K13
+    and K14 at every size of their envelope (three passes)."""
+    fn = getattr(hopper_fft, name)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, n = shape
+    k = n // 2 if name == "rifft_packed_split" else n
+    args = (torch.randn(b, k, generator=g, device=cuda),)
+    if name != "rfft_packed_split":
+        args += (torch.randn(b, k, generator=g, device=cuda),)
+    kw = {} if inverse is None else dict(inverse=inverse)
+    before = fn.launches
+    got = fn(*args, **kw)
+    want = getattr(hopper_fft, name + "_plain")(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    floor = SNR_CHAIN_DB if n > (1 << 16) else SNR_KERNEL_DB
+    for gt, w in zip(got, want):
+        assert gt.shape == w.shape and gt.device.type == "cuda"
+        assert bool(torch.isfinite(gt).all())
+        assert snr_db(w.cpu().numpy(), gt.cpu().numpy()) >= floor
+
+
+SPECTRAL_PATHS = {
+    # name: (call on (x1, x2), {wrapper: launches})
+    "convolve-2^20": (lambda a, b: sp.convolve(a, b),
+                      {"rfft_packed_split": 2, "rifft_packed_split": 1}),
+    "convolve_complex-2^17": (lambda a, b: sp.convolve_complex(Split(a, b), Split(b.flip(-1), a)),
+                              {"fft_split": 3}),
+    "change_phase-2^19": (lambda a, b: sp.change_phase(a, 0.0),
+                          {"rfft_packed_split": 2, "rifft_packed_split": 2}),
+}
+SPECTRAL_LENGTHS = {"convolve-2^20": 480000, "convolve_complex-2^17": 65536,
+                    "change_phase-2^19": 480000}
+
+
+@pytest.mark.parametrize("path", list(SPECTRAL_PATHS))
+def test_spectral_path_launches_on_cuda(cuda, path):
+    """The spectral ops at the sizes of 10 s signals at 48 kHz launch K12,
+    K13 and K14 as many times as the path needs, and match the CPU path in
+    float64. change_phase runs at phase 0 (minimum phase): its float32 path
+    holds ~116 dB against float64 at N = 2^19, while an interpolated phase
+    rounds a phase argument of up to ~4e5 radians to float32 (~39 dB)."""
+    call, need = SPECTRAL_PATHS[path]
+    rng = np.random.default_rng(0x5B)
+    n = SPECTRAL_LENGTHS[path]
+    x = (rng.standard_normal((2, n)) * np.exp(-np.arange(n) / 24000)).astype(np.float32)
+    h = (rng.standard_normal((2, n)) * np.exp(-np.arange(n) / 24000)).astype(np.float32)
+    before = {k: getattr(hopper_fft, k).launches for k in need}
+    got = call(torch.from_numpy(x).to(cuda), torch.from_numpy(h).to(cuda))
+    torch.cuda.synchronize()
+    assert {k: getattr(hopper_fft, k).launches - v for k, v in before.items()} == need
+    want = call(torch.from_numpy(x).double(), torch.from_numpy(h).double())
+    got = (got.re, got.im) if isinstance(got, Split) else (got,)
+    want = (want.re, want.im) if isinstance(want, Split) else (want,)
+    for gt, w in zip(got, want):
+        assert gt.shape == w.shape and bool(torch.isfinite(gt).all())
+        assert snr_db(w.numpy(), gt.cpu().numpy()) >= 100.0
+
+
+def test_ir_deconvolve_on_cuda(cuda):
+    """ir_deconvolve of a 2^20-point capture (K13 twice, K14 once) matches
+    the CPU path in float64 (torch's float32 CPU FFT of a batch of two 2^20
+    frames holds only ~107 dB itself)."""
+    rng = np.random.default_rng(0x5C)
+    exc = rng.standard_normal(300000).astype(np.float32)
+    measured = rng.standard_normal((2, 600000)).astype(np.float32)
+    before = (hopper_fft.rfft_packed_split.launches, hopper_fft.rifft_packed_split.launches)
+    h = pipeline.ir_deconvolve(torch.from_numpy(measured).to(cuda),
+                               torch.from_numpy(exc).to(cuda))
+    torch.cuda.synchronize()
+    assert (hopper_fft.rfft_packed_split.launches - before[0],
+            hopper_fft.rifft_packed_split.launches - before[1]) == (2, 1)
+    want = pipeline.ir_deconvolve(torch.from_numpy(measured).double(),
+                                  torch.from_numpy(exc).double())
+    assert h.shape == (2, 1 << 20)
+    assert snr_db(want.numpy(), h.cpu().numpy()) >= 100.0

@@ -1,5 +1,5 @@
-"""Port parity: the real-FFT and MAC kernels (fft/hopper_fft.py,
-fft/hopper_kernels.py) and fft/api.py.
+"""Port parity: the FFT and MAC kernels (fft/hopper_fft.py,
+fft/hopper_kernels.py) and fft/api.py's routing.
 
 Inputs are made with numpy from a seed and handed to both sides. On the CPU
 the port's wrappers run their plain PyTorch versions (torch.fft and a lag
@@ -20,7 +20,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from hisstools_library_tpu.fft import api as jax_api  # noqa: E402
 from hisstools_library_tpu.fft import pallas_fft, pallas_kernels  # noqa: E402
+from hisstools_library_tpu_torch.core.types import Split  # noqa: E402
 from hisstools_library_tpu_torch.fft import api, hopper_fft, hopper_kernels  # noqa: E402
+from hisstools_library_tpu_torch.ops import spectral_processor as sp  # noqa: E402
 
 SNR_MIN_DB = 120.0
 
@@ -62,6 +64,39 @@ def test_rifft_packed_tail_matches_pallas(rng, n):
     ty = hopper_fft.rifft_packed_tail(torch.from_numpy(re), torch.from_numpy(im),
                                       scale)
     assert ty.shape == (2, 3, n // 2)
+    assert snr_db(jy, ty) >= SNR_MIN_DB
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [2048, 8192])
+def test_fft_split_matches_pallas(rng, n, inverse):
+    """K12: the unscaled complex DFT and N x IDFT of split planes."""
+    re, im = rng.standard_normal((2, 3, n)).astype(np.float32)
+    jre, jim = pallas_fft.fft_split(jnp.asarray(re), jnp.asarray(im), inverse=inverse,
+                                    interpret=True, mode="highest")
+    tre, tim = hopper_fft.fft_split(torch.from_numpy(re), torch.from_numpy(im), inverse)
+    assert tre.shape == (3, n) and tre.dtype == torch.float32
+    assert snr_db(jre, tre) >= SNR_MIN_DB
+    assert snr_db(jim, tim) >= SNR_MIN_DB
+
+
+def test_packed_split_pair_matches_pallas(rng):
+    """K13 and K14 at (1, 2^18): the TPU split-pair kernels in interpret
+    mode against the plain versions; a DC-heavy input and a Nyquist-heavy
+    spectrum make a packed lane-0 mistake visible."""
+    n = 1 << 18
+    x = rng.standard_normal((1, n)).astype(np.float32) + 0.5
+    jre, jim = pallas_fft._rfft_packed_split(jnp.asarray(x), interpret=True, mode="highest")
+    tre, tim = hopper_fft.rfft_packed_split(torch.from_numpy(x))
+    assert tre.shape == (1, n // 2)
+    assert snr_db(jre, tre) >= SNR_MIN_DB
+    assert snr_db(jim, tim) >= SNR_MIN_DB
+    re, im = rng.standard_normal((2, 1, n // 2)).astype(np.float32)
+    im[:, 0] += 50.0
+    jy = pallas_fft._rifft_packed_split(jnp.asarray(re), jnp.asarray(im), interpret=True,
+                                        mode="highest")
+    ty = hopper_fft.rifft_packed_split(torch.from_numpy(re), torch.from_numpy(im))
+    assert ty.shape == (1, n)
     assert snr_db(jy, ty) >= SNR_MIN_DB
 
 
@@ -152,15 +187,23 @@ def test_set_mode():
                                                 device="meta")), "float64"),
     # N = 32..2048 go to K10; below that no kernel serves the forward FFT.
     (lambda: hopper_fft.rfft_packed(torch.empty(2, 16, device="meta")), "K10"),
-    (lambda: hopper_fft.rfft_packed(torch.empty(2, 1 << 18, device="meta")), "K13"),
+    # K13 serves 2^18..2^20; above that the sizes of ROADMAP queue 1 item 12.
+    (lambda: hopper_fft.rfft_packed(torch.empty(2, 1 << 21, device="meta")), "item 12"),
     (lambda: hopper_fft.rifft_packed_tail(
         *(torch.empty(2, 3, 1024, device="meta") for _ in range(2))), "K10"),
     (lambda: hopper_kernels.lag_mac_causal(
         *(torch.empty(2, 3, 256, dtype=torch.float64, device="meta")
           for _ in range(4))), "float64"),
-    # Above 2^17 the packed inverse needs K14 (K6 serves 4096..2^17).
-    (lambda: api.rifft(*(torch.empty(2, 1 << 17, device="meta") for _ in range(2)),
-                       backend="pallas"), "K14"),
+    # Above 2^20 the packed inverse needs item 12 (K14 serves 2^18..2^20).
+    (lambda: api.rifft(*(torch.empty(2, 1 << 20, device="meta") for _ in range(2)),
+                       backend="pallas"), "item 12"),
+    # K12 serves complex N = 32..2^19, float32 only.
+    (lambda: api.fft(*(torch.empty(2, 1 << 20, device="meta") for _ in range(2)),
+                     backend="pallas"), "item 12"),
+    (lambda: api.fft(*(torch.empty(2, 4096, dtype=torch.float64, device="meta")
+                       for _ in range(2)), backend="pallas"), "float64"),
+    (lambda: api.ifft(*(torch.empty(2, 16, device="meta") for _ in range(2)),
+                      backend="pallas"), "K12"),
 ])
 def test_outside_gpu_envelope_raises(call, match):
     """Off the CPU the wrappers launch a kernel or raise; calls outside the
@@ -168,6 +211,26 @@ def test_outside_gpu_envelope_raises(call, match):
     the GPU branch without a card)."""
     with pytest.raises(NotImplementedError, match=match):
         call()
+
+
+@pytest.mark.parametrize("call,kernel", [
+    # A 10 s x 10 s convolution at 48 kHz is N = 2^20: K13 forward, K14 inverse.
+    (lambda d: sp.convolve(torch.empty(2, 480000, device=d),
+                           torch.empty(2, 480000, device=d), backend="pallas"), "K13"),
+    (lambda d: api.rifft(*(torch.empty(2, 1 << 17, device=d) for _ in range(2)),
+                         backend="pallas"), "K14"),
+    # Complex ops go through K12.
+    (lambda d: sp.convolve_complex(*(Split(torch.empty(2, 70000, device=d),
+                                           torch.empty(2, 70000, device=d))
+                                     for _ in range(2)), backend="pallas"), "K12"),
+    (lambda d: api.ifft(*(torch.empty(2, 64, device=d) for _ in range(2)),
+                        backend="pallas"), "K12"),
+])
+def test_spectral_routes_to_kernels_off_cpu(call, kernel):
+    """Off the CPU the spectral ops reach the new kernels by size and never
+    torch.fft: each wrapper refuses the meta device by its kernel's name."""
+    with pytest.raises(ValueError, match=f"{kernel} .*CUDA"):
+        call(torch.device("meta"))
 
 
 def test_non_cuda_device_is_refused():

@@ -355,7 +355,7 @@ def test_process_block_ring_mac_routing_off_cpu(p):
         torch.empty(1, 2, 1 << 15, device="meta"), torch.empty(1, 1 << 15, device="meta"),
         *(torch.empty(1, 2, 1 << 15, device="meta") for _ in range(4)), 1.0),
      "K8's wider envelope"),
-    (lambda: hopper_fft.rfft_packed(torch.empty(2, 1 << 18, device="meta")), "K13"),
+    (lambda: hopper_fft.rfft_packed(torch.empty(2, 1 << 21, device="meta")), "item 12"),
     (lambda: hopper_fft.rfft_small(torch.empty(2, 4096, device="meta")), "K10"),
 ])
 def test_stream_envelopes_raise_off_cpu(call, match):
