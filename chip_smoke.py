@@ -59,7 +59,36 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
     a float64 numpy mirror (d: against the port's float64 CPU path; where the
     plain float32 CPU path itself is below 99 dB, as the interpolated phase
     is, the bar is that SNR less 3 dB), and prints ms per call (CUDA events,
-    median of 5 after a warm-up) and peak memory.
+    median of 5 after a warm-up) and peak memory;
+16. compares the windowed small transforms (K10w rfft_small_windowed, K11w
+    rifft_small_windowed) with their plain versions: K10w on the STFT's
+    frames as the strided ``unfold`` view of the 128 x 10 s padded signal
+    (938 frames of 1024, hop 512) and of the pipeline's 2^18-sample IR, on
+    (3, 256) and with hop 341; K11w at the same shapes;
+17. runs the STFT round trip as ``bench.py``'s ``stft`` mode configures it:
+    128 channels x 479 744 samples from seed 0, ``windows.hann(1023)``, N =
+    1024, hop 512, ``boundary=True`` (K10w and K11w must launch); channel 0
+    must hold >= 99 dB against the input; prints ms per pass (CUDA events,
+    median of 5 after a warm-up), samples/s, the real-time factor, peak
+    memory, and ``torch.stft`` + ``torch.istft`` beside it;
+18. runs the IR pipeline as ``bench.py``'s ``pipeline`` mode configures it: a
+    2^17-sample log sweep, a 4096-tap decaying IR from seed 0 and the full
+    ``np.convolve`` capture, reg 1e-9, 16 peaks, smoothing widths (1, 63),
+    STFT 1024 / 512. ``run_ir_pipeline_frames`` (K13, K14 and K10w must
+    launch): the IR against a float64 numpy mirror of ``ir_deconvolve`` (>=
+    99 dB, or the port's plain float32 CPU path's own SNR less 3 dB where
+    that is below 99), the smoothed spectra and the peaks of the frames
+    inside the IR against the port's float64 CPU run (>= 99 dB), the track
+    states of those frames equal to that run's, and the share of all (frame,
+    track) states equal to it (beyond the IR the deconvolved IR is rounding
+    noise, whose peaks no two runs order alike); ms per pass, ms per tracker
+    frame (CUDA graph replays, and the eager loop beside it) and samples/s.
+    Then ``run_ir_pipeline`` on the same capture (K13 and K14), with the
+    same checks on the IR, spectrum and peaks; then the frame chain on a
+    20 Hz - 20 kHz exponential sweep through the same IR, its IR and
+    smoothed spectra held to the plain float32 CPU path's own SNR less 3 dB
+    (its empty top band amplifies float32 rounding on any device), the track
+    states inside the IR equal to the float64 run's.
 
 Every path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel the path needs that was not launched fails the run,
@@ -69,12 +98,13 @@ kernel with its plain version do not count. Each kernel's times are taken at
 its first path shape: the median of 5 by CUDA events after a warm-up, around
 the wrapper's call (so the wrapper's host time is in it), and the device time
 of its launches by ``torch.profiler``; beside them its bound, the larger of
-its bytes (each input read once, each output written once) over 3.35 TB/s and
+its bytes (each input read once, each output written once; overlapping
+frames count the signal they cover once) over 3.35 TB/s and
 its operations over 67 TFLOP/s (H100 SXM HBM and FP32 peaks), and the time of
 one PyTorch call that computes the same function where there is one
 (``torch.fft`` / ``torch.stft``; the port never calls it). ``--profile``
-adds a ``torch.profiler`` window over the streaming paths and
-``process_any``. The line before the last is a JSON object with each
+adds a ``torch.profiler`` window over the streaming paths, ``process_any``,
+the STFT round trip and the two pipeline chains. The line before the last is a JSON object with each
 kernel's launches by path, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -117,6 +147,8 @@ KERNELS = {
     "fft_split": ("hopper_fft", "fft_split.cu", "fft/pallas_fft.py:856"),
     "rfft_packed_split": ("hopper_fft", "rfft_packed_split.cu", "fft/pallas_fft.py:664"),
     "rifft_packed_split": ("hopper_fft", "rifft_packed_split.cu", "fft/pallas_fft.py:775"),
+    "rfft_small_windowed": ("hopper_fft", "rfft_small.cu", "fft/pallas_fft.py:1238"),
+    "rifft_small_windowed": ("hopper_fft", "rifft_small.cu", "fft/pallas_fft.py:1265"),
 }
 
 
@@ -181,6 +213,10 @@ def kernel_flops(name, args, kwargs) -> float:
     a = args[0]
     if name in ("rfft_packed", "rfft_small", "rfft_packed_split"):
         return fft_flops(a.shape[-1], a.numel() // a.shape[-1])
+    if name == "rfft_small_windowed":  # the transform and one multiply a sample
+        return fft_flops(a.shape[-1], a.numel() // a.shape[-1]) + a.numel()
+    if name == "rifft_small_windowed":  # the transform and two multiplies a sample
+        return fft_flops(2 * a.shape[-1], a.numel() // a.shape[-1]) + 4.0 * a.numel()
     if name == "fft_split":  # a complex N-point FFT: 5 N log2 N
         return 2 * fft_flops(a.shape[-1], a.numel() // a.shape[-1])
     if name in ("rifft_packed", "rifft_small", "rifft_packed_tail", "rifft_packed_split"):
@@ -207,10 +243,20 @@ def kernel_flops(name, args, kwargs) -> float:
     return c * t * (2 * fft_flops(2 * h, 1) + 8.0 * (p + ("l0_re" in kwargs)) * h)
 
 
+def tensor_bytes(t: torch.Tensor) -> int:
+    """The bytes a function must move for ``t``: each element once, and for a
+    view whose elements share memory (the STFT's ``unfold`` frames, which
+    overlap) the storage span it covers, each stored value once."""
+    if t.numel() == 0:
+        return 0
+    span = 1 + sum((s - 1) * abs(st) for s, st in zip(t.shape, t.stride()))
+    return min(t.numel(), span) * t.element_size()
+
+
 def bound(name, args, kwargs, got) -> tuple:
     """The least time the card could take: (ms, "bytes" or "operations")."""
     tensors = [a for a in list(args) + list(kwargs.values()) if isinstance(a, torch.Tensor)]
-    nbytes = sum(t.numel() * t.element_size() for t in tensors + list(got))
+    nbytes = sum(tensor_bytes(t) for t in tensors + list(got))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = kernel_flops(name, args, kwargs) / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -229,6 +275,16 @@ def library_call(name, args, kwargs):
     a = args[0]
     if name in ("rfft_packed", "rfft_small", "rfft_packed_split"):
         return lambda: torch.fft.rfft(a, dim=-1)
+    if name == "rfft_small_windowed":
+        if a.dim() != 3:
+            return None
+        # The (C, T, N) unfold view's signal, stored where the view reads it.
+        c, t, n = a.shape
+        hop = a.stride(1)
+        sig = a.as_strided((c, (t - 1) * hop + n), (a.stride(0), 1))
+        w = args[1]
+        return lambda: torch.stft(sig, n, hop_length=hop, window=w, center=False,
+                                  return_complex=True)
     if name == "fft_split":
         z = torch.complex(args[0], args[1])
         f = torch.fft.ifft if kwargs.get("inverse") else torch.fft.fft
@@ -901,6 +957,253 @@ def spectral_paths(dev, irs, x, launches, smi) -> None:
     torch.cuda.empty_cache()
 
 
+STFT_N, STFT_HOP, STFT_LEN = 1024, 512, 479744   # bench.py's stft mode: 10 s // hop * hop
+PIPE_LEN, PIPE_IR, PIPE_PEAKS = 1 << 17, 4096, 16  # bench.py's pipeline mode
+
+
+def _hann64(n: int) -> np.ndarray:
+    from hisstools_library_tpu_torch.ops import windows
+    return windows.hann(n - 1, dtype=torch.float64, device="cpu").numpy()
+
+
+def windowed_kernels(randn, mods, smi) -> dict:
+    """Phase 16: K10w and K11w. Path shapes: the STFT's 128 x 938 frames of
+    1024 (hop 512), read as the ``unfold`` view of the padded 128 x 480 768
+    signal, and the pipeline's 511 frames of its 2^18-sample IR; K11w on
+    spectra of those shapes. Small shapes: (3, 256) contiguous frames, and
+    9 frames of 1024 at the odd hop 341."""
+    def window(n, like):
+        return torch.from_numpy(_hann64(n).astype(np.float32)).to(like.device)
+
+    def frames(c, t, n, hop):
+        def make():
+            if hop is None:  # contiguous frames
+                f = randn(t, n)
+            else:
+                f = randn(c, (t - 1) * hop + n).unfold(-1, n, hop)
+            return (f, window(n, f)), {}
+        return make
+
+    def spectra(lead, n):
+        def make():
+            re, im = randn(*lead, n // 2), randn(*lead, n // 2)
+            return (re, im, window(n, re), 0.5 / n), {}
+        return make
+
+    t_stft = STFT_LEN // STFT_HOP + 1
+    t_pipe = (2 * PIPE_LEN - STFT_N) // STFT_HOP + 1
+    return check_kernels([
+        ("rfft_small_windowed", [(frames(None, 3, 256, None), False),
+                                 (frames(2, 9, 1024, 341), False),
+                                 (frames(CHANNELS, t_stft, STFT_N, STFT_HOP), True),
+                                 (frames(1, t_pipe, STFT_N, STFT_HOP), True)]),
+        ("rifft_small_windowed", [(spectra((3,), 256), False), (spectra((2, 9), 1024), False),
+                                  (spectra((CHANNELS, t_stft), STFT_N), True),
+                                  (spectra((t_pipe,), STFT_N), True)]),
+    ], mods, smi)
+
+
+def stft_path(dev, launches, smi, profile) -> None:
+    """Phase 17: the STFT round trip of bench.py's stft mode."""
+    from hisstools_library_tpu_torch.ops import stft as stft_mod
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((CHANNELS, STFT_LEN)).astype(np.float32)
+    w = _hann64(STFT_N).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+
+    def roundtrip():
+        S = stft_mod.stft(xd, w, STFT_N, STFT_HOP, boundary=True)
+        return stft_mod.istft(S, w, STFT_HOP, length=STFT_LEN, boundary=True)
+
+    launches.reset()
+    torch.cuda.reset_peak_memory_stats()
+    y = roundtrip()
+    torch.cuda.synchronize()
+    launches.read("stft", ("rfft_small_windowed", "rifft_small_windowed"), smi)
+    if tuple(y.shape) != (CHANNELS, STFT_LEN) or not bool(torch.isfinite(y).all()):
+        fail(f"stft: output shape {tuple(y.shape)}, finite {bool(torch.isfinite(y).all())}")
+    snr = snr_db(torch.from_numpy(x[0]), y[0].cpu())
+    del y
+    ms = median_ms(roundtrip)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wt = torch.from_numpy(w).to(dev)
+
+    def library():
+        S = torch.stft(xd, STFT_N, STFT_HOP, window=wt, center=True, return_complex=True)
+        return torch.istft(S, STFT_N, STFT_HOP, window=wt, center=True, length=STFT_LEN)
+
+    lib_ms = median_ms(library)
+    lib_snr = snr_db(torch.from_numpy(x[0]), library()[0].cpu())
+    sps = CHANNELS * STFT_LEN / (ms * 1e-3)
+    print(f"stft: {CHANNELS} x {STFT_LEN}, N={STFT_N}, hop {STFT_HOP}, boundary: SNR vs input "
+          f"(ch0) {snr:.2f} dB; {ms:.4f} ms/pass (CUDA events, median of 5 after a "
+          f"warm-up), {sps:.6e} samples/s, real-time factor {sps / (CHANNELS * FS):.2f}; "
+          f"peak memory {peak:.2f} GiB; torch.stft + torch.istft {lib_ms:.4f} ms/pass "
+          f"(SNR {lib_snr:.2f} dB) [{smi}]", flush=True)
+    if not snr >= SNR_MIN_PATH_DB:
+        fail(f"stft: SNR {snr:.2f} dB < {SNR_MIN_PATH_DB}")
+    if profile:
+        profile_calls(roundtrip, "stft", ms, smi)
+    del xd
+    torch.cuda.empty_cache()
+
+
+def _deconv_mirror64(measured: np.ndarray, exc: np.ndarray, reg: float) -> np.ndarray:
+    """ir_deconvolve in float64 numpy (as bench.py's oracle)."""
+    n = 1 << (max(len(measured), len(exc)) - 1).bit_length()
+    Y = np.fft.rfft(measured.astype(np.float64), n)
+    X = np.fft.rfft(exc.astype(np.float64), n)
+    power = (X * X.conj()).real
+    return np.fft.irfft(Y * X.conj() / (power + reg * power.max()), n)
+
+
+def pipeline_paths(dev, launches, smi, profile) -> None:
+    """Phase 18: the config-5 IR pipeline of bench.py's pipeline mode."""
+    from hisstools_library_tpu_torch.models import partial_tracker as pt
+    from hisstools_library_tpu_torch.models import pipeline
+
+    rng = np.random.default_rng(0)
+    t = np.arange(PIPE_LEN) / FS
+    exc = np.sin(2 * np.pi * (20.0 * (1000.0 ** (t / t[-1]))) * t)
+    ir = rng.standard_normal(PIPE_IR) * np.exp(-np.arange(PIPE_IR) / 4800.0)
+    measured = np.convolve(exc, ir)
+    reg = 1e-9
+    kw = dict(sample_rate=FS, regularization=reg, n_peaks=PIPE_PEAKS, smooth_widths=(1.0, 63.0))
+    fkw = dict(kw, stft_size=STFT_N, stft_hop=STFT_HOP)
+    m32, e32 = measured.astype(np.float32), exc.astype(np.float32)
+    md, ed = torch.from_numpy(m32).to(dev), torch.from_numpy(e32).to(dev)
+    cpu32 = [torch.from_numpy(a) for a in (m32, e32)]
+    cpu64 = [torch.from_numpy(a) for a in (measured, exc)]
+    h64 = _deconv_mirror64(m32, e32, reg)
+    inside = (PIPE_IR - STFT_N) // STFT_HOP + 1   # STFT frames inside the IR
+
+    def snr64(want, got):
+        return snr_db(torch.from_numpy(np.asarray(want, np.float64)),
+                      torch.from_numpy(np.asarray(got, np.float64)))
+
+    def ir_check(label, got, plain, mirror=h64):
+        snr, plain_snr = snr64(mirror, got), snr64(mirror, plain)
+        bar = SNR_MIN_PATH_DB if plain_snr >= SNR_MIN_PATH_DB else plain_snr - 3.0
+        print(f"{label}: IR SNR vs the float64 numpy mirror {snr:.2f} dB (bar {bar:.2f}; the "
+              f"port's plain float32 CPU path {plain_snr:.2f} dB) [{smi}]", flush=True)
+        if not snr >= bar:
+            fail(f"{label}: IR SNR {snr:.2f} dB < {bar:.2f}")
+
+    def field_check(label, name, want, got, plain=None):
+        snr = snr64(want, got)
+        bar = SNR_MIN_PATH_DB if plain is None else min(SNR_MIN_PATH_DB, snr64(want, plain) - 3.0)
+        txt = "" if plain is None else f"; the plain float32 CPU path {snr64(want, plain):.2f} dB"
+        print(f"{label}: {name} SNR vs the float64 CPU run {snr:.2f} dB (bar {bar:.2f}{txt})",
+              flush=True)
+        if not (snr >= bar and np.all(np.isfinite(got))):
+            fail(f"{label}: {name} SNR {snr:.2f} dB < {bar:.2f}")
+
+    # The multi-frame chain.
+    launches.reset()
+    torch.cuda.reset_peak_memory_stats()
+    got = pipeline.run_ir_pipeline_frames(md, ed, **fkw)
+    launches.read("pipeline-frames", ("rfft_packed_split", "rifft_packed_split",
+                                      "rfft_small_windowed"), smi)
+    want = pipeline.run_ir_pipeline_frames(*cpu64, **fkw)
+    ir_check("pipeline-frames", got.impulse,
+             pipeline.run_ir_pipeline_frames(*cpu32, **fkw).impulse)
+    field_check("pipeline-frames", "smoothed spectra", want.smoothed_amp, got.smoothed_amp)
+    for name in ("peak_freqs", "peak_amps"):
+        field_check("pipeline-frames", f"{name} of the {inside} frames inside the IR",
+                    getattr(want, name)[:inside], getattr(got, name)[:inside])
+    same = float(np.mean(want.track_states == got.track_states))
+    active = int((got.track_states != pt.OFF).any(axis=-1).sum())
+    frames = got.track_states.shape[0]
+    print(f"pipeline-frames: {frames} frames, {active} with active partials; (frame, track) "
+          f"states equal to the float64 CPU run's: {same:.4f} of all, the {inside} frames "
+          f"inside the IR {np.array_equal(want.track_states[:inside], got.track_states[:inside])}"
+          f" [{smi}]", flush=True)
+    if not np.array_equal(want.track_states[:inside], got.track_states[:inside]):
+        fail("pipeline-frames: track states inside the IR differ from the float64 run")
+    ms = median_ms(lambda: pipeline.run_ir_pipeline_frames(md, ed, **fkw))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if profile:
+        profile_calls(lambda: pipeline.run_ir_pipeline_frames(md, ed, **fkw),
+                      "pipeline-frames", ms, smi, calls=1)
+
+    # The tracker loop alone: graph replays, and the eager loop beside it.
+    cfg = pt.TrackerConfig(max_peaks=PIPE_PEAKS, max_tracks=PIPE_PEAKS)
+    _, _, freqs, amps, _, _, _ = pipeline._frames_chain(
+        md, ed, FS, reg, (1.0, 63.0), pipeline._default_kernel(), PIPE_PEAKS, STFT_N, STFT_HOP,
+        cfg, 0.0, None, None)
+    n_valid = (amps > 0.0).sum(dim=-1)
+    track_ms = median_ms(lambda: pipeline._track_frames(cfg, freqs, amps, n_valid, 0.0), runs=3)
+
+    eager_frames = 64
+
+    def eager():
+        st = pt.TrackerState.init(PIPE_PEAKS, freqs.dtype, dev)
+        for i in range(eager_frames):
+            st, _ = pt.process(cfg, st, freqs[i], amps[i], n_valid[i], 0.0)
+
+    eager_ms = median_ms(eager, runs=1)
+    print(f"pipeline-frames: {ms:.4f} ms/pass (CUDA events, median of 5 after a warm-up; "
+          f"results copied to the host), {PIPE_LEN / (ms * 1e-3):.6e} samples/s; tracker "
+          f"{track_ms / frames:.4f} ms/frame as CUDA graph replays ({track_ms:.4f} ms for "
+          f"{frames} frames, capture included), eager loop {eager_ms / eager_frames:.4f} "
+          f"ms/frame (first {eager_frames} frames); peak memory {peak:.2f} GiB [{smi}]",
+          flush=True)
+
+    # The whole-IR chain on the same capture.
+    launches.reset()
+    got = pipeline.run_ir_pipeline(md, ed, **kw)
+    launches.read("pipeline", ("rfft_packed_split", "rifft_packed_split"), smi)
+    want = pipeline.run_ir_pipeline(*cpu64, **kw)
+    ir_check("pipeline", got.impulse, pipeline.run_ir_pipeline(*cpu32, **kw).impulse)
+    field_check("pipeline", "smoothed spectrum", want.smoothed_amp, got.smoothed_amp)
+    for name in ("peak_freqs", "peak_amps"):
+        field_check("pipeline", name, getattr(want, name), getattr(got, name))
+    ms = median_ms(lambda: pipeline.run_ir_pipeline(md, ed, **kw))
+    if profile:
+        profile_calls(lambda: pipeline.run_ir_pipeline(md, ed, **kw), "pipeline", ms, smi)
+    print(f"pipeline: whole-IR chain {ms:.4f} ms/pass (CUDA events, median of 5 after a "
+          f"warm-up), {PIPE_LEN / (ms * 1e-3):.6e} samples/s [{smi}]", flush=True)
+    del md, ed
+
+    # The frame chain on a 20 Hz - 20 kHz exponential sweep of the same length
+    # through the same IR. Its bins above 20 kHz hold almost no excitation, so
+    # the regularised division amplifies float32 rounding there on any
+    # device: the IR and spectra are held to the plain float32 CPU path's own
+    # SNR less 3 dB where that is below 99.
+    dur, k = PIPE_LEN / FS, math.log(20000.0 / 20.0)
+    sweep = np.sin(2 * np.pi * 20.0 * dur / k * (np.exp(t * k / dur) - 1.0))
+    m32, e32 = np.convolve(sweep, ir).astype(np.float32), sweep.astype(np.float32)
+    launches.reset()
+    got = pipeline.run_ir_pipeline_frames(torch.from_numpy(m32).to(dev),
+                                          torch.from_numpy(e32).to(dev), **fkw)
+    launches.read("pipeline-frames-log-sweep", ("rfft_packed_split", "rifft_packed_split",
+                                                "rfft_small_windowed"), smi)
+    plain = pipeline.run_ir_pipeline_frames(*(torch.from_numpy(a) for a in (m32, e32)), **fkw)
+    want = pipeline.run_ir_pipeline_frames(*(torch.from_numpy(a).double() for a in (m32, e32)),
+                                           **fkw)
+    mirror = _deconv_mirror64(m32, e32, reg)
+    ir_check("pipeline-frames-log-sweep", got.impulse, plain.impulse, mirror)
+    top = np.fft.rfftfreq(len(mirror), 1.0 / FS) > 20000.0
+
+    def top_share(h):  # the share of the IR's error energy above 20 kHz
+        err = np.abs(np.fft.rfft(h.astype(np.float64) - mirror)) ** 2
+        return float(err[top].sum() / err.sum())
+
+    print(f"pipeline-frames-log-sweep: IR error energy above 20 kHz: {top_share(got.impulse):.6f}"
+          f" of the card's, {top_share(plain.impulse):.6f} of the plain float32 CPU path's "
+          f"[{smi}]", flush=True)
+    field_check("pipeline-frames-log-sweep", "smoothed spectra", want.smoothed_amp,
+                got.smoothed_amp, plain.smoothed_amp)
+    equal = np.array_equal(want.track_states[:inside], got.track_states[:inside])
+    print(f"pipeline-frames-log-sweep: track states of the {inside} frames inside the IR equal "
+          f"to the float64 CPU run's {equal}; all (frame, track) states "
+          f"{float(np.mean(want.track_states == got.track_states)):.4f} [{smi}]", flush=True)
+    if not equal:
+        fail("pipeline-frames-log-sweep: track states inside the IR differ from the float64 run")
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -957,6 +1260,9 @@ def main() -> None:
     offline_paths(dev, irs, x, launches, smi)
     results.update(spectral_kernels(randn, mods, smi))
     spectral_paths(dev, irs, x, launches, smi)
+    results.update(windowed_kernels(randn, mods, smi))
+    stft_path(dev, launches, smi, profile)
+    pipeline_paths(dev, launches, smi, profile)
 
     for name in KERNELS:
         by_path = {p: c[name] for p, c in launches.by_path.items()}

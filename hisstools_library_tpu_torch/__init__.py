@@ -8,10 +8,12 @@ it never imports), with the same layout and names:
                  in ``fft/hopper_fft.py`` and ``fft/hopper_kernels.py``,
                  CUDA sources in ``csrc/``, built on first use by
                  :mod:`._build`
-- :mod:`.ops`    the spectral layer: ``ir_*`` functions and the spectral
-                 processor (edge-mode convolution, ``change_phase``)
+- :mod:`.ops`    the spectral layer (``ir_*`` functions, the spectral
+                 processor: edge-mode convolution, ``change_phase``) and the
+                 analysis ops (windows, table reader, interpolation, STFT,
+                 kernel smoothing)
 - :mod:`.models` FastFIR, the partitioned and mono engines, the
-                 time-domain head, ``pipeline.ir_deconvolve``
+                 time-domain head, the partial tracker and the IR pipeline
 
 Kernels run on CUDA tensors; CPU tensors take each kernel's plain PyTorch
 version.

@@ -64,6 +64,10 @@ _SIGNATURES = {
     "hst_rfft_packed_split": [_P, _P, _P, _P, _P, _L, _I, _P],
     # re, im, out, scratch, tw, frames, n, stream
     "hst_rifft_packed_split": [_P, _P, _P, _P, _P, _L, _I, _P],
+    # x, outer_stride, row_stride, t, w, re, im, tw, batch, n, stream
+    "hst_rfft_small_windowed": [_P, _L, _L, _L, _P, _P, _P, _P, _L, _I, _P],
+    # re, im, w, scale, y, tw, batch, n, stream
+    "hst_rifft_small_windowed": [_P, _P, _P, _F, _P, _P, _L, _I, _P],
 }
 
 _lock = threading.Lock()

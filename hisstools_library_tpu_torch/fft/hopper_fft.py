@@ -15,6 +15,8 @@ function                           replaces (hisstools_library_tpu/...)      CUD
 :func:`fastfir_chain_stream` (K8)  fft/pallas_fft.py: fastfir_chain_stream   csrc/fastfir_chain_stream.cu
 :func:`rfft_small`          (K10)  fft/pallas_fft.py: _small_fwd_call        csrc/rfft_small.cu
 :func:`rifft_small`         (K11)  fft/pallas_fft.py: _small_inv_call        csrc/rifft_small.cu
+:func:`rfft_small_windowed` (K10w) fft/pallas_fft.py: rfft_small_windowed    csrc/rfft_small.cu
+:func:`rifft_small_windowed` (K11w) fft/pallas_fft.py: rifft_small_windowed  csrc/rifft_small.cu
 :func:`fft_split`           (K12)  fft/pallas_fft.py: fft_split              csrc/fft_split.cu
 :func:`rfft_packed_split`   (K13)  fft/pallas_fft.py: _rfft_packed_split     csrc/rfft_packed_split.cu
 :func:`rifft_packed_split`  (K14)  fft/pallas_fft.py: _rifft_packed_split    csrc/rifft_packed_split.cu
@@ -34,6 +36,11 @@ the TPU package's ``rfft_packed`` / ``rifft_packed`` send their small sizes to
 points in shared memory, 2048..2^16 in two passes and 2^17..2^19 in three
 passes over HBM scratch (``csrc/fft_common.cuh``, which K1, K2, K4, K6, K13
 and K14 share).
+
+The windowed forms K10w and K11w (N = 32..2048, the STFT's frames) are
+instantiations of K10's and K11's kernels that multiply by the window in the
+loader and the store; K10w reads its frames in place from a strided view (the
+padded signal's ``unfold``).
 
 ``fastfir_chain`` keeps the TPU function's signature and result but runs K2,
 K3 and K4 in turn: the TPU kernel keeps each channel's spectra ring and
@@ -164,6 +171,12 @@ def _check_split(kernel: str, n: int, *tensors: torch.Tensor) -> None:
     _build.check_tensors(kernel, *tensors)
 
 
+def _check_small(kernel: str, n: int) -> None:
+    if not small_eligible(n):
+        raise NotImplementedError(
+            f"{kernel}: serves N = {SMALL_MIN_REAL}..{MIN_REAL_SIZE // 2}, got N = {n}")
+
+
 def _scratch(frames: int, m: int, device) -> torch.Tensor:
     """HBM scratch of the multi-pass core for ``frames`` complex transforms
     of M = ``m`` points: one frame of M float2 each with two passes (M <=
@@ -212,6 +225,18 @@ rfft_small_plain = rfft_packed_plain
 rifft_small_plain = rifft_packed_plain
 rfft_packed_split_plain = rfft_packed_plain
 rifft_packed_split_plain = rifft_packed_plain
+
+
+def rfft_small_windowed_plain(frames: torch.Tensor, window: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed real FFT of each windowed frame: rfft(frames * window)."""
+    return rfft_packed_plain(frames * window)
+
+
+def rifft_small_windowed_plain(re: torch.Tensor, im: torch.Tensor,
+                               window: torch.Tensor, scale: float) -> torch.Tensor:
+    """scale * rifft(spec) * window, each frame."""
+    return rifft_packed_plain(re, im) * (scale * window)
 
 
 def fft_split_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
@@ -282,9 +307,7 @@ def rfft_small(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return rfft_small_plain(x)
     kernel = "K10 rfft_small"
     n = x.shape[-1]
-    if not small_eligible(n):
-        raise NotImplementedError(
-            f"{kernel}: serves N = {SMALL_MIN_REAL}..{MIN_REAL_SIZE // 2}, got N = {n}")
+    _check_small(kernel, n)
     _build.check_tensors(kernel, x)
     lead = x.shape[:-1]
     b = math.prod(lead)
@@ -342,9 +365,7 @@ def rifft_small(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
         return rifft_small_plain(re, im)
     kernel = "K11 rifft_small"
     n = 2 * re.shape[-1]
-    if not small_eligible(n):
-        raise NotImplementedError(
-            f"{kernel}: serves N = {SMALL_MIN_REAL}..{MIN_REAL_SIZE // 2}, got N = {n}")
+    _check_small(kernel, n)
     _build.check_tensors(kernel, re, im)
     if im.shape != re.shape:
         raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")
@@ -362,6 +383,78 @@ def rifft_small(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
 
 
 rifft_small.launches = 0
+
+
+def _check_window(kernel: str, window: torch.Tensor, n: int) -> None:
+    if tuple(window.shape) != (n,) or not window.is_contiguous():
+        raise ValueError(f"{kernel}: window must be a contiguous ({n},) tensor, got "
+                         f"{tuple(window.shape)}")
+
+
+def rfft_small_windowed(frames: torch.Tensor, window: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10w: rfft(frames * window) -> packed N/2 bins for each frame of
+    ``frames`` (..., T, N), N = 32..2048; returns contiguous (..., T, N/2)
+    planes. The frames are read in place where the leading axes merge into
+    one with a last-axis stride of 1 (the padded signal's ``unfold`` view,
+    row stride = hop); another layout is copied once. ``window``: (N,)
+    float32 on the frames' device."""
+    if frames.device.type == "cpu":
+        return rfft_small_windowed_plain(frames, window)
+    kernel = "K10w rfft_small_windowed"
+    t, n = frames.shape[-2], frames.shape[-1]
+    _check_small(kernel, n)
+    _build.check_tensors(kernel, frames, window, contiguous=False)
+    _check_window(kernel, window, n)
+    lead = frames.shape[:-2]
+    b = math.prod(lead) * t
+    re = torch.empty(*lead, t, n // 2, dtype=torch.float32, device=frames.device)
+    im = torch.empty_like(re)
+    if b == 0:
+        return re, im
+    f3 = frames.reshape(-1, t, n)  # a view where the leading axes merge
+    if f3.stride(-1) != 1:
+        f3 = f3.contiguous()
+    rc = _build.load().hst_rfft_small_windowed(
+        f3.data_ptr(), f3.stride(0), f3.stride(1), t, window.data_ptr(), re.data_ptr(),
+        im.data_ptr(), _twiddles(n, frames.device).data_ptr(), b, n,
+        _build.stream(frames.device))
+    _build.check(rc, kernel)
+    rfft_small_windowed.launches += 1
+    return re, im
+
+
+rfft_small_windowed.launches = 0
+
+
+def rifft_small_windowed(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """K11w: scale * rifft(spec) * window for each packed (..., N/2) frame,
+    N = 32..2048; returns (..., N). ``window``: (N,) float32 on the planes'
+    device."""
+    if re.device.type == "cpu":
+        return rifft_small_windowed_plain(re, im, window, scale)
+    kernel = "K11w rifft_small_windowed"
+    n = 2 * re.shape[-1]
+    _check_small(kernel, n)
+    _build.check_tensors(kernel, re, im, window)
+    _check_window(kernel, window, n)
+    if im.shape != re.shape:
+        raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")
+    lead = re.shape[:-1]
+    b = math.prod(lead)
+    out = torch.empty(*lead, n, dtype=torch.float32, device=re.device)
+    if b == 0:
+        return out
+    rc = _build.load().hst_rifft_small_windowed(
+        re.data_ptr(), im.data_ptr(), window.data_ptr(), float(scale), out.data_ptr(),
+        _twiddles(n, re.device).data_ptr(), b, n, _build.stream(re.device))
+    _build.check(rc, kernel)
+    rifft_small_windowed.launches += 1
+    return out
+
+
+rifft_small_windowed.launches = 0
 
 
 def rfft_packed_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -474,3 +474,169 @@ def test_ir_deconvolve_on_cuda(cuda):
                                   torch.from_numpy(exc).double())
     assert h.shape == (2, 1 << 20)
     assert snr_db(want.numpy(), h.cpu().numpy()) >= 100.0
+
+
+# (frames as (C, T, N) strided views of (C, (T-1) hop + N) signals, or a
+# contiguous (B, N) batch when hop is None)
+WINDOWED_CASES = [(3, 256, None, 1), (2, 1024, 341, 9), (128, 1024, 512, 938),
+                  (5, 32, 7, 11), (3, 2048, 1024, 6), (4, 128, 64, 1)]
+
+
+def _window(n, dev):
+    return torch.from_numpy(np.hanning(n + 1)[:n].astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("c,n,hop,t", WINDOWED_CASES)
+def test_windowed_kernels_match_plain(cuda, c, n, hop, t):
+    """K10w reads frames in place from an unfold view (any hop, odd ones
+    included) or a contiguous batch; K11w windows and scales in its store."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    if hop is None:
+        frames = torch.randn(c, n, generator=g, device=cuda)
+    else:
+        frames = torch.randn(c, (t - 1) * hop + n, generator=g, device=cuda).unfold(-1, n, hop)
+    w = _window(n, cuda)
+    before = (hopper_fft.rfft_small_windowed.launches, hopper_fft.rifft_small_windowed.launches)
+    got = hopper_fft.rfft_small_windowed(frames, w)
+    want = hopper_fft.rfft_small_windowed_plain(frames, w)
+    spec = [torch.randn(frames.shape[:-1] + (n // 2,), generator=g, device=cuda)
+            for _ in range(2)]
+    back = hopper_fft.rifft_small_windowed(*spec, w, 0.5 / n)
+    back_want = hopper_fft.rifft_small_windowed_plain(*spec, w, 0.5 / n)
+    torch.cuda.synchronize()
+    assert (hopper_fft.rfft_small_windowed.launches - before[0],
+            hopper_fft.rifft_small_windowed.launches - before[1]) == (1, 1)
+    for gt, wt in list(zip(got, want)) + [(back, back_want)]:
+        assert gt.shape == wt.shape and gt.device.type == "cuda"
+        assert bool(torch.isfinite(gt).all())
+        assert snr_db(wt.cpu().numpy(), gt.cpu().numpy()) >= SNR_KERNEL_DB
+
+
+@pytest.mark.parametrize("call,exc,match", [
+    (lambda d: hopper_fft.rfft_small_windowed(torch.zeros(2, 4096, device=d),
+                                              torch.zeros(4096, device=d)),
+     NotImplementedError, "K10w"),
+    (lambda d: hopper_fft.rifft_small_windowed(*(torch.zeros(2, 8, device=d) for _ in range(2)),
+                                               torch.zeros(16, device=d), 1.0),
+     NotImplementedError, "K11w"),
+    (lambda d: hopper_fft.rfft_small_windowed(torch.zeros(2, 256, dtype=torch.float64, device=d),
+                                              torch.zeros(256, dtype=torch.float64, device=d)),
+     NotImplementedError, "float64"),
+    (lambda d: hopper_fft.rfft_small_windowed(torch.zeros(2, 256, device=d),
+                                              torch.zeros(128, device=d)),
+     ValueError, "window"),
+])
+def test_windowed_wrappers_refuse_on_cuda(cuda, call, exc, match):
+    with pytest.raises(exc, match=match):
+        call(cuda)
+
+
+@pytest.mark.parametrize("n,hop,need", [
+    (1024, 512, ("rfft_small_windowed", "rifft_small_windowed")),
+    (1024, 341, ("rfft_small_windowed", "rifft_small_windowed")),
+    (4096, 1024, ("rfft_packed", "rifft_packed")),
+])
+def test_stft_on_cuda_launches_and_matches_cpu(cuda, n, hop, need):
+    """stft / istft on the card: K10w / K11w once each up to N = 2048, the
+    window multiply and K1 / K6 above; spectra and resynthesis match the
+    CPU path and the round trip holds the input."""
+    from hisstools_library_tpu_torch.ops import stft as stft_mod, windows
+    rng = np.random.default_rng(0x57F7)
+    x = rng.standard_normal((2, 3, 20000)).astype(np.float32)
+    w = windows.hann(n - 1, dtype=torch.float64, device=cuda)   # a window on the card
+    before = {k: getattr(hopper_fft, k).launches for k in need}
+    S = stft_mod.stft(torch.from_numpy(x).to(cuda), w, n, hop, boundary=True)
+    y = stft_mod.istft(S, w, hop, length=20000, boundary=True)
+    torch.cuda.synchronize()
+    assert {k: getattr(hopper_fft, k).launches - v for k, v in before.items()} == dict.fromkeys(need, 1)
+    S_cpu = stft_mod.stft(torch.from_numpy(x), w.cpu(), n, hop, boundary=True)
+    y_cpu = stft_mod.istft(S_cpu, w.cpu(), hop, length=20000, boundary=True)
+    assert snr_db(S_cpu.re.numpy(), S.re.cpu().numpy()) >= SNR_CHAIN_DB
+    assert snr_db(S_cpu.im.numpy(), S.im.cpu().numpy()) >= SNR_CHAIN_DB
+    assert snr_db(y_cpu.numpy(), y.cpu().numpy()) >= SNR_CHAIN_DB
+    assert snr_db(x, y.cpu().numpy()) >= SNR_CHAIN_DB
+
+
+def test_tracker_graph_on_cuda_matches_cpu(cuda):
+    """The frame chain's tracker loop on the card (one frame's step captured
+    as a CUDA graph, replayed per frame) gives the CPU loop's states."""
+    from hisstools_library_tpu_torch.models import partial_tracker as pt
+    rng = np.random.default_rng(0x7A)
+    frames, pk = 40, 16
+    base = 440.0 * 2.0 ** (rng.choice(48, pk, replace=False) / 12.0)
+    f = base[None, :] * 2.0 ** (rng.uniform(-0.04, 0.04, (frames, pk)) / 12.0)
+    a = rng.uniform(0.05, 1.0, (frames, pk))
+    f[rng.random((frames, pk)) < 0.2] = 0.0
+    a[f == 0.0] = 0.0
+    cfg = pt.TrackerConfig(max_peaks=pk, max_tracks=pk)
+    outs = []
+    for dev in (cuda, CPU):
+        ft = torch.from_numpy(f.astype(np.float32)).to(dev)
+        at = torch.from_numpy(a.astype(np.float32)).to(dev)
+        order = torch.argsort(-at, dim=-1, stable=True)
+        ft, at = torch.gather(ft, -1, order), torch.gather(at, -1, order)
+        outs.append([o.cpu() for o in pipeline._track_frames(cfg, ft, at, (at > 0).sum(-1), 0.0)])
+    for g_, c_ in zip(*outs):
+        assert torch.equal(g_, c_)
+
+
+def test_frames_pipeline_on_cuda(cuda):
+    """run_ir_pipeline_frames on the card: ir_deconvolve at N = 2^18 (K13
+    twice, K14 once) and the STFT on K10w; the IR and smoothed spectra match
+    the CPU path, and so do the track states of the 7 frames inside the
+    4096-tap IR (beyond it the deconvolved IR is rounding noise, whose peaks
+    no two runs order alike)."""
+    fs = 48000.0
+    t = np.arange(1 << 17) / fs
+    # The benchmark's sweep, whose chirp folds over the whole band (a sweep
+    # that stops at 20 kHz is the next test's).
+    sweep = np.sin(2 * np.pi * (20.0 * (1000.0 ** (t / t[-1]))) * t)
+    rng = np.random.default_rng(0)
+    ir = rng.standard_normal(4096) * np.exp(-np.arange(4096) / 4800.0)
+    measured = np.convolve(sweep, ir).astype(np.float32)
+    exc = sweep.astype(np.float32)
+    need = {"rfft_packed_split": 2, "rifft_packed_split": 1, "rfft_small_windowed": 1}
+    before = {k: getattr(hopper_fft, k).launches for k in need}
+    got = pipeline.run_ir_pipeline_frames(torch.from_numpy(measured).to(cuda),
+                                          torch.from_numpy(exc).to(cuda), regularization=1e-9)
+    assert {k: getattr(hopper_fft, k).launches - v for k, v in before.items()} == need
+    want = pipeline.run_ir_pipeline_frames(torch.from_numpy(measured), torch.from_numpy(exc),
+                                           regularization=1e-9)
+    assert got.track_states.shape == want.track_states.shape == (511, 16)
+    assert snr_db(want.impulse, got.impulse) >= SNR_CHAIN_DB
+    assert snr_db(want.smoothed_amp, got.smoothed_amp) >= SNR_CHAIN_DB
+    assert np.array_equal(want.track_states[:7], got.track_states[:7])
+    assert np.any(got.track_states[1:7] != 0)
+
+
+def test_frames_pipeline_log_sweep_on_cuda(cuda):
+    """run_ir_pipeline_frames on the card with a 20 Hz - 20 kHz exponential
+    sweep: the bins above 20 kHz hold almost no excitation, so the
+    regularised division amplifies float32 rounding there, on the CPU as on
+    the card. The card's IR and smoothed spectra are held against float64 to
+    the CPU float32 path's own SNR less 3 dB; the track states of the frames
+    inside the IR equal the float64 run's."""
+    fs, n, f1, f2 = 48000.0, 1 << 17, 20.0, 20000.0
+    t = np.arange(n) / fs
+    k = np.log(f2 / f1)
+    sweep = np.sin(2 * np.pi * f1 * (n / fs) / k * (np.exp(t * k / (n / fs)) - 1.0))
+    rng = np.random.default_rng(0)
+    ir = rng.standard_normal(4096) * np.exp(-np.arange(4096) / 4800.0)
+    measured = np.convolve(sweep, ir).astype(np.float32)
+    exc = sweep.astype(np.float32)
+    need = {"rfft_packed_split": 2, "rifft_packed_split": 1, "rfft_small_windowed": 1}
+    before = {k_: getattr(hopper_fft, k_).launches for k_ in need}
+    got = pipeline.run_ir_pipeline_frames(torch.from_numpy(measured).to(cuda),
+                                          torch.from_numpy(exc).to(cuda), regularization=1e-9)
+    assert {k_: getattr(hopper_fft, k_).launches - v for k_, v in before.items()} == need
+    cpu32 = pipeline.run_ir_pipeline_frames(torch.from_numpy(measured), torch.from_numpy(exc),
+                                            regularization=1e-9)
+    cpu64 = pipeline.run_ir_pipeline_frames(torch.from_numpy(measured).double(),
+                                            torch.from_numpy(exc).double(), regularization=1e-9)
+    for field in ("impulse", "smoothed_amp"):
+        want = getattr(cpu64, field)
+        bar = snr_db(want, getattr(cpu32, field)) - 3.0
+        assert np.all(np.isfinite(getattr(got, field)))
+        assert snr_db(want, getattr(got, field)) >= bar
+    assert np.array_equal(cpu64.track_states[:7], got.track_states[:7])
+    assert np.any(got.track_states[1:7] != 0)
