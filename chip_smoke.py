@@ -8,15 +8,22 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
    power limit as nvidia-smi reports them;
 2. builds the kernels from ``hisstools_library_tpu_torch/csrc`` and prints the
    seconds it took;
-3. compares each kernel of the FastFIR path (K1-K4) with its plain PyTorch
-   version on the card, at the main path's shapes and at N = 4096;
+3. compares each kernel of the FastFIR path (K1-K4, K5 fastfir_chain) with
+   its plain PyTorch version on the card, at the main path's shapes and at
+   N = 4096; K5 also at (2, 5, P 7, 2^14), (2, 3, P 2, 2^17), T = 1 and a P
+   beyond shared memory, with the staged K2 -> K3 -> K4 timed beside it on
+   the main path's inputs;
 4. drives the main path: ``FastFIR`` at 128 channels x 480 000 taps (a 10 s
    IR at 48 kHz, N = 2^16) built from seed 0 as ``bench.py`` builds it, then
-   three ``apply`` calls on the 128 x 483 328 signal; channel 0's first
-   65 536 samples must hold >= 99 dB SNR against a float64 ``np.convolve``;
+   three ``apply`` calls on the 128 x 483 328 signal (K1 and K5 must launch,
+   none of K2, K3, K4); channel 0's first 65 536 samples must hold >= 99 dB
+   SNR against a float64 ``np.convolve``; the pass's peak memory is printed
+   beside a pass with the staged chain in K5's place;
 5. times ten further passes with CUDA events (steady state);
 6. compares each kernel of the hop-aligned streaming path (K7 lag_mac_ring,
-   K8 fastfir_chain_stream, K10 rfft_small) with its plain version;
+   K8 fastfir_chain_stream, K10 rfft_small) with its plain version; K8 also at
+   the chain family's (128, T 2, P 8, 2^17), (128, T 4, P 8, 2^16) and a small
+   lag-0 case at 2^16;
 7. drives ``mono.process`` as ``bench.py``'s ``stream`` mode configures it
    (Zero preset, ``prepare_ir(offline_tail=False)`` of the same IRs, calls of
    131 072 samples) through the two-tier, collapsed and matched paths;
@@ -37,9 +44,10 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
     128 callbacks of 256 samples (K11 and K6 must launch); the joined output
     must hold >= 99 dB;
 12. runs ``mono.process_offline`` on the 128 x 483 328 signal as ``bench.py``'s
-    ``scheme`` mode does, with the offline tail (K2 -> K3 -> K4) and without it
-    (direct sections through K11 and conv1d, the 4096 and 16384 sections
-    through the fused chain), >= 99 dB each, and times each;
+    ``scheme`` mode does, with the offline tail (K5; none of K2, K3, K4) and
+    without it (direct sections through K11 and conv1d, the 4096 section
+    through K2 -> K3 -> K4 and the 16384 section through K5), >= 99 dB each,
+    and times each;
 13. runs the staged offline path: ``FastFIR`` of the first 48 000 taps at
     N = 2048 (outside the fused chain) on one second of signal, K10 -> K15 ->
     K11 (each must launch), >= 99 dB;
@@ -88,7 +96,19 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
     20 Hz - 20 kHz exponential sweep through the same IR, its IR and
     smoothed spectra held to the plain float32 CPU path's own SNR less 3 dB
     (its empty top band amplifies float32 rounding on any device), the track
-    states inside the IR equal to the float64 run's.
+    states inside the IR equal to the float64 run's;
+19. drives the multichannel ``Convolver`` with the same IRs and signal: (a)
+    parallel 128 x 10 s IRs, ``process_offline`` (K5, none of K2-K4); (b)
+    N2M 8 in x 8 out, the first 64 IRs as (8, 8, 480 000), ``process_offline``
+    on 8 x 483 328 samples (K5 over the 64 pairs, then the sum); (c)
+    parallel 128, ``PartitionScheme.for_latency_budget(65536)`` (one N = 2^17
+    section, P = 8), three ``process`` calls of 131 072 samples (K8); (d)
+    N2M 8 x 8, Zero preset, IRs cut to 290 000 taps, ``init_block_state``,
+    three calls of 131 072 samples (near tier K8 at 2^14, far tier K8 at
+    2^16 with P2 = 8; no K7); (e) N2M 2 x 2, 64 callbacks of 256 samples
+    through ``process_any``. Output 0 of each holds >= 99 dB against a
+    float64 FFT convolution (N2M: summed over the inputs); ms per call by
+    CUDA events and peak memory.
 
 Every path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel the path needs that was not launched fails the run,
@@ -139,7 +159,8 @@ KERNELS = {
     "rifft_packed_tail": ("hopper_fft", "rifft_packed_tail.cu", "fft/pallas_fft.py:1440"),
     "rifft_packed": ("hopper_fft", "rifft_packed.cu", "fft/pallas_fft.py:518"),
     "lag_mac_ring": ("hopper_kernels", "lag_mac_ring.cu", "fft/pallas_kernels.py:566"),
-    "fastfir_chain_stream": ("hopper_fft", "fastfir_chain_stream.cu", "fft/pallas_fft.py:1943"),
+    "fastfir_chain": ("hopper_fft", "fastfir_chain.cu", "fft/pallas_fft.py:1685"),
+    "fastfir_chain_stream": ("hopper_fft", "fastfir_chain.cu", "fft/pallas_fft.py:1943"),
     "hop_fire": ("hopper_kernels", "hop_fire.cu", "fft/pallas_kernels.py:383"),
     "rfft_small": ("hopper_fft", "rfft_small.cu", "fft/pallas_fft.py:1079"),
     "rifft_small": ("hopper_fft", "rifft_small.cu", "fft/pallas_fft.py:1114"),
@@ -150,6 +171,7 @@ KERNELS = {
     "rfft_small_windowed": ("hopper_fft", "rfft_small.cu", "fft/pallas_fft.py:1238"),
     "rifft_small_windowed": ("hopper_fft", "rifft_small.cu", "fft/pallas_fft.py:1265"),
 }
+STAGED = ("rfft_packed_stream", "lag_mac_causal", "rifft_packed_tail")
 
 
 def fail(msg: str) -> None:
@@ -237,6 +259,11 @@ def kernel_flops(name, args, kwargs) -> float:
         c, n = a.shape
         p = args[1].shape[-2]
         return c * (2 * fft_flops(n, 1) + 8.0 * p * (n // 2))
+    if name == "fastfir_chain":  # two transforms per hop and the causal MAC
+        c, t, h = a.shape
+        p = args[1].shape[-2]
+        return (c * t * 2 * fft_flops(2 * h, 1)
+                + 8.0 * c * h * sum(min(p, i) for i in range(t)))
     # fastfir_chain_stream: two transforms and the P-lag MAC per hop (+ lag 0)
     c, t, h = a.shape
     p = args[2].shape[1]
@@ -408,7 +435,7 @@ class Launches:
         for fn in self.fns.values():
             fn.launches = 0
 
-    def read(self, path: str, need, smi: str) -> dict:
+    def read(self, path: str, need, smi: str, forbid=()) -> dict:
         counts = {k: fn.launches for k, fn in self.fns.items()}
         self.by_path[path] = counts
         print(f"{path}: launches {({k: v for k, v in counts.items() if v})} [{smi}]",
@@ -416,14 +443,40 @@ class Launches:
         for k in need:
             if counts[k] < 1:
                 fail(f"{path}: kernel {k} was not launched")
+        for k in forbid:
+            if counts[k]:
+                fail(f"{path}: kernel {k} was launched {counts[k]} times; this path "
+                     "does not run it")
         return counts
 
 
+def phase_ms(fn, smi: str, label: str, runs: int = 5) -> dict:
+    """Device ms per call of each CUDA kernel ``fn`` launches (its phases),
+    by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = {e.key[:60]: e.device_time_total / runs / 1e3 for e in prof.key_averages()
+           if e.device_type.name == "CUDA" and e.device_time_total > 0}
+    print(f"{label} phases (device ms per call): "
+          f"{ {k: round(v, 4) for k, v in out.items()} } [{smi}]", flush=True)
+    return out
+
+
 def fastfir_kernels(randn, mods, smi) -> dict:
-    """Phase 3: K1-K4 at the main path's shapes and at N = 4096. Main path:
+    """Phase 3: K1-K5 at the main path's shapes and at N = 4096. Main path:
     N = 2^16, hop H = 32 768, C = 128 channels, T = ceil((SIG_LEN + H) / H)
     = 16 hops, P = ceil(IR_LEN / H) = 15 partitions, min(P, T - 1) = 15 lags.
-    The small shape (N = 4096) has more partitions than hops."""
+    The small shape (N = 4096) has more partitions than hops. K5 also at
+    (2, 5, P 7, 2^14), (2, 3, P 2, 2^17), (2, T 2, P 1, 2^16), T = 1 (whose
+    output is exactly zero) and P = 60 at 2^16 (beyond
+    the 47 lags its blocks hold in shared memory there); the staged
+    K2 -> K3 -> K4 is timed beside it on the main path's inputs, with the
+    design's own bound (its scratch frames included) beside the function's."""
     n_main = 1 << 16
     hop = n_main // 2
     t_main = -(-(SIG_LEN + hop) // hop)
@@ -444,18 +497,59 @@ def fastfir_kernels(randn, mods, smi) -> dict:
             return (randn(c, t, k), randn(c, t, k), 1.0 / (4.0 * n)), {}
         return make, big
 
-    return check_kernels(
+    def chain(c, t, p, n):
+        k = n // 2
+        return lambda: ((randn(c, t, k), randn(c, p, k) * 1e-3, randn(c, p, k) * 1e-3,
+                         1.0 / (4.0 * n)), {})
+
+    lags = min(p_main, t_main - 1)
+    results = check_kernels(
         [(name, [inputs(name, 4096, False), inputs(name, n_main, True)])
          for name in ("rfft_packed", "rfft_packed_stream", "lag_mac_causal",
-                      "rifft_packed_tail")], mods, smi)
+                      "rifft_packed_tail")]
+        + [("fastfir_chain", [(chain(CHANNELS, t_main, lags, n_main), True),
+                              (chain(2, 5, 7, 1 << 14), False),
+                              (chain(2, 3, 2, 1 << 17), False),
+                              (chain(2, 2, 1, n_main), False),
+                              (chain(2, 3, 60, n_main), False)])], mods, smi)
+    hf = mods["hopper_fft"]
+    # T = 1: x[-1] = 0 and K5 has no lag-0 term, so the one hop's output is
+    # exactly zero (held as such, not as an SNR).
+    args, _ = chain(2, 1, 3, n_main)()
+    y1 = hf.fastfir_chain(*args)
+    torch.cuda.synchronize()
+    if tuple(y1.shape) != tuple(args[0].shape) or bool(y1.abs().max() != 0):
+        fail(f"fastfir_chain at T = 1: shape {tuple(y1.shape)}, max |y| "
+             f"{float(y1.abs().max()):.3e}, not the exact zero output")
+    print("fastfir_chain at (2, T 1, P 3, 2^16): the output is exactly zero", flush=True)
+    args, _ = chain(CHANNELS, t_main, lags, n_main)()
+    staged = median_ms(lambda: hf.fastfir_chain_staged(*args))
+    x2d = args[0]
+    scratch = 4 * 2 * x2d.numel() * 4  # the frames: written by A, read and written by B, read by C
+    design = (2 * tensor_bytes(x2d) + sum(tensor_bytes(a) for a in args[1:3])
+              + tensor_bytes(x2d) + scratch) / HBM_BYTES_PER_S * 1e3
+    r = results["fastfir_chain"]
+    r["staged_ms"], r["design_bound_ms"] = staged, design
+    r["phase_ms"] = phase_ms(lambda: hf.fastfir_chain(*args), smi, "fastfir_chain")
+    print(f"fastfir_chain at the main path's inputs: K5 {r['ms']:.4f} ms, staged "
+          f"K2 -> K3 -> K4 {staged:.4f} ms (CUDA events, median of 5); bound "
+          f"{r['bound_ms']:.4f} ms (x, y, H), the design's own {design:.4f} ms (its "
+          f"scratch frames and the signal read twice) [{smi}]", flush=True)
+    del args, x2d
+    torch.cuda.empty_cache()
+    return results
 
 
 def stream_kernels(randn, mods, smi) -> dict:
     """Phase 6: K7, K8 and K10 at the hop-aligned paths' shapes: the two-tier
     far tier (T = 4, P = 14, K = 32768) and the collapsed final section
-    (T = 16, P = 58, K = 8192) for K7; the near tier (T = 16, H = 8192, P = 3)
-    with and without lag0 for K8; the IR preparation and refresh sizes (384
-    rows) for K10."""
+    (T = 16, P = 58, K = 8192) for K7; for K8 (the chain family's stream
+    instantiation at every size) the near tier (T = 16, H = 8192, P = 3) with
+    and without lag0, a small 2^15 case, a single 2^17 section over a 10 s IR
+    (T = 2, P = 8), the far tier of a 290 000-tap IR (2^16, T = 4, P = 8) and
+    a small lag-0 case at 2^16, with process_block's
+    staged K1 -> K7 -> K4 timed beside the last two; the IR preparation and
+    refresh sizes (384 rows) for K10."""
     def ring(c, t, p, k):
         return lambda: (tuple(randn(c, r, k) for r in (p, p, t, t, p, p)), {})
 
@@ -470,15 +564,44 @@ def stream_kernels(randn, mods, smi) -> dict:
     def small(b, n):
         return lambda: ((randn(b, n),), {})
 
-    return check_kernels([
+    results = check_kernels([
         ("lag_mac_ring", [(ring(2, 3, 5, 1024), False), (ring(CHANNELS, 4, 14, 32768), True),
                           (ring(CHANNELS, 16, 58, 8192), True)]),
         ("fastfir_chain_stream", [(chain(2, 3, 2, 1 << 14, True), False),
+                                  (chain(2, 11, 8, 1 << 15, True), False),
                                   (chain(CHANNELS, 16, 3, 1 << 14, True), True),
-                                  (chain(CHANNELS, 16, 3, 1 << 14, False), True)]),
+                                  (chain(CHANNELS, 16, 3, 1 << 14, False), True),
+                                  (chain(CHANNELS, 2, 8, 1 << 17, False), True),
+                                  (chain(CHANNELS, 4, 8, 1 << 16, False), True),
+                                  (chain(2, 3, 4, 1 << 16, True), False)]),
         ("rfft_small", [(small(7, 32), False), (small(384, 256), True), (small(384, 128), True),
                         (small(384, 1024), True), (small(384, 2048), True)]),
     ], mods, smi)
+    hf, hk = mods["hopper_fft"], mods["hopper_kernels"]
+
+    def staged(x2d, prev, rr, ri, hr, hi, scale):
+        # process_block's staged path on the same inputs: the frames
+        # [prev | cur] materialised, K1, K7 (T <= P), K4.
+        frames = torch.cat([torch.cat([prev[:, None], x2d[:, :-1]], 1), x2d], -1)
+        xre, xim = hf.rfft_packed(frames)
+        yre, yim, _, _ = hk.lag_mac_ring(rr, ri, xre, xim, hr, hi)
+        return hf.rifft_packed_tail(yre, yim, scale)
+
+    staged_ms = {}
+    for t, n in ((2, 1 << 17), (4, 1 << 16)):
+        args, _ = chain(CHANNELS, t, 8, n, False)()
+        staged_ms[f"(128, T {t}, P 8, {n})"] = median_ms(lambda: staged(*args))
+    results["fastfir_chain_stream"]["staged_ms"] = staged_ms
+    print(f"fastfir_chain_stream's staged path (frames, K1 -> K7 -> K4) on the same inputs: "
+          f"{ {k: round(v, 4) for k, v in staged_ms.items()} } ms (CUDA events, median of 5) "
+          f"[{smi}]", flush=True)
+    args, kw = chain(CHANNELS, 2, 8, 1 << 17, False)()
+    results["fastfir_chain_stream"]["phase_ms_2_17"] = phase_ms(
+        lambda: hf.fastfir_chain_stream(*args, **kw), smi,
+        "fastfir_chain_stream (128, T 2, P 8, 2^17)")
+    del args, kw
+    torch.cuda.empty_cache()
+    return results
 
 
 def slice_kernels(randn, mods, smi) -> dict:
@@ -535,8 +658,7 @@ def fastfir_path(dev, irs, x, launches, smi) -> None:
     print(f"main path: FastFIR N={eng.fft_size}, P={eng.spectra.shape[-2]}, "
           f"IR prep {prep_s:.3f} s, passes {[round(v, 3) for v in pass_ms]} ms [{smi}]",
           flush=True)
-    launches.read("fastfir", ("rfft_packed", "rfft_packed_stream", "lag_mac_causal",
-                              "rifft_packed_tail"), smi)
+    launches.read("fastfir", ("rfft_packed", "fastfir_chain"), smi, forbid=STAGED)
     if tuple(y.shape) != (CHANNELS, SIG_LEN) or not bool(torch.isfinite(y).all()):
         fail(f"main path output: shape {tuple(y.shape)}, finite "
              f"{bool(torch.isfinite(y).all())}")
@@ -554,8 +676,49 @@ def fastfir_path(dev, irs, x, launches, smi) -> None:
     print(f"main path steady state: {steady:.4f} ms/pass (CUDA events, median "
           f"of 10 after a warm-up), {CHANNELS * SIG_LEN / (steady * 1e-3):.6e} "
           f"samples/s [{smi}]", flush=True)
-    del eng, y, xd
+    del y
+    peak_pass(eng, xd, smi)
+    del eng, xd
     torch.cuda.empty_cache()
+
+
+def peak_pass(eng, xd, smi) -> None:
+    """Peak device memory of one FastFIR pass above what was allocated before
+    it (K5 through the entry point), and of the staged K2 -> K3 -> K4 called
+    on the hop blocks and H views that pass hands K5."""
+    from hisstools_library_tpu_torch.fft import hopper_fft
+    from hisstools_library_tpu_torch.models.offline import FastFIR
+
+    def peak(step) -> float:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = step()
+        torch.cuda.synchronize()
+        del y
+        return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    peaks = {"K5": peak(lambda: FastFIR.apply(eng.spectra, xd))}
+    # The pass's own inputs to the chain: x padded to whole hops with the
+    # look-ahead hop (FastFIR's shift), H's first min(P, T - 1) partitions.
+    h = eng.spectra.shape[-1]
+    length = xd.shape[-1] + h
+    t = -(-length // h)
+    lags = min(eng.spectra.shape[-2], t - 1)
+    c = xd.shape[0]
+
+    def staged():
+        x2d = torch.nn.functional.pad(xd, (0, t * h - xd.shape[-1])).reshape(c, t, h)
+        hr = eng.spectra.re[..., :lags, :].expand(c, lags, h).contiguous()
+        hi = eng.spectra.im[..., :lags, :].expand(c, lags, h).contiguous()
+        return hopper_fft.fastfir_chain_staged(x2d, hr, hi, 1.0 / (4.0 * 2 * h))
+
+    peaks["staged K2 -> K3 -> K4"] = peak(staged)
+    print(f"main path peak memory per pass (above the IR and signal): K5 "
+          f"{peaks['K5']:.3f} GiB, staged K2 -> K3 -> K4 "
+          f"{peaks['staged K2 -> K3 -> K4']:.3f} GiB [{smi}]", flush=True)
+    if peaks["staged K2 -> K3 -> K4"] - peaks["K5"] < 0.5 * 1e9 / 2**30:
+        fail("main path: K5's pass is not 0.5 GB below the staged chain's peak")
 
 
 def stream_paths(dev, irs, x, launches, smi, profile) -> None:
@@ -753,11 +916,9 @@ def offline_paths(dev, irs, x, launches, smi) -> None:
 
     zero = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
     xd = torch.from_numpy(x).to(dev)
-    for label, tail, need in (
-            ("offline-tail", True, ("rfft_packed", "rfft_packed_stream", "lag_mac_causal",
-                                    "rifft_packed_tail")),
-            ("offline-no-tail", False, ("rifft_small", "rfft_packed_stream",
-                                        "lag_mac_causal", "rifft_packed_tail"))):
+    for label, tail, need, forbid in (
+            ("offline-tail", True, ("rfft_packed", "fastfir_chain"), STAGED),
+            ("offline-no-tail", False, ("rifft_small", "fastfir_chain") + STAGED, ())):
         launches.reset()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -766,7 +927,7 @@ def offline_paths(dev, irs, x, launches, smi) -> None:
         prep_s = time.perf_counter() - t0
         y = mono.process_offline(ir, xd)
         torch.cuda.synchronize()
-        launches.read(label, need, smi)
+        launches.read(label, need, smi, forbid)
         if tuple(y.shape) != (CHANNELS, SIG_LEN):
             fail(f"{label}: output shape {tuple(y.shape)}")
         check_path_snr(label, y[0], x[0], irs[0], smi)
@@ -1204,6 +1365,123 @@ def pipeline_paths(dev, launches, smi, profile) -> None:
     torch.cuda.empty_cache()
 
 
+def convolver_paths(dev, irs, x, launches, smi) -> None:
+    """Phase 19: the multichannel Convolver at full width (see the module
+    docstring). Each case runs with every launch count set to 0 before it
+    and holds output 0 against a float64 FFT convolution."""
+    from hisstools_library_tpu_torch.models import mono
+    from hisstools_library_tpu_torch.models.multichannel import Convolver
+
+    blk = STREAM_BLOCK
+    n2m = 8
+    zero = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+    single = mono.PartitionScheme.for_latency_budget(65536)
+
+    def mirror(n, lat, ins, taps):
+        """Output 0's float64 mirror: sum over inputs of conv(x_i, ir_0i),
+        delayed by the scheme's latency ``lat``."""
+        ref = sum(convolve_f64(x[i, :n], taps[i], n) for i in ins)
+        return np.concatenate([np.zeros(lat), ref[:n - lat]])
+
+    def run(label, need, forbid, call, n, ins, taps, lat=0):
+        launches.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        y0 = call()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches.read(label, need, smi, forbid)
+        if not bool(torch.isfinite(y0).all()):
+            fail(f"{label}: non-finite output")
+        snr = snr_db(torch.from_numpy(mirror(n, lat, ins, taps)), y0.cpu())
+        ms, times = time_calls(call, runs=3)
+        print(f"{label}: SNR vs float64 FFT convolution (output 0, {n} samples) {snr:.2f} "
+              f"dB; first call {first_s:.3f} s; {ms:.4f} ms/call (CUDA "
+              f"events, median of 3 after a warm-up; all {[round(v, 4) for v in times]}); "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]",
+              flush=True)
+        if not snr >= SNR_MIN_PATH_DB:
+            fail(f"{label}: SNR {snr:.2f} dB < {SNR_MIN_PATH_DB}")
+        torch.cuda.empty_cache()
+
+    # (a) parallel, 128 channels, process_offline through the lazy offline tail.
+    xd = torch.from_numpy(x).to(dev)
+    conv = Convolver(CHANNELS, scheme=zero, device=dev)
+    conv.set_all(irs)
+    conv.prepare()
+    run("convolver-parallel-offline", ("fastfir_chain",), STAGED,
+        lambda: conv.process_offline(xd)[0], SIG_LEN, [0], [irs[0]])
+    del conv, xd
+
+    # (b) N2M 8 x 8 on the first 64 IRs, process_offline.
+    bank = irs[:n2m * n2m].reshape(n2m, n2m, IR_LEN)
+    xin = torch.from_numpy(np.ascontiguousarray(x[:n2m])).to(dev)
+    conv = Convolver(n2m, n2m, scheme=zero, device=dev)
+    conv.set_all(bank)
+    conv.prepare()
+    run("convolver-n2m-offline", ("fastfir_chain",), STAGED,
+        lambda: conv.process_offline(xin)[0], SIG_LEN, range(n2m), bank[0])
+    del conv
+
+    # (c) parallel 128, one N = 2^17 section (P = 8): process through K8.
+    xs = torch.from_numpy(np.ascontiguousarray(x[:, :3 * blk])).to(dev)
+    conv = Convolver(CHANNELS, scheme=single, device=dev)
+    conv.set_all(irs)
+    conv.prepare(offline_tail=False)
+    p = conv.ir.spectra[-1].shape[-2]
+    if (single.sizes, p) != ((1 << 17,), 8):
+        fail(f"convolver-single-section: sizes {single.sizes}, P {p}; expected 2^17, 8")
+
+    def three_calls(conv, init, ins):
+        st = init()
+        ys = []
+        for i in range(3):
+            st, y = conv.process(st, ins[:, i * blk:(i + 1) * blk].contiguous())
+            ys.append(y[0])
+        return torch.cat(ys)
+
+    run("convolver-single-section", ("fastfir_chain_stream",), STAGED + ("lag_mac_ring",),
+        lambda: three_calls(conv, conv.init_state, xs), 3 * blk, [0], [irs[0]],
+        lat=single.latency)
+    del conv, xs
+
+    # (d) N2M 8 x 8, Zero preset, 290 000 taps, the two-tier block state.
+    cut = bank[..., :290000]
+    conv = Convolver(n2m, n2m, scheme=zero, device=dev)
+    conv.set_all(cut)
+    conv.prepare(offline_tail=False)
+    if (conv.ir.far.shape[-1], conv.ir.far.shape[-2]) != (1 << 15, 8):
+        fail(f"convolver-n2m-two-tier: far tier {tuple(conv.ir.far.shape)}; expected "
+             "P2 = 8 at N = 2^16")
+    xs = xin[:, :3 * blk].contiguous()
+    run("convolver-n2m-two-tier", ("fastfir_chain_stream",), STAGED + ("lag_mac_ring",),
+        lambda: three_calls(conv, conv.init_block_state, xs), 3 * blk, range(n2m), cut[0])
+    if launches.by_path["convolver-n2m-two-tier"]["fastfir_chain_stream"] != 6:
+        fail("convolver-n2m-two-tier: K8 did not launch twice a call (near and far tier)")
+    del conv, xs
+
+    # (e) N2M 2 x 2, 64 callbacks of 256 samples through process_any.
+    small = bank[:2, :2]
+    conv = Convolver(2, 2, scheme=zero, device=dev)
+    conv.set_all(small)
+    conv.prepare(offline_tail=False)
+    calls = 64
+    xa = xin[:2, :calls * CALLBACK].contiguous()
+
+    def callbacks64():
+        st = conv.init_stream_state()
+        ys = []
+        for i in range(calls):
+            st, y = conv.process_any(st, xa[:, i * CALLBACK:(i + 1) * CALLBACK])
+            ys.append(y[0])
+        return torch.cat(ys)
+
+    run("convolver-n2m-process-any", ("hop_fire", "rifft_packed", "rfft_packed"), (),
+        callbacks64, calls * CALLBACK, range(2), small[0])
+    del conv, xa, xin
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -1263,6 +1541,7 @@ def main() -> None:
     results.update(windowed_kernels(randn, mods, smi))
     stft_path(dev, launches, smi, profile)
     pipeline_paths(dev, launches, smi, profile)
+    convolver_paths(dev, irs, x, launches, smi)
 
     for name in KERNELS:
         by_path = {p: c[name] for p, c in launches.by_path.items()}

@@ -11,9 +11,11 @@ it never imports), with the same layout and names:
 - :mod:`.ops`    the spectral layer (``ir_*`` functions, the spectral
                  processor: edge-mode convolution, ``change_phase``) and the
                  analysis ops (windows, table reader, interpolation, STFT,
-                 kernel smoothing)
-- :mod:`.models` FastFIR, the partitioned and mono engines, the
-                 time-domain head, the partial tracker and the IR pipeline
+                 kernel smoothing, statistics)
+- :mod:`.models` FastFIR, the partitioned and mono engines, the multichannel
+                 ``Convolver``, the time-domain head, the partial tracker and
+                 the IR pipeline
+- :mod:`.utils`  the random number generators
 
 Kernels run on CUDA tensors; CPU tensors take each kernel's plain PyTorch
 version.

@@ -44,11 +44,12 @@ _SIGNATURES = {
     # sr, si, xr, xi, hr, hi, h_cstride, yr, yi, nr, ni, channels, t, p, k, stream
     "hst_lag_mac_ring": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _L, _I, _I,
                          _I, _P],
-    # x, prev, rin_re, rin_im, h_re, h_im, h_cstride, l0_re, l0_im,
-    # l0_cstride, y, rout_re, rout_im, s_re, s_im, tw, channels, t, p, n,
-    # scale, stream
-    "hst_fastfir_chain_stream": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _L, _P, _P,
-                                 _P, _P, _P, _P, _L, _I, _I, _I, _F, _P],
+    # x, prev, rin_re, rin_im, h_re, h_im, h_cstride, l0_re, l0_im, l0_cstride,
+    # y, rout_re, rout_im, scratch, gring, tw, channels, t, p, n, scale, stream
+    "hst_fastfir_chain": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _L, _P, _P, _P, _P, _P,
+                          _P, _L, _I, _I, _I, _F, _P],
+    # n, p -> float2 of global ring scratch a channel (0: shared memory holds it)
+    "hst_fastfir_chain_ring_scratch": [_I, _I],
     # re, im, out, scratch_y, tw, frames, n, stream
     "hst_rifft_packed": [_P, _P, _P, _P, _P, _L, _I, _P],
     # re, im, y, tw, batch, n, stream
@@ -139,6 +140,7 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            lib.hst_fastfir_chain_ring_scratch.restype = ctypes.c_longlong
             lib.hst_error_string.argtypes = [ctypes.c_int]
             lib.hst_error_string.restype = ctypes.c_char_p
             _lib = lib

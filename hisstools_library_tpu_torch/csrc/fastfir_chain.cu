@@ -1,0 +1,504 @@
+// The FastFIR chain family: K5 (the whole offline chain) and K8 (a whole
+// streaming process_block), one source, N = 2^14..2^17. Per channel,
+// for each hop t of its (T, H) blocks:
+//   X_t = rfft_packed([x[t-1] | x[t]])     (x[-1] = 0, or the carried block)
+//   Y_t = sum_{lag < P} X_{t-1-lag} * H_lag  (+ X_t * L0, the lag-0 term)
+//   y_t = scale * rifft(Y_t)[H:]
+// with X_{-P..-1} = 0 offline, or the carried ring (oldest-first) streaming,
+// whose new ring X_{T-P..T-1} is written back oldest-first. Packed products;
+// the bin-0 lane (DC in re, Nyquist in im) multiplies two real values.
+//
+// Replaces hisstools_library_tpu/fft/pallas_fft.py: fastfir_chain (:1685,
+// _fastfir_kernel) and fastfir_chain_stream (:1943, _fastfir_stream_kernel).
+// The TPU kernels keep each channel's spectra ring and
+// H in VMEM (2*4*P*(N/2)*2 bytes, ~7.9 MB at the main path's N = 2^16,
+// P = 15) and run the hop's DFTs as matmuls, so the hop spectra X_t and the
+// accumulations Y_t never reach HBM. On Hopper neither that state nor one
+// 2^16 frame (256 KB) fits a block's 227 KB, and blocks carry nothing from one
+// to the next, so the chain runs on the two-pass four-step core
+// (fft_common.cuh, M = N/2 = M1 * R: rows of M1 = l_last points) in three
+// phases on one stream:
+//   A. the forward column pass of every frame, reading [x[t-1] | x[t]] in
+//      place (K2's pass 1), into a scratch frame per hop;
+//   B. one block per (channel, row pair (j, R-j)) walks the channel's hops
+//      in chunks of 8 (16 rows): the forward row pass and the pack (bins k
+//      and M-k sit in rows j and R-j), the MAC over the block's own ring of
+//      the last P spectra of its 2*M1 bins and their H (shared memory; a
+//      per-block global scratch, read through L2, when P is too large for
+//      it), the lag-0 term, the unpack and the inverse's row pass (the
+//      row-first inverse, fft_common.cuh), written back to the same rows of
+//      the scratch frames. In natural bin order a block's bins lie R apart;
+//      8 blocks of consecutive pairs form a cluster and move H and the ring
+//      for each other by whole 32-byte sectors (distributed shared memory);
+//   C. the inverse's column pass, storing the kept half [H, N) with `scale`
+//      folded in (K4's tail store).
+// No (C, T, N/2) tensor of X or Y exists: HBM holds the signal, the output,
+// H, the carried ring and the scratch frames.
+//
+// Bound on the H100: HBM bytes. The function must move the signal in, y out
+// and H once (1.04 GB at the main path's (128, 16, 32768), P = 15: 0.31 ms at
+// 3.35 TB/s). This design adds the scratch frame, written by A, read and
+// written by B and read by C (4 x 537 MB there), and reads each signal block
+// twice: ~3.3 GB, ~1.0 ms at peak, against ~5.3 GB for K2 -> K3 -> K4. The
+// MAC reads ring and H from shared memory once per chunk of 8 hops (a
+// register window slides over the hops), so neither bounds it.
+#include <cooperative_groups.h>
+
+#include "fft_common.cuh"
+
+using namespace hst;
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kHops = kTile / 2;             // hops per chunk, two rows each
+constexpr int kSmemLimit = 232448;           // a block's shared memory on the H100
+constexpr int kStaticSmem = kTile * kLd * (int)sizeof(float2);
+
+struct Chain {
+  float2* frames;                  // (C*T, M) scratch frames, rows of M1
+  const float* h_re;               // (C, P, M) packed H, channels h_cs apart
+  const float* h_im;
+  long long h_cs;
+  const float* l0_re;              // optional (C, M) lag-0 spectrum
+  const float* l0_im;
+  long long l0_cs;
+  const float* rin_re;             // optional (C, P, M) carried ring, oldest-first
+  const float* rin_im;
+  float* rout_re;                  // optional (C, P, M) new ring, oldest-first
+  float* rout_im;
+  float2* gring;                   // (blocks, 2, P, 2*M1) when not in shared memory
+  const float2* tw;
+  int t, p, log_n, rows;
+};
+
+__device__ __forceinline__ float2 mac_term(float2 v, float2 h, bool lane0) {
+  return lane0 ? make_float2(v.x * h.x, v.y * h.y) : cmul(v, h);
+}
+
+// The pack of bin k from Z[k] and its partner Z[M-k]:
+// P[k] = (Z[k] + conj Z[M-k]) - i W_N^k (Z[k] - conj Z[M-k]).
+__device__ __forceinline__ float2 pair_pack(float2 zk, float2 zm, float2 w) {
+  const float2 sum = make_float2(zk.x + zm.x, zk.y - zm.y);
+  const float2 dif = make_float2(zk.x - zm.x, zk.y + zm.y);
+  const float2 wd = cmul(w, dif);
+  return make_float2(sum.x + wd.y, sum.y - wd.x);
+}
+
+// The unpack of bin k for the inverse, conj(Z'[k]), from P[k] and P[M-k]
+// (K4's loader).
+__device__ __forceinline__ float2 pair_unpack(float2 pk, float2 pm, float2 w) {
+  const float2 sum = make_float2(pk.x + pm.x, pk.y - pm.y);
+  const float2 dif = make_float2(pk.x - pm.x, pk.y + pm.y);
+  const float2 wd = cmul(make_float2(w.x, -w.y), dif);
+  return make_float2(sum.x - wd.y, -(sum.y + wd.x));
+}
+
+// Item q <= L of hop h: a bin and its partner, slot f and column (the bin's
+// k1) each. Block j != 0: bin (2h, q) of row j pairs with (2h + 1, L-1-q) of
+// row R-j (items q < L). Block 0: row R/2 pairs within itself, (2h + 1, q)
+// with (2h + 1, L-1-q) for q < L/2; row 0 holds (2h, u) and (2h, L-u) for
+// u = q - L/2 + 1 < L/2, the self-partnered bin M/2 at u = L/2 and bin 0
+// (DC, Nyquist: `dc`) at q = L. Returns false for no item.
+__device__ __forceinline__ bool pair_of(int h, int q, int j, int L, int& fa, int& ca,
+                                        int& fb, int& cb, bool& dc) {
+  dc = false;
+  if (j != 0) {
+    fa = 2 * h;
+    ca = q;
+    fb = 2 * h + 1;
+    cb = L - 1 - q;
+    return q < L;
+  }
+  if (q < L / 2) {
+    fa = fb = 2 * h + 1;
+    ca = q;
+    cb = L - 1 - q;
+    return true;
+  }
+  const int u = q - L / 2 + 1;
+  fa = fb = 2 * h;
+  ca = u <= L / 2 ? u : 0;
+  cb = u < L / 2 ? L - u : ca;
+  dc = u > L / 2;
+  return true;
+}
+
+// A cluster of 8 blocks holds 8 consecutive pairs j0..j0+7, whose rows are
+// 8 consecutive rows on each side: j0..j0+7 and R-j0-7..R-j0. In the packed
+// planes (natural bin order) a block's own bins lie R apart, but for every
+// (lag, k1) the 8 blocks' values of one side fill one 32-byte sector. So each
+// block of the cluster reads an eighth of the columns k1, whole sectors, and
+// hands each value to the block that owns its row (distributed shared
+// memory). Index i of the range below is (side, lag, k1 in the block's
+// eighth, row offset rr); `tb` the owner, `row` its row, false for the one
+// row that is not in a run: block 0's row R/2, which it moves itself.
+__device__ __forceinline__ bool cluster_bin(int i, int L, int p, int rows, int j0, int rank,
+                                            int& tb, int& row, int& lag, int& bin) {
+  const int q = L / 8;
+  const int rr = i & 7;
+  int rest = i >> 3;
+  const int k1 = rank * q + rest % q;
+  rest /= q;
+  lag = rest % p;
+  const int side = rest / p;
+  tb = side == 0 ? rr : 7 - rr;
+  row = side == 0 ? j0 + rr : rows - j0 - 7 + rr;
+  bin = side * L + k1;
+  return side == 0 || j0 + tb != 0;
+}
+
+// Phase B: grid = C * R/2 blocks; the block of (channel c, pair j) owns rows
+// row0 = j and row1 = R - j (j = 0: rows 0 and R/2, each its own partner),
+// whose bins b < 2*L are k = row_(b / L) + R * (b % L). A chunk's 16 rows sit
+// in the FFT tile `s`, slot f = 2*hop + (row f&1), through the pack, the MAC
+// and the unpack; two blocks fit an SM at the main path's P = 15.
+template <int L>
+__global__ void __cluster_dims__(8, 1, 1) __launch_bounds__(kThreads, 2) chain_mid(Chain a) {
+  constexpr int NB = 2 * L;
+  constexpr int kLogL = Sub<L>::kLog;
+  __shared__ float2 s[kTile * kLd];
+  extern __shared__ float2 dyn[];
+  // The block's twiddles, read once here (in the global table those of its
+  // bins lie R apart, so each warp's read touches 32 sectors): for bin
+  // b = r*L + k1 of row_r, W_N^k for the pack and the unpack (twp) and
+  // W_M^(k1*row_r) for the inverse row pass's store (twi); and W_L^e, e < L,
+  // for the row DFTs (tl).
+  float2* twp = dyn;
+  float2* twi = twp + NB;
+  float2* tl = twi + NB;
+  const int m = 1 << (a.log_n - 1);
+  const int rows = a.rows;
+  const int pairs = rows >> 1;
+  const long long c = blockIdx.x / pairs;
+  const int j = (int)(blockIdx.x - c * pairs);
+  const int row0 = j;
+  const int row1 = j == 0 ? pairs : rows - j;
+  const int p = a.p;
+  const int tid = threadIdx.x;
+  // Ring (slot s holds X_t with t = s mod P) and H, [P][NB] each.
+  float2* ring = a.gring != nullptr ? a.gring + (long long)blockIdx.x * 2 * p * NB : tl + L;
+  float2* hs = ring + p * NB;
+  const float* hr = a.h_re + c * a.h_cs;
+  const float* hi = a.h_im + c * a.h_cs;
+  const float* rr = a.rin_re != nullptr ? a.rin_re + c * p * (long long)m : nullptr;
+  const float* ri = a.rin_im != nullptr ? a.rin_im + c * p * (long long)m : nullptr;
+  for (int e = tid; e < L; e += blockDim.x) tl[e] = __ldg(&a.tw[e << (a.log_n - kLogL)]);
+  for (int b = tid; b < NB; b += blockDim.x) {
+    const int k1 = b < L ? b : b - L;
+    const int row = b < L ? row0 : row1;
+    twp[b] = __ldg(&a.tw[row + rows * k1]);
+    twi[b] = __ldg(&a.tw[((k1 * row) & (m - 1)) << 1]);
+  }
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();  // = j mod 8: pairs is a multiple of 8
+  cl.sync();  // every block of the cluster runs before any writes to another
+  if (a.gring == nullptr) {
+    // Ring and H in shared memory: the cluster moves whole sectors. Block 0's
+    // row R/2 and, offline, the zero ring are the block's own.
+    // kBatch values a thread: all their loads are in flight before the first
+    // store, so the block waits one round trip per batch, not per value.
+    constexpr int kBatch = 8;
+    for (int i0 = tid; i0 < 2 * p * L; i0 += kBatch * blockDim.x) {
+      float2 hv[kBatch], rv[kBatch];
+      int to[kBatch], at[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * blockDim.x;
+        int row, lag, bin;
+        to[u] = -1;
+        if (i < 2 * p * L && cluster_bin(i, L, p, rows, j - rank, rank, to[u], row, lag, bin)) {
+          const long long o = (long long)lag * m + row + (long long)rows * (bin % L);
+          at[u] = lag * NB + bin;
+          hv[u] = make_float2(__ldg(&hr[o]), __ldg(&hi[o]));
+          if (rr != nullptr) rv[u] = make_float2(__ldg(&rr[o]), __ldg(&ri[o]));
+        } else {
+          to[u] = -1;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (to[u] < 0) continue;
+        cl.map_shared_rank(hs, to[u])[at[u]] = hv[u];
+        if (rr != nullptr) cl.map_shared_rank(ring, to[u])[at[u]] = rv[u];
+      }
+    }
+    for (int i = tid; i < (j == 0 ? p * L : 0); i += blockDim.x) {
+      const int lag = i / L;
+      const int k1 = i - lag * L;
+      const long long o = (long long)lag * m + pairs + (long long)rows * k1;
+      hs[lag * NB + L + k1] = make_float2(__ldg(&hr[o]), __ldg(&hi[o]));
+      if (rr != nullptr) ring[lag * NB + L + k1] = make_float2(__ldg(&rr[o]), __ldg(&ri[o]));
+    }
+    if (rr == nullptr)
+      for (int i = tid; i < p * NB; i += blockDim.x) ring[i] = make_float2(0.f, 0.f);
+  } else {
+    // Ring and H in the global scratch: each block its own bins, lags
+    // unrolled so that several strided loads are in flight.
+    for (int b = tid; b < NB; b += blockDim.x) {
+      const int k = (b < L ? row0 : row1) + rows * (b < L ? b : b - L);
+#pragma unroll 4
+      for (int lag = 0; lag < p; ++lag) {
+        const long long o = (long long)lag * m + k;
+        hs[lag * NB + b] = make_float2(__ldg(&hr[o]), __ldg(&hi[o]));
+        ring[lag * NB + b] = rr != nullptr ? make_float2(__ldg(&rr[o]), __ldg(&ri[o]))
+                                           : make_float2(0.f, 0.f);
+      }
+    }
+  }
+  cl.sync();  // every block's ring and H are in place
+
+  for (int t0 = 0; t0 < a.t; t0 += kHops) {
+    const int tc = min(kHops, a.t - t0);
+    float2* fr = a.frames + (c * a.t + t0) * (long long)m;
+
+    // Forward row pass: step 1 straight from the scratch rows.
+    {
+      constexpr int A = Sub<L>::kA, B = Sub<L>::kB;
+      if (tid < kTile * A) {
+        const int j1 = tid % A;
+        const int f = tid / A;
+        float2 v[B];
+        const float2* yr = fr + (long long)(f >> 1) * m + (long long)((f & 1) ? row1 : row0) * L;
+#pragma unroll
+        for (int j2 = 0; j2 < B; ++j2)
+          v[j2] = (f >> 1) < tc ? yr[j1 + A * j2] : make_float2(0.f, 0.f);
+        reg_dft<B, true>(v, tl, kLogL);
+        step1_store<L, true>(s, v, f, j1, tl, kLogL);
+      }
+      __syncthreads();
+    }
+    rows_step2<L>(s, tl);
+
+    // Pack in place, a bin and its partner by one thread.
+    for (int i = tid; i < kHops * (L + 1); i += blockDim.x) {
+      const int h = i / (L + 1);
+      int fa, ca, fb, cb;
+      bool dc;
+      if (!pair_of(h, i - h * (L + 1), j, L, fa, ca, fb, cb, dc)) continue;
+      const float2 za = s[fa * kLd + ca];
+      const float2 zb = s[fb * kLd + cb];
+      if (dc) {
+        s[fa * kLd] = make_float2(2.f * (za.x + za.y), 2.f * (za.x - za.y));
+        continue;
+      }
+      s[fa * kLd + ca] = pair_pack(za, zb, twp[(fa & 1) * L + ca]);
+      if (fa != fb || ca != cb) s[fb * kLd + cb] = pair_pack(zb, za, twp[(fb & 1) * L + cb]);
+    }
+    __syncthreads();
+
+    // MAC, bin by bin: win[i] = X_{t0+i-1-lag} slides down one hop per lag,
+    // so each ring and H value is read once per chunk.
+    for (int b = tid; b < NB; b += blockDim.x) {
+      const int r = b < L ? 0 : 1;
+      const int k1 = b - r * L;
+      const bool lane0 = j == 0 && b == 0;
+      float2 x[kHops], win[kHops], acc[kHops];
+#pragma unroll
+      for (int i = 0; i < kHops; ++i) {
+        x[i] = i < tc ? s[(2 * i + r) * kLd + k1] : make_float2(0.f, 0.f);
+        acc[i] = make_float2(0.f, 0.f);
+      }
+      int slot = p > 0 ? ((t0 - 1) % p + p) % p : 0;  // X_{t0-1}
+      win[0] = p > 0 ? ring[slot * NB + b] : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int i = 1; i < kHops; ++i) win[i] = x[i - 1];
+      for (int lag = 0; lag < p; ++lag) {
+        const float2 h = hs[lag * NB + b];
+#pragma unroll
+        for (int i = 0; i < kHops; ++i) {
+          const float2 d = mac_term(win[i], h, lane0);
+          acc[i].x += d.x;
+          acc[i].y += d.y;
+        }
+#pragma unroll
+        for (int i = kHops - 1; i > 0; --i) win[i] = win[i - 1];
+        slot = slot == 0 ? p - 1 : slot - 1;
+        if (lag + 1 < p) win[0] = ring[slot * NB + b];
+      }
+      if (a.l0_re != nullptr) {
+        const long long k = c * a.l0_cs + (r ? row1 : row0) + rows * (long long)k1;
+        const float2 l0 = make_float2(__ldg(&a.l0_re[k]), __ldg(&a.l0_im[k]));
+#pragma unroll
+        for (int i = 0; i < kHops; ++i) {
+          const float2 d = mac_term(x[i], l0, lane0);
+          acc[i].x += d.x;
+          acc[i].y += d.y;
+        }
+      }
+      if (p > 0) {
+        int ins = t0 % p;
+#pragma unroll
+        for (int i = 0; i < kHops; ++i) {
+          if (i < tc) {
+            ring[ins * NB + b] = x[i];
+            ins = ins + 1 == p ? 0 : ins + 1;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kHops; ++i)
+        if (i < tc) s[(2 * i + r) * kLd + k1] = acc[i];
+    }
+    __syncthreads();
+
+    // Unpack in place for the inverse, a bin and its partner by one thread.
+    for (int i = tid; i < kHops * (L + 1); i += blockDim.x) {
+      const int h = i / (L + 1);
+      int fa, ca, fb, cb;
+      bool dc;
+      if (!pair_of(h, i - h * (L + 1), j, L, fa, ca, fb, cb, dc)) continue;
+      const float2 pa = s[fa * kLd + ca];
+      const float2 pb = s[fb * kLd + cb];
+      if (dc) {
+        s[fa * kLd] = make_float2(pa.x + pa.y, -(pa.x - pa.y));
+        continue;
+      }
+      s[fa * kLd + ca] = pair_unpack(pa, pb, twp[(fa & 1) * L + ca]);
+      if (fa != fb || ca != cb) s[fb * kLd + cb] = pair_unpack(pb, pa, twp[(fb & 1) * L + cb]);
+    }
+    __syncthreads();
+
+    // Inverse row pass, times W_M^(n1*row), back to the rows it came from.
+    rows_step1_smem<L>(s, tl);
+    rows_step2<L>(s, tl);
+    for (int i = tid; i < kTile * L; i += blockDim.x) {
+      const int f = i / L;
+      const int n1 = i - f * L;
+      if ((f >> 1) >= tc) continue;
+      const int row = (f & 1) ? row1 : row0;
+      fr[(long long)(f >> 1) * m + (long long)row * L + n1] =
+          cmul(s[f * kLd + n1], twi[(f & 1) * L + n1]);
+    }
+    __syncthreads();
+  }
+
+  // New ring, oldest-first: slot (T + s) mod P holds X_{T-P+s}; written by
+  // whole sectors as the ring was read, after every block of the cluster
+  // has finished its hops.
+  if (a.rout_re != nullptr) {
+    if (a.gring == nullptr) {
+      cl.sync();
+      constexpr int kBatch = 8;
+      for (int i0 = tid; i0 < 2 * p * L; i0 += kBatch * blockDim.x) {
+        float2 v[kBatch];
+        long long o[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int i = i0 + u * blockDim.x;
+          int tb, row, sl, bin;
+          o[u] = -1;
+          if (i < 2 * p * L && cluster_bin(i, L, p, rows, j - rank, rank, tb, row, sl, bin)) {
+            v[u] = cl.map_shared_rank(ring, tb)[((a.t + sl) % p) * NB + bin];
+            o[u] = (c * p + sl) * (long long)m + row + (long long)rows * (bin % L);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (o[u] < 0) continue;
+          a.rout_re[o[u]] = v[u].x;
+          a.rout_im[o[u]] = v[u].y;
+        }
+      }
+      for (int i = tid; i < (j == 0 ? p * L : 0); i += blockDim.x) {
+        const int sl = i / L;
+        const int k1 = i - sl * L;
+        const float2 v = ring[((a.t + sl) % p) * NB + L + k1];
+        const long long o = (c * p + sl) * (long long)m + pairs + (long long)rows * k1;
+        a.rout_re[o] = v.x;
+        a.rout_im[o] = v.y;
+      }
+    } else {
+      for (int i = tid; i < p * NB; i += blockDim.x) {
+        const int sl = i / NB;
+        const int b = i - sl * NB;
+        const float2 v = ring[((a.t + sl) % p) * NB + b];
+        const long long o =
+            (c * p + sl) * (long long)m + (b < L ? row0 : row1) + rows * (b % L);
+        a.rout_re[o] = v.x;
+        a.rout_im[o] = v.y;
+      }
+    }
+  }
+  cl.sync();  // no block leaves while another reads its shared memory
+}
+
+// Dynamic shared memory of chain_mid<L>: 5 * L twiddles and, unless they
+// live in the global scratch, the ring and H of the block's 2 * L bins.
+inline int mid_smem(int l, int p, bool ring_in_smem) {
+  return (5 * l + (ring_in_smem ? 2 * p * 2 * l : 0)) * (int)sizeof(float2);
+}
+
+template <int L>
+int launch_mid(const Chain& a, long long channels, cudaStream_t st) {
+  const int smem = mid_smem(L, a.p, a.gring == nullptr);
+  if (kStaticSmem + smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(chain_mid<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)(channels * (a.rows / 2));
+  chain_mid<L><<<grid, kThreads, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+inline void launch_cols_tail(int len, long long frames, int ncol, const float2* y,
+                             float* out, const float2* tw, int log_n, float scale,
+                             cudaStream_t st) {
+  const unsigned grid = (unsigned)(frames * (ncol / kTile));
+  switch (len) {  // the column length l_first: 128 or 256 at N = 2^14..2^17
+    case 128:
+      fft_cols_tail<128><<<grid, kThreads, 0, st>>>(y, out, tw, log_n, ncol, scale);
+      break;
+    default:
+      fft_cols_tail<256><<<grid, kThreads, 0, st>>>(y, out, tw, log_n, ncol, scale);
+  }
+}
+
+}  // namespace
+
+// Float2 of global ring scratch a channel needs at size n with p lags: 0
+// while ring and H fit a block's shared memory, else 2 * p * (n / 2) (the
+// ring and H of each of its R/2 blocks, 2 * p * 2 * M1 each).
+extern "C" long long hst_fastfir_chain_ring_scratch(int n, int p) {
+  const Plan pl = make_plan(n);
+  if (kStaticSmem + mid_smem(pl.l_last, p, true) <= kSmemLimit) return 0;
+  return 2LL * p * pl.m;
+}
+
+// One call: phases A, B, C on `stream`. `prev` == nullptr is K5 (x[-1] = 0,
+// zero ring, no ring out); otherwise K8 with the carried block `prev`, ring
+// `rin_*` and new ring `rout_*`. `l0_*` may be null. `scratch` holds C*T
+// frames of N floats; `gring` is null when ring and H fit shared memory,
+// else hst_fastfir_chain_ring_scratch's size a channel. N = 2^14..2^17.
+extern "C" int hst_fastfir_chain(
+    const float* x, const float* prev, const float* rin_re, const float* rin_im,
+    const float* h_re, const float* h_im, long long h_cstride, const float* l0_re,
+    const float* l0_im, long long l0_cstride, float* y, float* rout_re, float* rout_im,
+    void* scratch, void* gring, const void* tw, long long channels, int t, int p, int n,
+    float scale, void* stream) {
+  const Plan pl = make_plan(n);
+  if (pl.passes != 2 || n < (1 << 14)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float2* w = static_cast<const float2*>(tw);
+  float2* frames = static_cast<float2*>(scratch);
+  const long long nframes = channels * t;
+  const int log_m = pl.log_n - 1;
+  if (prev == nullptr) {
+    launch_cols<kLoadStream>(pl.l_first, nframes, pl.m / pl.l_first, x, nullptr, frames, w,
+                             pl.log_n, log_m, 1, ~0, t, st);
+  } else {
+    launch_cols<kLoadStreamPrev>(pl.l_first, nframes, pl.m / pl.l_first, x, prev, frames, w,
+                                 pl.log_n, log_m, 1, ~0, t, st);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const Chain a{frames, h_re, h_im, h_cstride, l0_re, l0_im, l0_cstride, rin_re, rin_im,
+                rout_re, rout_im, static_cast<float2*>(gring), w, t, p, pl.log_n,
+                pl.m / pl.l_last};
+  int rc = pl.l_last == 64    ? launch_mid<64>(a, channels, st)
+           : pl.l_last == 128 ? launch_mid<128>(a, channels, st)
+                              : launch_mid<256>(a, channels, st);
+  if (rc != 0) return rc;
+  launch_cols_tail(pl.l_first, nframes, pl.m / pl.l_first, frames, y, w, pl.log_n, scale, st);
+  return (int)cudaGetLastError();
+}

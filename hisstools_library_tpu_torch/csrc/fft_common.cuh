@@ -1,7 +1,8 @@
 // Shared multi-pass FFT core on Hopper: the real transforms K1 rfft_packed,
 // K2 rfft_packed_stream, K4 rifft_packed_tail, K6 rifft_packed, K13
-// rfft_packed_split and K14 rifft_packed_split, and the complex K12 fft_split
-// above 1024 points.
+// rfft_packed_split and K14 rifft_packed_split, the complex K12 fft_split
+// above 1024 points, and the FastFIR chain family (K5, K8:
+// fastfir_chain.cu), which adds the row-first inverse at the end of this file.
 //
 // A real transform of length N is an M = N/2 point complex FFT of
 // z[n] = x[2n] + i x[2n+1], plus the split step that pairs bins k and M-k.
@@ -67,7 +68,9 @@ constexpr int kMaxSub = 256;      // longest sub-FFT
 constexpr int kLd = kMaxSub + 1;  // odd row stride of the shared tile: no bank conflicts
 constexpr int kThreads = 256;     // = kTile * 16, one thread per DFT in each step
 
-enum LoadMode { kLoadReal = 0, kLoadStream = 1, kLoadUnpack = 2, kLoadSplit = 3 };
+enum LoadMode {
+  kLoadReal = 0, kLoadStream = 1, kLoadUnpack = 2, kLoadSplit = 3, kLoadStreamPrev = 4
+};
 enum StoreMode { kStorePack = 0, kStoreTail = 1, kStoreFull = 2, kStoreSplit = 3 };
 
 struct Plan {
@@ -124,10 +127,19 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
+// A twiddle from the table `tw`: the global table through the read-only
+// cache, or (kSmem) a table in shared memory.
+template <bool kSmem>
+__device__ __forceinline__ float2 tw_at(const float2* __restrict__ tw, int i) {
+  if (kSmem) return tw[i];
+  return __ldg(&tw[i]);
+}
+
 // One radix-2 stage (half-span 2^LH) of an in-register R-point DFT, then the
 // next stage. Template recursion keeps every register index a compile-time
-// constant, so the arrays stay in registers. W_{2h}^j = tw[j * n/(2h)].
-template <int R, int LH, bool kDone = ((1 << LH) >= R)>
+// constant, so the arrays stay in registers. W_{2h}^j = tw[j * n/(2h)] for a
+// table of n = 2^log_n entries (kSmem: in shared memory).
+template <int R, int LH, bool kSmem = false, bool kDone = ((1 << LH) >= R)>
 struct RegStage {
   static __device__ __forceinline__ void run(float2 (&v)[R],
                                              const float2* __restrict__ tw,
@@ -139,23 +151,23 @@ struct RegStage {
       const int a = ((b >> LH) << (LH + 1)) + j;
       const float2 u = v[a];
       const float2 t = j == 0 ? v[a + H]
-                              : cmul(__ldg(&tw[j << (log_n - 1 - LH)]), v[a + H]);
+                              : cmul(tw_at<kSmem>(tw, j << (log_n - 1 - LH)), v[a + H]);
       v[a] = make_float2(u.x + t.x, u.y + t.y);
       v[a + H] = make_float2(u.x - t.x, u.y - t.y);
     }
-    RegStage<R, LH + 1>::run(v, tw, log_n);
+    RegStage<R, LH + 1, kSmem>::run(v, tw, log_n);
   }
 };
 
-template <int R, int LH>
-struct RegStage<R, LH, true> {
+template <int R, int LH, bool kSmem>
+struct RegStage<R, LH, kSmem, true> {
   static __device__ __forceinline__ void run(float2 (&)[R], const float2* __restrict__,
                                              int) {}
 };
 
 // In-register R-point forward DFT, natural order in and out (radix-2,
 // decimation in time).
-template <int R>
+template <int R, bool kSmem = false>
 __device__ __forceinline__ void reg_dft(float2 (&v)[R],
                                         const float2* __restrict__ tw,
                                         int log_n) {
@@ -169,7 +181,7 @@ __device__ __forceinline__ void reg_dft(float2 (&v)[R],
       v[j] = t;
     }
   }
-  RegStage<R, 0>::run(v, tw, log_n);
+  RegStage<R, 0, kSmem>::run(v, tw, log_n);
 }
 
 // Split of a sub-FFT length L = A * B into the two register DFT sizes.
@@ -181,7 +193,7 @@ struct Sub {
 };
 
 // Step-1 twiddle W_L^(j1*k2) times v, stored at s[f*kLd + k2*A + j1].
-template <int L>
+template <int L, bool kSmem = false>
 __device__ __forceinline__ void step1_store(float2* s, const float2 (&v)[Sub<L>::kB],
                                             int f, int j1,
                                             const float2* __restrict__ tw,
@@ -190,7 +202,7 @@ __device__ __forceinline__ void step1_store(float2* s, const float2 (&v)[Sub<L>:
 #pragma unroll
   for (int k2 = 0; k2 < B; ++k2) {
     s[f * kLd + k2 * A + j1] =
-        k2 == 0 ? v[0] : cmul(v[k2], __ldg(&tw[(j1 * k2) << (log_n - kLog)]));
+        k2 == 0 ? v[0] : cmul(v[k2], tw_at<kSmem>(tw, (j1 * k2) << (log_n - kLog)));
   }
 }
 
@@ -200,6 +212,8 @@ __device__ __forceinline__ void step1_store(float2* s, const float2 (&v)[Sub<L>:
 //   kLoadStream: frame = hop block b of (C, T, H) blocks; the frame is
 //                [x[b-1] | x[b]] read in place, with block -1 taken as zeros
 //                when b is a channel's first hop (`first`).
+//   kLoadStreamPrev: kLoadStream, with block -1 read from `a_im`, the
+//                channel's carried previous block (H floats), instead.
 //   kLoadUnpack: conj(Z'[idx]) from packed planes (a = re, a_im = im), where
 //                Z' is the complex spectrum whose unscaled inverse is the
 //                real signal's (even, odd) pairs; the conj turns the forward
@@ -214,9 +228,12 @@ __device__ __forceinline__ float2 load_elem(const float* __restrict__ a,
   if (kLoad == kLoadReal) {
     const float2* a2 = reinterpret_cast<const float2*>(a);
     return a2[frame * m + idx];
-  } else if (kLoad == kLoadStream) {
+  } else if (kLoad == kLoadStream || kLoad == kLoadStreamPrev) {
     const int half = m >> 1;
-    if (idx < half && first) return make_float2(0.f, 0.f);
+    if (idx < half && first) {
+      if (kLoad == kLoadStream) return make_float2(0.f, 0.f);
+      return reinterpret_cast<const float2*>(a_im)[idx];
+    }
     const float2* a2 = reinterpret_cast<const float2*>(a);
     return a2[frame * half + (idx - half)];
   } else if (kLoad == kLoadSplit) {
@@ -260,7 +277,10 @@ fft_cols(const float* __restrict__ a, const float* __restrict__ a_im,
   const int tiles = ncol / kTile;
   const long long sf = blockIdx.x / tiles;
   const int c0 = (int)(blockIdx.x - sf * tiles) * kTile;
-  const bool first = kLoad == kLoadStream && sf % hops == 0;
+  const bool first = (kLoad == kLoadStream || kLoad == kLoadStreamPrev) && sf % hops == 0;
+  // kLoadStreamPrev: a_im holds (C, H) carried blocks; this channel's row.
+  const float* lo = kLoad == kLoadStreamPrev ? a_im + (sf / hops) * (long long)(ncol * L)
+                                             : a_im;
   const int tid = threadIdx.x;
   // Step 1: thread (f, j1), f fastest so loads run along columns.
   if (tid < kTile * A) {
@@ -269,7 +289,7 @@ fft_cols(const float* __restrict__ a, const float* __restrict__ a_im,
     float2 v[B];
 #pragma unroll
     for (int j2 = 0; j2 < B; ++j2)
-      v[j2] = load_elem<kLoad>(a, a_im, tw, sf, c0 + f + ncol * (j1 + A * j2),
+      v[j2] = load_elem<kLoad>(a, lo, tw, sf, c0 + f + ncol * (j1 + A * j2),
                                ncol * L, first);
     reg_dft<B>(v, tw, log_n);
     step1_store<L>(s, v, f, j1, tw, log_n);
@@ -483,6 +503,109 @@ inline void run_fft(const Plan& p, long long frames, const float* a, const float
                          reinterpret_cast<const float*>(scratch), nullptr, y2, tw,
                          p.log_n, log_m, p.l_first, ~0, 1, st);
   launch_rows<kStore>(p, frames, y2, out, out_im, tw, scale, st);
+}
+
+// -----------------------------------------------------------------------------
+// Row-first inverse: the FastFIR chain family (fastfir_chain.cu). The two-pass
+// inverse runs the forward's passes in the transpose order. With M = M1 * R
+// (rows of M1 points, R = M/M1 rows, as the forward's row pass leaves them),
+// bin k = j + R*k1 sits in row j, and the DFT of conj(Z') (as in K4, the
+// inverse is a forward DFT of the conjugate, conjugated on the store) is
+//   C[n1 + M1*n2] = sum_j W_R^(n2*j) W_M^(n1*j) sum_k1 W_M1^(n1*k1) c[j + R*k1]:
+// a row pass (the M1-point DFT over k1 of each row, times W_M^(n1*j), back
+// to row j) and then a column pass (the R-point DFT over j of each column
+// n1). So the inverse's first pass works on the very rows the forward's last
+// pass produced, and a block that owns rows (j, R-j) can run the forward row
+// pass, the pack, a per-bin product, the unpack and the inverse row pass
+// without the frame leaving shared memory.
+
+// Step 1 of the L-point DFTs of the kTile rows held in shared memory (row f
+// at s[f*kLd], natural order), in place; rows_step2 completes them. `tl`:
+// the table W_L^e, e < L, in shared memory.
+template <int L>
+__device__ __forceinline__ void rows_step1_smem(float2* s, const float2* tl) {
+  constexpr int A = Sub<L>::kA, B = Sub<L>::kB;
+  const int tid = threadIdx.x;
+  const bool active = tid < kTile * A;
+  const int j1 = tid % A;
+  const int f = tid / A;
+  float2 v[B];
+  if (active) {
+#pragma unroll
+    for (int j2 = 0; j2 < B; ++j2) v[j2] = s[f * kLd + j1 + A * j2];
+  }
+  __syncthreads();
+  if (active) {
+    reg_dft<B, true>(v, tl, Sub<L>::kLog);
+    step1_store<L, true>(s, v, f, j1, tl, Sub<L>::kLog);
+  }
+  __syncthreads();
+}
+
+// Step 2 after step1_store: row f's L-point DFT, natural order, back in
+// s[f*kLd + k]. `tl` as for rows_step1_smem.
+template <int L>
+__device__ __forceinline__ void rows_step2(float2* s, const float2* tl) {
+  constexpr int A = Sub<L>::kA, B = Sub<L>::kB;
+  const int tid = threadIdx.x;
+  const bool active = tid < kTile * B;
+  const int f = tid % kTile;
+  const int k2 = tid / kTile;
+  float2 v[A];
+  if (active) {
+#pragma unroll
+    for (int j1 = 0; j1 < A; ++j1) v[j1] = s[f * kLd + k2 * A + j1];
+    reg_dft<A, true>(v, tl, Sub<L>::kLog);
+  }
+  __syncthreads();
+  if (active) {
+#pragma unroll
+    for (int k1 = 0; k1 < A; ++k1) s[f * kLd + k2 + B * k1] = v[k1];
+  }
+  __syncthreads();
+}
+
+// The row-first inverse's column pass: for each column n1 of the frames in
+// `y` (R = L rows of ncol points), the L-point DFT over the rows, no
+// twiddle; output n2 is sample n = n1 + ncol*n2, and the kept half n >= M/2
+// goes to `out` (frames of M/2 float2 = H floats), conjugated and scaled:
+// K4's tail store. grid = frames * (ncol / kTile).
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+fft_cols_tail(const float2* __restrict__ y, float* __restrict__ out,
+              const float2* __restrict__ tw, int log_n, int ncol, float scale) {
+  constexpr int A = Sub<L>::kA, B = Sub<L>::kB;
+  __shared__ float2 s[kTile * kLd];
+  const int tiles = ncol / kTile;
+  const long long frame = blockIdx.x / tiles;
+  const int c0 = (int)(blockIdx.x - frame * tiles) * kTile;
+  const int m = ncol * L;
+  const float2* yf = y + frame * m;
+  const int tid = threadIdx.x;
+  if (tid < kTile * A) {
+    const int f = tid % kTile;
+    const int j1 = tid / kTile;
+    float2 v[B];
+#pragma unroll
+    for (int j2 = 0; j2 < B; ++j2) v[j2] = yf[c0 + f + ncol * (j1 + A * j2)];
+    reg_dft<B>(v, tw, log_n);
+    step1_store<L>(s, v, f, j1, tw, log_n);
+  }
+  __syncthreads();
+  if (tid < kTile * B) {
+    const int f = tid % kTile;
+    const int k2 = tid / kTile;
+    float2 v[A];
+#pragma unroll
+    for (int j1 = 0; j1 < A; ++j1) v[j1] = s[f * kLd + k2 * A + j1];
+    reg_dft<A>(v, tw, log_n);
+    float2* of = reinterpret_cast<float2*>(out) + frame * (m >> 1) - (m >> 1);
+#pragma unroll
+    for (int k1 = A / 2; k1 < A; ++k1) {
+      const int n = c0 + f + ncol * (k2 + B * k1);
+      of[n] = make_float2(scale * v[k1].x, -scale * v[k1].y);
+    }
+  }
 }
 
 }  // namespace hst

@@ -1,5 +1,6 @@
 // Shared-memory FFT core for the transforms whose frame fits one block
-// (K10 rfft_small, K8 fastfir_chain_stream).
+// (K9 hop_fire, K10 / K10w rfft_small, K11 / K11w rifft_small, K12 fft_split
+// up to 1024 points).
 //
 // A real transform of length N is an M = N/2 point complex FFT of
 // z[n] = x[2n] + i x[2n+1] plus the split step that pairs bins k and M-k

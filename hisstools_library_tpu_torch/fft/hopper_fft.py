@@ -10,9 +10,9 @@ function                           replaces (hisstools_library_tpu/...)      CUD
 :func:`rfft_packed`          (K1)  fft/pallas_fft.py: rfft_packed            csrc/rfft_packed.cu
 :func:`rfft_packed_stream`   (K2)  fft/pallas_fft.py: rfft_packed_stream     csrc/rfft_packed_stream.cu
 :func:`rifft_packed_tail`    (K4)  fft/pallas_fft.py: rifft_packed_tail      csrc/rifft_packed_tail.cu
-:func:`fastfir_chain`        (K5)  fft/pallas_fft.py: fastfir_chain          K2 -> K3 -> K4 in turn
+:func:`fastfir_chain`        (K5)  fft/pallas_fft.py: fastfir_chain          csrc/fastfir_chain.cu
 :func:`rifft_packed`         (K6)  fft/pallas_fft.py: rifft_packed           csrc/rifft_packed.cu
-:func:`fastfir_chain_stream` (K8)  fft/pallas_fft.py: fastfir_chain_stream   csrc/fastfir_chain_stream.cu
+:func:`fastfir_chain_stream` (K8)  fft/pallas_fft.py: fastfir_chain_stream   csrc/fastfir_chain.cu
 :func:`rfft_small`          (K10)  fft/pallas_fft.py: _small_fwd_call        csrc/rfft_small.cu
 :func:`rifft_small`         (K11)  fft/pallas_fft.py: _small_inv_call        csrc/rifft_small.cu
 :func:`rfft_small_windowed` (K10w) fft/pallas_fft.py: rfft_small_windowed    csrc/rfft_small.cu
@@ -25,8 +25,8 @@ function                           replaces (hisstools_library_tpu/...)      CUD
 A wrapper runs the plain version only for a tensor on the CPU. For a CUDA
 tensor it launches its kernel or raises: ``NotImplementedError`` names what
 is still to be ported when the call is outside the ported envelope (float64;
-real N above 2^20 and complex N above 2^19, ROADMAP queue 1 item 12; K8
-above 2^15), and no path falls back to ``torch.fft``. Each wrapper counts its
+real N above 2^20 and complex N above 2^19, ROADMAP queue 1 item 12), and no
+path falls back to ``torch.fft``. Each wrapper counts its
 launches in ``<wrapper>.launches``. :func:`rfft_packed` sends N = 32..2048 to
 K10, N = 4096..2^17 to K1 and N = 2^18..2^20 to K13, and :func:`rifft_packed`
 sends N = 32..2048 to K11, N = 4096..2^17 to K6 and N = 2^18..2^20 to K14, as
@@ -42,14 +42,17 @@ instantiations of K10's and K11's kernels that multiply by the window in the
 loader and the store; K10w reads its frames in place from a strided view (the
 padded signal's ``unfold``).
 
-``fastfir_chain`` keeps the TPU function's signature and result but runs K2,
-K3 and K4 in turn: the TPU kernel keeps each channel's spectra ring and
-impulse spectra on chip (~7.9 MB at the main path's N = 2^16, P = 15), far
-beyond a Hopper block's 227 KB of shared memory. A fused Hopper kernel (for
-example a bin-tiled MAC across thread-block clusters) is open work; it would
-keep the hop spectra, ~2.1 GB of traffic per main-path pass, out of HBM.
-``fastfir_chain_stream`` is one kernel: at the streaming near tier's
-N = 2^14..2^15 one frame fits a block's shared memory (see its source).
+The FastFIR chain family (``csrc/fastfir_chain.cu``) serves K5
+(:func:`fastfir_chain`, N = 2^14..2^17, any P) and K8
+(:func:`fastfir_chain_stream`, N = 2^14..2^17, any P): the
+TPU kernels keep each channel's spectra ring and impulse spectra on chip
+(~7.9 MB at the main path's N = 2^16, P = 15), far beyond a Hopper block's
+227 KB, so the chain runs on the two-pass core in three phases (the forward
+column pass, then one block per row pair of a channel that walks its hops
+through the row pass, the pack, the MAC, the unpack and the inverse's row
+pass, then the inverse's column pass), and the hop spectra and
+accumulations never reach HBM. :func:`fastfir_chain_staged` is K2 -> K3 ->
+K4, the chain at N = 4096..8192.
 
 Precision: :func:`set_mode` keeps the TPU package's knob (``"bf16x3"`` or
 ``"highest"``). On Hopper both modes run the same FP32 SIMT kernels, with
@@ -69,7 +72,7 @@ import torch
 
 from .. import _build
 from ..core.types import Split, packed_mul
-from .hopper_kernels import lag_mac_causal, lag_mac_ring_plain
+from .hopper_kernels import lag_mac_causal, lag_mac_causal_plain, lag_mac_ring_plain
 
 MIN_REAL_SIZE = 4096
 MAX_SINGLE_REAL = 1 << 17    # K1 / K6: two passes
@@ -80,8 +83,10 @@ MAX_COMPLEX = 1 << 19
 # Beyond the kernels' sizes: what is still to be ported there.
 LARGE_MISSING = "sizes 2^21..2^28 (ROADMAP queue 1 item 12)"
 SMALL_MIN_REAL = 32          # K10 serves N = 32..2048
-STREAM_CHAIN_MIN = 1 << 14   # the TPU package routes N = 2^14..2^17 to K8
-STREAM_CHAIN_MAX = 1 << 15   # the Hopper K8 serves N = 2^14..2^15
+# K5 and K8 serve N = 2^14..2^17, the TPU package's sizes for both, as the
+# two instantiations of the chain family fastfir_chain.cu.
+CHAIN_MIN = 1 << 14
+CHAIN_MAX = 1 << 17
 
 _MODE = "highest"  # or "bf16x3"; both run the same FP32 kernels on Hopper
 
@@ -119,11 +124,11 @@ def complex_eligible(n: int) -> bool:
     return MIN_COMPLEX <= n <= MAX_COMPLEX and (n & (n - 1)) == 0
 
 
-def stream_chain_eligible(n: int) -> bool:
-    """True for the sizes the TPU package's process_block sends to its whole
-    streaming chain (N = 2^14..2^17, at P <= 8). The Hopper K8 serves
-    2^14..2^15; above that :func:`fastfir_chain_stream` raises on CUDA."""
-    return STREAM_CHAIN_MIN <= n <= MAX_SINGLE_REAL and (n & (n - 1)) == 0
+def chain_eligible(n: int) -> bool:
+    """True for the sizes of the whole-chain kernels, K5 (at any P) and K8
+    (N = 2^14..2^17), as the TPU package's ``fastfir_feasible`` and its
+    process_block route gate them (less their VMEM models)."""
+    return CHAIN_MIN <= n <= CHAIN_MAX and (n & (n - 1)) == 0
 
 
 def stream_feasible(n: int) -> bool:
@@ -247,6 +252,16 @@ def fft_split_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
     z = torch.fft.fft(torch.complex(re, im), dim=-1)
     out_re, out_im = z.real.contiguous(), z.imag.contiguous()
     return (out_im, out_re) if inverse else (out_re, out_im)
+
+
+def fastfir_chain_plain(x2d: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    """K5 by ``torch.fft``: frames [x2d[t-1] | x2d[t]] (x2d[-1] = 0), the
+    packed rfft X_t, the causal MAC Y_t = sum_{lag < P} X_{t-1-lag} H_lag
+    (the bin-0 lane multiplies two real values), scale * rifft(Y_t)[H:]."""
+    x_re, x_im = rfft_packed_stream_plain(x2d)
+    y_re, y_im = lag_mac_causal_plain(x_re, x_im, h_re, h_im)
+    return rifft_packed_tail_plain(y_re, y_im, scale)
 
 
 def fastfir_chain_stream_plain(x2d, prev, ring_re, ring_im, h_re, h_im,
@@ -606,15 +621,103 @@ def rifft_packed_tail(re: torch.Tensor, im: torch.Tensor,
 rifft_packed_tail.launches = 0
 
 
-def fastfir_chain(x2d: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,
-                  scale: float) -> torch.Tensor:
-    """The whole FastFIR chain. ``x2d``: (C, T, H) hop blocks; ``h_*``:
-    (C, P, N/2) packed impulse spectra. Returns (C, T, H) =
-    scale * rifft(sum_lag X_{t-1-lag} H_lag)[H:] per hop, as K2 -> K3 -> K4
-    (see the module docstring for why not one kernel yet)."""
+def fastfir_chain_staged(x2d: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """The FastFIR chain as K2 -> K3 -> K4, three launches: the offline
+    chain at N = 4096..8192, below the chain family's sizes. Arguments and
+    result as :func:`fastfir_chain`; ``h_*`` contiguous."""
     x_re, x_im = rfft_packed_stream(x2d)
     y_re, y_im = lag_mac_causal(x_re, x_im, h_re, h_im)
     return rifft_packed_tail(y_re, y_im, scale)
+
+
+def _row_planes(re: torch.Tensor, im: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Two (C, R, K) planes as the chain kernels read them, with one channel
+    stride (row slices and channel-broadcast views pass in place)."""
+    re, cs = _build.channel_rows(re)
+    im, cs_im = _build.channel_rows(im)
+    if cs_im != cs:
+        re, im, cs = re.contiguous(), im.contiguous(), re.shape[1] * re.shape[2]
+    return re, im, cs
+
+
+def _check_chain(kernel: str, x2d, h_re, h_im, prev=None, ring=None, lag0=None) -> None:
+    """Raise unless the chain kernels take these tensors: x2d (C, T, H),
+    H planes (C, P, H), and for K8 prev (C, H), ring (C, P, H), lag0 (C, H)."""
+    c, t, hop = x2d.shape
+    p = h_re.shape[-2]
+    _build.check_tensors(kernel, x2d, *(() if prev is None else (prev, *ring)))
+    _build.check_tensors(kernel, x2d, h_re, h_im, *(lag0 or ()), contiguous=False)
+    if (h_re.shape != (c, p, hop) or h_im.shape != h_re.shape
+            or (prev is not None and (prev.shape != (c, hop) or ring[0].shape != h_re.shape
+                                      or ring[1].shape != h_re.shape))
+            or (lag0 is not None and (lag0[0].shape != (c, hop)
+                                      or lag0[1].shape != (c, hop)))):
+        raise ValueError(f"{kernel}: shapes x2d {tuple(x2d.shape)}, H {tuple(h_re.shape)}"
+                         + ("" if prev is None else f", prev {tuple(prev.shape)}, ring "
+                            f"{tuple(ring[0].shape)}")
+                         + " do not fit (C, T, H), (C, P, H), (C, H), (C, P, H)")
+
+
+def _chain_launch(kernel: str, x2d, h_re, h_im, scale, prev=None, ring=None, lag0=None):
+    """One call of the chain family (csrc/fastfir_chain.cu): K5 when
+    ``prev`` is None, else K8 with the carried block, the ring and the
+    optional lag-0 planes. Returns y and, for K8, the new ring planes."""
+    c, t, hop = x2d.shape
+    n = 2 * hop
+    p = h_re.shape[-2]
+    if not chain_eligible(n):
+        raise NotImplementedError(
+            f"{kernel}: the chain family serves N = {CHAIN_MIN}..{CHAIN_MAX}; N = {n}: "
+            + ("fastfir_chain_staged (K2 -> K3 -> K4) serves 4096..8192" if n < CHAIN_MIN
+               else LARGE_MISSING + " not yet ported"))
+    _check_chain(kernel, x2d, h_re, h_im, prev, ring, lag0)
+    h_re, h_im, hcs = _row_planes(h_re, h_im)
+    l0_re = l0_im = None
+    lcs = 0
+    if lag0 is not None:
+        l0_re, l0_im, lcs = _row_planes(lag0[0][:, None, :], lag0[1][:, None, :])
+    new_ring = None if prev is None else (torch.empty_like(ring[0]), torch.empty_like(ring[1]))
+    y = torch.empty_like(x2d)
+    if c * t == 0:
+        return y, None if prev is None else (ring[0].clone(), ring[1].clone())
+    lib = _build.load()
+    scratch = torch.empty(c * t, n, dtype=torch.float32, device=x2d.device)
+    # Ring and H live in shared memory while they fit; beyond that the
+    # kernel asks for a global scratch of this many float2 a channel.
+    ring_floats2 = lib.hst_fastfir_chain_ring_scratch(n, p)
+    gring = None
+    if ring_floats2:
+        gring = torch.empty(c, ring_floats2, 2, dtype=torch.float32, device=x2d.device)
+
+    def ptr(a):
+        return None if a is None else a.data_ptr()
+
+    rc = lib.hst_fastfir_chain(
+        x2d.data_ptr(), ptr(prev), ptr(ring and ring[0]), ptr(ring and ring[1]),
+        h_re.data_ptr(), h_im.data_ptr(), hcs, ptr(l0_re), ptr(l0_im), lcs, y.data_ptr(),
+        ptr(new_ring and new_ring[0]), ptr(new_ring and new_ring[1]), scratch.data_ptr(),
+        ptr(gring), _twiddles(n, x2d.device).data_ptr(), c, t, p, n, float(scale),
+        _build.stream(x2d.device))
+    _build.check(rc, kernel)
+    return y, new_ring
+
+
+def fastfir_chain(x2d: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    """K5: the whole FastFIR chain as one kernel family call. ``x2d``:
+    (C, T, H) hop blocks, contiguous; ``h_*``: (C, P, N/2) packed impulse
+    spectra (row slices and channel-broadcast views are read in place).
+    Returns (C, T, H) = scale * rifft(sum_lag X_{t-1-lag} H_lag)[H:] per hop,
+    N = 2^14..2^17, any P. No (C, T, N/2) spectra tensor is allocated."""
+    if x2d.device.type == "cpu":
+        return fastfir_chain_plain(x2d, h_re, h_im, scale)
+    y, _ = _chain_launch("K5 fastfir_chain", x2d, h_re, h_im, scale)
+    fastfir_chain.launches += 1
+    return y
+
+
+fastfir_chain.launches = 0
 
 
 def fastfir_chain_stream(x2d: torch.Tensor, prev: torch.Tensor,
@@ -622,66 +725,27 @@ def fastfir_chain_stream(x2d: torch.Tensor, prev: torch.Tensor,
                          h_re: torch.Tensor, h_im: torch.Tensor, scale: float,
                          l0_re: Optional[torch.Tensor] = None,
                          l0_im: Optional[torch.Tensor] = None):
-    """K8: a whole streaming process_block as one kernel launch.
+    """K8: a whole streaming process_block in one kernel call.
 
     ``x2d``: (C, T, H) hop blocks; ``prev``: (C, H) the carried previous
     block; ``ring_*``: (C, P, N/2) oldest-first spectra ring; ``h_*``:
     (C, P, N/2) packed impulse spectra; ``l0_*``: optional (C, N/2) zero-delay
     partition multiplied with each hop's own spectrum. Returns (y (C, T, H),
     new_ring_re, new_ring_im) with the new ring oldest-first, in new tensors.
-    ``h_*`` and ``l0_*`` may be row slices or channel-broadcast views."""
+    ``h_*`` and ``l0_*`` may be row slices or channel-broadcast views.
+    N = 2^14..2^17: the chain family's stream instantiation
+    (csrc/fastfir_chain.cu)."""
     if x2d.device.type == "cpu":
         return fastfir_chain_stream_plain(x2d, prev, ring_re, ring_im, h_re,
                                           h_im, scale, l0_re, l0_im)
-    kernel = "K8 fastfir_chain_stream"
-    c, t, hop = x2d.shape
-    n = 2 * hop
-    p = ring_re.shape[-2]
-    if not (STREAM_CHAIN_MIN <= n <= STREAM_CHAIN_MAX) or n & (n - 1):
+    n = 2 * x2d.shape[-1]
+    if not chain_eligible(n):
         raise NotImplementedError(
-            f"{kernel}: the Hopper kernel serves N = {STREAM_CHAIN_MIN}.."
-            f"{STREAM_CHAIN_MAX} (one frame in a block's shared memory); "
-            f"N = {n} needs K8's wider envelope (a multi-pass frame), not yet "
-            "ported")
-    _build.check_tensors(kernel, x2d, prev, ring_re, ring_im)
-    lag0 = l0_re is not None
-    planes = (h_re, h_im) + ((l0_re, l0_im) if lag0 else ())
-    _build.check_tensors(kernel, x2d, *planes, contiguous=False)
-    k = n // 2
-    if (prev.shape != (c, hop) or ring_re.shape != (c, p, k)
-            or ring_im.shape != ring_re.shape or h_re.shape != ring_re.shape
-            or h_im.shape != ring_re.shape
-            or (lag0 and (l0_re.shape != (c, k) or l0_im.shape != (c, k)))):
-        raise ValueError(f"{kernel}: shapes x2d {tuple(x2d.shape)}, prev "
-                         f"{tuple(prev.shape)}, ring {tuple(ring_re.shape)}, H "
-                         f"{tuple(h_re.shape)} do not fit (C, T, H), (C, H), "
-                         f"(C, P, H), (C, P, H)")
-    h_re, hcs = _build.channel_rows(h_re)
-    h_im, hcs_im = _build.channel_rows(h_im)
-    if hcs_im != hcs:
-        h_re, h_im, hcs = h_re.contiguous(), h_im.contiguous(), p * k
-    l0_ptrs, lcs = (None, None), 0
-    if lag0:
-        l0_re, lcs = _build.channel_rows(l0_re[:, None, :])
-        l0_im, lcs_im = _build.channel_rows(l0_im[:, None, :])
-        if lcs_im != lcs:
-            l0_re, l0_im, lcs = l0_re.contiguous(), l0_im.contiguous(), k
-        l0_ptrs = (l0_re.data_ptr(), l0_im.data_ptr())
-    y = torch.empty_like(x2d)
-    n_re = torch.empty_like(ring_re)
-    n_im = torch.empty_like(ring_im)
-    if c * t == 0:
-        return y, ring_re.clone(), ring_im.clone()
-    # Spectra that leave the ring within this call (T > P) need a row each.
-    s_re = torch.empty(c, max(t - p, 0), k, dtype=torch.float32, device=x2d.device)
-    s_im = torch.empty_like(s_re)
-    rc = _build.load().hst_fastfir_chain_stream(
-        x2d.data_ptr(), prev.data_ptr(), ring_re.data_ptr(), ring_im.data_ptr(),
-        h_re.data_ptr(), h_im.data_ptr(), hcs, l0_ptrs[0], l0_ptrs[1], lcs,
-        y.data_ptr(), n_re.data_ptr(), n_im.data_ptr(), s_re.data_ptr(),
-        s_im.data_ptr(), _twiddles(n, x2d.device).data_ptr(), c, t, p, n,
-        float(scale), _build.stream(x2d.device))
-    _build.check(rc, kernel)
+            f"K8 fastfir_chain_stream: serves N = {CHAIN_MIN}..{CHAIN_MAX}; N = {n}: "
+            + "process_block takes its staged path there, as the TPU package does")
+    lag0 = None if l0_re is None else (l0_re, l0_im)
+    y, (n_re, n_im) = _chain_launch("K8 fastfir_chain_stream", x2d, h_re, h_im, scale,
+                                    prev, (ring_re, ring_im), lag0)
     fastfir_chain_stream.launches += 1
     return y, n_re, n_im
 

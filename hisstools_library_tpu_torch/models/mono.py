@@ -25,9 +25,10 @@ audio callback's), each section firing only where its own hop boundary falls
 1024, K1 -> MAC -> K6 above). :func:`stream_state_from_aligned` and
 :func:`stream_state_from_block` hand a hop-aligned stream over to it.
 :func:`process_offline` convolves a whole signal with no sequential
-dependency: through the prepared offline tail (one uniform engine, K2 -> K3
--> K4), or section by section (the small ones as direct FIRs whose taps come
-back through K11, the large ones through the fused chain).
+dependency: through the prepared offline tail (one uniform engine, K5), or
+section by section (the small ones as direct FIRs whose taps come back
+through K11, the large ones through the fused chain: K2 -> K3 -> K4 at 4096,
+K5 at 16384).
 
 Every function returns new states and leaves the ones it was given as they
 were. States and prepared IRs convert to and from numpy (``from_numpy`` /
@@ -755,7 +756,7 @@ def _tail_offline(tail: Split, x: torch.Tensor, shift: int,
                   backend: Optional[str]) -> torch.Tensor:
     """The re-partitioned IR as one uniform engine, its output realigned by
     dropping ``shift`` leading samples. With the "pallas" backend (the
-    default on CUDA) it is the fused chain K2 -> K3 -> K4."""
+    default on CUDA) it is the fused chain, K5 at N = 2^14..2^17."""
     if fft_api._resolve(backend, x.device) == "pallas":
         y = part.PartitionedConvolve._process_offline_fused(tail, x, shift=shift)
         if y is not None:

@@ -7,7 +7,7 @@ IR offset 0, whose one-hop delay is removed by shifting the output left.
 Use :class:`FastFIR` when the same IR convolves many signals (spectra prepared
 once), or :func:`fast_fir` for one-shot use. On a CUDA device the default
 backend runs the chain on the Hopper kernels (K1 for the IR spectra, then
-K2 -> K3 -> K4 per call).
+one K5 call per pass at N = 2^14..2^17, K2 -> K3 -> K4 at 4096..8192).
 """
 
 from __future__ import annotations

@@ -411,7 +411,8 @@ class PartitionedConvolve:
         the device: the kernels on CUDA, ``torch.fft`` on the CPU):
 
         - ``"pallas"``, float32, P <= 8, N = 2^14..2^17: the whole block as one
-          kernel, K8 :func:`hopper_fft.fastfir_chain_stream`;
+          kernel call, K8 :func:`hopper_fft.fastfir_chain_stream` (the
+          FastFIR chain family's stream instantiation);
         - otherwise the frames [prev | cur] are materialised and transformed
           (``fft_api.rfft``: K1, or K10 below 4096), the MAC runs as K7
           :func:`hopper_kernels.lag_mac_ring` when T <= P (any P: the TPU
@@ -444,7 +445,7 @@ class PartitionedConvolve:
 
         if (resolved == "pallas" and mac_backend in ("auto", "pallas")
                 and x.dtype == torch.float32 and p <= STREAM_CHAIN_MAX_P
-                and hopper_fft.stream_chain_eligible(n)):
+                and hopper_fft.chain_eligible(n)):
             l0r = l0i = None
             if lag0 is not None:
                 l0r = per_channel(lag0.re, 1)[:, 0, :]
@@ -509,7 +510,8 @@ class PartitionedConvolve:
         one-hop delay).
 
         With the "pallas" backend (the default on CUDA) and eligible shapes
-        the chain runs as K2 -> K3 -> K4 (:meth:`_process_offline_fused`).
+        the chain runs as K5 at N = 2^14..2^17, or as K2 -> K3 -> K4 at
+        4096..8192 (:meth:`_process_offline_fused`).
         Otherwise the staged form below runs: the forward transform
         (``fft_api.rfft``: K1, or K10 below 4096), the MAC
         (:func:`_lag_mac_dispatch`: K15 or the torch loop) and the inverse
@@ -546,12 +548,16 @@ class PartitionedConvolve:
     @staticmethod
     def _process_offline_fused(spectra: Split, x: torch.Tensor,
                                shift: int = 0) -> Optional[torch.Tensor]:
-        """The offline chain as kernels: streaming rFFT of the hop blocks read
-        in place (K2), causal MAC over the valid lags (K3), tail inverse of
-        the kept half-block with the 1/(4N) scale folded in (K4). ``shift``
-        trailing zeros extend the signal and the first ``shift`` outputs are
-        dropped (shift = hop is FastFIR's look-ahead). Returns None when the
-        shapes are not eligible (the caller takes the staged path)."""
+        """The offline chain as kernels: the rFFT of the hop blocks read in
+        place, the causal MAC over the valid lags and the tail inverse of the
+        kept half-block with the 1/(4N) scale folded in. Float32 N =
+        2^14..2^17 runs it as one call of K5 :func:`hopper_fft.fastfir_chain`
+        at any P (the TPU package gates its K5 at N >= 2^14 too, less its
+        VMEM model); N = 4096..8192 as K2 -> K3 -> K4
+        (:func:`hopper_fft.fastfir_chain_staged`). ``shift`` trailing zeros
+        extend the signal and the first ``shift`` outputs are dropped (shift
+        = hop is FastFIR's look-ahead). Returns None when the shapes are not
+        eligible (the caller takes the staged path)."""
         h = spectra.shape[-1]
         n = 2 * h
         p = spectra.shape[-2]
@@ -565,10 +571,14 @@ class PartitionedConvolve:
         lead = x.shape[:-1]
         c = math.prod(lead)
         x2d = F.pad(x, (0, t * h - L)).reshape(c, t, h)
-        hr = spectra.re[..., :lags, :].expand(lead + (lags, h))
-        hi = spectra.im[..., :lags, :].expand(lead + (lags, h))
-        y = hopper_fft.fastfir_chain(
-            x2d, hr.reshape(c, lags, h).to(torch.float32).contiguous(),
-            hi.reshape(c, lags, h).to(torch.float32).contiguous(),
-            scale=1.0 / (4.0 * n))
+        # H as (C, lags, K) views where the layout allows: K5 reads row
+        # slices and channel-broadcast planes in place.
+        hr = spectra.re[..., :lags, :].expand(lead + (lags, h)).reshape(c, lags, h)
+        hi = spectra.im[..., :lags, :].expand(lead + (lags, h)).reshape(c, lags, h)
+        hr, hi = hr.to(torch.float32), hi.to(torch.float32)
+        if hopper_fft.chain_eligible(n):
+            y = hopper_fft.fastfir_chain(x2d, hr, hi, scale=1.0 / (4.0 * n))
+        else:
+            y = hopper_fft.fastfir_chain_staged(x2d, hr.contiguous(), hi.contiguous(),
+                                                scale=1.0 / (4.0 * n))
         return y.reshape(*lead, t * h)[..., shift:shift + L]

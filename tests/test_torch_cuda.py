@@ -88,18 +88,135 @@ def test_kernel_matches_plain(cuda, name, n):
 
 
 def test_fastfir_on_cuda_matches_cpu(cuda):
+    """FastFIR at N = 16384: K1 prepares the IR, one K5 call runs the pass,
+    and none of K2, K3, K4 launches."""
     rng = np.random.default_rng(0x70C4)
     x = rng.standard_normal((2, 40000)).astype(np.float32)
     ir = rng.standard_normal((2, 30000)).astype(np.float32)
     y_cpu = offline.FastFIR(ir, fft_size=16384, device=CPU)(torch.from_numpy(x))
-    counted = (hopper_fft.rfft_packed, hopper_fft.rfft_packed_stream,
-               hopper_kernels.lag_mac_causal, hopper_fft.rifft_packed_tail)
+    counted = (hopper_fft.rfft_packed, hopper_fft.fastfir_chain,
+               hopper_fft.rfft_packed_stream, hopper_kernels.lag_mac_causal,
+               hopper_fft.rifft_packed_tail)
     before = [fn.launches for fn in counted]
     eng = offline.FastFIR(ir, fft_size=16384, device=cuda)
     y = eng(torch.from_numpy(x).to(cuda))
     assert y.device.type == "cuda" and y.shape == (2, 40000)
-    assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 1, 1, 1]
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 1, 0, 0, 0]
     assert snr_db(y_cpu, y.cpu()) >= SNR_CHAIN_DB
+
+
+def _chain_inputs(c, t, p, n, dev, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = n // 2
+
+    def randn(*sh):
+        return torch.randn(*sh, generator=g, device=dev)
+
+    # H as a row slice of a wider spectra tensor, read in place.
+    h = [randn(c, p + 1, k)[:, 1:] * 1e-3 for _ in range(2)]
+    return randn(c, t, k) + 0.5, h
+
+
+# (C, T, P, N): P > T, one lag (T = 2, P = 1: the smallest output that
+# depends on the MAC), two chunks of 8 hops, the main path's P = 15, and P
+# beyond shared memory (47 lags fit at 2^15..2^16, 23 at 2^17).
+CHAIN_CASES = [(2, 5, 7, 1 << 14), (2, 3, 2, 1 << 17), (2, 2, 1, 1 << 16),
+               (3, 16, 15, 1 << 16), (2, 9, 4, 1 << 15), (2, 3, 60, 1 << 16),
+               (1, 9, 25, 1 << 17)]
+
+
+@pytest.mark.parametrize("c,t,p,n", CHAIN_CASES)
+def test_fastfir_chain_matches_plain(cuda, c, t, p, n):
+    """K5 (csrc/fastfir_chain.cu) against its plain version."""
+    x2d, (hr, hi) = _chain_inputs(c, t, p, n, cuda)
+    scale = 1.0 / (4.0 * n)
+    before = hopper_fft.fastfir_chain.launches
+    got = hopper_fft.fastfir_chain(x2d, hr, hi, scale)
+    want = hopper_fft.fastfir_chain_plain(x2d, hr, hi, scale)
+    torch.cuda.synchronize()
+    assert hopper_fft.fastfir_chain.launches == before + 1
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert snr_db(want.cpu().numpy(), got.cpu().numpy()) >= SNR_KERNEL_DB
+
+
+def test_fastfir_chain_single_hop_is_zero(cuda):
+    """K5 at T = 1: x[-1] = 0 and no lag-0 term, so the output is exactly
+    zero, as the plain version's is."""
+    x2d, (hr, hi) = _chain_inputs(2, 1, 3, 1 << 16, cuda)
+    got = hopper_fft.fastfir_chain(x2d, hr, hi, 1.0 / (4.0 * (1 << 16)))
+    want = hopper_fft.fastfir_chain_plain(x2d, hr, hi, 1.0 / (4.0 * (1 << 16)))
+    assert got.shape == x2d.shape
+    assert float(got.abs().max()) == 0.0 and float(want.abs().max()) == 0.0
+
+
+# (C, T, P, N, lag0): the single 2^17 section and the far tier's 2^16 at
+# P = 8, T > P (the ring's spectra leave within the call) at 2^15..2^16, P
+# beyond shared memory, and T = 1.
+WIDE_STREAM_CASES = [(2, 2, 8, 1 << 17, False), (2, 4, 8, 1 << 16, True),
+                     (2, 11, 3, 1 << 16, True), (1, 2, 30, 1 << 17, False),
+                     (2, 1, 5, 1 << 16, False), (2, 11, 8, 1 << 15, True)]
+
+
+@pytest.mark.parametrize("c,t,p,n,lag0", WIDE_STREAM_CASES)
+def test_wide_stream_chain_matches_plain(cuda, c, t, p, n, lag0):
+    """K8 at N = 2^15..2^17 (the chain family's stream instantiation, which
+    serves 2^14 too: STREAM_CASES) against its plain version: output and new
+    ring."""
+    x2d, (hr, hi) = _chain_inputs(c, t, p, n, cuda, seed=4)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    k = n // 2
+    prev, rr, ri = (torch.randn(*sh, generator=g, device=cuda)
+                    for sh in ((c, k), (c, p, k), (c, p, k)))
+    kw = {}
+    if lag0:
+        kw = dict(l0_re=torch.randn(c, k, generator=g, device=cuda) * 1e-3,
+                  l0_im=torch.randn(c, k, generator=g, device=cuda) * 1e-3)
+    args = (x2d, prev, rr, ri, hr, hi, 1.0 / (4.0 * n))
+    before = hopper_fft.fastfir_chain_stream.launches
+    got = hopper_fft.fastfir_chain_stream(*args, **kw)
+    want = hopper_fft.fastfir_chain_stream_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert hopper_fft.fastfir_chain_stream.launches == before + 1
+    for gt, w in zip(got, want):
+        assert gt.shape == w.shape and bool(torch.isfinite(gt).all())
+        assert snr_db(w.cpu().numpy(), gt.cpu().numpy()) >= SNR_KERNEL_DB
+
+
+@pytest.mark.parametrize("path", ["single-section", "two-tier"])
+def test_convolver_stream_paths_launch_k8_on_cuda(cuda, path):
+    """The Convolver's hop-aligned paths at the chain family's sizes: parallel
+    2 channels on one N = 2^17 section (P = 4), and N2M 2 x 2 on the Zero
+    preset's two-tier state with a 290 000-tap IR (far tier N = 2^16,
+    P2 = 8). Each call launches K8 (twice on the two-tier path, near and far
+    tier) and no K7; two calls match the CPU path."""
+    from hisstools_library_tpu_torch.models.multichannel import Convolver
+    rng = np.random.default_rng(0xC0)
+    if path == "single-section":
+        scheme = mono.PartitionScheme.for_latency_budget(65536)
+        bank = rng.standard_normal((2, 200000)).astype(np.float32) * 0.1
+        args, init, per_call = (2,), "init_state", 1
+    else:
+        scheme = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+        bank = (rng.standard_normal((2, 2, 290000)) * np.exp(-np.arange(290000) / 48000)
+                ).astype(np.float32)
+        args, init, per_call = (2, 2), "init_block_state", 2
+    outs = []
+    for dev in (cuda, CPU):
+        conv = Convolver(*args, scheme=scheme, device=dev)
+        conv.set_all(bank)
+        conv.prepare(offline_tail=False)
+        st = getattr(conv, init)()
+        before = (hopper_fft.fastfir_chain_stream.launches, hopper_kernels.lag_mac_ring.launches)
+        ys = []
+        for i in range(2):
+            x = np.random.default_rng(i).standard_normal((2, 131072)).astype(np.float32)
+            st, y = conv.process(st, torch.from_numpy(x).to(dev))
+            ys.append(y.cpu().numpy())
+        if dev == cuda:
+            assert hopper_fft.fastfir_chain_stream.launches - before[0] == 2 * per_call
+            assert hopper_kernels.lag_mac_ring.launches == before[1]
+        outs.append(np.concatenate(ys, axis=-1))
+    assert snr_db(outs[1], outs[0]) >= SNR_CHAIN_DB
 
 
 @pytest.mark.parametrize("call,exc,match", [
@@ -174,8 +291,8 @@ def test_stream_kernel_matches_plain(cuda, name, shape):
 
 @pytest.mark.parametrize("call,match", [
     (lambda d: hopper_fft.fastfir_chain_stream(
-        torch.zeros(1, 2, 1 << 15, device=d), torch.zeros(1, 1 << 15, device=d),
-        *(torch.zeros(1, 2, 1 << 15, device=d) for _ in range(4)), 1.0), "K8"),
+        torch.zeros(1, 2, 1 << 17, device=d), torch.zeros(1, 1 << 17, device=d),
+        *(torch.zeros(1, 2, 1 << 17, device=d) for _ in range(4)), 1.0), "K8"),
     (lambda d: hopper_fft.rfft_small(torch.zeros(2, 16, device=d)), "K10"),
 ])
 def test_stream_wrappers_refuse_on_cuda(cuda, call, match):

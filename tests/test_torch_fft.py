@@ -118,17 +118,47 @@ def test_lag_mac_causal_matches_pallas(rng, t, p):
     assert not tr[:, 0].any() and not ti[:, 0].any()
 
 
-def test_fastfir_chain_matches_pallas(rng):
-    """K5's signature and result: the port runs K2 -> K3 -> K4."""
+@pytest.mark.parametrize("t,p", [(4, 3), (2, 5)])
+def test_fastfir_chain_matches_pallas(rng, t, p):
+    """K5's plain version (frames, packed rfft, causal MAC, tail inverse)
+    against the TPU kernel in interpret mode, with P < T and P > T; a
+    DC-heavy signal makes a packed lane-0 mistake visible."""
     n = 16384
-    x2d = rng.standard_normal((2, 4, n // 2)).astype(np.float32)
-    hr, hi = rng.standard_normal((2, 2, 3, n // 2)).astype(np.float32)
+    x2d = rng.standard_normal((2, t, n // 2)).astype(np.float32) + 0.5
+    hr, hi = rng.standard_normal((2, 2, p, n // 2)).astype(np.float32)
     scale = 1.0 / (4.0 * n)
     jy = pallas_fft.fastfir_chain(jnp.asarray(x2d), jnp.asarray(hr),
                                   jnp.asarray(hi), scale, mode="highest")
     ty = hopper_fft.fastfir_chain(torch.from_numpy(x2d), torch.from_numpy(hr),
                                   torch.from_numpy(hi), scale)
+    assert ty.shape == (2, t, n // 2)
     assert snr_db(jy, ty) >= SNR_MIN_DB
+    staged = hopper_fft.fastfir_chain_staged(torch.from_numpy(x2d), torch.from_numpy(hr),
+                                             torch.from_numpy(hi), scale)
+    assert snr_db(ty, staged) >= SNR_MIN_DB
+
+
+def test_fastfir_chain_stream_matches_pallas_at_2_16(rng):
+    """K8's plain version at N = 2^16 (the size its chain family
+    instantiation serves) against the TPU kernel in interpret mode, with a
+    carried block, ring and lag-0 term: output and new ring."""
+    n = 1 << 16
+    k = n // 2
+    x2d = rng.standard_normal((1, 2, k)).astype(np.float32)
+    prev = rng.standard_normal((1, k)).astype(np.float32)
+    rr, ri = rng.standard_normal((2, 1, 3, k)).astype(np.float32)
+    hr, hi = rng.standard_normal((2, 1, 3, k)).astype(np.float32) * 1e-3
+    lr, li = rng.standard_normal((2, 1, k)).astype(np.float32) * 1e-3
+    scale = 1.0 / (4.0 * n)
+    want = pallas_fft.fastfir_chain_stream(
+        *(jnp.asarray(a) for a in (x2d, prev, rr, ri, hr, hi)), scale, mode="highest",
+        l0_re=jnp.asarray(lr), l0_im=jnp.asarray(li))
+    got = hopper_fft.fastfir_chain_stream(
+        *(torch.from_numpy(a) for a in (x2d, prev, rr, ri, hr, hi)), scale,
+        torch.from_numpy(lr), torch.from_numpy(li))
+    for w, g in zip(want, got):
+        assert g.shape == w.shape
+        assert snr_db(w, g) >= SNR_MIN_DB
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -231,6 +261,23 @@ def test_spectral_routes_to_kernels_off_cpu(call, kernel):
     torch.fft: each wrapper refuses the meta device by its kernel's name."""
     with pytest.raises(ValueError, match=f"{kernel} .*CUDA"):
         call(torch.device("meta"))
+
+
+@pytest.mark.parametrize("n,kernel", [(4096, "K2 rfft_packed_stream"),
+                                      (1 << 14, "K5 fastfir_chain"),
+                                      (1 << 15, "K5 fastfir_chain"),
+                                      (1 << 16, "K5 fastfir_chain"),
+                                      (1 << 17, "K5 fastfir_chain")])
+def test_offline_chain_routes_off_cpu(n, kernel):
+    """Off the CPU the fused offline chain is K5 at N = 2^14..2^17 (at any P,
+    here 20) and K2 -> K3 -> K4 at 4096: the first wrapper reached refuses
+    the meta device by name."""
+    from hisstools_library_tpu_torch.models.partitioned import PartitionedConvolve
+    h = n // 2
+    spectra = Split(*(torch.empty(2, 20, h, device="meta") for _ in range(2)))
+    with pytest.raises(ValueError, match=f"{kernel}: .*CUDA"):
+        PartitionedConvolve._process_offline_fused(
+            spectra, torch.empty(2, 30 * h, device="meta"), shift=h)
 
 
 def test_non_cuda_device_is_refused():

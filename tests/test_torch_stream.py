@@ -350,11 +350,26 @@ def test_process_block_ring_mac_routing_off_cpu(p):
             spectra, state, torch.empty(2, t * h, device="meta"), backend="xla")
 
 
+@pytest.mark.parametrize("n,p", [(1 << 16, 8), (1 << 17, 8), (1 << 17, 1)])
+def test_process_block_reaches_k8_at_wide_sizes_off_cpu(n, p):
+    """At N = 2^16..2^17 and P <= 8 (a single 2^17 section over a 10 s IR,
+    the two-tier far tier of a 5.5-6.1 s IR) process_block reaches K8's
+    wrapper, which refuses only the meta device, by name."""
+    h, t = n // 2, 2
+    spectra = Split(*_meta_spectra(p, h))
+    state = tpart.PartitionedState(torch.empty(2, h, device="meta"),
+                                   Split(*_meta_spectra(p, h)), 0)
+    with pytest.raises(ValueError, match="K8 fastfir_chain_stream: .*CUDA"):
+        tpart.PartitionedConvolve.process_block(
+            spectra, state, torch.empty(2, t * h, device="meta"), backend="pallas")
+
+
 @pytest.mark.parametrize("call,match", [
+    # K8 serves N = 2^14..2^17, as in the TPU package; above that the staged path.
     (lambda: hopper_fft.fastfir_chain_stream(
-        torch.empty(1, 2, 1 << 15, device="meta"), torch.empty(1, 1 << 15, device="meta"),
-        *(torch.empty(1, 2, 1 << 15, device="meta") for _ in range(4)), 1.0),
-     "K8's wider envelope"),
+        torch.empty(1, 2, 1 << 17, device="meta"), torch.empty(1, 1 << 17, device="meta"),
+        *(torch.empty(1, 2, 1 << 17, device="meta") for _ in range(4)), 1.0),
+     "K8 fastfir_chain_stream: serves N = 16384..131072; N = 262144"),
     (lambda: hopper_fft.rfft_packed(torch.empty(2, 1 << 21, device="meta")), "item 12"),
     (lambda: hopper_fft.rfft_small(torch.empty(2, 4096, device="meta")), "K10"),
 ])
