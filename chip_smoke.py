@@ -53,8 +53,10 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
     K11 (each must launch), >= 99 dB;
 14. compares the spectral layer's kernels (K12 fft_split, K13
     rfft_packed_split, K14 rifft_packed_split) with their plain versions:
-    K12 forward and inverse at (128, 2^17) and at (3, 1024), (2, 2^14); K13
-    and K14 at (128, 2^20), (1, 2^19), (2, 2^18);
+    K12 forward and inverse at (128, 2^17) and at (3, 1024), (2, 2^14), (1,
+    2^17), (2, 2^18), (3, 2^19); K13 and K14 at (128, 2^20), (1, 2^19), (2,
+    2^18), (1, 2^18), (5, 2^18); at the path shapes it prints each pass's
+    device ms (``torch.profiler``) and the TB/s it reaches;
 15. drives the spectral layer at 128 channels with the same IRs and 10 s
     signals: (a) ``spectral_processor.convolve`` (Linear, N = 2^20; K13, K14),
     (b) ``correlate`` (Wrap) and ``convolve`` (Fold) with the IRs' first
@@ -955,12 +957,28 @@ def offline_paths(dev, irs, x, launches, smi) -> None:
     torch.cuda.empty_cache()
 
 
+def pass_rates(label, fn, frame_bytes: int, smi: str) -> dict:
+    """Device ms of each pass (CUDA kernel) ``fn`` launches, by
+    ``torch.profiler``, and the rate it reaches: every pass of K12-K14 reads
+    and writes one complex frame per transform (the packed planes of K13's
+    output and K14's input are a frame's size too), so 2 * ``frame_bytes``
+    over its time."""
+    ms = phase_ms(fn, smi, label)
+    out = {k: dict(ms=v, tb_per_s=2 * frame_bytes / (v * 1e-3) / 1e12) for k, v in ms.items()}
+    print(f"{label} passes: " + "; ".join(
+        f"{k.split('(')[0]} {v['ms']:.4f} ms at {v['tb_per_s']:.3f} TB/s"
+        for k, v in out.items()) + f" [{smi}]", flush=True)
+    return out
+
+
 def spectral_kernels(randn, mods, smi) -> dict:
     """Phase 14: K12, K13 and K14. Path shapes: K12 at (128, 2^17), forward
     and inverse (the complex ops of 65 536-sample signals); K13 and K14 at
     (128, 2^20) (a 10 s x 10 s convolution). Small and edge shapes: K12 at
-    (3, 1024) (shared memory) and (2, 2^14) (two passes); K13 and K14 at
-    (1, 2^19) and (2, 2^18)."""
+    (3, 1024) (shared memory), (2, 2^14) (two passes), (1, 2^17) (one
+    cluster), (2, 2^18) and (3, 2^19) (two long passes); K13 and K14 at
+    (1, 2^19), (2, 2^18), (1, 2^18) and (5, 2^18) (the cluster). At the path
+    shapes each pass's device ms and TB/s."""
     def cplx(b, n, inverse):
         return lambda: ((randn(b, n), randn(b, n)), dict(inverse=inverse))
 
@@ -970,15 +988,38 @@ def spectral_kernels(randn, mods, smi) -> dict:
     def packed(b, n):
         return lambda: ((randn(b, n // 2), randn(b, n // 2)), {})
 
-    return check_kernels([
+    results = check_kernels([
         ("fft_split", [(cplx(3, 1024, False), False), (cplx(2, 1 << 14, True), False),
+                       (cplx(1, 1 << 17, False), False), (cplx(2, 1 << 18, True), False),
+                       (cplx(3, 1 << 19, False), False),
                        (cplx(CHANNELS, 1 << 17, False), True),
                        (cplx(CHANNELS, 1 << 17, True), True)]),
         ("rfft_packed_split", [(real(1, 1 << 19), False), (real(2, 1 << 18), False),
+                               (real(1, 1 << 18), False), (real(5, 1 << 18), False),
                                (real(CHANNELS, 1 << 20), True)]),
         ("rifft_packed_split", [(packed(1, 1 << 19), False), (packed(2, 1 << 18), False),
+                                (packed(1, 1 << 18), False), (packed(5, 1 << 18), False),
                                 (packed(CHANNELS, 1 << 20), True)]),
     ], mods, smi)
+    hf = mods["hopper_fft"]
+    n = 1 << 17
+    (re, im), _ = cplx(CHANNELS, n, False)()
+    results["fft_split"]["phase_ms"] = pass_rates(
+        "fft_split (128, 2^17)", lambda: hf.fft_split(re, im), 8 * n * CHANNELS, smi)
+    del re, im
+    n = 1 << 20
+    (x,), _ = real(CHANNELS, n)()
+    results["rfft_packed_split"]["phase_ms"] = pass_rates(
+        "rfft_packed_split (128, 2^20)", lambda: hf.rfft_packed_split(x), 4 * n * CHANNELS,
+        smi)
+    pr, pi = hf.rfft_packed_split(x)
+    del x
+    results["rifft_packed_split"]["phase_ms"] = pass_rates(
+        "rifft_packed_split (128, 2^20)", lambda: hf.rifft_packed_split(pr, pi),
+        4 * n * CHANNELS, smi)
+    del pr, pi
+    torch.cuda.empty_cache()
+    return results
 
 
 def _f64_linear(a: np.ndarray, b: np.ndarray, size: int, correlate: bool) -> np.ndarray:

@@ -477,7 +477,7 @@ extern "C" int hst_fastfir_chain(
     void* scratch, void* gring, const void* tw, long long channels, int t, int p, int n,
     float scale, void* stream) {
   const Plan pl = make_plan(n);
-  if (pl.passes != 2 || n < (1 << 14)) return (int)cudaErrorInvalidValue;
+  if (pl.route != kRouteTwoPass || n < (1 << 14)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float2* w = static_cast<const float2*>(tw);
   float2* frames = static_cast<float2*>(scratch);
@@ -485,10 +485,10 @@ extern "C" int hst_fastfir_chain(
   const int log_m = pl.log_n - 1;
   if (prev == nullptr) {
     launch_cols<kLoadStream>(pl.l_first, nframes, pl.m / pl.l_first, x, nullptr, frames, w,
-                             pl.log_n, log_m, 1, ~0, t, st);
+                             pl.log_n, log_m, t, st);
   } else {
     launch_cols<kLoadStreamPrev>(pl.l_first, nframes, pl.m / pl.l_first, x, prev, frames, w,
-                                 pl.log_n, log_m, 1, ~0, t, st);
+                                 pl.log_n, log_m, t, st);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -1,44 +1,33 @@
 // Shared multi-pass FFT core on Hopper: the real transforms K1 rfft_packed,
-// K2 rfft_packed_stream, K4 rifft_packed_tail, K6 rifft_packed, K13
-// rfft_packed_split and K14 rifft_packed_split, the complex K12 fft_split
-// above 1024 points, and the FastFIR chain family (K5, K8:
+// K2 rfft_packed_stream, K4 rifft_packed_tail, K6 rifft_packed, the complex
+// K12 fft_split at 2048..2^16 points, and the FastFIR chain family (K5, K8:
 // fastfir_chain.cu), which adds the row-first inverse at the end of this file.
+// The plan (make_plan) also routes the large sizes, complex M = 2^17..2^19,
+// which fft_large.cuh serves (K12 there, K13 rfft_packed_split and K14
+// rifft_packed_split).
 //
 // A real transform of length N is an M = N/2 point complex FFT of
 // z[n] = x[2n] + i x[2n+1], plus the split step that pairs bins k and M-k.
 // The complex K12 is the M-point FFT alone, split planes in and out. A
-// complex frame of M = 2048..2^19 points is 16 KB-4 MB, beyond one block's
-// shared memory at the top of the range, so the FFT runs as passes over HBM
-// scratch frames, each pass a set of sub-FFTs of length <= 256:
-//
-//   two passes, M = 2048..2^16, M = M1 * M2:
+// complex frame of M = 2048..2^16 points is 16 KB-512 KB, beyond one block's
+// shared memory at the top of the range, so the FFT runs as two passes over
+// an HBM scratch frame, each pass a set of sub-FFTs of length <= 256,
+// M = M1 * M2:
 //     pass 1 (columns): for each column n1 < M1, the M2-point FFT of
 //             z[n1 + M1*n2] over n2, times the inter-pass twiddle W_M^(n1*k2);
 //             written to a scratch frame as Y[k2*M1 + n1].
 //     pass 2 (rows): for each row k2 < M2, the M1-point FFT of Y[k2*M1 + n1]
 //             over n1, which is Z[k2 + M2*k1].
-//   three passes, M = 2^17..2^19, M = M1 * M2 * M3, n = n1 + M1*n2 + M1*M2*n3,
-//   k = k3 + M3*k2 + M3*M2*k1:
-//     pass 1 (columns): for each column c = n1 + M1*n2, the M3-point FFT over
-//             n3 (stride M1*M2), times W_{M2*M3}^(n2*k3) = W_M^((c - n1)*k3);
-//             written as A[k3*M1*M2 + c].
-//     pass 2 (columns of each k3 sub-frame): for each n1, the M2-point FFT
-//             over n2 (stride M1), times W_M^(n1*j), j = k3 + M3*k2; written
-//             as B[j*M1 + n1], rows in the order j.
-//     pass 3 (rows): for each row j < M2*M3, the M1-point FFT of B[j*M1 + n1],
-//             which is Z[j + M2*M3*k1].
 //
-// Pass 2 stores its rows in the order j = k3 + M3*k2 (a digit transpose in
-// the store, at no extra traffic), so the last pass is the two-pass row pass
-// with R = M/M1 rows: bin k = j + R*k1 and its partner M-k = (R-j) + R*(M1-1-k1)
-// sit in rows j and R-j, as before. The forward split step therefore stays in
-// the last pass's store, with no extra pass over the frame: a row-pass block
-// holds rows j and R-j together (8 such pairs), so every bin k meets its
-// partner M-k in shared memory and Z never goes to HBM. The inverse's
-// overlap-save tail (keep samples [N/2, N), times `scale`), its full output
-// (all N samples) and K12's split planes are the last pass's store too; the
-// unpack of the real layout (inverse) and K12's split planes are the first
-// pass's loader.
+// Bin k = j + R*k1 (R = M/M1 rows) and its partner M-k = (R-j) + R*(M1-1-k1)
+// (row 0: column M1-k1) sit in rows j and R-j. The forward split step
+// therefore stays in the row pass's store, with no extra pass over the
+// frame: a row-pass block holds rows j and R-j together (8 such pairs), so
+// every bin k meets its partner M-k in shared memory and Z never goes to HBM.
+// The inverse's overlap-save tail (keep samples [N/2, N), times `scale`), its
+// full output (all N samples) and K12's split planes are the row pass's store
+// too; the unpack of the real layout (inverse) and K12's split planes are the
+// column pass's loader.
 //
 // A block runs kTile = 16 neighbouring sub-FFTs of length L = A*B, each as a
 // four-step of its own: every thread takes one B-point DFT in registers
@@ -51,9 +40,8 @@
 // (8*M bytes each way); the butterflies are ~5*M*log2(M) FP32 operations per
 // frame, kept in registers. Twiddles come from one table
 // tw[e] = exp(-2*pi*i*e/N), e < N = 2M, computed in float64 on the host and
-// stored as float32 (2^20 entries, 8 MB, at M = 2^19); no fast-math
-// intrinsics are used anywhere. Frame offsets are 64-bit; in-frame indices
-// stay below M <= 2^19.
+// stored as float32; no fast-math intrinsics are used anywhere. Frame
+// offsets are 64-bit; in-frame indices stay below M <= 2^19.
 //
 // Packed layout (HISSTools/vDSP): N/2 bins, forward scaled x2, DC in re[0],
 // Nyquist in im[0]. Unscaled inverse: rifft(rfft(x)) = 2N x.
@@ -64,7 +52,7 @@
 namespace hst {
 
 constexpr int kTile = 16;         // sub-FFTs per block
-constexpr int kMaxSub = 256;      // longest sub-FFT
+constexpr int kMaxSub = 256;      // longest sub-FFT of the two-pass route
 constexpr int kLd = kMaxSub + 1;  // odd row stride of the shared tile: no bank conflicts
 constexpr int kThreads = 256;     // = kTile * 16, one thread per DFT in each step
 
@@ -73,14 +61,19 @@ enum LoadMode {
 };
 enum StoreMode { kStorePack = 0, kStoreTail = 1, kStoreFull = 2, kStoreSplit = 3 };
 
+// How a complex size M is served: two passes of sub-FFTs <= 256 over a
+// scratch frame (M = 2048..2^16, this file), one pass on an 8-block cluster
+// (M = 2^17, fft_large.cuh) or two passes of sub-FFTs of 512..1024 over a
+// scratch frame (M = 2^18..2^19, fft_large.cuh).
+enum Route { kRouteTwoPass = 0, kRouteCluster = 1, kRouteLong = 2 };
+
 struct Plan {
   int n;        // twiddle table size N = 2M (the real transforms' size)
   int log_n;
   int m;        // complex size M
-  int passes;   // 2 (M <= 2^16) or 3 (M = 2^17..2^19)
-  int l_first;  // first (column) pass sub-FFT length
-  int l_mid;    // middle (column) pass sub-FFT length; 1 with two passes
-  int l_last;   // last (row) pass sub-FFT length: rows of l_last points
+  int route;    // Route
+  int l_first;  // column sub-FFT length: columns of l_first points
+  int l_last;   // row sub-FFT length: rows of l_last points
 };
 
 inline int ilog2(long long v) {
@@ -89,10 +82,11 @@ inline int ilog2(long long v) {
   return l;
 }
 
-// Plan for a real size n (complex size M = n/2), M = 2048..2^19. Two passes
-// up to M = 2^16 (2^15 = 128 x 256 at the FastFIR main path's N = 2^16),
-// three above: 2^17 = 64 x 32 x 64, 2^18 = 64 x 64 x 64, 2^19 = 64 x 64 x 128
-// (first x middle x last).
+// Plan for a real size n (complex size M = n/2), M = 2048..2^19 (first x
+// last): two passes up to M = 2^16 (2^15 = 256 x 128 at the FastFIR main
+// path's N = 2^16, 2^16 = 256 x 256); 2^17 = 512 x 256 on a cluster;
+// 2^18 = 512 x 512 and 2^19 = 512 x 1024 in two long passes. The wrappers'
+// hopper_fft._plan mirrors it.
 inline Plan make_plan(int n) {
   Plan p;
   p.n = n;
@@ -100,17 +94,13 @@ inline Plan make_plan(int n) {
   p.m = n / 2;
   const int lm = p.log_n - 1;
   if (lm <= 16) {
-    p.passes = 2;
+    p.route = kRouteTwoPass;
     p.l_last = 1 << (lm / 2);
-    p.l_mid = 1;
     p.l_first = 1 << (lm - lm / 2);
   } else {
-    p.passes = 3;
-    const int ll = (lm + 2) / 3;
-    const int rest = lm - ll;
-    p.l_last = 1 << ll;
-    p.l_mid = 1 << (rest / 2);
-    p.l_first = 1 << (rest - rest / 2);
+    p.route = lm == 17 ? kRouteCluster : kRouteLong;
+    p.l_first = 512;
+    p.l_last = 1 << (lm - 9);
   }
   return p;
 }
@@ -192,8 +182,8 @@ struct Sub {
   static constexpr int kB = L / kA;            // step-1 DFT size
 };
 
-// Step-1 twiddle W_L^(j1*k2) times v, stored at s[f*kLd + k2*A + j1].
-template <int L, bool kSmem = false>
+// Step-1 twiddle W_L^(j1*k2) times v, stored at s[f*LD + k2*A + j1].
+template <int L, bool kSmem = false, int LD = kLd>
 __device__ __forceinline__ void step1_store(float2* s, const float2 (&v)[Sub<L>::kB],
                                             int f, int j1,
                                             const float2* __restrict__ tw,
@@ -201,7 +191,7 @@ __device__ __forceinline__ void step1_store(float2* s, const float2 (&v)[Sub<L>:
   constexpr int A = Sub<L>::kA, B = Sub<L>::kB, kLog = Sub<L>::kLog;
 #pragma unroll
   for (int k2 = 0; k2 < B; ++k2) {
-    s[f * kLd + k2 * A + j1] =
+    s[f * LD + k2 * A + j1] =
         k2 == 0 ? v[0] : cmul(v[k2], tw_at<kSmem>(tw, (j1 * k2) << (log_n - kLog)));
   }
 }
@@ -258,28 +248,23 @@ __device__ __forceinline__ float2 load_elem(const float* __restrict__ a,
   }
 }
 
-// Column pass, sub-FFT length L, over sub-frames of F = ncol * L points
-// (ncol columns, each of L points ncol apart): grid = subframes *
-// (ncol / kTile) blocks. Sub-frame sf is part s = sf % subs of frame
-// sf / subs, whose scratch frame holds M = 2^log_m points. Output k of
-// column col's L-point FFT goes to row j = s + subs*k of that frame:
-// Y[j*ncol + col] = W_M^((col & col_mask) * j) * FFT_L(column col)[k].
-// Two passes' pass 1: F = M, subs = 1, col_mask = ~0. Three passes' pass 1:
-// F = M, subs = 1, col_mask = ~(M1 - 1); pass 2: F = M1*M2, subs = M3,
-// ncol = M1, col_mask = ~0.
+// Column pass, sub-FFT length L, over frames of M = ncol * L points (ncol
+// columns, each of L points ncol apart): grid = frames * (ncol / kTile)
+// blocks. Output k of column col's L-point FFT goes to row k of the frame's
+// scratch frame: Y[k*ncol + col] = W_M^(col * k) * FFT_L(column col)[k].
 template <int kLoad, int L>
 __global__ void __launch_bounds__(kThreads)
 fft_cols(const float* __restrict__ a, const float* __restrict__ a_im,
          float2* __restrict__ y, const float2* __restrict__ tw, int log_n,
-         int log_m, int ncol, int subs, int col_mask, int hops) {
+         int log_m, int ncol, int hops) {
   constexpr int A = Sub<L>::kA, B = Sub<L>::kB;
   __shared__ float2 s[kTile * kLd];
   const int tiles = ncol / kTile;
-  const long long sf = blockIdx.x / tiles;
-  const int c0 = (int)(blockIdx.x - sf * tiles) * kTile;
-  const bool first = (kLoad == kLoadStream || kLoad == kLoadStreamPrev) && sf % hops == 0;
+  const long long frame = blockIdx.x / tiles;
+  const int c0 = (int)(blockIdx.x - frame * tiles) * kTile;
+  const bool first = (kLoad == kLoadStream || kLoad == kLoadStreamPrev) && frame % hops == 0;
   // kLoadStreamPrev: a_im holds (C, H) carried blocks; this channel's row.
-  const float* lo = kLoad == kLoadStreamPrev ? a_im + (sf / hops) * (long long)(ncol * L)
+  const float* lo = kLoad == kLoadStreamPrev ? a_im + (frame / hops) * (long long)(ncol * L)
                                              : a_im;
   const int tid = threadIdx.x;
   // Step 1: thread (f, j1), f fastest so loads run along columns.
@@ -289,7 +274,7 @@ fft_cols(const float* __restrict__ a, const float* __restrict__ a_im,
     float2 v[B];
 #pragma unroll
     for (int j2 = 0; j2 < B; ++j2)
-      v[j2] = load_elem<kLoad>(a, lo, tw, sf, c0 + f + ncol * (j1 + A * j2),
+      v[j2] = load_elem<kLoad>(a, lo, tw, frame, c0 + f + ncol * (j1 + A * j2),
                                ncol * L, first);
     reg_dft<B>(v, tw, log_n);
     step1_store<L>(s, v, f, j1, tw, log_n);
@@ -303,33 +288,32 @@ fft_cols(const float* __restrict__ a, const float* __restrict__ a_im,
 #pragma unroll
     for (int j1 = 0; j1 < A; ++j1) v[j1] = s[f * kLd + k2 * A + j1];
     reg_dft<A>(v, tw, log_n);
-    const long long frame = sf / subs;
-    const int part = (int)(sf - frame * subs);
     float2* yf = y + (frame << log_m);
     const int col = c0 + f;
-    const int twc = col & col_mask;
     const int emask = (1 << log_m) - 1;
     const int tshift = log_n - log_m;  // W_M^e = W_N^(e * N/M)
 #pragma unroll
     for (int k1 = 0; k1 < A; ++k1) {
-      const int j = part + subs * (k2 + B * k1);
-      const int e = (twc * j) & emask;
+      const int j = k2 + B * k1;
+      const int e = (col * j) & emask;
       yf[(long long)j * ncol + col] = cmul(v[k1], __ldg(&tw[e << tshift]));
     }
   }
 }
 
-// Row of row-pass slot f in block `tile` when packing: slots 0-7 hold rows
-// 8*tile + (0..7), slots 8-15 their partners R - row; block 0 holds the two
-// self-paired rows 0 (slot 0) and R/2 (slot 8).
-__device__ __forceinline__ int pack_row(int tile, int f, int rows) {
-  const int lo = f & 7;
-  if (f < 8) return 8 * tile + lo;
+// Slot f (< 2H) of pack tile `tile` over R = `rows` rows: slots 0..H-1 hold
+// rows H*tile + f, slots H..2H-1 their partners R - row; tile 0 holds the
+// two self-paired rows 0 (slot 0) and R/2 (slot H). The row pass packs with
+// H = kTile/2 = 8.
+template <int H>
+__device__ __forceinline__ int pack_row_of(int tile, int f, int rows) {
+  const int lo = f & (H - 1);
+  if (f < H) return H * tile + lo;
   if (tile == 0 && lo == 0) return rows >> 1;
-  return rows - (8 * tile + lo);
+  return rows - (H * tile + lo);
 }
 
-// Row pass (the last), sub-FFT length L = M1, over R = M/M1 rows a frame:
+// Row pass, sub-FFT length L = M1, over R = M/M1 rows a frame:
 // grid = frames * (R / kTile) blocks. Z[j + R*k1] = FFT_M1(Y[j*M1 + n1])[k1].
 //   kStorePack:  the packed planes `out` (re) and `out_im` (im), M per frame:
 //                P[k] = (Z[k] + conj Z[M-k]) - i W_N^k (Z[k] - conj Z[M-k]),
@@ -360,7 +344,7 @@ fft_rows(const float2* __restrict__ y, float* __restrict__ out,
   if (tid < kTile * A) {
     const int j1 = tid % A;
     const int f = tid / A;
-    const int row = kStore == kStorePack ? pack_row(tile, f, rows) : r0 + f;
+    const int row = kStore == kStorePack ? pack_row_of<kTile / 2>(tile, f, rows) : r0 + f;
     const float2* yr = y + frame * m + (long long)row * L;
     float2 v[B];
 #pragma unroll
@@ -416,7 +400,7 @@ fft_rows(const float2* __restrict__ y, float* __restrict__ out,
   for (int i = tid; i < kTile * L; i += blockDim.x) {
     const int sf = i % kTile;
     const int k1 = i / kTile;
-    const int row = pack_row(tile, sf, rows);
+    const int row = pack_row_of<kTile / 2>(tile, sf, rows);
     const int k = row + rows * k1;
     const float2 zk = s[sf * kLd + k1];
     if (k == 0) {
@@ -437,26 +421,22 @@ fft_rows(const float2* __restrict__ y, float* __restrict__ out,
 
 // Host launchers: the sub-FFT lengths are template arguments.
 template <int kLoad>
-inline void launch_cols(int len, long long subframes, int ncol, const float* a,
+inline void launch_cols(int len, long long frames, int ncol, const float* a,
                         const float* a_im, float2* y, const float2* tw, int log_n,
-                        int log_m, int subs, int col_mask, int hops, cudaStream_t st) {
-  const unsigned grid = (unsigned)(subframes * (ncol / kTile));
+                        int log_m, int hops, cudaStream_t st) {
+  const unsigned grid = (unsigned)(frames * (ncol / kTile));
   switch (len) {
     case 32:
-      fft_cols<kLoad, 32><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, log_n, log_m, ncol,
-                                                     subs, col_mask, hops);
+      fft_cols<kLoad, 32><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, log_n, log_m, ncol, hops);
       break;
     case 64:
-      fft_cols<kLoad, 64><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, log_n, log_m, ncol,
-                                                     subs, col_mask, hops);
+      fft_cols<kLoad, 64><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, log_n, log_m, ncol, hops);
       break;
     case 128:
-      fft_cols<kLoad, 128><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, log_n, log_m, ncol,
-                                                      subs, col_mask, hops);
+      fft_cols<kLoad, 128><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, log_n, log_m, ncol, hops);
       break;
     default:
-      fft_cols<kLoad, 256><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, log_n, log_m, ncol,
-                                                      subs, col_mask, hops);
+      fft_cols<kLoad, 256><<<grid, kThreads, 0, st>>>(a, a_im, y, tw, log_n, log_m, ncol, hops);
   }
 }
 
@@ -481,28 +461,17 @@ inline void launch_rows(const Plan& p, long long frames, const float2* y,
   }
 }
 
-// The whole transform of `frames` frames: the first column pass loads with
-// kLoad (a, a_im; `hops` for kLoadStream), the row pass stores with kStore
-// (out, out_im, `scale`). `scratch` holds frames * M float2 with two passes,
-// twice that with three (pass 1 -> scratch, pass 2 -> its second half).
+// The whole two-pass transform (M <= 2^16) of `frames` frames: the column
+// pass loads with kLoad (a, a_im; `hops` for kLoadStream), the row pass
+// stores with kStore (out, out_im, `scale`). `scratch` holds frames * M
+// float2.
 template <int kLoad, int kStore>
 inline void run_fft(const Plan& p, long long frames, const float* a, const float* a_im,
                     float2* scratch, float* out, float* out_im, const float2* tw,
                     int hops, float scale, cudaStream_t st) {
-  const int log_m = p.log_n - 1;
-  if (p.passes == 2) {
-    launch_cols<kLoad>(p.l_first, frames, p.m / p.l_first, a, a_im, scratch, tw, p.log_n,
-                       log_m, 1, ~0, hops, st);
-    launch_rows<kStore>(p, frames, scratch, out, out_im, tw, scale, st);
-    return;
-  }
-  float2* y2 = scratch + frames * (long long)p.m;
   launch_cols<kLoad>(p.l_first, frames, p.m / p.l_first, a, a_im, scratch, tw, p.log_n,
-                     log_m, 1, ~(p.l_last - 1), hops, st);
-  launch_cols<kLoadReal>(p.l_mid, frames * p.l_first, p.l_last,
-                         reinterpret_cast<const float*>(scratch), nullptr, y2, tw,
-                         p.log_n, log_m, p.l_first, ~0, 1, st);
-  launch_rows<kStore>(p, frames, y2, out, out_im, tw, scale, st);
+                     p.log_n - 1, hops, st);
+  launch_rows<kStore>(p, frames, scratch, out, out_im, tw, scale, st);
 }
 
 // -----------------------------------------------------------------------------

@@ -1,0 +1,550 @@
+// Large complex FFTs on Hopper, M = 2^17..2^19 points: K12 fft_split at
+// complex 2^17..2^19, K13 rfft_packed_split and K14 rifft_packed_split at
+// real N = 2^18..2^20. fft_common.cuh's make_plan routes these sizes here;
+// its loaders (load_elem) and the four-step of each sub-FFT (reg_dft,
+// step1_store) are shared, its two-pass kernels are not.
+//
+// Bound on the H100: HBM bytes. A frame moves 8*M bytes in and 8*M out; the
+// butterflies are ~5*M*log2(M) FP32 operations, in registers. What this file
+// does about the bytes is to go to HBM as few times as the frame allows:
+//
+// M = 2^17 (kRouteCluster): one HBM pass. A complex 2^17 frame is 1 MB, which
+// 8 blocks of one thread-block cluster hold in 128 KB of shared memory each.
+// M = M1 * M2 with M1 = 256 columns of M2 = 512 points (n = n1 + 256*n2):
+//   1. block r of the cluster loads columns 32r..32r+31 (each row of the
+//      frame gives it a run of 32 points, 256 bytes), runs their 512-point
+//      FFTs and multiplies output k2 of column n1 by W_M^(n1*k2), leaving
+//      column n1 in its own shared memory in natural order;
+//   2. after cluster.sync(), it gathers its 64 rows of 256 points (32 from
+//      each block) through distributed shared memory (map_shared_rank)
+//      straight into registers and runs step 1 of their FFTs; a second
+//      cluster.sync() marks the end of every block's remote reads, so its
+//      shared memory is free for the rows' own exchange;
+//   3. it runs step 2 and stores Z[k2 + 512*k1] of its rows.
+// The frame goes to HBM once in and once out, and there is no scratch.
+//
+// M = 2^18..2^19 (kRouteLong): two HBM passes over one scratch frame, the
+// four-step of fft_common.cuh with long sub-FFTs: columns of 512 points,
+// rows of 512 (2^18) or 1024 (2^19). A block holds kTile = 16 sub-FFTs in
+// dynamic shared memory (64 KB, or 128 KB for 1024-point rows) and has one
+// thread for each step-1 DFT (B points), which also takes B/A of the step-2
+// DFTs (A points): 256 threads at L = 512, 512 at L = 1024, none idle. Each
+// thread issues all B loads of its step-1 DFT before the first butterfly.
+//
+// Every block first stages the twiddles it reads in shared memory (Twiddles,
+// load_pack_twiddles), 4-16 KB beside the frame's tiles.
+//
+// Both routes keep the split step in the row stage's store: with the pack
+// (K13) a block's row slots hold the row pairs (j, R-j) (pack_row_of), so
+// bin k = j + R*k1 meets its partner M-k = (R-j) + R*(M1-1-k1) (row 0:
+// column M1-k1) in its own shared memory. The unpack of the inverse (K14)
+// is the column stage's loader and reads P[idx] and P[M-idx] itself.
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "fft_common.cuh"
+
+namespace hst {
+
+namespace cg = cooperative_groups;
+
+// Bin k of the frame at `base` from the row stage, z = Z[k]:
+//   kStoreSplit: the planes out (re) and out_im (im);
+//   kStoreFull:  output samples (2k, 2k+1) of the real inverse, conj(Z[k]).
+template <int kStore>
+__device__ __forceinline__ void store_bin(float* __restrict__ out,
+                                          float* __restrict__ out_im, long long base,
+                                          int k, float2 z) {
+  if (kStore == kStoreSplit) {
+    out[base + k] = z.x;
+    out_im[base + k] = z.y;
+  } else {
+    reinterpret_cast<float2*>(out)[base + k] = make_float2(z.x, -z.y);
+  }
+}
+
+// The twiddles a block reads, staged in shared memory once (2*512 + M/512
+// float2): read from the 2-8 MB global table they would take ~100 KB of L1
+// lines (each entry a line of its own), more than the L1 beside 128 KB of
+// shared memory holds, and every twiddle would wait on L2.
+//   tl:  W_512^e, e < 512: every register DFT's and step-1 twiddle
+//        (W_L^e = tl[e * 512/L], L <= 512), read with log_n = 9;
+//   thi: W_M^(512*h), h < M/512, and tlo: W_M^e, e < 512, the two factors
+//        of the inter-pass twiddle W_M^e = thi[e >> 9] * tlo[e & 511].
+constexpr int kTlLog = 9;
+constexpr int kTl = 1 << kTlLog;
+
+struct Twiddles {
+  float2* tl;
+  float2* thi;
+  float2* tlo;
+};
+
+// Carves the tables from `at` (`hi` = M/512 entries for thi) and fills them
+// from the global table tw (N = 2M).
+__device__ __forceinline__ Twiddles load_twiddles(float2* at, const float2* __restrict__ tw,
+                                                  int log_n, int hi) {
+  Twiddles t{at, at + kTl, at + kTl + hi};
+  for (int i = threadIdx.x; i < kTl; i += blockDim.x) {
+    t.tl[i] = __ldg(&tw[i << (log_n - kTlLog)]);
+    t.tlo[i] = __ldg(&tw[i << 1]);
+  }
+  for (int i = threadIdx.x; i < hi; i += blockDim.x) t.thi[i] = __ldg(&tw[i << 10]);
+  return t;
+}
+
+__device__ __forceinline__ float2 tw_m(const Twiddles& t, int e) {
+  return cmul(t.thi[e >> 9], t.tlo[e & 511]);
+}
+
+// The split step's twiddles W_N^k, k = row + R*k1, for the 2H row slots of
+// a pack tile, as W_N^row * W_N^(R*k1): `wrow` (2H entries) and `wk1` (L
+// entries, W_2L^k1) in shared memory, so the pack waits on no L2 read.
+template <int L, int H>
+__device__ __forceinline__ void load_pack_twiddles(float2* wrow, float2* wk1,
+                                                   const float2* __restrict__ tw, int tile,
+                                                   int rows) {
+  for (int i = threadIdx.x; i < L; i += blockDim.x) wk1[i] = __ldg(&tw[rows * i]);
+  for (int i = threadIdx.x; i < 2 * H; i += blockDim.x)
+    wrow[i] = __ldg(&tw[pack_row_of<H>(tile, i, rows)]);
+}
+
+// The split step of the 2H rows of L points held in shared memory (slot f
+// at s[f*LD], natural order, rows as pack_row_of<H>(tile, f, rows)), into
+// one frame's packed planes re/im, by a block of NT threads:
+// P[k] = (Z[k] + conj Z[M-k]) - i W_N^k (Z[k] - conj Z[M-k]), k >= 1;
+// re[0] = 2(Re Z0 + Im Z0) (DC), im[0] = 2(Re Z0 - Im Z0) (Nyquist).
+// W_N^k from load_pack_twiddles' tables.
+template <int L, int LD, int H, int NT>
+__device__ __forceinline__ void pack_rows(const float2* s, float* __restrict__ re,
+                                          float* __restrict__ im, const float2* wrow,
+                                          const float2* wk1, int tile, int rows) {
+  static_assert(2 * H * L % NT == 0, "whole rounds");
+#pragma unroll 4
+  for (int it = 0; it < 2 * H * L / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    const int sf = i % (2 * H);
+    const int k1 = i / (2 * H);
+    const int row = pack_row_of<H>(tile, sf, rows);
+    const int k = row + rows * k1;
+    const float2 zk = s[sf * LD + k1];
+    if (k == 0) {
+      re[0] = 2.f * (zk.x + zk.y);
+      im[0] = 2.f * (zk.x - zk.y);
+    } else {
+      const int g = (row == 0 || row == (rows >> 1)) ? sf : (sf ^ H);
+      const int c = row == 0 ? L - k1 : L - 1 - k1;
+      const float2 zm = s[g * LD + c];
+      const float2 sum = make_float2(zk.x + zm.x, zk.y - zm.y);
+      const float2 dif = make_float2(zk.x - zm.x, zk.y + zm.y);
+      const float2 wd = cmul(cmul(wrow[sf], wk1[k1]), dif);
+      re[k] = sum.x + wd.y;
+      im[k] = sum.y - wd.x;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kRouteLong: two passes of kTile sub-FFTs of L = 512..1024 points a block.
+
+template <int L>
+struct LongTile {
+  static constexpr int kA = Sub<L>::kA;          // step-2 DFT size
+  static constexpr int kB = Sub<L>::kB;          // step-1 DFT size, >= kA
+  static constexpr int kLd = L + 1;              // odd row stride: no bank conflicts
+  static constexpr int kThreads = kTile * kA;    // one step-1 DFT a thread
+  static constexpr int kMinBlocks = L == 512 ? 2 : 1;  // per SM: <= 128 registers
+  static constexpr int kTileF2 = kTile * kLd;     // float2: the tile, then the twiddles
+  // The column pass: tl, thi (<= 1024 entries, M <= 2^19) and tlo.
+  static constexpr int kSmemCols = (kTileF2 + 2 * kTl + 1024) * (int)sizeof(float2);
+  // The row pass: its W_L table and, with the split step, the pack's.
+  static constexpr int smem_rows(int store) {
+    return (kTileF2 + L + (store == kStorePack ? L + kTile : 0)) * (int)sizeof(float2);
+  }
+};
+
+// Column pass over frames of M = ncol * 512 points: grid = frames *
+// (ncol / kTile). Y[k*ncol + col] = W_M^(col*k) * FFT_L(column col)[k].
+template <int kLoad, int L>
+__global__ void __launch_bounds__(LongTile<L>::kThreads, LongTile<L>::kMinBlocks)
+fft_cols_long(const float* __restrict__ a, const float* __restrict__ a_im,
+              float2* __restrict__ y, const float2* __restrict__ tw, int log_n, int ncol) {
+  using G = LongTile<L>;
+  constexpr int A = G::kA, B = G::kB, LD = G::kLd;
+  extern __shared__ float2 lsm[];
+  const int m = ncol * L;
+  const int tiles = ncol / kTile;
+  const long long frame = blockIdx.x / tiles;
+  const int c0 = (int)(blockIdx.x - frame * tiles) * kTile;
+  const int tid = threadIdx.x;
+  const Twiddles twd = load_twiddles(lsm + G::kTileF2, tw, log_n, m >> 9);
+  {
+    // Step 1: thread (f, j1), f fastest, so each load runs along 16 columns.
+    const int f = tid % kTile;
+    const int j1 = tid / kTile;
+    float2 v[B];
+#pragma unroll
+    for (int j2 = 0; j2 < B; ++j2)
+      v[j2] = load_elem<kLoad>(a, a_im, tw, frame, c0 + f + ncol * (j1 + A * j2), m, false);
+    __syncthreads();  // the twiddle tables are in place
+    reg_dft<B, true>(v, twd.tl, kTlLog);
+    step1_store<L, true, LD>(lsm, v, f, j1, twd.tl, kTlLog);
+  }
+  __syncthreads();
+  // Step 2: tasks (f, k2), B/A a thread; outputs k = k2 + B*k1 straight to Y.
+  float2* yf = y + frame * (long long)m;
+#pragma unroll
+  for (int u = 0; u < B / A; ++u) {
+    const int t = tid + u * G::kThreads;
+    const int f = t % kTile;
+    const int k2 = t / kTile;
+    float2 v[A];
+#pragma unroll
+    for (int j1 = 0; j1 < A; ++j1) v[j1] = lsm[f * LD + k2 * A + j1];
+    reg_dft<A, true>(v, twd.tl, kTlLog);
+    const int col = c0 + f;
+#pragma unroll
+    for (int k1 = 0; k1 < A; ++k1) {
+      const int k = k2 + B * k1;
+      yf[(long long)k * ncol + col] = cmul(v[k1], tw_m(twd, (col * k) & (m - 1)));
+    }
+  }
+}
+
+// Row pass over R = `rows` rows of L points a frame: grid = frames *
+// (R / kTile). Z[j + R*k1] = FFT_L(Y[j*L + n1])[k1], stored by kStore
+// (kStorePack: the split step, kStoreSplit, kStoreFull).
+template <int kStore, int L>
+__global__ void __launch_bounds__(LongTile<L>::kThreads, LongTile<L>::kMinBlocks)
+fft_rows_long(const float2* __restrict__ y, float* __restrict__ out,
+              float* __restrict__ out_im, const float2* __restrict__ tw, int log_n,
+              int rows) {
+  using G = LongTile<L>;
+  constexpr int A = G::kA, B = G::kB, LD = G::kLd, kPer = B / A;
+  extern __shared__ float2 lsm[];
+  const int m = rows * L;
+  const int tiles = rows / kTile;
+  const long long frame = blockIdx.x / tiles;
+  const int tile = (int)(blockIdx.x - frame * tiles);
+  const int r0 = tile * kTile;
+  const int tid = threadIdx.x;
+  // W_L^e, e < L (read with log_n = log2 L), then the pack's twiddles.
+  float2* tl = lsm + G::kTileF2;
+  float2* wk1 = tl + L;
+  float2* wrow = wk1 + L;
+  {
+    // Step 1: thread (j1, f), j1 fastest, so each load runs along a row.
+    const int j1 = tid % A;
+    const int f = tid / A;
+    const int row = kStore == kStorePack ? pack_row_of<kTile / 2>(tile, f, rows) : r0 + f;
+    const float2* yr = y + frame * (long long)m + (long long)row * L;
+    float2 v[B];
+#pragma unroll
+    for (int j2 = 0; j2 < B; ++j2) v[j2] = yr[j1 + A * j2];
+    for (int i = tid; i < L; i += G::kThreads) tl[i] = __ldg(&tw[i << (log_n - Sub<L>::kLog)]);
+    if (kStore == kStorePack) load_pack_twiddles<L, kTile / 2>(wrow, wk1, tw, tile, rows);
+    __syncthreads();
+    reg_dft<B, true>(v, tl, Sub<L>::kLog);
+    step1_store<L, true, LD>(lsm, v, f, j1, tl, Sub<L>::kLog);
+  }
+  __syncthreads();
+  // Step 2: tasks (f, k2), B/A a thread; outputs k = k2 + B*k1 of slot f.
+  float2 v[kPer][A];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int t = tid + u * G::kThreads;
+    const int f = t % kTile;
+    const int k2 = t / kTile;
+#pragma unroll
+    for (int j1 = 0; j1 < A; ++j1) v[u][j1] = lsm[f * LD + k2 * A + j1];
+    reg_dft<A, true>(v[u], tl, Sub<L>::kLog);
+  }
+  if (kStore != kStorePack) {
+    const long long base = frame * (long long)m;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int t = tid + u * G::kThreads;
+      const int f = t % kTile;
+      const int k2 = t / kTile;
+#pragma unroll
+      for (int k1 = 0; k1 < A; ++k1)
+        store_bin<kStore>(out, out_im, base, r0 + f + rows * (k2 + B * k1), v[u][k1]);
+    }
+    return;
+  }
+  __syncthreads();  // every step-2 read of lsm is done
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int t = tid + u * G::kThreads;
+    const int f = t % kTile;
+    const int k2 = t / kTile;
+#pragma unroll
+    for (int k1 = 0; k1 < A; ++k1) lsm[f * LD + k2 + B * k1] = v[u][k1];
+  }
+  __syncthreads();
+  pack_rows<L, LD, kTile / 2, G::kThreads>(lsm, out + frame * (long long)m,
+                                           out_im + frame * (long long)m, wrow, wk1, tile,
+                                           rows);
+}
+
+// ---------------------------------------------------------------------------
+// kRouteCluster: M = 2^17 in one pass on an 8-block cluster.
+
+struct Cl17 {
+  static constexpr int kM = 1 << 17;
+  static constexpr int kBlocks = 8;                 // the cluster: one frame
+  static constexpr int kCols = 256;                 // M1 columns
+  static constexpr int kColLen = 512;               // of M2 points
+  static constexpr int kRows = kColLen;             // R = M2 rows
+  static constexpr int kRowLen = kCols;             // of M1 points
+  static constexpr int kOwnCols = kCols / kBlocks;  // 32 columns a block
+  static constexpr int kOwnRows = kRows / kBlocks;  // 64 rows a block
+  static constexpr int kThreads = 512;
+  static constexpr int kLdC = kColLen + 1;          // column f at lsm[f*kLdC]
+  static constexpr int kLdR = kRowLen + 1;          // row slot f at lsm[f*kLdR]
+  static constexpr int kFrame =  // float2: the columns, later the rows
+      kOwnCols * kLdC > kOwnRows * kLdR ? kOwnCols * kLdC : kOwnRows * kLdR;
+  // then the pack's twiddle tables (load_pack_twiddles) and load_twiddles'
+  static constexpr int kSmem =
+      (kFrame + kRowLen + kOwnRows + 2 * kTl + kM / 512) * (int)sizeof(float2);
+};
+
+// grid = frames * 8 blocks, cluster rank r of frame blockIdx.x / 8. Loads
+// with kLoad (a, a_im), stores with kStore (out, out_im).
+template <int kLoad, int kStore>
+__global__ void __cluster_dims__(8, 1, 1) __launch_bounds__(Cl17::kThreads, 1)
+fft_cluster(const float* __restrict__ a, const float* __restrict__ a_im,
+            float* __restrict__ out, float* __restrict__ out_im,
+            const float2* __restrict__ tw, int log_n) {
+  using C = Cl17;
+  constexpr int m = C::kM;
+  extern __shared__ float2 lsm[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const long long frame = blockIdx.x / C::kBlocks;
+  const int tid = threadIdx.x;
+  float2* wk1 = lsm + C::kFrame;  // the pack's twiddles (kStorePack)
+  float2* wrow = wk1 + C::kRowLen;
+  if (kStore == kStorePack)
+    load_pack_twiddles<C::kRowLen, C::kOwnRows / 2>(wrow, wk1, tw, rank, C::kRows);
+  const Twiddles twd = load_twiddles(wrow + C::kOwnRows, tw, log_n, m >> 9);
+
+  // 1. The block's 32 columns: 512-point FFTs, times W_M^(n1*k2), column f
+  //    (n1 = 32*rank + f) left at lsm[f*kLdC + k2].
+  {
+    constexpr int L = C::kColLen, A = Sub<L>::kA, B = Sub<L>::kB;
+    constexpr int kPer = C::kOwnCols * B / C::kThreads;
+    static_assert(C::kOwnCols * A == C::kThreads, "one step-1 DFT a thread");
+    const int c0 = rank * C::kOwnCols;
+    {
+      const int f = tid % C::kOwnCols;
+      const int j1 = tid / C::kOwnCols;
+      float2 v[B];
+#pragma unroll
+      for (int j2 = 0; j2 < B; ++j2)
+        v[j2] = load_elem<kLoad>(a, a_im, tw, frame, c0 + f + C::kCols * (j1 + A * j2), m,
+                                 false);
+      __syncthreads();  // the twiddle tables are in place
+      reg_dft<B, true>(v, twd.tl, kTlLog);
+      step1_store<L, true, C::kLdC>(lsm, v, f, j1, twd.tl, kTlLog);
+    }
+    __syncthreads();
+    float2 v[kPer][A];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int t = tid + u * C::kThreads;
+      const int f = t % C::kOwnCols;
+      const int k2 = t / C::kOwnCols;
+#pragma unroll
+      for (int j1 = 0; j1 < A; ++j1) v[u][j1] = lsm[f * C::kLdC + k2 * A + j1];
+      reg_dft<A, true>(v[u], twd.tl, kTlLog);
+    }
+    __syncthreads();  // every step-2 read of lsm is done
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int t = tid + u * C::kThreads;
+      const int f = t % C::kOwnCols;
+      const int k2 = t / C::kOwnCols;
+      const int col = c0 + f;
+#pragma unroll
+      for (int k1 = 0; k1 < A; ++k1) {
+        const int k = k2 + B * k1;
+        lsm[f * C::kLdC + k] = cmul(v[u][k1], tw_m(twd, (col * k) & (m - 1)));
+      }
+    }
+  }
+  cl.sync();  // every block's columns are in place
+
+  // 2-3. The block's 64 rows of 256 points: slot f holds row
+  //    pack_row_of<32>(rank, f) with the split step, else 64*rank + f.
+  {
+    constexpr int L = C::kRowLen, A = Sub<L>::kA, B = Sub<L>::kB;
+    constexpr int kPer1 = C::kOwnRows * A / C::kThreads;
+    constexpr int kPer2 = C::kOwnRows * B / C::kThreads;
+    float2 v[kPer1][B];
+#pragma unroll
+    for (int u = 0; u < kPer1; ++u) {
+      // Task (f, j1), f fastest, so a warp reads 32 consecutive rows of one
+      // remote column.
+      const int t = tid + u * C::kThreads;
+      const int f = t % C::kOwnRows;
+      const int j1 = t / C::kOwnRows;
+      const int row = kStore == kStorePack ? pack_row_of<C::kOwnRows / 2>(rank, f, C::kRows)
+                                           : rank * C::kOwnRows + f;
+#pragma unroll
+      for (int j2 = 0; j2 < B; ++j2) {
+        const int n1 = j1 + A * j2;
+        const float2* src = cl.map_shared_rank(lsm, n1 / C::kOwnCols);
+        v[u][j2] = src[(n1 % C::kOwnCols) * C::kLdC + row];
+      }
+      reg_dft<B, true>(v[u], twd.tl, kTlLog);
+    }
+    cl.sync();  // no block reads another's shared memory after this
+#pragma unroll
+    for (int u = 0; u < kPer1; ++u) {
+      const int t = tid + u * C::kThreads;
+      const int i = tid + u * C::kThreads;
+      step1_store<L, true, C::kLdR>(lsm, v[u], i % C::kOwnRows, i / C::kOwnRows, twd.tl, kTlLog);
+    }
+    __syncthreads();
+    float2 w[kPer2][A];
+#pragma unroll
+    for (int u = 0; u < kPer2; ++u) {
+      const int t = tid + u * C::kThreads;
+      const int f = t % C::kOwnRows;
+      const int k2 = t / C::kOwnRows;
+#pragma unroll
+      for (int j1 = 0; j1 < A; ++j1) w[u][j1] = lsm[f * C::kLdR + k2 * A + j1];
+      reg_dft<A, true>(w[u], twd.tl, kTlLog);
+    }
+    if (kStore != kStorePack) {
+      const long long base = frame * (long long)m;
+#pragma unroll
+      for (int u = 0; u < kPer2; ++u) {
+        const int t = tid + u * C::kThreads;
+        const int f = t % C::kOwnRows;
+        const int k2 = t / C::kOwnRows;
+#pragma unroll
+        for (int k1 = 0; k1 < A; ++k1)
+          store_bin<kStore>(out, out_im, base,
+                            rank * C::kOwnRows + f + C::kRows * (k2 + B * k1), w[u][k1]);
+      }
+      return;
+    }
+    __syncthreads();  // every step-2 read of lsm is done
+#pragma unroll
+    for (int u = 0; u < kPer2; ++u) {
+      const int t = tid + u * C::kThreads;
+      const int f = t % C::kOwnRows;
+      const int k2 = t / C::kOwnRows;
+#pragma unroll
+      for (int k1 = 0; k1 < A; ++k1) lsm[f * C::kLdR + k2 + B * k1] = w[u][k1];
+    }
+    __syncthreads();
+    pack_rows<L, C::kLdR, C::kOwnRows / 2, C::kThreads>(
+        lsm, out + frame * (long long)m, out_im + frame * (long long)m, wrow, wk1, rank,
+        C::kRows);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host launchers. Each sets its kernel's dynamic shared memory (above the
+// 48 KB default) once a device and returns the first CUDA error; a size or
+// a cluster that cannot run is an error, never a reason to take another
+// route.
+
+// Runs `prepare` (returning a CUDA error) once a device: `ready` holds the
+// device it last succeeded on, one for each kernel instantiation.
+template <class Prepare>
+inline int once_per_device(int& ready, Prepare prepare) {
+  int device = 0;
+  int rc = (int)cudaGetDevice(&device);
+  if (rc != 0 || device == ready) return rc;
+  rc = prepare();
+  if (rc == 0) ready = device;
+  return rc;
+}
+
+template <class Kernel>
+inline int allow_smem(Kernel kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// The cluster kernel also checks that one cluster of 8 blocks with its
+// shared memory fits the card (cudaOccupancyMaxActiveClusters >= 1).
+template <int kLoad, int kStore>
+inline int launch_cluster(long long frames, const float* a, const float* a_im, float* out,
+                          float* out_im, const float2* tw, int log_n, cudaStream_t st) {
+  auto kernel = fft_cluster<kLoad, kStore>;
+  const dim3 grid((unsigned)(frames * Cl17::kBlocks));
+  static int ready = -1;
+  const int rc = once_per_device(ready, [&]() {
+    int err = allow_smem(kernel, Cl17::kSmem);
+    if (err != 0) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(Cl17::kThreads);
+    cfg.dynamicSmemBytes = Cl17::kSmem;
+    cfg.stream = st;
+    int clusters = 0;
+    err = (int)cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel),
+                                              &cfg);
+    if (err != 0) return err;
+    return clusters < 1 ? (int)cudaErrorInvalidConfiguration : 0;
+  });
+  if (rc != 0) return rc;
+  kernel<<<grid, Cl17::kThreads, Cl17::kSmem, st>>>(a, a_im, out, out_im, tw, log_n);
+  return (int)cudaGetLastError();
+}
+
+template <int kLoad, int L>
+inline int launch_cols_long(long long frames, int ncol, const float* a, const float* a_im,
+                            float2* y, const float2* tw, int log_n, cudaStream_t st) {
+  using G = LongTile<L>;
+  static int ready = -1;
+  const int rc = once_per_device(
+      ready, [] { return allow_smem(fft_cols_long<kLoad, L>, G::kSmemCols); });
+  if (rc != 0) return rc;
+  fft_cols_long<kLoad, L><<<(unsigned)(frames * (ncol / kTile)), G::kThreads, G::kSmemCols,
+                            st>>>(a, a_im, y, tw, log_n, ncol);
+  return (int)cudaGetLastError();
+}
+
+template <int kStore, int L>
+inline int launch_rows_long(long long frames, int rows, const float2* y, float* out,
+                            float* out_im, const float2* tw, int log_n, cudaStream_t st) {
+  using G = LongTile<L>;
+  constexpr int smem = G::smem_rows(kStore);
+  static int ready = -1;
+  const int rc =
+      once_per_device(ready, [] { return allow_smem(fft_rows_long<kStore, L>, smem); });
+  if (rc != 0) return rc;
+  fft_rows_long<kStore, L><<<(unsigned)(frames * (rows / kTile)), G::kThreads, smem, st>>>(
+      y, out, out_im, tw, log_n, rows);
+  return (int)cudaGetLastError();
+}
+
+// The whole transform of `frames` frames at M = 2^17..2^19 (plan p): loads
+// with kLoad (a, a_im), stores with kStore (out, out_im). `scratch` holds
+// frames * M float2 for kRouteLong and is not read for kRouteCluster.
+template <int kLoad, int kStore>
+inline int run_fft_large(const Plan& p, long long frames, const float* a, const float* a_im,
+                         float2* scratch, float* out, float* out_im, const float2* tw,
+                         cudaStream_t st) {
+  if (p.route == kRouteCluster && p.m == Cl17::kM)
+    return launch_cluster<kLoad, kStore>(frames, a, a_im, out, out_im, tw, p.log_n, st);
+  if (p.route != kRouteLong || p.l_first != 512 || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int rc = launch_cols_long<kLoad, 512>(frames, p.m / 512, a, a_im, scratch, tw,
+                                              p.log_n, st);
+  if (rc != 0) return rc;
+  const int rows = p.m / p.l_last;
+  if (p.l_last == 512)
+    return launch_rows_long<kStore, 512>(frames, rows, scratch, out, out_im, tw, p.log_n, st);
+  if (p.l_last == 1024)
+    return launch_rows_long<kStore, 1024>(frames, rows, scratch, out, out_im, tw, p.log_n, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace hst

@@ -1,24 +1,28 @@
 // K12: batched unscaled complex DFT along the last axis, split re/im planes
 // in and natural-order split planes out, N = 32..2^19 complex points.
 //
-// Replaces hisstools_library_tpu/fft/pallas_fft.py: fft_split (_cfft_kernel),
-// the TPU four-step whose two DFT stages run as MXU matmuls against N1 x N1
-// and N2 x N2 tables in VMEM for N = 2048..2^17 (other sizes go to the
-// XLA-staged matmul_fft there). On Hopper there are no DFT tables:
+// Replaces hisstools_library_tpu/fft/pallas_fft.py: fft_split (:856,
+// _cfft_kernel), the TPU four-step whose two DFT stages run as MXU matmuls
+// against N1 x N1 and N2 x N2 tables in VMEM for N = 2048..2^17 (other sizes
+// go to the XLA-staged matmul_fft there). On Hopper there are no DFT tables:
 //   N = 32..1024:    a block holds 2048 / N frames in shared memory and runs
 //                    smem_fft.cuh's radix-2 DIF passes, reading the result
 //                    back in bit-reversed order (as K10 does);
 //   N = 2048..2^16:  fft_common.cuh's two passes;
-//   N = 2^17..2^19:  its three passes.
-// The planes are the first pass's loader and the last pass's store, so no
+//   N = 2^17:        fft_large.cuh's one pass on an 8-block cluster, the
+//                    1 MB frame in the cluster's shared memory;
+//   N = 2^18..2^19:  fft_large.cuh's two passes of 512..1024-point sub-FFTs.
+// The planes are the first stage's loader and the last stage's store, so no
 // interleaved copy exists. The inverse (N x IDFT, hisstools_ifft) is this
 // forward with the planes swapped on the way in and out, which the wrapper
 // does by swapping pointers.
 //
-// Bound on the H100: HBM bytes. 8N in and 8N out per frame, plus 16N of
-// scratch per pass boundary (one with two passes, two with three): 2 x 0.13 GB
-// in and out at (128, 2^17), against ~5 N log2 N FP32 operations.
+// Bound on the H100: HBM bytes, 8N in and 8N out per frame (0.27 GB at the
+// path shape (128, 2^17), 0.08 ms at 3.35 TB/s), against ~5 N log2 N FP32
+// operations. The design's own traffic adds 16N of scratch for two passes
+// (N = 2048..2^16 and 2^18..2^19) and none at 2^17.
 #include "fft_common.cuh"
+#include "fft_large.cuh"
 #include "smem_fft.cuh"
 
 namespace {
@@ -55,8 +59,8 @@ cfft_small_kernel(const float* __restrict__ re, const float* __restrict__ im,
 }  // namespace
 
 // Twiddle table tw of 2N entries (the real-size table of fft_common.cuh);
-// scratch holds batch * N float2 (N = 2048..2^16) or twice that (2^17..2^19),
-// and is not read for N <= 1024.
+// scratch holds batch * N float2 (N = 2048..2^16 and 2^18..2^19), and is not
+// read for N <= 1024 and N = 2^17.
 extern "C" int hst_fft_split(const float* re, const float* im, float* out_re,
                              float* out_im, void* scratch, const void* tw,
                              long long batch, int n, void* stream) {
@@ -67,10 +71,14 @@ extern "C" int hst_fft_split(const float* re, const float* im, float* out_re,
     const unsigned blocks = (unsigned)((batch + rows - 1) / rows);
     cfft_small_kernel<<<blocks, kSmallThreads, 0, st>>>(re, im, out_re, out_im, w, batch,
                                                          hst::ilog2(n));
-  } else {
+  } else if (n <= (1 << 16)) {
     hst::run_fft<hst::kLoadSplit, hst::kStoreSplit>(
         hst::make_plan(2 * n), batch, re, im, static_cast<float2*>(scratch), out_re,
         out_im, w, 1, 1.f, st);
+  } else {
+    return hst::run_fft_large<hst::kLoadSplit, hst::kStoreSplit>(
+        hst::make_plan(2 * n), batch, re, im, static_cast<float2*>(scratch), out_re,
+        out_im, w, st);
   }
   return (int)cudaGetLastError();
 }

@@ -2,28 +2,29 @@
 // rifft(rfft(x)) = 2N x, (frames, N/2) packed planes -> (frames, N) samples.
 //
 // Replaces hisstools_library_tpu/fft/pallas_fft.py: _rifft_packed_split
-// (_rifft_stageA_kernel, _rifft_stageC_kernel and the XLA combine after them),
-// the TPU's chunked matmul inverse for sizes whose tables do not fit VMEM.
-// Here it is K6 (rifft_packed.cu) on fft_common.cuh's three passes: the first
-// pass's loader unpacks the packed planes (pairing bins k and M-k) and
-// conjugates, so the forward passes compute the inverse, and the last pass
-// stores every output, conjugated and unscaled. Both precision modes run it
-// at every size of the envelope (the TPU's "highest" falls back to matmul_fft
-// at 2^20).
+// (:775; _rifft_stageA_kernel :801, _rifft_stageC_kernel :830 and the XLA
+// combine after them), the TPU's chunked matmul inverse for sizes whose
+// tables do not fit VMEM. Both precision modes run it at every size of the
+// envelope (the TPU's "highest" falls back to matmul_fft at 2^20).
 //
 // Bound on the H100: HBM bytes, 4N in (two planes of N/2) and 4N out (1.07 GB
-// at (128, 2^20)); the two scratch frames add 4N written and 4N read each.
-#include "fft_common.cuh"
+// at (128, 2^20), 0.32 ms at 3.35 TB/s). Here it is K6 (rifft_packed.cu) on
+// fft_large.cuh's routes: the column stage's loader unpacks the packed planes
+// (pairing bins k and M-k, the partner read a second time, mostly from L2)
+// and conjugates, so the forward passes compute the inverse, and the row
+// stage stores every output, conjugated and unscaled. One pass on an 8-block
+// cluster at N = 2^18 (no scratch), two passes over one scratch frame at
+// 2^19..2^20.
+#include "fft_large.cuh"
 
 using namespace hst;
 
-// scratch holds 2 * frames * N/2 float2 (two scratch frames per transform).
+// scratch holds frames * N/2 float2 at N = 2^19..2^20 and is not read at 2^18.
 extern "C" int hst_rifft_packed_split(const float* re, const float* im, float* out,
                                       void* scratch, const void* tw,
                                       long long frames, int n, void* stream) {
-  run_fft<kLoadUnpack, kStoreFull>(make_plan(n), frames, re, im,
-                                   static_cast<float2*>(scratch), out, nullptr,
-                                   static_cast<const float2*>(tw), 1, 1.f,
-                                   static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  return run_fft_large<kLoadUnpack, kStoreFull>(make_plan(n), frames, re, im,
+                                                static_cast<float2*>(scratch), out, nullptr,
+                                                static_cast<const float2*>(tw),
+                                                static_cast<cudaStream_t>(stream));
 }

@@ -33,9 +33,13 @@ sends N = 32..2048 to K11, N = 4096..2^17 to K6 and N = 2^18..2^20 to K14, as
 the TPU package's ``rfft_packed`` / ``rifft_packed`` send their small sizes to
 ``_rfft_small`` / ``_rifft_small`` and their large ones to the split pairs.
 :func:`fft_split` (K12) serves complex N = 32..2^19: frames of up to 1024
-points in shared memory, 2048..2^16 in two passes and 2^17..2^19 in three
-passes over HBM scratch (``csrc/fft_common.cuh``, which K1, K2, K4, K6, K13
-and K14 share).
+points in shared memory, 2048..2^16 in two passes over an HBM scratch frame
+(``csrc/fft_common.cuh``, which K1, K2, K4 and K6 share), 2^17 in one pass
+on an 8-block thread-block cluster that holds the frame in its shared memory,
+and 2^18..2^19 in two passes of 512..1024-point sub-FFTs
+(``csrc/fft_large.cuh``, which K13 and K14 share at real 2^18..2^20).
+:func:`_plan` mirrors the kernels' plan, and the wrappers size their scratch
+from it: one frame per transform for two passes, none for the cluster.
 
 The windowed forms K10w and K11w (N = 32..2048, the STFT's frames) are
 instantiations of K10's and K11's kernels that multiply by the window in the
@@ -65,7 +69,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,7 +80,7 @@ from .hopper_kernels import lag_mac_causal, lag_mac_causal_plain, lag_mac_ring_p
 
 MIN_REAL_SIZE = 4096
 MAX_SINGLE_REAL = 1 << 17    # K1 / K6: two passes
-MAX_SPLIT_REAL = 1 << 20     # K13 / K14: three passes, N = 2^18..2^20
+MAX_SPLIT_REAL = 1 << 20     # K13 / K14: N = 2^18..2^20 (csrc/fft_large.cuh)
 MIN_COMPLEX = 32             # K12 serves complex N = 32..2^19
 MAX_COMPLEX_SMEM = 1024      # K12 in shared memory up to here
 MAX_COMPLEX = 1 << 19
@@ -115,7 +119,7 @@ def small_eligible(n: int) -> bool:
 
 
 def split_eligible(n: int) -> bool:
-    """True when the three-pass real kernels (K13/K14) serve size ``n``."""
+    """True when the large real kernels (K13/K14) serve size ``n``."""
     return MAX_SINGLE_REAL < n <= MAX_SPLIT_REAL and (n & (n - 1)) == 0
 
 
@@ -155,7 +159,7 @@ def _check(kernel: str, n: int, *tensors: torch.Tensor) -> None:
                        "N < 32")
         elif n <= MAX_SPLIT_REAL:
             missing = ("K13/K14 serve N = 2^18..2^20 through rfft_packed / "
-                       "rifft_packed; a three-pass form of this kernel")
+                       "rifft_packed; a large form of this kernel")
         else:
             missing = LARGE_MISSING
         raise NotImplementedError(
@@ -165,7 +169,7 @@ def _check(kernel: str, n: int, *tensors: torch.Tensor) -> None:
 
 
 def _check_split(kernel: str, n: int, *tensors: torch.Tensor) -> None:
-    """Raise unless the three-pass real kernel takes these tensors at ``n``."""
+    """Raise unless the large real kernel takes these tensors at ``n``."""
     if not split_eligible(n):
         missing = (LARGE_MISSING + " not yet ported" if n > MAX_SPLIT_REAL else
                    "rfft_packed / rifft_packed serve smaller sizes through K1/K6 "
@@ -182,12 +186,43 @@ def _check_small(kernel: str, n: int) -> None:
             f"{kernel}: serves N = {SMALL_MIN_REAL}..{MIN_REAL_SIZE // 2}, got N = {n}")
 
 
-def _scratch(frames: int, m: int, device) -> torch.Tensor:
+class Plan(NamedTuple):
+    """How the multi-pass core serves one complex size M."""
+    route: str                # "two-pass", "cluster" or "two-pass-long"
+    lengths: Tuple[int, int]  # (column, row) sub-FFT lengths: columns of
+                              # lengths[0] points, rows of lengths[1]
+    hbm_passes: int           # times the frame goes through HBM
+    scratch_frames: int       # HBM scratch frames of M float2 per transform
+
+
+def _plan(n: int) -> Plan:
+    """The plan of ``make_plan`` (``csrc/fft_common.cuh``) for real size
+    ``n``, complex M = n / 2 = 2048..2^19: two passes of sub-FFTs <= 256 up
+    to M = 2^16; one pass on an 8-block cluster at 2^17 (512-point columns,
+    256-point rows); two passes of 512-point columns and 512- or 1024-point
+    rows at 2^18..2^19."""
+    lm = int(n).bit_length() - 2
+    if n & (n - 1) or not 11 <= lm <= 19:
+        raise ValueError(f"the multi-pass core serves complex M = 2^11..2^19, got n = {n}")
+    if lm <= 16:
+        return Plan("two-pass", (1 << (lm - lm // 2), 1 << (lm // 2)), 2, 1)
+    if lm == 17:
+        return Plan("cluster", (512, 256), 1, 0)
+    return Plan("two-pass-long", (512, 1 << (lm - 9)), 2, 1)
+
+
+def _scratch(frames: int, m: int, device) -> Optional[torch.Tensor]:
     """HBM scratch of the multi-pass core for ``frames`` complex transforms
-    of M = ``m`` points: one frame of M float2 each with two passes (M <=
-    2^16), two with three."""
-    frames_per = 2 if m > MAX_SINGLE_REAL // 2 else 1
-    return torch.empty(frames_per * frames, 2 * m, dtype=torch.float32, device=device)
+    of M = ``m`` points, as :func:`_plan` sizes it: one frame of M float2
+    each with two passes, None on the cluster (M = 2^17)."""
+    per = _plan(2 * m).scratch_frames
+    if per == 0:
+        return None
+    return torch.empty(per * frames, 2 * m, dtype=torch.float32, device=device)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 # -----------------------------------------------------------------------------
@@ -488,7 +523,7 @@ def rfft_packed_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return re, im
     scratch = _scratch(b, n // 2, x.device)
     rc = _build.load().hst_rfft_packed_split(
-        x.data_ptr(), re.data_ptr(), im.data_ptr(), scratch.data_ptr(),
+        x.data_ptr(), re.data_ptr(), im.data_ptr(), _ptr(scratch),
         _twiddles(n, x.device).data_ptr(), b, n, _build.stream(x.device))
     _build.check(rc, kernel)
     rfft_packed_split.launches += 1
@@ -515,7 +550,7 @@ def rifft_packed_split(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
         return out
     scratch = _scratch(b, n // 2, re.device)
     rc = _build.load().hst_rifft_packed_split(
-        re.data_ptr(), im.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        re.data_ptr(), im.data_ptr(), out.data_ptr(), _ptr(scratch),
         _twiddles(n, re.device).data_ptr(), b, n, _build.stream(re.device))
     _build.check(rc, kernel)
     rifft_packed_split.launches += 1
@@ -555,7 +590,7 @@ def fft_split(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
     scratch = None if n <= MAX_COMPLEX_SMEM else _scratch(b, n, re.device)
     rc = _build.load().hst_fft_split(
         src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(), dst[1].data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
+        _ptr(scratch),
         _twiddles(2 * n, re.device).data_ptr(), b, n, _build.stream(re.device))
     _build.check(rc, kernel)
     fft_split.launches += 1
@@ -690,14 +725,11 @@ def _chain_launch(kernel: str, x2d, h_re, h_im, scale, prev=None, ring=None, lag
     if ring_floats2:
         gring = torch.empty(c, ring_floats2, 2, dtype=torch.float32, device=x2d.device)
 
-    def ptr(a):
-        return None if a is None else a.data_ptr()
-
     rc = lib.hst_fastfir_chain(
-        x2d.data_ptr(), ptr(prev), ptr(ring and ring[0]), ptr(ring and ring[1]),
-        h_re.data_ptr(), h_im.data_ptr(), hcs, ptr(l0_re), ptr(l0_im), lcs, y.data_ptr(),
-        ptr(new_ring and new_ring[0]), ptr(new_ring and new_ring[1]), scratch.data_ptr(),
-        ptr(gring), _twiddles(n, x2d.device).data_ptr(), c, t, p, n, float(scale),
+        x2d.data_ptr(), _ptr(prev), _ptr(ring and ring[0]), _ptr(ring and ring[1]),
+        h_re.data_ptr(), h_im.data_ptr(), hcs, _ptr(l0_re), _ptr(l0_im), lcs, y.data_ptr(),
+        _ptr(new_ring and new_ring[0]), _ptr(new_ring and new_ring[1]), scratch.data_ptr(),
+        _ptr(gring), _twiddles(n, x2d.device).data_ptr(), c, t, p, n, float(scale),
         _build.stream(x2d.device))
     _build.check(rc, kernel)
     return y, new_ring

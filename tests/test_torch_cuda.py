@@ -7,8 +7,8 @@ imports jax, so run it there with
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance: >= 120 dB SNR for each kernel against its plain version (float32
-sums taken in another order give ~130 dB; >= 110 dB for the three-pass K12,
-K13 and K14, whose sums run over 2^17..2^20 points), >= 110 dB for the
+sums taken in another order give ~130 dB; >= 110 dB for K12, K13 and K14
+above 2^16 points, whose sums run over 2^17..2^20 points), >= 110 dB for the
 FastFIR chain and the streaming engines against the CPU path, >= 100 dB for
 the streaming engines and the spectral ops and >= 120 dB for
 the time-domain FIR against float64 (a TF32 convolution would give ~60 dB).
@@ -509,12 +509,26 @@ SPECTRAL_CASES = [
     ("rifft_packed_split", (3, 1 << 18), None), ("rifft_packed_split", (1, 1 << 19), None),
     ("rifft_packed_split", (2, 1 << 20), None),
 ]
+# The edges of the large routes (csrc/fft_large.cuh): K12 on the cluster at
+# complex 2^17 (one frame, a few, 129: more clusters than fit at once) and
+# in two long passes at 2^18 and 2^19, both directions; K13 and K14 on the
+# cluster at real 2^18 and in two long passes at 2^19 and 2^20.
+SPECTRAL_CASES += [("fft_split", shape, inverse)
+                   for shape in [(1, 1 << 17), (3, 1 << 17), (129, 1 << 17), (2, 1 << 18),
+                                 (3, 1 << 19)]
+                   for inverse in (False, True)
+                   if ("fft_split", shape, inverse) not in SPECTRAL_CASES]
+SPECTRAL_CASES += [(name, shape, None)
+                   for name in ("rfft_packed_split", "rifft_packed_split")
+                   for shape in [(1, 1 << 18), (5, 1 << 18), (3, 1 << 19), (3, 1 << 20)]
+                   if (name, shape, None) not in SPECTRAL_CASES]
 
 
 @pytest.mark.parametrize("name,shape,inverse", SPECTRAL_CASES)
 def test_spectral_kernel_matches_plain(cuda, name, shape, inverse):
-    """K12 in shared memory, two and three passes, forward and inverse; K13
-    and K14 at every size of their envelope (three passes)."""
+    """K12 in shared memory, two passes, on the cluster and in two long
+    passes, forward and inverse; K13 and K14 at every size of their envelope
+    (the cluster at 2^18, two long passes above)."""
     fn = getattr(hopper_fft, name)
     g = torch.Generator(device=cuda).manual_seed(3)
     b, n = shape
@@ -535,6 +549,34 @@ def test_spectral_kernel_matches_plain(cuda, name, shape, inverse):
         assert gt.shape == w.shape and gt.device.type == "cuda"
         assert bool(torch.isfinite(gt).all())
         assert snr_db(w.cpu().numpy(), gt.cpu().numpy()) >= floor
+
+
+@pytest.mark.parametrize("n", [1 << 18, 1 << 20])
+def test_packed_split_round_trip(cuda, n):
+    """K14(K13(x)) = 2N x to >= 110 dB, on the cluster (2^18) and in two
+    long passes (2^20)."""
+    x = torch.randn(2, n, generator=torch.Generator(device=cuda).manual_seed(4), device=cuda)
+    y = hopper_fft.rifft_packed_split(*hopper_fft.rfft_packed_split(x))
+    torch.cuda.synchronize()
+    assert snr_db((2 * n * x).cpu().numpy(), y.cpu().numpy()) >= SNR_CHAIN_DB
+
+
+@pytest.mark.parametrize("n,scratch_frames", [(1 << 18, 0), (1 << 20, 1)])
+def test_packed_split_memory(cuda, n, scratch_frames):
+    """K13 at (8, n) raises the peak allocation by its output and, with two
+    passes (2^20), one scratch frame (N/2 float2) per transform; on the
+    cluster (2^18) by its output alone."""
+    b = 8
+    x = torch.randn(b, n, device=cuda)
+    hopper_fft.rfft_packed_split(x)  # the twiddle table, cached for the size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = hopper_fft.rfft_packed_split(x)
+    torch.cuda.synchronize()
+    out_bytes = 2 * b * (n // 2) * 4
+    assert sum(t.numel() * 4 for t in out) == out_bytes
+    assert torch.cuda.max_memory_allocated() - base <= out_bytes + scratch_frames * b * 4 * n
 
 
 SPECTRAL_PATHS = {
