@@ -74,7 +74,8 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
     rifft_small_windowed) with their plain versions: K10w on the STFT's
     frames as the strided ``unfold`` view of the 128 x 10 s padded signal
     (938 frames of 1024, hop 512) and of the pipeline's 2^18-sample IR, on
-    (3, 256) and with hop 341; K11w at the same shapes;
+    (3, 256), with hop 341 (also from a base one float into the signal) and
+    at N = 32 and 2048; K11w at (3, 256), (2, 9, 1024) and the path shapes;
 17. runs the STFT round trip as ``bench.py``'s ``stft`` mode configures it:
     128 channels x 479 744 samples from seed 0, ``windows.hann(1023)``, N =
     1024, hop 512, ``boundary=True`` (K10w and K11w must launch); channel 0
@@ -1172,17 +1173,19 @@ def windowed_kernels(randn, mods, smi) -> dict:
     """Phase 16: K10w and K11w. Path shapes: the STFT's 128 x 938 frames of
     1024 (hop 512), read as the ``unfold`` view of the padded 128 x 480 768
     signal, and the pipeline's 511 frames of its 2^18-sample IR; K11w on
-    spectra of those shapes. Small shapes: (3, 256) contiguous frames, and
-    9 frames of 1024 at the odd hop 341."""
+    spectra of those shapes. Small shapes: (3, 256) contiguous frames, 9
+    frames of 1024 at the odd hop 341, the same frames with the view's base
+    one float into its signal (K10w's scalar loader), and 11 frames of 32 /
+    6 frames of 2048 at hop N/2."""
     def window(n, like):
         return torch.from_numpy(_hann64(n).astype(np.float32)).to(like.device)
 
-    def frames(c, t, n, hop):
+    def frames(c, t, n, hop, base=0):
         def make():
             if hop is None:  # contiguous frames
                 f = randn(t, n)
             else:
-                f = randn(c, (t - 1) * hop + n).unfold(-1, n, hop)
+                f = randn(c, base + (t - 1) * hop + n)[:, base:].unfold(-1, n, hop)
             return (f, window(n, f)), {}
         return make
 
@@ -1197,6 +1200,9 @@ def windowed_kernels(randn, mods, smi) -> dict:
     return check_kernels([
         ("rfft_small_windowed", [(frames(None, 3, 256, None), False),
                                  (frames(2, 9, 1024, 341), False),
+                                 (frames(2, 9, 1024, 341, base=1), False),
+                                 (frames(3, 11, 32, 16), False),
+                                 (frames(2, 6, 2048, 1024), False),
                                  (frames(CHANNELS, t_stft, STFT_N, STFT_HOP), True),
                                  (frames(1, t_pipe, STFT_N, STFT_HOP), True)]),
         ("rifft_small_windowed", [(spectra((3,), 256), False), (spectra((2, 9), 1024), False),
@@ -1557,6 +1563,8 @@ def main() -> None:
                 entry = line.split("'")[1]
             elif "Used" in line and "registers" in line:
                 print(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}")
+            elif "spill" in line and not line.strip().startswith("0 bytes stack"):
+                print(f"  ptxas {entry}: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(1)
 

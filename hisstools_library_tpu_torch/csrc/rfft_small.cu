@@ -9,99 +9,169 @@
 // with the packing (and the window, a diagonal factor) baked into the tables,
 // and a fold to serve N = 2048 inside VMEM; the windowed form leaves N = 2048
 // out because the fold does not commute with a window. On Hopper a dense DFT
-// would do N/log2(N) times the work of an FFT on the FP32 units, and a frame
-// of at most 1024 complex points (8 KB) fits shared memory whole, so no table
-// and no fold: each block holds kRows = 2048 / M frames (M = N/2 complex
-// points, 16 KB), runs the radix-2 passes of smem_fft.cuh over all of them,
-// and packs (x2 scale, DC in re[0], Nyquist in im[0]) in the store. Both
-// forms serve N = 32..2048; they differ only in the loader.
+// would do N/log2(N) times the work of an FFT on the FP32 units, so no table
+// and no fold: the M = N/2-point complex FFT of z[n] = x[2n] + i x[2n+1] runs
+// on the register-DFT core of reg_fft.cuh (16 points a thread, radix-16
+// stages, one shared-memory exchange between stages), and the split step
+// pairs bins k and M-k from the natural-order spectrum in shared memory and
+// stores both (x2 scale, DC in re[0], Nyquist in im[0]). Both forms serve
+// N = 32..2048; they differ only in the loader.
 //
-// K10 loads contiguous (batch, N) rows as float2 pairs. K10w multiplies each
-// sample by w[t] (a float32 copy of the float64 host window) in the loader
-// and reads its frames in place: frame (b, t) starts at x + b * outer_stride
-// + t * row_stride, so the STFT passes the padded signal's `unfold` view (row
-// stride = hop) and no frame buffer exists. K10w's loader reads scalars, not
-// float2 pairs, so any hop (odd ones included, e.g. 341) and any base
-// alignment serve; the two 4-byte loads of a thread hit the same 32-byte
-// sectors as a float2 load would.
+// Frame (b, t) starts at x + b * outer_stride + t * row_stride: K10w passes
+// the padded signal's `unfold` view (row stride = hop), so no frame buffer
+// exists; K10 passes contiguous rows. Thread tf of a frame always loads the
+// points tf + T*m (m < 16), so K10w keeps its 32 window values in registers
+// for every frame it takes. The loader reads float2 pairs when the base
+// pointer is 8-byte aligned and both strides are even, and scalars otherwise
+// (a second instantiation chosen per launch), so any hop (odd ones included,
+// e.g. 341) and any base offset serve. Each block takes a run of consecutive
+// rounds of F frames (one block a resident slot, the rounds split evenly), so
+// the 50% overlap of the STFT's hop 512 is read again from L1 / L2, not HBM.
 //
 // Bound on the H100: HBM bytes. K10: 8 bytes in and 8 out per complex point
 // (12 MB at the IR preparation's 384 rows of N = 256, 1024). K10w: the
 // signal the frames cover, read once however many frames hold a sample, and
 // the packed spectra written once: 246 MB + 492 MB at the STFT's 128 x 938
 // frames of 1024 (hop 512), 0.22 ms at 3.35 TB/s.
-#include "smem_fft.cuh"
+#include <cstdint>
+
+#include "reg_fft.cuh"
 
 namespace {
 
-constexpr int kPoints = 2048;          // complex points per block (all rows)
-constexpr int kThreads = 256;
-constexpr int kMaxRows = kPoints / 16;  // N = 32: 128 frames a block
+using hst_reg::kR;
+using hst_reg::kThreads;
 
-template <bool kWindowed>
-__global__ void __launch_bounds__(kThreads)
+template <int LOG_M, bool kWindowed, bool kPairs>
+__global__ void __launch_bounds__(kThreads, 2)
 rfft_small_kernel(const float* __restrict__ x, long long outer_stride,
                   long long row_stride, long long t, const float* __restrict__ w,
                   float* __restrict__ re, float* __restrict__ im,
-                  const float2* __restrict__ tw, long long batch, int log_n) {
-  using namespace hst_smem;
-  __shared__ float2 a[kPoints];
-  __shared__ long long base[kWindowed ? kMaxRows : 1];
-  const int log_m = log_n - 1;
-  const int m = 1 << log_m;
-  const int rows = kPoints >> log_m;
-  const long long row0 = (long long)blockIdx.x * rows;
+                  const float2* __restrict__ tw, long long batch) {
+  using P = hst_reg::Plan<LOG_M>;
+  constexpr int M = P::kM, T = P::kT, F = P::kFrames;
+  __shared__ float2 buf[F * P::kLd];
+  __shared__ float2 stw[M];
+  const int f = threadIdx.x / T;
+  const int tf = threadIdx.x % T;
+  float2* fb = buf + f * P::kLd;
+  for (int i = threadIdx.x; i < M; i += kThreads) stw[i] = __ldg(&tw[i]);
+  float2 wr[kWindowed ? kR : 1];
   if constexpr (kWindowed) {
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-      const long long row = row0 + r;
-      base[r] = row < batch ? (row / t) * outer_stride + (row % t) * row_stride : -1;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kPoints; i += blockDim.x) {
-      const int r = i >> log_m;
-      const int k = i & (m - 1);
-      float2 v = make_float2(0.f, 0.f);
-      if (base[r] >= 0) {
-        const float* f = x + base[r] + 2 * k;
-        v = make_float2(__ldg(f) * __ldg(&w[2 * k]), __ldg(f + 1) * __ldg(&w[2 * k + 1]));
-      }
-      a[i] = v;
-    }
-  } else {
-    const float2* x2 = reinterpret_cast<const float2*>(x);
-    for (int i = threadIdx.x; i < kPoints; i += blockDim.x) {
-      const long long row = row0 + (i >> log_m);
-      a[i] = row < batch ? x2[row0 * m + i] : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int m = 0; m < kR; ++m) {
+      const int i = 2 * (tf + m * T);
+      wr[m] = make_float2(__ldg(&w[i]), __ldg(&w[i + 1]));
     }
   }
   __syncthreads();
-  dif(a, log_m, rows, tw, log_n);
-  for (int i = threadIdx.x; i < kPoints; i += blockDim.x) {
-    const int r = i >> log_m;
-    const int k = i & (m - 1);
-    const long long row = row0 + r;
-    if (row >= batch) continue;
-    const float2* ar = a + (r << log_m);
-    const float2 zk = ar[brev(k, log_m)];
-    const float2 p = k == 0 ? pack_bin0(zk)
-                            : pack_bin(zk, ar[brev(m - k, log_m)], __ldg(&tw[k]));
-    re[row * m + k] = p.x;
-    im[row * m + k] = p.y;
+  const long long rounds = (batch + F - 1) / F;
+  const long long r0 = (long long)blockIdx.x * rounds / gridDim.x;
+  const long long r1 = (long long)(blockIdx.x + 1) * rounds / gridDim.x;
+  for (long long rd = r0; rd < r1; ++rd) {
+    const long long row = rd * F + f;
+    const bool live = row < batch;
+    const long long base = live ? (row / t) * outer_stride + (row % t) * row_stride : 0;
+    float2 v[kR];
+#pragma unroll
+    for (int m = 0; m < kR; ++m) {
+      const int i = tf + m * T;
+      float2 p = make_float2(0.f, 0.f);
+      if (live) {
+        if constexpr (kPairs) {
+          p = __ldg(reinterpret_cast<const float2*>(x + base) + i);
+        } else {
+          p = make_float2(__ldg(x + base + 2 * i), __ldg(x + base + 2 * i + 1));
+        }
+      }
+      if constexpr (kWindowed) p = make_float2(p.x * wr[m].x, p.y * wr[m].y);
+      v[m] = p;
+    }
+    hst_reg::Stages<LOG_M>::run(v, fb, tf, stw);
+    if (!live) continue;
+    float* re_row = re + row * M;
+    float* im_row = im + row * M;
+    for (int k = tf; k <= M / 2; k += T) {
+      const float2 zk = fb[hst_reg::pad(k)];
+      if (k == 0) {
+        const float2 p0 = hst_smem::pack_bin0(zk);
+        re_row[0] = p0.x;
+        im_row[0] = p0.y;
+        continue;
+      }
+      const float2 zm = fb[hst_reg::pad(M - k)];
+      const float2 pk = hst_smem::pack_bin(zk, zm, stw[k]);
+      re_row[k] = pk.x;
+      im_row[k] = pk.y;
+      if (k != M - k) {
+        const float2 pm = hst_smem::pack_bin(zm, zk, stw[M - k]);
+        re_row[M - k] = pm.x;
+        im_row[M - k] = pm.y;
+      }
+    }
   }
+}
+
+// Blocks of `kernel` resident on one SM at once (at least 1).
+int blocks_per_sm(const void* kernel) {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, 0) != cudaSuccess)
+    return 1;
+  return n < 1 ? 1 : n;
+}
+
+// One block a resident slot of the card, capped at the rounds of F frames.
+template <int LOG_M, bool kWindowed, bool kPairs>
+int launch_m(const float* x, long long outer_stride, long long row_stride, long long t,
+             const float* w, float* re, float* im, const float2* tw, long long batch,
+             cudaStream_t stream) {
+  constexpr int F = hst_reg::Plan<LOG_M>::kFrames;
+  auto kernel = rfft_small_kernel<LOG_M, kWindowed, kPairs>;
+  static const int per_sm = blocks_per_sm(reinterpret_cast<const void*>(kernel));
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long rounds = (batch + F - 1) / F;
+  const long long slots = (long long)per_sm * (sms < 1 ? 1 : sms);
+  const unsigned blocks = (unsigned)(rounds < slots ? rounds : slots);
+  kernel<<<blocks, kThreads, 0, stream>>>(x, outer_stride, row_stride, t, w, re, im, tw,
+                                          batch);
+  return (int)cudaGetLastError();
+}
+
+template <bool kWindowed, bool kPairs>
+int launch_pairs(const float* x, long long outer_stride, long long row_stride, long long t,
+                 const float* w, float* re, float* im, const float2* tw, long long batch,
+                 int n, cudaStream_t stream) {
+#define HST_SMALL_CASE(LM)                                                          \
+  case LM:                                                                          \
+    return launch_m<LM, kWindowed, kPairs>(x, outer_stride, row_stride, t, w, re, im, \
+                                           tw, batch, stream);
+  switch (hst_reg::log2_c(n) - 1) {
+    HST_SMALL_CASE(4)
+    HST_SMALL_CASE(5)
+    HST_SMALL_CASE(6)
+    HST_SMALL_CASE(7)
+    HST_SMALL_CASE(8)
+    HST_SMALL_CASE(9)
+    HST_SMALL_CASE(10)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef HST_SMALL_CASE
 }
 
 template <bool kWindowed>
 int launch(const float* x, long long outer_stride, long long row_stride, long long t,
            const float* w, float* re, float* im, const void* tw, long long batch, int n,
            void* stream) {
-  int log_n = 0;
-  while ((1 << (log_n + 1)) <= n) ++log_n;
-  const int rows = kPoints / (n / 2);
-  const unsigned blocks = (unsigned)((batch + rows - 1) / rows);
-  rfft_small_kernel<kWindowed><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, outer_stride, row_stride, t, w, re, im, static_cast<const float2*>(tw), batch,
-      log_n);
-  return (int)cudaGetLastError();
+  const bool pairs = (reinterpret_cast<uintptr_t>(x) & 7) == 0 && outer_stride % 2 == 0 &&
+                     row_stride % 2 == 0;
+  const float2* tw2 = static_cast<const float2*>(tw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return pairs ? launch_pairs<kWindowed, true>(x, outer_stride, row_stride, t, w, re, im,
+                                               tw2, batch, n, s)
+               : launch_pairs<kWindowed, false>(x, outer_stride, row_stride, t, w, re, im,
+                                                tw2, batch, n, s);
 }
 
 }  // namespace
@@ -110,7 +180,7 @@ int launch(const float* x, long long outer_stride, long long row_stride, long lo
 extern "C" int hst_rfft_small(const float* x, float* re, float* im,
                               const void* tw, long long batch, int n,
                               void* stream) {
-  return launch<false>(x, 0, 0, 1, nullptr, re, im, tw, batch, n, stream);
+  return launch<false>(x, n, 0, 1, nullptr, re, im, tw, batch, n, stream);
 }
 
 // x: frame (b, t) at x + b * outer_stride + t * row_stride (floats), b < batch / t;

@@ -1,6 +1,7 @@
 // Shared-memory FFT core for the transforms whose frame fits one block
-// (K9 hop_fire, K10 / K10w rfft_small, K11 / K11w rifft_small, K12 fft_split
-// up to 1024 points).
+// (K9 hop_fire, K11 / K11w rifft_small, K12 fft_split up to 1024 points; its
+// split-step helpers pack_bin / pack_bin0 also serve K10 / K10w, which run on
+// the register-DFT core reg_fft.cuh).
 //
 // A real transform of length N is an M = N/2 point complex FFT of
 // z[n] = x[2n] + i x[2n+1] plus the split step that pairs bins k and M-k

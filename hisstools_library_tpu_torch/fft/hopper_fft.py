@@ -44,7 +44,9 @@ from it: one frame per transform for two passes, none for the cluster.
 The windowed forms K10w and K11w (N = 32..2048, the STFT's frames) are
 instantiations of K10's and K11's kernels that multiply by the window in the
 loader and the store; K10w reads its frames in place from a strided view (the
-padded signal's ``unfold``).
+padded signal's ``unfold``). K10 and K10w run on the register-DFT core
+``csrc/reg_fft.cuh`` (16 points a thread, radix-16 stages, one shared-memory
+exchange between stages); :func:`_small_plan` mirrors its plan.
 
 The FastFIR chain family (``csrc/fastfir_chain.cu``) serves K5
 (:func:`fastfir_chain`, N = 2^14..2^17, any P) and K8
@@ -209,6 +211,33 @@ def _plan(n: int) -> Plan:
     if lm == 17:
         return Plan("cluster", (512, 256), 1, 0)
     return Plan("two-pass-long", (512, 1 << (lm - 9)), 2, 1)
+
+
+SMALL_POINTS = 16    # K10 / K10w: points a thread holds (csrc/reg_fft.cuh kR)
+SMALL_THREADS = 256  # threads a block
+
+
+class SmallPlan(NamedTuple):
+    """How the register-DFT core (``csrc/reg_fft.cuh``) serves one frame of
+    complex size M = N/2 in K10 and K10w."""
+    radices: Tuple[int, ...]  # Stockham stages, radix 16 then the remainder
+    threads_per_frame: int    # T = M / 16
+    warps_per_frame: int      # 1 up to M = 512 (32 / T frames a warp), 2 at 1024
+    frames_per_block: int     # F = 256 / T
+    shared_bytes: int         # F padded frames (M + M/16 float2) and M twiddles
+
+
+def _small_plan(n: int) -> SmallPlan:
+    """The plan of ``hst_reg::Plan`` for real size ``n`` = 32..2048."""
+    if not small_eligible(n):
+        raise ValueError(f"the register-DFT core serves N = {SMALL_MIN_REAL}.."
+                         f"{MIN_REAL_SIZE // 2}, got n = {n}")
+    lm = n.bit_length() - 2
+    m = 1 << lm
+    radices = (16,) * (lm // 4) + ((1 << (lm % 4),) if lm % 4 else ())
+    t = m // SMALL_POINTS
+    frames = SMALL_THREADS // t
+    return SmallPlan(radices, t, -(-t // 32), frames, 8 * (frames * (m + m // 16) + m))
 
 
 def _scratch(frames: int, m: int, device) -> Optional[torch.Tensor]:

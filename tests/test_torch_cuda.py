@@ -264,6 +264,8 @@ def _stream_inputs(name, shape, dev):
 STREAM_CASES = [
     ("rfft_small", (384, 32)), ("rfft_small", (385, 128)), ("rfft_small", (384, 256)),
     ("rfft_small", (7, 1024)), ("rfft_small", (384, 2048)),
+    # the other sizes, 2F + 3 rows (F frames a block, hopper_fft._small_plan)
+    ("rfft_small", (259, 64)), ("rfft_small", (35, 512)),
     ("lag_mac_ring", (2, 1, 3, 128)), ("lag_mac_ring", (2, 3, 3, 1024)),
     ("lag_mac_ring", (3, 4, 14, 4096)),
     ("fastfir_chain_stream", (2, 3, 2, 1 << 14, True)),
@@ -638,7 +640,11 @@ def test_ir_deconvolve_on_cuda(cuda):
 # (frames as (C, T, N) strided views of (C, (T-1) hop + N) signals, or a
 # contiguous (B, N) batch when hop is None)
 WINDOWED_CASES = [(3, 256, None, 1), (2, 1024, 341, 9), (128, 1024, 512, 938),
-                  (5, 32, 7, 11), (3, 2048, 1024, 6), (4, 128, 64, 1)]
+                  (5, 32, 7, 11), (3, 2048, 1024, 6), (4, 128, 64, 1),
+                  # hop >= N; one frame of a view; frame counts that are not a
+                  # multiple of the frames a block holds (hopper_fft._small_plan)
+                  (2, 256, 300, 5), (3, 64, 64, 3), (1, 2048, 1024, 1), (3, 512, 256, 7),
+                  (1, 1024, 1500, 4)]
 
 
 def _window(n, dev):
@@ -668,6 +674,31 @@ def test_windowed_kernels_match_plain(cuda, c, n, hop, t):
     for gt, wt in list(zip(got, want)) + [(back, back_want)]:
         assert gt.shape == wt.shape and gt.device.type == "cuda"
         assert bool(torch.isfinite(gt).all())
+        assert snr_db(wt.cpu().numpy(), gt.cpu().numpy()) >= SNR_KERNEL_DB
+
+
+# (N, hop, frames a channel, extra floats a channel): the view's base at an
+# odd float offset, with an even and an odd channel stride.
+ODD_BASE_CASES = [(32, 16, 5, 0), (256, 128, 3, 1), (1024, 512, 9, 0), (1024, 341, 4, 1),
+                  (2048, 1024, 3, 0)]
+
+
+@pytest.mark.parametrize("n,hop,t,extra", ODD_BASE_CASES)
+def test_windowed_kernel_reads_odd_base(cuda, n, hop, t, extra):
+    """K10w on frames that start one float into their signal (the scalar
+    loader: no float2 pair is 8-byte aligned)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    sig = torch.randn(3, 1 + (t - 1) * hop + n + extra, generator=g, device=cuda)
+    frames = sig[:, 1:1 + (t - 1) * hop + n].unfold(-1, n, hop)
+    assert frames.storage_offset() % 2 == 1
+    w = _window(n, cuda)
+    before = hopper_fft.rfft_small_windowed.launches
+    got = hopper_fft.rfft_small_windowed(frames, w)
+    want = hopper_fft.rfft_small_windowed_plain(frames, w)
+    torch.cuda.synchronize()
+    assert hopper_fft.rfft_small_windowed.launches == before + 1
+    for gt, wt in zip(got, want):
+        assert gt.shape == wt.shape and bool(torch.isfinite(gt).all())
         assert snr_db(wt.cpu().numpy(), gt.cpu().numpy()) >= SNR_KERNEL_DB
 
 
