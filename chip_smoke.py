@@ -10,9 +10,11 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
    seconds it took;
 3. compares each kernel of the FastFIR path (K1-K4, K5 fastfir_chain) with
    its plain PyTorch version on the card, at the main path's shapes and at
-   N = 4096; K5 also at (2, 5, P 7, 2^14), (2, 3, P 2, 2^17), T = 1 and a P
-   beyond shared memory, with the staged K2 -> K3 -> K4 timed beside it on
-   the main path's inputs;
+   N = 4096; K1 also at (128, N) for every N = 4096..2^17, each with its
+   device and event ms, bound, ``torch.fft.rfft`` ms and the frames its
+   one-pass route holds on the card at once; K5 also at (2, 5, P 7, 2^14),
+   (2, 3, P 2, 2^17), T = 1 and a P beyond shared memory, with the staged
+   K2 -> K3 -> K4 timed beside it on the main path's inputs;
 4. drives the main path: ``FastFIR`` at 128 channels x 480 000 taps (a 10 s
    IR at 48 kHz, N = 2^16) built from seed 0 as ``bench.py`` builds it, then
    three ``apply`` calls on the 128 x 483 328 signal (K1 and K5 must launch,
@@ -471,7 +473,9 @@ def phase_ms(fn, smi: str, label: str, runs: int = 5) -> dict:
 
 
 def fastfir_kernels(randn, mods, smi) -> dict:
-    """Phase 3: K1-K5 at the main path's shapes and at N = 4096. Main path:
+    """Phase 3: K1-K5 at the main path's shapes and at N = 4096; K1 also at
+    128 frames of every N = 4096..2^17, with its one-pass route's frames
+    resident at once beside each shape's times. Main path:
     N = 2^16, hop H = 32 768, C = 128 channels, T = ceil((SIG_LEN + H) / H)
     = 16 hops, P = ceil(IR_LEN / H) = 15 partitions, min(P, T - 1) = 15 lags.
     The small shape (N = 4096) has more partitions than hops. K5 also at
@@ -505,17 +509,32 @@ def fastfir_kernels(randn, mods, smi) -> dict:
         return lambda: ((randn(c, t, k), randn(c, p, k) * 1e-3, randn(c, p, k) * 1e-3,
                          1.0 / (4.0 * n)), {})
 
+    def k1(b, n):
+        return lambda: ((randn(b, n),), {})
+
     lags = min(p_main, t_main - 1)
     results = check_kernels(
-        [(name, [inputs(name, 4096, False), inputs(name, n_main, True)])
-         for name in ("rfft_packed", "rfft_packed_stream", "lag_mac_causal",
-                      "rifft_packed_tail")]
+        [("rfft_packed", [inputs("rfft_packed", 4096, False),
+                          inputs("rfft_packed", n_main, True)]
+          + [(k1(CHANNELS, 1 << e), True) for e in range(12, 18)])]
+        + [(name, [inputs(name, 4096, False), inputs(name, n_main, True)])
+           for name in ("rfft_packed_stream", "lag_mac_causal", "rifft_packed_tail")]
         + [("fastfir_chain", [(chain(CHANNELS, t_main, lags, n_main), True),
                               (chain(2, 5, 7, 1 << 14), False),
                               (chain(2, 3, 2, 1 << 17), False),
                               (chain(2, 2, 1, n_main), False),
                               (chain(2, 3, 60, n_main), False)])], mods, smi)
     hf = mods["hopper_fft"]
+    for e in results["rfft_packed"]["shapes"]:
+        if "ms" not in e:
+            continue
+        n = e["shapes"][0][-1]
+        e["resident"] = hf.rfft_packed_resident(n)
+        print(f"K1 one pass at {e['shapes'][0]}: device {e['device_ms']:.4f} ms, events "
+              f"{e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+              f"torch.fft.rfft {e['library_ms']:.4f} ms, SNR vs plain {e['snr_db']:.2f} dB, "
+              f"{e['resident']} frames resident at once ({hf._onepass_plan(n).blocks} "
+              f"blocks a frame) [{smi}]", flush=True)
     # T = 1: x[-1] = 0 and K5 has no lag-0 term, so the one hop's output is
     # exactly zero (held as such, not as an SNR).
     args, _ = chain(2, 1, 3, n_main)()
@@ -1151,7 +1170,7 @@ def spectral_paths(dev, irs, x, launches, smi) -> None:
         ref)
     del capture, sweep32
 
-    # (f) 1 s x 1 s convolution, N = 2^17: the two-pass kernels K1 and K6.
+    # (f) 1 s x 1 s convolution, N = 2^17: K1 (one pass) and K6 (two passes).
     s1 = sig[:, :FS].contiguous()
     h1 = ird[:, :FS].contiguous()
     run("spectral-convolve-1s", lambda: sp.convolve(s1, h1), ("rfft_packed", "rifft_packed"),

@@ -31,8 +31,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # Pointer arguments and the stream are c_void_p: without argtypes ctypes would
 # pass them as 32-bit ints and cut them.
 _SIGNATURES = {
-    # x, re, im, scratch_y, tw, batch, n, stream
-    "hst_rfft_packed": [_P, _P, _P, _P, _P, _L, _I, _P],
+    # x, re, im, tw, batch, n, stream
+    "hst_rfft_packed": [_P, _P, _P, _P, _L, _I, _P],
+    # n -> frames K1 holds on the card at once (or minus a CUDA error)
+    "hst_rfft_packed_resident": [_I],
     # x, re, im, scratch_y, tw, channels, hops, n, stream
     "hst_rfft_packed_stream": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
     # re, im, out, scratch_y, tw, frames, n, scale, stream

@@ -1,10 +1,12 @@
-// Shared multi-pass FFT core on Hopper: the real transforms K1 rfft_packed,
-// K2 rfft_packed_stream, K4 rifft_packed_tail, K6 rifft_packed, the complex
+// Shared multi-pass FFT core on Hopper: the real transforms K2
+// rfft_packed_stream, K4 rifft_packed_tail, K6 rifft_packed, the complex
 // K12 fft_split at 2048..2^16 points, and the FastFIR chain family (K5, K8:
 // fastfir_chain.cu), which adds the row-first inverse at the end of this file.
 // The plan (make_plan) also routes the large sizes, complex M = 2^17..2^19,
 // which fft_large.cuh serves (K12 there, K13 rfft_packed_split and K14
-// rifft_packed_split).
+// rifft_packed_split). K1 rfft_packed takes none of make_plan's routes: its
+// own plan (rfft_packed.cu, K1Pass) runs fft_large.cuh's one-pass kernel at
+// every size it serves.
 //
 // A real transform of length N is an M = N/2 point complex FFT of
 // z[n] = x[2n] + i x[2n+1], plus the split step that pairs bins k and M-k.
@@ -61,7 +63,7 @@ enum LoadMode {
 };
 enum StoreMode { kStorePack = 0, kStoreTail = 1, kStoreFull = 2, kStoreSplit = 3 };
 
-// How a complex size M is served: two passes of sub-FFTs <= 256 over a
+// How make_plan serves a complex size M: two passes of sub-FFTs <= 256 over a
 // scratch frame (M = 2048..2^16, this file), one pass on an 8-block cluster
 // (M = 2^17, fft_large.cuh) or two passes of sub-FFTs of 512..1024 over a
 // scratch frame (M = 2^18..2^19, fft_large.cuh).
@@ -182,16 +184,17 @@ struct Sub {
   static constexpr int kB = L / kA;            // step-1 DFT size
 };
 
-// Step-1 twiddle W_L^(j1*k2) times v, stored at s[f*LD + k2*A + j1].
-template <int L, bool kSmem = false, int LD = kLd>
+// Step-1 twiddle W_L^(j1*k2) times v, stored at s[f*LD + k2*AP + j1] (AP:
+// the stride of step 2's groups, A unless padded).
+template <int L, bool kSmem = false, int LD = kLd, int AP = Sub<L>::kA>
 __device__ __forceinline__ void step1_store(float2* s, const float2 (&v)[Sub<L>::kB],
                                             int f, int j1,
                                             const float2* __restrict__ tw,
                                             int log_n) {
-  constexpr int A = Sub<L>::kA, B = Sub<L>::kB, kLog = Sub<L>::kLog;
+  constexpr int B = Sub<L>::kB, kLog = Sub<L>::kLog;
 #pragma unroll
   for (int k2 = 0; k2 < B; ++k2) {
-    s[f * LD + k2 * A + j1] =
+    s[f * LD + k2 * AP + j1] =
         k2 == 0 ? v[0] : cmul(v[k2], tw_at<kSmem>(tw, (j1 * k2) << (log_n - kLog)));
   }
 }

@@ -44,6 +44,7 @@
 #include <cooperative_groups.h>
 
 #include "fft_common.cuh"
+#include "reg_fft.cuh"
 
 namespace hst {
 
@@ -449,6 +450,389 @@ fft_cluster(const float* __restrict__ a, const float* __restrict__ a_im,
 }
 
 // ---------------------------------------------------------------------------
+// K1's one pass (rfft_packed.cu, real N = 4096..2^17): the cluster route
+// above generalised over the frame's size and the blocks that hold it. The
+// complex frame of M = M1 * M2 points (M = 2^11..2^16) sits in the shared
+// memory of C blocks, one block (C = 1) or one thread-block cluster of
+// C = 2..8 blocks, and leaves as the packed real spectrum. M1 columns of M2
+// points (n = n1 + M1*n2):
+//   1. block r of the frame loads columns r*M1/C.. (each row of the frame
+//      gives it a run of M1/C points) and runs step 1 of their M2-point
+//      FFTs through its own shared memory;
+//   2. it runs step 2 into registers and multiplies output k2 of column n1
+//      by W_M^(n1*k2); after a barrier over the frame's blocks (a cluster
+//      barrier, or __syncthreads() in one block) marks that every block
+//      has read its columns, it stores each output into the tile of
+//      its row in the block that owns the row (row_home): M2/C rows a block,
+//      written by all C blocks, through distributed shared memory on a
+//      cluster. Stores, unlike loads, do not wait for the remote block;
+//   3. after a second barrier it runs its rows' M1-point FFTs in its own
+//      shared memory and stores, with the split step, the packed bins of its
+//      row pairs (j, R-j).
+// The frame goes to HBM once in and once out, and there is no scratch.
+// Beside the cluster route it reads its twiddle tables into registers
+// together with its first loads (StagedTable), runs its sub-DFTs on
+// compile-time twiddles (dft_c), keeps its rows in place (InPlace) and
+// exchanges by remote stores rather than loads. On an H100 these made the
+// kernel at the cluster route's own shape (one 128 KB block an SM, split
+// planes in and out) 8-14% slower than fft_cluster
+// (tools/chip_phases.py --k1), so complex 2^17 keeps fft_cluster.
+
+// pack_rows for the one-pass kernel's rows, kept as InPlace<L> keeps them:
+// bin q of slot f at s[f*LD + (q % B)*AP + q / B]. Each thread keeps one
+// slot (its row, partner slot and row twiddle) and walks that row's bins,
+// where pack_rows looks the slot up again for every bin: on an H100 K1 ran
+// faster this way (tools/k1_layouts.py; PERF.md).
+template <int L, int LD, int H, int NT, int B, int AP>
+__device__ __forceinline__ void pack_rows_tile(const float2* s, float* __restrict__ re,
+                                               float* __restrict__ im, const float2* wrow,
+                                               const float2* wk1, int tile, int rows) {
+  static_assert(NT % (2 * H) == 0 && 2 * H * L % NT == 0, "one slot a thread, whole rounds");
+  const int sf = threadIdx.x % (2 * H);
+  const int row = pack_row_of<H>(tile, sf, rows);
+  // Z[M-k] sits in the partner slot (rows 0 and R/2: the slot itself), at
+  // bin L-1-k1 (row 0: L-k1).
+  const float2* zs = s + sf * LD;
+  const float2* zp = s + ((row == 0 || row == (rows >> 1)) ? sf : (sf ^ H)) * LD;
+  const int c0 = row == 0 ? L : L - 1;
+  const float2 wr = wrow[sf];
+  constexpr int kStep = NT / (2 * H);  // bins k1 a round of the block covers
+  const int k0 = threadIdx.x / (2 * H);
+#pragma unroll
+  for (int it = 0; it < L / kStep; ++it) {
+    const int k1 = k0 + it * kStep;
+    const int k = row + rows * k1;
+    const float2 zk = zs[(k1 % B) * AP + k1 / B];
+    if (k == 0) {
+      re[0] = 2.f * (zk.x + zk.y);
+      im[0] = 2.f * (zk.x - zk.y);
+    } else {
+      const int c = c0 - k1;
+      const float2 zm = zp[(c % B) * AP + c / B];
+      const float2 sum = make_float2(zk.x + zm.x, zk.y - zm.y);
+      const float2 dif = make_float2(zk.x - zm.x, zk.y + zm.y);
+      const float2 wd = cmul(cmul(wr, wk1[k1]), dif);
+      re[k] = sum.x + wd.y;
+      im[k] = sum.y - wd.x;
+    }
+  }
+}
+
+// a * W_32^k, k < 16 a compile-time constant once the callers' loops
+// unroll: W_16 constants for even k, the float64 cos / sin of the odd
+// multiples of pi/16 rounded to float32 for odd k.
+__device__ __forceinline__ float2 mul_w32(float2 a, int k) {
+  constexpr float s1 = 0.98078528040323043f, s3 = 0.83146961230254524f,
+                  s5 = 0.55557023301960218f, s7 = 0.19509032201612826f;
+  switch (k) {
+    case 1: return cmul(a, make_float2(s1, -s7));
+    case 3: return cmul(a, make_float2(s3, -s5));
+    case 5: return cmul(a, make_float2(s5, -s3));
+    case 7: return cmul(a, make_float2(s7, -s1));
+    case 9: return cmul(a, make_float2(-s7, -s1));
+    case 11: return cmul(a, make_float2(-s5, -s3));
+    case 13: return cmul(a, make_float2(-s3, -s5));
+    case 15: return cmul(a, make_float2(-s1, -s7));
+    default: return hst_reg::mul_w16(a, k / 2);
+  }
+}
+
+// In-register R-point DFT (R = 2..32), natural order in and out, with
+// compile-time twiddles: reg_fft.cuh's radix-2 core on W_16 constants up to
+// 16 points; at 32 two 16-point DFTs (even and odd points) joined by W_32^k.
+template <int R>
+__device__ __forceinline__ void dft_c(float2 (&v)[R]) {
+  if constexpr (R <= 16) {
+    hst_reg::dft<R>(v);
+  } else {
+    static_assert(R == 32, "sub-DFTs of at most 32 points");
+    float2 e[16], o[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      e[i] = v[2 * i];
+      o[i] = v[2 * i + 1];
+    }
+    hst_reg::dft<16>(e);
+    hst_reg::dft<16>(o);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const float2 t = mul_w32(o[k], k);
+      v[k] = make_float2(e[k].x + t.x, e[k].y + t.y);
+      v[k + 16] = make_float2(e[k].x - t.x, e[k].y - t.y);
+    }
+  }
+}
+
+// A sub-FFT of L = A*B points kept in place in its tile of shared memory
+// (the one-pass kernel's rows): step 1 leaves its (k2, j1) output at
+// k2*(A+1) + j1, and step 2 reads the A points of group k2 and writes its
+// outputs k = k2 + B*k1 back at k2*(A+1) + k1. So no barrier falls between
+// step 2's reads and writes and no thread holds more than one DFT; bin k
+// sits at (k % B)*(A+1) + k / B. The odd strides (A+1 and the tile's kLd)
+// keep a warp's accesses in distinct banks. The columns stay in natural
+// order (stride M2 + 1): in this layout the exchange's remote accesses
+// would scatter, and distributed shared memory wants a warp's accesses
+// contiguous.
+template <int L>
+struct InPlace {
+  static constexpr int kA = Sub<L>::kA, kB = Sub<L>::kB;
+  static constexpr int kAp = kA + 1;        // group stride
+  static constexpr int kLd = kB * kAp + 1;  // tile stride
+};
+
+template <int LM, int LCols, int C, int NT, int MinBlocks>
+struct OnePass {
+  static constexpr int kM = 1 << LM;
+  static constexpr int kBlocks = C;                 // one frame
+  static constexpr int kCols = 1 << LCols;          // M1 columns
+  static constexpr int kColLen = kM / kCols;        // of M2 points
+  static constexpr int kRows = kColLen;             // R = M2 rows
+  static constexpr int kRowLen = kCols;             // of M1 points
+  static constexpr int kOwnCols = kCols / C;        // columns a block
+  static constexpr int kOwnRows = kRows / C;        // rows a block
+  static constexpr int kThreads = NT;
+  static constexpr int kMinBlocks = MinBlocks;      // blocks an SM, for the registers
+  static constexpr int kLdC = kColLen + 1;            // column f at lsm[f*kLdC]
+  static constexpr int kLdR = InPlace<kRowLen>::kLd;  // row slot f at lsm[f*kLdR]
+  static constexpr int kFrame =  // float2: the columns, later the rows
+      kOwnCols * kLdC > kOwnRows * kLdR ? kOwnCols * kLdC : kOwnRows * kLdR;
+  // then the pack's twiddle tables (load_pack_twiddles) and load_twiddles'
+  static constexpr int kSmem =
+      (kFrame + kRowLen + kOwnRows + 2 * kTl + kM / 512) * (int)sizeof(float2);
+};
+
+// A table of E entries that a block of NT threads stages in shared memory
+// in two steps: fetch() reads the thread's entries of the global table
+// (entry i at tw[index(i)]) into registers, put() stores them, so the reads
+// are in flight together with the frame's first loads.
+template <int E, int NT>
+struct StagedTable {
+  static constexpr int kPer = (E + NT - 1) / NT;
+  float2 r[kPer];
+
+  template <class Index>
+  __device__ __forceinline__ void fetch(const float2* __restrict__ tw, Index index) {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = (int)threadIdx.x + u * NT;
+      if (i < E) r[u] = __ldg(&tw[index(i)]);
+    }
+  }
+
+  __device__ __forceinline__ void put(float2* dst) const {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = (int)threadIdx.x + u * NT;
+      if (i < E) dst[i] = r[u];
+    }
+  }
+};
+
+// The two halves of a barrier over the blocks of one frame: a block
+// arrives once its part is done and waits before it needs the others', so
+// work between the two hides the barrier's latency. One block: the block
+// barrier, at the wait. (Arrive releases and wait acquires this block's
+// shared-memory accesses, the cluster barrier's default semantics.)
+template <int C>
+__device__ __forceinline__ void frame_arrive() {
+  if constexpr (C > 1) asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+template <int C>
+__device__ __forceinline__ void frame_wait() {
+  if constexpr (C == 1) {
+    __syncthreads();
+  } else {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  }
+}
+
+// The shared memory `lsm` of the frame's block r.
+template <int C>
+__device__ __forceinline__ float2* frame_smem(float2* lsm, int r) {
+  if constexpr (C == 1) {
+    return lsm;
+  } else {
+    return cg::this_cluster().map_shared_rank(lsm, r);
+  }
+}
+
+// The block (`owner`) and row slot that hold row k of R rows spread over C
+// blocks, where pack_row_of<R/(2C)> puts it: rows j and R-j in one block,
+// block 0 also row R/2.
+template <int R, int C>
+__device__ __forceinline__ void row_home(int k, int& owner, int& slot) {
+  constexpr int H = R / C / 2;
+  if (k == R / 2) {
+    owner = 0;
+    slot = H;
+  } else {
+    const int j = k < R / 2 ? k : R - k;
+    owner = j / H;
+    slot = (k < R / 2 ? 0 : H) + j % H;
+  }
+}
+
+// grid = frames * C blocks, block r of frame blockIdx.x / C (its rank in the
+// cluster). Loads with kLoad (a, a_im), stores the packed planes out (re)
+// and out_im (im).
+template <class G, int kLoad>
+__global__ void __launch_bounds__(G::kThreads, G::kMinBlocks)
+fft_onepass(const float* __restrict__ a, const float* __restrict__ a_im,
+            float* __restrict__ out, float* __restrict__ out_im,
+            const float2* __restrict__ tw, int log_n) {
+  constexpr int m = G::kM, NT = G::kThreads, C = G::kBlocks;
+  using RT = InPlace<G::kRowLen>;
+  extern __shared__ float2 lsm[];
+  int rank = 0;
+  if constexpr (C > 1) rank = (int)cg::this_cluster().block_rank();
+  const long long frame = blockIdx.x / C;
+  const int tid = threadIdx.x;
+  // The twiddle tables after the frame: the pack's, then load_twiddles'
+  // layout (tl, thi, tlo).
+  constexpr int kHi = m / 512;
+  float2* wk1 = lsm + G::kFrame;
+  float2* wrow = wk1 + G::kRowLen;
+  const Twiddles twd{wrow + G::kOwnRows, wrow + G::kOwnRows + kTl,
+                     wrow + G::kOwnRows + kTl + kHi};
+  StagedTable<kTl, NT> tl, tlo;
+  StagedTable<kHi, NT> thi;
+  StagedTable<G::kRowLen, NT> wk1s;
+  StagedTable<G::kOwnRows, NT> wrows;
+  tl.fetch(tw, [&](int i) { return i << (log_n - kTlLog); });
+  tlo.fetch(tw, [](int i) { return i << 1; });
+  thi.fetch(tw, [](int i) { return i << 10; });
+  wk1s.fetch(tw, [](int i) { return G::kRows * i; });
+  wrows.fetch(tw, [&](int i) { return pack_row_of<G::kOwnRows / 2>(rank, i, G::kRows); });
+
+  // 1. The block's columns: M2-point FFTs, times W_M^(n1*k2), column f
+  //    (n1 = rank*kOwnCols + f) left at lsm[f*kLdC + k2].
+  constexpr int CL = G::kColLen, CA = Sub<CL>::kA, CB = Sub<CL>::kB;
+  constexpr int kPer0 = G::kOwnCols * CA / NT;  // step-1 DFTs a thread
+  constexpr int kPer = G::kOwnCols * CB / NT;   // step-2 DFTs a thread
+  static_assert(kPer0 >= 1 && kPer0 * NT == G::kOwnCols * CA && kPer * NT == G::kOwnCols * CB,
+                "whole rounds of the column steps");
+  const int c0 = rank * G::kOwnCols;
+  {
+    // Task (f, j1), f fastest, so a warp's loads run along consecutive
+    // columns, issued while the twiddle reads are in flight.
+    float2 v[kPer0][CB];
+#pragma unroll
+    for (int u = 0; u < kPer0; ++u) {
+      const int t = tid + u * NT;
+      const int f = t % G::kOwnCols;
+      const int j1 = t / G::kOwnCols;
+#pragma unroll
+      for (int j2 = 0; j2 < CB; ++j2)
+        v[u][j2] = load_elem<kLoad>(a, a_im, tw, frame, c0 + f + G::kCols * (j1 + CA * j2), m,
+                                    false);
+    }
+    tl.put(twd.tl);
+    tlo.put(twd.tlo);
+    thi.put(twd.thi);
+    wk1s.put(wk1);
+    wrows.put(wrow);
+    __syncthreads();  // the twiddle tables are in place
+#pragma unroll
+    for (int u = 0; u < kPer0; ++u) {
+      const int t = tid + u * NT;
+      dft_c<CB>(v[u]);
+      step1_store<CL, true, G::kLdC>(lsm, v[u], t % G::kOwnCols, t / G::kOwnCols, twd.tl,
+                                     kTlLog);
+    }
+  }
+  __syncthreads();
+  // 2. Step 2 of the columns, times W_M^(n1*k), then the exchange: once
+  //    every block of the frame has read its columns, output k of column n1
+  //    goes straight to the block that owns row k (row_home; a remote store
+  //    through distributed shared memory on a cluster), into element n1 of
+  //    that row's tile. A warp's stores run along consecutive columns. The
+  //    step-2 DFTs run between the barrier's arrive and its wait.
+  constexpr int L = G::kRowLen, A = RT::kA, B = RT::kB;
+  {
+    float2 v[kPer][CA];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int t = tid + u * NT;
+      const int f = t % G::kOwnCols;
+      const int k2 = t / G::kOwnCols;
+#pragma unroll
+      for (int j1 = 0; j1 < CA; ++j1) v[u][j1] = lsm[f * G::kLdC + k2 * CA + j1];
+    }
+    frame_arrive<C>();  // this block has read its columns
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int t = tid + u * NT;
+      const int f = t % G::kOwnCols;
+      const int k2 = t / G::kOwnCols;
+      dft_c<CA>(v[u]);
+#pragma unroll
+      for (int k1 = 0; k1 < CA; ++k1)
+        v[u][k1] = cmul(v[u][k1], tw_m(twd, ((c0 + f) * (k2 + CB * k1)) & (m - 1)));
+    }
+    frame_wait<C>();  // every block has read its columns: its memory takes rows now
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int t = tid + u * NT;
+      const int col = c0 + t % G::kOwnCols;
+      const int k2 = t / G::kOwnCols;
+#pragma unroll
+      for (int k1 = 0; k1 < CA; ++k1) {
+        int owner, slot;
+        row_home<G::kRows, C>(k2 + CB * k1, owner, slot);
+        frame_smem<C>(lsm, owner)[slot * G::kLdR + col] = v[u][k1];
+      }
+    }
+  }
+  frame_arrive<C>();
+  frame_wait<C>();  // every row is in place
+
+  // 3. The block's rows of M1 points: slot f holds row
+  //    pack_row_of<kOwnRows/2>(rank, f); its tile at lsm[f*kLdR], in natural
+  //    order, then as InPlace<M1> keeps it.
+  constexpr int kPer1 = G::kOwnRows * A / NT;
+  constexpr int kPer2 = G::kOwnRows * B / NT;
+  static_assert(kPer1 >= 1 && kPer1 * NT == G::kOwnRows * A && kPer2 * NT == G::kOwnRows * B,
+                "whole rounds of the row steps");
+  {
+    float2 v[kPer1][B];
+#pragma unroll
+    for (int u = 0; u < kPer1; ++u) {
+      // Task (f, j1), f fastest.
+      const int t = tid + u * NT;
+      const int f = t % G::kOwnRows;
+      const int j1 = t / G::kOwnRows;
+#pragma unroll
+      for (int j2 = 0; j2 < B; ++j2) v[u][j2] = lsm[f * G::kLdR + j1 + A * j2];
+      dft_c<B>(v[u]);
+    }
+    __syncthreads();  // every step-1 read of the row tiles is done
+#pragma unroll
+    for (int u = 0; u < kPer1; ++u) {
+      const int t = tid + u * NT;
+      step1_store<L, true, G::kLdR, RT::kAp>(lsm, v[u], t % G::kOwnRows, t / G::kOwnRows,
+                                             twd.tl, kTlLog);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kPer2; ++u) {
+    // Task (f, k2): group k2 of row slot f, in place.
+    const int t = tid + u * NT;
+    float2* g = lsm + (t % G::kOwnRows) * G::kLdR + (t / G::kOwnRows) * RT::kAp;
+    float2 w[A];
+#pragma unroll
+    for (int j1 = 0; j1 < A; ++j1) w[j1] = g[j1];
+    dft_c<A>(w);
+#pragma unroll
+    for (int k1 = 0; k1 < A; ++k1) g[k1] = w[k1];
+  }
+  __syncthreads();
+  pack_rows_tile<L, G::kLdR, G::kOwnRows / 2, NT, B, RT::kAp>(
+      lsm, out + frame * (long long)m, out_im + frame * (long long)m, wrow, wk1, rank, G::kRows);
+}
+
+// ---------------------------------------------------------------------------
 // Host launchers. Each sets its kernel's dynamic shared memory (above the
 // 48 KB default) once a device and returns the first CUDA error; a size or
 // a cluster that cannot run is an error, never a reason to take another
@@ -496,6 +880,67 @@ inline int launch_cluster(long long frames, const float* a, const float* a_im, f
   if (rc != 0) return rc;
   kernel<<<grid, Cl17::kThreads, Cl17::kSmem, st>>>(a, a_im, out, out_im, tw, log_n);
   return (int)cudaGetLastError();
+}
+
+// The launch of `frames` frames on G's route: grid = frames * C blocks, in
+// clusters of C (`attr` holds the cluster's size; none for C = 1).
+template <class G>
+inline cudaLaunchConfig_t onepass_config(long long frames, cudaStream_t st,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(frames * G::kBlocks));
+  cfg.blockDim = dim3(G::kThreads);
+  cfg.dynamicSmemBytes = G::kSmem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = G::kBlocks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = G::kBlocks > 1 ? 1 : 0;
+  return cfg;
+}
+
+// Sets G's dynamic shared memory for `kernel`, then gives in `resident` the
+// frames the device holds at once: clusters of C blocks
+// (cudaOccupancyMaxActiveClusters), or for C = 1 blocks an SM times the SMs.
+template <class G, class Kernel>
+inline int onepass_resident(Kernel kernel, int& resident) {
+  int rc = allow_smem(kernel, G::kSmem);
+  if (rc != 0) return rc;
+  if (G::kBlocks == 1) {
+    int per_sm = 0, device = 0, sms = 0;
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, G::kThreads,
+                                                             G::kSmem);
+    if (rc == 0) rc = (int)cudaGetDevice(&device);
+    if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    resident = per_sm * sms;
+    return rc;
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = onepass_config<G>(1, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(&resident, reinterpret_cast<const void*>(kernel),
+                                             &cfg);
+}
+
+// One launch of G's route over `frames` frames. Once a device it also
+// checks that one frame's blocks, with their shared memory, fit the card.
+template <class G, int kLoad>
+inline int launch_onepass(long long frames, const float* a, const float* a_im, float* out,
+                          float* out_im, const float2* tw, int log_n, cudaStream_t st) {
+  auto kernel = fft_onepass<G, kLoad>;
+  static int ready = -1;
+  const int rc = once_per_device(ready, [&]() {
+    int resident = 0;
+    const int err = onepass_resident<G>(kernel, resident);
+    if (err != 0) return err;
+    return resident < 1 ? (int)cudaErrorInvalidConfiguration : 0;
+  });
+  if (rc != 0) return rc;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = onepass_config<G>(frames, st, &attr);
+  const int err = (int)cudaLaunchKernelEx(&cfg, kernel, a, a_im, out, out_im, tw, log_n);
+  return err != 0 ? err : (int)cudaGetLastError();
 }
 
 template <int kLoad, int L>

@@ -34,12 +34,16 @@ the TPU package's ``rfft_packed`` / ``rifft_packed`` send their small sizes to
 ``_rfft_small`` / ``_rifft_small`` and their large ones to the split pairs.
 :func:`fft_split` (K12) serves complex N = 32..2^19: frames of up to 1024
 points in shared memory, 2048..2^16 in two passes over an HBM scratch frame
-(``csrc/fft_common.cuh``, which K1, K2, K4 and K6 share), 2^17 in one pass
+(``csrc/fft_common.cuh``, which K2, K4 and K6 share), 2^17 in one pass
 on an 8-block thread-block cluster that holds the frame in its shared memory,
 and 2^18..2^19 in two passes of 512..1024-point sub-FFTs
 (``csrc/fft_large.cuh``, which K13 and K14 share at real 2^18..2^20).
 :func:`_plan` mirrors the kernels' plan, and the wrappers size their scratch
-from it: one frame per transform for two passes, none for the cluster.
+from it: one frame per transform for two passes, none for the cluster. K1
+(real 4096..2^17) takes one pass at every size, with no scratch: the frame of
+M = N/2 points in the shared memory of one block or of a 2-, 4- or 8-block
+cluster (``csrc/fft_large.cuh``'s one-pass kernel, the cluster route's
+generalisation); :func:`_onepass_plan` mirrors its plan.
 
 The windowed forms K10w and K11w (N = 32..2048, the STFT's frames) are
 instantiations of K10's and K11's kernels that multiply by the window in the
@@ -81,7 +85,7 @@ from ..core.types import Split, packed_mul
 from .hopper_kernels import lag_mac_causal, lag_mac_causal_plain, lag_mac_ring_plain
 
 MIN_REAL_SIZE = 4096
-MAX_SINGLE_REAL = 1 << 17    # K1 / K6: two passes
+MAX_SINGLE_REAL = 1 << 17    # K1: one pass; K6: two passes
 MAX_SPLIT_REAL = 1 << 20     # K13 / K14: N = 2^18..2^20 (csrc/fft_large.cuh)
 MIN_COMPLEX = 32             # K12 serves complex N = 32..2^19
 MAX_COMPLEX_SMEM = 1024      # K12 in shared memory up to here
@@ -153,7 +157,8 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
 
 
 def _check(kernel: str, n: int, *tensors: torch.Tensor) -> None:
-    """Raise unless the two-pass real kernel takes these tensors at size ``n``."""
+    """Raise unless the real kernels of N = 4096..2^17 (K1, K2, K4, K6) take
+    these tensors at size ``n``."""
     if not real_eligible(n):
         if n < MIN_REAL_SIZE:
             missing = ("K10 (forward) and K11 (inverse) serve N = 32..2048 through "
@@ -211,6 +216,51 @@ def _plan(n: int) -> Plan:
     if lm == 17:
         return Plan("cluster", (512, 256), 1, 0)
     return Plan("two-pass-long", (512, 1 << (lm - 9)), 2, 1)
+
+
+class OnePassPlan(NamedTuple):
+    """How K1's one-pass route (``csrc/rfft_packed.cu``, ``K1Pass``) serves
+    one complex size M: the frame in the shared memory of ``blocks``
+    blocks."""
+    route: str                # "one-pass"
+    lengths: Tuple[int, int]  # (column, row) sub-FFT lengths: M1 columns of
+                              # lengths[0] = M2 points, M2 rows of lengths[1] = M1
+    blocks: int               # C: 1, or a thread-block cluster of 2..8
+    threads: int              # a block
+    shared_bytes: int         # dynamic shared memory a block
+    hbm_passes: int           # 1
+    scratch_frames: int       # 0
+
+
+def _inplace_tile(length: int) -> int:
+    """Slots of one row tile of ``fft_large.cuh``'s InPlace<L>: L = A*B
+    (A = 2^(log2 L // 2)) as B groups of A + 1 slots, and one slot more."""
+    a = 1 << (length.bit_length() - 1) // 2
+    return (length // a) * (a + 1) + 1
+
+
+def _onepass_plan(n: int) -> OnePassPlan:
+    """K1's plan for real size ``n`` = 4096..2^17 (complex M = 2^11..2^16):
+    M1 = 64 columns up to M = 2^12, 128 at 2^13..2^15, 256 at 2^16; one
+    block up to M = 2^13, above it a cluster of M / 2^13 blocks of 8192
+    points each; 256 threads a block at M = 2^11, 2^12 and 2^15, 512 at
+    2^13, 2^14 and 2^16. A block's shared memory is its share of the frame
+    (its columns of M2 + 1 slots, then its rows, each in a tile of
+    :func:`_inplace_tile` slots) and the twiddle tables: the pack's (M1 +
+    the block's rows), W_512 and W_M^e for e < 512, and W_M^(512 h)."""
+    lm = int(n).bit_length() - 2
+    if not real_eligible(n):
+        raise ValueError(f"K1's one-pass route serves real N = {MIN_REAL_SIZE}.."
+                         f"{MAX_SINGLE_REAL}, got n = {n}")
+    m = 1 << lm
+    cols = 64 if lm <= 12 else 128 if lm <= 15 else 256
+    blocks = 1 if lm <= 13 else 1 << (lm - 13)
+    threads = 256 if lm in (11, 12, 15) else 512
+    col_len = m // cols
+    own_cols, own_rows = cols // blocks, col_len // blocks
+    frame = max(own_cols * (col_len + 1), own_rows * _inplace_tile(cols))
+    shared = 8 * (frame + cols + own_rows + 2 * 512 + m // 512)
+    return OnePassPlan("one-pass", (col_len, cols), blocks, threads, shared, 1, 0)
 
 
 SMALL_POINTS = 16    # K10 / K10w: points a thread holds (csrc/reg_fft.cuh kR)
@@ -351,8 +401,9 @@ def fastfir_chain_stream_plain(x2d, prev, ring_re, ring_im, h_re, h_im,
 
 def rfft_packed(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: real FFT -> packed N/2 bins (x2 scale, Nyquist in im[0]), batched
-    over the leading axes, natural bin order. N = 32..2048 go to K10,
-    N = 2^18..2^20 to K13."""
+    over the leading axes, natural bin order: one HBM pass, no scratch
+    (:func:`_onepass_plan`). N = 32..2048 go to K10, N = 2^18..2^20 to
+    K13."""
     if x.device.type == "cpu":
         return rfft_packed_plain(x)
     n = x.shape[-1]
@@ -367,16 +418,27 @@ def rfft_packed(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     im = torch.empty_like(re)
     if b == 0:
         return re, im
-    scratch = torch.empty(b, n, dtype=torch.float32, device=x.device)
     rc = _build.load().hst_rfft_packed(
-        x.data_ptr(), re.data_ptr(), im.data_ptr(), scratch.data_ptr(),
-        _twiddles(n, x.device).data_ptr(), b, n, _build.stream(x.device))
+        x.data_ptr(), re.data_ptr(), im.data_ptr(), _twiddles(n, x.device).data_ptr(), b,
+        n, _build.stream(x.device))
     _build.check(rc, "K1 rfft_packed")
     rfft_packed.launches += 1
     return re, im
 
 
 rfft_packed.launches = 0
+
+
+def rfft_packed_resident(n: int) -> int:
+    """Frames of real size ``n`` that K1 holds on the current card at once:
+    clusters of :func:`_onepass_plan`'s blocks (or blocks, where one holds a
+    frame), as ``cudaOccupancyMaxActiveClusters`` counts them."""
+    if not real_eligible(n):
+        raise ValueError(f"K1 serves real N = {MIN_REAL_SIZE}..{MAX_SINGLE_REAL}, got {n}")
+    got = _build.load().hst_rfft_packed_resident(n)
+    if got < 0:
+        _build.check(-got, "K1 rfft_packed")
+    return got
 
 
 def rfft_small(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

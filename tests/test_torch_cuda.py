@@ -87,6 +87,50 @@ def test_kernel_matches_plain(cuda, name, n):
         assert snr_db(w.cpu().numpy(), g.cpu().numpy()) >= SNR_KERNEL_DB
 
 
+# K1 on its one-pass route (csrc/rfft_packed.cu): every real N = 4096..2^17
+# (one block to M = 2^13, clusters of 2 / 4 / 8 above) at batches of 1 and 3
+# and a 3-D leading shape, and the FastFIR IR preparation's 1920 frames of
+# 2^16.
+K1_CASES = ([(b, n) for n in (1 << e for e in range(12, 18)) for b in (1, 3)]
+            + [(2, 3, n) for n in (4096, 1 << 16, 1 << 17)] + [(1920, 1 << 16)])
+
+
+@pytest.mark.parametrize("shape", K1_CASES)
+def test_k1_one_pass_matches_plain(cuda, shape):
+    x = torch.randn(*shape, generator=torch.Generator(device=cuda).manual_seed(len(shape)),
+                    device=cuda)
+    before = hopper_fft.rfft_packed.launches
+    got = hopper_fft.rfft_packed(x)
+    want = hopper_fft.rfft_packed_plain(x)
+    torch.cuda.synchronize()
+    assert hopper_fft.rfft_packed.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (*shape[:-1], shape[-1] // 2)
+        assert snr_db(w.cpu().numpy(), g.cpu().numpy()) >= SNR_KERNEL_DB
+
+
+def test_k1_allocates_only_its_outputs(cuda):
+    """One K1 call at (1920, 2^16) raises the peak allocation by its two
+    output planes alone: no scratch frame."""
+    b, n = 1920, 1 << 16
+    x = torch.randn(b, n, device=cuda)
+    hopper_fft.rfft_packed(x[:1])  # the twiddle table, cached for the size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = hopper_fft.rfft_packed(x)
+    torch.cuda.synchronize()
+    out_bytes = 2 * b * (n // 2) * 4
+    assert sum(t.numel() * 4 for t in out) == out_bytes
+    assert torch.cuda.max_memory_allocated() - base <= out_bytes
+
+
+def test_k1_frames_resident(cuda):
+    """At least one frame of every K1 size fits the card at once."""
+    for e in range(12, 18):
+        assert hopper_fft.rfft_packed_resident(1 << e) >= 1
+
+
 def test_fastfir_on_cuda_matches_cpu(cuda):
     """FastFIR at N = 16384: K1 prepares the IR, one K5 call runs the pass,
     and none of K2, K3, K4 launches."""

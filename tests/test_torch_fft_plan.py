@@ -181,10 +181,23 @@ def _long_route(z, col_len, h, split, pack):
     return res
 
 
-def _cluster_route(z, cols, blocks, pack):
+def _row_home(k, rows, blocks):
+    """fft_large.cuh's row_home: the block and slot that hold row k."""
+    h = rows // blocks // 2
+    if k == rows // 2:
+        return 0, h
+    j = k if k < rows // 2 else rows - k
+    return j // h, (0 if k < rows // 2 else h) + j % h
+
+
+def _cluster_route(z, cols, blocks, pack, split=None, push=False):
     """The cluster route on one frame: `cols` columns of M/cols points, block
     r owning columns r*cols/blocks.. in its own memory (lsm[r][f][k2]), then
-    2*h = R/blocks row slots a block, each gathered from the owners."""
+    2*h = R/blocks row slots a block, each gathered from the owners, or with
+    ``push`` (and ``pack``, the one-pass kernel's exchange) stored by the
+    owners of the columns into the row tiles of the block that
+    :func:`_row_home` names. With ``split`` the inter-pass twiddle is read
+    as the kernels read it (:func:`_tw_m`)."""
     m = z.size
     col_len = m // cols
     rows = col_len
@@ -195,14 +208,25 @@ def _cluster_route(z, cols, blocks, pack):
         for f in range(own_c):
             col = r * own_c + f
             k = np.arange(col_len)
-            lsm[r, f] = _sub_fft(z[col + cols * np.arange(col_len)]) * _w(m, col * k)
+            tw = _w(m, col * k) if split is None else _tw_m(m, (col * k) % m, split)
+            lsm[r, f] = _sub_fft(z[col + cols * np.arange(col_len)]) * tw
+    tiles = np.full((blocks, own_r, cols), np.nan, complex)
+    if push:                                       # 2. each column's outputs out
+        for r in range(blocks):
+            for f in range(own_c):
+                for k in range(col_len):
+                    owner, slot = _row_home(k, rows, blocks)
+                    tiles[owner, slot, r * own_c + f] = lsm[r, f, k]
     res = np.empty(m, complex)
     for r in range(blocks):                        # 2-3. gather, rows, store
         rows_of = ([_pack_row_of(own_r // 2, r, f, rows) for f in range(own_r)] if pack
                    else [r * own_r + f for f in range(own_r)])
-        slots = np.stack([_sub_fft(np.array([lsm[n1 // own_c, n1 % own_c, row]
-                                             for n1 in range(cols)]))
-                          for row in rows_of])
+        if push:
+            slots = np.stack([_sub_fft(tiles[r, f]) for f in range(own_r)])
+        else:
+            slots = np.stack([_sub_fft(np.array([lsm[n1 // own_c, n1 % own_c, row]
+                                                 for n1 in range(cols)]))
+                              for row in rows_of])
         if pack:
             for k, v in _pack_tile(slots, rows_of, rows, m).items():
                 res[k] = v
@@ -257,3 +281,175 @@ def test_split_twiddle_is_the_twiddle(m, split):
     """W_M^(s*(e//s)) W_M^(e%s) = W_M^e over all e < M (float64)."""
     e = np.arange(m)
     assert np.max(np.abs(_tw_m(m, e, split) - _w(m, e))) < 1e-12
+
+
+# -----------------------------------------------------------------------------
+# K1's one-pass route (csrc/rfft_packed.cu K1Pass on fft_large.cuh's
+# fft_onepass): its plan mirror, its index maps and its shared-memory strides
+
+# (M1 columns, M2 points a column, C blocks, threads a block) for complex
+# M = 2^11..2^16.
+K1_PLAN = {11: (64, 32, 1, 256), 12: (64, 64, 1, 256), 13: (128, 64, 1, 512),
+           14: (128, 128, 2, 512), 15: (128, 256, 4, 256), 16: (256, 256, 8, 512)}
+SHARED_BYTES_MAX = 227 * 1024
+
+
+@pytest.mark.parametrize("lm", range(11, 17))
+def test_onepass_plan_every_k1_size(lm):
+    """K1 at real N = 2^12..2^17: one HBM pass and no scratch at every size,
+    one block up to M = 2^13 and a cluster of 2 / 4 / 8 blocks above, each
+    block at most 8192 points (64 KB) of the frame, its shared memory within
+    the 227 KB a block may use and two blocks within an SM's 228 KB, whole
+    rounds of its threads in every step, and a run of at least 32
+    consecutive points (256 bytes) of every row loaded by each block."""
+    m = 1 << lm
+    plan = hopper_fft._onepass_plan(2 * m)
+    cols, col_len, blocks, threads = K1_PLAN[lm]
+    assert plan.route == "one-pass"
+    assert plan.lengths == (col_len, cols) and cols * col_len == m
+    assert plan.blocks == blocks and plan.threads == threads
+    assert plan.hbm_passes == 1 and plan.scratch_frames == 0
+    assert plan.shared_bytes <= SHARED_BYTES_MAX
+    assert m // blocks <= 8192 and cols // blocks >= 32
+    assert 2 * (plan.shared_bytes + 1024) <= 228 * 1024
+    for length, owned in ((col_len, cols // blocks), (cols, col_len // blocks)):
+        a = 1 << (length.bit_length() - 1) // 2
+        for tasks in (owned * a, owned * (length // a)):
+            assert tasks % plan.threads == 0 and tasks >= plan.threads
+    def tile(length):  # B groups of A + 1 slots, and one slot more
+        a = 1 << (length.bit_length() - 1) // 2
+        return length // a * (a + 1) + 1
+
+    frame = max(cols // blocks * (col_len + 1), col_len // blocks * tile(cols))
+    assert plan.shared_bytes == 8 * (frame + cols + col_len // blocks + 1024 + m // 512)
+
+
+@pytest.mark.parametrize("lm", range(11, 17))
+def test_k1_route_leaves_make_plan_unchanged(lm):
+    """K1's plan is its own: make_plan's mirror for K2 / K4 / K6 / K12 keeps
+    two passes and one scratch frame at every M <= 2^16."""
+    m = 1 << lm
+    assert hopper_fft._plan(2 * m) == ("two-pass", TWO_PASS[lm], 2, 1)
+    assert tuple(hopper_fft._scratch(2, m, torch.device("meta")).shape) == (2, 2 * m)
+    assert hopper_fft._onepass_plan(2 * m).route != hopper_fft._plan(2 * m).route
+
+
+@pytest.mark.parametrize("n", [2048, 3 << 12, 1 << 18])
+def test_onepass_plan_refuses_other_sizes(n):
+    with pytest.raises(ValueError, match="one-pass"):
+        hopper_fft._onepass_plan(n)
+
+
+@pytest.mark.parametrize("lm", range(11, 17))
+def test_onepass_model_matches_numpy_at_k1_sizes(lm):
+    """The one-pass route with the split step at every K1 size, with the
+    plan's C = 1, 2, 4, 8 and its M1 x M2: the packed bins (DC and Nyquist
+    lane included) against the packed rfft, to 1e-12."""
+    plan = hopper_fft._onepass_plan(1 << (lm + 1))
+    x, z = _signal(1 << lm, seed=lm)
+    got = _cluster_route(z, plan.lengths[1], plan.blocks, True, split=512, push=True)
+    assert _close(got, _packed_ref(x))
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 4, 8])
+@pytest.mark.parametrize("m", [1 << 8, 1 << 10])
+def test_onepass_model_matches_numpy_small(m, blocks):
+    """The same index maps at small M over C = 1, 2, 4 and 8 blocks (columns
+    and rows as the kernel's ratio M2 = M / M1 >= M1 / 2 keeps them)."""
+    cols = 1 << (m.bit_length() - 1) // 2
+    x, z = _signal(m, seed=m + blocks)
+    got = _cluster_route(z, cols, blocks, True, split=16, push=True)
+    assert _close(got, _packed_ref(x))
+
+
+@pytest.mark.parametrize("blocks,rows", [(1, 32), (2, 128), (4, 256), (8, 512), (8, 64),
+                                         (8, 256), (1, 64)])
+def test_row_home_inverts_the_row_slots(blocks, rows):
+    """row_home(k) names the block and slot whose row is k in pack_row_of's
+    tiles (rows j and R-j in one block, block 0 also R/2)."""
+    own = rows // blocks
+    for k in range(rows):
+        owner, slot = _row_home(k, rows, blocks)
+        assert 0 <= owner < blocks and 0 <= slot < own
+        assert _pack_row_of(own // 2, owner, slot, rows) == k
+
+
+def _ways(addrs):
+    """The most distinct float2 slots that lanes of one half-warp (64-bit
+    accesses) touch in one bank pair (slot mod 16). Lanes that access
+    another block's memory (None) are left out."""
+    worst = 1
+    for half in (addrs[:16], addrs[16:]):
+        slots = {}
+        for a in half:
+            if a is not None:
+                slots.setdefault(a % 16, set()).add(a)
+        worst = max([worst] + [len(v) for v in slots.values()])
+    return worst
+
+
+@pytest.mark.parametrize("lm", range(11, 17))
+def test_onepass_strides_avoid_bank_conflicts(lm):
+    """Every shared-memory access of fft_onepass at K1's plans, warp by warp:
+    the column tiles (stride M2 + 1, natural order) in step 1's store and
+    step 2's read, the exchange's stores into the row tiles (by destination
+    block, where a warp's stores also run in one or two contiguous runs),
+    the row tiles in step 1's read and store, step 2 and the split step's
+    reads, where a row of L = A*B points keeps bin k at
+    (k % B)*(A + 1) + k // B of a tile of B*(A + 1) + 1 slots. One lane of
+    rank 0 may meet a 2-way conflict in the split step: its row 0 reads
+    partner bin L - k1."""
+    plan = hopper_fft._onepass_plan(1 << (lm + 1))
+    col_len, cols = plan.lengths
+    c, nt = plan.blocks, plan.threads
+    own_c, own_r = cols // c, col_len // c
+
+    def split(length):
+        a = 1 << (length.bit_length() - 1) // 2
+        return a, length // a, length // a * (a + 1) + 1
+
+    ca, cb, _ = split(col_len)
+    ldc = col_len + 1
+    ra, rb, ldr = split(cols)
+
+    def pos_r(k):
+        return k % rb * (ra + 1) + k // rb
+
+    for rank in range(c):
+        rows = [_pack_row_of(own_r // 2, rank, f, col_len) for f in range(own_r)]
+        for t0 in range(0, 4 * nt, 32):
+            lanes = range(t0, t0 + 32)
+            if t0 < own_c * ca:
+                assert _ways([t % own_c * ldc + cb // 2 * ca + t // own_c for t in lanes]) == 1
+            if t0 < own_c * cb:
+                assert _ways([t % own_c * ldc + t // own_c * ca + 1 for t in lanes]) == 1
+                for k1 in (0, ca - 1):
+                    push = [(_row_home(t // own_c + cb * k1, col_len, c),
+                             rank * own_c + t % own_c) for t in lanes]
+                    for dst in {owner for (owner, _), _ in push}:
+                        addrs = [slot * ldr + col if owner == dst else None
+                                 for (owner, slot), col in push]
+                        assert _ways(addrs) == 1
+                        runs = sorted(a for a in addrs if a is not None)
+                        assert sum(b != a + 1 for a, b in zip(runs, runs[1:])) <= 1
+            if t0 < own_r * ra:
+                for j2 in (0, rb - 1):
+                    assert _ways([t % own_r * ldr + t // own_r + ra * j2 for t in lanes]) == 1
+                assert _ways([t % own_r * ldr + rb // 2 * (ra + 1) + t // own_r
+                              for t in lanes]) == 1
+            if t0 < own_r * rb:
+                assert _ways([t % own_r * ldr + t // own_r * (ra + 1) + 1 for t in lanes]) == 1
+            if t0 < nt:
+                for k1 in (0, cols // 2 - 1):
+                    assert _ways([t % own_r * ldr + pos_r(k1 + t // own_r) for t in lanes]) == 1
+                    partner = []
+                    for t in lanes:
+                        sf = t % own_r
+                        row = rows[sf]
+                        g = sf if row in (0, col_len // 2) else sf ^ (own_r // 2)
+                        q = (cols if row == 0 else cols - 1) - (k1 + t // own_r)
+                        # bin 0 (DC and Nyquist) reads no partner
+                        partner.append(None if q == cols else g * ldr + pos_r(q))
+                    # row 0 reads bin L - k1, one off its neighbours' L-1-k1
+                    limit = 2 if any(rows[t % own_r] == 0 for t in lanes) else 1
+                    assert _ways(partner) <= limit

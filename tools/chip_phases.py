@@ -1,6 +1,6 @@
 """Phases of ``chip_smoke.py`` from one checkout, for an A/B run.
 
-    python3 tools/chip_phases.py [--small] CHECKOUT
+    python3 tools/chip_phases.py [--small | --k1] CHECKOUT
 
 Runs, from the checkout at CHECKOUT (its ``chip_smoke.py`` and its
 ``hisstools_library_tpu_torch``, kernels built under its own ``build/``), on
@@ -9,12 +9,22 @@ one CUDA card:
 * by default phase 14 (K12, K13 and K14 against their plain versions, with
   their times at the path shapes) and phase 15 (the spectral layer at 128
   channels: ms per call, peak memory and SNR against float64), then the
-  device ms of the two-pass K1 and K6 at the 1 s convolve's (128, 2^17);
+  device ms of K1 and K6 at the 1 s convolve's (128, 2^17);
 * with ``--small`` phase 16 (K10w and K11w against their plain versions,
   with their times at the STFT's 128 x 938 frames of 1024, hop 512, and
   ``torch.stft`` beside K10w) and phase 17 (the STFT round trip: ms per
   pass and SNR), then K10 against its plain version with its times at
-  (384, 256), (384, 1024) and (384, 2048).
+  (384, 256), (384, 1024) and (384, 2048);
+* with ``--k1`` K1 rfft_packed at (1920, 2^16) (the FastFIR IR
+  preparation's frames) and at (128, N) for every N = 4096..2^17: device ms
+  (``torch.profiler``), event ms, SNR against its plain version and the
+  frames resident at once where the checkout reports them, with
+  ``torch.fft.rfft`` timed on the same input beside each; the device ms of
+  the kernels that share K1's FFT code (K2, K4, K5, K6, K8, K12 at complex
+  2^16 and 2^17, K13 and K14 at real 2^18) at path shapes; and the paths
+  that launch K1: the FastFIR IR preparation (128 x 480 000 taps), the
+  two-tier ``mono.process`` (ms per 131 072-sample call) and the 1 s
+  spectral convolve (128 x 48 000).
 
 To compare two commits, unpack the older one into a directory that
 ``.gitignore`` lists and run both in one call on the card, in turns:
@@ -36,7 +46,8 @@ import torch
 def main() -> None:
     args = sys.argv[1:]
     small = "--small" in args
-    args = [a for a in args if a != "--small"]
+    k1 = "--k1" in args
+    args = [a for a in args if a not in ("--small", "--k1")]
     if len(args) != 1:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
@@ -60,6 +71,9 @@ def main() -> None:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
+    if k1:
+        k1_phase(cs, hopper_fft, randn, dev, smi)
+        return
     if small:
         cs.windowed_kernels(randn, mods, smi)
         cs.stft_path(dev, cs.Launches(mods), smi, False)
@@ -80,6 +94,86 @@ def main() -> None:
                        ("K6 rifft_packed", lambda: hopper_fft.rifft_packed(re, im))):
         print(f"{name} (128, 2^17): device {cs.device_ms(call):.4f} ms, events "
               f"{cs.median_ms(call):.4f} ms [{smi}]", flush=True)
+
+
+def k1_phase(cs, hf, randn, dev, smi) -> None:
+    """The ``--k1`` mode (see the module docstring). Uses only what the
+    parent checkouts also have, so the same mode times either."""
+    from hisstools_library_tpu_torch.models import mono
+    from hisstools_library_tpu_torch.models.offline import FastFIR
+    from hisstools_library_tpu_torch.ops import spectral_processor as sp
+
+    resident = getattr(hf, "rfft_packed_resident", None)
+    for b, n in [(1920, 1 << 16)] + [(cs.CHANNELS, 1 << e) for e in range(12, 18)]:
+        x = randn(b, n)
+        got = hf.rfft_packed(x)
+        want = hf.rfft_packed_plain(x)
+        snr = min(cs.snr_db(w, g) for w, g in zip(want, got))
+        res = "not reported" if resident is None else resident(n)
+        print(f"K1 ({b}, {n}): device {cs.device_ms(lambda: hf.rfft_packed(x)):.4f} ms, "
+              f"events {cs.median_ms(lambda: hf.rfft_packed(x)):.4f} ms; torch.fft.rfft "
+              f"device {cs.device_ms(lambda: torch.fft.rfft(x, dim=-1)):.4f} ms, events "
+              f"{cs.median_ms(lambda: torch.fft.rfft(x, dim=-1)):.4f} ms; SNR vs plain "
+              f"{snr:.2f} dB; frames resident {res} [{smi}]", flush=True)
+        del x, got, want
+        torch.cuda.empty_cache()
+
+    c, k = cs.CHANNELS, 1 << 15
+    others = {
+        "K2 rfft_packed_stream (128, 16, 2^15)":
+            (hf.rfft_packed_stream, lambda: (randn(c, 16, k),)),
+        "K4 rifft_packed_tail (128, 16, 2^15)":
+            (hf.rifft_packed_tail, lambda: (randn(c, 16, k), randn(c, 16, k), 1.0 / (8 * k))),
+        "K5 fastfir_chain (128, 16, P 15, 2^16)":
+            (hf.fastfir_chain, lambda: (randn(c, 16, k), randn(c, 15, k) * 1e-3,
+                                        randn(c, 15, k) * 1e-3, 1.0 / (8 * k))),
+        "K6 rifft_packed (128, 2^14)":
+            (hf.rifft_packed, lambda: (randn(c, 1 << 13), randn(c, 1 << 13))),
+        "K6 rifft_packed (128, 2^17)":
+            (hf.rifft_packed, lambda: (randn(c, 1 << 16), randn(c, 1 << 16))),
+        "K8 fastfir_chain_stream (128, T 2, P 8, 2^17)":
+            (hf.fastfir_chain_stream,
+             lambda: (randn(c, 2, 1 << 16), randn(c, 1 << 16), randn(c, 8, 1 << 16),
+                      randn(c, 8, 1 << 16), randn(c, 8, 1 << 16) * 1e-3,
+                      randn(c, 8, 1 << 16) * 1e-3, 1.0 / (1 << 19))),
+        "K12 fft_split (128, 2^16)":
+            (hf.fft_split, lambda: (randn(c, 1 << 16), randn(c, 1 << 16))),
+        "K12 fft_split (128, 2^17)":
+            (hf.fft_split, lambda: (randn(c, 1 << 17), randn(c, 1 << 17))),
+        "K13 rfft_packed_split (128, 2^18)":
+            (hf.rfft_packed_split, lambda: (randn(c, 1 << 18),)),
+        "K14 rifft_packed_split (128, 2^18)":
+            (hf.rifft_packed_split, lambda: (randn(c, 1 << 17), randn(c, 1 << 17))),
+    }
+    for label, (fn, make) in others.items():
+        args = make()
+        print(f"{label}: device {cs.device_ms(lambda: fn(*args)):.4f} ms [{smi}]", flush=True)
+        del args
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    irs = (rng.standard_normal((c, cs.IR_LEN)) *
+           np.exp(-np.arange(cs.IR_LEN) / (0.5 * cs.FS))).astype(np.float32)
+    x = rng.standard_normal((c, cs.SIG_LEN)).astype(np.float32)
+    print(f"FastFIR IR preparation (128 x {cs.IR_LEN} taps, N = 2^16): "
+          f"{cs.median_ms(lambda: FastFIR(irs, device=dev)):.4f} ms (events, host copy "
+          f"included) [{smi}]", flush=True)
+    zero = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+    ir = mono.prepare_ir(zero, irs, offline_tail=False, device=dev)
+    block = torch.from_numpy(np.ascontiguousarray(x[:, :cs.STREAM_BLOCK])).to(dev)
+    carry = {"s": mono.init_block_state(zero, ir, batch_shape=(c,))}
+
+    def step():
+        carry["s"], _ = mono.process(ir, carry["s"], block)
+
+    ms, _ = cs.time_calls(step)
+    print(f"two-tier mono.process: {ms:.4f} ms/call (events, median of 10) [{smi}]",
+          flush=True)
+    del ir, carry, block
+    s1 = torch.from_numpy(np.ascontiguousarray(x[:, :cs.FS])).to(dev)
+    h1 = torch.from_numpy(np.ascontiguousarray(irs[:, :cs.FS])).to(dev)
+    print(f"spectral-convolve-1s: {cs.median_ms(lambda: sp.convolve(s1, h1)):.4f} ms/call "
+          f"(events, median of 5) [{smi}]", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,263 @@
+"""K1 rfft_packed's one-pass route at other plans and variants, side by side.
+
+    python3 tools/k1_layouts.py [--only NAME,...] [--sass]
+
+For each entry of ``LAYOUTS`` (the ``OnePass`` parameters of some complex
+sizes M = 2^LM: log2 of the columns, blocks a frame, threads a block, blocks
+an SM for ``__launch_bounds__``; and text replacements in ``fft_large.cuh``
+that make a variant of the kernel), copies ``hisstools_library_tpu_torch/csrc``
+under ``build/k1_layouts/NAME/``, puts the plans in ``rfft_packed.cu`` in
+place of ``K1Pass`` at those sizes, applies the replacements, and builds
+``rfft_packed.cu`` alone into a shared library (one ``nvcc`` for each entry,
+all started together, with ``-fno-gnu-unique`` so that the libraries' static
+launch state stays their own). It then prints, for each entry, ptxas's
+registers and stack of the instantiations at M = 2^13..2^16, and, on the
+same card in one process, the device time of ``hst_rfft_packed`` at (1920,
+2^16) (the FastFIR IR preparation) and at (128, N), N = 2^14..2^17 (CUDA
+events, median of 20 after a warm-up, and the kernel's own time by
+``torch.profiler``, mean of 10), with the SNR against the plain
+packed transform and the frames resident at once, beside
+``torch.fft.rfft`` on the same inputs and a device-to-device copy of the
+same bytes. The plan that ``rfft_packed.cu`` ships is the entry
+``shipped``. An entry whose replacements change what the kernel computes
+(``no-pack``: the rows' bins stored as split planes, no split step;
+``no-load``: synthetic input in place of the frame's loads;
+``local-rows``: the exchange kept inside each block, block barriers) is
+there to time a part of it; its SNR is not the kernel's.
+``table-dft`` (the sub-DFTs' twiddles read from the W_512 table in shared
+memory) and ``joined-barrier`` (the first barrier after the columns'
+step-2 DFTs, not around them) compute the same function.
+``--sass`` also prints, for each entry, the instructions of the M = 2^15
+kernel by opcode (``cuobjdump -sass``; a static count of the straight-line
+code).
+
+Needs one CUDA card and nvcc; imports nothing of JAX. Exits non-zero
+without a card.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from hisstools_library_tpu_torch import _build  # noqa: E402
+from hisstools_library_tpu_torch.fft import hopper_fft  # noqa: E402
+
+# The sub-DFTs on the W_512 table in shared memory, as before dft_c.
+TABLE_DFT = [("dft_c<CB>(v[u]);", "reg_dft<CB, true>(v[u], twd.tl, kTlLog);"),
+             ("dft_c<CA>(v[u]);", "reg_dft<CA, true>(v[u], twd.tl, kTlLog);"),
+             ("dft_c<B>(v[u]);", "reg_dft<B, true>(v[u], twd.tl, kTlLog);"),
+             ("dft_c<A>(w);", "reg_dft<A, true>(w, twd.tl, kTlLog);")]
+# The rows' bins stored as they are (split planes), no split step.
+NO_PACK = [("    for (int k1 = 0; k1 < A; ++k1) g[k1] = w[k1];",
+            "    for (int k1 = 0; k1 < A; ++k1)\n"
+            "      store_bin<kStoreSplit>(out, out_im, frame * (long long)m, rank * G::kOwnRows +\n"
+            "                             t % G::kOwnRows + G::kRows * (t / G::kOwnRows + B * k1),\n"
+            "                             w[k1]);"),
+           ("  __syncthreads();\n  pack_rows_tile<", "  if (false) pack_rows_tile<")]
+
+# No frame read from HBM: synthetic column data (frame and thread numbers).
+NO_LOAD = [("        v[u][j2] = load_elem<kLoad>(a, a_im, tw, frame, c0 + f + G::kCols * "
+            "(j1 + CA * j2), m,\n                                    false);",
+            "        v[u][j2] = make_float2((float)(frame + j2), (float)(t + j1));")]
+
+# Each block's column outputs stored into its own row tiles, behind block
+# barriers: no distributed shared memory, no cluster barrier.
+LOCAL_ROWS = [("        frame_smem<C>(lsm, owner)[slot * G::kLdR + col] = v[u][k1];",
+               "        lsm[slot * G::kLdR + col] = v[u][k1];"),
+              ("    frame_arrive<C>();  // this block has read its columns", ""),
+              ("    frame_wait<C>();  // every block has read its columns",
+               "    __syncthreads();  // every block has read its columns"),
+              ("  frame_arrive<C>();\n  frame_wait<C>();  // every row is in place",
+               "  __syncthreads();  // every row is in place")]
+# The first barrier whole, after the columns' step-2 DFTs.
+JOINED_BARRIER = [("    frame_arrive<C>();  // this block has read its columns", ""),
+                  ("    frame_wait<C>();  // every block has read its columns",
+                   "    frame_arrive<C>();\n    frame_wait<C>();  // every block has read its columns")]
+
+# name: ({LM: (LCols, C, NT, MinBlocks)} in place of K1Plan<LM>, or {} for
+# the shipped plan; replacements in fft_large.cuh).
+LAYOUTS = {
+    "shipped": ({}, []),
+    "256t": ({13: (7, 1, 256, 2), 14: (7, 2, 256, 2), 16: (7, 8, 256, 2)}, []),
+    "512t": ({15: (7, 4, 512, 2)}, []),
+    "32KB-256t": ({15: (7, 8, 256, 4), 14: (7, 4, 256, 4), 13: (7, 2, 256, 4)}, []),
+    "rows256": ({15: (8, 4, 256, 2)}, []),                       # 256 x 128
+    "128KB-512t": ({15: (7, 2, 512, 1), 16: (8, 4, 512, 1)}, []),  # Cl17's shape
+    "table-dft": ({}, TABLE_DFT),
+    "joined-barrier": ({}, JOINED_BARRIER),
+    "no-pack": ({}, NO_PACK),
+    "no-load": ({}, NO_LOAD),
+    "no-load-no-pack": ({}, NO_LOAD + NO_PACK),
+    "no-load-local-rows": ({}, NO_LOAD + LOCAL_ROWS),
+}
+SHAPES = ((1920, 1 << 16), (128, 1 << 17), (128, 1 << 16), (128, 1 << 15), (128, 1 << 14))
+
+
+def _source(layout) -> str:
+    text = (ROOT / "hisstools_library_tpu_torch/csrc/rfft_packed.cu").read_text()
+    for lm, p in layout.items():
+        text, n = re.subn(rf"(struct K1Plan<{lm}> {{\n  using T = )OnePass<[^>]*>",
+                          rf"\g<1>OnePass<{lm}, {', '.join(map(str, p))}>", text)
+        if n != 1:
+            raise SystemExit(f"k1_layouts: no K1Plan<{lm}> in rfft_packed.cu")
+    return text
+
+
+def _build_all(names):
+    out = ROOT / "build" / "k1_layouts"
+    jobs = {}
+    for name in names:
+        d = out / name
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(ROOT / "hisstools_library_tpu_torch" / "csrc", d)
+        layout, patches = LAYOUTS[name]
+        (d / "rfft_packed.cu").write_text(_source(layout))
+        large = (d / "fft_large.cuh").read_text()
+        for old, new in patches:
+            if old not in large:
+                raise SystemExit(f"k1_layouts: {name}: no {old!r} in fft_large.cuh")
+            large = large.replace(old, new)
+        (d / "fft_large.cuh").write_text(large)
+        lib = d / "libk1.so"
+        jobs[name] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique", "-shared",
+             str(d / "rfft_packed.cu"),
+             "-o", str(lib)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            print(f"{name}: nvcc failed\n{log}", flush=True)
+            continue
+        entry = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif entry and "OnePassILi1" in entry and ("registers" in line or "stack" in line):
+                lm = re.search(r"OnePassILi(\d+)E", entry).group(1)
+                if lm in ("13", "14", "15", "16"):
+                    print(f"{name} M = 2^{lm}: {line.split('ptxas info    :')[-1].strip()}",
+                          flush=True)
+        so = ctypes.CDLL(str(lib))
+        so.hst_rfft_packed.argtypes = _build._SIGNATURES["hst_rfft_packed"]
+        so.hst_rfft_packed_resident.argtypes = _build._SIGNATURES["hst_rfft_packed_resident"]
+        libs[name] = so
+    return libs
+
+
+def _sass_counts(lib: Path, lm: int = 15) -> dict:
+    """Opcode -> count in the SASS of the fft_onepass instantiation at M = 2^lm."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, inside = {}, False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = f"OnePassILi{lm}E" in line
+        elif inside:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+            if m:
+                op = m.group(1)
+                counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
+def _median_ms(fn, runs: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _device_ms(fn, runs: int = 10) -> float:
+    """Device time per call of the CUDA kernels ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / runs / 1e3
+
+
+def _snr(want, got) -> float:
+    err = sum(float(((g.double() - w.double()) ** 2).sum()) for w, g in zip(want, got))
+    ref = sum(float((w.double() ** 2).sum()) for w in want)
+    return float("inf") if err == 0 else 10 * np.log10(ref / err)
+
+
+def main() -> None:
+    args = sys.argv[1:]
+    names = list(LAYOUTS)
+    sass = "--sass" in args
+    args = [a for a in args if a != "--sass"]
+    if args[:1] == ["--only"] and len(args) == 2:
+        names = args[1].split(",")
+    elif args:
+        raise SystemExit(__doc__)
+    if not torch.cuda.is_available():
+        raise SystemExit("k1_layouts: no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    libs = _build_all(names)
+    if sass:
+        for name in libs:
+            counts = _sass_counts(ROOT / "build" / "k1_layouts" / name / "libk1.so")
+            top = sorted(counts.items(), key=lambda kv: -kv[1])
+            print(f"{name} M = 2^15 SASS: {sum(counts.values())} instructions; "
+                  f"{', '.join(f'{k} {v}' for k, v in top[:28])}", flush=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    stream = _build.stream(dev)
+    for b, n in SHAPES:
+        x = torch.randn(b, n, generator=gen, device=dev)
+        re_, im_ = torch.empty(b, n // 2, device=dev), torch.empty(b, n // 2, device=dev)
+        tw = hopper_fft._twiddles(n, dev)
+        want = hopper_fft.rfft_packed_plain(x)
+        y = torch.empty_like(x)
+        def rfft():
+            return torch.fft.rfft(x, dim=-1)
+
+        copy_ms = _median_ms(lambda: y.copy_(x))
+        print(f"({b}, {n}): torch.fft.rfft {_median_ms(rfft):.4f} ms (device "
+              f"{_device_ms(rfft):.4f}), copy of the same bytes {copy_ms:.4f} ms [{smi}]",
+              flush=True)
+        del y
+        for name, so in libs.items():
+            def call():
+                rc = so.hst_rfft_packed(x.data_ptr(), re_.data_ptr(), im_.data_ptr(),
+                                        tw.data_ptr(), b, n, stream)
+                if rc:
+                    raise SystemExit(f"{name}: CUDA error {rc}")
+            call()
+            torch.cuda.synchronize()
+            snr = _snr(want, (re_, im_))
+            print(f"({b}, {n}) {name}: {_median_ms(call):.4f} ms (device {_device_ms(call):.4f}), "
+                  f"SNR vs plain {snr:.2f} dB, "
+                  f"{so.hst_rfft_packed_resident(n)} frames resident [{smi}]", flush=True)
+        del x, re_, im_, want
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()
