@@ -113,7 +113,15 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
     2^16 with P2 = 8; no K7); (e) N2M 2 x 2, 64 callbacks of 256 samples
     through ``process_any``. Output 0 of each holds >= 99 dB against a
     float64 FFT convolution (N2M: summed over the inputs); ms per call by
-    CUDA events and peak memory.
+    CUDA events and peak memory;
+20. compares the FFT sizes below 32 points (``csrc/fft_tiny.cu``: K10's and
+    K11's tiny forms at real N = 2..16, their windowed forms, K12's at
+    complex N = 1..16) with their plain versions, timed at (128, N) beside
+    ``torch.fft`` and on the 16-point STFT's frames of 128 x 1 s;
+21. drives the calls that pick those sizes: ``spectral_processor.convolve``
+    and ``convolve_complex`` of 128 pairs of 5-sample signals (N = 16) and
+    the STFT round trip with 16-point frames (hop 8) of 128 x 1 s, each
+    against float64 (>= 99 dB).
 
 Every path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel the path needs that was not launched fails the run,
@@ -175,6 +183,13 @@ KERNELS = {
     "rifft_packed_split": ("hopper_fft", "rifft_packed_split.cu", "fft/pallas_fft.py:775"),
     "rfft_small_windowed": ("hopper_fft", "rfft_small.cu", "fft/pallas_fft.py:1238"),
     "rifft_small_windowed": ("hopper_fft", "rifft_small.cu", "fft/pallas_fft.py:1265"),
+    # Below 32 points the TPU package leaves Pallas for its matmul_fft
+    # fallback (pallas_fft.py:471 forward, :529 inverse, :868 complex).
+    "rfft_tiny": ("hopper_fft", "fft_tiny.cu", "fft/pallas_fft.py:471"),
+    "rifft_tiny": ("hopper_fft", "fft_tiny.cu", "fft/pallas_fft.py:529"),
+    "rfft_tiny_windowed": ("hopper_fft", "fft_tiny.cu", "fft/pallas_fft.py:471"),
+    "rifft_tiny_windowed": ("hopper_fft", "fft_tiny.cu", "fft/pallas_fft.py:529"),
+    "fft_tiny": ("hopper_fft", "fft_tiny.cu", "fft/pallas_fft.py:868"),
 }
 STAGED = ("rfft_packed_stream", "lag_mac_causal", "rifft_packed_tail")
 
@@ -238,15 +253,16 @@ def kernel_flops(name, args, kwargs) -> float:
     """Operations the kernel's function does on these inputs (for a MAC, the
     valid lags only: 8 real operations per complex multiply-add)."""
     a = args[0]
-    if name in ("rfft_packed", "rfft_small", "rfft_packed_split"):
+    if name in ("rfft_packed", "rfft_small", "rfft_packed_split", "rfft_tiny"):
         return fft_flops(a.shape[-1], a.numel() // a.shape[-1])
-    if name == "rfft_small_windowed":  # the transform and one multiply a sample
+    if name in ("rfft_small_windowed", "rfft_tiny_windowed"):  # and one multiply a sample
         return fft_flops(a.shape[-1], a.numel() // a.shape[-1]) + a.numel()
-    if name == "rifft_small_windowed":  # the transform and two multiplies a sample
+    if name in ("rifft_small_windowed", "rifft_tiny_windowed"):  # two multiplies a sample
         return fft_flops(2 * a.shape[-1], a.numel() // a.shape[-1]) + 4.0 * a.numel()
-    if name == "fft_split":  # a complex N-point FFT: 5 N log2 N
+    if name in ("fft_split", "fft_tiny"):  # a complex N-point FFT: 5 N log2 N
         return 2 * fft_flops(a.shape[-1], a.numel() // a.shape[-1])
-    if name in ("rifft_packed", "rifft_small", "rifft_packed_tail", "rifft_packed_split"):
+    if name in ("rifft_packed", "rifft_small", "rifft_packed_tail", "rifft_packed_split",
+                "rifft_tiny"):
         return fft_flops(2 * a.shape[-1], a.numel() // a.shape[-1])
     if name == "rfft_packed_stream":
         return fft_flops(2 * a.shape[-1], a.numel() // a.shape[-1])
@@ -305,9 +321,9 @@ def library_call(name, args, kwargs):
     """One PyTorch call computing the kernel's function on the same inputs
     (in torch's own layout, converted before the timing), or None."""
     a = args[0]
-    if name in ("rfft_packed", "rfft_small", "rfft_packed_split"):
+    if name in ("rfft_packed", "rfft_small", "rfft_packed_split", "rfft_tiny"):
         return lambda: torch.fft.rfft(a, dim=-1)
-    if name == "rfft_small_windowed":
+    if name in ("rfft_small_windowed", "rfft_tiny_windowed"):
         if a.dim() != 3:
             return None
         # The (C, T, N) unfold view's signal, stored where the view reads it.
@@ -317,11 +333,12 @@ def library_call(name, args, kwargs):
         w = args[1]
         return lambda: torch.stft(sig, n, hop_length=hop, window=w, center=False,
                                   return_complex=True)
-    if name == "fft_split":
+    if name in ("fft_split", "fft_tiny"):
         z = torch.complex(args[0], args[1])
         f = torch.fft.ifft if kwargs.get("inverse") else torch.fft.fft
         return lambda: f(z, dim=-1)
-    if name in ("rifft_packed", "rifft_small", "rifft_packed_tail", "rifft_packed_split"):
+    if name in ("rifft_packed", "rifft_small", "rifft_packed_tail", "rifft_packed_split",
+                "rifft_tiny"):
         z = _complex_of_packed(args[0], args[1])
         n = 2 * a.shape[-1]
         return lambda: torch.fft.irfft(z, n=n, dim=-1)
@@ -346,7 +363,9 @@ def compare(name, fn, plain, args, kwargs, big, smi):
     snr = min(snr_db(w, g) for w, g in zip(want, got))
     err = max(float((g - w).abs().max()) for w, g in zip(want, got))
     shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
-    print(f"{name} {shapes}{' ' + str(sorted(kwargs)) if kwargs else ''}: SNR vs plain "
+    opts = {k: tuple(v.shape) if isinstance(v, torch.Tensor) else v
+            for k, v in sorted(kwargs.items())}
+    print(f"{name} {shapes}{' ' + str(opts) if kwargs else ''}: SNR vs plain "
           f"{snr:.2f} dB, max abs err {err:.3e}", flush=True)
     if not (snr >= SNR_MIN_KERNEL_DB and all(bool(torch.isfinite(g).all()) for g in got)):
         fail(f"{name} at {shapes}: SNR {snr:.2f} dB < {SNR_MIN_KERNEL_DB}")
@@ -1548,6 +1567,114 @@ def convolver_paths(dev, irs, x, launches, smi) -> None:
     torch.cuda.empty_cache()
 
 
+def tiny_kernels(randn, mods, smi) -> dict:
+    """Phase 20: the FFT sizes below 32 points (``csrc/fft_tiny.cu``, one
+    thread a frame) against their plain versions. Times at (128, N) for
+    real N = 16, 8, 4, 2 and complex N = 16..1 (both directions), the
+    windowed forms on the 16-point STFT's frames of a 128 x 1 s signal (hop
+    8, the frames one float into it); small shapes: 257 rows (a ragged last
+    block), frames of 4 (hop 2) and 2 (hop 1)."""
+    def real(b, n):
+        return lambda: ((randn(b, n),), {})
+
+    def packed(b, n):
+        return lambda: ((randn(b, n // 2), randn(b, n // 2)), {})
+
+    def cplx(b, n, inverse):
+        return lambda: ((randn(b, n), randn(b, n)), dict(inverse=inverse))
+
+    def window(n, like):
+        return torch.from_numpy(_hann64(n).astype(np.float32)).to(like.device)
+
+    def frames(c, length, n, hop):
+        def make():
+            f = randn(c, length)[:, 1:].unfold(-1, n, hop)
+            return (f, window(n, f)), {}
+        return make
+
+    def spectra(lead, n):
+        def make():
+            re, im = randn(*lead, n // 2), randn(*lead, n // 2)
+            return (re, im, window(n, re), 0.5 / n), {}
+        return make
+
+    t16 = (FS - 16) // 8 + 1
+    return check_kernels([
+        ("rfft_tiny", [(real(CHANNELS, n), True) for n in (16, 8, 4, 2)]
+         + [(real(257, 16), False)]),
+        ("rifft_tiny", [(packed(CHANNELS, n), True) for n in (16, 8, 4, 2)]
+         + [(packed(257, 2), False)]),
+        ("rfft_tiny_windowed", [(frames(CHANNELS, FS + 1, 16, 8), True),
+                                (frames(3, 1 + 2 * 8 + 4, 4, 2), False),
+                                (frames(2, 1 + 9 + 2, 2, 1), False)]),
+        ("rifft_tiny_windowed", [(spectra((CHANNELS, t16), 16), True),
+                                 (spectra((3, 5), 4), False), (spectra((2,), 2), False)]),
+        ("fft_tiny", [(cplx(CHANNELS, n, inverse), True) for n in (16, 8, 4, 2, 1)
+                      for inverse in (False, True)]),
+    ], mods, smi)
+
+
+def tiny_paths(dev, launches, smi) -> None:
+    """Phase 21: the public calls that pick FFT sizes below 32: (a)
+    ``spectral_processor.convolve`` of 128 pairs of 5-sample signals (N = 16:
+    K10's tiny form twice, K11's once), (b) ``convolve_complex`` of 128
+    pairs of 5-sample complex signals (K12's tiny form three times), (c) the
+    STFT round trip with 16-point frames, hop 8, of a 128 x 1 s signal (the
+    windowed tiny forms); each against float64 numpy (>= 99 dB), with ms per
+    call (CUDA events, median of 5 after a warm-up)."""
+    from hisstools_library_tpu_torch.core.types import Split
+    from hisstools_library_tpu_torch.ops import spectral_processor as sp
+    from hisstools_library_tpu_torch.ops import stft as stft_mod
+
+    rng = np.random.default_rng(11)
+
+    def run(label, need, call, want):
+        launches.reset()
+        got = call()
+        torch.cuda.synchronize()
+        launches.read(label, need, smi)
+        if tuple(got.shape) != want.shape or not bool(torch.isfinite(got).all()):
+            fail(f"{label}: output shape {tuple(got.shape)}, expected {want.shape}, finite "
+                 f"{bool(torch.isfinite(got).all())}")
+        snr = snr_db(torch.from_numpy(want), got.cpu())
+        ms = median_ms(call)
+        print(f"{label}: SNR vs float64 {snr:.2f} dB; {ms:.4f} ms/call (CUDA events, median "
+              f"of 5) [{smi}]", flush=True)
+        if not snr >= SNR_MIN_PATH_DB:
+            fail(f"{label}: SNR {snr:.2f} dB < {SNR_MIN_PATH_DB}")
+
+    a, b, ai, bi = (rng.standard_normal((CHANNELS, 5)).astype(np.float32) for _ in range(4))
+    ad, bd = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    run("small-convolve", ("rfft_tiny", "rifft_tiny"), lambda: sp.convolve(ad, bd),
+        np.stack([np.convolve(a[i].astype(np.float64), b[i].astype(np.float64))
+                  for i in range(CHANNELS)]))
+    z1 = Split(ad, torch.from_numpy(ai).to(dev))
+    z2 = Split(bd, torch.from_numpy(bi).to(dev))
+    want = np.stack([np.convolve(a[i] + 1j * ai[i].astype(np.float64),
+                                 b[i] + 1j * bi[i].astype(np.float64))
+                     for i in range(CHANNELS)])
+
+    def complex_call():
+        got = sp.convolve_complex(z1, z2)
+        return torch.cat([got.re, got.im], dim=-1)
+
+    run("small-convolve-complex", ("fft_tiny",), complex_call,
+        np.concatenate([want.real, want.imag], axis=-1))
+    if launches.by_path["small-convolve-complex"]["fft_tiny"] != 3:
+        fail("small-convolve-complex: K12's tiny form did not launch three times")
+    x = rng.standard_normal((CHANNELS, FS)).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    w = _hann64(16)
+
+    def roundtrip():
+        spec = stft_mod.stft(xd, w, 16, 8, boundary=True)
+        return stft_mod.istft(spec, w, 8, length=FS, boundary=True)
+
+    run("small-stft-roundtrip", ("rfft_tiny_windowed", "rifft_tiny_windowed"), roundtrip,
+        x.astype(np.float64))
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -1610,6 +1737,8 @@ def main() -> None:
     stft_path(dev, launches, smi, profile)
     pipeline_paths(dev, launches, smi, profile)
     convolver_paths(dev, irs, x, launches, smi)
+    results.update(tiny_kernels(randn, mods, smi))
+    tiny_paths(dev, launches, smi)
 
     for name in KERNELS:
         by_path = {p: c[name] for p, c in launches.by_path.items()}

@@ -71,6 +71,12 @@ _SIGNATURES = {
     "hst_rfft_small_windowed": [_P, _L, _L, _L, _P, _P, _P, _P, _L, _I, _P],
     # re, im, w, scale, y, tw, batch, n, stream
     "hst_rifft_small_windowed": [_P, _P, _P, _F, _P, _P, _L, _I, _P],
+    # x, outer_stride, row_stride, t, w (or null), re, im, batch, n, stream
+    "hst_rfft_tiny": [_P, _L, _L, _L, _P, _P, _P, _L, _I, _P],
+    # re, im, w (or null), scale, y, batch, n, stream
+    "hst_rifft_tiny": [_P, _P, _P, _F, _P, _L, _I, _P],
+    # re, im, out_re, out_im, batch, n, stream
+    "hst_fft_tiny": [_P, _P, _P, _P, _L, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -489,53 +489,8 @@ inline void run_fft(const Plan& p, long long frames, const float* a, const float
 // n1). So the inverse's first pass works on the very rows the forward's last
 // pass produced, and a block that owns rows (j, R-j) can run the forward row
 // pass, the pack, a per-bin product, the unpack and the inverse row pass
-// without the frame leaving shared memory.
-
-// Step 1 of the L-point DFTs of the kTile rows held in shared memory (row f
-// at s[f*kLd], natural order), in place; rows_step2 completes them. `tl`:
-// the table W_L^e, e < L, in shared memory.
-template <int L>
-__device__ __forceinline__ void rows_step1_smem(float2* s, const float2* tl) {
-  constexpr int A = Sub<L>::kA, B = Sub<L>::kB;
-  const int tid = threadIdx.x;
-  const bool active = tid < kTile * A;
-  const int j1 = tid % A;
-  const int f = tid / A;
-  float2 v[B];
-  if (active) {
-#pragma unroll
-    for (int j2 = 0; j2 < B; ++j2) v[j2] = s[f * kLd + j1 + A * j2];
-  }
-  __syncthreads();
-  if (active) {
-    reg_dft<B, true>(v, tl, Sub<L>::kLog);
-    step1_store<L, true>(s, v, f, j1, tl, Sub<L>::kLog);
-  }
-  __syncthreads();
-}
-
-// Step 2 after step1_store: row f's L-point DFT, natural order, back in
-// s[f*kLd + k]. `tl` as for rows_step1_smem.
-template <int L>
-__device__ __forceinline__ void rows_step2(float2* s, const float2* tl) {
-  constexpr int A = Sub<L>::kA, B = Sub<L>::kB;
-  const int tid = threadIdx.x;
-  const bool active = tid < kTile * B;
-  const int f = tid % kTile;
-  const int k2 = tid / kTile;
-  float2 v[A];
-  if (active) {
-#pragma unroll
-    for (int j1 = 0; j1 < A; ++j1) v[j1] = s[f * kLd + k2 * A + j1];
-    reg_dft<A, true>(v, tl, Sub<L>::kLog);
-  }
-  __syncthreads();
-  if (active) {
-#pragma unroll
-    for (int k1 = 0; k1 < A; ++k1) s[f * kLd + k2 + B * k1] = v[k1];
-  }
-  __syncthreads();
-}
+// without the frame leaving shared memory (fastfir_chain.cu runs those row
+// DFTs on reg_fft.cuh's register core).
 
 // The row-first inverse's column pass: for each column n1 of the frames in
 // `y` (R = L rows of ncol points), the L-point DFT over the rows, no

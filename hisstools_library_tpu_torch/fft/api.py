@@ -23,8 +23,9 @@ Backends keep the TPU package's names so callers port unchanged:
 With no backend given, the tensor's device decides: ``"pallas"`` on CUDA (as
 the TPU package defaults to its kernels on a TPU), ``"xla"`` on the CPU.
 With ``"pallas"`` on a CUDA tensor ``fft`` / ``ifft`` launch K12 (N =
-32..2^19) and ``rfft`` / ``rifft`` K10/K11 (N = 32..2048), K1/K6 (4096..2^17)
-or K13/K14 (2^18..2^20); outside those sizes, and for float64, they raise
+1..2^19; its tiny form below 32) and ``rfft`` / ``rifft`` K10/K11 (N =
+2..2048; their tiny forms below 32), K1/K6 (4096..2^17) or K13/K14
+(2^18..2^20); outside those sizes, and for float64, they raise
 ``NotImplementedError`` naming what is missing, and nothing on the card calls
 ``torch.fft``. The TPU package's large-size routing (``_route_large``, the
 out-of-core and sharded transforms) and its float64 ``TypeError`` do not carry
@@ -116,7 +117,7 @@ def rifft(re: torch.Tensor, im: torch.Tensor, backend: Optional[str] = None
           ) -> torch.Tensor:
     """Unscaled inverse of the packed real spectrum: ``rifft(rfft(x)) == 2N x``,
     along the last axis. ``"pallas"`` on a CUDA tensor launches K6 (N =
-    4096..2^17), K11 (N = 32..2048) or K14 (2^18..2^20)."""
+    4096..2^17), K11 (N = 2..2048) or K14 (2^18..2^20)."""
     n = re.shape[-1] * 2
     _log2_size(n)
     if _resolve(backend, re.device) == "pallas":

@@ -20,6 +20,7 @@ function                           replaces (hisstools_library_tpu/...)      CUD
 :func:`fft_split`           (K12)  fft/pallas_fft.py: fft_split              csrc/fft_split.cu
 :func:`rfft_packed_split`   (K13)  fft/pallas_fft.py: _rfft_packed_split     csrc/rfft_packed_split.cu
 :func:`rifft_packed_split`  (K14)  fft/pallas_fft.py: _rifft_packed_split    csrc/rifft_packed_split.cu
+the tiny forms, N < 32 (5)         fft/pallas_fft.py: matmul_fft fallback    csrc/fft_tiny.cu
 =================================  ========================================  ==============================
 
 A wrapper runs the plain version only for a tensor on the CPU. For a CUDA
@@ -32,6 +33,12 @@ K10, N = 4096..2^17 to K1 and N = 2^18..2^20 to K13, and :func:`rifft_packed`
 sends N = 32..2048 to K11, N = 4096..2^17 to K6 and N = 2^18..2^20 to K14, as
 the TPU package's ``rfft_packed`` / ``rifft_packed`` send their small sizes to
 ``_rfft_small`` / ``_rifft_small`` and their large ones to the split pairs.
+Below 32 points the TPU package leaves Pallas for its XLA-staged
+``matmul_fft``; here K10, K11, K10w, K11w and K12 send real N = 2..16 and
+complex N = 1..16 to the tiny forms :func:`rfft_tiny`,
+:func:`rifft_tiny`, :func:`rfft_tiny_windowed`, :func:`rifft_tiny_windowed`
+and :func:`fft_tiny` (``csrc/fft_tiny.cu``: one thread a frame, the DFT in
+registers), so every power of two up to the limits below has a kernel.
 :func:`fft_split` (K12) serves complex N = 32..2^19: frames of up to 1024
 points in shared memory, 2048..2^16 in two passes over an HBM scratch frame
 (``csrc/fft_common.cuh``, which K2, K4 and K6 share), 2^17 in one pass
@@ -87,12 +94,12 @@ from .hopper_kernels import lag_mac_causal, lag_mac_causal_plain, lag_mac_ring_p
 MIN_REAL_SIZE = 4096
 MAX_SINGLE_REAL = 1 << 17    # K1: one pass; K6: two passes
 MAX_SPLIT_REAL = 1 << 20     # K13 / K14: N = 2^18..2^20 (csrc/fft_large.cuh)
-MIN_COMPLEX = 32             # K12 serves complex N = 32..2^19
+MIN_COMPLEX = 32             # K12 serves complex N = 32..2^19 (fft_tiny below)
 MAX_COMPLEX_SMEM = 1024      # K12 in shared memory up to here
 MAX_COMPLEX = 1 << 19
 # Beyond the kernels' sizes: what is still to be ported there.
 LARGE_MISSING = "sizes 2^21..2^28 (ROADMAP queue 1 item 12)"
-SMALL_MIN_REAL = 32          # K10 serves N = 32..2048
+SMALL_MIN_REAL = 32          # K10 serves N = 32..2048 (rfft_tiny: 2..16)
 # K5 and K8 serve N = 2^14..2^17, the TPU package's sizes for both, as the
 # two instantiations of the chain family fastfir_chain.cu.
 CHAIN_MIN = 1 << 14
@@ -120,8 +127,9 @@ def real_eligible(n: int) -> bool:
 
 
 def small_eligible(n: int) -> bool:
-    """True when the small-FFT kernel (K10) serves real size ``n``."""
-    return SMALL_MIN_REAL <= n < MIN_REAL_SIZE and (n & (n - 1)) == 0
+    """True when the small-FFT kernels (K10 / K11, with their tiny forms
+    below 32 points) serve real size ``n`` = 2..2048."""
+    return 2 <= n < MIN_REAL_SIZE and (n & (n - 1)) == 0
 
 
 def split_eligible(n: int) -> bool:
@@ -130,8 +138,9 @@ def split_eligible(n: int) -> bool:
 
 
 def complex_eligible(n: int) -> bool:
-    """True when the complex kernel (K12) serves size ``n``."""
-    return MIN_COMPLEX <= n <= MAX_COMPLEX and (n & (n - 1)) == 0
+    """True when the complex kernel (K12, with its tiny form below 32
+    points) serves size ``n`` = 1..2^19."""
+    return 1 <= n <= MAX_COMPLEX and (n & (n - 1)) == 0
 
 
 def chain_eligible(n: int) -> bool:
@@ -161,9 +170,8 @@ def _check(kernel: str, n: int, *tensors: torch.Tensor) -> None:
     these tensors at size ``n``."""
     if not real_eligible(n):
         if n < MIN_REAL_SIZE:
-            missing = ("K10 (forward) and K11 (inverse) serve N = 32..2048 through "
-                       "rfft_packed / rifft_packed; a small form of this kernel and "
-                       "N < 32")
+            missing = ("K10 (forward) and K11 (inverse) serve N = 2..2048 through "
+                       "rfft_packed / rifft_packed; a small form of this kernel")
         elif n <= MAX_SPLIT_REAL:
             missing = ("K13/K14 serve N = 2^18..2^20 through rfft_packed / "
                        "rifft_packed; a large form of this kernel")
@@ -190,7 +198,7 @@ def _check_split(kernel: str, n: int, *tensors: torch.Tensor) -> None:
 def _check_small(kernel: str, n: int) -> None:
     if not small_eligible(n):
         raise NotImplementedError(
-            f"{kernel}: serves N = {SMALL_MIN_REAL}..{MIN_REAL_SIZE // 2}, got N = {n}")
+            f"{kernel}: serves N = 2..{MIN_REAL_SIZE // 2}, got N = {n}")
 
 
 class Plan(NamedTuple):
@@ -263,6 +271,59 @@ def _onepass_plan(n: int) -> OnePassPlan:
     return OnePassPlan("one-pass", (col_len, cols), blocks, threads, shared, 1, 0)
 
 
+CHAIN_CLUSTER = 4        # blocks of consecutive row pairs in a cluster
+SMEM_BLOCK_MAX = 232448  # shared memory a block can use on the H100
+SMEM_SM = 233472         # an SM's shared memory, 1 KB of it reserved a block
+
+
+class ChainPlan(NamedTuple):
+    """How K5 / K8's middle phase (``csrc/fastfir_chain.cu`` ``chain_mid``)
+    runs one launch: a block per (channel, row pair (j, R-j)) of the
+    two-pass split M = R x L, walking the hops in chunks."""
+    row_len: int             # L = M1, points a row
+    rows: int                # R = M / L
+    pairs: int               # blocks a channel: R / 2
+    chunk_rows: int          # rows a chunk (two a hop): 256 / (L / 16), at most 32
+    chunks: int              # ceil(T / (chunk_rows / 2))
+    ring_in_smem: bool       # ring and H in shared memory (else a global scratch)
+    tiles: int               # FFT tiles: 2 double-buffers the chunks' rows
+    shared_bytes: int        # dynamic shared memory a block
+    blocks_per_sm: int       # by shared memory, and at most 2 by registers
+
+
+def _chain_plan(n: int, p: int, t: int) -> ChainPlan:
+    """The middle phase's plan at real size ``n`` = 2^14..2^17 with ``p``
+    lags over ``t`` hops, as ``chunk_rows`` / ``mid_smem`` / ``mid_tiles``
+    in ``csrc/fastfir_chain.cu`` make it: a chunk of as many rows as the
+    row DFTs (L/16 threads a row) keep 256 threads busy, at most 32; shared
+    memory for the FFT tiles (their rows in ``reg_fft.cuh``'s padded frames
+    of L + L/16), 5L twiddles and, while a block holds them, ring and H (2P
+    rows of 2L); ring and H in shared memory where they fit beside one
+    tile, and a second tile where there is more than one chunk and a block
+    has its SM to itself with one tile."""
+    if not chain_eligible(n):
+        raise ValueError(f"the chain family serves N = {CHAIN_MIN}..{CHAIN_MAX}, got n = {n}")
+    lm = n.bit_length() - 2
+    row_len = 1 << (lm // 2)
+    rows = (1 << lm) // row_len
+    chunk = min(32, SMALL_THREADS // (row_len // SMALL_POINTS))
+    chunks = -(-t // (chunk // 2))
+
+    def smem(ring: bool, tiles: int) -> int:
+        return 8 * (tiles * chunk * (row_len + row_len // 16) + 5 * row_len
+                    + (4 * p * row_len if ring else 0))
+
+    def per_sm(shared: int) -> int:
+        return min(2, SMEM_SM // (shared + 1024))
+
+    ring = smem(True, 1) <= SMEM_BLOCK_MAX
+    two = smem(ring, 2)
+    tiles = 2 if chunks > 1 and two <= SMEM_BLOCK_MAX and per_sm(smem(ring, 1)) == 1 else 1
+    shared = smem(ring, tiles)
+    return ChainPlan(row_len, rows, rows // 2, chunk, chunks, ring, tiles, shared,
+                     per_sm(shared))
+
+
 SMALL_POINTS = 16    # K10 / K10w: points a thread holds (csrc/reg_fft.cuh kR)
 SMALL_THREADS = 256  # threads a block
 
@@ -279,7 +340,7 @@ class SmallPlan(NamedTuple):
 
 def _small_plan(n: int) -> SmallPlan:
     """The plan of ``hst_reg::Plan`` for real size ``n`` = 32..2048."""
-    if not small_eligible(n):
+    if not (small_eligible(n) and n >= SMALL_MIN_REAL):
         raise ValueError(f"the register-DFT core serves N = {SMALL_MIN_REAL}.."
                          f"{MIN_REAL_SIZE // 2}, got n = {n}")
     lm = n.bit_length() - 2
@@ -344,6 +405,8 @@ rfft_small_plain = rfft_packed_plain
 rifft_small_plain = rifft_packed_plain
 rfft_packed_split_plain = rfft_packed_plain
 rifft_packed_split_plain = rifft_packed_plain
+rfft_tiny_plain = rfft_packed_plain
+rifft_tiny_plain = rifft_packed_plain
 
 
 def rfft_small_windowed_plain(frames: torch.Tensor, window: torch.Tensor
@@ -366,6 +429,11 @@ def fft_split_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
     z = torch.fft.fft(torch.complex(re, im), dim=-1)
     out_re, out_im = z.real.contiguous(), z.imag.contiguous()
     return (out_im, out_re) if inverse else (out_re, out_im)
+
+
+rfft_tiny_windowed_plain = rfft_small_windowed_plain
+rifft_tiny_windowed_plain = rifft_small_windowed_plain
+fft_tiny_plain = fft_split_plain
 
 
 def fastfir_chain_plain(x2d: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,
@@ -402,7 +470,7 @@ def fastfir_chain_stream_plain(x2d, prev, ring_re, ring_im, h_re, h_im,
 def rfft_packed(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: real FFT -> packed N/2 bins (x2 scale, Nyquist in im[0]), batched
     over the leading axes, natural bin order: one HBM pass, no scratch
-    (:func:`_onepass_plan`). N = 32..2048 go to K10, N = 2^18..2^20 to
+    (:func:`_onepass_plan`). N = 2..2048 go to K10, N = 2^18..2^20 to
     K13."""
     if x.device.type == "cpu":
         return rfft_packed_plain(x)
@@ -443,11 +511,13 @@ def rfft_packed_resident(n: int) -> int:
 
 def rfft_small(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10: small real FFT (N = 32..2048) -> packed N/2 bins, batched over
-    the leading axes, natural bin order."""
+    the leading axes, natural bin order; N = 2..16 go to :func:`rfft_tiny`."""
     if x.device.type == "cpu":
         return rfft_small_plain(x)
     kernel = "K10 rfft_small"
     n = x.shape[-1]
+    if n < SMALL_MIN_REAL and small_eligible(n):
+        return rfft_tiny(x)
     _check_small(kernel, n)
     _build.check_tensors(kernel, x)
     lead = x.shape[:-1]
@@ -469,7 +539,7 @@ rfft_small.launches = 0
 
 def rifft_packed(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     """K6: unscaled inverse of packed N/2-bin planes, rifft(rfft(x)) == 2N x,
-    batched over the leading axes; returns (..., N). N = 32..2048 go to
+    batched over the leading axes; returns (..., N). N = 2..2048 go to
     K11, N = 2^18..2^20 to K14."""
     if re.device.type == "cpu":
         return rifft_packed_plain(re, im)
@@ -500,12 +570,15 @@ rifft_packed.launches = 0
 
 
 def rifft_small(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
-    """K11: small unscaled inverse (N = 32..2048) of packed N/2-bin planes,
+    """K11: small unscaled inverse (N = 32..2048; N = 2..16 go to
+    :func:`rifft_tiny`) of packed N/2-bin planes,
     batched over the leading axes; returns (..., N)."""
     if re.device.type == "cpu":
         return rifft_small_plain(re, im)
     kernel = "K11 rifft_small"
     n = 2 * re.shape[-1]
+    if n < SMALL_MIN_REAL and small_eligible(n):
+        return rifft_tiny(re, im)
     _check_small(kernel, n)
     _build.check_tensors(kernel, re, im)
     if im.shape != re.shape:
@@ -535,7 +608,8 @@ def _check_window(kernel: str, window: torch.Tensor, n: int) -> None:
 def rfft_small_windowed(frames: torch.Tensor, window: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10w: rfft(frames * window) -> packed N/2 bins for each frame of
-    ``frames`` (..., T, N), N = 32..2048; returns contiguous (..., T, N/2)
+    ``frames`` (..., T, N), N = 32..2048 (2..16: :func:`rfft_tiny_windowed`);
+    returns contiguous (..., T, N/2)
     planes. The frames are read in place where the leading axes merge into
     one with a last-axis stride of 1 (the padded signal's ``unfold`` view,
     row stride = hop); another layout is copied once. ``window``: (N,)
@@ -544,6 +618,8 @@ def rfft_small_windowed(frames: torch.Tensor, window: torch.Tensor
         return rfft_small_windowed_plain(frames, window)
     kernel = "K10w rfft_small_windowed"
     t, n = frames.shape[-2], frames.shape[-1]
+    if n < SMALL_MIN_REAL and small_eligible(n):
+        return rfft_tiny_windowed(frames, window)
     _check_small(kernel, n)
     _build.check_tensors(kernel, frames, window, contiguous=False)
     _check_window(kernel, window, n)
@@ -577,6 +653,8 @@ def rifft_small_windowed(re: torch.Tensor, im: torch.Tensor, window: torch.Tenso
         return rifft_small_windowed_plain(re, im, window, scale)
     kernel = "K11w rifft_small_windowed"
     n = 2 * re.shape[-1]
+    if n < SMALL_MIN_REAL and small_eligible(n):
+        return rifft_tiny_windowed(re, im, window, scale)
     _check_small(kernel, n)
     _build.check_tensors(kernel, re, im, window)
     _check_window(kernel, window, n)
@@ -596,6 +674,137 @@ def rifft_small_windowed(re: torch.Tensor, im: torch.Tensor, window: torch.Tenso
 
 
 rifft_small_windowed.launches = 0
+
+
+def _rfft_tiny(kernel: str, frames: torch.Tensor, window: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``csrc/fft_tiny.cu``'s packed forward over the (..., T,
+    N) frames (a strided view is read in place, as K10w reads it)."""
+    t, n = frames.shape[-2], frames.shape[-1]
+    _check_small(kernel, n)
+    _build.check_tensors(kernel, frames, *(() if window is None else (window,)),
+                         contiguous=False)
+    if window is not None:
+        _check_window(kernel, window, n)
+    lead = frames.shape[:-1]
+    b = math.prod(lead)
+    re = torch.empty(*lead, n // 2, dtype=torch.float32, device=frames.device)
+    im = torch.empty_like(re)
+    if b == 0:
+        return re, im
+    f3 = frames.reshape(-1, t, n)  # a view where the leading axes merge
+    if f3.stride(-1) != 1:
+        f3 = f3.contiguous()
+    rc = _build.load().hst_rfft_tiny(
+        f3.data_ptr(), f3.stride(0), f3.stride(1), t, _ptr(window), re.data_ptr(),
+        im.data_ptr(), b, n, _build.stream(frames.device))
+    _build.check(rc, kernel)
+    return re, im
+
+
+def rfft_tiny(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10's tiny form: real FFT of N = 2..16 -> packed N/2 bins (x2 scale,
+    Nyquist in im[0]), batched over the leading axes."""
+    if x.device.type == "cpu":
+        return rfft_tiny_plain(x)
+    out = _rfft_tiny("K10 rfft_tiny", x if x.dim() > 1 else x[None], None)
+    rfft_tiny.launches += 1
+    return out if x.dim() > 1 else (out[0][0], out[1][0])
+
+
+rfft_tiny.launches = 0
+
+
+def rfft_tiny_windowed(frames: torch.Tensor, window: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10w's tiny form: rfft(frames * window) for frames (..., T, N), N =
+    2..16, read in place where the leading axes merge."""
+    if frames.device.type == "cpu":
+        return rfft_tiny_windowed_plain(frames, window)
+    out = _rfft_tiny("K10w rfft_tiny_windowed", frames, window)
+    rfft_tiny_windowed.launches += 1
+    return out
+
+
+rfft_tiny_windowed.launches = 0
+
+
+def _rifft_tiny(kernel: str, re: torch.Tensor, im: torch.Tensor,
+                window: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """One launch of ``csrc/fft_tiny.cu``'s unscaled packed inverse (times
+    scale * window where a window is given)."""
+    n = 2 * re.shape[-1]
+    _check_small(kernel, n)
+    _build.check_tensors(kernel, re, im, *(() if window is None else (window,)))
+    if window is not None:
+        _check_window(kernel, window, n)
+    if im.shape != re.shape:
+        raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")
+    lead = re.shape[:-1]
+    b = math.prod(lead)
+    out = torch.empty(*lead, n, dtype=torch.float32, device=re.device)
+    if b == 0:
+        return out
+    rc = _build.load().hst_rifft_tiny(re.data_ptr(), im.data_ptr(), _ptr(window),
+                                      float(scale), out.data_ptr(), b, n,
+                                      _build.stream(re.device))
+    _build.check(rc, kernel)
+    return out
+
+
+def rifft_tiny(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """K11's tiny form: unscaled inverse (N = 2..16) of packed N/2-bin planes,
+    rifft(rfft(x)) == 2N x; returns (..., N)."""
+    if re.device.type == "cpu":
+        return rifft_tiny_plain(re, im)
+    out = _rifft_tiny("K11 rifft_tiny", re, im, None, 1.0)
+    rifft_tiny.launches += 1
+    return out
+
+
+rifft_tiny.launches = 0
+
+
+def rifft_tiny_windowed(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    """K11w's tiny form: scale * rifft(spec) * window, N = 2..16."""
+    if re.device.type == "cpu":
+        return rifft_tiny_windowed_plain(re, im, window, scale)
+    out = _rifft_tiny("K11w rifft_tiny_windowed", re, im, window, scale)
+    rifft_tiny_windowed.launches += 1
+    return out
+
+
+rifft_tiny_windowed.launches = 0
+
+
+def fft_tiny(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K12's tiny form: unscaled complex DFT (or N x IDFT, by swapped
+    planes) of split planes, N = 1..16 (N = 1 a copy)."""
+    if re.device.type == "cpu":
+        return fft_tiny_plain(re, im, inverse)
+    kernel = "K12 fft_tiny"
+    n = re.shape[-1]
+    if not (1 <= n < MIN_COMPLEX and (n & (n - 1)) == 0):
+        raise NotImplementedError(f"{kernel}: serves N = 1..{MIN_COMPLEX // 2}, got N = {n}")
+    _build.check_tensors(kernel, re, im)
+    if im.shape != re.shape:
+        raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")
+    b = math.prod(re.shape[:-1])
+    out_re = torch.empty(re.shape, dtype=torch.float32, device=re.device)
+    out_im = torch.empty_like(out_re)
+    if b == 0:
+        return out_re, out_im
+    src, dst = ((im, re), (out_im, out_re)) if inverse else ((re, im), (out_re, out_im))
+    rc = _build.load().hst_fft_tiny(src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(),
+                                    dst[1].data_ptr(), b, n, _build.stream(re.device))
+    _build.check(rc, kernel)
+    fft_tiny.launches += 1
+    return out_re, out_im
+
+
+fft_tiny.launches = 0
 
 
 def rfft_packed_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -657,17 +866,19 @@ def fft_split(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
     (hisstools_fft), or with ``inverse`` the unscaled N x IDFT
     (hisstools_ifft: the forward with the planes swapped in and out, which
     the launch does by swapping pointers, with no copy). Complex N =
-    32..2^19, batched over the leading axes, natural order."""
+    32..2^19, batched over the leading axes, natural order; N = 1..16 go to
+    :func:`fft_tiny`."""
     if re.device.type == "cpu":
         return fft_split_plain(re, im, inverse)
     kernel = "K12 fft_split"
     n = re.shape[-1]
     if not complex_eligible(n):
-        missing = ("complex " + LARGE_MISSING if n > MAX_COMPLEX
-                   else "complex FFTs below 32 points")
         raise NotImplementedError(
-            f"{kernel}: serves N = {MIN_COMPLEX}..{MAX_COMPLEX}; N = {n}: {missing} "
-            "not yet ported")
+            f"{kernel}: serves N = 1..{MAX_COMPLEX}; N = {n}: "
+            + (f"complex {LARGE_MISSING} not yet ported" if n > MAX_COMPLEX
+               else "not a power of two"))
+    if n < MIN_COMPLEX:
+        return fft_tiny(re, im, inverse)
     _build.check_tensors(kernel, re, im)
     if im.shape != re.shape:
         raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")

@@ -145,6 +145,8 @@ STFT_CASES = [
     (1024, 341, True, True, (2,)), (2048, 1024, True, False, (2,)),
     (2048, 512, False, True, ()), (4096, 2048, True, True, (2,)),
     (4096, 1024, False, True, ()),
+    # frames below 32 points (the tiny forms of K10w / K11w on the card)
+    (16, 8, True, True, (3,)), (4, 2, False, True, (2,)),
 ]
 
 
@@ -233,10 +235,13 @@ def _meta(*shape, dtype=torch.float32):
     (1024, "K10w rfft_small_windowed", "K11w rifft_small_windowed"),
     (2048, "K10w rfft_small_windowed", "K11w rifft_small_windowed"),
     (4096, "K1 rfft_packed", "K6 rifft_packed"),
+    (16, "K10w rfft_tiny_windowed", "K11w rifft_tiny_windowed"),
+    (4, "K10w rfft_tiny_windowed", "K11w rifft_tiny_windowed"),
 ])
 def test_stft_routes_off_cpu(n, kernel, inverse_kernel):
     """Off the CPU, "pallas" sends stft / istft to K10w / K11w up to N = 2048
-    and, above, multiplies by the window and calls K1 / K6: each wrapper
+    (their tiny forms below 32) and, above, multiplies by the window and
+    calls K1 / K6: each wrapper
     refuses the meta device by its kernel's name, so no torch.fft ran."""
     w = np.hanning(n)
     with pytest.raises(ValueError, match=f"{kernel}: .*CUDA"):

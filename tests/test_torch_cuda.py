@@ -162,11 +162,17 @@ def _chain_inputs(c, t, p, n, dev, seed=3):
 
 
 # (C, T, P, N): P > T, one lag (T = 2, P = 1: the smallest output that
-# depends on the MAC), two chunks of 8 hops, the main path's P = 15, and P
-# beyond shared memory (47 lags fit at 2^15..2^16, 23 at 2^17).
+# depends on the MAC), the main path's P = 15, and P beyond shared memory
+# (47 lags fit at 2^15..2^16, 22 at 2^17; hopper_fft._chain_plan).
 CHAIN_CASES = [(2, 5, 7, 1 << 14), (2, 3, 2, 1 << 17), (2, 2, 1, 1 << 16),
                (3, 16, 15, 1 << 16), (2, 9, 4, 1 << 15), (2, 3, 60, 1 << 16),
-               (1, 9, 25, 1 << 17)]
+               (1, 9, 25, 1 << 17),
+               # several chunks a block, the last one partial (16 hops a chunk
+               # up to 2^16, 8 at 2^17; hopper_fft._chain_plan), in one
+               # tile, or double-buffered in two where a block has its SM to
+               # itself (the 2^17 shapes and (40, 25, 2^16))
+               (2, 40, 15, 1 << 16), (2, 37, 5, 1 << 14), (1, 19, 9, 1 << 17),
+               (2, 40, 25, 1 << 16), (2, 17, 4, 1 << 15), (1, 9, 9, 1 << 17)]
 
 
 @pytest.mark.parametrize("c,t,p,n", CHAIN_CASES)
@@ -198,7 +204,8 @@ def test_fastfir_chain_single_hop_is_zero(cuda):
 # beyond shared memory, and T = 1.
 WIDE_STREAM_CASES = [(2, 2, 8, 1 << 17, False), (2, 4, 8, 1 << 16, True),
                      (2, 11, 3, 1 << 16, True), (1, 2, 30, 1 << 17, False),
-                     (2, 1, 5, 1 << 16, False), (2, 11, 8, 1 << 15, True)]
+                     (2, 1, 5, 1 << 16, False), (2, 11, 8, 1 << 15, True),
+                     (2, 35, 3, 1 << 15, True)]
 
 
 @pytest.mark.parametrize("c,t,p,n,lag0", WIDE_STREAM_CASES)
@@ -339,7 +346,8 @@ def test_stream_kernel_matches_plain(cuda, name, shape):
     (lambda d: hopper_fft.fastfir_chain_stream(
         torch.zeros(1, 2, 1 << 17, device=d), torch.zeros(1, 1 << 17, device=d),
         *(torch.zeros(1, 2, 1 << 17, device=d) for _ in range(4)), 1.0), "K8"),
-    (lambda d: hopper_fft.rfft_small(torch.zeros(2, 16, device=d)), "K10"),
+    # N = 2..2048 are served (2..16 by the tiny form); 24 is no power of two.
+    (lambda d: hopper_fft.rfft_small(torch.zeros(2, 24, device=d)), "K10"),
 ])
 def test_stream_wrappers_refuse_on_cuda(cuda, call, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -450,7 +458,7 @@ def test_slice_kernel_matches_plain(cuda, name, shape):
     (lambda d: hopper_kernels.hop_fire(torch.zeros(2, 2048, device=d),
                                        *(torch.zeros(2, 3, 1024, device=d) for _ in range(4))),
      "K9"),
-    (lambda d: hopper_fft.rifft_small(*(torch.zeros(2, 8, device=d) for _ in range(2))), "K11"),
+    (lambda d: hopper_fft.rifft_small(*(torch.zeros(2, 12, device=d) for _ in range(2))), "K11"),
     (lambda d: hopper_fft.rifft_packed(*(torch.zeros(2, 1 << 20, device=d) for _ in range(2))),
      "item 12"),
 ])
@@ -750,8 +758,8 @@ def test_windowed_kernel_reads_odd_base(cuda, n, hop, t, extra):
     (lambda d: hopper_fft.rfft_small_windowed(torch.zeros(2, 4096, device=d),
                                               torch.zeros(4096, device=d)),
      NotImplementedError, "K10w"),
-    (lambda d: hopper_fft.rifft_small_windowed(*(torch.zeros(2, 8, device=d) for _ in range(2)),
-                                               torch.zeros(16, device=d), 1.0),
+    (lambda d: hopper_fft.rifft_small_windowed(*(torch.zeros(2, 12, device=d) for _ in range(2)),
+                                               torch.zeros(24, device=d), 1.0),
      NotImplementedError, "K11w"),
     (lambda d: hopper_fft.rfft_small_windowed(torch.zeros(2, 256, dtype=torch.float64, device=d),
                                               torch.zeros(256, dtype=torch.float64, device=d)),
@@ -769,6 +777,7 @@ def test_windowed_wrappers_refuse_on_cuda(cuda, call, exc, match):
     (1024, 512, ("rfft_small_windowed", "rifft_small_windowed")),
     (1024, 341, ("rfft_small_windowed", "rifft_small_windowed")),
     (4096, 1024, ("rfft_packed", "rifft_packed")),
+    (16, 8, ("rfft_tiny_windowed", "rifft_tiny_windowed")),
 ])
 def test_stft_on_cuda_launches_and_matches_cpu(cuda, n, hop, need):
     """stft / istft on the card: K10w / K11w once each up to N = 2048, the
@@ -789,6 +798,96 @@ def test_stft_on_cuda_launches_and_matches_cpu(cuda, n, hop, need):
     assert snr_db(S_cpu.im.numpy(), S.im.cpu().numpy()) >= SNR_CHAIN_DB
     assert snr_db(y_cpu.numpy(), y.cpu().numpy()) >= SNR_CHAIN_DB
     assert snr_db(x, y.cpu().numpy()) >= SNR_CHAIN_DB
+
+
+# The sizes below the other kernels' ranges (csrc/fft_tiny.cu, one thread a
+# frame): real N = 2..16 through the wrappers of K10 / K11 and K10w / K11w,
+# complex N = 1..16 through K12's; 257 rows leave a ragged last block.
+TINY_REAL = [2, 4, 8, 16]
+TINY_COMPLEX = [1, 2, 4, 8, 16]
+
+
+@pytest.mark.parametrize("n", TINY_REAL)
+def test_tiny_real_kernels_match_plain(cuda, n):
+    """rfft_packed / rifft_packed at N = 2..16 launch the tiny forms once
+    each, match their plain versions and keep rifft(rfft(x)) == 2N x."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(257, n, generator=g, device=cuda)
+    spec = [torch.randn(3, 86, n // 2, generator=g, device=cuda) for _ in range(2)]
+    before = (hopper_fft.rfft_tiny.launches, hopper_fft.rifft_tiny.launches)
+    got = hopper_fft.rfft_packed(x)
+    back = hopper_fft.rifft_packed(*spec)
+    trip = hopper_fft.rifft_packed(*got)
+    torch.cuda.synchronize()
+    assert (hopper_fft.rfft_tiny.launches - before[0],
+            hopper_fft.rifft_tiny.launches - before[1]) == (1, 2)
+    pairs = list(zip(hopper_fft.rfft_tiny_plain(x), got))
+    pairs += [(hopper_fft.rifft_tiny_plain(*spec), back), (2 * n * x, trip)]
+    for want, gt in pairs:
+        assert gt.shape == want.shape and gt.device.type == "cuda"
+        assert bool(torch.isfinite(gt).all())
+        assert snr_db(want.cpu().numpy(), gt.cpu().numpy()) >= SNR_KERNEL_DB
+
+
+@pytest.mark.parametrize("n", TINY_REAL)
+def test_tiny_windowed_kernels_match_plain(cuda, n):
+    """K10w's and K11w's tiny forms: frames read in place from an unfold
+    view one float into its signal (hop N/2, or 1 at N = 2), the window
+    and scale in the store."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    hop, t = max(1, n // 2), 9
+    sig = torch.randn(3, 1 + (t - 1) * hop + n, generator=g, device=cuda)
+    frames = sig[:, 1:].unfold(-1, n, hop)
+    w = _window(n, cuda)
+    spec = [torch.randn(3, t, n // 2, generator=g, device=cuda) for _ in range(2)]
+    before = (hopper_fft.rfft_tiny_windowed.launches, hopper_fft.rifft_tiny_windowed.launches)
+    got = hopper_fft.rfft_small_windowed(frames, w)
+    back = hopper_fft.rifft_small_windowed(*spec, w, 0.5 / n)
+    torch.cuda.synchronize()
+    assert (hopper_fft.rfft_tiny_windowed.launches - before[0],
+            hopper_fft.rifft_tiny_windowed.launches - before[1]) == (1, 1)
+    pairs = list(zip(hopper_fft.rfft_tiny_windowed_plain(frames, w), got))
+    pairs += [(hopper_fft.rifft_tiny_windowed_plain(*spec, w, 0.5 / n), back)]
+    for want, gt in pairs:
+        assert gt.shape == want.shape and bool(torch.isfinite(gt).all())
+        assert snr_db(want.cpu().numpy(), gt.cpu().numpy()) >= SNR_KERNEL_DB
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", TINY_COMPLEX)
+def test_tiny_complex_kernel_matches_plain(cuda, n, inverse):
+    """fft / ifft at complex N = 1..16 launch K12's tiny form (N = 1 a copy)."""
+    from hisstools_library_tpu_torch.fft import api
+    g = torch.Generator(device=cuda).manual_seed(8)
+    re, im = (torch.randn(2, 129, n, generator=g, device=cuda) for _ in range(2))
+    before = hopper_fft.fft_tiny.launches
+    got = (api.ifft if inverse else api.fft)(re, im, backend="pallas")
+    torch.cuda.synchronize()
+    assert hopper_fft.fft_tiny.launches == before + 1
+    for want, gt in zip(hopper_fft.fft_tiny_plain(re, im, inverse), got):
+        assert gt.shape == want.shape and bool(torch.isfinite(gt).all())
+        assert snr_db(want.cpu().numpy(), gt.cpu().numpy()) >= SNR_KERNEL_DB
+
+
+@pytest.mark.parametrize("length", range(1, 17))
+def test_small_convolve_on_cuda(cuda, length):
+    """spectral_processor.convolve of two signals of 1..16 samples on the
+    card (FFT sizes 4..32: the tiny forms to 16, K10 / K11 at 32; one sample
+    each is a product) against float64."""
+    rng = np.random.default_rng(0x5C + length)
+    x = rng.standard_normal((2, length)).astype(np.float32)
+    h = rng.standard_normal((2, length)).astype(np.float32)
+    size = sp.required_fft_size(length, length)
+    names = (() if length == 1 else ("rfft_tiny", "rifft_tiny") if size <= 16
+             else ("rfft_small", "rifft_small"))
+    before = {k: getattr(hopper_fft, k).launches for k in names}
+    got = sp.convolve(torch.from_numpy(x).to(cuda), torch.from_numpy(h).to(cuda))
+    torch.cuda.synchronize()
+    assert [getattr(hopper_fft, k).launches - v for k, v in before.items()] == [2, 1][:len(names)]
+    want = np.stack([np.convolve(x[i].astype(np.float64), h[i].astype(np.float64))
+                     for i in range(2)])
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert snr_db(want, got.cpu().numpy()) >= SNR_CHAIN_DB
 
 
 def test_tracker_graph_on_cuda_matches_cpu(cuda):

@@ -215,8 +215,6 @@ def test_set_mode():
 @pytest.mark.parametrize("call,match", [
     (lambda: hopper_fft.rfft_packed(torch.empty(2, 4096, dtype=torch.float64,
                                                 device="meta")), "float64"),
-    # N = 32..2048 go to K10; below that no kernel serves the forward FFT.
-    (lambda: hopper_fft.rfft_packed(torch.empty(2, 16, device="meta")), "K10"),
     # K13 serves 2^18..2^20; above that the sizes of ROADMAP queue 1 item 12.
     (lambda: hopper_fft.rfft_packed(torch.empty(2, 1 << 21, device="meta")), "item 12"),
     (lambda: hopper_fft.rifft_packed_tail(
@@ -227,13 +225,14 @@ def test_set_mode():
     # Above 2^20 the packed inverse needs item 12 (K14 serves 2^18..2^20).
     (lambda: api.rifft(*(torch.empty(2, 1 << 20, device="meta") for _ in range(2)),
                        backend="pallas"), "item 12"),
-    # K12 serves complex N = 32..2^19, float32 only.
+    # K12 (with its tiny form) serves complex powers of two N = 1..2^19,
+    # float32 only.
     (lambda: api.fft(*(torch.empty(2, 1 << 20, device="meta") for _ in range(2)),
                      backend="pallas"), "item 12"),
+    (lambda: hopper_fft.fft_split(*(torch.empty(2, 24, device="meta") for _ in range(2))),
+     "K12 .*N = 24: not a power of two"),
     (lambda: api.fft(*(torch.empty(2, 4096, dtype=torch.float64, device="meta")
                        for _ in range(2)), backend="pallas"), "float64"),
-    (lambda: api.ifft(*(torch.empty(2, 16, device="meta") for _ in range(2)),
-                      backend="pallas"), "K12"),
 ])
 def test_outside_gpu_envelope_raises(call, match):
     """Off the CPU the wrappers launch a kernel or raise; calls outside the
@@ -261,6 +260,57 @@ def test_spectral_routes_to_kernels_off_cpu(call, kernel):
     torch.fft: each wrapper refuses the meta device by its kernel's name."""
     with pytest.raises(ValueError, match=f"{kernel} .*CUDA"):
         call(torch.device("meta"))
+
+
+def _meta(*shape):
+    return torch.empty(*shape, device="meta")
+
+
+@pytest.mark.parametrize("call,kernel", [
+    # Below 32 points K10 / K11 / K12 launch their tiny forms (csrc/fft_tiny.cu).
+    (lambda: hopper_fft.rfft_packed(_meta(2, 16)), "K10"),
+    (lambda: api.ifft(_meta(2, 16), _meta(2, 16), backend="pallas"), "K12"),
+] + [(lambda n=n: api.rfft(_meta(3, n), backend="pallas"), "K10") for n in (2, 4, 8, 16)]
+  + [(lambda n=n: api.rifft(_meta(3, n // 2), _meta(3, n // 2), backend="pallas"), "K11")
+     for n in (2, 4, 8, 16)]
+  + [(lambda n=n, f=f: f(_meta(3, n), _meta(3, n), backend="pallas"), "K12")
+     for f in (api.fft, api.ifft) for n in (1, 2, 4, 8, 16)])
+def test_small_sizes_route_to_kernels_off_cpu(call, kernel):
+    """Off the CPU the small sizes reach a kernel's wrapper (real N = 2..16,
+    complex N = 1..16), which refuses the meta device by its kernel's name:
+    nothing raises for the size and nothing calls torch.fft."""
+    with pytest.raises(ValueError, match=f"{kernel} .*CUDA"):
+        call()
+
+
+@pytest.mark.parametrize("n", [2, 4, 8, 16])
+def test_small_real_sizes_match_jax(rng, n):
+    """rfft / rifft at N = 2..16: the port's plain versions (what the tiny
+    kernels are held to on the card) against the JAX package's "pallas"
+    backend, which serves these sizes by its matmul_fft fallback; a DC-heavy
+    input makes a packed lane-0 mistake visible."""
+    x = rng.standard_normal((3, 5, n)).astype(np.float32) + 0.5
+    jre, jim = jax_api.rfft(jnp.asarray(x), backend="pallas")
+    tre, tim = api.rfft(torch.from_numpy(x), backend="pallas")
+    assert tre.shape == (3, 5, n // 2)
+    assert snr_db(jre, tre) >= SNR_MIN_DB and snr_db(jim, tim) >= SNR_MIN_DB
+    jy = jax_api.rifft(jre, jim, backend="pallas")
+    ty = api.rifft(tre, tim, backend="pallas")
+    assert ty.shape == x.shape
+    assert snr_db(jy, ty) >= SNR_MIN_DB and snr_db(2 * n * x, ty) >= SNR_MIN_DB
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 16])
+def test_small_complex_sizes_match_jax(rng, n, inverse):
+    """fft / ifft at complex N = 1..16 (N = 1 a copy) against the JAX
+    package's "pallas" backend (its matmul_fft fallback at these sizes)."""
+    re, im = rng.standard_normal((2, 3, n)).astype(np.float32)
+    jfn, tfn = (jax_api.ifft, api.ifft) if inverse else (jax_api.fft, api.fft)
+    jre, jim = jfn(jnp.asarray(re), jnp.asarray(im), backend="pallas")
+    tre, tim = tfn(torch.from_numpy(re), torch.from_numpy(im), backend="pallas")
+    assert tre.shape == (3, n)
+    assert snr_db(jre, tre) >= SNR_MIN_DB and snr_db(jim, tim) >= SNR_MIN_DB
 
 
 @pytest.mark.parametrize("n,kernel", [(4096, "K2 rfft_packed_stream"),

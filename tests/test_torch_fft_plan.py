@@ -25,7 +25,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from hisstools_library_tpu_torch.fft import hopper_fft  # noqa: E402
+from hisstools_library_tpu_torch.fft import hopper_fft, hopper_kernels  # noqa: E402
 
 TOL = 1e-12
 
@@ -453,3 +453,283 @@ def test_onepass_strides_avoid_bank_conflicts(lm):
                     # row 0 reads bin L - k1, one off its neighbours' L-1-k1
                     limit = 2 if any(rows[t % own_r] == 0 for t in lanes) else 1
                     assert _ways(partner) <= limit
+
+
+# -----------------------------------------------------------------------------
+# K5 / K8's middle phase (csrc/fastfir_chain.cu chain_mid): its plan, the
+# cluster's H index map and the chunked MAC with the offline lag skip
+
+# Lags whose ring and H a block holds in shared memory, by row length L.
+CHAIN_SMEM_LAGS = {64: 103, 128: 47, 256: 22}
+
+
+@pytest.mark.parametrize("t", [2, 16, 40])
+@pytest.mark.parametrize("p", [1, 15, 22, 23, 47, 48, 103, 104])
+@pytest.mark.parametrize("lm", range(13, 17))
+def test_chain_plan_every_size(lm, p, t):
+    """N = 2^14..2^17 at P up to and past the global-ring threshold: rows
+    of L = M1 points (the two-pass split), R/2 row pairs a channel in
+    clusters of CHAIN_CLUSTER, chunks of as many rows as the row DFTs keep 256 threads
+    busy (L/16 threads a row, at most 32 rows), shared memory inside a
+    block's 227 KB with ring and H in it up to CHAIN_SMEM_LAGS."""
+    n = 1 << (lm + 1)
+    plan = hopper_fft._chain_plan(n, p, t)
+    col_len, row_len = hopper_fft._plan(n).lengths
+    assert (plan.row_len, plan.rows) == (row_len, col_len)
+    assert plan.pairs * 2 == plan.rows and plan.pairs % hopper_fft.CHAIN_CLUSTER == 0
+    assert plan.chunk_rows * (row_len // 16) <= 256 and plan.chunk_rows in (16, 32)
+    assert plan.chunks == -(-t // (plan.chunk_rows // 2))
+    assert plan.ring_in_smem == (p <= CHAIN_SMEM_LAGS[row_len])
+    assert plan.shared_bytes <= hopper_fft.SMEM_BLOCK_MAX
+    ring = 8 * 4 * p * row_len if plan.ring_in_smem else 0
+    tile = 8 * plan.chunk_rows * (row_len + row_len // 16)
+    assert plan.shared_bytes == plan.tiles * tile + 8 * 5 * row_len + ring
+    assert 1 <= plan.blocks_per_sm <= 2
+    assert plan.tiles == 1 or plan.chunks > 1
+
+
+@pytest.mark.parametrize("n,p,t,tiles,per_sm", [
+    (1 << 16, 15, 16, 1, 2),   # the main path: one chunk
+    (1 << 16, 15, 40, 1, 2),   # two blocks share an SM
+    (1 << 16, 8, 40, 1, 2),
+    (1 << 16, 18, 40, 1, 2),
+    (1 << 16, 19, 40, 2, 1),   # a block has its SM to itself
+    (1 << 16, 25, 40, 2, 1),
+    (1 << 16, 25, 16, 1, 1),   # one chunk
+    (1 << 16, 39, 40, 1, 1),   # a second tile does not fit
+    (1 << 16, 60, 40, 1, 2),   # ring and H in the global scratch
+    (1 << 14, 5, 37, 1, 2),
+    (1 << 14, 47, 37, 2, 1),
+    (1 << 17, 4, 40, 1, 2),
+    (1 << 17, 8, 40, 1, 2),
+    (1 << 17, 9, 19, 2, 1),
+    (1 << 17, 9, 9, 2, 1),     # two chunks, the second of one hop
+    (1 << 17, 22, 9, 1, 1),
+])
+def test_chain_plan_double_buffers(n, p, t, tiles, per_sm):
+    """A second FFT tile (the next chunk's rows in flight while this chunk
+    computes) where a launch has more than one chunk and a block has its SM
+    to itself with one tile, so that no other block covers its row loads;
+    ring and H stay in shared memory by the one-tile size."""
+    plan = hopper_fft._chain_plan(n, p, t)
+    assert (plan.tiles, plan.blocks_per_sm) == (tiles, per_sm)
+    assert plan.ring_in_smem == hopper_fft._chain_plan(n, p, 1).ring_in_smem
+
+
+def _row_copies(chunks, tiles):
+    """The order of chain_mid's chunk loop as a list of events: ("copy", c,
+    tile) when chunk c's rows are requested, ("wait", k) for
+    cp.async.wait_group k (each copy_rows is one group), ("use", c, tile)
+    for chunk c's work on a tile from its forward row pass to its store."""
+    ev = [("copy", 0, 0)]
+    for ci in range(chunks):
+        tile = ci % tiles
+        if tiles == 1 and ci > 0:
+            ev.append(("copy", ci, 0))
+        ev.append(("wait", 0))
+        if tiles == 2 and ci + 1 < chunks:
+            ev.append(("copy", ci + 1, (ci + 1) % 2))
+        ev.append(("use", ci, tile))
+    return ev
+
+
+@pytest.mark.parametrize("tiles", [1, 2])
+@pytest.mark.parametrize("chunks", [1, 2, 3, 6])
+def test_chain_row_copies_land_before_use(chunks, tiles):
+    """Replays the chunk loop's copies and waits: every chunk's rows are
+    requested once, into the tile its work uses, have landed when its work
+    starts (a wait leaves at most k groups in flight, the newest), no copy
+    goes to a tile whose rows are still to be used or still in flight, and
+    no copy in flight lands in the tile of the chunk at work; with two
+    tiles the next chunk's rows are in flight during each chunk but the
+    last."""
+    in_flight = []          # (chunk, tile), oldest first
+    landed = {}             # tile -> chunk whose rows it holds, not yet used
+    copied = []
+    overlapped = 0
+    for ev in _row_copies(chunks, tiles):
+        if ev[0] == "copy":
+            assert ev[2] not in landed and all(t != ev[2] for _, t in in_flight)
+            in_flight.append(ev[1:])
+            copied.append(ev[1])
+        elif ev[0] == "wait":
+            while len(in_flight) > ev[1]:
+                c, tile = in_flight.pop(0)
+                landed[tile] = c
+        else:
+            c, tile = ev[1:]
+            assert landed.pop(tile) == c
+            assert all(t != tile for _, t in in_flight)
+            overlapped += bool(in_flight)
+    assert copied == list(range(chunks))
+    assert overlapped == (chunks - 1 if tiles == 2 else 0)
+
+
+def test_chain_plan_main_path():
+    """The main path (N = 2^16, P = 15, T = 16): one chunk of 32 rows, ring
+    and H in shared memory, two blocks an SM; a single 2^17 section at
+    P = 8 also keeps two blocks an SM."""
+    main = hopper_fft._chain_plan(1 << 16, 15, 16)
+    assert (main.chunk_rows, main.chunks, main.ring_in_smem, main.tiles,
+            main.blocks_per_sm) == (32, 1, True, 1, 2)
+    assert hopper_fft._chain_plan(1 << 17, 8, 2).blocks_per_sm == 2
+
+
+def _cluster_bin(i, row_len, p, rows, j0, rank):
+    """csrc/fastfir_chain.cu cluster_bin: (owner rank, row, lag, bin) of
+    index i, or None for the row no run holds (block 0's R/2)."""
+    g = hopper_fft.CHAIN_CLUSTER
+    q = row_len // g
+    rr = i % g
+    rest = i // g
+    k1 = rank * q + rest % q
+    rest //= q
+    lag, side = rest % p, rest // p
+    tb = rr if side == 0 else g - 1 - rr
+    row = j0 + rr if side == 0 else rows - j0 - (g - 1) + rr
+    if side == 1 and j0 + tb == 0:
+        return None
+    return tb, row, lag, side * row_len + k1
+
+
+@pytest.mark.parametrize("lm,p", [(13, 3), (14, 2), (15, 1)])
+def test_chain_h_copies_land_once_in_their_owners(lm, p):
+    """Every (lag, bin) of a channel's H is read by exactly one block of one
+    cluster and lands in the slot lag * 2L + side * L + k1 of the block that
+    owns its row (row j or R - j of pair j; pair 0 rows 0 and R/2, the
+    latter moved by block 0 itself); a block of a cluster of G reads its
+    1/G of the columns k1, each (side, lag, k1) as a run of G consecutive
+    floats (side 0 aligned to G floats; side 1 runs R-j0-G+1..R-j0, G - 1
+    floats at pair 0)."""
+    m = 1 << lm
+    row_len = hopper_fft._chain_plan(2 * m, p, 1).row_len
+    rows = m // row_len
+    pairs = rows // 2
+    nb = 2 * row_len
+    owner = {}
+    for j in range(pairs):
+        owner[j] = (j, 0)
+        owner[rows // 2 if j == 0 else rows - j] = (j, 1)
+    landed = np.zeros((pairs, p * nb), int)
+    read = np.zeros(p * m, int)
+    g = hopper_fft.CHAIN_CLUSTER
+    for j in range(pairs):
+        rank, j0 = j % g, j - j % g
+        runs = {}
+        for i in range(2 * p * row_len):
+            got = _cluster_bin(i, row_len, p, rows, j0, rank)
+            if got is None:
+                continue
+            tb, row, lag, b = got
+            k1 = b % row_len
+            assert rank * row_len // g <= k1 < (rank + 1) * row_len // g
+            o = lag * m + row + rows * k1
+            read[o] += 1
+            runs.setdefault((b // row_len, lag, k1), []).append(o)
+            dest, side = owner[row]
+            assert dest == j0 + tb and side == b // row_len
+            landed[dest, lag * nb + b] += 1
+        if j == 0:
+            for lag in range(p):
+                for k1 in range(row_len):
+                    read[lag * m + pairs + rows * k1] += 1
+                    landed[0, lag * nb + row_len + k1] += 1
+        for (side, _, _), offs in runs.items():
+            offs = sorted(offs)
+            assert offs == list(range(offs[0], offs[0] + len(offs)))
+            assert len(offs) == g or (side == 1 and j0 == 0 and len(offs) == g - 1)
+            if side == 0:
+                assert offs[0] % g == 0
+    assert (read == 1).all() and (landed == 1).all()
+
+
+def _mac_term(v, h, lane0):
+    return complex(v.real * h.real, v.imag * h.imag) if lane0 else v * h
+
+
+def _chain_mac_model(x, h, ring=None):
+    """chain_mid's MAC in float64, chunk by chunk and bin by bin as the
+    kernel runs it: x (T, K) hop spectra, h (P, K); ``ring`` (P, K) the
+    carried ring oldest-first (slot s holds X_{s-P}), or None offline, where
+    the ring starts as NaN (never zero-filled: a read of a slot that holds
+    nothing yet shows in the output). Returns Y (T, K) and the new ring
+    oldest-first."""
+    t, k = x.shape
+    p = h.shape[0]
+    offline = ring is None
+    buf = np.full((p, k), np.nan + 1j * np.nan) if offline else ring.astype(complex)
+    y = np.zeros((t, k), complex)
+    for t0 in range(0, t, 8):
+        tc = min(8, t - t0)
+        lag_end = max(0, min(p, t0 + tc - 1)) if offline else p
+        for b in range(k):
+            xs = [x[t0 + i, b] if i < tc else 0j for i in range(8)]
+            acc = [0j] * 8
+            slot = (t0 - 1) % p if p else 0
+            win = [buf[slot, b] if lag_end > 0 and (not offline or t0 >= 1) else 0j] + xs[:7]
+            for lag in range(lag_end):
+                for i in range(8):
+                    acc[i] += _mac_term(win[i], h[lag, b], b == 0)
+                win = win[:1] + win[:7]
+                slot = p - 1 if slot == 0 else slot - 1
+                if lag + 1 < lag_end:
+                    win[0] = buf[slot, b] if not offline or t0 - 2 - lag >= 0 else 0j
+            for i in range(tc):
+                buf[(t0 + i) % p, b] = xs[i]
+                y[t0 + i, b] = acc[i]
+    return y, np.stack([buf[(t + s) % p] for s in range(p)]) if p else buf
+
+
+def _planes(z):
+    return torch.from_numpy(np.ascontiguousarray(z.real)), torch.from_numpy(
+        np.ascontiguousarray(z.imag))
+
+
+@pytest.mark.parametrize("t,p", [(1, 3), (5, 7), (8, 8), (9, 15), (16, 15), (21, 4), (17, 20)])
+def test_chain_offline_mac_skips_lags_before_hop_0(t, p):
+    """Offline, the chunked MAC with lags before hop 0 skipped and no zero
+    ring equals the causal MAC (lag_mac_causal_plain) to 1e-12."""
+    rng = np.random.default_rng(t * 100 + p)
+    k = 6
+    x = rng.standard_normal((t, k)) + 1j * rng.standard_normal((t, k))
+    h = rng.standard_normal((p, k)) + 1j * rng.standard_normal((p, k))
+    got, _ = _chain_mac_model(x, h)
+    want = hopper_kernels.lag_mac_causal_plain(*_planes(x[None]), *_planes(h[None]))
+    want = want[0][0].numpy() + 1j * want[1][0].numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= TOL * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.parametrize("t,p", [(2, 8), (9, 3), (16, 3), (11, 8)])
+def test_chain_stream_mac_matches_ring_mac(t, p):
+    """Streaming (K8), the same MAC over the carried ring equals the ring
+    MAC's plain version (lag_mac_ring_plain): outputs and the new ring."""
+    rng = np.random.default_rng(t * 10 + p)
+    k = 5
+    x, ring = (rng.standard_normal((n, k)) + 1j * rng.standard_normal((n, k)) for n in (t, p))
+    h = rng.standard_normal((p, k)) + 1j * rng.standard_normal((p, k))
+    got, new_ring = _chain_mac_model(x, h, ring)
+    yr, yi, nr, ni = hopper_kernels.lag_mac_ring_plain(*_planes(ring[None]), *_planes(x[None]),
+                                                       *_planes(h[None]))
+    assert np.abs(got - (yr[0].numpy() + 1j * yi[0].numpy())).max() <= 1e-12 * 50
+    assert np.abs(new_ring - (nr[0].numpy() + 1j * ni[0].numpy())).max() == 0
+
+
+@pytest.mark.parametrize("t,p", [(3, 5), (12, 4), (17, 9)])
+def test_chain_offline_model_matches_fastfir_chain_plain(t, p):
+    """The whole offline chain with the model's MAC in place of the causal
+    MAC: packed forward of [x[t-1] | x[t]], the chunked MAC (lags before hop
+    0 skipped), the tail inverse; equals fastfir_chain_plain in float64."""
+    rng = np.random.default_rng(t + 7 * p)
+    hop = 32
+    n = 2 * hop
+    x2d = torch.from_numpy(rng.standard_normal((1, t, hop)))
+    h_re, h_im = (torch.from_numpy(rng.standard_normal((1, p, hop))) for _ in range(2))
+    scale = 1.0 / (4.0 * n)
+    x_re, x_im = hopper_fft.rfft_packed_stream_plain(x2d)
+    y, _ = _chain_mac_model(x_re[0].numpy() + 1j * x_im[0].numpy(),
+                            h_re[0].numpy() + 1j * h_im[0].numpy())
+    got = hopper_fft.rifft_packed_tail_plain(*(v[None] for v in _planes(y)), scale)
+    want = hopper_fft.fastfir_chain_plain(x2d, h_re, h_im, scale)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= TOL * max(1.0, float(want.abs().max()))

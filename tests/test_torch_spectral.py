@@ -232,6 +232,36 @@ def test_real_binary_ops_match_jax(rng, mode, op):
             assert_close(want, got, dtype)
 
 
+@pytest.mark.parametrize("length", range(1, 17))
+def test_small_convolve_matches_jax(rng, length):
+    """convolve of two signals of 1..16 samples (FFT sizes 4..32, the card's
+    tiny kernels up to 16) in float32 (default backend) and float64 ("xla")."""
+    for dtype in DTYPES:
+        backend = None if dtype == np.float32 else "xla"
+        (j1, t1), (j2, t2) = _real_pair(rng, dtype, length, length)
+        want = jax_sp.convolve(j1, j2, backend=backend)
+        got = sp.convolve(t1, t2, backend=backend)
+        assert got.shape[-1] == 2 * length - 1
+        assert_close(want, got, dtype)
+
+
+@pytest.mark.parametrize("call,kernel", [
+    # Two 5-sample signals: FFT size 16, the tiny forms of K10 and K12.
+    (lambda d: sp.convolve(torch.empty(2, 5, device=d), torch.empty(2, 5, device=d),
+                           backend="pallas"), "K10"),
+    (lambda d: sp.correlate(torch.empty(2, 5, device=d), torch.empty(2, 3, device=d),
+                            backend="pallas"), "K10"),
+    (lambda d: sp.convolve_complex(*(Split(torch.empty(2, 5, device=d),
+                                           torch.empty(2, 5, device=d)) for _ in range(2)),
+                                   backend="pallas"), "K12"),
+])
+def test_small_ops_route_to_kernels_off_cpu(call, kernel):
+    """Off the CPU the spectral ops at FFT sizes below 32 reach a kernel's
+    wrapper, which refuses the meta device by its kernel's name."""
+    with pytest.raises(ValueError, match=f"{kernel} .*CUDA"):
+        call(torch.device("meta"))
+
+
 @pytest.mark.parametrize("op", ["convolve_complex", "correlate_complex"])
 @pytest.mark.parametrize("mode", MODES, ids=lambda m: m.name)
 def test_complex_binary_ops_match_jax(rng, mode, op):

@@ -1,6 +1,6 @@
 """Phases of ``chip_smoke.py`` from one checkout, for an A/B run.
 
-    python3 tools/chip_phases.py [--small | --k1] CHECKOUT
+    python3 tools/chip_phases.py [--small | --k1 | --k5] CHECKOUT
 
 Runs, from the checkout at CHECKOUT (its ``chip_smoke.py`` and its
 ``hisstools_library_tpu_torch``, kernels built under its own ``build/``), on
@@ -24,7 +24,17 @@ one CUDA card:
   2^16 and 2^17, K13 and K14 at real 2^18) at path shapes; and the paths
   that launch K1: the FastFIR IR preparation (128 x 480 000 taps), the
   two-tier ``mono.process`` (ms per 131 072-sample call) and the 1 s
-  spectral convolve (128 x 48 000).
+  spectral convolve (128 x 48 000);
+* with ``--k5`` K5 fastfir_chain at the main path's (128, 16, P 15, 2^16)
+  and at 40 hops (several chunks a block) with P 15 and P 8: the device ms
+  of its three launches and their sum (``torch.profiler``) and event ms,
+  with the staged K2 -> K3 -> K4 on the same inputs beside them; K5 at the
+  shapes of ``CHAIN_CASES`` in this tool's own ``tests/test_torch_cuda.py``
+  (read from the file, not imported); K8 fastfir_chain_stream
+  at chip_smoke's four shapes; the FastFIR main path (ms/pass),
+  ``mono.process_offline`` with the offline tail, the ``Convolver``'s
+  offline paths (parallel 128, N2M 8 x 8); K2, K4 and K6 (which share
+  ``fft_common.cuh``).
 
 To compare two commits, unpack the older one into a directory that
 ``.gitignore`` lists and run both in one call on the card, in turns:
@@ -35,9 +45,11 @@ To compare two commits, unpack the older one into a directory that
 Imports nothing of JAX. Exits non-zero without a card.
 """
 
+import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -47,7 +59,8 @@ def main() -> None:
     args = sys.argv[1:]
     small = "--small" in args
     k1 = "--k1" in args
-    args = [a for a in args if a not in ("--small", "--k1")]
+    k5 = "--k5" in args
+    args = [a for a in args if a not in ("--small", "--k1", "--k5")]
     if len(args) != 1:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
@@ -73,6 +86,9 @@ def main() -> None:
 
     if k1:
         k1_phase(cs, hopper_fft, randn, dev, smi)
+        return
+    if k5:
+        k5_phase(cs, hopper_fft, randn, dev, smi)
         return
     if small:
         cs.windowed_kernels(randn, mods, smi)
@@ -174,6 +190,106 @@ def k1_phase(cs, hf, randn, dev, smi) -> None:
     h1 = torch.from_numpy(np.ascontiguousarray(irs[:, :cs.FS])).to(dev)
     print(f"spectral-convolve-1s: {cs.median_ms(lambda: sp.convolve(s1, h1)):.4f} ms/call "
           f"(events, median of 5) [{smi}]", flush=True)
+
+
+def card_test_cases(name: str) -> list:
+    """The list ``name`` of this tool's own ``tests/test_torch_cuda.py``, read
+    from the file's text (an expression of int literals and ``<<``), so that
+    the same shapes serve whichever checkout is timed."""
+    path = Path(__file__).resolve().parents[1] / "tests" / "test_torch_cuda.py"
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and [getattr(t, "id", None)
+                                             for t in node.targets] == [name]:
+            expr = compile(ast.Expression(node.value), str(path), "eval")
+            return eval(expr, {"__builtins__": {}})
+    raise SystemExit(f"chip_phases: no {name} in {path}")
+
+
+def k5_phase(cs, hf, randn, dev, smi) -> None:
+    """The ``--k5`` mode (see the module docstring). Uses only what the
+    parent checkouts also have, so the same mode times either."""
+    from hisstools_library_tpu_torch.models import mono
+    from hisstools_library_tpu_torch.models.multichannel import Convolver
+    from hisstools_library_tpu_torch.models.offline import FastFIR
+
+    c, k = cs.CHANNELS, 1 << 15
+    for t, p in ((16, 15), (40, 15), (40, 8)):
+        args = (randn(c, t, k), randn(c, p, k) * 1e-3, randn(c, p, k) * 1e-3, 1.0 / (8 * k))
+        for label, fn in (("K5 fastfir_chain", hf.fastfir_chain),
+                          ("staged K2 -> K3 -> K4", hf.fastfir_chain_staged)):
+            shape = f"(128, {t}, P {p}, 2^16)"
+            phases = cs.phase_ms(lambda: fn(*args), smi, f"{label} {shape}")
+            print(f"{label} {shape}: device {sum(phases.values()):.4f} ms, events "
+                  f"{cs.median_ms(lambda: fn(*args)):.4f} ms [{smi}]", flush=True)
+        del args
+        torch.cuda.empty_cache()
+    for cc, t, p, n in card_test_cases("CHAIN_CASES"):
+        a = (randn(cc, t, n // 2), randn(cc, p, n // 2) * 1e-3, randn(cc, p, n // 2) * 1e-3,
+             1.0 / (4.0 * n))
+        got, want = hf.fastfir_chain(*a), hf.fastfir_chain_plain(*a)
+        print(f"K5 ({cc}, {t}, P {p}, {n}): device {cs.device_ms(lambda: hf.fastfir_chain(*a)):.4f}"
+              f" ms, SNR vs plain {cs.snr_db(want, got):.2f} dB [{smi}]", flush=True)
+    for t, p, n, lag0 in ((16, 3, 1 << 14, True), (16, 3, 1 << 14, False), (2, 8, 1 << 17, False),
+                          (4, 8, 1 << 16, False)):
+        kk = n // 2
+        kw = dict(l0_re=randn(c, kk) * 1e-3, l0_im=randn(c, kk) * 1e-3) if lag0 else {}
+        a = (randn(c, t, kk), randn(c, kk), randn(c, p, kk), randn(c, p, kk),
+             randn(c, p, kk) * 1e-3, randn(c, p, kk) * 1e-3, 1.0 / (4.0 * n))
+        print(f"K8 fastfir_chain_stream (128, T {t}, P {p}, {n}{', lag0' if lag0 else ''}): "
+              f"device {cs.device_ms(lambda: hf.fastfir_chain_stream(*a, **kw)):.4f} ms, events "
+              f"{cs.median_ms(lambda: hf.fastfir_chain_stream(*a, **kw)):.4f} ms [{smi}]",
+              flush=True)
+        del a, kw
+        torch.cuda.empty_cache()
+    others = {
+        "K2 rfft_packed_stream (128, 16, 2^15)":
+            (hf.rfft_packed_stream, lambda: (randn(c, 16, k),)),
+        "K4 rifft_packed_tail (128, 16, 2^15)":
+            (hf.rifft_packed_tail, lambda: (randn(c, 16, k), randn(c, 16, k), 1.0 / (8 * k))),
+        "K6 rifft_packed (128, 2^14)":
+            (hf.rifft_packed, lambda: (randn(c, 1 << 13), randn(c, 1 << 13))),
+        "K6 rifft_packed (128, 2^17)":
+            (hf.rifft_packed, lambda: (randn(c, 1 << 16), randn(c, 1 << 16))),
+    }
+    for label, (fn, make) in others.items():
+        a = make()
+        print(f"{label}: device {cs.device_ms(lambda: fn(*a)):.4f} ms [{smi}]", flush=True)
+        del a
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    irs = (rng.standard_normal((c, cs.IR_LEN)) *
+           np.exp(-np.arange(cs.IR_LEN) / (0.5 * cs.FS))).astype(np.float32)
+    x = rng.standard_normal((c, cs.SIG_LEN)).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    eng = FastFIR(irs, device=dev)
+    print(f"FastFIR (128 x {cs.SIG_LEN}, N = 2^16): "
+          f"{cs.median_ms(lambda: FastFIR.apply(eng.spectra, xd), runs=10):.4f} ms/pass "
+          f"(events, median of 10) [{smi}]", flush=True)
+    del eng
+    zero = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+    ir = mono.prepare_ir(zero, irs, offline_tail=True, device=dev)
+    print(f"mono.process_offline (tail): "
+          f"{cs.median_ms(lambda: mono.process_offline(ir, xd), runs=5):.4f} ms/pass (events, "
+          f"median of 5) [{smi}]", flush=True)
+    del ir
+    torch.cuda.empty_cache()
+    conv = Convolver(c, scheme=zero, device=dev)
+    conv.set_all(irs)
+    conv.prepare()
+    print(f"Convolver parallel 128 process_offline: "
+          f"{cs.median_ms(lambda: conv.process_offline(xd), runs=5):.4f} ms/call [{smi}]",
+          flush=True)
+    del conv
+    torch.cuda.empty_cache()
+    n2m = 8
+    conv = Convolver(n2m, n2m, scheme=zero, device=dev)
+    conv.set_all(irs[:n2m * n2m].reshape(n2m, n2m, cs.IR_LEN))
+    conv.prepare()
+    xin = xd[:n2m].contiguous()
+    print(f"Convolver N2M 8 x 8 process_offline: "
+          f"{cs.median_ms(lambda: conv.process_offline(xin), runs=5):.4f} ms/call [{smi}]",
+          flush=True)
 
 
 if __name__ == "__main__":
