@@ -24,8 +24,13 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
 5. times ten further passes with CUDA events (steady state);
 6. compares each kernel of the hop-aligned streaming path (K7 lag_mac_ring,
    K8 fastfir_chain_stream, K10 rfft_small) with its plain version; K8 also at
-   the chain family's (128, T 2, P 8, 2^17), (128, T 4, P 8, 2^16) and a small
-   lag-0 case at 2^16;
+   (128, T 2, P 8, 2^17), (128, T 4, P 8, 2^16) and a small lag-0 case at
+   2^16; at each 128-channel K8 shape (the near tier with and without lag0)
+   K8's three launches (forward, state kernel, inverse) by
+   ``torch.profiler`` beside its design bytes and its bound, and
+   ``process_block``'s staged path (frames, K1 -> K7 (+ the lag-0 product)
+   -> K4) on the same inputs; K8's state kernel alone against its plain
+   version at (128, T 2, P 8, 2^17);
 7. drives ``mono.process`` as ``bench.py``'s ``stream`` mode configures it
    (Zero preset, ``prepare_ir(offline_tail=False)`` of the same IRs, calls of
    131 072 samples) through the two-tier, collapsed and matched paths;
@@ -173,7 +178,7 @@ KERNELS = {
     "rifft_packed": ("hopper_fft", "rifft_packed.cu", "fft/pallas_fft.py:518"),
     "lag_mac_ring": ("hopper_kernels", "lag_mac_ring.cu", "fft/pallas_kernels.py:566"),
     "fastfir_chain": ("hopper_fft", "fastfir_chain.cu", "fft/pallas_fft.py:1685"),
-    "fastfir_chain_stream": ("hopper_fft", "fastfir_chain.cu", "fft/pallas_fft.py:1943"),
+    "fastfir_chain_stream": ("hopper_fft", "fastfir_stream.cu", "fft/pallas_fft.py:1943"),
     "hop_fire": ("hopper_kernels", "hop_fire.cu", "fft/pallas_kernels.py:383"),
     "rfft_small": ("hopper_fft", "rfft_small.cu", "fft/pallas_fft.py:1079"),
     "rifft_small": ("hopper_fft", "rifft_small.cu", "fft/pallas_fft.py:1114"),
@@ -581,16 +586,44 @@ def fastfir_kernels(randn, mods, smi) -> dict:
     return results
 
 
+def k8_launches(fn, smi: str, label: str, runs: int = 5) -> dict:
+    """Device ms per call of K8's three launches (csrc/fastfir_stream.cu):
+    the forward (``fft_onepass`` with the in-place stream loader), the state
+    kernel (``stream_state``) and the inverse (``fft_onepass`` with the
+    tail store), by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = {"forward": 0.0, "state": 0.0, "inverse": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA" or e.device_time_total <= 0:
+            continue
+        ms = e.device_time_total / runs / 1e3
+        key = ("state" if "stream_state" in e.key else
+               "forward" if "fft_onepass" in e.key and ", 4, 0>" in e.key else
+               "inverse" if "fft_onepass" in e.key and ", 2, 1>" in e.key else "other")
+        out[key] += ms
+    print(f"{label}: K8 launches (device ms per call) "
+          f"{ {k: round(v, 4) for k, v in out.items()} } [{smi}]", flush=True)
+    return out
+
+
 def stream_kernels(randn, mods, smi) -> dict:
     """Phase 6: K7, K8 and K10 at the hop-aligned paths' shapes: the two-tier
     far tier (T = 4, P = 14, K = 32768) and the collapsed final section
-    (T = 16, P = 58, K = 8192) for K7; for K8 (the chain family's stream
-    instantiation at every size) the near tier (T = 16, H = 8192, P = 3) with
-    and without lag0, a small 2^15 case, a single 2^17 section over a 10 s IR
-    (T = 2, P = 8), the far tier of a 290 000-tap IR (2^16, T = 4, P = 8) and
-    a small lag-0 case at 2^16, with process_block's
-    staged K1 -> K7 -> K4 timed beside the last two; the IR preparation and
-    refresh sizes (384 rows) for K10."""
+    (T = 16, P = 58, K = 8192) for K7; for K8 the near tier (T = 16, H =
+    8192, P = 3) with and without lag0, a small 2^15 case, a single 2^17
+    section over a 10 s IR (T = 2, P = 8), the far tier of a 290 000-tap IR
+    (2^16, T = 4, P = 8) and a small lag-0 case at 2^16, with K8's three
+    launches, its design bytes, its bound and process_block's staged path
+    (frames, K1 -> K7 (+ the lag-0 product) -> K4) timed at each 128-channel
+    shape, and K8's state kernel against its plain version at the 2^17
+    section's shape; the IR preparation and refresh sizes (384 rows) for
+    K10."""
     def ring(c, t, p, k):
         return lambda: (tuple(randn(c, r, k) for r in (p, p, t, t, p, p)), {})
 
@@ -605,42 +638,80 @@ def stream_kernels(randn, mods, smi) -> dict:
     def small(b, n):
         return lambda: ((randn(b, n),), {})
 
+    wide = ((16, 3, 1 << 14, True), (16, 3, 1 << 14, False), (2, 8, 1 << 17, False),
+            (4, 8, 1 << 16, False))
     results = check_kernels([
         ("lag_mac_ring", [(ring(2, 3, 5, 1024), False), (ring(CHANNELS, 4, 14, 32768), True),
                           (ring(CHANNELS, 16, 58, 8192), True)]),
         ("fastfir_chain_stream", [(chain(2, 3, 2, 1 << 14, True), False),
-                                  (chain(2, 11, 8, 1 << 15, True), False),
-                                  (chain(CHANNELS, 16, 3, 1 << 14, True), True),
-                                  (chain(CHANNELS, 16, 3, 1 << 14, False), True),
-                                  (chain(CHANNELS, 2, 8, 1 << 17, False), True),
-                                  (chain(CHANNELS, 4, 8, 1 << 16, False), True),
-                                  (chain(2, 3, 4, 1 << 16, True), False)]),
+                                  (chain(2, 11, 8, 1 << 15, True), False)]
+         + [(chain(CHANNELS, *w), True) for w in wide]
+         + [(chain(2, 3, 4, 1 << 16, True), False)]),
         ("rfft_small", [(small(7, 32), False), (small(384, 256), True), (small(384, 128), True),
                         (small(384, 1024), True), (small(384, 2048), True)]),
     ], mods, smi)
     hf, hk = mods["hopper_fft"], mods["hopper_kernels"]
+    from hisstools_library_tpu_torch.core.types import Split, packed_mul
 
-    def staged(x2d, prev, rr, ri, hr, hi, scale):
+    def staged(x2d, prev, rr, ri, hr, hi, scale, l0_re=None, l0_im=None):
         # process_block's staged path on the same inputs: the frames
-        # [prev | cur] materialised, K1, K7 (T <= P), K4.
+        # [prev | cur] materialised, K1, K7, the lag-0 product, K4.
         frames = torch.cat([torch.cat([prev[:, None], x2d[:, :-1]], 1), x2d], -1)
         xre, xim = hf.rfft_packed(frames)
         yre, yim, _, _ = hk.lag_mac_ring(rr, ri, xre, xim, hr, hi)
+        if l0_re is not None:
+            prod = packed_mul(Split(xre, xim), Split(l0_re[:, None], l0_im[:, None]))
+            yre, yim = yre + prod.re, yim + prod.im
         return hf.rifft_packed_tail(yre, yim, scale)
 
-    staged_ms = {}
-    for t, n in ((2, 1 << 17), (4, 1 << 16)):
-        args, _ = chain(CHANNELS, t, 8, n, False)()
-        staged_ms[f"(128, T {t}, P 8, {n})"] = median_ms(lambda: staged(*args))
-    results["fastfir_chain_stream"]["staged_ms"] = staged_ms
-    print(f"fastfir_chain_stream's staged path (frames, K1 -> K7 -> K4) on the same inputs: "
-          f"{ {k: round(v, 4) for k, v in staged_ms.items()} } ms (CUDA events, median of 5) "
-          f"[{smi}]", flush=True)
-    args, kw = chain(CHANNELS, 2, 8, 1 << 17, False)()
-    results["fastfir_chain_stream"]["phase_ms_2_17"] = phase_ms(
-        lambda: hf.fastfir_chain_stream(*args, **kw), smi,
-        "fastfir_chain_stream (128, T 2, P 8, 2^17)")
-    del args, kw
+    per_shape = {}
+    for t, p, n, lag0 in wide:
+        label = f"({CHANNELS}, T {t}, P {p}, {n}{', lag0' if lag0 else ''})"
+        args, kw = chain(CHANNELS, t, p, n, lag0)()
+        got = hf.fastfir_chain_stream(*args, **kw)
+        b_ms, b_by = bound("fastfir_chain_stream", args, kw, got)
+        design = hf._stream_design_bytes(CHANNELS, t, p, n, lag0)
+        split = k8_launches(lambda: hf.fastfir_chain_stream(*args, **kw), smi,
+                            f"fastfir_chain_stream {label}")
+        entry = dict(launches_ms=split, device_ms=sum(split.values()),
+                     ms=median_ms(lambda: hf.fastfir_chain_stream(*args, **kw)),
+                     staged_ms=median_ms(lambda: staged(*args, **kw)),
+                     staged_device_ms=device_ms(lambda: staged(*args, **kw)),
+                     design_bytes=design, design_ms=design / HBM_BYTES_PER_S * 1e3,
+                     bound_ms=b_ms, bound_by=b_by)
+        per_shape[label] = entry
+        print(f"fastfir_chain_stream {label}: device {entry['device_ms']:.4f} ms, events "
+              f"{entry['ms']:.4f} ms; design bytes {design / 1e9:.4f} GB "
+              f"({entry['design_ms']:.4f} ms at 3.35 TB/s), bound {b_ms:.4f} ms ({b_by}); "
+              f"staged path (frames, K1 -> K7 -> K4) device {entry['staged_device_ms']:.4f} ms, "
+              f"events {entry['staged_ms']:.4f} ms [{smi}]", flush=True)
+        del args, kw, got
+        torch.cuda.empty_cache()
+    results["fastfir_chain_stream"]["per_shape"] = per_shape
+
+    # K8's state kernel alone at the 2^17 section's shape: X of 2 hops, the
+    # ring and H of 8 lags.
+    c, t, p, k = CHANNELS, 2, 8, 1 << 16
+    args = (randn(c, t, k), randn(c, t, k), randn(c, p, k), randn(c, p, k),
+            randn(c, p, k) * 1e-3, randn(c, p, k) * 1e-3)
+    got = hf.stream_state(*args)
+    want = hf.stream_state_plain(*args)
+    torch.cuda.synchronize()
+    snr = min(snr_db(w, g) for w, g in zip(want, got))
+    err = max(float((g - w).abs().max()) for w, g in zip(want, got))
+    nbytes = sum(tensor_bytes(a) for a in list(args) + list(got))
+    state = dict(snr_db=snr, max_abs_err=err, device_ms=device_ms(lambda: hf.stream_state(*args)),
+                 ms=median_ms(lambda: hf.stream_state(*args)),
+                 plain_ms=median_ms(lambda: hf.stream_state_plain(*args)),
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    print(f"stream_state (K8's state kernel) ({c}, T {t}, P {p}, K {k}): SNR vs plain "
+          f"{snr:.2f} dB, max abs err {err:.3e}; device {state['device_ms']:.4f} ms, events "
+          f"{state['ms']:.4f} ms, plain {state['plain_ms']:.4f} ms, bound "
+          f"{state['bound_ms']:.4f} ms (bytes) [{smi}]", flush=True)
+    if not (snr >= SNR_MIN_KERNEL_DB and all(bool(torch.isfinite(g).all()) for g in got)):
+        fail(f"stream_state at ({c}, {t}, {p}, {k}): SNR {snr:.2f} dB < {SNR_MIN_KERNEL_DB}")
+    results["fastfir_chain_stream"]["state_kernel"] = state
+    del args, got, want
     torch.cuda.empty_cache()
     return results
 

@@ -46,10 +46,17 @@ _SIGNATURES = {
     # sr, si, xr, xi, hr, hi, h_cstride, yr, yi, nr, ni, channels, t, p, k, stream
     "hst_lag_mac_ring": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _L, _I, _I,
                          _I, _P],
-    # x, prev, rin_re, rin_im, h_re, h_im, h_cstride, l0_re, l0_im, l0_cstride,
-    # y, rout_re, rout_im, scratch, gring, tw, channels, t, p, n, scale, stream
-    "hst_fastfir_chain": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _L, _P, _P, _P, _P, _P,
-                          _P, _L, _I, _I, _I, _F, _P],
+    # x, h_re, h_im, h_cstride, y, scratch, gring, tw, channels, t, p, n, scale,
+    # stream
+    "hst_fastfir_chain": [_P, _P, _P, _L, _P, _P, _P, _P, _L, _I, _I, _I, _F, _P],
+    # x, prev, rin_re, rin_im, h_re, h_im, h_cs, l0_re, l0_im, l0_cs, y, rout_re,
+    # rout_im, spectra, tw, channels, t, p, n, scale, stream
+    "hst_fastfir_stream": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _L, _P, _P, _P, _P, _P, _L,
+                           _I, _I, _I, _F, _P],
+    # xr, xi, rr, ri, hr, hi, h_cs, l0r, l0i, l0_cs, yr, yi, nr, ni, channels, t, p, k,
+    # stream
+    "hst_stream_state": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _L, _P, _P, _P, _P, _L, _I, _I,
+                         _I, _P],
     # n, p -> float2 of global ring scratch a channel (0: shared memory holds it)
     "hst_fastfir_chain_ring_scratch": [_I, _I],
     # re, im, out, scratch_y, tw, frames, n, stream

@@ -1,16 +1,14 @@
-// The FastFIR chain family: K5 (the whole offline chain) and K8 (a whole
-// streaming process_block), one source, N = 2^14..2^17. Per channel,
-// for each hop t of its (T, H) blocks:
-//   X_t = rfft_packed([x[t-1] | x[t]])     (x[-1] = 0, or the carried block)
-//   Y_t = sum_{lag < P} X_{t-1-lag} * H_lag  (+ X_t * L0, the lag-0 term)
+// K5: the whole offline FastFIR chain, N = 2^14..2^17. Per channel, for
+// each hop t of its (T, H) blocks:
+//   X_t = rfft_packed([x[t-1] | x[t]])     (x[-1] = 0)
+//   Y_t = sum_{lag < P} X_{t-1-lag} * H_lag  (X_{<0} = 0)
 //   y_t = scale * rifft(Y_t)[H:]
-// with X_{-P..-1} = 0 offline, or the carried ring (oldest-first) streaming,
-// whose new ring X_{T-P..T-1} is written back oldest-first. Packed products;
-// the bin-0 lane (DC in re, Nyquist in im) multiplies two real values.
+// Packed products; the bin-0 lane (DC in re, Nyquist in im) multiplies two
+// real values. (K8, the streaming block with a carried ring, runs split in
+// fastfir_stream.cu: its ring is state that moves in natural bin order.)
 //
 // Replaces hisstools_library_tpu/fft/pallas_fft.py: fastfir_chain (:1685,
-// _fastfir_kernel) and fastfir_chain_stream (:1943, _fastfir_stream_kernel).
-// The TPU kernels keep each channel's spectra ring and
+// _fastfir_kernel). The TPU kernel keeps each channel's spectra ring and
 // H in VMEM (2*4*P*(N/2)*2 bytes, ~7.9 MB at the main path's N = 2^16,
 // P = 15) and run the hop's DFTs as matmuls, so the hop spectra X_t and the
 // accumulations Y_t never reach HBM. On Hopper neither that state nor one
@@ -29,12 +27,12 @@
 //      unpack and the inverse's row pass (the row-first inverse,
 //      fft_common.cuh), written back to the same rows of the scratch
 //      frames. In natural bin order a block's bins lie R apart; 4 blocks of
-//      consecutive pairs form a cluster and move H and the ring for each
-//      other in runs of 16 bytes (distributed shared memory);
+//      consecutive pairs form a cluster and move H for each other in runs
+//      of 16 bytes (distributed shared memory);
 //   C. the inverse's column pass, storing the kept half [H, N) with `scale`
 //      folded in (K4's tail store).
 // No (C, T, N/2) tensor of X or Y exists: HBM holds the signal, the output,
-// H, the carried ring and the scratch frames.
+// H and the scratch frames.
 //
 // Phase B is latency-bound (two blocks an SM, each a chain of dependent
 // steps; tools/k5_layouts.py times it without each step), so its design
@@ -52,15 +50,13 @@
 //     chunk has five block barriers (after the forward row pass, the pack,
 //     the MAC, the unpack and the inverse's store), at the main path's
 //     T = 16 one chunk a block; the MAC walks the chunk 8 hops at a time;
-//   - the prologue overlaps its latencies: the first batch of H (and ring)
-//     loads and the twiddle loads are in flight while the blocks of the
+//   - the prologue overlaps its latencies: the first batch of H loads and
+//     the twiddle loads are in flight while the blocks of the
 //     cluster meet at its first barrier, and the barrier after the hand-off
 //     of H is split: arrive at once, wait only before the first MAC, so
 //     chunk 0's forward row pass and pack run meanwhile;
-//   - offline the ring is not zero-filled: lags before hop 0 are skipped
-//     (X_{<0} = 0), which also cuts the first hops' MAC to their valid lags;
-//   - a block that writes no ring out waits on no cluster barrier at its
-//     end.
+//   - the ring is not zero-filled: lags before hop 0 are skipped (X_{<0} =
+//     0), which also cuts the first hops' MAC to their valid lags.
 // The rows are not staged by bulk copies (1-D TMA on an mbarrier): 1 KB
 // copies through a staging tile measured slower than cp.async into the FFT
 // tile.
@@ -84,7 +80,7 @@ namespace {
 
 constexpr int kCluster = 4;         // blocks of consecutive row pairs a cluster
 constexpr int kMacHops = 8;         // hops the MAC's register window spans
-constexpr int kBatch = 16;          // values of H (and ring) a thread has in flight
+constexpr int kBatch = 16;          // values of H a thread has in flight
 constexpr int kSmemLimit = 232448;  // a block's shared memory on the H100
 constexpr int kSmemSm = 233472;     // an SM's shared memory; 1 KB reserved a block
 
@@ -98,13 +94,6 @@ struct Chain {
   const float* h_re;               // (C, P, M) packed H, channels h_cs apart
   const float* h_im;
   long long h_cs;
-  const float* l0_re;              // optional (C, M) lag-0 spectrum
-  const float* l0_im;
-  long long l0_cs;
-  const float* rin_re;             // optional (C, P, M) carried ring, oldest-first
-  const float* rin_im;
-  float* rout_re;                  // optional (C, P, M) new ring, oldest-first
-  float* rout_im;
   float2* gring;                   // (blocks, 2, P, 2*M1) when not in shared memory
   const float2* tw;
   int t, p, log_n, rows;
@@ -259,23 +248,20 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
   const int row1 = j == 0 ? pairs : rows - j;
   const int tid = threadIdx.x;
   const int chunks = (a.t + kHops - 1) / kHops;
-  const bool offline = a.rin_re == nullptr;
   // Ring (slot s holds X_t with t = s mod P) and H, [P][NB] each.
   float2* ring = in_smem ? sw + L : a.gring + (long long)blockIdx.x * 2 * p * NB;
   float2* hs = ring + p * NB;
   const float* hr = a.h_re + c * a.h_cs;
   const float* hi = a.h_im + c * a.h_cs;
-  const float* rr = offline ? nullptr : a.rin_re + c * p * (long long)m;
-  const float* ri = offline ? nullptr : a.rin_im + c * p * (long long)m;
   float2* fr0 = a.frames + c * a.t * (long long)m;  // the channel's first frame
-  const bool cluster_h = in_smem;  // H (and ring) through the cluster
+  const bool cluster_h = in_smem;  // H through the cluster
   cg::cluster_group cl = cg::this_cluster();
   const int rank = (int)cl.block_rank();  // = j mod kCluster: pairs is a multiple of it
 
-  // The cluster moves H (and the carried ring) by whole runs: index i of
-  // cluster_bin, kBatch values a thread, all loads of a batch in flight
-  // before its first store to the owner (distributed shared memory).
-  float2 hv[kBatch], rv[kBatch];
+  // The cluster moves H by whole runs: index i of cluster_bin, kBatch
+  // values a thread, all loads of a batch in flight before its first store
+  // to the owner (distributed shared memory).
+  float2 hv[kBatch];
   int to[kBatch], at[kBatch];
   auto load_batch = [&](int i0) {
 #pragma unroll
@@ -287,7 +273,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
         const long long o = (long long)lag * m + row + (long long)rows * (bin % L);
         at[u] = lag * NB + bin;
         hv[u] = make_float2(__ldg(&hr[o]), __ldg(&hi[o]));
-        if (rr != nullptr) rv[u] = make_float2(__ldg(&rr[o]), __ldg(&ri[o]));
       } else {
         to[u] = -1;
       }
@@ -298,7 +283,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
     for (int u = 0; u < kBatch; ++u) {
       if (to[u] < 0) continue;
       cl.map_shared_rank(hs, to[u])[at[u]] = hv[u];
-      if (rr != nullptr) cl.map_shared_rank(ring, to[u])[at[u]] = rv[u];
     }
   };
 
@@ -329,7 +313,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
       const int k1 = i - lag * L;
       const long long o = (long long)lag * m + pairs + (long long)rows * k1;
       hs[lag * NB + L + k1] = make_float2(__ldg(&hr[o]), __ldg(&hi[o]));
-      if (rr != nullptr) ring[lag * NB + L + k1] = make_float2(__ldg(&rr[o]), __ldg(&ri[o]));
     }
     cluster_arrive();  // waited on before the first MAC
   } else {
@@ -341,7 +324,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
       for (int lag = 0; lag < p; ++lag) {
         const long long o = (long long)lag * m + k;
         hs[lag * NB + b] = make_float2(__ldg(&hr[o]), __ldg(&hi[o]));
-        if (rr != nullptr) ring[lag * NB + b] = make_float2(__ldg(&rr[o]), __ldg(&ri[o]));
       }
     }
     __syncthreads();  // the twiddles are in place
@@ -395,12 +377,12 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
       if (fa != fb || ca != cb) s[fb * LD + pad(cb)] = pair_pack(zb, za, twp[(fb & 1) * L + cb]);
     }
     __syncthreads();
-    if (ci == 0 && cluster_h) cluster_wait();  // every block's H (and ring) is in place
+    if (ci == 0 && cluster_h) cluster_wait();  // every block's H is in place
 
     // MAC, bin by bin, kMacHops hops at a time: win[i] = X_{t1+i-1-lag}
     // slides down one hop per lag, so each ring and H value is read once per
-    // kMacHops hops. Offline, X_{<0} = 0: lags reaching before hop 0 are
-    // skipped, and the ring is never read where it holds nothing.
+    // kMacHops hops. X_{<0} = 0: lags reaching before hop 0 are skipped, and
+    // the ring is never read where it holds nothing.
     for (int b = tid; b < NB; b += kThreads) {
       const int r = b < L ? 0 : 1;
       const int k1 = b - r * L;
@@ -409,7 +391,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
       for (int h0 = 0; h0 < tc; h0 += kMacHops) {
         const int t1 = t0 + h0;
         const int tm = min(kMacHops, tc - h0);
-        const int lag_end = offline ? max(0, min(p, t1 + tm - 1)) : p;
+        const int lag_end = max(0, min(p, t1 + tm - 1));
         float2 x[kMacHops], win[kMacHops], acc[kMacHops];
 #pragma unroll
         for (int i = 0; i < kMacHops; ++i) {
@@ -417,8 +399,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
           acc[i] = make_float2(0.f, 0.f);
         }
         int slot = p > 0 ? ((t1 - 1) % p + p) % p : 0;  // X_{t1-1}
-        win[0] = lag_end > 0 && (!offline || t1 >= 1) ? ring[slot * NB + b]
-                                                       : make_float2(0.f, 0.f);
+        win[0] = lag_end > 0 && t1 >= 1 ? ring[slot * NB + b] : make_float2(0.f, 0.f);
 #pragma unroll
         for (int i = 1; i < kMacHops; ++i) win[i] = x[i - 1];
         for (int lag = 0; lag < lag_end; ++lag) {
@@ -433,17 +414,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
           for (int i = kMacHops - 1; i > 0; --i) win[i] = win[i - 1];
           slot = slot == 0 ? p - 1 : slot - 1;
           if (lag + 1 < lag_end)
-            win[0] = !offline || t1 - 2 - lag >= 0 ? ring[slot * NB + b] : make_float2(0.f, 0.f);
-        }
-        if (a.l0_re != nullptr) {
-          const long long k = c * a.l0_cs + (r ? row1 : row0) + rows * (long long)k1;
-          const float2 l0 = make_float2(__ldg(&a.l0_re[k]), __ldg(&a.l0_im[k]));
-#pragma unroll
-          for (int i = 0; i < kMacHops; ++i) {
-            const float2 d = mac_term(x[i], l0, lane0);
-            acc[i].x += d.x;
-            acc[i].y += d.y;
-          }
+            win[0] = t1 - 2 - lag >= 0 ? ring[slot * NB + b] : make_float2(0.f, 0.f);
         }
         if (p > 0) {
           int ins = t1 % p;
@@ -499,54 +470,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
           cmul(s[f * LD + pad(n1)], twi[(f & 1) * L + n1]);
     }
     __syncthreads();
-  }
-
-  // New ring, oldest-first: slot (T + s) mod P holds X_{T-P+s}; written by
-  // whole runs as the ring was read, after every block of the cluster has
-  // finished its hops.
-  if (a.rout_re != nullptr) {
-    if (cluster_h) {
-      cl.sync();
-      for (int i0 = tid; i0 < 2 * p * L; i0 += kBatch * kThreads) {
-        float2 v[kBatch];
-        long long o[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int i = i0 + u * kThreads;
-          int tb, row, sl, bin;
-          o[u] = -1;
-          if (i < 2 * p * L && cluster_bin(i, L, p, rows, j - rank, rank, tb, row, sl, bin)) {
-            v[u] = cl.map_shared_rank(ring, tb)[((a.t + sl) % p) * NB + bin];
-            o[u] = (c * p + sl) * (long long)m + row + (long long)rows * (bin % L);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          if (o[u] < 0) continue;
-          a.rout_re[o[u]] = v[u].x;
-          a.rout_im[o[u]] = v[u].y;
-        }
-      }
-      for (int i = tid; i < (j == 0 ? p * L : 0); i += kThreads) {
-        const int sl = i / L;
-        const int k1 = i - sl * L;
-        const float2 v = ring[((a.t + sl) % p) * NB + L + k1];
-        const long long o = (c * p + sl) * (long long)m + pairs + (long long)rows * k1;
-        a.rout_re[o] = v.x;
-        a.rout_im[o] = v.y;
-      }
-      cl.sync();  // no block leaves while another reads its shared memory
-    } else {
-      for (int i = tid; i < p * NB; i += kThreads) {
-        const int sl = i / NB;
-        const int b = i - sl * NB;
-        const float2 v = ring[((a.t + sl) % p) * NB + b];
-        const long long o =
-            (c * p + sl) * (long long)m + (b < L ? row0 : row1) + rows * (b % L);
-        a.rout_re[o] = v.x;
-        a.rout_im[o] = v.y;
-      }
-    }
   }
 }
 
@@ -610,36 +533,25 @@ extern "C" long long hst_fastfir_chain_ring_scratch(int n, int p) {
   return 2LL * p * pl.m;
 }
 
-// One call: phases A, B, C on `stream`. `prev` == nullptr is K5 (x[-1] = 0,
-// zero ring, no ring out); otherwise K8 with the carried block `prev`, ring
-// `rin_*` and new ring `rout_*`. `l0_*` may be null. `scratch` holds C*T
-// frames of N floats; `gring` is null when ring and H fit shared memory,
-// else hst_fastfir_chain_ring_scratch's size a channel. N = 2^14..2^17.
-extern "C" int hst_fastfir_chain(
-    const float* x, const float* prev, const float* rin_re, const float* rin_im,
-    const float* h_re, const float* h_im, long long h_cstride, const float* l0_re,
-    const float* l0_im, long long l0_cstride, float* y, float* rout_re, float* rout_im,
-    void* scratch, void* gring, const void* tw, long long channels, int t, int p, int n,
-    float scale, void* stream) {
+// One call: phases A, B, C on `stream`. `scratch` holds C*T frames of N
+// floats; `gring` is null when ring and H fit shared memory, else
+// hst_fastfir_chain_ring_scratch's size a channel. N = 2^14..2^17.
+extern "C" int hst_fastfir_chain(const float* x, const float* h_re, const float* h_im,
+                                 long long h_cstride, float* y, void* scratch, void* gring,
+                                 const void* tw, long long channels, int t, int p, int n,
+                                 float scale, void* stream) {
   const Plan pl = make_plan(n);
   if (pl.route != kRouteTwoPass || n < (1 << 14)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float2* w = static_cast<const float2*>(tw);
   float2* frames = static_cast<float2*>(scratch);
   const long long nframes = channels * t;
-  const int log_m = pl.log_n - 1;
-  if (prev == nullptr) {
-    launch_cols<kLoadStream>(pl.l_first, nframes, pl.m / pl.l_first, x, nullptr, frames, w,
-                             pl.log_n, log_m, t, st);
-  } else {
-    launch_cols<kLoadStreamPrev>(pl.l_first, nframes, pl.m / pl.l_first, x, prev, frames, w,
-                                 pl.log_n, log_m, t, st);
-  }
+  launch_cols<kLoadStream>(pl.l_first, nframes, pl.m / pl.l_first, x, nullptr, frames, w,
+                           pl.log_n, pl.log_n - 1, t, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const bool in_smem = gring == nullptr;
-  const Chain a{frames, h_re, h_im, h_cstride, l0_re, l0_im, l0_cstride, rin_re, rin_im,
-                rout_re, rout_im, static_cast<float2*>(gring), w, t, p, pl.log_n,
+  const Chain a{frames, h_re, h_im, h_cstride, static_cast<float2*>(gring), w, t, p, pl.log_n,
                 pl.m / pl.l_last, mid_tiles(pl.l_last, p, t, in_smem)};
   int rc = pl.l_last == 64    ? launch_mid<64>(a, channels, st)
            : pl.l_last == 128 ? launch_mid<128>(a, channels, st)

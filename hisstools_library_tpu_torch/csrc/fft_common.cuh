@@ -1,7 +1,7 @@
 // Shared multi-pass FFT core on Hopper: the real transforms K2
 // rfft_packed_stream, K4 rifft_packed_tail, K6 rifft_packed, the complex
-// K12 fft_split at 2048..2^16 points, and the FastFIR chain family (K5, K8:
-// fastfir_chain.cu), which adds the row-first inverse at the end of this file.
+// K12 fft_split at 2048..2^16 points, and K5's FastFIR chain
+// (fastfir_chain.cu), which adds the row-first inverse at the end of this file.
 // The plan (make_plan) also routes the large sizes, complex M = 2^17..2^19,
 // which fft_large.cuh serves (K12 there, K13 rfft_packed_split and K14
 // rifft_packed_split). K1 rfft_packed takes none of make_plan's routes: its
@@ -206,7 +206,8 @@ __device__ __forceinline__ void step1_store(float2* s, const float2 (&v)[Sub<L>:
 //                [x[b-1] | x[b]] read in place, with block -1 taken as zeros
 //                when b is a channel's first hop (`first`).
 //   kLoadStreamPrev: kLoadStream, with block -1 read from `a_im`, the
-//                channel's carried previous block (H floats), instead.
+//                channel's carried previous block (H floats), instead (K8's
+//                forward, fft_large.cuh's one-pass kernel).
 //   kLoadUnpack: conj(Z'[idx]) from packed planes (a = re, a_im = im), where
 //                Z' is the complex spectrum whose unscaled inverse is the
 //                real signal's (even, odd) pairs; the conj turns the forward
@@ -265,10 +266,7 @@ fft_cols(const float* __restrict__ a, const float* __restrict__ a_im,
   const int tiles = ncol / kTile;
   const long long frame = blockIdx.x / tiles;
   const int c0 = (int)(blockIdx.x - frame * tiles) * kTile;
-  const bool first = (kLoad == kLoadStream || kLoad == kLoadStreamPrev) && frame % hops == 0;
-  // kLoadStreamPrev: a_im holds (C, H) carried blocks; this channel's row.
-  const float* lo = kLoad == kLoadStreamPrev ? a_im + (frame / hops) * (long long)(ncol * L)
-                                             : a_im;
+  const bool first = kLoad == kLoadStream && frame % hops == 0;
   const int tid = threadIdx.x;
   // Step 1: thread (f, j1), f fastest so loads run along columns.
   if (tid < kTile * A) {
@@ -277,7 +275,7 @@ fft_cols(const float* __restrict__ a, const float* __restrict__ a_im,
     float2 v[B];
 #pragma unroll
     for (int j2 = 0; j2 < B; ++j2)
-      v[j2] = load_elem<kLoad>(a, lo, tw, frame, c0 + f + ncol * (j1 + A * j2),
+      v[j2] = load_elem<kLoad>(a, a_im, tw, frame, c0 + f + ncol * (j1 + A * j2),
                                ncol * L, first);
     reg_dft<B>(v, tw, log_n);
     step1_store<L>(s, v, f, j1, tw, log_n);
@@ -478,7 +476,7 @@ inline void run_fft(const Plan& p, long long frames, const float* a, const float
 }
 
 // -----------------------------------------------------------------------------
-// Row-first inverse: the FastFIR chain family (fastfir_chain.cu). The two-pass
+// Row-first inverse: K5's FastFIR chain (fastfir_chain.cu). The two-pass
 // inverse runs the forward's passes in the transpose order. With M = M1 * R
 // (rows of M1 points, R = M/M1 rows, as the forward's row pass leaves them),
 // bin k = j + R*k1 sits in row j, and the DFT of conj(Z') (as in K4, the

@@ -39,6 +39,11 @@
 // bin k = j + R*k1 meets its partner M-k = (R-j) + R*(M1-1-k1) (row 0:
 // column M1-k1) in its own shared memory. The unpack of the inverse (K14)
 // is the column stage's loader and reads P[idx] and P[M-idx] itself.
+//
+// K1's one pass (fft_onepass, below) serves complex M = 2^11..2^16 on one
+// block or a cluster of 2..8; K8's split chain (fastfir_stream.cu) runs it
+// twice, as the forward of its frames read in place (kLoadStreamPrev) and
+// as the overlap-save inverse (kLoadUnpack loader, kStoreTail store).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -518,6 +523,31 @@ __device__ __forceinline__ void pack_rows_tile(const float2* s, float* __restric
   }
 }
 
+// The overlap-save inverse's store for the one-pass kernel's rows (K4's tail
+// store): bin k = row + R*k1 of the frame's forward DFT Z of conj(Z') is the
+// sample pair (2k, 2k+1) of the unscaled inverse, conj(Z[k]); only the kept
+// half k >= M/2 (k1 >= L/2) is stored, times `scale`, at float2 k - M/2 of
+// the frame's M/2 float2 (`of`). Each thread keeps one slot, as
+// pack_rows_tile does, so a warp stores runs of consecutive bins.
+template <int L, int LD, int H, int NT, int B, int AP>
+__device__ __forceinline__ void tail_rows_tile(const float2* s, float2* __restrict__ of,
+                                               int tile, int rows, float scale) {
+  static_assert(NT % (2 * H) == 0 && (L / 2) % (NT / (2 * H)) == 0,
+                "one slot a thread, whole rounds");
+  const int sf = threadIdx.x % (2 * H);
+  const int row = pack_row_of<H>(tile, sf, rows);
+  const float2* zs = s + sf * LD;
+  constexpr int kStep = NT / (2 * H);
+  const int k0 = threadIdx.x / (2 * H);
+  const int half = rows * (L / 2);
+#pragma unroll
+  for (int it = 0; it < L / 2 / kStep; ++it) {
+    const int k1 = L / 2 + k0 + it * kStep;
+    const float2 z = zs[(k1 % B) * AP + k1 / B];
+    of[row + rows * k1 - half] = make_float2(scale * z.x, -scale * z.y);
+  }
+}
+
 // a * W_32^k, k < 16 a compile-time constant once the callers' loops
 // unroll: W_16 constants for even k, the float64 cos / sin of the odd
 // multiples of pi/16 rounded to float32 for odd k.
@@ -674,13 +704,17 @@ __device__ __forceinline__ void row_home(int k, int& owner, int& slot) {
 }
 
 // grid = frames * C blocks, block r of frame blockIdx.x / C (its rank in the
-// cluster). Loads with kLoad (a, a_im), stores the packed planes out (re)
-// and out_im (im).
-template <class G, int kLoad>
+// cluster). Loads with kLoad (a, a_im): kLoadReal, kLoadUnpack, or
+// kLoadStreamPrev with frame = hop t of (C, hops, M/2 float2) blocks and
+// a_im the (C, M/2 float2) carried blocks. Stores with kStore: kStorePack,
+// the packed planes out (re) and out_im (im); kStoreTail, the kept half of
+// the real inverse, times `scale`, into the (frames, M) floats `out`.
+template <class G, int kLoad, int kStore>
 __global__ void __launch_bounds__(G::kThreads, G::kMinBlocks)
 fft_onepass(const float* __restrict__ a, const float* __restrict__ a_im,
             float* __restrict__ out, float* __restrict__ out_im,
-            const float2* __restrict__ tw, int log_n) {
+            const float2* __restrict__ tw, int log_n, int hops, float scale) {
+  static_assert(kStore == kStorePack || kStore == kStoreTail, "pack or tail");
   constexpr int m = G::kM, NT = G::kThreads, C = G::kBlocks;
   using RT = InPlace<G::kRowLen>;
   extern __shared__ float2 lsm[];
@@ -688,6 +722,10 @@ fft_onepass(const float* __restrict__ a, const float* __restrict__ a_im,
   if constexpr (C > 1) rank = (int)cg::this_cluster().block_rank();
   const long long frame = blockIdx.x / C;
   const int tid = threadIdx.x;
+  // kLoadStreamPrev: hop 0 of a channel takes its first half from the
+  // channel's carried block.
+  const bool first = kLoad == kLoadStreamPrev && frame % hops == 0;
+  const float* lo = kLoad == kLoadStreamPrev ? a_im + (frame / hops) * (long long)m : a_im;
   // The twiddle tables after the frame: the pack's, then load_twiddles'
   // layout (tl, thi, tlo).
   constexpr int kHi = m / 512;
@@ -702,8 +740,10 @@ fft_onepass(const float* __restrict__ a, const float* __restrict__ a_im,
   tl.fetch(tw, [&](int i) { return i << (log_n - kTlLog); });
   tlo.fetch(tw, [](int i) { return i << 1; });
   thi.fetch(tw, [](int i) { return i << 10; });
-  wk1s.fetch(tw, [](int i) { return G::kRows * i; });
-  wrows.fetch(tw, [&](int i) { return pack_row_of<G::kOwnRows / 2>(rank, i, G::kRows); });
+  if constexpr (kStore == kStorePack) {
+    wk1s.fetch(tw, [](int i) { return G::kRows * i; });
+    wrows.fetch(tw, [&](int i) { return pack_row_of<G::kOwnRows / 2>(rank, i, G::kRows); });
+  }
 
   // 1. The block's columns: M2-point FFTs, times W_M^(n1*k2), column f
   //    (n1 = rank*kOwnCols + f) left at lsm[f*kLdC + k2].
@@ -724,14 +764,16 @@ fft_onepass(const float* __restrict__ a, const float* __restrict__ a_im,
       const int j1 = t / G::kOwnCols;
 #pragma unroll
       for (int j2 = 0; j2 < CB; ++j2)
-        v[u][j2] = load_elem<kLoad>(a, a_im, tw, frame, c0 + f + G::kCols * (j1 + CA * j2), m,
-                                    false);
+        v[u][j2] = load_elem<kLoad>(a, lo, tw, frame, c0 + f + G::kCols * (j1 + CA * j2), m,
+                                    first);
     }
     tl.put(twd.tl);
     tlo.put(twd.tlo);
     thi.put(twd.thi);
-    wk1s.put(wk1);
-    wrows.put(wrow);
+    if constexpr (kStore == kStorePack) {
+      wk1s.put(wk1);
+      wrows.put(wrow);
+    }
     __syncthreads();  // the twiddle tables are in place
 #pragma unroll
     for (int u = 0; u < kPer0; ++u) {
@@ -828,9 +870,52 @@ fft_onepass(const float* __restrict__ a, const float* __restrict__ a_im,
     for (int k1 = 0; k1 < A; ++k1) g[k1] = w[k1];
   }
   __syncthreads();
-  pack_rows_tile<L, G::kLdR, G::kOwnRows / 2, NT, B, RT::kAp>(
-      lsm, out + frame * (long long)m, out_im + frame * (long long)m, wrow, wk1, rank, G::kRows);
+  if constexpr (kStore == kStorePack) {
+    pack_rows_tile<L, G::kLdR, G::kOwnRows / 2, NT, B, RT::kAp>(
+        lsm, out + frame * (long long)m, out_im + frame * (long long)m, wrow, wk1, rank,
+        G::kRows);
+  } else {
+    tail_rows_tile<L, G::kLdR, G::kOwnRows / 2, NT, B, RT::kAp>(
+        lsm, reinterpret_cast<float2*>(out) + frame * (long long)(m / 2), rank, G::kRows,
+        scale);
+  }
 }
+
+// K1's one-pass plan of complex M = 2^LM, M = 2^11..2^16 (also K8's two
+// transforms at 2^13..2^16; hopper_fft._onepass_plan mirrors it): M1
+// columns of M2 points on C blocks, two blocks an SM (<= 128 registers a
+// thread at 256 threads, <= 64 at 512). A block holds 2048..8192 points;
+// its columns give it runs of 32..128 points of every row. The threads
+// follow tools/k1_layouts.py's measurements on an H100: 256 at the FastFIR
+// main path's M = 2^15, 512 at 2^13, 2^14 and 2^16.
+template <int LM>
+struct K1Plan;
+template <>
+struct K1Plan<11> {
+  using T = OnePass<11, 6, 1, 256, 2>;  // 64 x 32, one block (16 KB)
+};
+template <>
+struct K1Plan<12> {
+  using T = OnePass<12, 6, 1, 256, 2>;  // 64 x 64, one block (32 KB)
+};
+template <>
+struct K1Plan<13> {
+  using T = OnePass<13, 7, 1, 512, 2>;  // 128 x 64, one block (64 KB)
+};
+template <>
+struct K1Plan<14> {
+  using T = OnePass<14, 7, 2, 512, 2>;  // 128 x 128 on a 2-block cluster
+};
+template <>
+struct K1Plan<15> {
+  using T = OnePass<15, 7, 4, 256, 2>;  // 128 x 256 on 4 blocks
+};
+template <>
+struct K1Plan<16> {
+  using T = OnePass<16, 8, 8, 512, 2>;  // 256 x 256 on 8 blocks
+};
+template <int LM>
+using K1Pass = typename K1Plan<LM>::T;
 
 // ---------------------------------------------------------------------------
 // Host launchers. Each sets its kernel's dynamic shared memory (above the
@@ -923,12 +1008,14 @@ inline int onepass_resident(Kernel kernel, int& resident) {
                                              &cfg);
 }
 
-// One launch of G's route over `frames` frames. Once a device it also
-// checks that one frame's blocks, with their shared memory, fit the card.
-template <class G, int kLoad>
+// One launch of G's route over `frames` frames (`hops`, `scale`: see
+// fft_onepass). Once a device it also checks that one frame's blocks, with
+// their shared memory, fit the card.
+template <class G, int kLoad, int kStore = kStorePack>
 inline int launch_onepass(long long frames, const float* a, const float* a_im, float* out,
-                          float* out_im, const float2* tw, int log_n, cudaStream_t st) {
-  auto kernel = fft_onepass<G, kLoad>;
+                          float* out_im, const float2* tw, int log_n, cudaStream_t st,
+                          int hops = 1, float scale = 1.f) {
+  auto kernel = fft_onepass<G, kLoad, kStore>;
   static int ready = -1;
   const int rc = once_per_device(ready, [&]() {
     int resident = 0;
@@ -939,7 +1026,8 @@ inline int launch_onepass(long long frames, const float* a, const float* a_im, f
   if (rc != 0) return rc;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = onepass_config<G>(frames, st, &attr);
-  const int err = (int)cudaLaunchKernelEx(&cfg, kernel, a, a_im, out, out_im, tw, log_n);
+  const int err =
+      (int)cudaLaunchKernelEx(&cfg, kernel, a, a_im, out, out_im, tw, log_n, hops, scale);
   return err != 0 ? err : (int)cudaGetLastError();
 }
 

@@ -22,40 +22,7 @@ using namespace hst;
 
 namespace {
 
-// K1's plan (hopper_fft._onepass_plan mirrors it): complex M = 2^LM as M1
-// columns of M2 points on C blocks, two blocks an SM (<= 128 registers a
-// thread at 256 threads, <= 64 at 512). A block holds 2048..8192 points;
-// its columns give it runs of 32..128 points of every row. The threads
-// follow tools/k1_layouts.py's measurements on an H100: 256 at the FastFIR
-// main path's M = 2^15, 512 at 2^13, 2^14 and 2^16.
-template <int LM>
-struct K1Plan;
-template <>
-struct K1Plan<11> {
-  using T = OnePass<11, 6, 1, 256, 2>;  // 64 x 32, one block (16 KB)
-};
-template <>
-struct K1Plan<12> {
-  using T = OnePass<12, 6, 1, 256, 2>;  // 64 x 64, one block (32 KB)
-};
-template <>
-struct K1Plan<13> {
-  using T = OnePass<13, 7, 1, 512, 2>;  // 128 x 64, one block (64 KB)
-};
-template <>
-struct K1Plan<14> {
-  using T = OnePass<14, 7, 2, 512, 2>;  // 128 x 128 on a 2-block cluster
-};
-template <>
-struct K1Plan<15> {
-  using T = OnePass<15, 7, 4, 256, 2>;  // 128 x 256 on 4 blocks
-};
-template <>
-struct K1Plan<16> {
-  using T = OnePass<16, 8, 8, 512, 2>;  // 256 x 256 on 8 blocks
-};
-template <int LM>
-using K1Pass = typename K1Plan<LM>::T;
+// K1's plan is fft_large.cuh's K1Plan (hopper_fft._onepass_plan mirrors it).
 
 template <int LM>
 int k1_launch(const float* x, float* re, float* im, const float2* tw, long long batch,
@@ -66,7 +33,8 @@ int k1_launch(const float* x, float* re, float* im, const float2* tw, long long 
 template <int LM>
 int k1_resident() {
   int resident = 0;
-  const int rc = onepass_resident<K1Pass<LM>>(fft_onepass<K1Pass<LM>, kLoadReal>, resident);
+  const int rc = onepass_resident<K1Pass<LM>>(fft_onepass<K1Pass<LM>, kLoadReal, kStorePack>,
+                                                  resident);
   return rc != 0 ? -rc : resident;
 }
 

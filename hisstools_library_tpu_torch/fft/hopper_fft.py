@@ -12,7 +12,7 @@ function                           replaces (hisstools_library_tpu/...)      CUD
 :func:`rifft_packed_tail`    (K4)  fft/pallas_fft.py: rifft_packed_tail      csrc/rifft_packed_tail.cu
 :func:`fastfir_chain`        (K5)  fft/pallas_fft.py: fastfir_chain          csrc/fastfir_chain.cu
 :func:`rifft_packed`         (K6)  fft/pallas_fft.py: rifft_packed           csrc/rifft_packed.cu
-:func:`fastfir_chain_stream` (K8)  fft/pallas_fft.py: fastfir_chain_stream   csrc/fastfir_chain.cu
+:func:`fastfir_chain_stream` (K8)  fft/pallas_fft.py: fastfir_chain_stream   csrc/fastfir_stream.cu
 :func:`rfft_small`          (K10)  fft/pallas_fft.py: _small_fwd_call        csrc/rfft_small.cu
 :func:`rifft_small`         (K11)  fft/pallas_fft.py: _small_inv_call        csrc/rifft_small.cu
 :func:`rfft_small_windowed` (K10w) fft/pallas_fft.py: rfft_small_windowed    csrc/rfft_small.cu
@@ -59,17 +59,21 @@ padded signal's ``unfold``). K10 and K10w run on the register-DFT core
 ``csrc/reg_fft.cuh`` (16 points a thread, radix-16 stages, one shared-memory
 exchange between stages); :func:`_small_plan` mirrors its plan.
 
-The FastFIR chain family (``csrc/fastfir_chain.cu``) serves K5
-(:func:`fastfir_chain`, N = 2^14..2^17, any P) and K8
-(:func:`fastfir_chain_stream`, N = 2^14..2^17, any P): the
-TPU kernels keep each channel's spectra ring and impulse spectra on chip
-(~7.9 MB at the main path's N = 2^16, P = 15), far beyond a Hopper block's
-227 KB, so the chain runs on the two-pass core in three phases (the forward
-column pass, then one block per row pair of a channel that walks its hops
-through the row pass, the pack, the MAC, the unpack and the inverse's row
-pass, then the inverse's column pass), and the hop spectra and
+K5 (:func:`fastfir_chain`, ``csrc/fastfir_chain.cu``, N = 2^14..2^17, any
+P): the TPU kernel keeps each channel's spectra ring and impulse spectra on
+chip (~7.9 MB at the main path's N = 2^16, P = 15), far beyond a Hopper
+block's 227 KB, so the chain runs on the two-pass core in three phases (the
+forward column pass, then one block per row pair of a channel that walks its
+hops through the row pass, the pack, the MAC, the unpack and the inverse's
+row pass, then the inverse's column pass), and the hop spectra and
 accumulations never reach HBM. :func:`fastfir_chain_staged` is K2 -> K3 ->
-K4, the chain at N = 4096..8192.
+K4, the chain at N = 4096..8192. K8 (:func:`fastfir_chain_stream`,
+``csrc/fastfir_stream.cu``, N = 2^14..2^17, any P) carries a ring that other
+kernels and the state converters read in natural bin order, so it splits the
+chain where that state moves: the forward of every frame in one HBM pass on
+K1's route, the state kernel :func:`stream_state` (the ring, H, X and lag 0
+by bulk copies over contiguous bin ranges, each byte once), the inverse in
+one pass; :func:`_stream_plan` mirrors its plan.
 
 Precision: :func:`set_mode` keeps the TPU package's knob (``"bf16x3"`` or
 ``"highest"``). On Hopper both modes run the same FP32 SIMT kernels, with
@@ -100,8 +104,8 @@ MAX_COMPLEX = 1 << 19
 # Beyond the kernels' sizes: what is still to be ported there.
 LARGE_MISSING = "sizes 2^21..2^28 (ROADMAP queue 1 item 12)"
 SMALL_MIN_REAL = 32          # K10 serves N = 32..2048 (rfft_tiny: 2..16)
-# K5 and K8 serve N = 2^14..2^17, the TPU package's sizes for both, as the
-# two instantiations of the chain family fastfir_chain.cu.
+# K5 and K8 serve N = 2^14..2^17, the TPU package's sizes for both
+# (csrc/fastfir_chain.cu and csrc/fastfir_stream.cu).
 CHAIN_MIN = 1 << 14
 CHAIN_MAX = 1 << 17
 
@@ -277,7 +281,7 @@ SMEM_SM = 233472         # an SM's shared memory, 1 KB of it reserved a block
 
 
 class ChainPlan(NamedTuple):
-    """How K5 / K8's middle phase (``csrc/fastfir_chain.cu`` ``chain_mid``)
+    """How K5's middle phase (``csrc/fastfir_chain.cu`` ``chain_mid``)
     runs one launch: a block per (channel, row pair (j, R-j)) of the
     two-pass split M = R x L, walking the hops in chunks."""
     row_len: int             # L = M1, points a row
@@ -322,6 +326,65 @@ def _chain_plan(n: int, p: int, t: int) -> ChainPlan:
     shared = smem(ring, tiles)
     return ChainPlan(row_len, rows, rows // 2, chunk, chunks, ring, tiles, shared,
                      per_sm(shared))
+
+
+STREAM_BINS = 256       # K8's state kernel: bins a block, one a thread
+STREAM_STAGES = 8       # its shared-memory stages (items), kStages - 1 in flight
+STREAM_MAX_HOPS = 16    # its hops a chunk (accumulators a thread)
+
+
+class StreamPlan(NamedTuple):
+    """How K8 (``csrc/fastfir_stream.cu``) runs one call at real size N over
+    T hops with P lags: three launches, the forward and the inverse on K1's
+    one-pass route, the state kernel between them."""
+    form: str               # "split": forward, state kernel, inverse (the only form)
+    transform: OnePassPlan  # the forward's and the inverse's one-pass route
+    bins_per_block: int     # the state kernel's bins a block (one a thread)
+    blocks_per_channel: int  # K / bins_per_block
+    hops_per_chunk: int     # TU: the least power of two >= min(T, 16)
+    chunks: int             # ceil(T / TU)
+    items: int              # rows streamed a block: T X rows, P (H, V) pairs a chunk
+    stages: int             # shared-memory stages
+    shared_bytes: int       # the state kernel's static shared memory a block
+
+
+def _stream_plan(n: int, t: int, p: int) -> StreamPlan:
+    """K8's plan at real size ``n`` = 2^14..2^17 over ``t`` >= 1 hops with
+    ``p`` >= 1 lags, as ``csrc/fastfir_stream.cu`` makes it: the split form
+    at every shape (the fused four-step form, which moved the ring and H
+    inside the chain's middle phase, measured slower at every shape of one
+    A/B call on an H100 and was removed; PERF.md §6); both transforms
+    on :func:`_onepass_plan`'s route; the state kernel on blocks of 256
+    bins, chunks of the least power of two >= min(T, 16) hops, 8 stages of
+    four plane runs of 256 floats (the X row's two, or H_q's and V's four)
+    and their mbarriers."""
+    if not chain_eligible(n):
+        raise ValueError(f"K8 serves N = {CHAIN_MIN}..{CHAIN_MAX}, got n = {n}")
+    if t < 1 or p < 1:
+        raise ValueError(f"K8's state kernel takes T >= 1 and P >= 1, got T = {t}, P = {p}")
+    k = n // 2
+    tu = 1
+    while tu < min(t, STREAM_MAX_HOPS):
+        tu *= 2
+    chunks = -(-t // tu)
+    shared = STREAM_STAGES * 4 * STREAM_BINS * 4 + STREAM_STAGES * 8
+    return StreamPlan("split", _onepass_plan(n), STREAM_BINS, k // STREAM_BINS, tu, chunks,
+                      t + chunks * p, STREAM_STAGES, shared)
+
+
+def _stream_design_bytes(c: int, t: int, p: int, n: int, lag0: bool) -> int:
+    """HBM bytes K8's split form moves at (C, T, P, N): the forward reads
+    each frame's two halves (each hop block twice, hop 0's first half from
+    the carried block) and writes X; the state kernel reads X, the ring, H
+    and L0 and writes Y and the new ring, and re-reads H and the V rows
+    once per chunk after the first; the inverse reads Y and writes the kept
+    halves."""
+    k = n // 2
+    plan = _stream_plan(n, t, p)
+    spec = 8 * c * t * k                      # one (C, T, N/2) complex plane pair
+    state = 8 * c * k * (3 * p + (1 if lag0 else 0)) + 2 * spec
+    state += 8 * c * k * 2 * p * (plan.chunks - 1)
+    return (2 * 4 * c * t * k + spec) + state + (spec + 4 * c * t * k)
 
 
 SMALL_POINTS = 16    # K10 / K10w: points a thread holds (csrc/reg_fft.cuh kR)
@@ -446,20 +509,28 @@ def fastfir_chain_plain(x2d: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tenso
     return rifft_packed_tail_plain(y_re, y_im, scale)
 
 
-def fastfir_chain_stream_plain(x2d, prev, ring_re, ring_im, h_re, h_im,
-                               scale: float, l0_re=None, l0_im=None):
-    """The streaming chain by ``torch.fft`` and the ring MAC's plain version:
-    spectra of [x2d[t-1] | x2d[t]] (x2d[-1] = prev), Y_t = ring MAC over
-    [ring | spectra] (+ X_t * l0), scale * rifft(Y_t)[H:]; returns
-    (y, new_ring_re, new_ring_im)."""
-    prev_rows = torch.cat([prev[:, None, :], x2d[:, :-1, :]], dim=1)
-    x_re, x_im = rfft_packed_plain(torch.cat([prev_rows, x2d], dim=-1))
-    y_re, y_im, n_re, n_im = lag_mac_ring_plain(ring_re, ring_im, x_re, x_im,
-                                                h_re, h_im)
+def stream_state_plain(x_re, x_im, ring_re, ring_im, h_re, h_im, l0_re=None, l0_im=None):
+    """K8's state kernel by the ring MAC's plain version: Y_t = sum_{lag <
+    P} V_{t-1-lag} * H_lag over V = [ring | X] (+ X_t * l0), and the new ring
+    oldest-first; returns (y_re, y_im, new_ring_re, new_ring_im)."""
+    y_re, y_im, n_re, n_im = lag_mac_ring_plain(ring_re, ring_im, x_re, x_im, h_re, h_im)
     if l0_re is not None:
         prod = packed_mul(Split(x_re, x_im), Split(l0_re[:, None, :], l0_im[:, None, :]))
         y_re = y_re + prod.re
         y_im = y_im + prod.im
+    return y_re, y_im, n_re, n_im
+
+
+def fastfir_chain_stream_plain(x2d, prev, ring_re, ring_im, h_re, h_im,
+                               scale: float, l0_re=None, l0_im=None):
+    """The streaming chain by ``torch.fft`` and the state kernel's plain
+    version: spectra of [x2d[t-1] | x2d[t]] (x2d[-1] = prev), Y_t = ring MAC
+    over [ring | spectra] (+ X_t * l0), scale * rifft(Y_t)[H:]; returns
+    (y, new_ring_re, new_ring_im)."""
+    prev_rows = torch.cat([prev[:, None, :], x2d[:, :-1, :]], dim=1)
+    x_re, x_im = rfft_packed_plain(torch.cat([prev_rows, x2d], dim=-1))
+    y_re, y_im, n_re, n_im = stream_state_plain(x_re, x_im, ring_re, ring_im, h_re, h_im,
+                                                l0_re, l0_im)
     return rifft_packed_tail_plain(y_re, y_im, scale), n_re, n_im
 
 
@@ -996,47 +1067,6 @@ def _check_chain(kernel: str, x2d, h_re, h_im, prev=None, ring=None, lag0=None) 
                          + " do not fit (C, T, H), (C, P, H), (C, H), (C, P, H)")
 
 
-def _chain_launch(kernel: str, x2d, h_re, h_im, scale, prev=None, ring=None, lag0=None):
-    """One call of the chain family (csrc/fastfir_chain.cu): K5 when
-    ``prev`` is None, else K8 with the carried block, the ring and the
-    optional lag-0 planes. Returns y and, for K8, the new ring planes."""
-    c, t, hop = x2d.shape
-    n = 2 * hop
-    p = h_re.shape[-2]
-    if not chain_eligible(n):
-        raise NotImplementedError(
-            f"{kernel}: the chain family serves N = {CHAIN_MIN}..{CHAIN_MAX}; N = {n}: "
-            + ("fastfir_chain_staged (K2 -> K3 -> K4) serves 4096..8192" if n < CHAIN_MIN
-               else LARGE_MISSING + " not yet ported"))
-    _check_chain(kernel, x2d, h_re, h_im, prev, ring, lag0)
-    h_re, h_im, hcs = _row_planes(h_re, h_im)
-    l0_re = l0_im = None
-    lcs = 0
-    if lag0 is not None:
-        l0_re, l0_im, lcs = _row_planes(lag0[0][:, None, :], lag0[1][:, None, :])
-    new_ring = None if prev is None else (torch.empty_like(ring[0]), torch.empty_like(ring[1]))
-    y = torch.empty_like(x2d)
-    if c * t == 0:
-        return y, None if prev is None else (ring[0].clone(), ring[1].clone())
-    lib = _build.load()
-    scratch = torch.empty(c * t, n, dtype=torch.float32, device=x2d.device)
-    # Ring and H live in shared memory while they fit; beyond that the
-    # kernel asks for a global scratch of this many float2 a channel.
-    ring_floats2 = lib.hst_fastfir_chain_ring_scratch(n, p)
-    gring = None
-    if ring_floats2:
-        gring = torch.empty(c, ring_floats2, 2, dtype=torch.float32, device=x2d.device)
-
-    rc = lib.hst_fastfir_chain(
-        x2d.data_ptr(), _ptr(prev), _ptr(ring and ring[0]), _ptr(ring and ring[1]),
-        h_re.data_ptr(), h_im.data_ptr(), hcs, _ptr(l0_re), _ptr(l0_im), lcs, y.data_ptr(),
-        _ptr(new_ring and new_ring[0]), _ptr(new_ring and new_ring[1]), scratch.data_ptr(),
-        _ptr(gring), _twiddles(n, x2d.device).data_ptr(), c, t, p, n, float(scale),
-        _build.stream(x2d.device))
-    _build.check(rc, kernel)
-    return y, new_ring
-
-
 def fastfir_chain(x2d: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,
                   scale: float) -> torch.Tensor:
     """K5: the whole FastFIR chain as one kernel family call. ``x2d``:
@@ -1046,7 +1076,33 @@ def fastfir_chain(x2d: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,
     N = 2^14..2^17, any P. No (C, T, N/2) spectra tensor is allocated."""
     if x2d.device.type == "cpu":
         return fastfir_chain_plain(x2d, h_re, h_im, scale)
-    y, _ = _chain_launch("K5 fastfir_chain", x2d, h_re, h_im, scale)
+    kernel = "K5 fastfir_chain"
+    c, t, hop = x2d.shape
+    n = 2 * hop
+    p = h_re.shape[-2]
+    if not chain_eligible(n):
+        raise NotImplementedError(
+            f"{kernel}: serves N = {CHAIN_MIN}..{CHAIN_MAX}; N = {n}: "
+            + ("fastfir_chain_staged (K2 -> K3 -> K4) serves 4096..8192" if n < CHAIN_MIN
+               else LARGE_MISSING + " not yet ported"))
+    _check_chain(kernel, x2d, h_re, h_im)
+    h_re, h_im, hcs = _row_planes(h_re, h_im)
+    y = torch.empty_like(x2d)
+    if c * t == 0:
+        return y
+    lib = _build.load()
+    scratch = torch.empty(c * t, n, dtype=torch.float32, device=x2d.device)
+    # Ring and H live in shared memory while they fit; beyond that the
+    # kernel asks for a global scratch of this many float2 a channel.
+    ring_floats2 = lib.hst_fastfir_chain_ring_scratch(n, p)
+    gring = None
+    if ring_floats2:
+        gring = torch.empty(c, ring_floats2, 2, dtype=torch.float32, device=x2d.device)
+    rc = lib.hst_fastfir_chain(
+        x2d.data_ptr(), h_re.data_ptr(), h_im.data_ptr(), hcs, y.data_ptr(), scratch.data_ptr(),
+        _ptr(gring), _twiddles(n, x2d.device).data_ptr(), c, t, p, n, float(scale),
+        _build.stream(x2d.device))
+    _build.check(rc, kernel)
     fastfir_chain.launches += 1
     return y
 
@@ -1054,12 +1110,83 @@ def fastfir_chain(x2d: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,
 fastfir_chain.launches = 0
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy where its data is not 16-byte aligned, as
+    the bulk copies of K8's state kernel need."""
+    return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
+
+
+def _aligned_rows(re: torch.Tensor, im: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """:func:`_row_planes` with every row 16-byte aligned: a plane whose
+    start or channel stride is not a multiple of 4 floats is copied once."""
+    re, im, cs = _row_planes(re, im)
+    if cs % 4 or re.data_ptr() % 16 or im.data_ptr() % 16:
+        re, im, cs = _row_planes(re.clone(memory_format=torch.contiguous_format),
+                                 im.clone(memory_format=torch.contiguous_format))
+    return re, im, cs
+
+
+def _state_args(ring, h_re, h_im, lag0):
+    """The ring, H and lag-0 operands of K8's state kernel as it reads them:
+    the ring contiguous, H and L0 as row planes (slices and channel-broadcast
+    views in place) with their channel strides, 16-byte aligned."""
+    l0 = (None, None, 0)
+    if lag0 is not None:
+        l0 = _aligned_rows(lag0[0][:, None, :], lag0[1][:, None, :])
+    return (_aligned(ring[0]), _aligned(ring[1]), *_aligned_rows(h_re, h_im), l0)
+
+
+def stream_state(x_re: torch.Tensor, x_im: torch.Tensor, ring_re: torch.Tensor,
+                 ring_im: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,
+                 l0_re: Optional[torch.Tensor] = None, l0_im: Optional[torch.Tensor] = None):
+    """K8's state kernel alone (``csrc/fastfir_stream.cu``, the middle of
+    its three launches): ``x_*`` (C, T, K) hop spectra, ``ring_*`` (C, P, K)
+    the carried ring oldest-first, ``h_*`` (C, P, K) packed impulse spectra
+    (row slices and channel-broadcast views read in place), ``l0_*``
+    optional (C, K). Returns (y_re, y_im, new_ring_re, new_ring_im): Y_t =
+    sum_{lag < P} V_{t-1-lag} H_lag (+ X_t l0) over V = [ring | X], and the
+    new ring oldest-first. K a multiple of 256."""
+    if x_re.device.type == "cpu":
+        return stream_state_plain(x_re, x_im, ring_re, ring_im, h_re, h_im, l0_re, l0_im)
+    kernel = "K8 stream_state"
+    lag0 = None if l0_re is None else (l0_re, l0_im)
+    _build.check_tensors(kernel, x_re, x_im, ring_re, ring_im)
+    _build.check_tensors(kernel, x_re, h_re, h_im, *(lag0 or ()), contiguous=False)
+    c, t, k = x_re.shape
+    p = ring_re.shape[1]
+    if (x_im.shape != x_re.shape or ring_re.shape != (c, p, k) or ring_im.shape != ring_re.shape
+            or h_re.shape != ring_re.shape or h_im.shape != ring_re.shape or k % STREAM_BINS
+            or (lag0 is not None and (l0_re.shape != (c, k) or l0_im.shape != (c, k)))):
+        raise ValueError(f"{kernel}: shapes X {tuple(x_re.shape)}, ring {tuple(ring_re.shape)}, "
+                         f"H {tuple(h_re.shape)} do not fit (C, T, K), (C, P, K), (C, P, K) "
+                         f"with K a multiple of {STREAM_BINS}")
+    if p == 0:
+        raise ValueError(f"{kernel}: needs P >= 1 lags")
+    y_re, y_im = torch.empty_like(x_re), torch.empty_like(x_im)
+    n_re, n_im = torch.empty_like(ring_re), torch.empty_like(ring_im)
+    if c * t * k == 0:
+        return y_re, y_im, ring_re.clone(), ring_im.clone()
+    x_re, x_im = _aligned(x_re), _aligned(x_im)
+    rr, ri, h_re, h_im, hcs, (l0r, l0i, lcs) = _state_args((ring_re, ring_im), h_re, h_im,
+                                                            lag0)
+    rc = _build.load().hst_stream_state(
+        x_re.data_ptr(), x_im.data_ptr(), rr.data_ptr(), ri.data_ptr(), h_re.data_ptr(),
+        h_im.data_ptr(), hcs, _ptr(l0r), _ptr(l0i), lcs, y_re.data_ptr(), y_im.data_ptr(),
+        n_re.data_ptr(), n_im.data_ptr(), c, t, p, k, _build.stream(x_re.device))
+    _build.check(rc, kernel)
+    stream_state.launches += 1
+    return y_re, y_im, n_re, n_im
+
+
+stream_state.launches = 0
+
+
 def fastfir_chain_stream(x2d: torch.Tensor, prev: torch.Tensor,
                          ring_re: torch.Tensor, ring_im: torch.Tensor,
                          h_re: torch.Tensor, h_im: torch.Tensor, scale: float,
                          l0_re: Optional[torch.Tensor] = None,
                          l0_im: Optional[torch.Tensor] = None):
-    """K8: a whole streaming process_block in one kernel call.
+    """K8: a whole streaming process_block in one call of three launches.
 
     ``x2d``: (C, T, H) hop blocks; ``prev``: (C, H) the carried previous
     block; ``ring_*``: (C, P, N/2) oldest-first spectra ring; ``h_*``:
@@ -1067,19 +1194,39 @@ def fastfir_chain_stream(x2d: torch.Tensor, prev: torch.Tensor,
     partition multiplied with each hop's own spectrum. Returns (y (C, T, H),
     new_ring_re, new_ring_im) with the new ring oldest-first, in new tensors.
     ``h_*`` and ``l0_*`` may be row slices or channel-broadcast views.
-    N = 2^14..2^17: the chain family's stream instantiation
-    (csrc/fastfir_chain.cu)."""
+    N = 2^14..2^17 (``csrc/fastfir_stream.cu``, :func:`_stream_plan`): the
+    forward of every frame [x[t-1] | x[t]] in one HBM pass (K1's one-pass
+    route, the halves read in place), the state kernel (:func:`stream_state`)
+    over contiguous bin ranges, the inverse in one pass with K4's tail
+    store."""
     if x2d.device.type == "cpu":
         return fastfir_chain_stream_plain(x2d, prev, ring_re, ring_im, h_re,
                                           h_im, scale, l0_re, l0_im)
-    n = 2 * x2d.shape[-1]
+    kernel = "K8 fastfir_chain_stream"
+    c, t, hop = x2d.shape
+    n = 2 * hop
+    p = h_re.shape[-2]
     if not chain_eligible(n):
         raise NotImplementedError(
-            f"K8 fastfir_chain_stream: serves N = {CHAIN_MIN}..{CHAIN_MAX}; N = {n}: "
+            f"{kernel}: serves N = {CHAIN_MIN}..{CHAIN_MAX}; N = {n}: "
             + "process_block takes its staged path there, as the TPU package does")
     lag0 = None if l0_re is None else (l0_re, l0_im)
-    y, (n_re, n_im) = _chain_launch("K8 fastfir_chain_stream", x2d, h_re, h_im, scale,
-                                    prev, (ring_re, ring_im), lag0)
+    _check_chain(kernel, x2d, h_re, h_im, prev, (ring_re, ring_im), lag0)
+    if p == 0:
+        raise ValueError(f"{kernel}: needs P >= 1 lags")
+    y = torch.empty_like(x2d)
+    if c * t == 0:
+        return y, ring_re.clone(), ring_im.clone()
+    rr, ri, h_re, h_im, hcs, (l0r, l0i, lcs) = _state_args((ring_re, ring_im), h_re, h_im,
+                                                            lag0)
+    n_re, n_im = torch.empty_like(ring_re), torch.empty_like(ring_im)
+    spectra = torch.empty(4, c * t, hop, dtype=torch.float32, device=x2d.device)
+    rc = _build.load().hst_fastfir_stream(
+        x2d.data_ptr(), prev.data_ptr(), rr.data_ptr(), ri.data_ptr(), h_re.data_ptr(),
+        h_im.data_ptr(), hcs, _ptr(l0r), _ptr(l0i), lcs, y.data_ptr(), n_re.data_ptr(),
+        n_im.data_ptr(), spectra.data_ptr(), _twiddles(n, x2d.device).data_ptr(), c, t, p, n,
+        float(scale), _build.stream(x2d.device))
+    _build.check(rc, kernel)
     fastfir_chain_stream.launches += 1
     return y, n_re, n_im
 

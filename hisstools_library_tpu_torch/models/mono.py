@@ -10,7 +10,7 @@ blocks that are whole multiples of the largest hop (:func:`process`).
 
 - a :class:`MonoBlockState` (:func:`init_block_state`): the TWO-TIER path. A
   near ring (the final section's first G-1 partitions plus the zero-delay
-  ``block0`` term) runs as one K8 launch; the far ring (the IR past G hops,
+  ``block0`` term) runs as one K8 call; the far ring (the IR past G hops,
   re-partitioned at hop G*h) runs as K1 -> K7 -> K4.
 - a :class:`MonoState` and an IR with ``block0``: the COLLAPSED path. The final
   section plus ``block0`` replace every section (K1 -> K7 -> lag-0 product ->

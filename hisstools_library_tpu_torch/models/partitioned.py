@@ -34,7 +34,7 @@ from ..fft import hopper_fft, hopper_kernels
 
 MIN_FFT_SIZE_LOG2 = 5
 MAX_FFT_SIZE_LOG2 = 20
-# process_block takes the whole-chain stream kernel (K8) only at P <= 8: the
+# process_block takes the whole-block stream chain (K8) only at P <= 8: the
 # TPU package's default policy (partitioned.py:494-496), kept so both packages
 # route a given shape alike.
 STREAM_CHAIN_MAX_P = 8
@@ -411,8 +411,9 @@ class PartitionedConvolve:
         the device: the kernels on CUDA, ``torch.fft`` on the CPU):
 
         - ``"pallas"``, float32, P <= 8, N = 2^14..2^17: the whole block as one
-          kernel call, K8 :func:`hopper_fft.fastfir_chain_stream` (the
-          FastFIR chain family's stream instantiation);
+          call of K8 :func:`hopper_fft.fastfir_chain_stream` (three launches:
+          the frames' forward in one HBM pass, the state kernel, the inverse
+          in one pass);
         - otherwise the frames [prev | cur] are materialised and transformed
           (``fft_api.rfft``: K1, or K10 below 4096), the MAC runs as K7
           :func:`hopper_kernels.lag_mac_ring` when T <= P (any P: the TPU

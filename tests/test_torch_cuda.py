@@ -233,6 +233,86 @@ def test_wide_stream_chain_matches_plain(cuda, c, t, p, n, lag0):
         assert snr_db(w.cpu().numpy(), gt.cpu().numpy()) >= SNR_KERNEL_DB
 
 
+# K8's state kernel alone (csrc/fastfir_stream.cu stream_state), (C, T, P, K,
+# lag0, H layout): T < P, T = P, T > P, P = 1, T = 1, a chunk of 16 hops and
+# chunks past it (17, 40 hops), K at its smallest (256 bins, one block a
+# channel); H as a row slice, a channel-broadcast view or contiguous, and
+# the lag-0 planes as a channel-broadcast view.
+STATE_CASES = [(2, 2, 8, 1 << 16, False, "slice"), (3, 8, 8, 4096, True, "slice"),
+               (2, 16, 3, 8192, True, "broadcast"), (2, 5, 1, 1024, True, "contiguous"),
+               (2, 1, 5, 768, False, "broadcast"), (2, 17, 3, 512, True, "slice"),
+               (1, 40, 6, 256, True, "broadcast"), (2, 3, 20, 2048, False, "contiguous")]
+
+
+@pytest.mark.parametrize("c,t,p,k,lag0,layout", STATE_CASES)
+def test_stream_state_matches_plain(cuda, c, t, p, k, lag0, layout):
+    """K8's state kernel against its plain version (the ring MAC's plain
+    version and the lag-0 product): Y and the new ring, bin 0's two real
+    products included, with H and lag0 read in place from views."""
+    g = torch.Generator(device=cuda).manual_seed(c * 1000 + t * 10 + p)
+
+    def randn(*sh):
+        return torch.randn(*sh, generator=g, device=cuda)
+
+    xr, xi, rr, ri = randn(c, t, k), randn(c, t, k), randn(c, p, k), randn(c, p, k)
+    if layout == "slice":
+        h = [randn(c, p + 2, k)[:, 1:p + 1] for _ in range(2)]
+    elif layout == "broadcast":
+        h = [randn(1, p, k).expand(c, p, k) for _ in range(2)]
+    else:
+        h = [randn(c, p, k) for _ in range(2)]
+    l0 = [randn(1, k).expand(c, k) for _ in range(2)] if lag0 else [None, None]
+    before = hopper_fft.stream_state.launches
+    got = hopper_fft.stream_state(xr, xi, rr, ri, *h, *l0)
+    want = hopper_fft.stream_state_plain(xr, xi, rr, ri, *h, *l0)
+    torch.cuda.synchronize()
+    assert hopper_fft.stream_state.launches == before + 1
+    for gt, w in zip(got, want):
+        assert gt.shape == w.shape and bool(torch.isfinite(gt).all())
+        assert snr_db(w.cpu().numpy(), gt.cpu().numpy()) >= SNR_KERNEL_DB
+        # bin 0: two real products a lag, not a complex one
+        assert snr_db(w[..., 0].cpu().numpy(), gt[..., 0].cpu().numpy()) >= SNR_KERNEL_DB
+    # the new ring is copied, not computed: [ring | X] from row T on
+    assert torch.equal(got[2], torch.cat([rr, xr], 1)[:, t:])
+    assert torch.equal(got[3], torch.cat([ri, xi], 1)[:, t:])
+
+
+# K8 at its plan's edges (hopper_fft._stream_plan), (C, T, P, N, lag0): each
+# one-pass route (one block at 2^14, clusters of 2 / 4 / 8 above), a chunk
+# of 16 hops and one hop past it, T = 1, P = 1, T = P, with H and lag0 as
+# channel-broadcast views read in place.
+STREAM_PLAN_CASES = [(2, 16, 3, 1 << 14, True), (2, 17, 3, 1 << 14, True),
+                     (2, 1, 1, 1 << 15, True), (2, 8, 8, 1 << 16, False),
+                     (1, 3, 8, 1 << 17, True), (2, 33, 2, 1 << 15, False)]
+
+
+@pytest.mark.parametrize("c,t,p,n,lag0", STREAM_PLAN_CASES)
+def test_stream_chain_plan_edges_match_plain(cuda, c, t, p, n, lag0):
+    """K8 against its plain version with H and lag0 broadcast over the
+    channels (the Convolver's N2M layout): output and new ring."""
+    g = torch.Generator(device=cuda).manual_seed(t * 100 + p)
+    k = n // 2
+
+    def randn(*sh):
+        return torch.randn(*sh, generator=g, device=cuda)
+
+    kw = {}
+    if lag0:
+        kw = dict(l0_re=(randn(1, k) * 1e-3).expand(c, k),
+                  l0_im=(randn(1, k) * 1e-3).expand(c, k))
+    args = (randn(c, t, k), randn(c, k), randn(c, p, k), randn(c, p, k),
+            (randn(1, p, k) * 1e-3).expand(c, p, k), (randn(1, p, k) * 1e-3).expand(c, p, k),
+            1.0 / (4.0 * n))
+    before = hopper_fft.fastfir_chain_stream.launches
+    got = hopper_fft.fastfir_chain_stream(*args, **kw)
+    want = hopper_fft.fastfir_chain_stream_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert hopper_fft.fastfir_chain_stream.launches == before + 1
+    for gt, w in zip(got, want):
+        assert gt.shape == w.shape and bool(torch.isfinite(gt).all())
+        assert snr_db(w.cpu().numpy(), gt.cpu().numpy()) >= SNR_KERNEL_DB
+
+
 @pytest.mark.parametrize("path", ["single-section", "two-tier"])
 def test_convolver_stream_paths_launch_k8_on_cuda(cuda, path):
     """The Convolver's hop-aligned paths at the chain family's sizes: parallel

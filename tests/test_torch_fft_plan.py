@@ -456,7 +456,7 @@ def test_onepass_strides_avoid_bank_conflicts(lm):
 
 
 # -----------------------------------------------------------------------------
-# K5 / K8's middle phase (csrc/fastfir_chain.cu chain_mid): its plan, the
+# K5's middle phase (csrc/fastfir_chain.cu chain_mid): its plan, the
 # cluster's H index map and the chunked MAC with the offline lag skip
 
 # Lags whose ring and H a block holds in shared memory, by row length L.
@@ -647,37 +647,34 @@ def _mac_term(v, h, lane0):
     return complex(v.real * h.real, v.imag * h.imag) if lane0 else v * h
 
 
-def _chain_mac_model(x, h, ring=None):
+def _chain_mac_model(x, h):
     """chain_mid's MAC in float64, chunk by chunk and bin by bin as the
-    kernel runs it: x (T, K) hop spectra, h (P, K); ``ring`` (P, K) the
-    carried ring oldest-first (slot s holds X_{s-P}), or None offline, where
-    the ring starts as NaN (never zero-filled: a read of a slot that holds
-    nothing yet shows in the output). Returns Y (T, K) and the new ring
-    oldest-first."""
+    kernel runs it: x (T, K) hop spectra, h (P, K); the ring starts as NaN
+    (never zero-filled: a read of a slot that holds nothing yet shows in the
+    output). Returns Y (T, K)."""
     t, k = x.shape
     p = h.shape[0]
-    offline = ring is None
-    buf = np.full((p, k), np.nan + 1j * np.nan) if offline else ring.astype(complex)
+    buf = np.full((p, k), np.nan + 1j * np.nan)
     y = np.zeros((t, k), complex)
     for t0 in range(0, t, 8):
         tc = min(8, t - t0)
-        lag_end = max(0, min(p, t0 + tc - 1)) if offline else p
+        lag_end = max(0, min(p, t0 + tc - 1))
         for b in range(k):
             xs = [x[t0 + i, b] if i < tc else 0j for i in range(8)]
             acc = [0j] * 8
             slot = (t0 - 1) % p if p else 0
-            win = [buf[slot, b] if lag_end > 0 and (not offline or t0 >= 1) else 0j] + xs[:7]
+            win = [buf[slot, b] if lag_end > 0 and t0 >= 1 else 0j] + xs[:7]
             for lag in range(lag_end):
                 for i in range(8):
                     acc[i] += _mac_term(win[i], h[lag, b], b == 0)
                 win = win[:1] + win[:7]
                 slot = p - 1 if slot == 0 else slot - 1
                 if lag + 1 < lag_end:
-                    win[0] = buf[slot, b] if not offline or t0 - 2 - lag >= 0 else 0j
+                    win[0] = buf[slot, b] if t0 - 2 - lag >= 0 else 0j
             for i in range(tc):
                 buf[(t0 + i) % p, b] = xs[i]
                 y[t0 + i, b] = acc[i]
-    return y, np.stack([buf[(t + s) % p] for s in range(p)]) if p else buf
+    return y
 
 
 def _planes(z):
@@ -693,26 +690,11 @@ def test_chain_offline_mac_skips_lags_before_hop_0(t, p):
     k = 6
     x = rng.standard_normal((t, k)) + 1j * rng.standard_normal((t, k))
     h = rng.standard_normal((p, k)) + 1j * rng.standard_normal((p, k))
-    got, _ = _chain_mac_model(x, h)
+    got = _chain_mac_model(x, h)
     want = hopper_kernels.lag_mac_causal_plain(*_planes(x[None]), *_planes(h[None]))
     want = want[0][0].numpy() + 1j * want[1][0].numpy()
     assert np.isfinite(got).all()
     assert np.abs(got - want).max() <= TOL * max(1.0, np.abs(want).max())
-
-
-@pytest.mark.parametrize("t,p", [(2, 8), (9, 3), (16, 3), (11, 8)])
-def test_chain_stream_mac_matches_ring_mac(t, p):
-    """Streaming (K8), the same MAC over the carried ring equals the ring
-    MAC's plain version (lag_mac_ring_plain): outputs and the new ring."""
-    rng = np.random.default_rng(t * 10 + p)
-    k = 5
-    x, ring = (rng.standard_normal((n, k)) + 1j * rng.standard_normal((n, k)) for n in (t, p))
-    h = rng.standard_normal((p, k)) + 1j * rng.standard_normal((p, k))
-    got, new_ring = _chain_mac_model(x, h, ring)
-    yr, yi, nr, ni = hopper_kernels.lag_mac_ring_plain(*_planes(ring[None]), *_planes(x[None]),
-                                                       *_planes(h[None]))
-    assert np.abs(got - (yr[0].numpy() + 1j * yi[0].numpy())).max() <= 1e-12 * 50
-    assert np.abs(new_ring - (nr[0].numpy() + 1j * ni[0].numpy())).max() == 0
 
 
 @pytest.mark.parametrize("t,p", [(3, 5), (12, 4), (17, 9)])
@@ -727,8 +709,8 @@ def test_chain_offline_model_matches_fastfir_chain_plain(t, p):
     h_re, h_im = (torch.from_numpy(rng.standard_normal((1, p, hop))) for _ in range(2))
     scale = 1.0 / (4.0 * n)
     x_re, x_im = hopper_fft.rfft_packed_stream_plain(x2d)
-    y, _ = _chain_mac_model(x_re[0].numpy() + 1j * x_im[0].numpy(),
-                            h_re[0].numpy() + 1j * h_im[0].numpy())
+    y = _chain_mac_model(x_re[0].numpy() + 1j * x_im[0].numpy(),
+                         h_re[0].numpy() + 1j * h_im[0].numpy())
     got = hopper_fft.rifft_packed_tail_plain(*(v[None] for v in _planes(y)), scale)
     want = hopper_fft.fastfir_chain_plain(x2d, h_re, h_im, scale)
     assert got.shape == want.shape

@@ -8,7 +8,8 @@ PyTorch version for CPU tensors:
   ``pallas_fft.rfft_packed`` at N = 128..2048 (the dense-DFT ``_small_fwd_call``);
 - K7 ``hopper_kernels.lag_mac_ring`` against ``pallas_kernels.lag_mac_ring``;
 - K8 ``hopper_fft.fastfir_chain_stream`` against
-  ``pallas_fft.fastfir_chain_stream`` at N = 2^14, with and without lag0.
+  ``pallas_fft.fastfir_chain_stream`` at N = 2^14, with and without lag0,
+  at T > P and T < P.
 
 Tolerance: >= 110 dB SNR (float32 transforms and sums taken in another
 order, a dense DFT on the TPU side; ~125-140 dB measured).
@@ -79,10 +80,11 @@ def test_lag_mac_ring_matches_pallas(rng, t, p):
     assert all(np.array_equal(a, b) for a, b in zip(kept, hist))
 
 
-@pytest.mark.parametrize("t,p,lag0", [(3, 2, True), (2, 3, False)])
+@pytest.mark.parametrize("t,p,lag0", [(3, 2, True), (2, 3, False), (2, 4, True)])
 def test_fastfir_chain_stream_matches_pallas(rng, highest, t, p, lag0):
     """N = 2^14, one channel; T > P (spectra leave the ring within the call)
-    with lag0, and T < P (part of the old ring survives) without."""
+    with lag0, and T < P (part of the old ring survives) without and with
+    lag0."""
     c, hop = 1, 8192
     k = hop
     x2d = _f32(rng, c, t, hop)

@@ -31,7 +31,11 @@ one CUDA card:
   with the staged K2 -> K3 -> K4 on the same inputs beside them; K5 at the
   shapes of ``CHAIN_CASES`` in this tool's own ``tests/test_torch_cuda.py``
   (read from the file, not imported); K8 fastfir_chain_stream
-  at chip_smoke's four shapes; the FastFIR main path (ms/pass),
+  at chip_smoke's four 128-channel shapes (the device ms of each launch and
+  their sum, event ms) with process_block's staged path (frames, K1 -> K7
+  (+ the lag-0 product) -> K4) on the same inputs, and both at the two-tier
+  far tier (128, T 4, P, 2^16) for P = 8, 14, 20, 28, 40 (where K8 and the
+  staged path cross); the FastFIR main path (ms/pass),
   ``mono.process_offline`` with the offline tail, the ``Convolver``'s
   offline paths (parallel 128, N2M 8 x 8); K2, K4 and K6 (which share
   ``fft_common.cuh``).
@@ -208,9 +212,22 @@ def card_test_cases(name: str) -> list:
 def k5_phase(cs, hf, randn, dev, smi) -> None:
     """The ``--k5`` mode (see the module docstring). Uses only what the
     parent checkouts also have, so the same mode times either."""
+    from hisstools_library_tpu_torch.core.types import Split, packed_mul
+    from hisstools_library_tpu_torch.fft import hopper_kernels as hk
     from hisstools_library_tpu_torch.models import mono
     from hisstools_library_tpu_torch.models.multichannel import Convolver
     from hisstools_library_tpu_torch.models.offline import FastFIR
+
+    def staged_stream(x2d, prev, rr, ri, hr, hi, scale, l0_re=None, l0_im=None):
+        # process_block's staged path: the frames [prev | cur] materialised,
+        # K1, K7, the lag-0 product in torch ops, K4.
+        frames = torch.cat([torch.cat([prev[:, None], x2d[:, :-1]], 1), x2d], -1)
+        xre, xim = hf.rfft_packed(frames)
+        yre, yim, _, _ = hk.lag_mac_ring(rr, ri, xre, xim, hr, hi)
+        if l0_re is not None:
+            prod = packed_mul(Split(xre, xim), Split(l0_re[:, None], l0_im[:, None]))
+            yre, yim = yre + prod.re, yim + prod.im
+        return hf.rifft_packed_tail(yre, yim, scale)
 
     c, k = cs.CHANNELS, 1 << 15
     for t, p in ((16, 15), (40, 15), (40, 8)):
@@ -230,15 +247,18 @@ def k5_phase(cs, hf, randn, dev, smi) -> None:
         print(f"K5 ({cc}, {t}, P {p}, {n}): device {cs.device_ms(lambda: hf.fastfir_chain(*a)):.4f}"
               f" ms, SNR vs plain {cs.snr_db(want, got):.2f} dB [{smi}]", flush=True)
     for t, p, n, lag0 in ((16, 3, 1 << 14, True), (16, 3, 1 << 14, False), (2, 8, 1 << 17, False),
-                          (4, 8, 1 << 16, False)):
+                          (4, 8, 1 << 16, False), *((4, p, 1 << 16, False)
+                                                    for p in (14, 20, 28, 40))):
         kk = n // 2
         kw = dict(l0_re=randn(c, kk) * 1e-3, l0_im=randn(c, kk) * 1e-3) if lag0 else {}
         a = (randn(c, t, kk), randn(c, kk), randn(c, p, kk), randn(c, p, kk),
              randn(c, p, kk) * 1e-3, randn(c, p, kk) * 1e-3, 1.0 / (4.0 * n))
-        print(f"K8 fastfir_chain_stream (128, T {t}, P {p}, {n}{', lag0' if lag0 else ''}): "
-              f"device {cs.device_ms(lambda: hf.fastfir_chain_stream(*a, **kw)):.4f} ms, events "
-              f"{cs.median_ms(lambda: hf.fastfir_chain_stream(*a, **kw)):.4f} ms [{smi}]",
-              flush=True)
+        shape = f"(128, T {t}, P {p}, {n}{', lag0' if lag0 else ''})"
+        for label, fn in (("K8 fastfir_chain_stream", hf.fastfir_chain_stream),
+                          ("staged frames -> K1 -> K7 -> K4", staged_stream)):
+            phases = cs.phase_ms(lambda: fn(*a, **kw), smi, f"{label} {shape}")
+            print(f"{label} {shape}: device {sum(phases.values()):.4f} ms, events "
+                  f"{cs.median_ms(lambda: fn(*a, **kw)):.4f} ms [{smi}]", flush=True)
         del a, kw
         torch.cuda.empty_cache()
     others = {

@@ -6,8 +6,8 @@ For each entry of ``LAYOUTS`` (the ``OnePass`` parameters of some complex
 sizes M = 2^LM: log2 of the columns, blocks a frame, threads a block, blocks
 an SM for ``__launch_bounds__``; and text replacements in ``fft_large.cuh``
 that make a variant of the kernel), copies ``hisstools_library_tpu_torch/csrc``
-under ``build/k1_layouts/NAME/``, puts the plans in ``rfft_packed.cu`` in
-place of ``K1Pass`` at those sizes, applies the replacements, and builds
+under ``build/k1_layouts/NAME/``, puts the plans in ``fft_large.cuh`` in
+place of ``K1Plan`` at those sizes, applies the replacements, and builds
 ``rfft_packed.cu`` alone into a shared library (one ``nvcc`` for each entry,
 all started together, with ``-fno-gnu-unique`` so that the libraries' static
 launch state stays their own). It then prints, for each entry, ptxas's
@@ -18,7 +18,7 @@ events, median of 20 after a warm-up, and the kernel's own time by
 ``torch.profiler``, mean of 10), with the SNR against the plain
 packed transform and the frames resident at once, beside
 ``torch.fft.rfft`` on the same inputs and a device-to-device copy of the
-same bytes. The plan that ``rfft_packed.cu`` ships is the entry
+same bytes. The plan that ``fft_large.cuh`` ships is the entry
 ``shipped``. An entry whose replacements change what the kernel computes
 (``no-pack``: the rows' bins stored as split planes, no split step;
 ``no-load``: synthetic input in place of the frame's loads;
@@ -62,11 +62,11 @@ NO_PACK = [("    for (int k1 = 0; k1 < A; ++k1) g[k1] = w[k1];",
             "      store_bin<kStoreSplit>(out, out_im, frame * (long long)m, rank * G::kOwnRows +\n"
             "                             t % G::kOwnRows + G::kRows * (t / G::kOwnRows + B * k1),\n"
             "                             w[k1]);"),
-           ("  __syncthreads();\n  pack_rows_tile<", "  if (false) pack_rows_tile<")]
+           ("    pack_rows_tile<L, G::kLdR", "    if (false) pack_rows_tile<L, G::kLdR")]
 
 # No frame read from HBM: synthetic column data (frame and thread numbers).
-NO_LOAD = [("        v[u][j2] = load_elem<kLoad>(a, a_im, tw, frame, c0 + f + G::kCols * "
-            "(j1 + CA * j2), m,\n                                    false);",
+NO_LOAD = [("        v[u][j2] = load_elem<kLoad>(a, lo, tw, frame, c0 + f + G::kCols * "
+            "(j1 + CA * j2), m,\n                                    first);",
             "        v[u][j2] = make_float2((float)(frame + j2), (float)(t + j1));")]
 
 # Each block's column outputs stored into its own row tiles, behind block
@@ -103,12 +103,12 @@ SHAPES = ((1920, 1 << 16), (128, 1 << 17), (128, 1 << 16), (128, 1 << 15), (128,
 
 
 def _source(layout) -> str:
-    text = (ROOT / "hisstools_library_tpu_torch/csrc/rfft_packed.cu").read_text()
+    text = (ROOT / "hisstools_library_tpu_torch/csrc/fft_large.cuh").read_text()
     for lm, p in layout.items():
         text, n = re.subn(rf"(struct K1Plan<{lm}> {{\n  using T = )OnePass<[^>]*>",
                           rf"\g<1>OnePass<{lm}, {', '.join(map(str, p))}>", text)
         if n != 1:
-            raise SystemExit(f"k1_layouts: no K1Plan<{lm}> in rfft_packed.cu")
+            raise SystemExit(f"k1_layouts: no K1Plan<{lm}> in fft_large.cuh")
     return text
 
 
@@ -120,8 +120,7 @@ def _build_all(names):
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(ROOT / "hisstools_library_tpu_torch" / "csrc", d)
         layout, patches = LAYOUTS[name]
-        (d / "rfft_packed.cu").write_text(_source(layout))
-        large = (d / "fft_large.cuh").read_text()
+        large = _source(layout)
         for old, new in patches:
             if old not in large:
                 raise SystemExit(f"k1_layouts: {name}: no {old!r} in fft_large.cuh")

@@ -259,10 +259,9 @@ def main() -> None:
 
         def call():
             rc = so.hst_fastfir_chain(
-                x2d.data_ptr(), None, None, None, hr.data_ptr(), hi.data_ptr(), p * k, None,
-                None, 0, y.data_ptr(), None, None, scratch.data_ptr(),
-                None if gring is None else gring.data_ptr(), tw.data_ptr(), c, t, p, n,
-                scale, stream)
+                x2d.data_ptr(), hr.data_ptr(), hi.data_ptr(), p * k, y.data_ptr(),
+                scratch.data_ptr(), None if gring is None else gring.data_ptr(), tw.data_ptr(),
+                c, t, p, n, scale, stream)
             if rc:
                 raise SystemExit(f"{name}: CUDA error {rc}")
         call()
