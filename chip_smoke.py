@@ -126,7 +126,18 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
 21. drives the calls that pick those sizes: ``spectral_processor.convolve``
     and ``convolve_complex`` of 128 pairs of 5-sample signals (N = 16) and
     the STFT round trip with 16-point frames (hop 8) of 128 x 1 s, each
-    against float64 (>= 99 dB).
+    against float64 (>= 99 dB);
+22. compares the sizes above real 2^20 / complex 2^19 with their plain
+    versions: K13 and K14 at every real N = 2^21..2^28, K12 forward and
+    inverse at every complex N = 2^20..2^28, each at a batch that moves at
+    least 1 GiB (one frame at the top sizes), >= 110 dB, with device and
+    event ms, the bound, the ``torch.fft`` call's time and the call's peak
+    memory;
+23. drives the public calls there at full width: ``spectral_processor.
+    convolve`` of 128 channels of 20 s signals with the 10 s IRs (N = 2^21)
+    and ``pipeline.ir_deconvolve`` of a 30 s capture of a 25 s log sweep at
+    96 kHz through the IRs (N = 2^22), each against a float64 numpy mirror
+    of channel 0 (>= 99 dB), with ms per call and peak memory.
 
 Every path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel the path needs that was not launched fails the run,
@@ -1143,6 +1154,62 @@ def _f64_linear(a: np.ndarray, b: np.ndarray, size: int, correlate: bool) -> np.
     return np.fft.irfft(fa * (np.conj(fb) if correlate else fb), size)
 
 
+def path_run(label, call, need, ref0, launches, smi, bar=SNR_MIN_PATH_DB) -> None:
+    """One call of a spectral path with the counts from 0 (launches, SNR of
+    channel 0 against ``ref0``, a float64 mirror), then the timed calls (ms
+    per call, peak memory)."""
+    from hisstools_library_tpu_torch.core.types import Split
+    launches.reset()
+    torch.cuda.reset_peak_memory_stats()
+    out = call()
+    torch.cuda.synchronize()
+    launches.read(label, need, smi)
+    planes = (out.re, out.im) if isinstance(out, Split) else (out,)
+    if not all(bool(torch.isfinite(p).all()) for p in planes):
+        fail(f"{label}: non-finite output")
+    got0 = np.concatenate([p[0].double().cpu().numpy() for p in planes])
+    want0 = np.concatenate([ref0.real, ref0.imag]) if np.iscomplexobj(ref0) else ref0
+    if got0.shape != want0.shape:
+        fail(f"{label}: channel 0 has {got0.shape} samples, the mirror {want0.shape}")
+    snr = snr_db(torch.from_numpy(want0), torch.from_numpy(got0))
+    channels = planes[0].shape[0]
+    del out, planes
+    ms = median_ms(call)
+    print(f"{label}: {channels} channels, SNR vs float64 (ch0) {snr:.2f} dB "
+          f"(bar {bar:.2f}); {ms:.4f} ms/call (CUDA events, median of 5 after a "
+          f"warm-up), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[{smi}]", flush=True)
+    if not snr >= bar:
+        fail(f"{label}: SNR {snr:.2f} dB < {bar:.2f}")
+    torch.cuda.empty_cache()
+
+
+def sweep_capture(dev, ird, rate: int, sweep_len: int, cap_len: int):
+    """A log sweep of ``sweep_len`` samples (20 Hz - 20 kHz at ``rate``) and
+    its capture through the IRs ``ird`` (the linear convolution cut at
+    ``cap_len``, built in float64 on the card), with the float64 numpy mirror
+    of ``ir_deconvolve`` for channel 0 (reg 1e-4): (capture, sweep float32,
+    mirror)."""
+    t = np.arange(sweep_len) / rate
+    f1, f2, dur = 20.0, 20000.0, sweep_len / rate
+    lr = np.log(f2 / f1)
+    sweep = np.sin(2 * np.pi * f1 * dur / lr * (np.exp(t * lr / dur) - 1.0))
+    size = 1 << (sweep_len + ird.shape[-1] - 2).bit_length()
+    sw = torch.fft.rfft(torch.from_numpy(sweep).to(dev), size)
+    capture = torch.empty(ird.shape[0], cap_len, device=dev)
+    for i in range(0, ird.shape[0], 16):
+        spec = torch.fft.rfft(ird[i:i + 16].double(), size) * sw
+        capture[i:i + 16] = torch.fft.irfft(spec, size)[:, :cap_len].float()
+    del sw, spec
+    cap0 = capture[0].double().cpu().numpy()
+    nd = 1 << (max(cap_len, sweep_len) - 1).bit_length()
+    Y = np.fft.rfft(cap0, nd)
+    X = np.fft.rfft(sweep.astype(np.float32).astype(np.float64), nd)
+    power = (X * X.conj()).real
+    ref = np.fft.irfft(Y * X.conj() / (power + 1e-4 * power.max()), nd)
+    return capture, torch.from_numpy(sweep.astype(np.float32)).to(dev), ref
+
+
 def spectral_paths(dev, irs, x, launches, smi) -> None:
     """Phase 15: the spectral layer at 128 channels (see the module
     docstring); each sub-phase with every launch count set to 0 before it."""
@@ -1157,30 +1224,7 @@ def spectral_paths(dev, irs, x, launches, smi) -> None:
     k13k14 = ("rfft_packed_split", "rifft_packed_split")
 
     def run(label, call, need, ref0, bar=SNR_MIN_PATH_DB):
-        """One call with the counts from 0 (launches, SNR of channel 0 against
-        ``ref0``), then the timed calls; returns the output's channel 0."""
-        launches.reset()
-        torch.cuda.reset_peak_memory_stats()
-        out = call()
-        torch.cuda.synchronize()
-        launches.read(label, need, smi)
-        planes = (out.re, out.im) if isinstance(out, Split) else (out,)
-        if not all(bool(torch.isfinite(p).all()) for p in planes):
-            fail(f"{label}: non-finite output")
-        got0 = np.concatenate([p[0].double().cpu().numpy() for p in planes])
-        want0 = np.concatenate([ref0.real, ref0.imag]) if np.iscomplexobj(ref0) else ref0
-        if got0.shape != want0.shape:
-            fail(f"{label}: channel 0 has {got0.shape} samples, the mirror {want0.shape}")
-        snr = snr_db(torch.from_numpy(want0), torch.from_numpy(got0))
-        del out, planes
-        ms = median_ms(call)
-        print(f"{label}: {tuple(sig.shape[:1])} channels, SNR vs float64 (ch0) {snr:.2f} dB "
-              f"(bar {bar:.2f}); {ms:.4f} ms/call (CUDA events, median of 5 after a "
-              f"warm-up), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-              f"[{smi}]", flush=True)
-        if not snr >= bar:
-            fail(f"{label}: SNR {snr:.2f} dB < {bar:.2f}")
-        torch.cuda.empty_cache()
+        path_run(label, call, need, ref0, launches, smi, bar)
 
     # (a) Linear convolution of each IR with its channel's 10 s signal, N = 2^20.
     n_lin = 2 * IR_LEN - 1
@@ -1237,25 +1281,7 @@ def spectral_paths(dev, irs, x, launches, smi) -> None:
 
     # (e) ir_deconvolve of a 12 s capture: a 10 s log sweep through the IRs
     # plus a 2 s tail (built in float64 on the card, outside the timing).
-    t = np.arange(IR_LEN) / FS
-    f1, f2, dur = 20.0, 20000.0, IR_LEN / FS
-    rate = np.log(f2 / f1)
-    sweep = np.sin(2 * np.pi * f1 * dur / rate * (np.exp(t * rate / dur) - 1.0))
-    cap_len = IR_LEN + 2 * FS
-    size = 1 << (2 * IR_LEN - 2).bit_length()
-    sw = torch.fft.rfft(torch.from_numpy(sweep).to(dev), size)
-    capture = torch.empty(CHANNELS, cap_len, device=dev)
-    for i in range(0, CHANNELS, 32):
-        spec = torch.fft.rfft(ird[i:i + 32].double(), size) * sw
-        capture[i:i + 32] = torch.fft.irfft(spec, size)[:, :cap_len].float()
-    del sw, spec
-    sweep32 = torch.from_numpy(sweep.astype(np.float32)).to(dev)
-    cap0 = capture[0].double().cpu().numpy()
-    nd = 1 << (cap_len - 1).bit_length()
-    Y = np.fft.rfft(cap0, nd)
-    X = np.fft.rfft(sweep.astype(np.float32).astype(np.float64), nd)
-    power = (X * X.conj()).real
-    ref = np.fft.irfft(Y * X.conj() / (power + 1e-4 * power.max()), nd)
+    capture, sweep32, ref = sweep_capture(dev, ird, FS, IR_LEN, IR_LEN + 2 * FS)
     run("spectral-ir-deconvolve", lambda: pipeline.ir_deconvolve(capture, sweep32), k13k14,
         ref)
     del capture, sweep32
@@ -1746,6 +1772,86 @@ def tiny_paths(dev, launches, smi) -> None:
     torch.cuda.empty_cache()
 
 
+LARGE_RATE = 96000  # the deconvolved capture's sample rate (phase 23)
+
+
+def large_kernels(randn, mods, smi, results, real_lms=range(21, 29),
+                  complex_lms=range(20, 29)) -> None:
+    """Phase 22: the sizes above real 2^20 / complex 2^19 (the long routes of
+    ``csrc/fft_large.cuh``): K13 and K14 at real N = 2^21..2^28, K12 forward
+    and inverse at complex N = 2^20..2^28, each at the batch that moves at
+    least 1 GiB in and out (one frame where a frame moves more), against its
+    plain version (>= 110 dB; ``compare``, with its times and bound), with
+    the peak memory of one call and the device ms of each pass
+    (``torch.profiler``; a pass that runs the same kernel twice counts
+    once); added to the kernels' entries as ``sizes``."""
+    hf = mods["hopper_fft"]
+    cases = ([("rfft_packed_split", lm, None) for lm in real_lms]
+             + [("rifft_packed_split", lm, None) for lm in real_lms]
+             + [("fft_split", lm, inv) for lm in complex_lms for inv in (False, True)])
+    for name, lm, inverse in cases:
+        n = 1 << lm
+        moved = (16 if name == "fft_split" else 8) * n  # bytes in and out a frame
+        b = max(1, (1 << 30) // moved)
+        k = n // 2 if name == "rifft_packed_split" else n
+        args = (randn(b, k),) if name == "rfft_packed_split" else (randn(b, k), randn(b, k))
+        kw = {} if inverse is None else dict(inverse=inverse)
+        fn = getattr(hf, name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn(*args, **kw)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        torch.cuda.empty_cache()
+        label = f"{name} ({b}, 2^{lm}){' inverse' if inverse else ''}"
+        print(f"{label}: peak memory of the call {peak:.2f} GiB [{smi}]", flush=True)
+        entry = compare(name, fn, getattr(hf, name + "_plain"), args, kw, True, smi)
+        entry.update(n=n, peak_gib=peak,
+                     passes_ms=phase_ms(lambda: fn(*args, **kw), smi, label, runs=3))
+        results[name].setdefault("sizes", []).append(entry)
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], entry["max_abs_err"])
+        results[name]["snr_db"] = min(results[name]["snr_db"], entry["snr_db"])
+        del args
+        torch.cuda.empty_cache()
+
+
+def large_paths(dev, irs, launches, smi) -> None:
+    """Phase 23: the public calls at those sizes, at full width: (a)
+    ``spectral_processor.convolve`` of 128 channels of 20 s signals (960 000
+    samples, seed 0) with the 10 s IRs, a linear size of 1 439 999, N = 2^21
+    (K13 twice, K14 once); (b) ``pipeline.ir_deconvolve`` of a 30 s capture
+    at 96 kHz (a 25 s log sweep through the same IRs, read as 5 s at 96 kHz,
+    and its tail), N = 2^22 (K13 twice, K14 once). Each against a float64
+    numpy mirror of channel 0 (>= 99 dB), with ms per call and peak
+    memory."""
+    from hisstools_library_tpu_torch.models import pipeline
+    from hisstools_library_tpu_torch.ops import spectral_processor as sp
+
+    k13k14 = ("rfft_packed_split", "rifft_packed_split")
+    ird = torch.from_numpy(irs).to(dev)
+    rng = np.random.default_rng(0)
+    rng.standard_normal((CHANNELS, IR_LEN))  # the IRs' draw, as main() makes it
+    x20 = rng.standard_normal((CHANNELS, 20 * FS)).astype(np.float32)
+    sig = torch.from_numpy(x20).to(dev)
+    n_lin = 20 * FS + IR_LEN - 1
+    path_run("large-convolve-2^21", lambda: sp.convolve(sig, ird), k13k14,
+             convolve_f64(x20[0], irs[0], n_lin), launches, smi)
+    for k, want in zip(k13k14, (2, 1)):
+        if launches.by_path["large-convolve-2^21"][k] != want:
+            fail(f"large-convolve-2^21: {k} did not launch {want} times")
+    del sig, x20
+    capture, sweep32, ref = sweep_capture(dev, ird, LARGE_RATE, 25 * LARGE_RATE,
+                                          30 * LARGE_RATE)
+    path_run("large-ir-deconvolve-2^22", lambda: pipeline.ir_deconvolve(capture, sweep32),
+             k13k14, ref, launches, smi)
+    for k, want in zip(k13k14, (2, 1)):
+        if launches.by_path["large-ir-deconvolve-2^22"][k] != want:
+            fail(f"large-ir-deconvolve-2^22: {k} did not launch {want} times")
+    del capture, sweep32, ird
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -1810,6 +1916,8 @@ def main() -> None:
     convolver_paths(dev, irs, x, launches, smi)
     results.update(tiny_kernels(randn, mods, smi))
     tiny_paths(dev, launches, smi)
+    large_kernels(randn, mods, smi, results)
+    large_paths(dev, irs, launches, smi)
 
     for name in KERNELS:
         by_path = {p: c[name] for p, c in launches.by_path.items()}

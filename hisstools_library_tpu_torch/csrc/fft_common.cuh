@@ -2,7 +2,7 @@
 // rfft_packed_stream, K4 rifft_packed_tail, K6 rifft_packed, the complex
 // K12 fft_split at 2048..2^16 points, and K5's FastFIR chain
 // (fastfir_chain.cu), which adds the row-first inverse at the end of this file.
-// The plan (make_plan) also routes the large sizes, complex M = 2^17..2^19,
+// The plan (make_plan) also routes the large sizes, complex M = 2^17..2^28,
 // which fft_large.cuh serves (K12 there, K13 rfft_packed_split and K14
 // rifft_packed_split). K1 rfft_packed takes none of make_plan's routes: its
 // own plan (rfft_packed.cu, K1Pass) runs fft_large.cuh's one-pass kernel at
@@ -43,7 +43,7 @@
 // frame, kept in registers. Twiddles come from one table
 // tw[e] = exp(-2*pi*i*e/N), e < N = 2M, computed in float64 on the host and
 // stored as float32; no fast-math intrinsics are used anywhere. Frame
-// offsets are 64-bit; in-frame indices stay below M <= 2^19.
+// offsets are 64-bit; in-frame indices stay below M <= 2^28 (fft_large.cuh).
 //
 // Packed layout (HISSTools/vDSP): N/2 bins, forward scaled x2, DC in re[0],
 // Nyquist in im[0]. Unscaled inverse: rifft(rfft(x)) = 2N x.
@@ -65,9 +65,10 @@ enum StoreMode { kStorePack = 0, kStoreTail = 1, kStoreFull = 2, kStoreSplit = 3
 
 // How make_plan serves a complex size M: two passes of sub-FFTs <= 256 over a
 // scratch frame (M = 2048..2^16, this file), one pass on an 8-block cluster
-// (M = 2^17, fft_large.cuh) or two passes of sub-FFTs of 512..1024 over a
-// scratch frame (M = 2^18..2^19, fft_large.cuh).
-enum Route { kRouteTwoPass = 0, kRouteCluster = 1, kRouteLong = 2 };
+// (M = 2^17, fft_large.cuh), two passes of sub-FFTs of 512..1024 over a
+// scratch frame (M = 2^18..2^20, fft_large.cuh) or three passes of sub-FFTs
+// of 128..1024 over one scratch frame (M = 2^21..2^28, fft_large.cuh).
+enum Route { kRouteTwoPass = 0, kRouteCluster = 1, kRouteLong = 2, kRouteLong3 = 3 };
 
 struct Plan {
   int n;        // twiddle table size N = 2M (the real transforms' size)
@@ -75,6 +76,7 @@ struct Plan {
   int m;        // complex size M
   int route;    // Route
   int l_first;  // column sub-FFT length: columns of l_first points
+  int l_mid;    // kRouteLong3: the middle pass's sub-FFT length (else 0)
   int l_last;   // row sub-FFT length: rows of l_last points
 };
 
@@ -84,25 +86,34 @@ inline int ilog2(long long v) {
   return l;
 }
 
-// Plan for a real size n (complex size M = n/2), M = 2048..2^19 (first x
-// last): two passes up to M = 2^16 (2^15 = 256 x 128 at the FastFIR main
-// path's N = 2^16, 2^16 = 256 x 256); 2^17 = 512 x 256 on a cluster;
-// 2^18 = 512 x 512 and 2^19 = 512 x 1024 in two long passes. The wrappers'
-// hopper_fft._plan mirrors it.
+// Plan for a real size n (complex size M = n/2), M = 2048..2^28 (first x
+// [mid x] last): two passes up to M = 2^16 (2^15 = 256 x 128 at the FastFIR
+// main path's N = 2^16, 2^16 = 256 x 256); 2^17 = 512 x 256 on a cluster;
+// 2^18 = 512 x 512, 2^19 = 512 x 1024 and 2^20 = 1024 x 1024 in two long
+// passes; above that three passes, the last two of 2^(lm/3) and
+// 2^((lm - lm/3)/2) points and the first of the rest (2^21 = 128^3 ..
+// 2^28 = 1024 x 512 x 512). The wrappers' hopper_fft._plan mirrors it.
 inline Plan make_plan(int n) {
   Plan p;
   p.n = n;
   p.log_n = ilog2(n);
   p.m = n / 2;
+  p.l_mid = 0;
   const int lm = p.log_n - 1;
   if (lm <= 16) {
     p.route = kRouteTwoPass;
     p.l_last = 1 << (lm / 2);
     p.l_first = 1 << (lm - lm / 2);
-  } else {
+  } else if (lm <= 20) {
     p.route = lm == 17 ? kRouteCluster : kRouteLong;
-    p.l_first = 512;
-    p.l_last = 1 << (lm - 9);
+    p.l_first = lm == 20 ? 1024 : 512;
+    p.l_last = p.m / p.l_first;
+  } else {
+    p.route = kRouteLong3;
+    const int ll = lm / 3, lmid = (lm - ll) / 2;
+    p.l_last = 1 << ll;
+    p.l_mid = 1 << lmid;
+    p.l_first = 1 << (lm - ll - lmid);
   }
   return p;
 }

@@ -1,8 +1,8 @@
-// Large complex FFTs on Hopper, M = 2^17..2^19 points: K12 fft_split at
-// complex 2^17..2^19, K13 rfft_packed_split and K14 rifft_packed_split at
-// real N = 2^18..2^20. fft_common.cuh's make_plan routes these sizes here;
-// its loaders (load_elem) and the four-step of each sub-FFT (reg_dft,
-// step1_store) are shared, its two-pass kernels are not.
+// Large complex FFTs on Hopper, M = 2^17..2^28 points: K12 fft_split at
+// complex 2^17..2^28, K13 rfft_packed_split and K14 rifft_packed_split at
+// real N = 2^18..2^28 (M = 2^17..2^27). fft_common.cuh's make_plan routes
+// these sizes here; its loaders (load_elem) and the four-step of each sub-FFT
+// (reg_dft, step1_store) are shared, its two-pass kernels are not.
 //
 // Bound on the H100: HBM bytes. A frame moves 8*M bytes in and 8*M out; the
 // butterflies are ~5*M*log2(M) FP32 operations, in registers. What this file
@@ -11,10 +11,10 @@
 // M = 2^17 (kRouteCluster): one HBM pass. A complex 2^17 frame is 1 MB, which
 // 8 blocks of one thread-block cluster hold in 128 KB of shared memory each.
 // M = M1 * M2 with M1 = 256 columns of M2 = 512 points (n = n1 + 256*n2):
-//   1. block r of the cluster loads columns 32r..32r+31 (each row of the
-//      frame gives it a run of 32 points, 256 bytes), runs their 512-point
-//      FFTs and multiplies output k2 of column n1 by W_M^(n1*k2), leaving
-//      column n1 in its own shared memory in natural order;
+//   1. block r of the cluster loads 32 columns (each row of the frame gives
+//      it runs of 16 or 32 points), runs their 512-point FFTs and multiplies
+//      output k2 of column n1 by W_M^(n1*k2), leaving column n1 in its own
+//      shared memory in natural order;
 //   2. after cluster.sync(), it gathers its 64 rows of 256 points (32 from
 //      each block) through distributed shared memory (map_shared_rank)
 //      straight into registers and runs step 1 of their FFTs; a second
@@ -23,28 +23,54 @@
 //   3. it runs step 2 and stores Z[k2 + 512*k1] of its rows.
 // The frame goes to HBM once in and once out, and there is no scratch.
 //
-// M = 2^18..2^19 (kRouteLong): two HBM passes over one scratch frame, the
-// four-step of fft_common.cuh with long sub-FFTs: columns of 512 points,
-// rows of 512 (2^18) or 1024 (2^19). A block holds kTile = 16 sub-FFTs in
-// dynamic shared memory (64 KB, or 128 KB for 1024-point rows) and has one
-// thread for each step-1 DFT (B points), which also takes B/A of the step-2
-// DFTs (A points): 256 threads at L = 512, 512 at L = 1024, none idle. Each
-// thread issues all B loads of its step-1 DFT before the first butterfly.
+// M = 2^18..2^20 (kRouteLong): two HBM passes over one scratch frame, the
+// four-step of fft_common.cuh with long sub-FFTs: columns of 512 (1024 at
+// 2^20) points, rows of 512 (2^18) or 1024 (2^19, 2^20).
+// M = 2^21..2^28 (kRouteLong3): three HBM passes over one scratch frame,
+// M = L1 * L2 * L3 (make_plan), each pass L-point sub-FFTs (L = 128..1024):
+//   1. columns: for each of R1 = M/L1 columns c, the L1-point FFT of
+//      z[c + R1*n], times W_M^(c*k1), stored at Y[k1*R1 + c];
+//   2. the middle pass, in place: each of the L1 rows of R1 = L2*L3 points
+//      is a frame of its own, and the column pass above runs on it (L3
+//      columns of L2 points, times W_R1^(c*k2)), so row k1 leaves as
+//      Y[k1*R1 + k2*L3 + c];
+//   3. rows: the L3 points of memory row k1*L2 + k2 are row j = k1 + L1*k2
+//      of the R = L1*L2 rows of the two-pass split (fft_rows_long's row map),
+//      whose L3-point FFT gives Z[j + R*k3].
+// A pass reads and writes the sets of addresses its blocks own (a block's
+// 16 columns x L rows, or its rows), so the middle pass can run in place.
+// A block holds kTile = 16 sub-FFTs in dynamic shared memory (16-128 KB)
+// and has one thread for each step-1 DFT (B points), which also takes B/A
+// of the step-2 DFTs (A points). Each thread issues all B loads of its
+// step-1 DFT before the first butterfly. Every load and store moves runs of
+// 16 consecutive points (of 8 where the unpack or the pack pairs columns or
+// rows), 64-128 bytes.
 //
-// Every block first stages the twiddles it reads in shared memory (Twiddles,
-// load_pack_twiddles), 4-16 KB beside the frame's tiles.
+// Twiddles of the long routes: no table of N entries. The sub-FFTs' W_L
+// (L <= 1024) and the split step's W_2L come from one 2048-entry table
+// W_2048 (tf), built in float64 on the host and stored as float32; the
+// inter-pass twiddle W_m^(c*k), k = k2 + B*k1, is W_m^(c*k2) * W_m^(c*B*k1),
+// both factors computed for the block's 16 columns in float64 (sincospi) and
+// rounded once, as is the split step's W_N^c of each slot.
+// The cluster route stages its tables from the global table of N = 2^18
+// entries (Twiddles, load_pack_twiddles).
 //
-// Both routes keep the split step in the row stage's store: with the pack
-// (K13) a block's row slots hold the row pairs (j, R-j) (pack_row_of), so
-// bin k = j + R*k1 meets its partner M-k = (R-j) + R*(M1-1-k1) (row 0:
-// column M1-k1) in its own shared memory. The unpack of the inverse (K14)
-// is the column stage's loader and reads P[idx] and P[M-idx] itself.
+// The split step stays in the row stage's store: with the pack (K13) a
+// block's row slots hold the row pairs (j, R-j) (pack_row_of), so bin
+// k = j + R*k1 meets its partner M-k = (R-j) + R*(M1-1-k1) (row 0: column
+// M1-k1) in its own shared memory. The unpack of the inverse (K14) is the
+// column stage's loader and mirrors it: a block's column slots hold the
+// column pairs (c, ncol-c), so packed bin idx = c + ncol*j meets its partner
+// M-idx = (ncol-c) + ncol*(L-1-j) (column 0: row L-j) in its own shared
+// memory, and each bin is read from HBM once (unpack_pairs).
 //
 // K1's one pass (fft_onepass, below) serves complex M = 2^11..2^16 on one
 // block or a cluster of 2..8; K8's split chain (fastfir_stream.cu) runs it
 // twice, as the forward of its frames read in place (kLoadStreamPrev) and
 // as the overlap-save inverse (kLoadUnpack loader, kStoreTail store).
 #pragma once
+
+#include <climits>
 
 #include <cooperative_groups.h>
 
@@ -151,51 +177,142 @@ __device__ __forceinline__ void pack_rows(const float2* s, float* __restrict__ r
   }
 }
 
+// The paired unpack of the inverse (K14), the column stage's loader: the
+// block's 2H column slots hold columns and their partners (slot f: column
+// pack_row_of<H>(tile, f, ncol), partner slot f ^ H; column 0 and ncol/2
+// pair with themselves). Thread (f, j1) holds in v the packed bins
+// P[idx] = (re, im), idx = col + ncol*j, of rows j = j1 + A*j2 of its slot.
+// They go to the slot tiles s (natural order, stride LD), and after a
+// barrier each becomes conj(Z'[idx]), Z'[idx] = (P[idx] + conj P[M-idx]) +
+// i W_N^-idx (P[idx] - conj P[M-idx]), with P[M-idx] read from the tile
+// (row L-1-j of the partner slot; column 0: row L-j of its own), and
+// DC / Nyquist (idx 0) as (dc + ny, -(dc - ny)). W_N^idx = wc[f] * wj[j]:
+// W_N^col and W_N^(ncol*j) = W_2L^j. A second barrier frees the tiles for
+// step 1's exchange. Each packed bin is read from HBM once, where the
+// unpacking loader of the two-pass core (load_elem<kLoadUnpack>) reads it
+// twice and W_N^idx from a global table.
+template <int L, int LD, int H, int A, int B>
+__device__ __forceinline__ void unpack_pairs(float2 (&v)[B], float2* s, int f, int j1,
+                                             int col, int ncol, const float2* wc,
+                                             const float2* wj) {
+#pragma unroll
+  for (int j2 = 0; j2 < B; ++j2) s[f * LD + j1 + A * j2] = v[j2];
+  __syncthreads();
+  const float2* ps = s + ((col == 0 || 2 * col == ncol) ? f : (f ^ H)) * LD;
+  const float2 w0 = wc[f];
+#pragma unroll
+  for (int j2 = 0; j2 < B; ++j2) {
+    const int j = j1 + A * j2;
+    const float2 p = v[j2];
+    if (col == 0 && j == 0) {
+      v[j2] = make_float2(p.x + p.y, -(p.x - p.y));
+      continue;
+    }
+    const float2 q = ps[col == 0 ? L - j : L - 1 - j];
+    const float2 sum = make_float2(p.x + q.x, p.y - q.y);
+    const float2 dif = make_float2(p.x - q.x, p.y + q.y);
+    const float2 w = cmul(w0, wj[j]);
+    const float2 wd = cmul(make_float2(w.x, -w.y), dif);  // W_N^-idx * dif
+    v[j2] = make_float2(sum.x - wd.y, -(sum.y + wd.x));
+  }
+  __syncthreads();
+}
+
 // ---------------------------------------------------------------------------
-// kRouteLong: two passes of kTile sub-FFTs of L = 512..1024 points a block.
+// kRouteLong / kRouteLong3: passes of kTile sub-FFTs of L = 128..1024 points
+// a block.
+
+// W_n^e = exp(-2 pi i e / n), e reduced mod n (a power of two), computed in
+// float64 and rounded once to float32.
+__device__ __forceinline__ float2 w_exact(long long e, long long n) {
+  double s, c;
+  sincospi((double)(e & (n - 1)) * (2.0 / (double)n), &s, &c);
+  return make_float2((float)c, (float)-s);
+}
 
 template <int L>
 struct LongTile {
   static constexpr int kA = Sub<L>::kA;          // step-2 DFT size
   static constexpr int kB = Sub<L>::kB;          // step-1 DFT size, >= kA
+  static constexpr int kLog = Sub<L>::kLog;
   static constexpr int kLd = L + 1;              // odd row stride: no bank conflicts
   static constexpr int kThreads = kTile * kA;    // one step-1 DFT a thread
-  static constexpr int kMinBlocks = L == 512 ? 2 : 1;  // per SM: <= 128 registers
-  static constexpr int kTileF2 = kTile * kLd;     // float2: the tile, then the twiddles
-  // The column pass: tl, thi (<= 1024 entries, M <= 2^19) and tlo.
-  static constexpr int kSmemCols = (kTileF2 + 2 * kTl + 1024) * (int)sizeof(float2);
+  // Blocks an SM for the register budget: <= 128 registers a thread.
+  static constexpr int kMinBlocks = L == 1024 ? 1 : L >= 256 ? 2 : 4;
+  static constexpr int kTileF2 = kTile * kLd;    // float2: the tile, then the twiddles
+  // The column pass: W_L (tl), the inter-pass twiddle's two factors of each
+  // slot (ts: B + 1 a slot, tt: A + 1, odd strides) and, with the unpack,
+  // W_2L^j (L) and W_N^col of each slot.
+  static constexpr int smem_cols(int load) {
+    return (kTileF2 + L + kTile * (kB + 1) + kTile * (kA + 1) +
+            (load == kLoadUnpack ? L + kTile : 0)) * (int)sizeof(float2);
+  }
   // The row pass: its W_L table and, with the split step, the pack's.
   static constexpr int smem_rows(int store) {
     return (kTileF2 + L + (store == kStorePack ? L + kTile : 0)) * (int)sizeof(float2);
   }
 };
 
-// Column pass over frames of M = ncol * 512 points: grid = frames *
-// (ncol / kTile). Y[k*ncol + col] = W_M^(col*k) * FFT_L(column col)[k].
+// Column slot f of column tile `tile`: tile*kTile + f, or with the unpack
+// (kPair) the column pairs of pack_row_of.
+template <bool kPair>
+__device__ __forceinline__ int slot_col(int tile, int f, int ncol) {
+  return kPair ? pack_row_of<kTile / 2>(tile, f, ncol) : tile * kTile + f;
+}
+
+// Column pass over frames of m = ncol * L points (pass 1; pass 2 of
+// kRouteLong3 with kLoadReal, in place, over rows of the first pass's
+// output): grid = frames * (ncol / kTile). Y[k*ncol + col] = W_m^(col*k) *
+// FFT_L(column col)[k]. kLoadUnpack (pass 1 of K14, m = M): the planes a,
+// a_im are the packed spectrum, unpacked in pairs (unpack_pairs), and slot
+// f holds column slot_col<true>. tf: the W_2048 table.
 template <int kLoad, int L>
 __global__ void __launch_bounds__(LongTile<L>::kThreads, LongTile<L>::kMinBlocks)
 fft_cols_long(const float* __restrict__ a, const float* __restrict__ a_im,
-              float2* __restrict__ y, const float2* __restrict__ tw, int log_n, int ncol) {
+              float2* __restrict__ y, const float2* __restrict__ tf, int ncol) {
   using G = LongTile<L>;
   constexpr int A = G::kA, B = G::kB, LD = G::kLd;
+  constexpr bool kPair = kLoad == kLoadUnpack;
   extern __shared__ float2 lsm[];
   const int m = ncol * L;
   const int tiles = ncol / kTile;
   const long long frame = blockIdx.x / tiles;
-  const int c0 = (int)(blockIdx.x - frame * tiles) * kTile;
+  const int tile = (int)(blockIdx.x - frame * tiles);
   const int tid = threadIdx.x;
-  const Twiddles twd = load_twiddles(lsm + G::kTileF2, tw, log_n, m >> 9);
+  float2* tl = lsm + G::kTileF2;      // W_L^e, e < L
+  float2* ts = tl + L;                // W_m^(col*k2): slot f at f*(B+1)
+  float2* tt = ts + kTile * (B + 1);  // W_m^(col*B*k1): slot f at f*(A+1)
+  float2* wj = tt + kTile * (A + 1);  // the unpack's W_2L^j
+  float2* wc = wj + L;                // and W_N^col of each slot
   {
-    // Step 1: thread (f, j1), f fastest, so each load runs along 16 columns.
+    // Step 1: thread (f, j1), f fastest, so each load runs along the
+    // block's columns; the twiddles are staged while the loads are in flight.
     const int f = tid % kTile;
     const int j1 = tid / kTile;
+    const int col = slot_col<kPair>(tile, f, ncol);
     float2 v[B];
 #pragma unroll
     for (int j2 = 0; j2 < B; ++j2)
-      v[j2] = load_elem<kLoad>(a, a_im, tw, frame, c0 + f + ncol * (j1 + A * j2), m, false);
+      v[j2] = load_elem<kPair ? kLoadSplit : kLoad>(a, a_im, nullptr, frame,
+                                                    col + ncol * (j1 + A * j2), m, false);
+    for (int i = tid; i < L; i += G::kThreads) tl[i] = __ldg(&tf[i * (2048 / L)]);
+    for (int i = tid; i < kTile * (A + B); i += G::kThreads) {
+      const int s = i % kTile, e = i / kTile;
+      const long long c = slot_col<kPair>(tile, s, ncol);
+      if (e < B) {
+        ts[s * (B + 1) + e] = w_exact(c * e, m);
+      } else {
+        tt[s * (A + 1) + e - B] = w_exact(c * B * (e - B), m);
+      }
+    }
+    if (kPair) {
+      for (int i = tid; i < L; i += G::kThreads) wj[i] = __ldg(&tf[i * (1024 / L)]);
+      if (tid < kTile) wc[tid] = w_exact(slot_col<true>(tile, tid, ncol), 2LL * m);
+    }
     __syncthreads();  // the twiddle tables are in place
-    reg_dft<B, true>(v, twd.tl, kTlLog);
-    step1_store<L, true, LD>(lsm, v, f, j1, twd.tl, kTlLog);
+    if (kPair) unpack_pairs<L, LD, kTile / 2, A, B>(v, lsm, f, j1, col, ncol, wc, wj);
+    reg_dft<B, true>(v, tl, G::kLog);
+    step1_store<L, true, LD>(lsm, v, f, j1, tl, G::kLog);
   }
   __syncthreads();
   // Step 2: tasks (f, k2), B/A a thread; outputs k = k2 + B*k1 straight to Y.
@@ -208,24 +325,25 @@ fft_cols_long(const float* __restrict__ a, const float* __restrict__ a_im,
     float2 v[A];
 #pragma unroll
     for (int j1 = 0; j1 < A; ++j1) v[j1] = lsm[f * LD + k2 * A + j1];
-    reg_dft<A, true>(v, twd.tl, kTlLog);
-    const int col = c0 + f;
+    reg_dft<A, true>(v, tl, G::kLog);
+    const int col = slot_col<kPair>(tile, f, ncol);
+    const float2 w2 = ts[f * (B + 1) + k2];
 #pragma unroll
-    for (int k1 = 0; k1 < A; ++k1) {
-      const int k = k2 + B * k1;
-      yf[(long long)k * ncol + col] = cmul(v[k1], tw_m(twd, (col * k) & (m - 1)));
-    }
+    for (int k1 = 0; k1 < A; ++k1)
+      yf[(long long)(k2 + B * k1) * ncol + col] = cmul(v[k1], cmul(w2, tt[f * (A + 1) + k1]));
   }
 }
 
 // Row pass over R = `rows` rows of L points a frame: grid = frames *
-// (R / kTile). Z[j + R*k1] = FFT_L(Y[j*L + n1])[k1], stored by kStore
-// (kStorePack: the split step, kStoreSplit, kStoreFull).
+// (R / kTile). Z[j + R*k1] = FFT_L(row j)[k1], stored by kStore (kStorePack:
+// the split step, kStoreSplit, kStoreFull). Row j sits at memory row
+// (j % L1) * (R / L1) + j / L1, L1 = 2^lg1: the identity for kRouteLong
+// (lg1 = 0), the middle pass's layout for kRouteLong3 (L1 its first pass's
+// length). tf: the W_2048 table.
 template <int kStore, int L>
 __global__ void __launch_bounds__(LongTile<L>::kThreads, LongTile<L>::kMinBlocks)
 fft_rows_long(const float2* __restrict__ y, float* __restrict__ out,
-              float* __restrict__ out_im, const float2* __restrict__ tw, int log_n,
-              int rows) {
+              float* __restrict__ out_im, const float2* __restrict__ tf, int rows, int lg1) {
   using G = LongTile<L>;
   constexpr int A = G::kA, B = G::kB, LD = G::kLd, kPer = B / A;
   extern __shared__ float2 lsm[];
@@ -235,7 +353,7 @@ fft_rows_long(const float2* __restrict__ y, float* __restrict__ out,
   const int tile = (int)(blockIdx.x - frame * tiles);
   const int r0 = tile * kTile;
   const int tid = threadIdx.x;
-  // W_L^e, e < L (read with log_n = log2 L), then the pack's twiddles.
+  // W_L^e, e < L, then the pack's twiddles W_2L^k1 and W_N^row.
   float2* tl = lsm + G::kTileF2;
   float2* wk1 = tl + L;
   float2* wrow = wk1 + L;
@@ -244,15 +362,20 @@ fft_rows_long(const float2* __restrict__ y, float* __restrict__ out,
     const int j1 = tid % A;
     const int f = tid / A;
     const int row = kStore == kStorePack ? pack_row_of<kTile / 2>(tile, f, rows) : r0 + f;
-    const float2* yr = y + frame * (long long)m + (long long)row * L;
+    const int mem_row = ((row & ((1 << lg1) - 1)) * (rows >> lg1)) + (row >> lg1);
+    const float2* yr = y + frame * (long long)m + (long long)mem_row * L;
     float2 v[B];
 #pragma unroll
     for (int j2 = 0; j2 < B; ++j2) v[j2] = yr[j1 + A * j2];
-    for (int i = tid; i < L; i += G::kThreads) tl[i] = __ldg(&tw[i << (log_n - Sub<L>::kLog)]);
-    if (kStore == kStorePack) load_pack_twiddles<L, kTile / 2>(wrow, wk1, tw, tile, rows);
+    for (int i = tid; i < L; i += G::kThreads) tl[i] = __ldg(&tf[i * (2048 / L)]);
+    if (kStore == kStorePack) {
+      for (int i = tid; i < L; i += G::kThreads) wk1[i] = __ldg(&tf[i * (1024 / L)]);
+      if (tid < kTile)
+        wrow[tid] = w_exact(pack_row_of<kTile / 2>(tile, tid, rows), 2LL * m);
+    }
     __syncthreads();
-    reg_dft<B, true>(v, tl, Sub<L>::kLog);
-    step1_store<L, true, LD>(lsm, v, f, j1, tl, Sub<L>::kLog);
+    reg_dft<B, true>(v, tl, G::kLog);
+    step1_store<L, true, LD>(lsm, v, f, j1, tl, G::kLog);
   }
   __syncthreads();
   // Step 2: tasks (f, k2), B/A a thread; outputs k = k2 + B*k1 of slot f.
@@ -264,7 +387,7 @@ fft_rows_long(const float2* __restrict__ y, float* __restrict__ out,
     const int k2 = t / kTile;
 #pragma unroll
     for (int j1 = 0; j1 < A; ++j1) v[u][j1] = lsm[f * LD + k2 * A + j1];
-    reg_dft<A, true>(v[u], tl, Sub<L>::kLog);
+    reg_dft<A, true>(v[u], tl, G::kLog);
   }
   if (kStore != kStorePack) {
     const long long base = frame * (long long)m;
@@ -294,6 +417,23 @@ fft_rows_long(const float2* __restrict__ y, float* __restrict__ out,
                                            rows);
 }
 
+// The block (`owner`) and row slot that hold row k of R rows spread over C
+// blocks, where pack_row_of<R/(2C)> puts it: rows j and R-j in one block,
+// block 0 also row R/2 (and the same for the cluster route's column pairs
+// of the unpack).
+template <int R, int C>
+__device__ __forceinline__ void row_home(int k, int& owner, int& slot) {
+  constexpr int H = R / C / 2;
+  if (k == R / 2) {
+    owner = 0;
+    slot = H;
+  } else {
+    const int j = k < R / 2 ? k : R - k;
+    owner = j / H;
+    slot = (k < R / 2 ? 0 : H) + j % H;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // kRouteCluster: M = 2^17 in one pass on an 8-block cluster.
 
@@ -311,13 +451,16 @@ struct Cl17 {
   static constexpr int kLdR = kRowLen + 1;          // row slot f at lsm[f*kLdR]
   static constexpr int kFrame =  // float2: the columns, later the rows
       kOwnCols * kLdC > kOwnRows * kLdR ? kOwnCols * kLdC : kOwnRows * kLdR;
-  // then the pack's twiddle tables (load_pack_twiddles) and load_twiddles'
-  static constexpr int kSmem =
-      (kFrame + kRowLen + kOwnRows + 2 * kTl + kM / 512) * (int)sizeof(float2);
+  // then the pack's twiddle tables (load_pack_twiddles), load_twiddles'
+  // and the unpack's (W_2L^j and W_N^col of each slot)
+  static constexpr int kSmem = (kFrame + kRowLen + kOwnRows + 2 * kTl + kM / 512 + kColLen +
+                                kOwnCols) * (int)sizeof(float2);
 };
 
 // grid = frames * 8 blocks, cluster rank r of frame blockIdx.x / 8. Loads
-// with kLoad (a, a_im), stores with kStore (out, out_im).
+// with kLoad (a, a_im), stores with kStore (out, out_im). With kLoadUnpack
+// (K14) block r's column slots hold the column pairs pack_row_of<16>(r, f)
+// (unpack_pairs), and the row gather finds column n1 where row_home puts it.
 template <int kLoad, int kStore>
 __global__ void __cluster_dims__(8, 1, 1) __launch_bounds__(Cl17::kThreads, 1)
 fft_cluster(const float* __restrict__ a, const float* __restrict__ a_im,
@@ -335,9 +478,13 @@ fft_cluster(const float* __restrict__ a, const float* __restrict__ a_im,
   if (kStore == kStorePack)
     load_pack_twiddles<C::kRowLen, C::kOwnRows / 2>(wrow, wk1, tw, rank, C::kRows);
   const Twiddles twd = load_twiddles(wrow + C::kOwnRows, tw, log_n, m >> 9);
+  constexpr bool kPair = kLoad == kLoadUnpack;
+  float2* wj = twd.tlo + kTl;  // the unpack's W_2L^j = W_N^(256 j), j < 512
+  float2* wc = wj + C::kColLen;  // and W_N^col of each slot
 
   // 1. The block's 32 columns: 512-point FFTs, times W_M^(n1*k2), column f
-  //    (n1 = 32*rank + f) left at lsm[f*kLdC + k2].
+  //    (n1 = 32*rank + f, or with the unpack its pair slot's column) left at
+  //    lsm[f*kLdC + k2].
   {
     constexpr int L = C::kColLen, A = Sub<L>::kA, B = Sub<L>::kB;
     constexpr int kPer = C::kOwnCols * B / C::kThreads;
@@ -346,12 +493,19 @@ fft_cluster(const float* __restrict__ a, const float* __restrict__ a_im,
     {
       const int f = tid % C::kOwnCols;
       const int j1 = tid / C::kOwnCols;
+      const int col = kPair ? pack_row_of<C::kOwnCols / 2>(rank, f, C::kCols) : c0 + f;
       float2 v[B];
 #pragma unroll
       for (int j2 = 0; j2 < B; ++j2)
-        v[j2] = load_elem<kLoad>(a, a_im, tw, frame, c0 + f + C::kCols * (j1 + A * j2), m,
-                                 false);
+        v[j2] = load_elem<kPair ? kLoadSplit : kLoad>(a, a_im, tw, frame,
+                                                      col + C::kCols * (j1 + A * j2), m, false);
+      if (kPair) {
+        for (int i = tid; i < C::kColLen; i += C::kThreads) wj[i] = __ldg(&tw[C::kCols * i]);
+        if (tid < C::kOwnCols) wc[tid] = __ldg(&tw[col]);
+      }
       __syncthreads();  // the twiddle tables are in place
+      if (kPair)
+        unpack_pairs<L, C::kLdC, C::kOwnCols / 2, A, B>(v, lsm, f, j1, col, C::kCols, wc, wj);
       reg_dft<B, true>(v, twd.tl, kTlLog);
       step1_store<L, true, C::kLdC>(lsm, v, f, j1, twd.tl, kTlLog);
     }
@@ -372,7 +526,7 @@ fft_cluster(const float* __restrict__ a, const float* __restrict__ a_im,
       const int t = tid + u * C::kThreads;
       const int f = t % C::kOwnCols;
       const int k2 = t / C::kOwnCols;
-      const int col = c0 + f;
+      const int col = kPair ? pack_row_of<C::kOwnCols / 2>(rank, f, C::kCols) : c0 + f;
 #pragma unroll
       for (int k1 = 0; k1 < A; ++k1) {
         const int k = k2 + B * k1;
@@ -401,8 +555,10 @@ fft_cluster(const float* __restrict__ a, const float* __restrict__ a_im,
 #pragma unroll
       for (int j2 = 0; j2 < B; ++j2) {
         const int n1 = j1 + A * j2;
-        const float2* src = cl.map_shared_rank(lsm, n1 / C::kOwnCols);
-        v[u][j2] = src[(n1 % C::kOwnCols) * C::kLdC + row];
+        int owner = n1 / C::kOwnCols, slot = n1 % C::kOwnCols;
+        if (kPair) row_home<C::kCols, C::kBlocks>(n1, owner, slot);
+        const float2* src = cl.map_shared_rank(lsm, owner);
+        v[u][j2] = src[slot * C::kLdC + row];
       }
       reg_dft<B, true>(v[u], twd.tl, kTlLog);
     }
@@ -687,22 +843,6 @@ __device__ __forceinline__ float2* frame_smem(float2* lsm, int r) {
   }
 }
 
-// The block (`owner`) and row slot that hold row k of R rows spread over C
-// blocks, where pack_row_of<R/(2C)> puts it: rows j and R-j in one block,
-// block 0 also row R/2.
-template <int R, int C>
-__device__ __forceinline__ void row_home(int k, int& owner, int& slot) {
-  constexpr int H = R / C / 2;
-  if (k == R / 2) {
-    owner = 0;
-    slot = H;
-  } else {
-    const int j = k < R / 2 ? k : R - k;
-    owner = j / H;
-    slot = (k < R / 2 ? 0 : H) + j % H;
-  }
-}
-
 // grid = frames * C blocks, block r of frame blockIdx.x / C (its rank in the
 // cluster). Loads with kLoad (a, a_im): kLoadReal, kLoadUnpack, or
 // kLoadStreamPrev with frame = hop t of (C, hops, M/2 float2) blocks and
@@ -940,15 +1080,26 @@ inline int allow_smem(Kernel kernel, int bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// A grid of `blocks` blocks, or an error where it passes the 2^31 - 1 a
+// launch takes.
+inline int grid_of(long long blocks, unsigned& grid) {
+  if (blocks < 1 || blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  grid = (unsigned)blocks;
+  return 0;
+}
+
 // The cluster kernel also checks that one cluster of 8 blocks with its
 // shared memory fits the card (cudaOccupancyMaxActiveClusters >= 1).
 template <int kLoad, int kStore>
 inline int launch_cluster(long long frames, const float* a, const float* a_im, float* out,
                           float* out_im, const float2* tw, int log_n, cudaStream_t st) {
   auto kernel = fft_cluster<kLoad, kStore>;
-  const dim3 grid((unsigned)(frames * Cl17::kBlocks));
+  unsigned blocks = 0;
+  int rc = grid_of(frames * Cl17::kBlocks, blocks);
+  if (rc != 0) return rc;
+  const dim3 grid(blocks);
   static int ready = -1;
-  const int rc = once_per_device(ready, [&]() {
+  rc = once_per_device(ready, [&]() {
     int err = allow_smem(kernel, Cl17::kSmem);
     if (err != 0) return err;
     cudaLaunchConfig_t cfg = {};
@@ -1033,51 +1184,88 @@ inline int launch_onepass(long long frames, const float* a, const float* a_im, f
 
 template <int kLoad, int L>
 inline int launch_cols_long(long long frames, int ncol, const float* a, const float* a_im,
-                            float2* y, const float2* tw, int log_n, cudaStream_t st) {
+                            float2* y, const float2* tf, cudaStream_t st) {
   using G = LongTile<L>;
-  static int ready = -1;
-  const int rc = once_per_device(
-      ready, [] { return allow_smem(fft_cols_long<kLoad, L>, G::kSmemCols); });
+  constexpr int smem = G::smem_cols(kLoad);
+  unsigned grid = 0;
+  int rc = grid_of(frames * (ncol / kTile), grid);
   if (rc != 0) return rc;
-  fft_cols_long<kLoad, L><<<(unsigned)(frames * (ncol / kTile)), G::kThreads, G::kSmemCols,
-                            st>>>(a, a_im, y, tw, log_n, ncol);
+  static int ready = -1;
+  rc = once_per_device(ready, [] { return allow_smem(fft_cols_long<kLoad, L>, smem); });
+  if (rc != 0) return rc;
+  fft_cols_long<kLoad, L><<<grid, G::kThreads, smem, st>>>(a, a_im, y, tf, ncol);
   return (int)cudaGetLastError();
 }
 
 template <int kStore, int L>
 inline int launch_rows_long(long long frames, int rows, const float2* y, float* out,
-                            float* out_im, const float2* tw, int log_n, cudaStream_t st) {
+                            float* out_im, const float2* tf, int lg1, cudaStream_t st) {
   using G = LongTile<L>;
   constexpr int smem = G::smem_rows(kStore);
-  static int ready = -1;
-  const int rc =
-      once_per_device(ready, [] { return allow_smem(fft_rows_long<kStore, L>, smem); });
+  unsigned grid = 0;
+  int rc = grid_of(frames * (rows / kTile), grid);
   if (rc != 0) return rc;
-  fft_rows_long<kStore, L><<<(unsigned)(frames * (rows / kTile)), G::kThreads, smem, st>>>(
-      y, out, out_im, tw, log_n, rows);
+  static int ready = -1;
+  rc = once_per_device(ready, [] { return allow_smem(fft_rows_long<kStore, L>, smem); });
+  if (rc != 0) return rc;
+  fft_rows_long<kStore, L><<<grid, G::kThreads, smem, st>>>(y, out, out_im, tf, rows, lg1);
   return (int)cudaGetLastError();
 }
 
-// The whole transform of `frames` frames at M = 2^17..2^19 (plan p): loads
-// with kLoad (a, a_im), stores with kStore (out, out_im). `scratch` holds
-// frames * M float2 for kRouteLong and is not read for kRouteCluster.
+// The column pass at sub-FFT length `len` (128..1024).
+template <int kLoad>
+inline int cols_long(int len, long long frames, int ncol, const float* a, const float* a_im,
+                     float2* y, const float2* tf, cudaStream_t st) {
+  switch (len) {
+    case 128: return launch_cols_long<kLoad, 128>(frames, ncol, a, a_im, y, tf, st);
+    case 256: return launch_cols_long<kLoad, 256>(frames, ncol, a, a_im, y, tf, st);
+    case 512: return launch_cols_long<kLoad, 512>(frames, ncol, a, a_im, y, tf, st);
+    case 1024: return launch_cols_long<kLoad, 1024>(frames, ncol, a, a_im, y, tf, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The row pass at sub-FFT length `len` (128..1024).
+template <int kStore>
+inline int rows_long(int len, long long frames, int rows, const float2* y, float* out,
+                     float* out_im, const float2* tf, int lg1, cudaStream_t st) {
+  switch (len) {
+    case 128: return launch_rows_long<kStore, 128>(frames, rows, y, out, out_im, tf, lg1, st);
+    case 256: return launch_rows_long<kStore, 256>(frames, rows, y, out, out_im, tf, lg1, st);
+    case 512: return launch_rows_long<kStore, 512>(frames, rows, y, out, out_im, tf, lg1, st);
+    case 1024: return launch_rows_long<kStore, 1024>(frames, rows, y, out, out_im, tf, lg1, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The whole transform of `frames` frames at M = 2^17..2^28 (plan p): loads
+// with kLoad (a, a_im), stores with kStore (out, out_im). `tw` is the
+// twiddle table of p's route: the global table of N = 2M entries for
+// kRouteCluster, the W_2048 table for the long routes (see the head of this file).
+// `scratch` holds frames * M float2 for the long routes (the middle pass of
+// kRouteLong3 runs in place in it) and is not read for kRouteCluster.
 template <int kLoad, int kStore>
 inline int run_fft_large(const Plan& p, long long frames, const float* a, const float* a_im,
                          float2* scratch, float* out, float* out_im, const float2* tw,
                          cudaStream_t st) {
   if (p.route == kRouteCluster && p.m == Cl17::kM)
     return launch_cluster<kLoad, kStore>(frames, a, a_im, out, out_im, tw, p.log_n, st);
-  if (p.route != kRouteLong || p.l_first != 512 || scratch == nullptr)
+  if ((p.route != kRouteLong && p.route != kRouteLong3) || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
-  const int rc = launch_cols_long<kLoad, 512>(frames, p.m / 512, a, a_im, scratch, tw,
-                                              p.log_n, st);
+  int rc = cols_long<kLoad>(p.l_first, frames, p.m / p.l_first, a, a_im, scratch, tw, st);
   if (rc != 0) return rc;
-  const int rows = p.m / p.l_last;
-  if (p.l_last == 512)
-    return launch_rows_long<kStore, 512>(frames, rows, scratch, out, out_im, tw, p.log_n, st);
-  if (p.l_last == 1024)
-    return launch_rows_long<kStore, 1024>(frames, rows, scratch, out, out_im, tw, p.log_n, st);
-  return (int)cudaErrorInvalidValue;
+  int lg1 = 0;
+  if (p.route == kRouteLong3) {
+    // Each of the frame's L1 rows of R1 = L2 * L3 points as a frame: L3
+    // columns of L2 points, in place.
+    rc = cols_long<kLoadReal>(p.l_mid, frames * p.l_first, p.l_last,
+                              reinterpret_cast<const float*>(scratch), nullptr, scratch, tw,
+                              st);
+    if (rc != 0) return rc;
+    lg1 = ilog2(p.l_first);
+  }
+  return rows_long<kStore>(p.l_last, frames, p.m / p.l_last, scratch, out, out_im, tw, lg1,
+                           st);
 }
 
 }  // namespace hst

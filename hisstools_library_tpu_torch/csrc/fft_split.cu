@@ -1,17 +1,20 @@
 // K12: batched unscaled complex DFT along the last axis, split re/im planes
-// in and natural-order split planes out, N = 32..2^19 complex points.
+// in and natural-order split planes out, N = 32..2^28 complex points.
 //
 // Replaces hisstools_library_tpu/fft/pallas_fft.py: fft_split (:856,
 // _cfft_kernel), the TPU four-step whose two DFT stages run as MXU matmuls
 // against N1 x N1 and N2 x N2 tables in VMEM for N = 2048..2^17 (other sizes
-// go to the XLA-staged matmul_fft there). On Hopper there are no DFT tables:
+// go to the XLA-staged matmul_fft there, and on a TPU from 2^21 to the
+// out-of-core four-step of fft/oversize.py). On Hopper there are no DFT
+// tables:
 //   N = 32..1024:    a block holds 2048 / N frames in shared memory and runs
 //                    smem_fft.cuh's radix-2 DIF passes, reading the result
 //                    back in bit-reversed order (as K10 does);
 //   N = 2048..2^16:  fft_common.cuh's two passes;
 //   N = 2^17:        fft_large.cuh's one pass on an 8-block cluster, the
 //                    1 MB frame in the cluster's shared memory;
-//   N = 2^18..2^19:  fft_large.cuh's two passes of 512..1024-point sub-FFTs.
+//   N = 2^18..2^20:  fft_large.cuh's two passes of 512..1024-point sub-FFTs;
+//   N = 2^21..2^28:  fft_large.cuh's three passes of 128..1024-point sub-FFTs.
 // The planes are the first stage's loader and the last stage's store, so no
 // interleaved copy exists. The inverse (N x IDFT, hisstools_ifft) is this
 // forward with the planes swapped on the way in and out, which the wrapper
@@ -20,7 +23,8 @@
 // Bound on the H100: HBM bytes, 8N in and 8N out per frame (0.27 GB at the
 // path shape (128, 2^17), 0.08 ms at 3.35 TB/s), against ~5 N log2 N FP32
 // operations. The design's own traffic adds 16N of scratch for two passes
-// (N = 2048..2^16 and 2^18..2^19) and none at 2^17.
+// (N = 2048..2^16 and 2^18..2^20), 32N for three (2^21..2^28) and none at
+// 2^17.
 #include "fft_common.cuh"
 #include "fft_large.cuh"
 #include "smem_fft.cuh"
@@ -58,9 +62,10 @@ cfft_small_kernel(const float* __restrict__ re, const float* __restrict__ im,
 
 }  // namespace
 
-// Twiddle table tw of 2N entries (the real-size table of fft_common.cuh);
-// scratch holds batch * N float2 (N = 2048..2^16 and 2^18..2^19), and is not
-// read for N <= 1024 and N = 2^17.
+// Twiddle table tw: 2N entries (the real-size table of fft_common.cuh) for
+// N <= 2^17, the W_2048 table of fft_large.cuh's long routes above; scratch
+// holds batch * N float2 (N = 2048..2^16 and 2^18..2^28), and is not read
+// for N <= 1024 and N = 2^17.
 extern "C" int hst_fft_split(const float* re, const float* im, float* out_re,
                              float* out_im, void* scratch, const void* tw,
                              long long batch, int n, void* stream) {

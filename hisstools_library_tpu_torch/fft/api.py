@@ -23,10 +23,10 @@ Backends keep the TPU package's names so callers port unchanged:
 With no backend given, the tensor's device decides: ``"pallas"`` on CUDA (as
 the TPU package defaults to its kernels on a TPU), ``"xla"`` on the CPU.
 With ``"pallas"`` on a CUDA tensor ``fft`` / ``ifft`` launch K12 (N =
-1..2^19; its tiny form below 32) and ``rfft`` / ``rifft`` K10/K11 (N =
+1..2^28; its tiny form below 32) and ``rfft`` / ``rifft`` K10/K11 (N =
 2..2048; their tiny forms below 32), K1/K6 (4096..2^17) or K13/K14
-(2^18..2^20); outside those sizes, and for float64, they raise
-``NotImplementedError`` naming what is missing, and nothing on the card calls
+(2^18..2^28), every power of two up to :data:`MAX_FFT_SIZE_LOG2`; for
+float64 they raise ``NotImplementedError``, and nothing on the card calls
 ``torch.fft``. The TPU package's large-size routing (``_route_large``, the
 out-of-core and sharded transforms) and its float64 ``TypeError`` do not carry
 over: float64 runs the plain versions on the CPU. The kernels take contiguous
@@ -117,7 +117,7 @@ def rifft(re: torch.Tensor, im: torch.Tensor, backend: Optional[str] = None
           ) -> torch.Tensor:
     """Unscaled inverse of the packed real spectrum: ``rifft(rfft(x)) == 2N x``,
     along the last axis. ``"pallas"`` on a CUDA tensor launches K6 (N =
-    4096..2^17), K11 (N = 2..2048) or K14 (2^18..2^20)."""
+    4096..2^17), K11 (N = 2..2048) or K14 (2^18..2^28)."""
     n = re.shape[-1] * 2
     _log2_size(n)
     if _resolve(backend, re.device) == "pallas":

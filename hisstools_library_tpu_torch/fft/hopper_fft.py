@@ -25,12 +25,12 @@ the tiny forms, N < 32 (5)         fft/pallas_fft.py: matmul_fft fallback    csr
 
 A wrapper runs the plain version only for a tensor on the CPU. For a CUDA
 tensor it launches its kernel or raises: ``NotImplementedError`` names what
-is still to be ported when the call is outside the ported envelope (float64;
-real N above 2^20 and complex N above 2^19, ROADMAP queue 1 item 12), and no
-path falls back to ``torch.fft``. Each wrapper counts its
+the kernels do not take (float64; sizes above 2^28, the largest FFT size of
+the reference and of :mod:`.api`), and no path falls back to ``torch.fft``.
+Each wrapper counts its
 launches in ``<wrapper>.launches``. :func:`rfft_packed` sends N = 32..2048 to
-K10, N = 4096..2^17 to K1 and N = 2^18..2^20 to K13, and :func:`rifft_packed`
-sends N = 32..2048 to K11, N = 4096..2^17 to K6 and N = 2^18..2^20 to K14, as
+K10, N = 4096..2^17 to K1 and N = 2^18..2^28 to K13, and :func:`rifft_packed`
+sends N = 32..2048 to K11, N = 4096..2^17 to K6 and N = 2^18..2^28 to K14, as
 the TPU package's ``rfft_packed`` / ``rifft_packed`` send their small sizes to
 ``_rfft_small`` / ``_rifft_small`` and their large ones to the split pairs.
 Below 32 points the TPU package leaves Pallas for its XLA-staged
@@ -39,14 +39,18 @@ complex N = 1..16 to the tiny forms :func:`rfft_tiny`,
 :func:`rifft_tiny`, :func:`rfft_tiny_windowed`, :func:`rifft_tiny_windowed`
 and :func:`fft_tiny` (``csrc/fft_tiny.cu``: one thread a frame, the DFT in
 registers), so every power of two up to the limits below has a kernel.
-:func:`fft_split` (K12) serves complex N = 32..2^19: frames of up to 1024
+:func:`fft_split` (K12) serves complex N = 32..2^28: frames of up to 1024
 points in shared memory, 2048..2^16 in two passes over an HBM scratch frame
 (``csrc/fft_common.cuh``, which K2, K4 and K6 share), 2^17 in one pass
 on an 8-block thread-block cluster that holds the frame in its shared memory,
-and 2^18..2^19 in two passes of 512..1024-point sub-FFTs
-(``csrc/fft_large.cuh``, which K13 and K14 share at real 2^18..2^20).
+2^18..2^20 in two passes of 512..1024-point sub-FFTs and 2^21..2^28 in three
+passes of 128..1024-point sub-FFTs (``csrc/fft_large.cuh``, which K13 and
+K14 share at real 2^18..2^28). The long routes read no table of N
+twiddles: the sub-FFTs' come from a table of 2048 (:func:`_large_twiddles`),
+the rest are computed in float64 for each block's columns or rows.
 :func:`_plan` mirrors the kernels' plan, and the wrappers size their scratch
-from it: one frame per transform for two passes, none for the cluster. K1
+from it: one frame per transform for two or three passes (the middle one in
+place), none for the cluster. K1
 (real 4096..2^17) takes one pass at every size, with no scratch: the frame of
 M = N/2 points in the shared memory of one block or of a 2-, 4- or 8-block
 cluster (``csrc/fft_large.cuh``'s one-pass kernel, the cluster route's
@@ -77,9 +81,9 @@ one pass; :func:`_stream_plan` mirrors its plan.
 
 Precision: :func:`set_mode` keeps the TPU package's knob (``"bf16x3"`` or
 ``"highest"``). On Hopper both modes run the same FP32 SIMT kernels, with
-twiddles computed in float64 on the host and stored as float32; unlike the
-TPU's "highest", which leaves 2^20 to the staged matmul path, both serve
-2^20 through K13/K14.
+twiddles computed in float64 and stored as float32; unlike the TPU's
+"highest", which leaves 2^20 to the staged matmul path, both serve 2^20 and
+above through K13/K14.
 """
 
 from __future__ import annotations
@@ -97,12 +101,13 @@ from .hopper_kernels import lag_mac_causal, lag_mac_causal_plain, lag_mac_ring_p
 
 MIN_REAL_SIZE = 4096
 MAX_SINGLE_REAL = 1 << 17    # K1: one pass; K6: two passes
-MAX_SPLIT_REAL = 1 << 20     # K13 / K14: N = 2^18..2^20 (csrc/fft_large.cuh)
-MIN_COMPLEX = 32             # K12 serves complex N = 32..2^19 (fft_tiny below)
+MAX_SPLIT_REAL = 1 << 28     # K13 / K14: N = 2^18..2^28 (csrc/fft_large.cuh)
+MIN_COMPLEX = 32             # K12 serves complex N = 32..2^28 (fft_tiny below)
 MAX_COMPLEX_SMEM = 1024      # K12 in shared memory up to here
-MAX_COMPLEX = 1 << 19
-# Beyond the kernels' sizes: what is still to be ported there.
-LARGE_MISSING = "sizes 2^21..2^28 (ROADMAP queue 1 item 12)"
+MAX_CLUSTER = 1 << 17        # K12 on one cluster, with the N-entry twiddle table
+MAX_COMPLEX = 1 << 28
+# Above the kernels' sizes: the reference's and fft.api's own limit.
+OVER_MAX = "above 2^28, the largest FFT size (fft.api.MAX_FFT_SIZE_LOG2)"
 SMALL_MIN_REAL = 32          # K10 serves N = 32..2048 (rfft_tiny: 2..16)
 # K5 and K8 serve N = 2^14..2^17, the TPU package's sizes for both
 # (csrc/fastfir_chain.cu and csrc/fastfir_stream.cu).
@@ -137,13 +142,14 @@ def small_eligible(n: int) -> bool:
 
 
 def split_eligible(n: int) -> bool:
-    """True when the large real kernels (K13/K14) serve size ``n``."""
+    """True when the large real kernels (K13/K14) serve size ``n`` =
+    2^18..2^28."""
     return MAX_SINGLE_REAL < n <= MAX_SPLIT_REAL and (n & (n - 1)) == 0
 
 
 def complex_eligible(n: int) -> bool:
     """True when the complex kernel (K12, with its tiny form below 32
-    points) serves size ``n`` = 1..2^19."""
+    points) serves size ``n`` = 1..2^28."""
     return 1 <= n <= MAX_COMPLEX and (n & (n - 1)) == 0
 
 
@@ -163,10 +169,24 @@ def stream_feasible(n: int) -> bool:
 
 @functools.lru_cache(maxsize=16)
 def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """(n, 2) float32 table tw[e] = exp(-2 pi i e / n), computed in float64."""
+    """(n, 2) float32 table tw[e] = exp(-2 pi i e / n), computed in float64.
+    Built for the kernels of real N <= 2^18 (complex 2^17) only: the long
+    routes above read the 2048-entry table (:func:`_large_twiddles`)."""
+    if n > 2 * MAX_CLUSTER:
+        raise ValueError(f"no twiddle table of {n} entries: the long routes read "
+                         "_large_twiddles' 2048")
     ang = np.arange(n, dtype=np.float64) * (-2.0 * np.pi / n)
     tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
     return torch.from_numpy(tw).to(device)
+
+
+def _large_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """The table that ``run_fft_large`` (``csrc/fft_large.cuh``) reads at
+    real size ``n`` (complex M = n / 2): the N-entry table on the cluster
+    (M = 2^17); on the long routes W_2048^e, e < 2048, from which every
+    sub-FFT's W_L (L <= 1024) and the split step's W_2L are read (their
+    other twiddles the kernels compute in float64)."""
+    return _twiddles(n if n <= 2 * MAX_CLUSTER else 2048, device)
 
 
 def _check(kernel: str, n: int, *tensors: torch.Tensor) -> None:
@@ -175,22 +195,22 @@ def _check(kernel: str, n: int, *tensors: torch.Tensor) -> None:
     if not real_eligible(n):
         if n < MIN_REAL_SIZE:
             missing = ("K10 (forward) and K11 (inverse) serve N = 2..2048 through "
-                       "rfft_packed / rifft_packed; a small form of this kernel")
+                       "rfft_packed / rifft_packed; a small form of this kernel not yet "
+                       "ported")
         elif n <= MAX_SPLIT_REAL:
-            missing = ("K13/K14 serve N = 2^18..2^20 through rfft_packed / "
-                       "rifft_packed; a large form of this kernel")
+            missing = ("K13/K14 serve N = 2^18..2^28 through rfft_packed / "
+                       "rifft_packed; a large form of this kernel not yet ported")
         else:
-            missing = LARGE_MISSING
+            missing = OVER_MAX
         raise NotImplementedError(
-            f"{kernel}: serves N = {MIN_REAL_SIZE}..{MAX_SINGLE_REAL}; N = {n}: "
-            f"{missing} not yet ported")
+            f"{kernel}: serves N = {MIN_REAL_SIZE}..{MAX_SINGLE_REAL}; N = {n}: {missing}")
     _build.check_tensors(kernel, *tensors)
 
 
 def _check_split(kernel: str, n: int, *tensors: torch.Tensor) -> None:
     """Raise unless the large real kernel takes these tensors at ``n``."""
     if not split_eligible(n):
-        missing = (LARGE_MISSING + " not yet ported" if n > MAX_SPLIT_REAL else
+        missing = (OVER_MAX if n > MAX_SPLIT_REAL else
                    "rfft_packed / rifft_packed serve smaller sizes through K1/K6 "
                    "and K10/K11")
         raise NotImplementedError(
@@ -207,27 +227,36 @@ def _check_small(kernel: str, n: int) -> None:
 
 class Plan(NamedTuple):
     """How the multi-pass core serves one complex size M."""
-    route: str                # "two-pass", "cluster" or "two-pass-long"
-    lengths: Tuple[int, int]  # (column, row) sub-FFT lengths: columns of
-                              # lengths[0] points, rows of lengths[1]
+    route: str                # "two-pass", "cluster", "two-pass-long" or
+                              # "three-pass"
+    lengths: Tuple[int, ...]  # sub-FFT lengths by pass: (column, row), or
+                              # (column, middle, row) for three passes
     hbm_passes: int           # times the frame goes through HBM
     scratch_frames: int       # HBM scratch frames of M float2 per transform
 
 
 def _plan(n: int) -> Plan:
     """The plan of ``make_plan`` (``csrc/fft_common.cuh``) for real size
-    ``n``, complex M = n / 2 = 2048..2^19: two passes of sub-FFTs <= 256 up
+    ``n``, complex M = n / 2 = 2048..2^28: two passes of sub-FFTs <= 256 up
     to M = 2^16; one pass on an 8-block cluster at 2^17 (512-point columns,
     256-point rows); two passes of 512-point columns and 512- or 1024-point
-    rows at 2^18..2^19."""
+    rows at 2^18..2^19, 1024 x 1024 at 2^20; above that three passes
+    (M = 2^lm): rows of 2^(lm // 3) points, a middle pass of
+    2^((lm - lm // 3) // 2) and columns of the rest, one scratch frame (the
+    middle pass runs in place)."""
     lm = int(n).bit_length() - 2
-    if n & (n - 1) or not 11 <= lm <= 19:
-        raise ValueError(f"the multi-pass core serves complex M = 2^11..2^19, got n = {n}")
+    if n & (n - 1) or not 11 <= lm <= 28:
+        raise ValueError(f"the multi-pass core serves complex M = 2^11..2^28, got n = {n}")
     if lm <= 16:
         return Plan("two-pass", (1 << (lm - lm // 2), 1 << (lm // 2)), 2, 1)
     if lm == 17:
         return Plan("cluster", (512, 256), 1, 0)
-    return Plan("two-pass-long", (512, 1 << (lm - 9)), 2, 1)
+    if lm <= 20:
+        first = 1024 if lm == 20 else 512
+        return Plan("two-pass-long", (first, (1 << lm) // first), 2, 1)
+    last = lm // 3
+    mid = (lm - last) // 2
+    return Plan("three-pass", (1 << (lm - last - mid), 1 << mid, 1 << last), 3, 1)
 
 
 class OnePassPlan(NamedTuple):
@@ -417,7 +446,7 @@ def _small_plan(n: int) -> SmallPlan:
 def _scratch(frames: int, m: int, device) -> Optional[torch.Tensor]:
     """HBM scratch of the multi-pass core for ``frames`` complex transforms
     of M = ``m`` points, as :func:`_plan` sizes it: one frame of M float2
-    each with two passes, None on the cluster (M = 2^17)."""
+    each with two or three passes, None on the cluster (M = 2^17)."""
     per = _plan(2 * m).scratch_frames
     if per == 0:
         return None
@@ -541,7 +570,7 @@ def fastfir_chain_stream_plain(x2d, prev, ring_re, ring_im, h_re, h_im,
 def rfft_packed(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: real FFT -> packed N/2 bins (x2 scale, Nyquist in im[0]), batched
     over the leading axes, natural bin order: one HBM pass, no scratch
-    (:func:`_onepass_plan`). N = 2..2048 go to K10, N = 2^18..2^20 to
+    (:func:`_onepass_plan`). N = 2..2048 go to K10, N = 2^18..2^28 to
     K13."""
     if x.device.type == "cpu":
         return rfft_packed_plain(x)
@@ -611,7 +640,7 @@ rfft_small.launches = 0
 def rifft_packed(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     """K6: unscaled inverse of packed N/2-bin planes, rifft(rfft(x)) == 2N x,
     batched over the leading axes; returns (..., N). N = 2..2048 go to
-    K11, N = 2^18..2^20 to K14."""
+    K11, N = 2^18..2^28 to K14."""
     if re.device.type == "cpu":
         return rifft_packed_plain(re, im)
     n = 2 * re.shape[-1]
@@ -879,7 +908,7 @@ fft_tiny.launches = 0
 
 
 def rfft_packed_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K13: real FFT of N = 2^18..2^20 -> packed N/2 bins (x2 scale, Nyquist
+    """K13: real FFT of N = 2^18..2^28 -> packed N/2 bins (x2 scale, Nyquist
     in im[0]), batched over the leading axes, natural bin order."""
     if x.device.type == "cpu":
         return rfft_packed_split_plain(x)
@@ -895,7 +924,7 @@ def rfft_packed_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scratch = _scratch(b, n // 2, x.device)
     rc = _build.load().hst_rfft_packed_split(
         x.data_ptr(), re.data_ptr(), im.data_ptr(), _ptr(scratch),
-        _twiddles(n, x.device).data_ptr(), b, n, _build.stream(x.device))
+        _large_twiddles(n, x.device).data_ptr(), b, n, _build.stream(x.device))
     _build.check(rc, kernel)
     rfft_packed_split.launches += 1
     return re, im
@@ -905,7 +934,7 @@ rfft_packed_split.launches = 0
 
 
 def rifft_packed_split(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
-    """K14: unscaled inverse (N = 2^18..2^20) of packed N/2-bin planes,
+    """K14: unscaled inverse (N = 2^18..2^28) of packed N/2-bin planes,
     rifft(rfft(x)) == 2N x, batched over the leading axes; returns (..., N)."""
     if re.device.type == "cpu":
         return rifft_packed_split_plain(re, im)
@@ -922,7 +951,7 @@ def rifft_packed_split(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     scratch = _scratch(b, n // 2, re.device)
     rc = _build.load().hst_rifft_packed_split(
         re.data_ptr(), im.data_ptr(), out.data_ptr(), _ptr(scratch),
-        _twiddles(n, re.device).data_ptr(), b, n, _build.stream(re.device))
+        _large_twiddles(n, re.device).data_ptr(), b, n, _build.stream(re.device))
     _build.check(rc, kernel)
     rifft_packed_split.launches += 1
     return out
@@ -937,7 +966,7 @@ def fft_split(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
     (hisstools_fft), or with ``inverse`` the unscaled N x IDFT
     (hisstools_ifft: the forward with the planes swapped in and out, which
     the launch does by swapping pointers, with no copy). Complex N =
-    32..2^19, batched over the leading axes, natural order; N = 1..16 go to
+    32..2^28, batched over the leading axes, natural order; N = 1..16 go to
     :func:`fft_tiny`."""
     if re.device.type == "cpu":
         return fft_split_plain(re, im, inverse)
@@ -946,8 +975,7 @@ def fft_split(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
     if not complex_eligible(n):
         raise NotImplementedError(
             f"{kernel}: serves N = 1..{MAX_COMPLEX}; N = {n}: "
-            + (f"complex {LARGE_MISSING} not yet ported" if n > MAX_COMPLEX
-               else "not a power of two"))
+            + (OVER_MAX if n > MAX_COMPLEX else "not a power of two"))
     if n < MIN_COMPLEX:
         return fft_tiny(re, im, inverse)
     _build.check_tensors(kernel, re, im)
@@ -964,7 +992,7 @@ def fft_split(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
     rc = _build.load().hst_fft_split(
         src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(), dst[1].data_ptr(),
         _ptr(scratch),
-        _twiddles(2 * n, re.device).data_ptr(), b, n, _build.stream(re.device))
+        _large_twiddles(2 * n, re.device).data_ptr(), b, n, _build.stream(re.device))
     _build.check(rc, kernel)
     fft_split.launches += 1
     return out_re, out_im
@@ -1084,7 +1112,7 @@ def fastfir_chain(x2d: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,
         raise NotImplementedError(
             f"{kernel}: serves N = {CHAIN_MIN}..{CHAIN_MAX}; N = {n}: "
             + ("fastfir_chain_staged (K2 -> K3 -> K4) serves 4096..8192" if n < CHAIN_MIN
-               else LARGE_MISSING + " not yet ported"))
+               else "above the chain's sizes, as in the TPU package"))
     _check_chain(kernel, x2d, h_re, h_im)
     h_re, h_im, hcs = _row_planes(h_re, h_im)
     y = torch.empty_like(x2d)

@@ -8,7 +8,7 @@ imports jax, so run it there with
 
 Tolerance: >= 120 dB SNR for each kernel against its plain version (float32
 sums taken in another order give ~130 dB; >= 110 dB for K12, K13 and K14
-above 2^16 points, whose sums run over 2^17..2^20 points), >= 110 dB for the
+above 2^16 points, whose sums run over 2^17..2^28 points), >= 110 dB for the
 FastFIR chain and the streaming engines against the CPU path, >= 100 dB for
 the streaming engines and the spectral ops and >= 120 dB for
 the time-domain FIR against float64 (a TF32 convolution would give ~60 dB).
@@ -354,8 +354,8 @@ def test_convolver_stream_paths_launch_k8_on_cuda(cuda, path):
     (lambda d: hopper_fft.rfft_packed(torch.zeros(2, 4096, dtype=torch.float64,
                                                   device=d)),
      NotImplementedError, "float64"),
-    (lambda d: hopper_fft.rfft_packed(torch.zeros(2, 1 << 21, device=d)),
-     NotImplementedError, "item 12"),
+    (lambda d: hopper_fft.rfft_packed(torch.zeros(1, 1, device=d).expand(2, 1 << 29)),
+     NotImplementedError, "above 2\\^28"),
     (lambda d: hopper_fft.rfft_packed(torch.zeros(4096, 2, device=d).t()),
      ValueError, "contiguous"),
     (lambda d: hopper_kernels.lag_mac_causal(
@@ -539,8 +539,9 @@ def test_slice_kernel_matches_plain(cuda, name, shape):
                                        *(torch.zeros(2, 3, 1024, device=d) for _ in range(4))),
      "K9"),
     (lambda d: hopper_fft.rifft_small(*(torch.zeros(2, 12, device=d) for _ in range(2))), "K11"),
-    (lambda d: hopper_fft.rifft_packed(*(torch.zeros(2, 1 << 20, device=d) for _ in range(2))),
-     "item 12"),
+    (lambda d: hopper_fft.rifft_packed(*(torch.zeros(1, 1, device=d).expand(2, 1 << 28)
+                                         for _ in range(2))),
+     "above 2\\^28"),
 ])
 def test_slice_wrappers_refuse_on_cuda(cuda, call, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -685,21 +686,65 @@ def test_spectral_kernel_matches_plain(cuda, name, shape, inverse):
         assert snr_db(w.cpu().numpy(), gt.cpu().numpy()) >= floor
 
 
-@pytest.mark.parametrize("n", [1 << 18, 1 << 20])
+# The sizes above real 2^20 / complex 2^19 (csrc/fft_large.cuh: two long
+# passes of 1024 x 1024 at complex 2^20, three passes above), every one, at
+# small batches; odd batches (3, 5) are no multiple of a tile's 16 columns.
+LARGE_CASES = ([("fft_split", (3 if lm == 20 else 1, 1 << lm), inverse)
+                for lm in range(20, 29) for inverse in (False, True)]
+               + [(name, (5 if lm == 21 else 3 if lm == 22 else 1, 1 << lm), None)
+                  for name in ("rfft_packed_split", "rifft_packed_split")
+                  for lm in range(21, 29)])
+
+
+def _snr_card(ref, test):
+    """SNR of ``test`` against ``ref`` in float64 on the card (frames of up
+    to 2^28 points)."""
+    ref = ref.double()
+    err = test.double() - ref
+    return float(10 * torch.log10((ref * ref).sum() / (err * err).sum()))
+
+
+@pytest.mark.parametrize("name,shape,inverse", LARGE_CASES)
+def test_large_kernel_matches_plain(cuda, name, shape, inverse):
+    """K12 at complex 2^20..2^28 (both directions), K13 and K14 at real
+    2^21..2^28, each against its plain version: >= 110 dB and finite."""
+    fn = getattr(hopper_fft, name)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, n = shape
+    k = n // 2 if name == "rifft_packed_split" else n
+    args = (torch.randn(b, k, generator=g, device=cuda),)
+    if name != "rfft_packed_split":
+        args += (torch.randn(b, k, generator=g, device=cuda),)
+    kw = {} if inverse is None else dict(inverse=inverse)
+    before = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = getattr(hopper_fft, name + "_plain")(*args, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for gt, w in zip(got, want):
+        assert gt.shape == w.shape and gt.device.type == "cuda"
+        assert bool(torch.isfinite(gt).all())
+        assert _snr_card(w, gt) >= SNR_CHAIN_DB
+
+
+@pytest.mark.parametrize("n", [1 << 18, 1 << 20, 1 << 21, 1 << 24])
 def test_packed_split_round_trip(cuda, n):
-    """K14(K13(x)) = 2N x to >= 110 dB, on the cluster (2^18) and in two
-    long passes (2^20)."""
+    """K14(K13(x)) = 2N x to >= 110 dB, on the cluster (2^18), in two long
+    passes (2^20, 2^21) and in three (2^24)."""
     x = torch.randn(2, n, generator=torch.Generator(device=cuda).manual_seed(4), device=cuda)
     y = hopper_fft.rifft_packed_split(*hopper_fft.rfft_packed_split(x))
     torch.cuda.synchronize()
     assert snr_db((2 * n * x).cpu().numpy(), y.cpu().numpy()) >= SNR_CHAIN_DB
 
 
-@pytest.mark.parametrize("n,scratch_frames", [(1 << 18, 0), (1 << 20, 1)])
+@pytest.mark.parametrize("n,scratch_frames", [(1 << 18, 0), (1 << 20, 1), (1 << 22, 1)])
 def test_packed_split_memory(cuda, n, scratch_frames):
     """K13 at (8, n) raises the peak allocation by its output and, with two
-    passes (2^20), one scratch frame (N/2 float2) per transform; on the
-    cluster (2^18) by its output alone."""
+    passes (2^20) or three (2^22: the middle one in place), one scratch
+    frame (N/2 float2) per transform; on the cluster (2^18) by its output
+    alone."""
     b = 8
     x = torch.randn(b, n, device=cuda)
     hopper_fft.rfft_packed_split(x)  # the twiddle table, cached for the size

@@ -215,20 +215,20 @@ def test_set_mode():
 @pytest.mark.parametrize("call,match", [
     (lambda: hopper_fft.rfft_packed(torch.empty(2, 4096, dtype=torch.float64,
                                                 device="meta")), "float64"),
-    # K13 serves 2^18..2^20; above that the sizes of ROADMAP queue 1 item 12.
-    (lambda: hopper_fft.rfft_packed(torch.empty(2, 1 << 21, device="meta")), "item 12"),
+    # K13 serves 2^18..2^28; above 2^28, the largest FFT size, nothing does.
+    (lambda: hopper_fft.rfft_packed(torch.empty(2, 1 << 29, device="meta")), "above 2\\^28"),
     (lambda: hopper_fft.rifft_packed_tail(
         *(torch.empty(2, 3, 1024, device="meta") for _ in range(2))), "K10"),
     (lambda: hopper_kernels.lag_mac_causal(
         *(torch.empty(2, 3, 256, dtype=torch.float64, device="meta")
           for _ in range(4))), "float64"),
-    # Above 2^20 the packed inverse needs item 12 (K14 serves 2^18..2^20).
-    (lambda: api.rifft(*(torch.empty(2, 1 << 20, device="meta") for _ in range(2)),
-                       backend="pallas"), "item 12"),
-    # K12 (with its tiny form) serves complex powers of two N = 1..2^19,
+    # Above 2^28 the packed inverse has no kernel (K14 serves 2^18..2^28).
+    (lambda: hopper_fft.rifft_packed(*(torch.empty(2, 1 << 28, device="meta")
+                                       for _ in range(2))), "above 2\\^28"),
+    # K12 (with its tiny form) serves complex powers of two N = 1..2^28,
     # float32 only.
-    (lambda: api.fft(*(torch.empty(2, 1 << 20, device="meta") for _ in range(2)),
-                     backend="pallas"), "item 12"),
+    (lambda: hopper_fft.fft_split(*(torch.empty(2, 1 << 29, device="meta") for _ in range(2))),
+     "above 2\\^28"),
     (lambda: hopper_fft.fft_split(*(torch.empty(2, 24, device="meta") for _ in range(2))),
      "K12 .*N = 24: not a power of two"),
     (lambda: api.fft(*(torch.empty(2, 4096, dtype=torch.float64, device="meta")

@@ -12,6 +12,13 @@ index maps, written to follow the kernels step by step:
 * the cluster route: block r owns columns r*M1/8.. and, after the
   exchange, rows r*R/8.. (or the pack tile r), gathering column n1 from
   block n1 // (M1/8).
+* the routes above complex 2^19 and K14's redesigned first pass: the plan
+  mirror at M = 2^17..2^28, the three-pass route (a column pass, a middle
+  column pass in place over the first pass's rows, rows through a row map),
+  the paired unpack (a block's column slots hold the column pairs (c,
+  ncol - c), so each packed bin is loaded once and meets its partner in
+  the block's tile) and the float32 error of the twiddles formed from two
+  factors.
 
 Each sub-FFT runs the kernels' in-block four-step (a B-point DFT over
 j2 of elements j1 + A*j2, the twiddle W_L^(j1*k2), an A-point DFT giving
@@ -19,6 +26,8 @@ k = k2 + B*k1). The model matches ``np.fft.fft`` and the packed ``rfft`` to
 1e-12 relative to the largest output; the kernels themselves are held
 against their plain versions on the card (tests/test_torch_cuda.py).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -67,9 +76,9 @@ def test_scratch_follows_plan(lm):
         assert tuple(s.shape) == (3, 2 * m) and s.dtype == torch.float32
 
 
-@pytest.mark.parametrize("n", [1 << 10, 3 << 12, 1 << 21])
+@pytest.mark.parametrize("n", [1 << 10, 3 << 12, 1 << 30])
 def test_plan_refuses_other_sizes(n):
-    with pytest.raises(ValueError, match="2\\^11..2\\^19"):
+    with pytest.raises(ValueError, match="2\\^11..2\\^28"):
         hopper_fft._plan(n)
 
 
@@ -715,3 +724,277 @@ def test_chain_offline_model_matches_fastfir_chain_plain(t, p):
     want = hopper_fft.fastfir_chain_plain(x2d, h_re, h_im, scale)
     assert got.shape == want.shape
     assert float((got - want).abs().max()) <= TOL * max(1.0, float(want.abs().max()))
+
+
+# -----------------------------------------------------------------------------
+# The long routes at M = 2^17..2^28 (csrc/fft_large.cuh fft_cols_long /
+# fft_rows_long): the plan mirror, the three-pass route's index maps and
+# twiddle exponents, K14's paired unpack, and the float32 error of the
+# twiddles the kernels form from two factors
+
+TILE = 16  # kTile: sub-FFTs a block
+
+# (route, lengths by pass, HBM passes, scratch frames) for complex M = 2^lm.
+LONG_PLAN = {
+    17: ("cluster", (512, 256), 1, 0),
+    18: ("two-pass-long", (512, 512), 2, 1),
+    19: ("two-pass-long", (512, 1024), 2, 1),
+    20: ("two-pass-long", (1024, 1024), 2, 1),
+    21: ("three-pass", (128, 128, 128), 3, 1),
+    22: ("three-pass", (256, 128, 128), 3, 1),
+    23: ("three-pass", (256, 256, 128), 3, 1),
+    24: ("three-pass", (256, 256, 256), 3, 1),
+    25: ("three-pass", (512, 256, 256), 3, 1),
+    26: ("three-pass", (512, 512, 256), 3, 1),
+    27: ("three-pass", (512, 512, 512), 3, 1),
+    28: ("three-pass", (1024, 512, 512), 3, 1),
+}
+
+
+def _ab(length):
+    """Sub<L>: the step-2 and step-1 DFT sizes A = 2^(log2 L // 2), B = L / A."""
+    a = 1 << (length.bit_length() - 1) // 2
+    return a, length // a
+
+
+def _smem_cols(length, unpack):
+    """LongTile<L>::smem_cols: the tile, W_L, the slots' twiddle factors and
+    the unpack's W_2L and W_N^col."""
+    a, b = _ab(length)
+    return 8 * (TILE * (length + 1) + length + TILE * (b + 1) + TILE * (a + 1)
+                + (length + TILE if unpack else 0))
+
+
+def _smem_rows(length, pack):
+    return 8 * (TILE * (length + 1) + length + (length + TILE if pack else 0))
+
+
+@pytest.mark.parametrize("lm", range(17, 29))
+def test_long_plan_every_size(lm):
+    """make_plan's mirror at M = 2^17..2^28 (real N = 2^18..2^28, complex up
+    to 2^28): the lengths multiply to M, each 128..1024; every column pass
+    has whole tiles of 16 columns and every row pass whole tiles of 16 rows
+    (8 row pairs with the pack); a block's shared memory fits the 227 KB a
+    block may use (two blocks an SM at L = 512); one scratch frame; and the
+    passes' grids stay below 2^31 blocks at 2^31 / (8 M) frames."""
+    m = 1 << lm
+    plan = hopper_fft._plan(2 * m)
+    assert plan == LONG_PLAN[lm]
+    assert math.prod(plan.lengths) == m
+    if plan.route == "cluster":
+        return
+    assert all(128 <= length <= 1024 for length in plan.lengths)
+    first, last = plan.lengths[0], plan.lengths[-1]
+    r1 = m // first
+    assert r1 % TILE == 0 and (m // last) % (2 * TILE) == 0
+    if plan.route == "three-pass":
+        assert last % TILE == 0  # the middle pass: L3 columns in whole tiles
+    for length in plan.lengths:
+        for smem in (_smem_cols(length, True), _smem_rows(length, True)):
+            assert smem <= SHARED_BYTES_MAX
+            if length == 512:
+                assert 2 * (smem + 1024) <= 228 * 1024
+    frames = max(1, (1 << 31) // (8 * m))
+    assert frames * r1 // TILE < 2 ** 31 and frames * (m // last) // TILE < 2 ** 31
+    assert tuple(hopper_fft._scratch(2, m, torch.device("meta")).shape) == (2, 2 * m)
+
+
+def test_no_twiddle_table_above_2_18():
+    """The long routes read the 2048-entry table, never one of N entries:
+    _twiddles refuses to build one above real N = 2^18."""
+    with pytest.raises(ValueError, match="_large_twiddles"):
+        hopper_fft._twiddles(1 << 19, torch.device("meta"))
+    assert hopper_fft._large_twiddles(1 << 18, torch.device("cpu")).shape == (1 << 18, 2)
+    for n in (1 << 19, 1 << 21, 1 << 28):
+        assert hopper_fft._large_twiddles(n, torch.device("cpu")).shape == (2048, 2)
+
+
+def _slot_cols(tile, ncol, slots=TILE):
+    """slot_col<true>: the columns of column tile `tile` (the cluster's
+    block `tile` with ``slots`` = 32) under the unpack, the pairs of
+    pack_row_of."""
+    return [_pack_row_of(slots // 2, tile, f, ncol) for f in range(slots)]
+
+
+def _col_pass(z, ncol, length):
+    """fft_cols_long over the frames z (F, m), m = ncol * L: Y[k*ncol + col]
+    = W_m^(col*k) FFT_L(column col)[k], with the twiddle as the kernels form
+    it, W_m^(col*k2) W_m^(col*B*k1) for k = k2 + B*k1 (both exponents
+    reduced mod m). Which block computes a column does not change Y."""
+    f, m = z.shape
+    a, b = _ab(length)
+    cols = np.arange(ncol)
+    sub = _sub_fft(z[:, cols[:, None] + ncol * np.arange(length)[None, :]])  # (F, ncol, L)
+    k = np.arange(length)
+    tw = (_w(m, (cols[:, None] * (k % b)[None, :]) % m)
+          * _w(m, (cols[:, None] * b * (k // b)[None, :]) % m))
+    y = np.empty((f, m), complex)
+    y[:, k[None, :] * ncol + cols[:, None]] = sub * tw
+    return y
+
+
+def _row_map(rows, l1):
+    """fft_rows_long's memory row of row j: (j % L1) * (R / L1) + j // L1."""
+    j = np.arange(rows)
+    return (j % l1) * (rows // l1) + j // l1
+
+
+def _three_pass(z, lengths, pack=False):
+    """The three-pass route on one frame z (M points): the column pass, the
+    middle column pass in place over the L1 rows of R1 = L2*L3 points, then
+    the rows through the row map (natural Z, or the packed bins with the
+    pack's tiles of 16 row slots)."""
+    l1, l2, l3 = lengths
+    m = z.size
+    r1 = m // l1
+    y = _col_pass(z[None], r1, l1)[0]
+    y = _col_pass(y.reshape(l1, r1), l3, l2).reshape(m)
+    rows = l1 * l2
+    mem = _row_map(rows, l1)
+    if not pack:
+        out = np.empty(m, complex)
+        out[np.arange(rows)[:, None] + rows * np.arange(l3)[None, :]] = _sub_fft(
+            y.reshape(rows, l3)[mem])
+        return out
+    res = np.empty(m, complex)
+    for tile in range(rows // TILE):
+        rows_of = [_pack_row_of(TILE // 2, tile, f, rows) for f in range(TILE)]
+        slots = _sub_fft(y.reshape(rows, l3)[mem[rows_of]])
+        for k, v in _pack_tile(slots, rows_of, rows, m).items():
+            res[k] = v
+    return res
+
+
+@pytest.mark.parametrize("lengths", [(8, 16, 16), (16, 16, 16), (32, 16, 16), (16, 32, 16)])
+@pytest.mark.parametrize("pack", [False, True])
+def test_three_pass_model_matches_numpy(lengths, pack):
+    """The three-pass route's index maps and twiddle exponents at stand-in
+    sizes (16-column tiles and 16-row pack tiles, as in the kernels): Z
+    against np.fft.fft, the packed bins against the packed rfft, to 1e-12."""
+    m = math.prod(lengths)
+    x, z = _signal(m, seed=sum(lengths) + pack)
+    got = _three_pass(z, lengths, pack)
+    assert _close(got, _packed_ref(x) if pack else np.fft.fft(z))
+
+
+def test_three_pass_model_at_2_21():
+    """The same at the plan's own lengths for complex M = 2^21 (128^3)."""
+    lengths = hopper_fft._plan(1 << 22).lengths
+    _, z = _signal(1 << 21, seed=21)
+    assert _close(_three_pass(z, lengths), np.fft.fft(z))
+
+
+def _unpack_ref(p):
+    """conj(Z'[idx]) of packed bins p (M,), as load_elem<kLoadUnpack> forms
+    it from P[idx] and P[M - idx]."""
+    m = p.size
+    idx = np.arange(m)
+    q = np.conj(p[(m - idx) % m])
+    zp = (p + q) + 1j * np.conj(_w(2 * m, idx)) * (p - q)
+    zp[0] = complex(p[0].real + p[0].imag, p[0].real - p[0].imag)
+    return np.conj(zp)
+
+
+def _unpack_tiles(p, ncol, length, slots=TILE):
+    """unpack_pairs over one frame of packed bins p (M = ncol * L), tile by
+    tile: a tile loads the bins of its slot columns (pack_row_of pairs)
+    once into its tile and reads each partner from that tile (row L-1-j of
+    the partner slot; column 0: row L-j of its own), W_N^idx = W_N^col
+    W_2L^j. Returns conj(Z') and how often each bin was loaded."""
+    m = ncol * length
+    out = np.empty(m, complex)
+    loads = np.zeros(m, int)
+    j = np.arange(length)
+    wj = _w(2 * length, j)
+    for tile in range(ncol // slots):
+        cols = _slot_cols(tile, ncol, slots)
+        idx = np.array(cols)[:, None] + ncol * j[None, :]
+        s = p[idx]  # the tile: each bin of the slots once
+        np.add.at(loads, idx.ravel(), 1)
+        for f, col in enumerate(cols):
+            g = f if col in (0, ncol // 2) else f ^ (slots // 2)
+            assert cols[g] == (ncol - col) % ncol  # the partner is in this tile
+            q = np.conj(s[g, (length - j) % length if col == 0 else length - 1 - j])
+            w = _w(2 * m, col) * wj
+            zc = np.conj((s[f] + q) + 1j * np.conj(w) * (s[f] - q))
+            if col == 0:
+                zc[0] = complex(s[f, 0].real + s[f, 0].imag, -(s[f, 0].real - s[f, 0].imag))
+            out[idx[f]] = zc
+    return out, loads
+
+
+@pytest.mark.parametrize("lm", [17, 18, 19, 20, 21])
+def test_paired_unpack_reads_each_bin_once(lm):
+    """K14's first pass at the plan's own lengths (the cluster's 8 blocks of
+    32 slots at M = 2^17; tiles of 16 slots above): every packed bin is
+    loaded once, its partner sits in the same tile, and the unpacked values
+    equal load_elem<kLoadUnpack>'s, to 1e-12."""
+    m = 1 << lm
+    plan = hopper_fft._plan(2 * m)
+    length = plan.lengths[0]
+    rng = np.random.default_rng(lm)
+    p = rng.standard_normal(m) + 1j * rng.standard_normal(m)
+    got, loads = _unpack_tiles(p, m // length, length, 32 if lm == 17 else TILE)
+    assert (loads == 1).all()
+    assert _close(got, _unpack_ref(p))
+
+
+@pytest.mark.parametrize("lengths", [(512, 512), (16, 16, 16)])
+def test_paired_unpack_inverse_matches_numpy(lengths):
+    """The whole K14 model: the paired unpack, then the forward passes (two
+    at M = 2^18's 512 x 512, three at a stand-in size), conj(Z[k]) as
+    samples (2k, 2k+1): equals the unscaled inverse N * irfft, to 1e-12."""
+    m = math.prod(lengths)
+    rng = np.random.default_rng(m)
+    re, im = rng.standard_normal((2, m))
+    c, _ = _unpack_tiles(re + 1j * im, m // lengths[0], lengths[0])
+    if len(lengths) == 3:
+        z = _three_pass(c, lengths)
+    else:
+        z = _long_route(c, lengths[0], TILE // 2, lengths[0], False)
+    got = np.empty(2 * m)
+    got[0::2], got[1::2] = z.real, -z.imag
+    full = np.concatenate([re, im[:1]]) + 1j * np.concatenate([[0.0], im[1:], [0.0]])
+    assert _close(got, np.fft.irfft(full, 2 * m) * 2 * m)
+
+
+def _cmul32(a, b):
+    """The kernels' cmul in float32 (each product and sum rounded)."""
+    ar, ai = a.real.astype(np.float32), a.imag.astype(np.float32)
+    br, bi = b.real.astype(np.float32), b.imag.astype(np.float32)
+    return (ar * br - ai * bi).astype(np.float64) + 1j * (ar * bi + ai * br).astype(np.float64)
+
+
+def _f32(w):
+    return w.real.astype(np.float32) + 1j * w.imag.astype(np.float32)
+
+
+@pytest.mark.parametrize("lm", [20, 27])
+def test_twiddle_factors_error(lm):
+    """The twiddles the long routes form from two float32 factors, each
+    rounded once from float64, over sampled exponents at M = 2^lm: the
+    first pass's W_M^(c*k) = W_M^(c*k2) W_M^(c*B*k1), the middle pass's
+    W_R1, and the unpack's and the pack's W_N^idx = W_N^c W_2L^j. Their worst
+    error against float64 stays within 2^-22 (four float32 roundings of 1);
+    one rounded entry is within 2^-24."""
+    m = 1 << lm
+    plan = hopper_fft._plan(2 * m)
+    rng = np.random.default_rng(lm)
+    worst = 0.0
+    lengths = plan.lengths
+    frames = [(m, lengths[0])] + ([(m // lengths[0], lengths[1])] if len(lengths) == 3 else [])
+    for size, length in frames:
+        _, b = _ab(length)
+        c = rng.integers(0, size // length, 200000)
+        k = rng.integers(0, length, 200000)
+        got = _cmul32(_f32(_w(size, (c * (k % b)) % size)),
+                      _f32(_w(size, (c * b * (k // b)) % size)))
+        worst = max(worst, np.abs(got - _w(size, (c * k) % size)).max())
+    length = lengths[0]
+    c = rng.integers(0, m // length, 200000)
+    j = rng.integers(0, length, 200000)
+    w2048 = _f32(_w(2048, np.arange(2048)))
+    got = _cmul32(_f32(_w(2 * m, c)), w2048[j * (1024 // length)])
+    worst = max(worst, np.abs(got - _w(2 * m, c + (m // length) * j)).max())
+    assert worst <= 2.0 ** -22
+    assert np.abs(w2048 - _w(2048, np.arange(2048))).max() <= 2.0 ** -24

@@ -1,6 +1,6 @@
 """Phases of ``chip_smoke.py`` from one checkout, for an A/B run.
 
-    python3 tools/chip_phases.py [--small | --k1 | --k5] CHECKOUT
+    python3 tools/chip_phases.py [--small | --k1 | --k5 | --k14 | --large] CHECKOUT
 
 Runs, from the checkout at CHECKOUT (its ``chip_smoke.py`` and its
 ``hisstools_library_tpu_torch``, kernels built under its own ``build/``), on
@@ -38,7 +38,16 @@ one CUDA card:
   staged path cross); the FastFIR main path (ms/pass),
   ``mono.process_offline`` with the offline tail, the ``Convolver``'s
   offline paths (parallel 128, N2M 8 x 8); K2, K4 and K6 (which share
-  ``fft_common.cuh``).
+  ``fft_common.cuh``);
+* with ``--k14`` K14 rifft_packed_split and K13 rfft_packed_split at (128,
+  N), N = 2^18, 2^19 and 2^20: device ms (``torch.profiler``) and event ms,
+  each launch's device ms and the TB/s it reaches (a complex frame of N/2
+  points in and out per transform), SNR against the plain version, and
+  ``torch.fft.irfft`` / ``rfft`` on the same input beside them; then the
+  spectral ``convolve`` of 128 x 10 s signals (N = 2^20);
+* with ``--large`` phases 22 and 23 of a checkout that has them (K12 at
+  complex 2^20..2^28 and K13 / K14 at real 2^21..2^28 against their plain
+  versions, with their times; the 20 s convolve and the 30 s deconvolve).
 
 To compare two commits, unpack the older one into a directory that
 ``.gitignore`` lists and run both in one call on the card, in turns:
@@ -64,7 +73,9 @@ def main() -> None:
     small = "--small" in args
     k1 = "--k1" in args
     k5 = "--k5" in args
-    args = [a for a in args if a not in ("--small", "--k1", "--k5")]
+    k14 = "--k14" in args
+    large = "--large" in args
+    args = [a for a in args if a not in ("--small", "--k1", "--k5", "--k14", "--large")]
     if len(args) != 1:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
@@ -94,6 +105,9 @@ def main() -> None:
     if k5:
         k5_phase(cs, hopper_fft, randn, dev, smi)
         return
+    if k14:
+        k14_phase(cs, hopper_fft, randn, dev, smi)
+        return
     if small:
         cs.windowed_kernels(randn, mods, smi)
         cs.stft_path(dev, cs.Launches(mods), smi, False)
@@ -105,6 +119,12 @@ def main() -> None:
     rng = np.random.default_rng(0)
     irs = (rng.standard_normal((cs.CHANNELS, cs.IR_LEN)) *
            np.exp(-np.arange(cs.IR_LEN) / (0.5 * cs.FS))).astype(np.float32)
+    if large:
+        results = {k: dict(max_abs_err=0.0, snr_db=float("inf"))
+                   for k in ("fft_split", "rfft_packed_split", "rifft_packed_split")}
+        cs.large_kernels(randn, mods, smi, results)
+        cs.large_paths(dev, irs, cs.Launches(mods), smi)
+        return
     x = rng.standard_normal((cs.CHANNELS, cs.SIG_LEN)).astype(np.float32)
     cs.spectral_kernels(randn, mods, smi)
     cs.spectral_paths(dev, irs, x, cs.Launches(mods), smi)
@@ -194,6 +214,45 @@ def k1_phase(cs, hf, randn, dev, smi) -> None:
     h1 = torch.from_numpy(np.ascontiguousarray(irs[:, :cs.FS])).to(dev)
     print(f"spectral-convolve-1s: {cs.median_ms(lambda: sp.convolve(s1, h1)):.4f} ms/call "
           f"(events, median of 5) [{smi}]", flush=True)
+
+
+def k14_phase(cs, hf, randn, dev, smi) -> None:
+    """The ``--k14`` mode (see the module docstring). Uses only what the
+    parent checkouts also have, so the same mode times either."""
+    from hisstools_library_tpu_torch.ops import spectral_processor as sp
+
+    c = cs.CHANNELS
+    for e in (18, 19, 20):
+        n = 1 << e
+        x = randn(c, n)
+        pr, pi = hf.rfft_packed_split(x)
+        full = cs._complex_of_packed(pr, pi)
+        for label, fn, plain, lib in (
+                ("K14 rifft_packed_split", lambda: hf.rifft_packed_split(pr, pi),
+                 lambda: hf.rifft_packed_split_plain(pr, pi),
+                 lambda: torch.fft.irfft(full, n=n, dim=-1)),
+                ("K13 rfft_packed_split", lambda: hf.rfft_packed_split(x),
+                 lambda: hf.rfft_packed_split_plain(x), lambda: torch.fft.rfft(x, dim=-1))):
+            got, want = fn(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            snr = min(cs.snr_db(w, g) for w, g in zip(want, got))
+            del got, want
+            print(f"{label} ({c}, 2^{e}): device {cs.device_ms(fn):.4f} ms, events "
+                  f"{cs.median_ms(fn):.4f} ms; library device {cs.device_ms(lib):.4f} ms; "
+                  f"SNR vs plain {snr:.2f} dB [{smi}]", flush=True)
+            cs.pass_rates(f"{label} ({c}, 2^{e})", fn, 4 * n * c, smi)
+        del x, pr, pi, full
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    irs = (rng.standard_normal((c, cs.IR_LEN)) *
+           np.exp(-np.arange(cs.IR_LEN) / (0.5 * cs.FS))).astype(np.float32)
+    x = rng.standard_normal((c, cs.SIG_LEN)).astype(np.float32)
+    sig = torch.from_numpy(np.ascontiguousarray(x[:, :cs.IR_LEN])).to(dev)
+    ird = torch.from_numpy(irs).to(dev)
+    print(f"spectral-convolve (128 x 10 s, N = 2^20): "
+          f"{cs.median_ms(lambda: sp.convolve(sig, ird)):.4f} ms/call (events, median of 5), "
+          f"device {cs.device_ms(lambda: sp.convolve(sig, ird)):.4f} ms [{smi}]", flush=True)
 
 
 def card_test_cases(name: str) -> list:
