@@ -12,7 +12,9 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
    its plain PyTorch version on the card, at the main path's shapes and at
    N = 4096; K1 also at (128, N) for every N = 4096..2^17, each with its
    device and event ms, bound, ``torch.fft.rfft`` ms and the frames its
-   one-pass route holds on the card at once; K5 also at (2, 5, P 7, 2^14),
+   one-pass route holds on the card at once; K4 also at its paths' shapes
+   (128, 4, 2^15), (128, 16, 2^13) and (128, 236, 2^11), each with its device
+   and event ms, bound and ``torch.fft.irfft`` ms; K5 also at (2, 5, P 7, 2^14),
    (2, 3, P 2, 2^17), T = 1 and a P beyond shared memory, with the staged
    K2 -> K3 -> K4 timed beside it on the main path's inputs;
 4. drives the main path: ``FastFIR`` at 128 channels x 480 000 taps (a 10 s
@@ -37,7 +39,10 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
 8. checks the time-domain head's grouped conv1d on the card in full FP32;
 9. compares each kernel of the sample-granular and staged offline paths (K6
    rifft_packed, K9 hop_fire, K11 rifft_small, K15 lag_mac) with its plain
-   version, at those paths' shapes and at small shapes;
+   version, at those paths' shapes and at small shapes; then K4 at its path
+   shapes and the main path's (128, 16, 2^15) and K6 at (128, 2^14) and
+   (128, 4096) must launch once a call and raise the peak allocation above
+   their inputs by no more than their output (no scratch frame);
 10. drives ``mono.process_any`` as ``bench.py``'s ``latency`` mode configures
     it: Zero preset, ``prepare_ir(offline_tail=False)``, ``init_stream_state``
     and 128 sequential 256-sample callbacks (K9, K6, K1 and K10 must launch);
@@ -208,6 +213,11 @@ KERNELS = {
     "fft_tiny": ("hopper_fft", "fft_tiny.cu", "fft/pallas_fft.py:868"),
 }
 STAGED = ("rfft_packed_stream", "lag_mac_causal", "rifft_packed_tail")
+# (T, K) of K4's launches on the paths at 128 channels: the two-tier far
+# tier (N = 2^16), the collapsed and matched final sections (2^14), the
+# offline 4096 section without the tail (tools/chip_phases.py --k4 records
+# them).
+K4_PATH_SHAPES = ((4, 1 << 15), (16, 1 << 13), (236, 1 << 11))
 
 
 def fail(msg: str) -> None:
@@ -547,13 +557,19 @@ def fastfir_kernels(randn, mods, smi) -> dict:
     def k1(b, n):
         return lambda: ((randn(b, n),), {})
 
+    def k4(c, t, k):
+        return lambda: ((randn(c, t, k), randn(c, t, k), 1.0 / (8.0 * k)), {})
+
     lags = min(p_main, t_main - 1)
     results = check_kernels(
         [("rfft_packed", [inputs("rfft_packed", 4096, False),
                           inputs("rfft_packed", n_main, True)]
           + [(k1(CHANNELS, 1 << e), True) for e in range(12, 18)])]
         + [(name, [inputs(name, 4096, False), inputs(name, n_main, True)])
-           for name in ("rfft_packed_stream", "lag_mac_causal", "rifft_packed_tail")]
+           for name in ("rfft_packed_stream", "lag_mac_causal")]
+        + [("rifft_packed_tail", [inputs("rifft_packed_tail", 4096, False),
+                                  inputs("rifft_packed_tail", n_main, True)]
+            + [(k4(CHANNELS, t, k), True) for t, k in K4_PATH_SHAPES])]
         + [("fastfir_chain", [(chain(CHANNELS, t_main, lags, n_main), True),
                               (chain(2, 5, 7, 1 << 14), False),
                               (chain(2, 3, 2, 1 << 17), False),
@@ -570,6 +586,12 @@ def fastfir_kernels(randn, mods, smi) -> dict:
               f"torch.fft.rfft {e['library_ms']:.4f} ms, SNR vs plain {e['snr_db']:.2f} dB, "
               f"{e['resident']} frames resident at once ({hf._onepass_plan(n).blocks} "
               f"blocks a frame) [{smi}]", flush=True)
+    for e in results["rifft_packed_tail"]["shapes"]:
+        if "ms" in e:
+            print(f"K4 one pass at {e['shapes'][0]}: device {e['device_ms']:.4f} ms, events "
+                  f"{e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+                  f"torch.fft.irfft {e['library_ms']:.4f} ms, SNR vs plain "
+                  f"{e['snr_db']:.2f} dB [{smi}]", flush=True)
     # T = 1: x[-1] = 0 and K5 has no lag-0 term, so the one hop's output is
     # exactly zero (held as such, not as an SNR).
     args, _ = chain(2, 1, 3, n_main)()
@@ -760,6 +782,35 @@ def slice_kernels(randn, mods, smi) -> dict:
         ("lag_mac", [(mac(2, 1, 5, 7, 256), False),
                      (mac(CHANNELS, 0, t_staged, p_staged, STAGED_N // 2), True)]),
     ], mods, smi)
+
+
+def one_pass_inverses(randn, mods, smi) -> None:
+    """Phase 9b: K4 and K6 at their path shapes launch once a call on the
+    one-pass route and allocate nothing but their output (peak memory above
+    the inputs)."""
+    hf = mods["hopper_fft"]
+    cases = ([("rifft_packed_tail", (CHANNELS, 16, 1 << 15))]  # the main path's 16 hops
+             + [("rifft_packed_tail", (CHANNELS, t, k)) for t, k in K4_PATH_SHAPES]
+             + [("rifft_packed", (CHANNELS, k)) for k in (1 << 13, 1 << 11)])
+    for name, shape in cases:
+        fn = getattr(hf, name)
+        re, im = randn(*shape), randn(*shape)
+        rest = (1.0 / (8.0 * shape[-1]),) if name == "rifft_packed_tail" else ()
+        fn(re[:1], im[:1], *rest)  # the twiddle table, cached for the size
+        torch.cuda.synchronize()
+        before = fn.launches
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn(re, im, *rest)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        print(f"{name} {shape}: {fn.launches - before} launch, peak {extra} bytes above "
+              f"its inputs for a {out.numel() * 4}-byte output [{smi}]", flush=True)
+        if fn.launches - before != 1 or extra > out.numel() * 4:
+            fail(f"{name} at {shape}: {fn.launches - before} launches, {extra} bytes "
+                 f"allocated for a {out.numel() * 4}-byte output (a scratch frame?)")
+        del re, im, out
+        torch.cuda.empty_cache()
 
 
 def fastfir_path(dev, irs, x, launches, smi) -> None:
@@ -1906,6 +1957,7 @@ def main() -> None:
     stream_paths(dev, irs, x, launches, smi, profile)
     time_domain_check(dev, smi)
     results.update(slice_kernels(randn, mods, smi))
+    one_pass_inverses(randn, mods, smi)
     subhop_paths(dev, irs, x, launches, smi, profile)
     offline_paths(dev, irs, x, launches, smi)
     results.update(spectral_kernels(randn, mods, smi))

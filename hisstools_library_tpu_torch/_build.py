@@ -37,8 +37,8 @@ _SIGNATURES = {
     "hst_rfft_packed_resident": [_I],
     # x, re, im, scratch_y, tw, channels, hops, n, stream
     "hst_rfft_packed_stream": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
-    # re, im, out, scratch_y, tw, frames, n, scale, stream
-    "hst_rifft_packed_tail": [_P, _P, _P, _P, _P, _L, _I, _F, _P],
+    # re, im, out, tw, frames, n, scale, stream
+    "hst_rifft_packed_tail": [_P, _P, _P, _P, _L, _I, _F, _P],
     # xr, xi, hr, hi, yr, yi, channels, t, p, k, stream
     "hst_lag_mac_causal": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     # x, re, im, tw, batch, n, stream
@@ -59,8 +59,8 @@ _SIGNATURES = {
                          _I, _P],
     # n, p -> float2 of global ring scratch a channel (0: shared memory holds it)
     "hst_fastfir_chain_ring_scratch": [_I, _I],
-    # re, im, out, scratch_y, tw, frames, n, stream
-    "hst_rifft_packed": [_P, _P, _P, _P, _P, _L, _I, _P],
+    # re, im, out, tw, frames, n, stream
+    "hst_rifft_packed": [_P, _P, _P, _P, _L, _I, _P],
     # re, im, y, tw, batch, n, stream
     "hst_rifft_small": [_P, _P, _P, _P, _L, _I, _P],
     # frame, frame_cstride, rin_re, rin_im, h_re, h_im, h_cstride, rout_re,

@@ -23,8 +23,9 @@
 //      (kLoadStreamPrev): the packed X_t, (C, T, N/2) planes;
 //   2. the state kernel (stream_state, below) over contiguous bin ranges of
 //      each channel: Y_t and the new ring from X, the ring, H and L0;
-//   3. the inverse in one HBM pass: fft_onepass with the unpack in its
-//      loader (K14's, kLoadUnpack) and K4's tail store (kStoreTail: the kept
+//   3. the inverse in one HBM pass: K4's kernel (rifft_packed_tail.cu),
+//      fft_onepass with the paired unpack in its column stage (kLoadUnpack,
+//      each packed bin read once) and the tail store (kStoreTail: the kept
 //      half [H, N), times `scale`).
 //
 // Bound on the H100: HBM bytes. The function must move x, prev, the ring in

@@ -1,12 +1,12 @@
-// Shared multi-pass FFT core on Hopper: the real transforms K2
-// rfft_packed_stream, K4 rifft_packed_tail, K6 rifft_packed, the complex
-// K12 fft_split at 2048..2^16 points, and K5's FastFIR chain
-// (fastfir_chain.cu), which adds the row-first inverse at the end of this file.
-// The plan (make_plan) also routes the large sizes, complex M = 2^17..2^28,
-// which fft_large.cuh serves (K12 there, K13 rfft_packed_split and K14
-// rifft_packed_split). K1 rfft_packed takes none of make_plan's routes: its
-// own plan (rfft_packed.cu, K1Pass) runs fft_large.cuh's one-pass kernel at
-// every size it serves.
+// Shared multi-pass FFT core on Hopper: the real forward K2
+// rfft_packed_stream, the complex K12 fft_split at 2048..2^16 points, and K5's
+// FastFIR chain (fastfir_chain.cu: this file's column pass for its forward,
+// and the row-first inverse at the end of this file). The plan (make_plan)
+// also routes the large sizes, complex M = 2^17..2^28, which fft_large.cuh
+// serves (K12 there, K13 rfft_packed_split and K14 rifft_packed_split). K1
+// rfft_packed, K4 rifft_packed_tail and K6 rifft_packed take none of
+// make_plan's routes: they run fft_large.cuh's one-pass kernel on K1's own
+// plan (K1Pass) at every size they serve.
 //
 // A real transform of length N is an M = N/2 point complex FFT of
 // z[n] = x[2n] + i x[2n+1], plus the split step that pairs bins k and M-k.
@@ -26,10 +26,8 @@
 // therefore stays in the row pass's store, with no extra pass over the
 // frame: a row-pass block holds rows j and R-j together (8 such pairs), so
 // every bin k meets its partner M-k in shared memory and Z never goes to HBM.
-// The inverse's overlap-save tail (keep samples [N/2, N), times `scale`), its
-// full output (all N samples) and K12's split planes are the row pass's store
-// too; the unpack of the real layout (inverse) and K12's split planes are the
-// column pass's loader.
+// K12's split planes are the row pass's store too, and the column pass's
+// loader.
 //
 // A block runs kTile = 16 neighbouring sub-FFTs of length L = A*B, each as a
 // four-step of its own: every thread takes one B-point DFT in registers
@@ -50,6 +48,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "reg_fft.cuh"
 
 namespace hst {
 
@@ -118,13 +118,7 @@ inline Plan make_plan(int n) {
   return p;
 }
 
-__host__ __device__ constexpr int log2_c(int v) { return v <= 1 ? 0 : 1 + log2_c(v / 2); }
-
-__host__ __device__ constexpr int brev_c(int v, int bits) {
-  int r = 0;
-  for (int i = 0; i < bits; ++i) r = (r << 1) | ((v >> i) & 1);
-  return r;
-}
+using hst_reg::log2_c;
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -174,16 +168,7 @@ template <int R, bool kSmem = false>
 __device__ __forceinline__ void reg_dft(float2 (&v)[R],
                                         const float2* __restrict__ tw,
                                         int log_n) {
-  constexpr int kLog = log2_c(R);
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int j = brev_c(i, kLog);
-    if (j > i) {
-      const float2 t = v[i];
-      v[i] = v[j];
-      v[j] = t;
-    }
-  }
+  hst_reg::brev_permute(v);
   RegStage<R, 0, kSmem>::run(v, tw, log_n);
 }
 
@@ -219,21 +204,18 @@ __device__ __forceinline__ void step1_store(float2* s, const float2 (&v)[Sub<L>:
 //   kLoadStreamPrev: kLoadStream, with block -1 read from `a_im`, the
 //                channel's carried previous block (H floats), instead (K8's
 //                forward, fft_large.cuh's one-pass kernel).
-//   kLoadUnpack: conj(Z'[idx]) from packed planes (a = re, a_im = im), where
-//                Z' is the complex spectrum whose unscaled inverse is the
-//                real signal's (even, odd) pairs; the conj turns the forward
-//                passes into the unscaled inverse.
-//   kLoadSplit:  (a[idx], a_im[idx]), split re/im planes.
+//   kLoadSplit:  (a[idx], a_im[idx]), split re/im planes (also the packed
+//                planes of the paired unpack, kLoadUnpack, in fft_large.cuh).
 template <int kLoad>
 __device__ __forceinline__ float2 load_elem(const float* __restrict__ a,
                                             const float* __restrict__ a_im,
                                             const float2* __restrict__ tw,
                                             long long frame, int idx, int m,
                                             bool first) {
-  if (kLoad == kLoadReal) {
+  if constexpr (kLoad == kLoadReal) {
     const float2* a2 = reinterpret_cast<const float2*>(a);
     return a2[frame * m + idx];
-  } else if (kLoad == kLoadStream || kLoad == kLoadStreamPrev) {
+  } else if constexpr (kLoad == kLoadStream || kLoad == kLoadStreamPrev) {
     const int half = m >> 1;
     if (idx < half && first) {
       if (kLoad == kLoadStream) return make_float2(0.f, 0.f);
@@ -241,25 +223,10 @@ __device__ __forceinline__ float2 load_elem(const float* __restrict__ a,
     }
     const float2* a2 = reinterpret_cast<const float2*>(a);
     return a2[frame * half + (idx - half)];
-  } else if (kLoad == kLoadSplit) {
+  } else {
+    static_assert(kLoad == kLoadSplit, "the packed planes are unpacked in pairs (fft_large.cuh)");
     const long long i = frame * m + idx;
     return make_float2(a[i], a_im[i]);
-  } else {
-    const long long base = frame * m;
-    if (idx == 0) {
-      const float dc = a[base];
-      const float ny = a_im[base];
-      return make_float2(dc + ny, -(dc - ny));
-    }
-    const long long j = base + (m - idx);
-    const float2 p = make_float2(a[base + idx], a_im[base + idx]);
-    const float2 q = make_float2(a[j], -a_im[j]);  // conj(P[M - idx])
-    const float2 sum = make_float2(p.x + q.x, p.y + q.y);
-    const float2 dif = make_float2(p.x - q.x, p.y - q.y);
-    const float2 w = __ldg(&tw[idx]);
-    const float2 wd = cmul(make_float2(w.x, -w.y), dif);  // W_N^-idx * dif
-    // Z' = sum + i*wd; return its conjugate.
-    return make_float2(sum.x - wd.y, -(sum.y + wd.x));
   }
 }
 
@@ -332,18 +299,14 @@ __device__ __forceinline__ int pack_row_of(int tile, int f, int rows) {
 //                k >= 1; re[0] = 2(Re Z0 + Im Z0) (DC), im[0] =
 //                2(Re Z0 - Im Z0) (Nyquist). Z[M-k] is at row R-j, column
 //                M1-1-k1 (row 0: column M1-k1), in the same block.
-//   kStoreTail:  the inverse's kept half: for k >= M/2, output samples
-//                (2k - N/2, 2k + 1 - N/2) of the (frames, N/2) real `out` are
-//                scale * conj(Z[k]).
-//   kStoreFull:  the whole inverse: output samples (2k, 2k + 1) of the
-//                (frames, N) real `out` are scale * conj(Z[k]), every k.
 //   kStoreSplit: Z[k] itself into the (frames, M) planes `out` (re) and
 //                `out_im` (im).
 template <int kStore, int L>
 __global__ void __launch_bounds__(kThreads)
 fft_rows(const float2* __restrict__ y, float* __restrict__ out,
          float* __restrict__ out_im, const float2* __restrict__ tw, int log_n,
-         int rows, float scale) {
+         int rows) {
+  static_assert(kStore == kStorePack || kStore == kStoreSplit, "the pack or the split planes");
   constexpr int A = Sub<L>::kA, B = Sub<L>::kB;
   __shared__ float2 s[kTile * kLd];
   const int m = 1 << (log_n - 1);
@@ -383,20 +346,6 @@ fft_rows(const float2* __restrict__ y, float* __restrict__ out,
         const long long i = base + (long long)rows * (k2 + B * k1);
         out[i] = v[k1].x;
         out_im[i] = v[k1].y;
-      }
-    }
-    return;
-  }
-  if (kStore != kStorePack) {
-    // Tail: outputs k >= M/2 only, into frames of M/2 float2; full: all.
-    constexpr int kLo = kStore == kStoreTail ? A / 2 : 0;
-    const int skip = kStore == kStoreTail ? (m >> 1) : 0;
-    if (active) {
-      float2* of = reinterpret_cast<float2*>(out) + frame * (m - skip);
-#pragma unroll
-      for (int k1 = kLo; k1 < A; ++k1) {
-        const int k = k2 + B * k1;
-        of[r0 + f + rows * k - skip] = make_float2(scale * v[k1].x, -scale * v[k1].y);
       }
     }
     return;
@@ -455,35 +404,34 @@ inline void launch_cols(int len, long long frames, int ncol, const float* a,
 template <int kStore>
 inline void launch_rows(const Plan& p, long long frames, const float2* y,
                         float* out, float* out_im, const float2* tw,
-                        float scale, cudaStream_t st) {
+                        cudaStream_t st) {
   const int rows = p.m / p.l_last;
   const unsigned grid = (unsigned)(frames * (rows / kTile));
   switch (p.l_last) {
     case 32:
-      fft_rows<kStore, 32><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows, scale);
+      fft_rows<kStore, 32><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows);
       break;
     case 64:
-      fft_rows<kStore, 64><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows, scale);
+      fft_rows<kStore, 64><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows);
       break;
     case 128:
-      fft_rows<kStore, 128><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows, scale);
+      fft_rows<kStore, 128><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows);
       break;
     default:
-      fft_rows<kStore, 256><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows, scale);
+      fft_rows<kStore, 256><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows);
   }
 }
 
 // The whole two-pass transform (M <= 2^16) of `frames` frames: the column
 // pass loads with kLoad (a, a_im; `hops` for kLoadStream), the row pass
-// stores with kStore (out, out_im, `scale`). `scratch` holds frames * M
-// float2.
+// stores with kStore (out, out_im). `scratch` holds frames * M float2.
 template <int kLoad, int kStore>
 inline void run_fft(const Plan& p, long long frames, const float* a, const float* a_im,
                     float2* scratch, float* out, float* out_im, const float2* tw,
-                    int hops, float scale, cudaStream_t st) {
+                    int hops, cudaStream_t st) {
   launch_cols<kLoad>(p.l_first, frames, p.m / p.l_first, a, a_im, scratch, tw, p.log_n,
                      p.log_n - 1, hops, st);
-  launch_rows<kStore>(p, frames, scratch, out, out_im, tw, scale, st);
+  launch_rows<kStore>(p, frames, scratch, out, out_im, tw, st);
 }
 
 // -----------------------------------------------------------------------------

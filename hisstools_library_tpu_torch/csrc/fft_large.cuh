@@ -65,9 +65,11 @@
 // memory, and each bin is read from HBM once (unpack_pairs).
 //
 // K1's one pass (fft_onepass, below) serves complex M = 2^11..2^16 on one
-// block or a cluster of 2..8; K8's split chain (fastfir_stream.cu) runs it
-// twice, as the forward of its frames read in place (kLoadStreamPrev) and
-// as the overlap-save inverse (kLoadUnpack loader, kStoreTail store).
+// block or a cluster of 2..8: K1's forward (kLoadReal, kStorePack), K4's
+// overlap-save inverse and K6's full inverse (the paired unpack kLoadUnpack,
+// with kStoreTail and kStoreFull); K8's split chain (fastfir_stream.cu) runs
+// it twice, as the forward of its frames read in place (kLoadStreamPrev)
+// and as K4's inverse.
 #pragma once
 
 #include <climits>
@@ -177,6 +179,20 @@ __device__ __forceinline__ void pack_rows(const float2* s, float* __restrict__ r
   }
 }
 
+// One bin of the unpack, conj(Z'[idx]) with Z'[idx] = (P[idx] + conj
+// P[M-idx]) + i W_N^-idx (P[idx] - conj P[M-idx]), from p = P[idx], q =
+// P[M-idx] and w = W_N^idx (idx >= 1); unpack_dc is idx 0, p = (dc, ny).
+__device__ __forceinline__ float2 unpack_bin(float2 p, float2 q, float2 w) {
+  const float2 sum = make_float2(p.x + q.x, p.y - q.y);
+  const float2 dif = make_float2(p.x - q.x, p.y + q.y);
+  const float2 wd = cmul(make_float2(w.x, -w.y), dif);  // W_N^-idx * dif
+  return make_float2(sum.x - wd.y, -(sum.y + wd.x));
+}
+
+__device__ __forceinline__ float2 unpack_dc(float2 p) {
+  return make_float2(p.x + p.y, -(p.x - p.y));
+}
+
 // The paired unpack of the inverse (K14), the column stage's loader: the
 // block's 2H column slots hold columns and their partners (slot f: column
 // pack_row_of<H>(tile, f, ncol), partner slot f ^ H; column 0 and ncol/2
@@ -188,9 +204,9 @@ __device__ __forceinline__ void pack_rows(const float2* s, float* __restrict__ r
 // (row L-1-j of the partner slot; column 0: row L-j of its own), and
 // DC / Nyquist (idx 0) as (dc + ny, -(dc - ny)). W_N^idx = wc[f] * wj[j]:
 // W_N^col and W_N^(ncol*j) = W_2L^j. A second barrier frees the tiles for
-// step 1's exchange. Each packed bin is read from HBM once, where the
-// unpacking loader of the two-pass core (load_elem<kLoadUnpack>) reads it
-// twice and W_N^idx from a global table.
+// step 1's exchange. Each packed bin is read from HBM once, and W_N^idx is
+// formed from two factors in shared memory. The one pass (fft_onepass)
+// pairs its columns alike.
 template <int L, int LD, int H, int A, int B>
 __device__ __forceinline__ void unpack_pairs(float2 (&v)[B], float2* s, int f, int j1,
                                              int col, int ncol, const float2* wc,
@@ -203,17 +219,9 @@ __device__ __forceinline__ void unpack_pairs(float2 (&v)[B], float2* s, int f, i
 #pragma unroll
   for (int j2 = 0; j2 < B; ++j2) {
     const int j = j1 + A * j2;
-    const float2 p = v[j2];
-    if (col == 0 && j == 0) {
-      v[j2] = make_float2(p.x + p.y, -(p.x - p.y));
-      continue;
-    }
-    const float2 q = ps[col == 0 ? L - j : L - 1 - j];
-    const float2 sum = make_float2(p.x + q.x, p.y - q.y);
-    const float2 dif = make_float2(p.x - q.x, p.y + q.y);
-    const float2 w = cmul(w0, wj[j]);
-    const float2 wd = cmul(make_float2(w.x, -w.y), dif);  // W_N^-idx * dif
-    v[j2] = make_float2(sum.x - wd.y, -(sum.y + wd.x));
+    v[j2] = col == 0 && j == 0 ? unpack_dc(v[j2])
+                               : unpack_bin(v[j2], ps[col == 0 ? L - j : L - 1 - j],
+                                            cmul(w0, wj[j]));
   }
   __syncthreads();
 }
@@ -630,6 +638,9 @@ fft_cluster(const float* __restrict__ a, const float* __restrict__ a_im,
 //   3. after a second barrier it runs its rows' M1-point FFTs in its own
 //      shared memory and stores, with the split step, the packed bins of its
 //      row pairs (j, R-j).
+// The real inverse (K4, K6, K8's inverse) runs the same passes on conj(Z'),
+// unpacked from the packed planes in step 1 with the columns in pairs (see
+// fft_onepass), and stores conj(Z) as the samples in step 3.
 // The frame goes to HBM once in and once out, and there is no scratch.
 // Beside the cluster route it reads its twiddle tables into registers
 // together with its first loads (StagedTable), runs its sub-DFTs on
@@ -679,28 +690,29 @@ __device__ __forceinline__ void pack_rows_tile(const float2* s, float* __restric
   }
 }
 
-// The overlap-save inverse's store for the one-pass kernel's rows (K4's tail
-// store): bin k = row + R*k1 of the frame's forward DFT Z of conj(Z') is the
-// sample pair (2k, 2k+1) of the unscaled inverse, conj(Z[k]); only the kept
-// half k >= M/2 (k1 >= L/2) is stored, times `scale`, at float2 k - M/2 of
-// the frame's M/2 float2 (`of`). Each thread keeps one slot, as
+// The real inverse's store for the one-pass kernel's rows: bin k = row +
+// R*k1 of the frame's forward DFT Z of conj(Z') is the sample pair (2k,
+// 2k+1) of the unscaled inverse, conj(Z[k]), stored times `scale` at float2
+// k of the frame's M float2 (`of`, kStoreFull: K6's store) or, kStoreTail
+// (K4's overlap-save tail), only the kept half k >= M/2 (k1 >= L/2), at
+// float2 k - M/2 of the frame's M/2. Each thread keeps one slot, as
 // pack_rows_tile does, so a warp stores runs of consecutive bins.
-template <int L, int LD, int H, int NT, int B, int AP>
-__device__ __forceinline__ void tail_rows_tile(const float2* s, float2* __restrict__ of,
-                                               int tile, int rows, float scale) {
-  static_assert(NT % (2 * H) == 0 && (L / 2) % (NT / (2 * H)) == 0,
-                "one slot a thread, whole rounds");
+template <int kStore, int L, int LD, int H, int NT, int B, int AP>
+__device__ __forceinline__ void inverse_rows_tile(const float2* s, float2* __restrict__ of,
+                                                  int tile, int rows, float scale) {
+  constexpr int kK1 = kStore == kStoreTail ? L / 2 : 0;  // the first bin k1 stored
+  constexpr int kStep = NT / (2 * H);
+  static_assert(NT % (2 * H) == 0 && (L - kK1) % kStep == 0, "one slot a thread, whole rounds");
   const int sf = threadIdx.x % (2 * H);
   const int row = pack_row_of<H>(tile, sf, rows);
   const float2* zs = s + sf * LD;
-  constexpr int kStep = NT / (2 * H);
   const int k0 = threadIdx.x / (2 * H);
-  const int half = rows * (L / 2);
+  const int skip = rows * kK1;
 #pragma unroll
-  for (int it = 0; it < L / 2 / kStep; ++it) {
-    const int k1 = L / 2 + k0 + it * kStep;
+  for (int it = 0; it < (L - kK1) / kStep; ++it) {
+    const int k1 = kK1 + k0 + it * kStep;
     const float2 z = zs[(k1 % B) * AP + k1 / B];
-    of[row + rows * k1 - half] = make_float2(scale * z.x, -scale * z.y);
+    of[row + rows * k1 - skip] = make_float2(scale * z.x, -scale * z.y);
   }
 }
 
@@ -844,18 +856,37 @@ __device__ __forceinline__ float2* frame_smem(float2* lsm, int r) {
 }
 
 // grid = frames * C blocks, block r of frame blockIdx.x / C (its rank in the
-// cluster). Loads with kLoad (a, a_im): kLoadReal, kLoadUnpack, or
-// kLoadStreamPrev with frame = hop t of (C, hops, M/2 float2) blocks and
-// a_im the (C, M/2 float2) carried blocks. Stores with kStore: kStorePack,
-// the packed planes out (re) and out_im (im); kStoreTail, the kept half of
-// the real inverse, times `scale`, into the (frames, M) floats `out`.
+// cluster). Loads with kLoad (a, a_im): kLoadReal; kLoadStreamPrev with
+// frame = hop t of (C, hops, M/2 float2) blocks and a_im the (C, M/2
+// float2) carried blocks; or kLoadUnpack, the packed planes a (re) and a_im
+// (im) of the real inverse, unpacked in pairs (below). Stores with kStore:
+// kStorePack, the packed planes out (re) and out_im (im); kStoreTail, the
+// kept half of the real inverse, times `scale`, into the (frames, M) floats
+// `out`; kStoreFull, the whole real inverse, times `scale`, into the
+// (frames, 2M) floats `out`.
+//
+// The paired unpack (kLoadUnpack) mirrors unpack_pairs: the block's column
+// slots hold columns and their partners, so packed bin idx = n1 + M1*j and
+// its partner M - idx = (M1 - n1) + M1*(M2-1-j) (column 0: row M2 - j of
+// its own) meet in the block's column tiles. One block (C = 1) holds every
+// column, slot f column f, its partner in slot (M1 - f) mod M1; on a
+// cluster slot f holds column pack_row_of<kOwnCols/2>(r, f), its partner in
+// slot f ^ kOwnCols/2 (columns 0 and M1/2: their own), and the exchange
+// stores column n1's outputs at element n1 of their rows, wherever the
+// pairing put it. Each bin is read from HBM once: the loads go to the tiles
+// with the twiddle tables, one barrier, each thread unpacks its bins from
+// the tiles, a second barrier frees them for step 1's store. W_N^idx =
+// W_N^n1 * W_2M2^j: the first read from the global table with the loads, one
+// a column, the second W_512^(j*256/M2) from the staged tl (M2 <= 256).
 template <class G, int kLoad, int kStore>
 __global__ void __launch_bounds__(G::kThreads, G::kMinBlocks)
 fft_onepass(const float* __restrict__ a, const float* __restrict__ a_im,
             float* __restrict__ out, float* __restrict__ out_im,
             const float2* __restrict__ tw, int log_n, int hops, float scale) {
-  static_assert(kStore == kStorePack || kStore == kStoreTail, "pack or tail");
   constexpr int m = G::kM, NT = G::kThreads, C = G::kBlocks;
+  constexpr bool kPair = kLoad == kLoadUnpack;
+  static_assert(kPair == (kStore != kStorePack), "the unpack goes with the inverse's stores");
+  static_assert(!kPair || G::kColLen <= kTl / 2, "W_2M2 is read from the staged W_512");
   using RT = InPlace<G::kRowLen>;
   extern __shared__ float2 lsm[];
   int rank = 0;
@@ -885,27 +916,33 @@ fft_onepass(const float* __restrict__ a, const float* __restrict__ a_im,
     wrows.fetch(tw, [&](int i) { return pack_row_of<G::kOwnRows / 2>(rank, i, G::kRows); });
   }
 
-  // 1. The block's columns: M2-point FFTs, times W_M^(n1*k2), column f
-  //    (n1 = rank*kOwnCols + f) left at lsm[f*kLdC + k2].
+  // 1. The block's columns: M2-point FFTs, times W_M^(n1*k2), column slot f
+  //    (n1 = col_of(f)) left at lsm[f*kLdC + k2].
   constexpr int CL = G::kColLen, CA = Sub<CL>::kA, CB = Sub<CL>::kB;
   constexpr int kPer0 = G::kOwnCols * CA / NT;  // step-1 DFTs a thread
   constexpr int kPer = G::kOwnCols * CB / NT;   // step-2 DFTs a thread
   static_assert(kPer0 >= 1 && kPer0 * NT == G::kOwnCols * CA && kPer * NT == G::kOwnCols * CB,
                 "whole rounds of the column steps");
-  const int c0 = rank * G::kOwnCols;
+  constexpr int kHalf = G::kOwnCols / 2;
+  const auto col_of = [rank](int f) {
+    return kPair && C > 1 ? pack_row_of<kHalf>(rank, f, G::kCols) : rank * G::kOwnCols + f;
+  };
   {
     // Task (f, j1), f fastest, so a warp's loads run along consecutive
     // columns, issued while the twiddle reads are in flight.
     float2 v[kPer0][CB];
+    float2 wcol[kPer0];  // kLoadUnpack: W_N^n1 of the task's column
 #pragma unroll
     for (int u = 0; u < kPer0; ++u) {
       const int t = tid + u * NT;
-      const int f = t % G::kOwnCols;
+      const int col = col_of(t % G::kOwnCols);
       const int j1 = t / G::kOwnCols;
 #pragma unroll
       for (int j2 = 0; j2 < CB; ++j2)
-        v[u][j2] = load_elem<kLoad>(a, lo, tw, frame, c0 + f + G::kCols * (j1 + CA * j2), m,
-                                    first);
+        v[u][j2] = load_elem<kPair ? kLoadSplit : kLoad>(a, lo, tw, frame,
+                                                         col + G::kCols * (j1 + CA * j2), m,
+                                                         first);
+      if constexpr (kPair) wcol[u] = __ldg(&tw[col]);
     }
     tl.put(twd.tl);
     tlo.put(twd.tlo);
@@ -914,7 +951,37 @@ fft_onepass(const float* __restrict__ a, const float* __restrict__ a_im,
       wk1s.put(wk1);
       wrows.put(wrow);
     }
-    __syncthreads();  // the twiddle tables are in place
+    if constexpr (kPair) {
+#pragma unroll
+      for (int u = 0; u < kPer0; ++u) {
+        const int t = tid + u * NT;
+#pragma unroll
+        for (int j2 = 0; j2 < CB; ++j2)
+          lsm[(t % G::kOwnCols) * G::kLdC + t / G::kOwnCols + CA * j2] = v[u][j2];
+      }
+    }
+    __syncthreads();  // the twiddle tables (and the packed bins) are in place
+    if constexpr (kPair) {
+#pragma unroll
+      for (int u = 0; u < kPer0; ++u) {
+        const int t = tid + u * NT;
+        const int f = t % G::kOwnCols;
+        const int j1 = t / G::kOwnCols;
+        const int col = col_of(f);
+        const int g = C == 1 ? (G::kCols - f) & (G::kCols - 1)
+                             : (col == 0 || 2 * col == G::kCols) ? f : f ^ kHalf;
+        const float2* ps = lsm + g * G::kLdC;
+#pragma unroll
+        for (int j2 = 0; j2 < CB; ++j2) {
+          const int j = j1 + CA * j2;
+          v[u][j2] = col == 0 && j == 0
+                         ? unpack_dc(v[u][j2])
+                         : unpack_bin(v[u][j2], ps[col == 0 ? CL - j : CL - 1 - j],
+                                      cmul(wcol[u], twd.tl[j * (kTl / 2 / CL)]));
+        }
+      }
+      __syncthreads();  // every partner read is done: the tiles take step 1's outputs
+    }
 #pragma unroll
     for (int u = 0; u < kPer0; ++u) {
       const int t = tid + u * NT;
@@ -928,8 +995,9 @@ fft_onepass(const float* __restrict__ a, const float* __restrict__ a_im,
   //    every block of the frame has read its columns, output k of column n1
   //    goes straight to the block that owns row k (row_home; a remote store
   //    through distributed shared memory on a cluster), into element n1 of
-  //    that row's tile. A warp's stores run along consecutive columns. The
-  //    step-2 DFTs run between the barrier's arrive and its wait.
+  //    that row's tile. A warp's stores run along consecutive columns (two
+  //    runs, one descending, where the unpack pairs them). The step-2 DFTs
+  //    run between the barrier's arrive and its wait.
   constexpr int L = G::kRowLen, A = RT::kA, B = RT::kB;
   {
     float2 v[kPer][CA];
@@ -945,18 +1013,18 @@ fft_onepass(const float* __restrict__ a, const float* __restrict__ a_im,
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
       const int t = tid + u * NT;
-      const int f = t % G::kOwnCols;
+      const int col = col_of(t % G::kOwnCols);
       const int k2 = t / G::kOwnCols;
       dft_c<CA>(v[u]);
 #pragma unroll
       for (int k1 = 0; k1 < CA; ++k1)
-        v[u][k1] = cmul(v[u][k1], tw_m(twd, ((c0 + f) * (k2 + CB * k1)) & (m - 1)));
+        v[u][k1] = cmul(v[u][k1], tw_m(twd, (col * (k2 + CB * k1)) & (m - 1)));
     }
     frame_wait<C>();  // every block has read its columns: its memory takes rows now
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
       const int t = tid + u * NT;
-      const int col = c0 + t % G::kOwnCols;
+      const int col = col_of(t % G::kOwnCols);
       const int k2 = t / G::kOwnCols;
 #pragma unroll
       for (int k1 = 0; k1 < CA; ++k1) {
@@ -1015,9 +1083,9 @@ fft_onepass(const float* __restrict__ a, const float* __restrict__ a_im,
         lsm, out + frame * (long long)m, out_im + frame * (long long)m, wrow, wk1, rank,
         G::kRows);
   } else {
-    tail_rows_tile<L, G::kLdR, G::kOwnRows / 2, NT, B, RT::kAp>(
-        lsm, reinterpret_cast<float2*>(out) + frame * (long long)(m / 2), rank, G::kRows,
-        scale);
+    constexpr int kOut = kStore == kStoreTail ? m / 2 : m;  // float2 a frame
+    inverse_rows_tile<kStore, L, G::kLdR, G::kOwnRows / 2, NT, B, RT::kAp>(
+        lsm, reinterpret_cast<float2*>(out) + frame * (long long)kOut, rank, G::kRows, scale);
   }
 }
 
@@ -1161,7 +1229,8 @@ inline int onepass_resident(Kernel kernel, int& resident) {
 
 // One launch of G's route over `frames` frames (`hops`, `scale`: see
 // fft_onepass). Once a device it also checks that one frame's blocks, with
-// their shared memory, fit the card.
+// their shared memory, fit the card; a grid beyond 2^31 - 1 blocks is an
+// error.
 template <class G, int kLoad, int kStore = kStorePack>
 inline int launch_onepass(long long frames, const float* a, const float* a_im, float* out,
                           float* out_im, const float2* tw, int log_n, cudaStream_t st,
@@ -1175,6 +1244,9 @@ inline int launch_onepass(long long frames, const float* a, const float* a_im, f
     return resident < 1 ? (int)cudaErrorInvalidConfiguration : 0;
   });
   if (rc != 0) return rc;
+  unsigned blocks = 0;
+  const int grid = grid_of(frames * G::kBlocks, blocks);
+  if (grid != 0) return grid;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = onepass_config<G>(frames, st, &attr);
   const int err =

@@ -79,7 +79,7 @@ extern "C" int hst_fft_split(const float* re, const float* im, float* out_re,
   } else if (n <= (1 << 16)) {
     hst::run_fft<hst::kLoadSplit, hst::kStoreSplit>(
         hst::make_plan(2 * n), batch, re, im, static_cast<float2*>(scratch), out_re,
-        out_im, w, 1, 1.f, st);
+        out_im, w, 1, st);
   } else {
     return hst::run_fft_large<hst::kLoadSplit, hst::kStoreSplit>(
         hst::make_plan(2 * n), batch, re, im, static_cast<float2*>(scratch), out_re,

@@ -51,8 +51,9 @@ using hst_smem::cmul;
 constexpr int kR = 16;         // points a thread holds
 constexpr int kThreads = 256;  // threads a block
 
-// (fft_common.cuh has the same two helpers, but including it would compile
-// the two-pass core's kernels into every file that includes this one.)
+// (fft_common.cuh includes this file and takes log2_c and brev_permute from
+// it; the reverse would compile the two-pass core's kernels into every file
+// that includes this one.)
 __host__ __device__ constexpr int log2_c(int v) { return v <= 1 ? 0 : 1 + log2_c(v / 2); }
 
 __host__ __device__ constexpr int brev_c(int v, int bits) {
@@ -105,21 +106,32 @@ __device__ __forceinline__ float2 mul_w16(float2 a, int e) {
   }
 }
 
+// a[i] <-> a[brev(i)], the bit-reversal permutation of an R-point register
+// DFT's input (this file's dft and fft_common.cuh's reg_dft), with every
+// index a constant expression: brev_c evaluated at run time inside an
+// unrolled loop left its bit loop rolled, indexed the array dynamically and
+// put it in local memory (ptxas: stack frames of up to 336 bytes in the
+// one-pass kernel).
+template <int R, int I = 0>
+__device__ __forceinline__ void brev_permute(float2 (&a)[R]) {
+  if constexpr (I < R) {
+    constexpr int j = brev_c(I, log2_c(R));
+    if constexpr (j > I) {
+      const float2 t = a[I];
+      a[I] = a[j];
+      a[j] = t;
+    }
+    brev_permute<R, I + 1>(a);
+  }
+}
+
 // In-register R-point DFT (R = 2..16), natural order in and out: bit
 // reversal by register renaming, then radix-2 decimation-in-time passes
 // with W_{2h}^j = W_16^(j * 16 / (2h)).
 template <int R>
 __device__ __forceinline__ void dft(float2 (&a)[R]) {
   constexpr int kLog = log2_c(R);
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int j = brev_c(i, kLog);
-    if (j > i) {
-      const float2 t = a[i];
-      a[i] = a[j];
-      a[j] = t;
-    }
-  }
+  brev_permute(a);
 #pragma unroll
   for (int s = 0; s < kLog; ++s) {
     const int h = 1 << s;

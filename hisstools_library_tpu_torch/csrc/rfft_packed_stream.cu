@@ -24,6 +24,6 @@ extern "C" int hst_rfft_packed_stream(const float* x, float* re, float* im,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float2* y = static_cast<float2*>(scratch_y);
   const float2* w = static_cast<const float2*>(tw);
-  run_fft<kLoadStream, kStorePack>(p, frames, x, nullptr, y, re, im, w, hops, 1.f, st);
+  run_fft<kLoadStream, kStorePack>(p, frames, x, nullptr, y, re, im, w, hops, st);
   return (int)cudaGetLastError();
 }

@@ -2,26 +2,44 @@
 // rifft(rfft(x)) = 2N x, (frames, N/2) packed planes -> (frames, N) samples.
 //
 // Replaces hisstools_library_tpu/fft/pallas_fft.py: rifft_packed
-// (_rifft_kernel). It is K4 (rifft_packed_tail.cu) without the tail: pass 1's
-// loader unpacks the packed planes (pairing bins k and M-k) and conjugates, so
-// the forward passes of fft_common.cuh compute the inverse, and pass 2 stores
-// every output, conjugated and unscaled. N = 32..2048 go to K11
-// (rifft_small.cu) instead, as the TPU package sends them to _rifft_small.
+// (_rifft_kernel). It is K4 (rifft_packed_tail.cu) without the tail: the
+// one-pass route on K1's plan with the paired unpack in its column stage
+// (kLoadUnpack), and a row stage that stores every output, conjugated and
+// unscaled (kStoreFull). N = 32..2048 go to K11 (rifft_small.cu) instead, as
+// the TPU package sends them to _rifft_small, and N = 2^18..2^28 to K14.
 //
-// Bound on the H100: HBM bytes. Per frame 4N in (two planes of N/2), 2 x 4N
-// of pass-1 scratch written and read, 4N out: 16N bytes, ~0.13 GB at the
-// streaming _emit's (128, N = 2^14) and 34 MB at (128, 4096).
-#include "fft_common.cuh"
+// Bound on the H100: HBM bytes. Per frame 4N in (two planes of N/2) and 4N
+// out: 8N bytes, 16.8 MB at the streaming _emit's (128, N = 2^14), 5.0 us
+// at 3.35 TB/s, and 4.2 MB at (128, 4096). The design moves those bytes
+// once and no scratch frame.
+#include "fft_large.cuh"
 
 using namespace hst;
 
-extern "C" int hst_rifft_packed(const float* re, const float* im, float* out,
-                                void* scratch_y, const void* tw,
+namespace {
+
+template <int LM>
+int k6_launch(const float* re, const float* im, float* out, const float2* tw, long long frames,
+              cudaStream_t st) {
+  return launch_onepass<K1Pass<LM>, kLoadUnpack, kStoreFull>(frames, re, im, out, nullptr, tw,
+                                                             LM + 1, st);
+}
+
+}  // namespace
+
+// re, im: (frames, N/2) packed planes; out: (frames, N) floats; tw: the
+// twiddle table of N entries.
+extern "C" int hst_rifft_packed(const float* re, const float* im, float* out, const void* tw,
                                 long long frames, int n, void* stream) {
-  const Plan p = make_plan(n);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float2* y = static_cast<float2*>(scratch_y);
   const float2* w = static_cast<const float2*>(tw);
-  run_fft<kLoadUnpack, kStoreFull>(p, frames, re, im, y, out, nullptr, w, 1, 1.f, st);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (ilog2(n) - 1) {
+    case 11: return k6_launch<11>(re, im, out, w, frames, st);
+    case 12: return k6_launch<12>(re, im, out, w, frames, st);
+    case 13: return k6_launch<13>(re, im, out, w, frames, st);
+    case 14: return k6_launch<14>(re, im, out, w, frames, st);
+    case 15: return k6_launch<15>(re, im, out, w, frames, st);
+    case 16: return k6_launch<16>(re, im, out, w, frames, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

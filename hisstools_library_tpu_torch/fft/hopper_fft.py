@@ -41,7 +41,7 @@ and :func:`fft_tiny` (``csrc/fft_tiny.cu``: one thread a frame, the DFT in
 registers), so every power of two up to the limits below has a kernel.
 :func:`fft_split` (K12) serves complex N = 32..2^28: frames of up to 1024
 points in shared memory, 2048..2^16 in two passes over an HBM scratch frame
-(``csrc/fft_common.cuh``, which K2, K4 and K6 share), 2^17 in one pass
+(``csrc/fft_common.cuh``, which K2 and K5 share), 2^17 in one pass
 on an 8-block thread-block cluster that holds the frame in its shared memory,
 2^18..2^20 in two passes of 512..1024-point sub-FFTs and 2^21..2^28 in three
 passes of 128..1024-point sub-FFTs (``csrc/fft_large.cuh``, which K13 and
@@ -50,11 +50,13 @@ twiddles: the sub-FFTs' come from a table of 2048 (:func:`_large_twiddles`),
 the rest are computed in float64 for each block's columns or rows.
 :func:`_plan` mirrors the kernels' plan, and the wrappers size their scratch
 from it: one frame per transform for two or three passes (the middle one in
-place), none for the cluster. K1
-(real 4096..2^17) takes one pass at every size, with no scratch: the frame of
+place), none for the cluster. K1, and the inverses K4 and K6
+(real 4096..2^17), take one pass at every size, with no scratch: the frame of
 M = N/2 points in the shared memory of one block or of a 2-, 4- or 8-block
 cluster (``csrc/fft_large.cuh``'s one-pass kernel, the cluster route's
-generalisation); :func:`_onepass_plan` mirrors its plan.
+generalisation); :func:`_onepass_plan` mirrors its plan. The inverses unpack
+the packed planes in pairs in its column stage, a block's columns n1 and
+M1 - n1 together, so each packed bin is read from HBM once.
 
 The windowed forms K10w and K11w (N = 32..2048, the STFT's frames) are
 instantiations of K10's and K11's kernels that multiply by the window in the
@@ -100,7 +102,7 @@ from ..core.types import Split, packed_mul
 from .hopper_kernels import lag_mac_causal, lag_mac_causal_plain, lag_mac_ring_plain
 
 MIN_REAL_SIZE = 4096
-MAX_SINGLE_REAL = 1 << 17    # K1: one pass; K6: two passes
+MAX_SINGLE_REAL = 1 << 17    # K1, K4 and K6: one pass
 MAX_SPLIT_REAL = 1 << 28     # K13 / K14: N = 2^18..2^28 (csrc/fft_large.cuh)
 MIN_COMPLEX = 32             # K12 serves complex N = 32..2^28 (fft_tiny below)
 MAX_COMPLEX_SMEM = 1024      # K12 in shared memory up to here
@@ -162,8 +164,9 @@ def chain_eligible(n: int) -> bool:
 
 def stream_feasible(n: int) -> bool:
     """True when the streaming forward (K2) and tail inverse (K4) serve real
-    size ``n``. The four-step is multi-pass, so no on-chip memory model
-    limits it below :data:`MAX_SINGLE_REAL`."""
+    size ``n``. K2 runs two passes over a scratch frame and K4 one pass on
+    K1's plan, so no on-chip memory model limits them below
+    :data:`MAX_SINGLE_REAL`."""
     return real_eligible(n)
 
 
@@ -260,9 +263,9 @@ def _plan(n: int) -> Plan:
 
 
 class OnePassPlan(NamedTuple):
-    """How K1's one-pass route (``csrc/rfft_packed.cu``, ``K1Pass``) serves
-    one complex size M: the frame in the shared memory of ``blocks``
-    blocks."""
+    """How K1's one-pass route (``csrc/rfft_packed.cu``, ``K1Pass``; also
+    K4's, K6's and K8's transforms) serves one complex size M: the frame in
+    the shared memory of ``blocks`` blocks."""
     route: str                # "one-pass"
     lengths: Tuple[int, int]  # (column, row) sub-FFT lengths: M1 columns of
                               # lengths[0] = M2 points, M2 rows of lengths[1] = M1
@@ -639,8 +642,9 @@ rfft_small.launches = 0
 
 def rifft_packed(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     """K6: unscaled inverse of packed N/2-bin planes, rifft(rfft(x)) == 2N x,
-    batched over the leading axes; returns (..., N). N = 2..2048 go to
-    K11, N = 2^18..2^28 to K14."""
+    batched over the leading axes; returns (..., N): one HBM pass on K1's
+    plan (:func:`_onepass_plan`), the packed bins unpacked in pairs, no
+    scratch. N = 2..2048 go to K11, N = 2^18..2^28 to K14."""
     if re.device.type == "cpu":
         return rifft_packed_plain(re, im)
     n = 2 * re.shape[-1]
@@ -657,10 +661,9 @@ def rifft_packed(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     out = torch.empty(*lead, n, dtype=torch.float32, device=re.device)
     if b == 0:
         return out
-    scratch = torch.empty(b, n, dtype=torch.float32, device=re.device)
     rc = _build.load().hst_rifft_packed(
-        re.data_ptr(), im.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        _twiddles(n, re.device).data_ptr(), b, n, _build.stream(re.device))
+        re.data_ptr(), im.data_ptr(), out.data_ptr(), _twiddles(n, re.device).data_ptr(), b,
+        n, _build.stream(re.device))
     _build.check(rc, kernel)
     rifft_packed.launches += 1
     return out
@@ -1031,7 +1034,9 @@ rfft_packed_stream.launches = 0
 def rifft_packed_tail(re: torch.Tensor, im: torch.Tensor,
                       scale: float = 1.0) -> torch.Tensor:
     """K4: overlap-save inverse. ``re``/``im``: (..., T, N/2) packed hop
-    spectra; returns (..., T, H) = scale * rifft(Y_t)[H:], the kept half."""
+    spectra; returns (..., T, H) = scale * rifft(Y_t)[H:], the kept half:
+    one HBM pass on K1's plan (:func:`_onepass_plan`), the packed bins
+    unpacked in pairs, no scratch."""
     if re.device.type == "cpu":
         return rifft_packed_tail_plain(re, im, scale)
     hop = re.shape[-1]
@@ -1044,11 +1049,9 @@ def rifft_packed_tail(re: torch.Tensor, im: torch.Tensor,
     out = torch.empty(re.shape, dtype=torch.float32, device=re.device)
     if frames == 0:
         return out
-    scratch = torch.empty(frames, n, dtype=torch.float32, device=re.device)
     rc = _build.load().hst_rifft_packed_tail(
-        re.data_ptr(), im.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        _twiddles(n, re.device).data_ptr(), frames, n, float(scale),
-        _build.stream(re.device))
+        re.data_ptr(), im.data_ptr(), out.data_ptr(), _twiddles(n, re.device).data_ptr(),
+        frames, n, float(scale), _build.stream(re.device))
     _build.check(rc, "K4 rifft_packed_tail")
     rifft_packed_tail.launches += 1
     return out

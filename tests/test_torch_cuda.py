@@ -131,6 +131,58 @@ def test_k1_frames_resident(cuda):
         assert hopper_fft.rfft_packed_resident(1 << e) >= 1
 
 
+# K4 and K6 on the one-pass route with the paired unpack (csrc/rifft_packed_tail.cu,
+# csrc/rifft_packed.cu): every real N = 4096..2^17 at 1, 3 and 128 frames,
+# and K4 at its paths' shapes (the far tier's (128, 4, 32768), the collapsed
+# and matched sections' (128, 16, 8192), the offline 4096 section's
+# (128, 236, 2048)) and the main path's (128, 16, 32768).
+K4_PATH_SHAPES = [(128, 4, 1 << 15), (128, 16, 1 << 13), (128, 236, 1 << 11),
+                  (128, 16, 1 << 15)]
+INVERSE_CASES = ([(name, (b, 1 << (e - 1))) for name in ("rifft_packed_tail", "rifft_packed")
+                  for e in range(12, 18) for b in (1, 3, 128)]
+                 + [("rifft_packed_tail", shape) for shape in K4_PATH_SHAPES])
+
+
+def _inverse_call(name, shape, dev):
+    """The wrapper's call on packed planes of ``shape`` (..., N/2), from a
+    seed: K4 with its overlap-save scale 1/(4N), K6 unscaled."""
+    g = torch.Generator(device=dev).manual_seed(shape[-1] + len(shape))
+    re, im = (torch.randn(*shape, generator=g, device=dev) for _ in range(2))
+    fn = getattr(hopper_fft, name)
+    args = (re, im, 1.0 / (8.0 * shape[-1])) if name == "rifft_packed_tail" else (re, im)
+    return fn, args
+
+
+@pytest.mark.parametrize("name,shape", INVERSE_CASES)
+def test_one_pass_inverse_matches_plain(cuda, name, shape):
+    fn, args = _inverse_call(name, shape, cuda)
+    before = fn.launches
+    got = fn(*args)
+    want = getattr(hopper_fft, name + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    k = shape[-1]
+    assert got.shape == want.shape == (*shape[:-1], k if name == "rifft_packed_tail" else 2 * k)
+    assert bool(torch.isfinite(got).all())
+    assert snr_db(want.cpu().numpy(), got.cpu().numpy()) >= SNR_KERNEL_DB
+
+
+@pytest.mark.parametrize("name,shape", [("rifft_packed_tail", (128, 16, 1 << 15)),
+                                        ("rifft_packed", (128, 1 << 13)),
+                                        ("rifft_packed", (128, 1 << 11))])
+def test_one_pass_inverse_allocates_only_its_output(cuda, name, shape):
+    """One K4 / K6 call raises the peak allocation above its inputs by its
+    output alone: no scratch frame."""
+    fn, args = _inverse_call(name, shape, cuda)
+    fn(*(a[:1] if torch.is_tensor(a) else a for a in args))  # the twiddle table
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= out.numel() * 4
+
+
 def test_fastfir_on_cuda_matches_cpu(cuda):
     """FastFIR at N = 16384: K1 prepares the IR, one K5 call runs the pass,
     and none of K2, K3, K4 launches."""

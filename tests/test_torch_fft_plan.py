@@ -18,7 +18,11 @@ index maps, written to follow the kernels step by step:
   the paired unpack (a block's column slots hold the column pairs (c,
   ncol - c), so each packed bin is loaded once and meets its partner in
   the block's tile) and the float32 error of the twiddles formed from two
-  factors.
+  factors;
+* the real inverse on K1's one-pass route (K4, K6, K8's inverse): the
+  paired unpack at every K1 plan (a block's column slots hold columns n1
+  and M1 - n1), the exchange of the paired columns to the rows, and the
+  tail and full stores against ``np.fft.irfft``.
 
 Each sub-FFT runs the kernels' in-block four-step (a B-point DFT over
 j2 of elements j1 + A*j2, the twiddle W_L^(j1*k2), an A-point DFT giving
@@ -335,7 +339,7 @@ def test_onepass_plan_every_k1_size(lm):
 
 @pytest.mark.parametrize("lm", range(11, 17))
 def test_k1_route_leaves_make_plan_unchanged(lm):
-    """K1's plan is its own: make_plan's mirror for K2 / K4 / K6 / K12 keeps
+    """K1's plan is its own: make_plan's mirror for K2 / K12 keeps
     two passes and one scratch frame at every M <= 2^16."""
     m = 1 << lm
     assert hopper_fft._plan(2 * m) == ("two-pass", TWO_PASS[lm], 2, 1)
@@ -407,7 +411,11 @@ def test_onepass_strides_avoid_bank_conflicts(lm):
     reads, where a row of L = A*B points keeps bin k at
     (k % B)*(A + 1) + k // B of a tile of B*(A + 1) + 1 slots. One lane of
     rank 0 may meet a 2-way conflict in the split step: its row 0 reads
-    partner bin L - k1."""
+    partner bin L - k1. With the inverse's paired unpack (K4, K6, K8's
+    inverse) also: the packed bins' store into the column tiles, the
+    partners' reads (2-way at most where column 0 reads its own row
+    M2 - j), the W_512 factor's read, and the exchange's stores of the
+    paired columns (three runs at most)."""
     plan = hopper_fft._onepass_plan(1 << (lm + 1))
     col_len, cols = plan.lengths
     c, nt = plan.blocks, plan.threads
@@ -462,6 +470,35 @@ def test_onepass_strides_avoid_bank_conflicts(lm):
                     # row 0 reads bin L - k1, one off its neighbours' L-1-k1
                     limit = 2 if any(rows[t % own_r] == 0 for t in lanes) else 1
                     assert _ways(partner) <= limit
+        # The paired unpack (kLoadUnpack): slot f holds column col_of(f).
+        slots = _onepass_slots(rank, cols, c)
+        for t0 in range(0, own_c * ca, 32):
+            lanes = range(t0, t0 + 32)
+            for j2 in (0, cb - 1):
+                assert _ways([t % own_c * ldc + t // own_c + ca * j2 for t in lanes]) == 1
+                js = [t // own_c + ca * j2 for t in lanes]
+                assert len({j * (256 // col_len) for j in js}) == 1  # W_512: one entry
+                partner = []
+                for t, j in zip(lanes, js):
+                    f = t % own_c
+                    col = slots[f]
+                    g = _onepass_partner(f, col, cols, c)
+                    # bin 0 (DC and Nyquist) reads no partner
+                    partner.append(None if col == 0 and j == 0 else
+                                   g * ldc + (col_len - j if col == 0 else col_len - 1 - j))
+                limit = 2 if any(slots[t % own_c] == 0 for t in lanes) else 1
+                assert _ways(partner) <= limit
+        for t0 in range(0, own_c * cb, 32):
+            lanes = range(t0, t0 + 32)
+            for k1 in (0, ca - 1):
+                push = [(_row_home(t // own_c + cb * k1, col_len, c), slots[t % own_c])
+                        for t in lanes]
+                for dst in {owner for (owner, _), _ in push}:
+                    addrs = [slot * ldr + col if owner == dst else None
+                             for (owner, slot), col in push]
+                    assert _ways(addrs) == 1
+                    runs = sorted(a for a in addrs if a is not None)
+                    assert sum(b != a + 1 for a, b in zip(runs, runs[1:])) <= 2
 
 
 # -----------------------------------------------------------------------------
@@ -998,3 +1035,158 @@ def test_twiddle_factors_error(lm):
     worst = max(worst, np.abs(got - _w(2 * m, c + (m // length) * j)).max())
     assert worst <= 2.0 ** -22
     assert np.abs(w2048 - _w(2048, np.arange(2048))).max() <= 2.0 ** -24
+
+
+# -----------------------------------------------------------------------------
+# The real inverse on the one-pass route (K4 rifft_packed_tail, K6
+# rifft_packed, K8's inverse: fft_onepass with kLoadUnpack and kStoreTail /
+# kStoreFull on K1's plan): the paired unpack of its column stage, the
+# exchange of the paired columns and the two stores
+
+
+def _onepass_slots(rank, cols, blocks):
+    """fft_onepass's col_of with the unpack: block ``rank``'s column slots,
+    slot f column f on one block, pack_row_of<M1/C/2>(rank, f) on a
+    cluster."""
+    own = cols // blocks
+    if blocks == 1:
+        return list(range(cols))
+    return [_pack_row_of(own // 2, rank, f, cols) for f in range(own)]
+
+
+def _onepass_partner(f, col, cols, blocks):
+    """The slot that holds column M1 - col's bins, as fft_onepass finds it."""
+    if blocks == 1:
+        return (cols - f) & (cols - 1)
+    return f if col in (0, cols // 2) else f ^ (cols // blocks // 2)
+
+
+def _onepass_unpack(p, cols, blocks):
+    """The paired unpack of fft_onepass's column stage over one frame of
+    packed bins p (M = M1 * M2, M1 = ``cols``): each block loads the bins of
+    its slots' columns once into its column tiles and reads each partner
+    P[M - idx] from them (row M2-1-j of the partner slot; column 0: row
+    M2 - j of its own), W_N^idx = W_N^col * W_512^(j*256/M2). Returns the
+    tiles of conj(Z') (blocks, slots, M2) and how often each bin was
+    loaded."""
+    m = p.size
+    length = m // cols
+    own = cols // blocks
+    loads = np.zeros(m, int)
+    j = np.arange(length)
+    wj = _w(512, j * (256 // length))
+    out = np.empty((blocks, own, length), complex)
+    for r in range(blocks):
+        slots = _onepass_slots(r, cols, blocks)
+        idx = np.array(slots)[:, None] + cols * j[None, :]
+        tile = p[idx]
+        np.add.at(loads, idx.ravel(), 1)
+        for f, col in enumerate(slots):
+            g = _onepass_partner(f, col, cols, blocks)
+            assert slots[g] == (cols - col) % cols  # the partner is in this block
+            q = np.conj(tile[g, (length - j) % length if col == 0 else length - 1 - j])
+            w = _w(2 * m, col) * wj
+            zc = np.conj((tile[f] + q) + 1j * np.conj(w) * (tile[f] - q))
+            if col == 0:
+                zc[0] = complex(tile[f, 0].real + tile[f, 0].imag,
+                                -(tile[f, 0].real - tile[f, 0].imag))
+            out[r, f] = zc
+    return out, loads
+
+
+def _onepass_inverse(p, cols, blocks):
+    """The whole inverse on the one-pass route over one frame of packed bins
+    p: the paired unpack, each slot's column FFT times W_M^(col*k) stored at
+    element col of row k's tile in the block row_home names, the rows'
+    FFTs, and conj(Z[k]) as the samples (2k, 2k+1). Returns the 2M samples
+    of the unscaled inverse (kStoreFull; kStoreTail keeps the last M)."""
+    m = p.size
+    rows = m // cols
+    own_r = rows // blocks
+    cz, loads = _onepass_unpack(p, cols, blocks)
+    assert (loads == 1).all()
+    tiles = np.full((blocks, own_r, cols), np.nan, complex)
+    k = np.arange(rows)
+    for r in range(blocks):
+        for f, col in enumerate(_onepass_slots(r, cols, blocks)):
+            out = _sub_fft(cz[r, f]) * _tw_m(m, (col * k) % m, 512)
+            for kk in range(rows):
+                owner, slot = _row_home(kk, rows, blocks)
+                assert np.isnan(tiles[owner, slot, col])
+                tiles[owner, slot, col] = out[kk]
+    assert not np.isnan(tiles).any()  # the rows find every column
+    z = np.empty(m, complex)
+    for r in range(blocks):
+        for f in range(own_r):
+            z[_pack_row_of(own_r // 2, r, f, rows) + rows * np.arange(cols)] = _sub_fft(tiles[r, f])
+    samples = np.empty(2 * m)
+    samples[0::2], samples[1::2] = z.real, -z.imag
+    return samples
+
+
+def _irfft_ref(p):
+    """The unscaled inverse N * irfft of packed bins p (2N x of rfft)."""
+    m = p.size
+    full = (np.concatenate([p.real, p.imag[:1]])
+            + 1j * np.concatenate([[0.0], p.imag[1:], [0.0]]))
+    return np.fft.irfft(full, 2 * m) * 2 * m
+
+
+@pytest.mark.parametrize("lm", range(11, 17))
+def test_onepass_unpack_reads_each_bin_once(lm):
+    """The paired unpack at every K1 plan (M = 2^11..2^16 on 1, 1, 1, 2, 4
+    and 8 blocks): every column sits in one slot of one block, every packed
+    bin is loaded once, its partner sits in the same block's tiles, and the
+    unpacked values equal the unpaired loader's conj(Z'), to 1e-12."""
+    m = 1 << lm
+    plan = hopper_fft._onepass_plan(2 * m)
+    cols, blocks = plan.lengths[1], plan.blocks
+    seen = sorted(c for r in range(blocks) for c in _onepass_slots(r, cols, blocks))
+    assert seen == list(range(cols))
+    rng = np.random.default_rng(lm)
+    p = rng.standard_normal(m) + 1j * rng.standard_normal(m)
+    cz, loads = _onepass_unpack(p, cols, blocks)
+    assert (loads == 1).all()
+    got = np.empty(m, complex)
+    for r in range(blocks):
+        for f, col in enumerate(_onepass_slots(r, cols, blocks)):
+            got[col + cols * np.arange(m // cols)] = cz[r, f]
+    assert _close(got, _unpack_ref(p))
+
+
+@pytest.mark.parametrize("store", ["full", "tail"])
+@pytest.mark.parametrize("lm", range(11, 17))
+def test_onepass_inverse_matches_numpy_at_k1_sizes(lm, store):
+    """K6's full store and K4's tail store on the one-pass route at every K1
+    plan: the unscaled inverse N * irfft of the packed bins, and its kept
+    half [M, 2M) times the overlap-save scale 1/(4N), to 1e-12."""
+    m = 1 << lm
+    plan = hopper_fft._onepass_plan(2 * m)
+    rng = np.random.default_rng(lm + 100)
+    re, im = rng.standard_normal((2, m))
+    got = _onepass_inverse(re + 1j * im, plan.lengths[1], plan.blocks)
+    want = _irfft_ref(re + 1j * im)
+    if store == "tail":
+        scale = 1.0 / (8.0 * m)
+        got, want = got[m:] * scale, want[m:] * scale
+    assert _close(got, want)
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 4, 8])
+@pytest.mark.parametrize("m", [1 << 8, 1 << 10])
+def test_onepass_inverse_matches_numpy_small(m, blocks):
+    """The same index maps at small M over C = 1, 2, 4 and 8 blocks."""
+    cols = 1 << (m.bit_length() - 1) // 2
+    rng = np.random.default_rng(m + blocks)
+    re, im = rng.standard_normal((2, m))
+    assert _close(_onepass_inverse(re + 1j * im, cols, blocks), _irfft_ref(re + 1j * im))
+
+
+def test_onepass_inverse_round_trip():
+    """rifft(rfft(x)) = 2N x through the one-pass forward's model and the
+    inverse's, at K1's plan of M = 2^14 (a 2-block cluster)."""
+    plan = hopper_fft._onepass_plan(1 << 15)
+    x, z = _signal(1 << 14, seed=14)
+    p = _cluster_route(z, plan.lengths[1], plan.blocks, True, split=512, push=True)
+    got = _onepass_inverse(p, plan.lengths[1], plan.blocks)
+    assert _close(got, 2 * x.size * x)

@@ -1,6 +1,6 @@
 """Phases of ``chip_smoke.py`` from one checkout, for an A/B run.
 
-    python3 tools/chip_phases.py [--small | --k1 | --k5 | --k14 | --large] CHECKOUT
+    python3 tools/chip_phases.py [--small | --k1 | --k4 | --k5 | --k14 | --large] CHECKOUT
 
 Runs, from the checkout at CHECKOUT (its ``chip_smoke.py`` and its
 ``hisstools_library_tpu_torch``, kernels built under its own ``build/``), on
@@ -25,6 +25,17 @@ one CUDA card:
   that launch K1: the FastFIR IR preparation (128 x 480 000 taps), the
   two-tier ``mono.process`` (ms per 131 072-sample call) and the 1 s
   spectral convolve (128 x 48 000);
+* with ``--k4`` the real inverses on the one-pass route: the shapes K4
+  rifft_packed_tail and K6 rifft_packed launch at on the streaming and
+  offline paths at 128 channels (two-tier, collapsed, matched, the two
+  block -> stream hand-offs, ``process_offline`` without the tail),
+  recorded by wrapping the wrappers, with each path's ms per call; K4 at
+  the main path's (128, 16, 2^15) and at every recorded shape, K6 at
+  (128, 2^14) and (128, 4096): device ms (``torch.profiler``), event ms,
+  SNR against the plain version, ``torch.fft.irfft`` on the same input
+  beside each; K8 fastfir_chain_stream at chip_smoke's four 128-channel
+  shapes, each of its three launches' device ms (its inverse is K4's
+  kernel); and the 1 s spectral convolve (K1, K6 at (128, 2^17));
 * with ``--k5`` K5 fastfir_chain at the main path's (128, 16, P 15, 2^16)
   and at 40 hops (several chunks a block) with P 15 and P 8: the device ms
   of its three launches and their sum (``torch.profiler``) and event ms,
@@ -72,10 +83,11 @@ def main() -> None:
     args = sys.argv[1:]
     small = "--small" in args
     k1 = "--k1" in args
+    k4 = "--k4" in args
     k5 = "--k5" in args
     k14 = "--k14" in args
     large = "--large" in args
-    args = [a for a in args if a not in ("--small", "--k1", "--k5", "--k14", "--large")]
+    args = [a for a in args if a not in ("--small", "--k1", "--k4", "--k5", "--k14", "--large")]
     if len(args) != 1:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
@@ -101,6 +113,9 @@ def main() -> None:
 
     if k1:
         k1_phase(cs, hopper_fft, randn, dev, smi)
+        return
+    if k4:
+        k4_phase(cs, hopper_fft, randn, dev, smi)
         return
     if k5:
         k5_phase(cs, hopper_fft, randn, dev, smi)
@@ -214,6 +229,130 @@ def k1_phase(cs, hf, randn, dev, smi) -> None:
     h1 = torch.from_numpy(np.ascontiguousarray(irs[:, :cs.FS])).to(dev)
     print(f"spectral-convolve-1s: {cs.median_ms(lambda: sp.convolve(s1, h1)):.4f} ms/call "
           f"(events, median of 5) [{smi}]", flush=True)
+
+
+def k4_paths(cs, hf, dev, smi) -> dict:
+    """Runs the streaming and offline paths that launch K4 / K6 at 128
+    channels, each wrapper wrapped to record the shapes it is called at;
+    prints each path's shapes and ms per call. Returns {shape: name}."""
+    from collections import Counter
+
+    from hisstools_library_tpu_torch.models import mono
+
+    c, blk = cs.CHANNELS, cs.STREAM_BLOCK
+    rng = np.random.default_rng(0)
+    irs = (rng.standard_normal((c, cs.IR_LEN)) *
+           np.exp(-np.arange(cs.IR_LEN) / (0.5 * cs.FS))).astype(np.float32)
+    x = rng.standard_normal((c, cs.SIG_LEN)).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    block = xd[:, :blk].contiguous()
+    seen = Counter()
+    wrapped = {name: getattr(hf, name) for name in ("rifft_packed_tail", "rifft_packed")}
+
+    def recorder(name):
+        def call(re, im, *rest):
+            seen[(name, tuple(re.shape))] += 1
+            return wrapped[name](re, im, *rest)
+        call.launches = 0  # the wrapper counts its launches on the module's name
+        return call
+
+    zero = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+    matched = mono.PartitionScheme.for_latency_budget(8192)
+    ir_zero = mono.prepare_ir(zero, irs, offline_tail=False, device=dev)
+    ir_matched = mono.prepare_ir(matched, irs, offline_tail=False, device=dev)
+    shapes = {}
+
+    def run(label, step):
+        seen.clear()
+        for name in wrapped:
+            setattr(hf, name, recorder(name))
+        try:
+            step()
+            torch.cuda.synchronize()
+        finally:
+            for name, fn in wrapped.items():
+                setattr(hf, name, fn)
+        ms, _ = cs.time_calls(step, runs=5)
+        print(f"{label}: {ms:.4f} ms/call (events, median of 5); K4 / K6 calls "
+              f"{dict(sorted(seen.items()))} [{smi}]", flush=True)
+        for (name, shape) in seen:
+            shapes[shape] = name
+
+    for label, ir, scheme, init in (("two-tier", ir_zero, zero, mono.init_block_state),
+                                    ("collapsed", ir_zero, zero, mono.init_state),
+                                    ("matched", ir_matched, matched, mono.init_state)):
+        carry = {"s": init(scheme, ir, batch_shape=(c,))}
+
+        def step(ir=ir, carry=carry):
+            carry["s"], _ = mono.process(ir, carry["s"], block)
+
+        run(label, step)
+    for label, init, lift in (("handoff-two-tier", mono.init_block_state,
+                               mono.stream_state_from_block),
+                              ("handoff-collapsed", mono.init_state,
+                               mono.stream_state_from_aligned)):
+        def step(init=init, lift=lift):
+            st, _ = mono.process(ir_zero, init(zero, ir_zero, batch_shape=(c,)), block)
+            ss = lift(ir_zero, st)
+            for i in range(4):
+                ss, _ = mono.process_any(
+                    ir_zero, ss, xd[:, blk + i * 256:blk + (i + 1) * 256].contiguous())
+
+        run(label, step)
+    run("offline-no-tail", lambda: mono.process_offline(ir_zero, xd))
+    return shapes
+
+
+def k4_phase(cs, hf, randn, dev, smi) -> None:
+    """The ``--k4`` mode (see the module docstring). Uses only what the
+    parent checkouts also have, so the same mode times either."""
+    from hisstools_library_tpu_torch.ops import spectral_processor as sp
+
+    shapes = k4_paths(cs, hf, dev, smi)
+    c = cs.CHANNELS
+    cases = [("rifft_packed_tail", (c, 16, 1 << 15))]
+    cases += [("rifft_packed_tail", s) for s, n in sorted(shapes.items())
+              if n == "rifft_packed_tail" and s != (c, 16, 1 << 15)]
+    cases += [("rifft_packed", (c, 1 << 13)), ("rifft_packed", (c, 1 << 11))]
+    for name, shape in cases:
+        re, im = randn(*shape), randn(*shape)
+        n = 2 * shape[-1]
+        args = (re, im, 1.0 / (4.0 * n)) if name == "rifft_packed_tail" else (re, im)
+        fn = getattr(hf, name)
+        got, want = fn(*args), getattr(hf, name + "_plain")(*args)
+        snr = cs.snr_db(want, got)
+        del got, want
+        full = cs._complex_of_packed(re, im)
+        lib = lambda: torch.fft.irfft(full, n=n, dim=-1)  # noqa: E731
+        call = lambda: fn(*args)  # noqa: E731
+        label = "K4 rifft_packed_tail" if name == "rifft_packed_tail" else "K6 rifft_packed"
+        print(f"{label} {shape}: device {cs.device_ms(call):.4f} ms, events "
+              f"{cs.median_ms(call):.4f} ms; irfft device {cs.device_ms(lib):.4f} ms, events "
+              f"{cs.median_ms(lib):.4f} ms; SNR vs plain {snr:.2f} dB [{smi}]", flush=True)
+        del re, im, args, full
+        torch.cuda.empty_cache()
+    for t, p, n, lag0 in ((16, 3, 1 << 14, True), (16, 3, 1 << 14, False),
+                          (2, 8, 1 << 17, False), (4, 8, 1 << 16, False)):
+        k = n // 2
+        kw = dict(l0_re=randn(c, k) * 1e-3, l0_im=randn(c, k) * 1e-3) if lag0 else {}
+        a = (randn(c, t, k), randn(c, k), randn(c, p, k), randn(c, p, k),
+             randn(c, p, k) * 1e-3, randn(c, p, k) * 1e-3, 1.0 / (4.0 * n))
+        shape = f"(128, T {t}, P {p}, {n}{', lag0' if lag0 else ''})"
+        got = hf.fastfir_chain_stream(*a, **kw)
+        want = hf.fastfir_chain_stream_plain(*a, **kw)
+        snr = min(cs.snr_db(w, g) for w, g in zip(want, got))
+        del got, want
+        split = cs.k8_launches(lambda: hf.fastfir_chain_stream(*a, **kw), smi,
+                               f"K8 fastfir_chain_stream {shape}")
+        print(f"K8 fastfir_chain_stream {shape}: device {sum(split.values()):.4f} ms, events "
+              f"{cs.median_ms(lambda: hf.fastfir_chain_stream(*a, **kw)):.4f} ms; SNR vs "
+              f"plain {snr:.2f} dB [{smi}]", flush=True)
+        del a, kw
+        torch.cuda.empty_cache()
+    s1, h1 = randn(c, cs.FS), randn(c, cs.FS)
+    print(f"spectral-convolve-1s: {cs.median_ms(lambda: sp.convolve(s1, h1)):.4f} ms/call "
+          f"(events, median of 5), device {cs.device_ms(lambda: sp.convolve(s1, h1)):.4f} "
+          f"ms [{smi}]", flush=True)
 
 
 def k14_phase(cs, hf, randn, dev, smi) -> None:
