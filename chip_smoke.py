@@ -25,7 +25,8 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
    beside a pass with the staged chain in K5's place;
 5. times ten further passes with CUDA events (steady state);
 6. compares each kernel of the hop-aligned streaming path (K7 lag_mac_ring,
-   K8 fastfir_chain_stream, K10 rfft_small) with its plain version; K8 also at
+   also at K = 64 and 16 bins, the ring MAC's narrow tiles; K8
+   fastfir_chain_stream, K10 rfft_small) with its plain version; K8 also at
    (128, T 2, P 8, 2^17), (128, T 4, P 8, 2^16) and a small lag-0 case at
    2^16; at each 128-channel K8 shape (the near tier with and without lag0)
    K8's three launches (forward, state kernel, inverse) by
@@ -39,7 +40,8 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
 8. checks the time-domain head's grouped conv1d on the card in full FP32;
 9. compares each kernel of the sample-granular and staged offline paths (K6
    rifft_packed, K9 hop_fire, K11 rifft_small, K15 lag_mac) with its plain
-   version, at those paths' shapes and at small shapes; then K4 at its path
+   version, at those paths' shapes and at small shapes (K15 also at 40 hops,
+   three chunks of the ring MAC, with lead_skip 1); then K4 at its path
    shapes and the main path's (128, 16, 2^15) and K6 at (128, 2^14) and
    (128, 4096) must launch once a call and raise the peak allocation above
    their inputs by no more than their output (no scratch frame);
@@ -192,13 +194,13 @@ KERNELS = {
     "lag_mac_causal": ("hopper_kernels", "lag_mac_causal.cu", "fft/pallas_kernels.py:231"),
     "rifft_packed_tail": ("hopper_fft", "rifft_packed_tail.cu", "fft/pallas_fft.py:1440"),
     "rifft_packed": ("hopper_fft", "rifft_packed.cu", "fft/pallas_fft.py:518"),
-    "lag_mac_ring": ("hopper_kernels", "lag_mac_ring.cu", "fft/pallas_kernels.py:566"),
+    "lag_mac_ring": ("hopper_kernels", "ring_mac.cu", "fft/pallas_kernels.py:566"),
     "fastfir_chain": ("hopper_fft", "fastfir_chain.cu", "fft/pallas_fft.py:1685"),
     "fastfir_chain_stream": ("hopper_fft", "fastfir_stream.cu", "fft/pallas_fft.py:1943"),
     "hop_fire": ("hopper_kernels", "hop_fire.cu", "fft/pallas_kernels.py:383"),
     "rfft_small": ("hopper_fft", "rfft_small.cu", "fft/pallas_fft.py:1079"),
     "rifft_small": ("hopper_fft", "rifft_small.cu", "fft/pallas_fft.py:1114"),
-    "lag_mac": ("hopper_kernels", "lag_mac_ring.cu", "fft/pallas_kernels.py:109"),
+    "lag_mac": ("hopper_kernels", "ring_mac.cu", "fft/pallas_kernels.py:109"),
     "fft_split": ("hopper_fft", "fft_split.cu", "fft/pallas_fft.py:856"),
     "rfft_packed_split": ("hopper_fft", "rfft_packed_split.cu", "fft/pallas_fft.py:664"),
     "rifft_packed_split": ("hopper_fft", "rifft_packed_split.cu", "fft/pallas_fft.py:775"),
@@ -622,8 +624,8 @@ def fastfir_kernels(randn, mods, smi) -> dict:
 def k8_launches(fn, smi: str, label: str, runs: int = 5) -> dict:
     """Device ms per call of K8's three launches (csrc/fastfir_stream.cu):
     the forward (``fft_onepass`` with the in-place stream loader), the state
-    kernel (``stream_state``) and the inverse (``fft_onepass`` with the
-    tail store), by ``torch.profiler``."""
+    kernel (the ring MAC, ``ring_mac`` in csrc/ring_mac.cu) and the inverse
+    (``fft_onepass`` with the tail store), by ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -636,7 +638,7 @@ def k8_launches(fn, smi: str, label: str, runs: int = 5) -> dict:
         if e.device_type.name != "CUDA" or e.device_time_total <= 0:
             continue
         ms = e.device_time_total / runs / 1e3
-        key = ("state" if "stream_state" in e.key else
+        key = ("state" if "ring_mac" in e.key else
                "forward" if "fft_onepass" in e.key and ", 4, 0>" in e.key else
                "inverse" if "fft_onepass" in e.key and ", 2, 1>" in e.key else "other")
         out[key] += ms
@@ -648,7 +650,8 @@ def k8_launches(fn, smi: str, label: str, runs: int = 5) -> dict:
 def stream_kernels(randn, mods, smi) -> dict:
     """Phase 6: K7, K8 and K10 at the hop-aligned paths' shapes: the two-tier
     far tier (T = 4, P = 14, K = 32768) and the collapsed final section
-    (T = 16, P = 58, K = 8192) for K7; for K8 the near tier (T = 16, H =
+    (T = 16, P = 58, K = 8192) for K7, and K7 on the ring MAC's narrow tiles
+    (K = 64 and K = 16: a block of one warp a channel); for K8 the near tier (T = 16, H =
     8192, P = 3) with and without lag0, a small 2^15 case, a single 2^17
     section over a 10 s IR (T = 2, P = 8), the far tier of a 290 000-tap IR
     (2^16, T = 4, P = 8) and a small lag-0 case at 2^16, with K8's three
@@ -675,7 +678,8 @@ def stream_kernels(randn, mods, smi) -> dict:
             (4, 8, 1 << 16, False))
     results = check_kernels([
         ("lag_mac_ring", [(ring(2, 3, 5, 1024), False), (ring(CHANNELS, 4, 14, 32768), True),
-                          (ring(CHANNELS, 16, 58, 8192), True)]),
+                          (ring(CHANNELS, 16, 58, 8192), True), (ring(CHANNELS, 4, 14, 64), False),
+                          (ring(19, 3, 5, 16), False)]),
         ("fastfir_chain_stream", [(chain(2, 3, 2, 1 << 14, True), False),
                                   (chain(2, 11, 8, 1 << 15, True), False)]
          + [(chain(CHANNELS, *w), True) for w in wide]
@@ -756,7 +760,8 @@ def slice_kernels(randn, mods, smi) -> dict:
     staged FastFIR's 128 x 48 frames of 2048; K9 at (C = 128, N = 256, P = 3)
     and (128, 1024, 3); K15 at the staged FastFIR's (C = 128, T = 48, P = 47,
     K = 1024). Small and edge shapes: K6 at (3, 4096) and (2, 2^17), K11 at
-    (7, 32), K9 at (3, 32, P = 1) and (9, 64, P = 20), K15 with lead_skip 1."""
+    (7, 32), K9 at (3, 32, P = 1) and (9, 64, P = 20), K15 with lead_skip 1
+    (also at T = 40 over P = 17: three chunks of 16 hops)."""
     def inverse(b, n):
         return lambda: ((randn(b, n // 2), randn(b, n // 2)), {})
 
@@ -780,7 +785,8 @@ def slice_kernels(randn, mods, smi) -> dict:
                          (inverse(CHANNELS, 1024), True),
                          (inverse(CHANNELS * t_staged, STAGED_N), True)]),
         ("lag_mac", [(mac(2, 1, 5, 7, 256), False),
-                     (mac(CHANNELS, 0, t_staged, p_staged, STAGED_N // 2), True)]),
+                     (mac(CHANNELS, 0, t_staged, p_staged, STAGED_N // 2), True),
+                     (mac(CHANNELS, 1, 40, 17, 256), False)]),
     ], mods, smi)
 
 

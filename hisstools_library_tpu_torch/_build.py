@@ -190,6 +190,33 @@ def channel_rows(t: torch.Tensor) -> tuple[torch.Tensor, int]:
     return t, t.stride(0)
 
 
+def row_planes(re: torch.Tensor, im: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Two (C, R, K) planes as :func:`channel_rows` reads them, with one
+    channel stride for both (row slices and channel-broadcast views pass in
+    place). Returns (re, im, channel stride)."""
+    re, cs = channel_rows(re)
+    im, cs_im = channel_rows(im)
+    if cs_im != cs:
+        re, im, cs = re.contiguous(), im.contiguous(), re.shape[1] * re.shape[2]
+    return re, im, cs
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy where its data is not 16-byte aligned, as
+    the ring MAC's bulk copies need."""
+    return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
+
+
+def aligned_rows(re: torch.Tensor, im: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """:func:`row_planes` with every row 16-byte aligned: a plane whose start
+    or channel stride is not a multiple of 4 floats is copied once."""
+    re, im, cs = row_planes(re, im)
+    if cs % 4 or re.data_ptr() % 16 or im.data_ptr() % 16:
+        re, im, cs = row_planes(re.clone(memory_format=torch.contiguous_format),
+                                im.clone(memory_format=torch.contiguous_format))
+    return re, im, cs
+
+
 def stream(device) -> int:
     """The current CUDA stream of ``device``, as the C entry points take it."""
     return torch.cuda.current_stream(device).cuda_stream

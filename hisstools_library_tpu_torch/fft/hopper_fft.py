@@ -77,9 +77,10 @@ K4, the chain at N = 4096..8192. K8 (:func:`fastfir_chain_stream`,
 ``csrc/fastfir_stream.cu``, N = 2^14..2^17, any P) carries a ring that other
 kernels and the state converters read in natural bin order, so it splits the
 chain where that state moves: the forward of every frame in one HBM pass on
-K1's route, the state kernel :func:`stream_state` (the ring, H, X and lag 0
-by bulk copies over contiguous bin ranges, each byte once), the inverse in
-one pass; :func:`_stream_plan` mirrors its plan.
+K1's route, the state kernel :func:`stream_state` (the ring MAC of K7 and
+K15, ``csrc/ring_mac.cu``: the ring, H, X and lag 0 by bulk copies over
+contiguous bin ranges, each byte once), the inverse in one pass;
+:func:`_stream_plan` mirrors its plan.
 
 Precision: :func:`set_mode` keeps the TPU package's knob (``"bf16x3"`` or
 ``"highest"``). On Hopper both modes run the same FP32 SIMT kernels, with
@@ -99,7 +100,8 @@ import torch
 
 from .. import _build
 from ..core.types import Split, packed_mul
-from .hopper_kernels import lag_mac_causal, lag_mac_causal_plain, lag_mac_ring_plain
+from .hopper_kernels import (_ring_mac_design_bytes, _ring_mac_plan, _ring_mac_shape,
+                             lag_mac_causal, lag_mac_causal_plain, lag_mac_ring_plain)
 
 MIN_REAL_SIZE = 4096
 MAX_SINGLE_REAL = 1 << 17    # K1, K4 and K6: one pass
@@ -360,18 +362,13 @@ def _chain_plan(n: int, p: int, t: int) -> ChainPlan:
                      per_sm(shared))
 
 
-STREAM_BINS = 256       # K8's state kernel: bins a block, one a thread
-STREAM_STAGES = 8       # its shared-memory stages (items), kStages - 1 in flight
-STREAM_MAX_HOPS = 16    # its hops a chunk (accumulators a thread)
-
-
 class StreamPlan(NamedTuple):
     """How K8 (``csrc/fastfir_stream.cu``) runs one call at real size N over
     T hops with P lags: three launches, the forward and the inverse on K1's
-    one-pass route, the state kernel between them."""
+    one-pass route, the state kernel (the ring MAC) between them."""
     form: str               # "split": forward, state kernel, inverse (the only form)
     transform: OnePassPlan  # the forward's and the inverse's one-pass route
-    bins_per_block: int     # the state kernel's bins a block (one a thread)
+    bins_per_block: int     # the state kernel's bins a block (one a consumer thread)
     blocks_per_channel: int  # K / bins_per_block
     hops_per_chunk: int     # TU: the least power of two >= min(T, 16)
     chunks: int             # ceil(T / TU)
@@ -386,22 +383,18 @@ def _stream_plan(n: int, t: int, p: int) -> StreamPlan:
     at every shape (the fused four-step form, which moved the ring and H
     inside the chain's middle phase, measured slower at every shape of one
     A/B call on an H100 and was removed; PERF.md §6); both transforms
-    on :func:`_onepass_plan`'s route; the state kernel on blocks of 256
-    bins, chunks of the least power of two >= min(T, 16) hops, 8 stages of
-    four plane runs of 256 floats (the X row's two, or H_q's and V's four)
-    and their mbarriers."""
+    on :func:`_onepass_plan`'s route; the state kernel is the ring MAC
+    (``csrc/ring_mac.cu``, :func:`hopper_kernels._ring_mac_plan`): blocks of
+    256 bins, chunks of the least power of two >= min(T, 16) hops, 8 stages
+    of four plane runs of 256 floats (the X row's two, or H_q's and V's four)
+    and their full and empty mbarriers."""
     if not chain_eligible(n):
         raise ValueError(f"K8 serves N = {CHAIN_MIN}..{CHAIN_MAX}, got n = {n}")
     if t < 1 or p < 1:
         raise ValueError(f"K8's state kernel takes T >= 1 and P >= 1, got T = {t}, P = {p}")
-    k = n // 2
-    tu = 1
-    while tu < min(t, STREAM_MAX_HOPS):
-        tu *= 2
-    chunks = -(-t // tu)
-    shared = STREAM_STAGES * 4 * STREAM_BINS * 4 + STREAM_STAGES * 8
-    return StreamPlan("split", _onepass_plan(n), STREAM_BINS, k // STREAM_BINS, tu, chunks,
-                      t + chunks * p, STREAM_STAGES, shared)
+    mac = _ring_mac_plan(1, t, p, n // 2)
+    return StreamPlan("split", _onepass_plan(n), mac.bins_per_tile, mac.tiles_per_channel,
+                      mac.hops_per_chunk, mac.chunks, mac.items, mac.stages, mac.shared_bytes)
 
 
 def _stream_design_bytes(c: int, t: int, p: int, n: int, lag0: bool) -> int:
@@ -412,10 +405,8 @@ def _stream_design_bytes(c: int, t: int, p: int, n: int, lag0: bool) -> int:
     once per chunk after the first; the inverse reads Y and writes the kept
     halves."""
     k = n // 2
-    plan = _stream_plan(n, t, p)
     spec = 8 * c * t * k                      # one (C, T, N/2) complex plane pair
-    state = 8 * c * k * (3 * p + (1 if lag0 else 0)) + 2 * spec
-    state += 8 * c * k * 2 * p * (plan.chunks - 1)
+    state = _ring_mac_design_bytes(c, t, p, k, True, lag0)
     return (2 * 4 * c * t * k + spec) + state + (spec + 4 * c * t * k)
 
 
@@ -1070,16 +1061,6 @@ def fastfir_chain_staged(x2d: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tens
     return rifft_packed_tail(y_re, y_im, scale)
 
 
-def _row_planes(re: torch.Tensor, im: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Two (C, R, K) planes as the chain kernels read them, with one channel
-    stride (row slices and channel-broadcast views pass in place)."""
-    re, cs = _build.channel_rows(re)
-    im, cs_im = _build.channel_rows(im)
-    if cs_im != cs:
-        re, im, cs = re.contiguous(), im.contiguous(), re.shape[1] * re.shape[2]
-    return re, im, cs
-
-
 def _check_chain(kernel: str, x2d, h_re, h_im, prev=None, ring=None, lag0=None) -> None:
     """Raise unless the chain kernels take these tensors: x2d (C, T, H),
     H planes (C, P, H), and for K8 prev (C, H), ring (C, P, H), lag0 (C, H)."""
@@ -1117,7 +1098,7 @@ def fastfir_chain(x2d: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,
             + ("fastfir_chain_staged (K2 -> K3 -> K4) serves 4096..8192" if n < CHAIN_MIN
                else "above the chain's sizes, as in the TPU package"))
     _check_chain(kernel, x2d, h_re, h_im)
-    h_re, h_im, hcs = _row_planes(h_re, h_im)
+    h_re, h_im, hcs = _build.row_planes(h_re, h_im)
     y = torch.empty_like(x2d)
     if c * t == 0:
         return y
@@ -1141,42 +1122,27 @@ def fastfir_chain(x2d: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,
 fastfir_chain.launches = 0
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a contiguous copy where its data is not 16-byte aligned, as
-    the bulk copies of K8's state kernel need."""
-    return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
-
-
-def _aligned_rows(re: torch.Tensor, im: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """:func:`_row_planes` with every row 16-byte aligned: a plane whose
-    start or channel stride is not a multiple of 4 floats is copied once."""
-    re, im, cs = _row_planes(re, im)
-    if cs % 4 or re.data_ptr() % 16 or im.data_ptr() % 16:
-        re, im, cs = _row_planes(re.clone(memory_format=torch.contiguous_format),
-                                 im.clone(memory_format=torch.contiguous_format))
-    return re, im, cs
-
-
 def _state_args(ring, h_re, h_im, lag0):
     """The ring, H and lag-0 operands of K8's state kernel as it reads them:
     the ring contiguous, H and L0 as row planes (slices and channel-broadcast
     views in place) with their channel strides, 16-byte aligned."""
     l0 = (None, None, 0)
     if lag0 is not None:
-        l0 = _aligned_rows(lag0[0][:, None, :], lag0[1][:, None, :])
-    return (_aligned(ring[0]), _aligned(ring[1]), *_aligned_rows(h_re, h_im), l0)
+        l0 = _build.aligned_rows(lag0[0][:, None, :], lag0[1][:, None, :])
+    return (_build.aligned(ring[0]), _build.aligned(ring[1]),
+            *_build.aligned_rows(h_re, h_im), l0)
 
 
 def stream_state(x_re: torch.Tensor, x_im: torch.Tensor, ring_re: torch.Tensor,
                  ring_im: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,
                  l0_re: Optional[torch.Tensor] = None, l0_im: Optional[torch.Tensor] = None):
-    """K8's state kernel alone (``csrc/fastfir_stream.cu``, the middle of
-    its three launches): ``x_*`` (C, T, K) hop spectra, ``ring_*`` (C, P, K)
+    """K8's state kernel alone (the ring MAC, ``csrc/ring_mac.cu``; the
+    middle of K8's three launches): ``x_*`` (C, T, K) hop spectra, ``ring_*`` (C, P, K)
     the carried ring oldest-first, ``h_*`` (C, P, K) packed impulse spectra
     (row slices and channel-broadcast views read in place), ``l0_*``
     optional (C, K). Returns (y_re, y_im, new_ring_re, new_ring_im): Y_t =
     sum_{lag < P} V_{t-1-lag} H_lag (+ X_t l0) over V = [ring | X], and the
-    new ring oldest-first. K a multiple of 256."""
+    new ring oldest-first. K = 16, 32, 64, 128 or a multiple of 256."""
     if x_re.device.type == "cpu":
         return stream_state_plain(x_re, x_im, ring_re, ring_im, h_re, h_im, l0_re, l0_im)
     kernel = "K8 stream_state"
@@ -1186,18 +1152,18 @@ def stream_state(x_re: torch.Tensor, x_im: torch.Tensor, ring_re: torch.Tensor,
     c, t, k = x_re.shape
     p = ring_re.shape[1]
     if (x_im.shape != x_re.shape or ring_re.shape != (c, p, k) or ring_im.shape != ring_re.shape
-            or h_re.shape != ring_re.shape or h_im.shape != ring_re.shape or k % STREAM_BINS
+            or h_re.shape != ring_re.shape or h_im.shape != ring_re.shape
             or (lag0 is not None and (l0_re.shape != (c, k) or l0_im.shape != (c, k)))):
         raise ValueError(f"{kernel}: shapes X {tuple(x_re.shape)}, ring {tuple(ring_re.shape)}, "
-                         f"H {tuple(h_re.shape)} do not fit (C, T, K), (C, P, K), (C, P, K) "
-                         f"with K a multiple of {STREAM_BINS}")
+                         f"H {tuple(h_re.shape)} do not fit (C, T, K), (C, P, K), (C, P, K)")
     if p == 0:
         raise ValueError(f"{kernel}: needs P >= 1 lags")
+    _ring_mac_shape(kernel, k)
     y_re, y_im = torch.empty_like(x_re), torch.empty_like(x_im)
     n_re, n_im = torch.empty_like(ring_re), torch.empty_like(ring_im)
     if c * t * k == 0:
         return y_re, y_im, ring_re.clone(), ring_im.clone()
-    x_re, x_im = _aligned(x_re), _aligned(x_im)
+    x_re, x_im = _build.aligned(x_re), _build.aligned(x_im)
     rr, ri, h_re, h_im, hcs, (l0r, l0i, lcs) = _state_args((ring_re, ring_im), h_re, h_im,
                                                             lag0)
     rc = _build.load().hst_stream_state(

@@ -4,22 +4,25 @@
 function                      replaces (hisstools_library_tpu/...)    CUDA source
 ============================  ======================================  ======================
 :func:`lag_mac_causal` (K3)   fft/pallas_kernels.py: lag_mac_causal   csrc/lag_mac_causal.cu
-:func:`lag_mac_ring` (K7)     fft/pallas_kernels.py: lag_mac_ring     csrc/lag_mac_ring.cu
+:func:`lag_mac_ring` (K7)     fft/pallas_kernels.py: lag_mac_ring     csrc/ring_mac.cu
 :func:`hop_fire` (K9)         fft/pallas_kernels.py: hop_fire         csrc/hop_fire.cu
-:func:`lag_mac` (K15)         fft/pallas_kernels.py: lag_mac          csrc/lag_mac_ring.cu
+:func:`lag_mac` (K15)         fft/pallas_kernels.py: lag_mac          csrc/ring_mac.cu
 ============================  ======================================  ======================
 
-K7 and K15 are two entry points of one MAC kernel (rows from one source or
-two, the new ring written or not). Each wrapper runs its plain PyTorch
+K7, K15 and K8's state kernel (``hopper_fft.stream_state``) are three entry
+points of one kernel, the ring MAC (``csrc/ring_mac.cu``): rows of V from one
+source or two, H at a channel stride, an optional lag-0 term and an optional
+new ring, streamed by bulk copies through shared-memory stages;
+:func:`_ring_mac_plan` mirrors its plan. Each wrapper runs its plain PyTorch
 version (``<name>_plain``) only for tensors on the CPU; for CUDA tensors it
-launches the kernel or raises.
-Launches are counted in ``<wrapper>.launches``.
+launches the kernel or raises. Launches are counted in
+``<wrapper>.launches``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -31,6 +34,76 @@ from ..core.types import Split, packed_mul
 HOP_FIRE_MIN_N = 32
 HOP_FIRE_MAX_N = 1024
 HOP_FIRE_MAX_P = 256
+
+# The ring MAC (csrc/ring_mac.cu: kBins, kThreads, kStages, kMaxHops, kMinBins, kRows).
+RING_MAC_BINS = 256      # the most bins a block (a tile), one a consumer thread
+RING_MAC_THREADS = 288   # the most threads a block: 256 consumers and a producer warp
+RING_MAC_STAGES = 8      # shared-memory stages, an item each
+RING_MAC_MAX_HOPS = 16   # hops a chunk: accumulators a thread
+RING_MAC_MIN_BINS = 16   # the least K: 64-byte rows for the bulk copies
+RING_MAC_ROWS = 2        # rows of V a row item carries
+
+
+class RingMacPlan(NamedTuple):
+    """How the ring MAC runs one call over C channels, T hops, P lags and K
+    bins."""
+    bins_per_tile: int       # B = min(K, 256) consecutive bins of a channel
+    tiles_per_channel: int   # K / B
+    tiles: int               # C * K / B: the grid, one block a tile
+    hops_per_chunk: int      # TU: the least power of two >= min(T, 16)
+    chunks: int              # ceil(T / TU)
+    items: int               # streamed a block: T rows of V two an item, P (H, V) pairs a chunk
+    stages: int              # shared-memory stages
+    threads: int             # a block: 32 * ceil(B / 32) consumers and the producer warp
+    shared_bytes: int        # static shared memory a block: stages and mbarriers
+
+
+def ring_mac_served(k: int) -> bool:
+    """True when the ring MAC serves K bins a row: 16, 32, 64, 128 (one
+    narrow tile a channel) or a multiple of 256."""
+    return k % RING_MAC_BINS == 0 or (RING_MAC_MIN_BINS <= k < RING_MAC_BINS
+                                      and k & (k - 1) == 0)
+
+
+def _ring_mac_plan(c: int, t: int, p: int, k: int) -> RingMacPlan:
+    """The ring MAC's plan at (C, T, P, K), as ``csrc/ring_mac.cu`` makes it:
+    a block a tile of min(K, 256) bins of one channel, a consumer thread a
+    bin and a producer warp; chunks of the least power
+    of two >= min(T, 16) hops, each chunk's rows of V (two an item) then P
+    (H_q, V) pairs as items through 8 stages of four plane runs of 256
+    floats, a full and an empty mbarrier each."""
+    if not ring_mac_served(k) or min(c, t, p) < 1:
+        raise ValueError(f"the ring MAC serves C, T, P >= 1 and K = 16, 32, 64, 128 or a "
+                         f"multiple of 256, got C = {c}, T = {t}, P = {p}, K = {k}")
+    bins = min(k, RING_MAC_BINS)
+    tu = 1
+    while tu < min(t, RING_MAC_MAX_HOPS):
+        tu *= 2
+    chunks = -(-t // tu)
+    last = t - (chunks - 1) * tu
+    rows = RING_MAC_ROWS
+    items = (chunks - 1) * (-(-tu // rows) + p) + -(-last // rows) + p
+    shared = RING_MAC_STAGES * (4 * RING_MAC_BINS * 4 + 2 * 8)
+    return RingMacPlan(bins, k // bins, c * (k // bins), tu, chunks, items, RING_MAC_STAGES,
+                       -(-bins // 32) * 32 + 32, shared)
+
+
+def _ring_mac_design_bytes(c: int, t: int, p: int, k: int, ring_out: bool,
+                           lag0: bool) -> int:
+    """HBM bytes the ring MAC moves at (C, T, P, K): the P + T rows of V, H
+    and the optional L0 read once, Y and the optional new ring written once,
+    and H and P rows of V read again for each chunk after the first."""
+    plane = 8 * c * k  # one complex row a channel
+    chunks = _ring_mac_plan(c, t, p, k).chunks
+    return plane * ((p + t) + p + t + (p if ring_out else 0) + (1 if lag0 else 0)
+                    + 2 * p * (chunks - 1))
+
+
+def _ring_mac_shape(kernel: str, k: int) -> None:
+    if not ring_mac_served(k):
+        raise NotImplementedError(
+            f"{kernel}: the ring MAC (csrc/ring_mac.cu) serves K = 16, 32, 64, 128 and "
+            f"multiples of 256 bins a row, got K = {k}")
 
 
 def lag_mac_causal_plain(x_re: torch.Tensor, x_im: torch.Tensor,
@@ -109,13 +182,14 @@ def lag_mac_ring_plain(hist_re: torch.Tensor, hist_im: torch.Tensor,
 def lag_mac_ring(hist_re: torch.Tensor, hist_im: torch.Tensor,
                  x_re: torch.Tensor, x_im: torch.Tensor,
                  h_re: torch.Tensor, h_im: torch.Tensor):
-    """K7: streaming partition MAC with in-place ring reads.
+    """K7: streaming partition MAC with in-place ring reads, on the ring MAC.
 
     ``hist_*``: (C, P, K) oldest-first ring; ``x_*``: (C, T, K) new hop
     spectra; ``h_*``: (C, P, K) packed impulse spectra (a row slice or a
     channel-broadcast view is read in place). Returns (y_re, y_im, new_re,
     new_im): the T outputs Y_t = sum_p V[P+t-1-p] H_p over V = [hist | X] and
-    the new ring V[T:T+P], a new tensor (never hist)."""
+    the new ring V[T:T+P], a new tensor (never hist). K = 16, 32, 64, 128 or a
+    multiple of 256 on the card."""
     if x_re.device.type == "cpu":
         return lag_mac_ring_plain(hist_re, hist_im, x_re, x_im, h_re, h_im)
     kernel = "K7 lag_mac_ring"
@@ -131,16 +205,16 @@ def lag_mac_ring(hist_re: torch.Tensor, hist_im: torch.Tensor,
     if h_re.shape != (c, p, k) or h_im.shape != h_re.shape:
         raise ValueError(f"{kernel}: H planes must be (C, P, K) = ({c}, {p}, {k}), "
                          f"got {tuple(h_re.shape)} and {tuple(h_im.shape)}")
-    h_re, cs = _build.channel_rows(h_re)
-    h_im, cs_im = _build.channel_rows(h_im)
-    if cs_im != cs:
-        h_re, h_im, cs = h_re.contiguous(), h_im.contiguous(), p * k
-    y_re = torch.empty_like(x_re)
-    y_im = torch.empty_like(x_im)
+    y_re = torch.zeros_like(x_re) if p == 0 else torch.empty_like(x_re)
+    y_im = torch.zeros_like(x_im) if p == 0 else torch.empty_like(x_im)
+    if c * t * p * k == 0:  # nothing to sum, or no hop: the ring moves by T rows
+        return y_re, y_im, hist_re.clone(), hist_im.clone()
+    _ring_mac_shape(kernel, k)
     n_re = torch.empty_like(hist_re)
     n_im = torch.empty_like(hist_im)
-    if c * p * k == 0:
-        return y_re, y_im, n_re, n_im
+    hist_re, hist_im = _build.aligned(hist_re), _build.aligned(hist_im)
+    x_re, x_im = _build.aligned(x_re), _build.aligned(x_im)
+    h_re, h_im, cs = _build.aligned_rows(h_re, h_im)
     rc = _build.load().hst_lag_mac_ring(
         hist_re.data_ptr(), hist_im.data_ptr(), x_re.data_ptr(), x_im.data_ptr(),
         h_re.data_ptr(), h_im.data_ptr(), cs, y_re.data_ptr(), y_im.data_ptr(),
@@ -176,13 +250,14 @@ def lag_mac_plain(xpad_re: torch.Tensor, xpad_im: torch.Tensor,
 def lag_mac(xpad_re: torch.Tensor, xpad_im: torch.Tensor, h_re: torch.Tensor,
             h_im: torch.Tensor, t: int, lead_skip: int = 0
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K15: partition MAC over zero-padded spectra.
+    """K15: partition MAC over zero-padded spectra, on the ring MAC.
 
     ``xpad_*``: (C, S+T+P, K), X_t at row S+t+P (P zeros or history in front,
     S = ``lead_skip`` ignored leading rows); ``h_*``: (C, P, K) partition
     spectra (a row slice or a channel-broadcast view is read in place).
     Returns (C, T, K) packed-correct accumulations Y_t = sum_p
-    V[P-1-p+t] * H_p, V = xpad[:, S:]. Any T and P."""
+    V[P-1-p+t] * H_p, V = xpad[:, S:]. Any T and P; K = 16, 32, 64, 128 or a
+    multiple of 256 on the card."""
     if xpad_re.device.type == "cpu":
         return lag_mac_plain(xpad_re, xpad_im, h_re, h_im, t, lead_skip)
     kernel = "K15 lag_mac"
@@ -198,16 +273,13 @@ def lag_mac(xpad_re: torch.Tensor, xpad_im: torch.Tensor, h_re: torch.Tensor,
     if tp != lead_skip + t + p:
         raise ValueError(f"{kernel}: {tp} X rows, but lead_skip + T + P = "
                          f"{lead_skip} + {t} + {p}")
-    h_re, cs = _build.channel_rows(h_re)
-    h_im, cs_im = _build.channel_rows(h_im)
-    if cs_im != cs:
-        h_re, h_im, cs = h_re.contiguous(), h_im.contiguous(), p * k
     y_re = torch.empty(c, t, k, dtype=torch.float32, device=xpad_re.device)
     y_im = torch.empty_like(y_re)
-    if c * t * k == 0:
-        return y_re, y_im
-    if p == 0:
+    if c * t * p * k == 0:  # no lag to sum: Y is zero
         return y_re.zero_(), y_im.zero_()
+    _ring_mac_shape(kernel, k)
+    xpad_re, xpad_im = _build.aligned(xpad_re), _build.aligned(xpad_im)
+    h_re, h_im, cs = _build.aligned_rows(h_re, h_im)
     rc = _build.load().hst_lag_mac(
         xpad_re.data_ptr(), xpad_im.data_ptr(), h_re.data_ptr(), h_im.data_ptr(),
         cs, y_re.data_ptr(), y_im.data_ptr(), c, tp, t, p, k, lead_skip,

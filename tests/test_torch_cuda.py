@@ -293,7 +293,8 @@ def test_wide_stream_chain_matches_plain(cuda, c, t, p, n, lag0):
 STATE_CASES = [(2, 2, 8, 1 << 16, False, "slice"), (3, 8, 8, 4096, True, "slice"),
                (2, 16, 3, 8192, True, "broadcast"), (2, 5, 1, 1024, True, "contiguous"),
                (2, 1, 5, 768, False, "broadcast"), (2, 17, 3, 512, True, "slice"),
-               (1, 40, 6, 256, True, "broadcast"), (2, 3, 20, 2048, False, "contiguous")]
+               (1, 40, 6, 256, True, "broadcast"), (2, 3, 20, 2048, False, "contiguous"),
+               (3, 24, 5, 128, True, "broadcast"), (20, 17, 2, 16, False, "slice")]
 
 
 @pytest.mark.parametrize("c,t,p,k,lag0,layout", STATE_CASES)
@@ -430,9 +431,13 @@ def _stream_inputs(name, shape, dev):
         b, n = shape
         return (randn(b, n),), {}
     if name == "lag_mac_ring":
-        c, t, p, k = shape
-        # H as a row slice of a wider spectra tensor, read in place.
-        h = [randn(c, p + 2, k)[:, 1:p + 1] for _ in range(2)]
+        c, t, p, k, *layout = shape
+        # H as a row slice of a wider spectra tensor, or one plane broadcast
+        # over the channels (stride 0), read in place.
+        if layout == ["broadcast"]:
+            h = [randn(1, p, k).expand(c, p, k) for _ in range(2)]
+        else:
+            h = [randn(c, p + 2, k)[:, 1:p + 1] for _ in range(2)]
         return (randn(c, p, k), randn(c, p, k), randn(c, t, k), randn(c, t, k),
                 *h), {}
     c, t, p, n, lag0 = shape
@@ -451,6 +456,12 @@ STREAM_CASES = [
     ("rfft_small", (259, 64)), ("rfft_small", (35, 512)),
     ("lag_mac_ring", (2, 1, 3, 128)), ("lag_mac_ring", (2, 3, 3, 1024)),
     ("lag_mac_ring", (3, 4, 14, 4096)),
+    # the ring MAC's narrow tiles (K = 16 / 32 / 64 bins: a block of one
+    # warp and idle lanes, of two warps); H broadcast over the channels; more
+    # hops than one chunk of 16
+    ("lag_mac_ring", (5, 2, 3, 16)), ("lag_mac_ring", (17, 4, 9, 32)),
+    ("lag_mac_ring", (6, 3, 5, 64, "broadcast")), ("lag_mac_ring", (3, 4, 14, 4096, "broadcast")),
+    ("lag_mac_ring", (3, 20, 24, 128)),
     ("fastfir_chain_stream", (2, 3, 2, 1 << 14, True)),
     ("fastfir_chain_stream", (2, 2, 3, 1 << 14, False)),
     ("fastfir_chain_stream", (1, 5, 8, 1 << 15, True)),
@@ -480,6 +491,12 @@ def test_stream_kernel_matches_plain(cuda, name, shape):
         *(torch.zeros(1, 2, 1 << 17, device=d) for _ in range(4)), 1.0), "K8"),
     # N = 2..2048 are served (2..16 by the tiny form); 24 is no power of two.
     (lambda d: hopper_fft.rfft_small(torch.zeros(2, 24, device=d)), "K10"),
+    # the ring MAC serves K = 16, 32, 64, 128 and multiples of 256
+    (lambda d: hopper_kernels.lag_mac_ring(*(torch.zeros(2, 3, 8, device=d) for _ in range(4)),
+                                           *(torch.zeros(2, 3, 8, device=d) for _ in range(2))),
+     "K7"),
+    (lambda d: hopper_kernels.lag_mac_ring(*(torch.zeros(2, 3, 48, device=d) for _ in range(6))),
+     "K7"),
 ])
 def test_stream_wrappers_refuse_on_cuda(cuda, call, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -551,8 +568,11 @@ def _slice_inputs(name, shape, dev):
         lead = () if shared else (c,)
         return (randn(c, n), randn(c, p, k), randn(c, p, k), randn(*lead, p, k),
                 randn(*lead, p, k)), {}
-    c, skip, t, p, k = shape  # lag_mac; H as a row slice of a wider tensor
-    h = [randn(c, p + 1, k)[:, 1:] for _ in range(2)]
+    c, skip, t, p, k, *layout = shape  # lag_mac; H as a row slice of a wider tensor
+    if layout == ["broadcast"]:        # or one plane broadcast over the channels
+        h = [randn(1, p, k).expand(c, p, k) for _ in range(2)]
+    else:
+        h = [randn(c, p + 1, k)[:, 1:] for _ in range(2)]
     return (randn(c, skip + t + p, k), randn(c, skip + t + p, k), *h, t), \
         dict(lead_skip=skip)
 
@@ -564,7 +584,8 @@ SLICE_CASES = [
     ("hop_fire", (128, 256, 3, False)), ("hop_fire", (5, 1024, 3, True)),
     ("hop_fire", (3, 32, 1, False)), ("hop_fire", (9, 64, 20, False)),
     ("lag_mac", (2, 0, 5, 7, 256)), ("lag_mac", (3, 1, 48, 47, 1024)),
-    ("lag_mac", (2, 1, 1, 4, 128)),
+    ("lag_mac", (2, 1, 1, 4, 128)), ("lag_mac", (3, 1, 48, 47, 1024, "broadcast")),
+    ("lag_mac", (9, 1, 20, 5, 16)), ("lag_mac", (4, 0, 33, 40, 64, "broadcast")),
 ]
 
 
@@ -591,6 +612,9 @@ def test_slice_kernel_matches_plain(cuda, name, shape):
                                        *(torch.zeros(2, 3, 1024, device=d) for _ in range(4))),
      "K9"),
     (lambda d: hopper_fft.rifft_small(*(torch.zeros(2, 12, device=d) for _ in range(2))), "K11"),
+    (lambda d: hopper_kernels.lag_mac(*(torch.zeros(2, 9, 24, device=d) for _ in range(2)),
+                                      *(torch.zeros(2, 4, 24, device=d) for _ in range(2)), 5),
+     "K15"),
     (lambda d: hopper_fft.rifft_packed(*(torch.zeros(1, 1, device=d).expand(2, 1 << 28)
                                          for _ in range(2))),
      "above 2\\^28"),

@@ -3,8 +3,8 @@ and a float64 numpy model of its index maps.
 
 The card runs K8 as three launches: the forward of every frame [x[t-1] |
 x[t]] on K1's one-pass route with the halves read in place
-(``kLoadStreamPrev``), the state kernel ``stream_state`` over contiguous bin
-ranges, and the inverse on the one-pass route with the unpack in its loader
+(``kLoadStreamPrev``), the state kernel (the ring MAC of ``csrc/ring_mac.cu``,
+shared with K7 and K15) over contiguous bin ranges, and the inverse on the one-pass route with the unpack in its loader
 and K4's tail store (``kStoreTail``). No CUDA runs here, so the tests hold
 the Python mirror of the plan (``hopper_fft._stream_plan``) to the kernel's
 rules and replay the kernels' index arithmetic in numpy: the state kernel's
@@ -20,7 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from hisstools_library_tpu_torch.fft import hopper_fft  # noqa: E402
+from hisstools_library_tpu_torch.fft import hopper_fft, hopper_kernels  # noqa: E402
 
 TOL = 1e-12
 SHARED_BYTES_MAX = 227 * 1024  # a block's shared memory on the H100
@@ -36,8 +36,8 @@ def test_stream_plan_every_shape(lm, p, t):
     route (one block a frame at 2^14, clusters of 2 / 4 / 8 above, shared
     memory inside a block's 227 KB); the state kernel on blocks of 256 bins
     that tile a channel, chunks of the least power of two >= min(T, 16)
-    hops, T X rows and P (H, V) pairs a chunk, 8 stages in static shared
-    memory."""
+    hops, the X rows two an item and P (H, V) pairs a chunk, 8 stages in static shared
+    memory with a full and an empty mbarrier each (the ring MAC's plan)."""
     n = 1 << (lm + 1)
     plan = hopper_fft._stream_plan(n, t, p)
     assert plan.form == "split"
@@ -49,9 +49,11 @@ def test_stream_plan_every_shape(lm, p, t):
     tu = plan.hops_per_chunk
     assert tu & (tu - 1) == 0 and min(t, 16) <= tu <= 16 and tu < 2 * min(t, 16)
     assert plan.chunks == -(-t // tu)
-    assert plan.items == t + plan.chunks * p
+    rows = hopper_kernels.RING_MAC_ROWS  # X rows an item
+    assert plan.items == sum(-(-min(tu, t - t0) // rows) for t0 in range(0, t, tu)) + \
+        plan.chunks * p
     assert plan.stages == 8
-    assert plan.shared_bytes == 8 * (4 * 256 * 4 + 8) <= STATIC_SHARED_MAX
+    assert plan.shared_bytes == 8 * (4 * 256 * 4 + 2 * 8) <= STATIC_SHARED_MAX
 
 
 @pytest.mark.parametrize("n,t,p", [(1 << 13, 2, 3), (1 << 18, 2, 3), (3 << 14, 2, 3),
@@ -71,23 +73,27 @@ def test_stream_design_bytes():
 
 
 # -----------------------------------------------------------------------------
-# The state kernel (stream_state): its item stream and MAC, in float64
+# The state kernel (the ring MAC): its item stream and MAC, in float64
 
 def _items(t, p, tu):
-    """``issue(g)`` of stream_state for every item g of a block, in order:
-    ("x", row) for the chunk's X rows, ("lag", q, source, row) for the pair
-    (H_q, V_{t0-1-q}), V read from X ("x") or the old ring ("ring")."""
+    """The producer's items of a block of the state kernel, in order: ("x",
+    rows) for the chunk's X rows, RING_MAC_ROWS to an item, ("lag", q,
+    source, row) for the pair (H_q, V_{t0-1-q}), V read from X ("x") or the
+    old ring ("ring")."""
+    rows = hopper_kernels.RING_MAC_ROWS
     chunks = -(-t // tu)
-    per = tu + p
+    last = t - (chunks - 1) * tu
+    per = -(-tu // rows) + p
     out = []
-    for g in range(t + chunks * p):
+    for g in range((chunks - 1) * per + -(-last // rows) + p):
         ci, j = divmod(g, per)
         t0 = ci * tu
         tc = min(tu, t - t0)
-        if j < tc:
-            out.append(("x", t0 + j))
+        nx = -(-tc // rows)
+        if j < nx:
+            out.append(("x", tuple(range(t0 + j * rows, min(t0 + (j + 1) * rows, t0 + tc)))))
         else:
-            q = j - tc
+            q = j - nx
             r = t0 - 1 - q
             out.append(("lag", q, "x", r) if r >= 0 else ("lag", q, "ring", p + r))
     return out
@@ -98,7 +104,7 @@ def _mac(v, h, lane0):
 
 
 def _state_model(x, ring, h, l0, tu):
-    """stream_state in float64 as its threads run it, every bin at once: the
+    """The state kernel in float64 as its threads run it, every bin at once: the
     consumer's loop over chunks (X items, then lag items with the window
     sliding down one hop a lag) takes the producer's items in order and
     checks each is the row it expects. Returns Y (T, K), the new ring (P,
@@ -117,16 +123,18 @@ def _state_model(x, ring, h, l0, tu):
         tc = min(tu, t - t0)
         win = [np.zeros(k, complex)] * tu
         acc = [np.zeros(k, complex)] * tu
-        for i in range(tc):
-            kind, row = next(items)
-            assert (kind, row) == ("x", t0 + i)
-            reads[("x", row)] = reads.get(("x", row), 0) + 1
-            win[i] = x[row]
-            acc[i] = _mac(x[row], l0, lane0)
-            slot = t0 + i - t + p
-            if slot >= 0:
-                new[slot] = x[row]
-                writes[slot] += 1
+        step = hopper_kernels.RING_MAC_ROWS
+        for i0 in range(0, tc, step):
+            kind, rows = next(items)
+            assert (kind, rows) == ("x", tuple(range(t0 + i0, t0 + min(i0 + step, tc))))
+            for i, row in enumerate(rows, i0):
+                reads[("x", row)] = reads.get(("x", row), 0) + 1
+                win[i] = x[row]
+                acc[i] = _mac(x[row], l0, lane0)
+                slot = t0 + i - t + p
+                if slot >= 0:
+                    new[slot] = x[row]
+                    writes[slot] += 1
         for q in range(p):
             kind, qq, src, row = next(items)
             r = t0 - 1 - q

@@ -1,6 +1,6 @@
 """Phases of ``chip_smoke.py`` from one checkout, for an A/B run.
 
-    python3 tools/chip_phases.py [--small | --k1 | --k4 | --k5 | --k14 | --large] CHECKOUT
+    python3 tools/chip_phases.py [--small | --k1 | --k4 | --k5 | --k7 | --k14 | --large] CHECKOUT
 
 Runs, from the checkout at CHECKOUT (its ``chip_smoke.py`` and its
 ``hisstools_library_tpu_torch``, kernels built under its own ``build/``), on
@@ -50,6 +50,18 @@ one CUDA card:
   ``mono.process_offline`` with the offline tail, the ``Convolver``'s
   offline paths (parallel 128, N2M 8 x 8); K2, K4 and K6 (which share
   ``fft_common.cuh``);
+* with ``--k7`` the ring MAC: the shapes K7 lag_mac_ring launches at on
+  the streaming paths at 128 channels (two-tier, collapsed, matched, the two
+  block -> stream hand-offs), recorded by wrapping the wrapper, with each
+  path's ms per call; K7 at the two-tier far tier (128, T 4, P 14, 2^15), the
+  collapsed section (128, T 16, P 58, 2^13) and every recorded shape: device
+  ms (``torch.profiler``), event ms, SNR against ``lag_mac_ring_plain`` and
+  the bound (bytes), and at the narrow tiles (128, T 4, P 14, K 64 / 16)
+  and (2, T 4, P 625, K 32); K15 lag_mac at the staged FastFIR's (128, T
+  48, P 47, 1024) with ``lead_skip`` 0 and 1 and at (2, T 938, P 625, K
+  32); K8 fastfir_chain_stream at chip_smoke's
+  four 128-channel shapes, each of its three launches' device ms (its state
+  kernel is the ring MAC);
 * with ``--k14`` K14 rifft_packed_split and K13 rfft_packed_split at (128,
   N), N = 2^18, 2^19 and 2^20: device ms (``torch.profiler``) and event ms,
   each launch's device ms and the TB/s it reaches (a complex frame of N/2
@@ -85,9 +97,11 @@ def main() -> None:
     k1 = "--k1" in args
     k4 = "--k4" in args
     k5 = "--k5" in args
+    k7 = "--k7" in args
     k14 = "--k14" in args
     large = "--large" in args
-    args = [a for a in args if a not in ("--small", "--k1", "--k4", "--k5", "--k14", "--large")]
+    args = [a for a in args
+            if a not in ("--small", "--k1", "--k4", "--k5", "--k7", "--k14", "--large")]
     if len(args) != 1:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
@@ -119,6 +133,9 @@ def main() -> None:
         return
     if k5:
         k5_phase(cs, hopper_fft, randn, dev, smi)
+        return
+    if k7:
+        k7_phase(cs, hopper_fft, randn, dev, smi)
         return
     if k14:
         k14_phase(cs, hopper_fft, randn, dev, smi)
@@ -231,9 +248,10 @@ def k1_phase(cs, hf, randn, dev, smi) -> None:
           f"(events, median of 5) [{smi}]", flush=True)
 
 
-def k4_paths(cs, hf, dev, smi) -> dict:
-    """Runs the streaming and offline paths that launch K4 / K6 at 128
-    channels, each wrapper wrapped to record the shapes it is called at;
+def path_shapes(cs, dev, smi, mod, names, shape_of, offline=True) -> dict:
+    """Runs the streaming paths at 128 channels (and ``process_offline``
+    without the tail where ``offline``), the wrappers ``names`` of ``mod``
+    wrapped to record the shapes (``shape_of(args)``) they are called at;
     prints each path's shapes and ms per call. Returns {shape: name}."""
     from collections import Counter
 
@@ -247,12 +265,12 @@ def k4_paths(cs, hf, dev, smi) -> dict:
     xd = torch.from_numpy(x).to(dev)
     block = xd[:, :blk].contiguous()
     seen = Counter()
-    wrapped = {name: getattr(hf, name) for name in ("rifft_packed_tail", "rifft_packed")}
+    wrapped = {name: getattr(mod, name) for name in names}
 
     def recorder(name):
-        def call(re, im, *rest):
-            seen[(name, tuple(re.shape))] += 1
-            return wrapped[name](re, im, *rest)
+        def call(*args, **kw):
+            seen[(name, shape_of(args))] += 1
+            return wrapped[name](*args, **kw)
         call.launches = 0  # the wrapper counts its launches on the module's name
         return call
 
@@ -265,15 +283,15 @@ def k4_paths(cs, hf, dev, smi) -> dict:
     def run(label, step):
         seen.clear()
         for name in wrapped:
-            setattr(hf, name, recorder(name))
+            setattr(mod, name, recorder(name))
         try:
             step()
             torch.cuda.synchronize()
         finally:
             for name, fn in wrapped.items():
-                setattr(hf, name, fn)
+                setattr(mod, name, fn)
         ms, _ = cs.time_calls(step, runs=5)
-        print(f"{label}: {ms:.4f} ms/call (events, median of 5); K4 / K6 calls "
+        print(f"{label}: {ms:.4f} ms/call (events, median of 5); {' / '.join(names)} calls "
               f"{dict(sorted(seen.items()))} [{smi}]", flush=True)
         for (name, shape) in seen:
             shapes[shape] = name
@@ -299,7 +317,8 @@ def k4_paths(cs, hf, dev, smi) -> dict:
                     ir_zero, ss, xd[:, blk + i * 256:blk + (i + 1) * 256].contiguous())
 
         run(label, step)
-    run("offline-no-tail", lambda: mono.process_offline(ir_zero, xd))
+    if offline:
+        run("offline-no-tail", lambda: mono.process_offline(ir_zero, xd))
     return shapes
 
 
@@ -308,7 +327,8 @@ def k4_phase(cs, hf, randn, dev, smi) -> None:
     parent checkouts also have, so the same mode times either."""
     from hisstools_library_tpu_torch.ops import spectral_processor as sp
 
-    shapes = k4_paths(cs, hf, dev, smi)
+    shapes = path_shapes(cs, dev, smi, hf, ("rifft_packed_tail", "rifft_packed"),
+                         lambda a: tuple(a[0].shape))
     c = cs.CHANNELS
     cases = [("rifft_packed_tail", (c, 16, 1 << 15))]
     cases += [("rifft_packed_tail", s) for s, n in sorted(shapes.items())
@@ -331,6 +351,17 @@ def k4_phase(cs, hf, randn, dev, smi) -> None:
               f"{cs.median_ms(lib):.4f} ms; SNR vs plain {snr:.2f} dB [{smi}]", flush=True)
         del re, im, args, full
         torch.cuda.empty_cache()
+    k8_shapes(cs, hf, randn, smi)
+    s1, h1 = randn(c, cs.FS), randn(c, cs.FS)
+    print(f"spectral-convolve-1s: {cs.median_ms(lambda: sp.convolve(s1, h1)):.4f} ms/call "
+          f"(events, median of 5), device {cs.device_ms(lambda: sp.convolve(s1, h1)):.4f} "
+          f"ms [{smi}]", flush=True)
+
+
+def k8_shapes(cs, hf, randn, smi) -> None:
+    """K8 at chip_smoke's four 128-channel shapes: each launch's device ms,
+    their sum, event ms and SNR against the plain version."""
+    c = cs.CHANNELS
     for t, p, n, lag0 in ((16, 3, 1 << 14, True), (16, 3, 1 << 14, False),
                           (2, 8, 1 << 17, False), (4, 8, 1 << 16, False)):
         k = n // 2
@@ -349,10 +380,51 @@ def k4_phase(cs, hf, randn, dev, smi) -> None:
               f"plain {snr:.2f} dB [{smi}]", flush=True)
         del a, kw
         torch.cuda.empty_cache()
-    s1, h1 = randn(c, cs.FS), randn(c, cs.FS)
-    print(f"spectral-convolve-1s: {cs.median_ms(lambda: sp.convolve(s1, h1)):.4f} ms/call "
-          f"(events, median of 5), device {cs.device_ms(lambda: sp.convolve(s1, h1)):.4f} "
-          f"ms [{smi}]", flush=True)
+
+
+def k7_phase(cs, hf, randn, dev, smi) -> None:
+    """The ``--k7`` mode (see the module docstring). Uses only what the
+    parent checkouts also have, so the same mode times either."""
+    from hisstools_library_tpu_torch.fft import hopper_kernels as hk
+
+    # (C, T, P, K) of each K7 call: X is (C, T, K), the ring (C, P, K).
+    shapes = path_shapes(cs, dev, smi, hk, ("lag_mac_ring",),
+                         lambda a: (*a[2].shape[:2], *a[0].shape[1:]), offline=False)
+    c = cs.CHANNELS
+    cases = [(c, 4, 14, 1 << 15), (c, 16, 58, 1 << 13)]
+    cases += [s for s in sorted(shapes) if s not in cases]
+    # the narrow tiles (K < 256): the far tier's (T, P) at K = 64 and 16, and
+    # process_block at N = 64 over a 20 000-tap IR (P = 625)
+    cases += [(c, 4, 14, 64), (c, 4, 14, 16), (2, 4, 625, 32)]
+    for cc, t, p, k in cases:
+        a = (randn(cc, p, k), randn(cc, p, k), randn(cc, t, k), randn(cc, t, k),
+             randn(cc, p, k) * 1e-3, randn(cc, p, k) * 1e-3)
+        got, want = hk.lag_mac_ring(*a), hk.lag_mac_ring_plain(*a)
+        snr = min(cs.snr_db(w, g) for w, g in zip(want, got))
+        b_ms, b_by = cs.bound("lag_mac_ring", a, {}, got)
+        del got, want
+        call = lambda: hk.lag_mac_ring(*a)  # noqa: E731
+        print(f"K7 lag_mac_ring ({cc}, T {t}, P {p}, K {k}): device {cs.device_ms(call):.4f} "
+              f"ms, events {cs.median_ms(call):.4f} ms; bound {b_ms:.4f} ms ({b_by}); SNR vs "
+              f"plain {snr:.2f} dB [{smi}]", flush=True)
+        del a
+        torch.cuda.empty_cache()
+    # the staged FastFIR's (N = 2048), and its N = 64 over a 20 000-tap IR
+    for cc, t, p, k, skip in ((c, 48, 47, 1024, 0), (c, 48, 47, 1024, 1), (2, 938, 625, 32, 0)):
+        a = (randn(cc, skip + t + p, k), randn(cc, skip + t + p, k), randn(cc, p, k) * 1e-3,
+             randn(cc, p, k) * 1e-3, t)
+        kw = dict(lead_skip=skip)
+        got, want = hk.lag_mac(*a, **kw), hk.lag_mac_plain(*a, **kw)
+        snr = min(cs.snr_db(w, g) for w, g in zip(want, got))
+        b_ms, b_by = cs.bound("lag_mac", a, kw, got)
+        del got, want
+        call = lambda: hk.lag_mac(*a, **kw)  # noqa: E731
+        print(f"K15 lag_mac ({cc}, T {t}, P {p}, K {k}, lead_skip {skip}): device "
+              f"{cs.device_ms(call):.4f} ms, events {cs.median_ms(call):.4f} ms; bound "
+              f"{b_ms:.4f} ms ({b_by}); SNR vs plain {snr:.2f} dB [{smi}]", flush=True)
+        del a
+        torch.cuda.empty_cache()
+    k8_shapes(cs, hf, randn, smi)
 
 
 def k14_phase(cs, hf, randn, dev, smi) -> None:

@@ -8,7 +8,8 @@ log2 of the columns, blocks a frame, threads a block, blocks an SM for
 ``__launch_bounds__``), copies ``hisstools_library_tpu_torch/csrc`` under
 ``build/k8_layouts/NAME/``, puts those plans in place of ``K8Pass`` (K1's
 plan, which ``shipped`` keeps) at those sizes, and builds
-``fastfir_stream.cu`` alone into a shared library (one ``nvcc`` each, all
+``fastfir_stream.cu`` with the ring MAC (``ring_mac.cu``, its state kernel)
+into a shared library (one ``nvcc`` each, all
 started together, ``-fno-gnu-unique``). Then, on one card in one process,
 at the two-tier near tier (C 128, T 16, P 3, N 2^14) unless ``--shape``
 names another, with and without lag0, it prints ptxas's registers of each
@@ -69,7 +70,7 @@ def _build_all(names):
         lib = d / "libk8.so"
         jobs[name] = (lib, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique", "-shared",
-             str(d / SRC), "-o", str(lib)],
+             str(d / SRC), str(d / "ring_mac.cu"), "-o", str(lib)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs, logs = {}, {}
     for name, (lib, proc) in jobs.items():
@@ -107,7 +108,7 @@ def _launch_ms(fn, runs: int = 10) -> dict:
     for e in prof.key_averages():
         if e.device_type.name != "CUDA" or e.device_time_total <= 0:
             continue
-        key = ("state" if "stream_state" in e.key else
+        key = ("state" if "ring_mac" in e.key else
                "forward" if re.search(r", 4, 0>", e.key) else "inverse")
         out[key] += e.device_time_total / runs / 1e3
     return out
