@@ -1,5 +1,6 @@
 // Register-DFT core for one frame of M = 16..1024 complex points (K10 and
-// K10w, rfft_small.cu).
+// K10w, rfft_small.cu; K11 and K11w, rifft_small.cu; K5's row DFTs,
+// fastfir_chain.cu).
 //
 // Each thread of a frame holds kR = 16 points in registers; a frame has
 // T = M / 16 threads, and a block of kThreads = 256 threads holds
@@ -21,7 +22,8 @@
 // between two stages the frame goes once through shared memory: at M = 512
 // two exchanges, where the radix-2 core (smem_fft.cuh) makes nine passes with
 // a barrier each. The last stage writes the spectrum in natural order to
-// shared memory, where the split step pairs bins k and M-k.
+// shared memory, where the split step pairs bins k and M-k (K10) or the
+// store reads the conjugated sample pairs (K11, whose loader unpacks).
 //
 // A frame up to M = 512 lives in one warp (T <= 32; below 512 a warp holds
 // 32 / T frames), so its exchanges need only __syncwarp(). At M = 1024 a
@@ -33,14 +35,16 @@
 // Twiddles: the block stages tw[e] = W_N^e, e < M, N = 2M (the first half of
 // the table the host builds in float64 and stores as float32) once in
 // shared memory; the inter-stage twiddle W_{Ns*r}^x is W_N^(x * N/(Ns*r))
-// and W_N^(e + M) = -W_N^e. The split step reads W_N^k from the same table.
-// No sincosf, no fast-math intrinsics.
+// and W_N^(e + M) = -W_N^e. The split step (and the inverse's unpack) reads
+// W_N^k from the same table. No sincosf, no fast-math intrinsics.
 //
 // hopper_fft._small_plan mirrors this plan (stage radices, threads and warps
 // a frame, frames a block, shared bytes).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "smem_fft.cuh"
 
@@ -229,5 +233,42 @@ struct Stages<LOG_M, S, true> {
   static __device__ __forceinline__ void run(float2 (&)[kR], float2*, int,
                                              const float2*) {}
 };
+
+// The launch of the small real transforms (K10 / K10w, K11 / K11w): a block
+// takes a run of consecutive rounds of F frames, [b R / G, (b + 1) R / G) of
+// the R rounds over G blocks, and G is one block a resident slot of the card,
+// at most R.
+
+// Blocks of `kernel` (kThreads threads) resident on one SM at once (at least 1).
+inline int blocks_per_sm(const void* kernel) {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, 0) != cudaSuccess)
+    return 1;
+  return n < 1 ? 1 : n;
+}
+
+inline unsigned round_grid(int per_sm, long long rounds) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long slots = (long long)per_sm * (sms < 1 ? 1 : sms);
+  return (unsigned)(rounds < slots ? rounds : slots);
+}
+
+// fn(std::integral_constant<int, LOG_M>{}) for real size n = 2^(LOG_M + 1),
+// LOG_M = 4..10; cudaErrorInvalidValue for any other size.
+template <class Fn>
+int with_log_m(int n, Fn&& fn) {
+  switch (log2_c(n) - 1) {
+    case 4: return fn(std::integral_constant<int, 4>{});
+    case 5: return fn(std::integral_constant<int, 5>{});
+    case 6: return fn(std::integral_constant<int, 6>{});
+    case 7: return fn(std::integral_constant<int, 7>{});
+    case 8: return fn(std::integral_constant<int, 8>{});
+    case 9: return fn(std::integral_constant<int, 9>{});
+    case 10: return fn(std::integral_constant<int, 10>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace hst_reg

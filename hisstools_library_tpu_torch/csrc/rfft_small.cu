@@ -112,14 +112,6 @@ rfft_small_kernel(const float* __restrict__ x, long long outer_stride,
   }
 }
 
-// Blocks of `kernel` resident on one SM at once (at least 1).
-int blocks_per_sm(const void* kernel) {
-  int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, 0) != cudaSuccess)
-    return 1;
-  return n < 1 ? 1 : n;
-}
-
 // One block a resident slot of the card, capped at the rounds of F frames.
 template <int LOG_M, bool kWindowed, bool kPairs>
 int launch_m(const float* x, long long outer_stride, long long row_stride, long long t,
@@ -127,13 +119,8 @@ int launch_m(const float* x, long long outer_stride, long long row_stride, long 
              cudaStream_t stream) {
   constexpr int F = hst_reg::Plan<LOG_M>::kFrames;
   auto kernel = rfft_small_kernel<LOG_M, kWindowed, kPairs>;
-  static const int per_sm = blocks_per_sm(reinterpret_cast<const void*>(kernel));
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long rounds = (batch + F - 1) / F;
-  const long long slots = (long long)per_sm * (sms < 1 ? 1 : sms);
-  const unsigned blocks = (unsigned)(rounds < slots ? rounds : slots);
+  static const int per_sm = hst_reg::blocks_per_sm(reinterpret_cast<const void*>(kernel));
+  const unsigned blocks = hst_reg::round_grid(per_sm, (batch + F - 1) / F);
   kernel<<<blocks, kThreads, 0, stream>>>(x, outer_stride, row_stride, t, w, re, im, tw,
                                           batch);
   return (int)cudaGetLastError();
@@ -143,21 +130,10 @@ template <bool kWindowed, bool kPairs>
 int launch_pairs(const float* x, long long outer_stride, long long row_stride, long long t,
                  const float* w, float* re, float* im, const float2* tw, long long batch,
                  int n, cudaStream_t stream) {
-#define HST_SMALL_CASE(LM)                                                          \
-  case LM:                                                                          \
-    return launch_m<LM, kWindowed, kPairs>(x, outer_stride, row_stride, t, w, re, im, \
-                                           tw, batch, stream);
-  switch (hst_reg::log2_c(n) - 1) {
-    HST_SMALL_CASE(4)
-    HST_SMALL_CASE(5)
-    HST_SMALL_CASE(6)
-    HST_SMALL_CASE(7)
-    HST_SMALL_CASE(8)
-    HST_SMALL_CASE(9)
-    HST_SMALL_CASE(10)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef HST_SMALL_CASE
+  return hst_reg::with_log_m(n, [&](auto lm) {
+    return launch_m<decltype(lm)::value, kWindowed, kPairs>(x, outer_stride, row_stride, t,
+                                                             w, re, im, tw, batch, stream);
+  });
 }
 
 template <bool kWindowed>

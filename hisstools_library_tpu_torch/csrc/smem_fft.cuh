@@ -1,7 +1,7 @@
 // Shared-memory FFT core for the transforms whose frame fits one block
-// (K9 hop_fire, K11 / K11w rifft_small, K12 fft_split up to 1024 points; its
-// split-step helpers pack_bin / pack_bin0 also serve K10 / K10w, which run on
-// the register-DFT core reg_fft.cuh).
+// (K9 hop_fire, K12 fft_split up to 1024 points; its split-step helpers
+// pack_bin / pack_bin0 and unpack_bin / unpack_bin0 also serve K10 / K10w and
+// K11 / K11w, which run on the register-DFT core reg_fft.cuh).
 //
 // A real transform of length N is an M = N/2 point complex FFT of
 // z[n] = x[2n] + i x[2n+1] plus the split step that pairs bins k and M-k
@@ -13,8 +13,8 @@
 //   dit(): bit-reversed order in, natural order out (decimation in time).
 //
 // The forward transform runs dif() and reads Z[k] at brev(k); the inverse
-// writes its unpacked input at brev(k) and runs dit(), so neither needs a
-// permutation pass. A block may hold `rows` frames of M points each, back to
+// (K9's) writes its unpacked input at brev(k) and runs dit(), so neither
+// needs a permutation pass. A block may hold `rows` frames of M points each, back to
 // back; the butterflies of all rows are spread over the block's threads.
 //
 // Twiddles come from one table tw[e] = exp(-2*pi*i*e/N), e < N, computed in

@@ -61,9 +61,11 @@ M1 - n1 together, so each packed bin is read from HBM once.
 The windowed forms K10w and K11w (N = 32..2048, the STFT's frames) are
 instantiations of K10's and K11's kernels that multiply by the window in the
 loader and the store; K10w reads its frames in place from a strided view (the
-padded signal's ``unfold``). K10 and K10w run on the register-DFT core
-``csrc/reg_fft.cuh`` (16 points a thread, radix-16 stages, one shared-memory
-exchange between stages); :func:`_small_plan` mirrors its plan.
+padded signal's ``unfold``). K10, K10w, K11 and K11w run on the register-DFT
+core ``csrc/reg_fft.cuh`` (16 points a thread, radix-16 stages, one
+shared-memory exchange between stages); K11's loader unpacks the packed
+bins, each read once, pairing bin k with M - k across the frame's lanes.
+:func:`_small_plan` mirrors the plan of all four.
 
 K5 (:func:`fastfir_chain`, ``csrc/fastfir_chain.cu``, N = 2^14..2^17, any
 P): the TPU kernel keeps each channel's spectra ring and impulse spectra on
@@ -410,13 +412,13 @@ def _stream_design_bytes(c: int, t: int, p: int, n: int, lag0: bool) -> int:
     return (2 * 4 * c * t * k + spec) + state + (spec + 4 * c * t * k)
 
 
-SMALL_POINTS = 16    # K10 / K10w: points a thread holds (csrc/reg_fft.cuh kR)
+SMALL_POINTS = 16    # K10 / K11 (and windowed): points a thread holds (reg_fft.cuh kR)
 SMALL_THREADS = 256  # threads a block
 
 
 class SmallPlan(NamedTuple):
     """How the register-DFT core (``csrc/reg_fft.cuh``) serves one frame of
-    complex size M = N/2 in K10 and K10w."""
+    complex size M = N/2 in K10 / K10w and K11 / K11w."""
     radices: Tuple[int, ...]  # Stockham stages, radix 16 then the remainder
     threads_per_frame: int    # T = M / 16
     warps_per_frame: int      # 1 up to M = 512 (32 / T frames a warp), 2 at 1024
@@ -425,7 +427,8 @@ class SmallPlan(NamedTuple):
 
 
 def _small_plan(n: int) -> SmallPlan:
-    """The plan of ``hst_reg::Plan`` for real size ``n`` = 32..2048."""
+    """The plan of ``hst_reg::Plan`` for real size ``n`` = 32..2048: K10 /
+    K10w's and K11 / K11w's, one plan for the forward and the inverse."""
     if not (small_eligible(n) and n >= SMALL_MIN_REAL):
         raise ValueError(f"the register-DFT core serves N = {SMALL_MIN_REAL}.."
                          f"{MIN_REAL_SIZE // 2}, got n = {n}")

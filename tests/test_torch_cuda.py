@@ -955,6 +955,26 @@ def test_windowed_kernel_reads_odd_base(cuda, n, hop, t, extra):
         assert snr_db(wt.cpu().numpy(), gt.cpu().numpy()) >= SNR_KERNEL_DB
 
 
+@pytest.mark.parametrize("n", [1 << k for k in range(5, 12)])
+def test_small_inverses_match_plain(cuda, n):
+    """K11 and K11w at every size N = 32..2048 on 385 rows, which leave a
+    ragged last round of F frames (hopper_fft._small_plan) at each size."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    re, im = (torch.randn(385, n // 2, generator=g, device=cuda) for _ in range(2))
+    w = _window(n, cuda)
+    before = (hopper_fft.rifft_small.launches, hopper_fft.rifft_small_windowed.launches)
+    got = [hopper_fft.rifft_small(re, im), hopper_fft.rifft_small_windowed(re, im, w, 0.5 / n)]
+    want = [hopper_fft.rifft_small_plain(re, im),
+            hopper_fft.rifft_small_windowed_plain(re, im, w, 0.5 / n)]
+    torch.cuda.synchronize()
+    assert (hopper_fft.rifft_small.launches - before[0],
+            hopper_fft.rifft_small_windowed.launches - before[1]) == (1, 1)
+    for gt, wt in zip(got, want):
+        assert gt.shape == wt.shape == (385, n) and gt.device.type == "cuda"
+        assert bool(torch.isfinite(gt).all())
+        assert snr_db(wt.cpu().numpy(), gt.cpu().numpy()) >= SNR_KERNEL_DB
+
+
 @pytest.mark.parametrize("call,exc,match", [
     (lambda d: hopper_fft.rfft_small_windowed(torch.zeros(2, 4096, device=d),
                                               torch.zeros(4096, device=d)),

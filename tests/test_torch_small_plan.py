@@ -1,4 +1,5 @@
-"""The small real FFTs K10 / K10w (csrc/rfft_small.cu on csrc/reg_fft.cuh)
+"""The small real FFTs K10 / K10w (csrc/rfft_small.cu) and the small
+inverses K11 / K11w (csrc/rifft_small.cu), both on csrc/reg_fft.cuh,
 checked on the CPU.
 
 Two things are held here, in float64 and at small sizes, before any card
@@ -16,10 +17,15 @@ and a numpy model written to follow the kernel step by step:
   half table (W_N^(e+M) = -W_N^e), the register DFT (bit reversal, then
   radix-2 passes with the constant twiddles W_16^(j * (8 >> s))), output k
   stored at (j / Ns) Ns r + (j mod Ns) + k Ns in the padded frame;
-* the split step: bins k and M-k from the natural-order spectrum, k <= M/2.
+* the split step: bins k and M-k from the natural-order spectrum, k <= M/2;
+* K11 / K11w: the loader (thread tf loading the packed bins tf + T*m, each
+  once, and taking bin M - k from thread T - tf, slot 15 - m, or from thread
+  0, slot 16 - m), the unpack of the conjugated input, the same stages, and
+  the store of the conjugated (even, odd) pairs times scale * w.
 
-The model matches ``np.fft.rfft`` in the packed layout to 1e-12 relative to
-the largest output; the kernels themselves are held against their plain
+The forward model matches ``np.fft.rfft`` in the packed layout, the inverse
+one ``np.fft.irfft`` (2N x, and scale * ... * w), to 1e-12 relative to the
+largest output; the kernels themselves are held against their plain
 versions on the card (tests/test_torch_cuda.py).
 """
 
@@ -93,18 +99,51 @@ def _dft_reg(a):
     return a
 
 
+def _stages(v, n):
+    """hst_reg::Stages on the frames' registers ``v`` (frames, T, 16): the
+    Stockham stages through the padded frame slots, each stage storing every
+    slot of the frame once. Returns the slots (frames, M + M/16), the
+    spectrum in natural order at _pad(k)."""
+    p = hopper_fft._small_plan(n)
+    m, T = n // 2, p.threads_per_frame
+    stw = _w(n, np.arange(m))                          # staged W_N^e, e < M
+
+    def tw_n(e):
+        return np.where(e < m, stw[np.minimum(e, m - 1)], -stw[np.maximum(e - m, 0)])
+
+    tf = np.arange(T)
+    idx = tf[:, None] + T * np.arange(R)[None, :]      # (T, 16): tf + T*m
+    v = v.copy()
+    fb = np.full((v.shape[0], m + m // 16), np.nan, complex)
+    for s, r in enumerate(p.radices):
+        ns, qn = 16 ** s, R // r
+        shift = (m.bit_length()) - (ns * r).bit_length() + 1
+        fb[:] = np.nan
+        for q in range(qn):
+            j = tf + q * T
+            jm = j & (ns - 1)
+            cols = q + qn * np.arange(r)
+            a = v[:, :, cols]
+            if s > 0:
+                a = a * tw_n((jm[:, None] * np.arange(r)[None, :]) << shift)
+            a = _dft_reg(a)
+            v[:, :, cols] = a
+            o = (j // ns) * ns * r + jm
+            slots = _pad(o[:, None] + ns * np.arange(r)[None, :])   # (T, r)
+            assert np.isnan(fb[:, slots]).all()  # no slot stored twice
+            fb[:, slots] = a
+        assert not np.isnan(fb[:, _pad(np.arange(m))]).any()
+        v = fb[:, _pad(idx)]
+    return fb
+
+
 def _kernel_model(x, base0, outer, row_stride, t, w, batch, n, grid):
     """K10w as the kernel computes it on the flat float64 signal ``x``; K10
     is outer = n, row_stride = 0, t = 1 and w = 1. Returns (re, im) and
     checks that every row is stored once and every stage fills its frame."""
     p = hopper_fft._small_plan(n)
     m, T, F = n // 2, p.threads_per_frame, p.frames_per_block
-    ld = m + m // 16
     stw = _w(n, np.arange(m))                          # staged W_N^e, e < M
-
-    def tw_n(e):
-        return np.where(e < m, stw[np.minimum(e, m - 1)], -stw[np.maximum(e - m, 0)])
-
     re = np.full((batch, m), np.nan)
     im = np.full((batch, m), np.nan)
     stored = np.zeros(batch, int)
@@ -120,27 +159,7 @@ def _kernel_model(x, base0, outer, row_stride, t, w, batch, n, grid):
             off = np.where(live[:, None, None], off, 0)
             v = (x[off] * w[2 * idx] + 1j * x[off + 1] * w[2 * idx + 1])
             v = np.where(live[:, None, None], v, 0)    # (F, T, 16)
-            fb = np.full((F, ld), np.nan, complex)
-            for s, r in enumerate(p.radices):
-                ns, qn = 16 ** s, R // r
-                shift = (m.bit_length()) - (ns * r).bit_length() + 1
-                fb[:] = np.nan
-                for q in range(qn):
-                    j = tf + q * T
-                    jm = j & (ns - 1)
-                    cols = q + qn * np.arange(r)
-                    a = v[:, :, cols]
-                    if s > 0:
-                        a = a * tw_n((jm[:, None] * np.arange(r)[None, :]) << shift)
-                    a = _dft_reg(a)
-                    v[:, :, cols] = a
-                    o = (j // ns) * ns * r + jm
-                    slots = _pad(o[:, None] + ns * np.arange(r)[None, :])   # (T, r)
-                    assert np.isnan(fb[:, slots]).all()  # no slot stored twice
-                    fb[:, slots] = a
-                assert not np.isnan(fb[:, _pad(np.arange(m))]).any()
-                v = fb[:, _pad(idx)]
-            z = fb[:, _pad(np.arange(m))]
+            z = _stages(v, n)[:, _pad(np.arange(m))]
             for f in np.flatnonzero(live):
                 row = rows[f]
                 stored[row] += 1
@@ -221,3 +240,109 @@ def test_stage_stores_hit_distinct_banks(n):
                 slot = f * ld + _pad(o + k * ns)
                 for half in (slot[:16], slot[16:]):
                     assert len(set(half % 16)) == 16, (s, q, k)
+
+
+# -----------------------------------------------------------------------------
+# K11 / K11w (csrc/rifft_small.cu): the packed inverse on the same core
+
+
+def _partner(tf, m, T):
+    """(thread, slot) of the frame holding bin M - k of k = tf + T*m > 0:
+    thread T - tf, slot 15 - m for tf >= 1; thread 0, slot 16 - m for tf = 0."""
+    tf, m = np.asarray(tf), np.asarray(m)
+    return np.where(tf >= 1, T - tf, 0), np.where(tf >= 1, R - 1 - m, (R - m) % R)
+
+
+def _inverse_model(re, im, w, scale, n, grid):
+    """K11w as the kernel computes it on the packed planes (batch, N/2);
+    K11 is w = 1, scale = 1. Each round: thread tf of frame f loads the bins
+    tf + T*m of row round*F + f (each bin once), takes bin M - k from its
+    partner (a lane of the frame, or the frame's slots at M = 1024), unpacks
+    the conjugated input, runs the stages and stores the conjugated pairs
+    times scale * w. Returns (batch, N) and checks every output once."""
+    batch = re.shape[0]
+    p = hopper_fft._small_plan(n)
+    m, T, F = n // 2, p.threads_per_frame, p.frames_per_block
+    stw = _w(n, np.arange(m))
+    tf = np.arange(T)
+    idx = tf[:, None] + T * np.arange(R)[None, :]      # (T, 16): bin k = tf + T*m
+    st, sm = _partner(tf[:, None], np.arange(R)[None, :], T)
+    wr0, wr1 = scale * w[2 * idx], scale * w[2 * idx + 1]   # read in the store
+    y = np.full((batch, n), np.nan)
+    written = np.zeros((batch, n), int)
+    rounds = -(-batch // F)
+    for blk in range(grid):
+        for rd in range(blk * rounds // grid, (blk + 1) * rounds // grid):
+            rows = rd * F + np.arange(F)
+            live = rows < batch
+            safe = np.where(live, rows, 0)
+            pk = re[safe][:, idx] + 1j * im[safe][:, idx]          # (F, T, 16)
+            pk = np.where(live[:, None, None], pk, 0)
+            q = pk[:, st, sm]                                      # bin M - k
+            v = np.conj(pk + np.conj(q) + 1j * np.conj(stw[idx]) * (pk - np.conj(q)))
+            p0 = pk[:, 0, 0]
+            v[:, 0, 0] = np.conj(p0.real + p0.imag + 1j * (p0.real - p0.imag))
+            z = _stages(v, n)[:, _pad(idx)]                        # point tf + T*m
+            for f in np.flatnonzero(live):
+                row = rows[f]
+                y[row, 2 * idx] = z[f].real * wr0
+                y[row, 2 * idx + 1] = -z[f].imag * wr1
+                written[row, 2 * idx] += 1
+                written[row, 2 * idx + 1] += 1
+    assert (written == 1).all()
+    return y
+
+
+def _irfft_packed(re, im):
+    """rifft of the packed planes by np.fft.irfft: rifft(rfft(x)) = 2N x."""
+    n = 2 * re.shape[-1]
+    full = np.concatenate([re, im[:, :1]], axis=-1) + 1j * np.concatenate(
+        [np.zeros_like(re[:, :1]), im[:, 1:], np.zeros_like(re[:, :1])], axis=-1)
+    return np.fft.irfft(full, n, axis=-1) * n
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_partner_map_covers_each_bin_once(n):
+    """The loader's partner map sends every (thread, slot) but the DC /
+    Nyquist lane (0, 0) to bin M - k, and covers each bin 1..M-1 of the
+    frame exactly once; up to M = 512 the partner is a lane of the frame's
+    T lanes at the shuffle's source (T - tf) mod T, its slot 15 - m the
+    value that lane offers (tf = 0 takes its own slot 16 - m)."""
+    p = hopper_fft._small_plan(n)
+    m, T = n // 2, p.threads_per_frame
+    tf, slot = np.meshgrid(np.arange(T), np.arange(R), indexing="ij")
+    k = tf + T * slot
+    st, sm = _partner(tf, slot, T)
+    bins = st + T * sm
+    rest = k != 0
+    assert (bins[rest] == m - k[rest]).all()
+    assert np.array_equal(np.bincount(bins[rest], minlength=m), np.r_[0, np.ones(m - 1, int)])
+    if T <= 32:
+        assert (st[tf >= 1] == ((T - tf) & (T - 1))[tf >= 1]).all()
+        assert (sm[tf >= 1] == (R - 1 - slot)[tf >= 1]).all()
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_inverse_model_matches_irfft(n):
+    """K11: 2F + 3 rows over 2 blocks (a ragged last round) against
+    np.fft.irfft, 2N x, to 1e-12 of the largest output."""
+    batch = 2 * hopper_fft._small_plan(n).frames_per_block + 3
+    rng = np.random.default_rng(n + 1)
+    re, im = rng.standard_normal((2, batch, n // 2))
+    got = _inverse_model(re, im, np.ones(n), 1.0, n, 2)
+    want = _irfft_packed(re, im)
+    assert np.abs(got - want).max() <= TOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("batch,grid", [(5, 1), (385, 3), (7, 64)])
+def test_windowed_inverse_model_matches_irfft(n, batch, grid):
+    """K11w: scale * rifft(spec) * w over batches that are no multiple of F,
+    on one block, a few and more blocks than rounds."""
+    rng = np.random.default_rng(3 * n + batch)
+    re, im = rng.standard_normal((2, batch, n // 2))
+    w = np.hanning(n + 1)[:n]
+    scale = 0.5 / n
+    got = _inverse_model(re, im, w, scale, n, grid)
+    want = _irfft_packed(re, im) * (scale * w)
+    assert np.abs(got - want).max() <= TOL * np.abs(want).max()

@@ -14,7 +14,10 @@ one CUDA card:
   with their times at the STFT's 128 x 938 frames of 1024, hop 512, and
   ``torch.stft`` beside K10w) and phase 17 (the STFT round trip: ms per
   pass and SNR), then K10 against its plain version with its times at
-  (384, 256), (384, 1024) and (384, 2048);
+  (384, 256), (384, 1024) and (384, 2048), and K11 at (128, 256), (128,
+  1024) and (6144, 2048): device ms (``torch.profiler``), event ms and SNR
+  against its plain version, ``torch.fft.irfft`` on the same input beside
+  each;
 * with ``--k1`` K1 rfft_packed at (1920, 2^16) (the FastFIR IR
   preparation's frames) and at (128, N) for every N = 4096..2^17: device ms
   (``torch.profiler``), event ms, SNR against its plain version and the
@@ -146,6 +149,7 @@ def main() -> None:
         cs.check_kernels([("rfft_small", [
             ((lambda n=n: ((randn(384, n),), {})), True) for n in (256, 1024, 2048)])],
             mods, smi)
+        k11_shapes(cs, hopper_fft, randn, smi)
         return
     # The IRs and signal of chip_smoke.py's main(), from seed 0.
     rng = np.random.default_rng(0)
@@ -379,6 +383,24 @@ def k8_shapes(cs, hf, randn, smi) -> None:
               f"{cs.median_ms(lambda: hf.fastfir_chain_stream(*a, **kw)):.4f} ms; SNR vs "
               f"plain {snr:.2f} dB [{smi}]", flush=True)
         del a, kw
+        torch.cuda.empty_cache()
+
+
+def k11_shapes(cs, hf, randn, smi) -> None:
+    """K11 rifft_small at its path shapes: the hand-offs' and direct
+    sections' (128, 256) and (128, 1024), the staged FastFIR's 6144 frames
+    of 2048; device ms, event ms, SNR against the plain version and
+    ``torch.fft.irfft`` on the same input beside each."""
+    for b, n in ((cs.CHANNELS, 256), (cs.CHANNELS, 1024), (6144, 2048)):
+        re, im = randn(b, n // 2), randn(b, n // 2)
+        snr = cs.snr_db(hf.rifft_small_plain(re, im), hf.rifft_small(re, im))
+        full = cs._complex_of_packed(re, im)
+        lib = lambda: torch.fft.irfft(full, n=n, dim=-1)  # noqa: E731
+        call = lambda: hf.rifft_small(re, im)  # noqa: E731
+        print(f"K11 rifft_small ({b}, {n}): device {cs.device_ms(call):.4f} ms, events "
+              f"{cs.median_ms(call):.4f} ms; irfft device {cs.device_ms(lib):.4f} ms, events "
+              f"{cs.median_ms(lib):.4f} ms; SNR vs plain {snr:.2f} dB [{smi}]", flush=True)
+        del re, im, full
         torch.cuda.empty_cache()
 
 
