@@ -14,7 +14,9 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
    device and event ms, bound, ``torch.fft.rfft`` ms and the frames its
    one-pass route holds on the card at once; K4 also at its paths' shapes
    (128, 4, 2^15), (128, 16, 2^13) and (128, 236, 2^11), each with its device
-   and event ms, bound and ``torch.fft.irfft`` ms; K5 also at (2, 5, P 7, 2^14),
+   and event ms, bound and ``torch.fft.irfft`` ms; K2 also at its only path
+   shape, process_offline's 4096 section (128, 236 hops of 2^11), with its
+   device and event ms and bound; K5 also at (2, 5, P 7, 2^14),
    (2, 3, P 2, 2^17), T = 1 and a P beyond shared memory, with the staged
    K2 -> K3 -> K4 timed beside it on the main path's inputs;
 4. drives the main path: ``FastFIR`` at 128 channels x 480 000 taps (a 10 s
@@ -40,7 +42,10 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
 8. checks the time-domain head's grouped conv1d on the card in full FP32;
 9. compares each kernel of the sample-granular and staged offline paths (K6
    rifft_packed, K9 hop_fire, K11 rifft_small, K15 lag_mac) with its plain
-   version, at those paths' shapes and at small shapes (K15 also at 40 hops,
+   version, at those paths' shapes and at small shapes (K9 also timed at
+   (128, 256, P 64) and (128, 1024, P 256), and at ragged channel counts
+   and (128, 128, P 15);
+   K15 also at 40 hops,
    three chunks of the ring MAC, with lead_skip 1); then K4 at its path
    shapes and the main path's (128, 16, 2^15) and K6 at (128, 2^14) and
    (128, 4096) must launch once a call and raise the peak allocation above
@@ -220,6 +225,7 @@ STAGED = ("rfft_packed_stream", "lag_mac_causal", "rifft_packed_tail")
 # offline 4096 section without the tail (tools/chip_phases.py --k4 records
 # them).
 K4_PATH_SHAPES = ((4, 1 << 15), (16, 1 << 13), (236, 1 << 11))
+K2_PATH_SHAPE = (236, 1 << 11)  # (T, hop): process_offline's 4096 section, no tail
 
 
 def fail(msg: str) -> None:
@@ -562,13 +568,19 @@ def fastfir_kernels(randn, mods, smi) -> dict:
     def k4(c, t, k):
         return lambda: ((randn(c, t, k), randn(c, t, k), 1.0 / (8.0 * k)), {})
 
+    def k2(c, t, k):
+        return lambda: ((randn(c, t, k),), {})
+
     lags = min(p_main, t_main - 1)
     results = check_kernels(
         [("rfft_packed", [inputs("rfft_packed", 4096, False),
                           inputs("rfft_packed", n_main, True)]
           + [(k1(CHANNELS, 1 << e), True) for e in range(12, 18)])]
-        + [(name, [inputs(name, 4096, False), inputs(name, n_main, True)])
-           for name in ("rfft_packed_stream", "lag_mac_causal")]
+        + [("rfft_packed_stream", [inputs("rfft_packed_stream", 4096, False),
+                                   inputs("rfft_packed_stream", n_main, True),
+                                   (k2(CHANNELS, *K2_PATH_SHAPE), True)])]
+        + [("lag_mac_causal", [inputs("lag_mac_causal", 4096, False),
+                               inputs("lag_mac_causal", n_main, True)])]
         + [("rifft_packed_tail", [inputs("rifft_packed_tail", 4096, False),
                                   inputs("rifft_packed_tail", n_main, True)]
             + [(k4(CHANNELS, t, k), True) for t, k in K4_PATH_SHAPES])]
@@ -588,6 +600,10 @@ def fastfir_kernels(randn, mods, smi) -> dict:
               f"torch.fft.rfft {e['library_ms']:.4f} ms, SNR vs plain {e['snr_db']:.2f} dB, "
               f"{e['resident']} frames resident at once ({hf._onepass_plan(n).blocks} "
               f"blocks a frame) [{smi}]", flush=True)
+    for e in results["rfft_packed_stream"]["shapes"][2:]:
+        print(f"K2 at its path shape {e['shapes'][0]}: device {e['device_ms']:.4f} ms, "
+              f"events {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+              f"SNR vs plain {e['snr_db']:.2f} dB [{smi}]", flush=True)
     for e in results["rifft_packed_tail"]["shapes"]:
         if "ms" in e:
             print(f"K4 one pass at {e['shapes'][0]}: device {e['device_ms']:.4f} ms, events "
@@ -760,7 +776,12 @@ def slice_kernels(randn, mods, smi) -> dict:
     staged FastFIR's 128 x 48 frames of 2048; K9 at (C = 128, N = 256, P = 3)
     and (128, 1024, 3); K15 at the staged FastFIR's (C = 128, T = 48, P = 47,
     K = 1024). Small and edge shapes: K6 at (3, 4096) and (2, 2^17), K11 at
-    (7, 32), K9 at (3, 32, P = 1) and (9, 64, P = 20), K15 with lead_skip 1
+    (7, 32), K9 at (3, 32, P = 1), (9, 64, P = 20), at ragged channel
+    counts (127 at N = 256, 33 at N = 32; 1001 at N = 256, four frames a
+    block and a ragged last block), at (128, 128, P = 15) (the N = 128
+    section of a (128, 2048) scheme: a plan of the most shared memory), and
+    timed also at
+    (128, 256, P 64) and (128, 1024, P 256); K15 with lead_skip 1
     (also at T = 40 over P = 17: three chunks of 16 hops)."""
     def inverse(b, n):
         return lambda: ((randn(b, n // 2), randn(b, n // 2)), {})
@@ -780,7 +801,10 @@ def slice_kernels(randn, mods, smi) -> dict:
         ("rifft_packed", [(inverse(3, 4096), False), (inverse(2, 1 << 17), False),
                           (inverse(CHANNELS, 16384), True), (inverse(CHANNELS, 4096), True)]),
         ("hop_fire", [(fire(3, 32, 1), False), (fire(9, 64, 20), False),
-                      (fire(CHANNELS, 256, 3), True), (fire(CHANNELS, 1024, 3), True)]),
+                      (fire(CHANNELS, 256, 3), True), (fire(CHANNELS, 1024, 3), True),
+                      (fire(CHANNELS, 256, 64), True), (fire(CHANNELS, 1024, 256), True),
+                      (fire(CHANNELS - 1, 256, 3), False), (fire(33, 32, 3), False),
+                      (fire(1001, 256, 3), False), (fire(CHANNELS, 128, 15), False)]),
         ("rifft_small", [(inverse(7, 32), False), (inverse(CHANNELS, 256), True),
                          (inverse(CHANNELS, 1024), True),
                          (inverse(CHANNELS * t_staged, STAGED_N), True)]),

@@ -1,6 +1,6 @@
 // Register-DFT core for one frame of M = 16..1024 complex points (K10 and
-// K10w, rfft_small.cu; K11 and K11w, rifft_small.cu; K5's row DFTs,
-// fastfir_chain.cu).
+// K10w, rfft_small.cu; K11 and K11w, rifft_small.cu; both transforms of K9,
+// hop_fire.cu, M = 16..512; K5's row DFTs, fastfir_chain.cu).
 //
 // Each thread of a frame holds kR = 16 points in registers; a frame has
 // T = M / 16 threads, and a block of kThreads = 256 threads holds

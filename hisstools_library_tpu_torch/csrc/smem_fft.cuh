@@ -1,21 +1,17 @@
 // Shared-memory FFT core for the transforms whose frame fits one block
-// (K9 hop_fire, K12 fft_split up to 1024 points; its split-step helpers
-// pack_bin / pack_bin0 and unpack_bin / unpack_bin0 also serve K10 / K10w and
-// K11 / K11w, which run on the register-DFT core reg_fft.cuh).
+// (K12 fft_split up to 1024 points; its split-step helpers pack_bin /
+// pack_bin0 and unpack_bin / unpack_bin0 also serve K10 / K10w, K11 / K11w
+// and K9, which run on the register-DFT core reg_fft.cuh).
 //
 // A real transform of length N is an M = N/2 point complex FFT of
 // z[n] = x[2n] + i x[2n+1] plus the split step that pairs bins k and M-k
 // (see fft_common.cuh for the multi-pass form used above 2^15). Here the
 // whole complex frame sits in shared memory, so every stage is one radix-2
-// pass over shared memory with a barrier after it:
-//
-//   dif(): natural order in, bit-reversed order out (decimation in frequency);
-//   dit(): bit-reversed order in, natural order out (decimation in time).
-//
-// The forward transform runs dif() and reads Z[k] at brev(k); the inverse
-// (K9's) writes its unpacked input at brev(k) and runs dit(), so neither
-// needs a permutation pass. A block may hold `rows` frames of M points each, back to
-// back; the butterflies of all rows are spread over the block's threads.
+// pass over shared memory with a barrier after it: dif() takes natural
+// order in and leaves bit-reversed order out (decimation in frequency), and
+// the caller reads Z[k] at brev(k), so no permutation pass is needed. A
+// block may hold `rows` frames of M points each, back to back; the
+// butterflies of all rows are spread over the block's threads.
 //
 // Twiddles come from one table tw[e] = exp(-2*pi*i*e/N), e < N, computed in
 // float64 on the host and stored as float32 (W_M^e = tw[2e]); no fast-math
@@ -54,28 +50,6 @@ __device__ __forceinline__ void dif(float2* a, int log_m, int rows,
       a[i0] = make_float2(u.x + v.x, u.y + v.y);
       const float2 d = make_float2(u.x - v.x, u.y - v.y);
       a[i0 + half] = j == 0 ? d : cmul(d, __ldg(&tw[j << (log_n - 1 - lh)]));
-    }
-    __syncthreads();
-  }
-}
-
-// In-place radix-2 DIT over `rows` frames of 2^log_m points in `a`.
-__device__ __forceinline__ void dit(float2* a, int log_m, int rows,
-                                    const float2* __restrict__ tw, int log_n) {
-  const int half_m = 1 << (log_m - 1);
-  const int total = rows * half_m;
-  for (int lh = 0; lh < log_m; ++lh) {
-    const int half = 1 << lh;
-    for (int b = threadIdx.x; b < total; b += blockDim.x) {
-      const int row = b >> (log_m - 1);
-      const int bb = b & (half_m - 1);
-      const int j = bb & (half - 1);
-      const int i0 = (row << log_m) + ((bb >> lh) << (lh + 1)) + j;
-      const float2 u = a[i0];
-      const float2 w = a[i0 + half];
-      const float2 v = j == 0 ? w : cmul(w, __ldg(&tw[j << (log_n - 1 - lh)]));
-      a[i0] = make_float2(u.x + v.x, u.y + v.y);
-      a[i0 + half] = make_float2(u.x - v.x, u.y - v.y);
     }
     __syncthreads();
   }

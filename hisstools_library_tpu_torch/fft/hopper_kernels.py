@@ -13,7 +13,10 @@ K7, K15 and K8's state kernel (``hopper_fft.stream_state``) are three entry
 points of one kernel, the ring MAC (``csrc/ring_mac.cu``): rows of V from one
 source or two, H at a channel stride, an optional lag-0 term and an optional
 new ring, streamed by bulk copies through shared-memory stages;
-:func:`_ring_mac_plan` mirrors its plan. Each wrapper runs its plain PyTorch
+:func:`_ring_mac_plan` mirrors its plan. K9 fires a small section in one
+launch on the register-DFT core of K10 / K11 (``csrc/reg_fft.cuh``), the old
+ring's lag sum staged while the forward runs; :func:`_fire_plan` mirrors its
+plan. Each wrapper runs its plain PyTorch
 version (``<name>_plain``) only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises. Launches are counted in
 ``<wrapper>.launches``.
@@ -35,6 +38,18 @@ HOP_FIRE_MIN_N = 32
 HOP_FIRE_MAX_N = 1024
 HOP_FIRE_MAX_P = 256
 
+# K9's plan (csrc/hop_fire.cu: kLanes, kR, kMaxHelpers, kLagsPerHelper,
+# kMaxStages, kStageBudget, kPlanes; kMaxP is HOP_FIRE_MAX_P): a block serves
+# one frame group of 32 lanes (warp 0) with helper warps that sum the old
+# ring's lags.
+FIRE_LANES = 32           # a frame group: one warp, F = 32 / T frames of T = M/16 lanes
+FIRE_POINTS = 16          # points a thread holds (reg_fft.cuh kR)
+FIRE_MAX_HELPERS = 7      # helper warps a block (256 threads with warp 0)
+FIRE_LAGS_PER_HELPER = 4  # the plan adds a helper a this many lags
+FIRE_MAX_STAGES = 4       # cp.async stages a helper
+FIRE_STAGE_BUDGET = 16    # helpers x stages a block (128 KB of stages)
+FIRE_PLANES = 4           # a stage: ring re, ring im, H re, H im
+
 # The ring MAC (csrc/ring_mac.cu: kBins, kThreads, kStages, kMaxHops, kMinBins, kRows).
 RING_MAC_BINS = 256      # the most bins a block (a tile), one a consumer thread
 RING_MAC_THREADS = 288   # the most threads a block: 256 consumers and a producer warp
@@ -42,6 +57,49 @@ RING_MAC_STAGES = 8      # shared-memory stages, an item each
 RING_MAC_MAX_HOPS = 16   # hops a chunk: accumulators a thread
 RING_MAC_MIN_BINS = 16   # the least K: 64-byte rows for the bulk copies
 RING_MAC_ROWS = 2        # rows of V a row item carries
+
+
+class FirePlan(NamedTuple):
+    """How K9 (``csrc/hop_fire.cu``) runs one firing of C channels at real
+    size N with P partitions."""
+    threads_per_frame: int   # T = M / 16 lanes, M = N/2 <= 512: a frame in one warp
+    frame_group: int         # F = 32 / T: warp 0's lanes, the frames a block
+    helpers: int             # H: warps 1..H sum the old ring's lags (helper 0: H[0] too)
+    threads: int             # 32 (1 + H)
+    blocks: int              # ceil(C / F)
+    lags_per_helper: int     # ceil((P - 1) / H): helper h takes lags h, h + H, ...
+    stages: int              # cp.async stages a helper: min(4, lags a helper, 16 / H)
+    shared_bytes: int        # dynamic: H[0], E and the H sums in padded rows,
+                             # the stages, the frames, M twiddles
+
+
+def _fire_plan(c: int, n: int, p: int) -> FirePlan:
+    """K9's plan at (C, N, P), as ``csrc/hop_fire.cu``'s ``fire_plan`` and
+    launch make it: one frame group of F = 32 / T frames a block (warp 0's
+    lanes); a helper warp a 4 of the old ring's P - 1 lags (1..7); up to 4
+    stages a helper of four 512-float plane rows, at most 16 stages a
+    block."""
+    if not hop_fire_eligible(n, p) or c < 1:
+        raise ValueError(f"K9 serves C >= 1, N = {HOP_FIRE_MIN_N}..{HOP_FIRE_MAX_N}, "
+                         f"P = 1..{HOP_FIRE_MAX_P}; got C = {c}, N = {n}, P = {p}")
+    m = n // 2
+    t = m // FIRE_POINTS
+    f = FIRE_LANES // t
+    lags = p - 1
+    h = min(max(-(-lags // FIRE_LAGS_PER_HELPER), 1), FIRE_MAX_HELPERS)
+    per = -(-lags // h)
+    s = min(per, FIRE_MAX_STAGES, FIRE_STAGE_BUDGET // h)
+    fin = f * (m + max(t, 4))
+    floats = (h + 2) * 2 * fin + h * s * FIRE_PLANES * FIRE_LANES * FIRE_POINTS
+    return FirePlan(t, f, h, FIRE_LANES * (1 + h), -(-c // f), per, s,
+                    4 * floats + 8 * (f * (m + m // 16) + m))
+
+
+def _fire_max_bytes(n: int) -> int:
+    """K9's opt-in for dynamic shared memory at real size N, as
+    ``csrc/hop_fire.cu``'s ``fire_max_bytes`` sets it: the most any P =
+    1..256 asks (4 helpers x 4 stages, P = 14..17)."""
+    return max(_fire_plan(1, n, p).shared_bytes for p in range(1, HOP_FIRE_MAX_P + 1))
 
 
 class RingMacPlan(NamedTuple):
@@ -353,12 +411,9 @@ def hop_fire(frame: torch.Tensor, ring_re: torch.Tensor, ring_im: torch.Tensor,
     if ring_re.shape != lead + (p, k) or ring_im.shape != ring_re.shape:
         raise ValueError(f"{kernel}: ring {tuple(ring_re.shape)} does not fit "
                          f"the frame {tuple(frame.shape)} as (..., P, N/2)")
-    hr = spec_re.expand(lead + (p, k)).reshape(c, p, k)
-    hi = spec_im.expand(lead + (p, k)).reshape(c, p, k)
-    hr, cs = _build.channel_rows(hr)
-    hi, cs_im = _build.channel_rows(hi)
-    if cs_im != cs:
-        hr, hi, cs = hr.contiguous(), hi.contiguous(), p * k
+    hr, hi, cs = _build.aligned_rows(spec_re.expand(lead + (p, k)).reshape(c, p, k),
+                                     spec_im.expand(lead + (p, k)).reshape(c, p, k))
+    ring_re, ring_im = _build.aligned(ring_re), _build.aligned(ring_im)
     new_re = torch.empty_like(ring_re)
     new_im = torch.empty_like(ring_im)
     y = torch.empty(lead + (k,), dtype=torch.float32, device=frame.device)

@@ -563,10 +563,15 @@ def _slice_inputs(name, shape, dev):
         b, n = shape
         return (randn(b, n // 2), randn(b, n // 2)), {}
     if name == "hop_fire":
-        c, n, p, shared = shape
+        c, n, p, shared, *layout = shape
         k = n // 2
         lead = () if shared else (c,)
-        return (randn(c, n), randn(c, p, k), randn(c, p, k), randn(*lead, p, k),
+        frame = randn(c, n)
+        if layout == ["slice"]:    # rows of a wider staging buffer, float2-aligned
+            frame = randn(c, n + 38)[:, 6:6 + n]
+        elif layout == ["odd"]:    # an odd channel stride and base: scalar loads
+            frame = randn(c, n + 37)[:, 5:5 + n]
+        return (frame, randn(c, p, k), randn(c, p, k), randn(*lead, p, k),
                 randn(*lead, p, k)), {}
     c, skip, t, p, k, *layout = shape  # lag_mac; H as a row slice of a wider tensor
     if layout == ["broadcast"]:        # or one plane broadcast over the channels
@@ -583,6 +588,28 @@ SLICE_CASES = [
     ("rifft_small", (128, 2048)),
     ("hop_fire", (128, 256, 3, False)), ("hop_fire", (5, 1024, 3, True)),
     ("hop_fire", (3, 32, 1, False)), ("hop_fire", (9, 64, 20, False)),
+] + [
+    # K9: every N at P 1 and 3; P 20 / 64 / 256 at N = 64 and 1024; C no
+    # multiple of the frames a block; frames read in place from a wider
+    # buffer (float2-aligned or not); H broadcast over the channels
+    ("hop_fire", (7, 1 << e, p, False)) for e in range(5, 11) for p in (1, 3)
+] + [
+    ("hop_fire", (6, n, p, False)) for n in (64, 1024) for p in (20, 64, 256)
+] + [
+    # the plans that ask the most shared memory (4 helpers x 4 stages, P = 14..17)
+    ("hop_fire", (6, 1 << e, 17, False)) for e in range(5, 11)
+] + [
+    ("hop_fire", (6, 1024, 14, False)), ("hop_fire", (128, 128, 15, False)),
+    ("hop_fire", (5, 256, 16, True)),
+    ("hop_fire", (1, 256, 3, False)), ("hop_fire", (127, 256, 3, False)),
+    ("hop_fire", (129, 1024, 3, False)), ("hop_fire", (127, 32, 3, False)),
+    ("hop_fire", (129, 256, 64, True)), ("hop_fire", (128, 1024, 256, True)),
+    ("hop_fire", (33, 256, 3, False, "slice")), ("hop_fire", (9, 1024, 20, False, "slice")),
+    ("hop_fire", (33, 128, 3, True, "odd")), ("hop_fire", (5, 1024, 1, False, "odd")),
+    # many blocks of F frames, the last block ragged
+    ("hop_fire", (4099, 32, 3, False)), ("hop_fire", (1001, 256, 3, True)),
+    ("hop_fire", (515, 128, 20, False, "slice")),
+] + [
     ("lag_mac", (2, 0, 5, 7, 256)), ("lag_mac", (3, 1, 48, 47, 1024)),
     ("lag_mac", (2, 1, 1, 4, 128)), ("lag_mac", (3, 1, 48, 47, 1024, "broadcast")),
     ("lag_mac", (9, 1, 20, 5, 16)), ("lag_mac", (4, 0, 33, 40, 64, "broadcast")),

@@ -23,11 +23,22 @@ and a numpy model written to follow the kernel step by step:
   0, slot 16 - m), the unpack of the conjugated input, the same stages, and
   the store of the conjugated (even, odd) pairs times scale * w.
 
+K9 hop_fire (csrc/hop_fire.cu) runs both transforms on the same core, so
+its plan mirror (``hopper_kernels._fire_plan``) and a float64 model of the
+fused firing are held here too: the lane chunks of the old ring's lag sum
+(helper warp h taking every H-th lag through a ring of cp.async stages,
+ring' rows 0..P-2 stored from the chunks), the padded rows that hand the
+helpers' sums and H[0] to warp 0's lanes, Y = E * H[0] + the sums, the
+unpack's partner map and the store of the kept half.
+
 The forward model matches ``np.fft.rfft`` in the packed layout, the inverse
 one ``np.fft.irfft`` (2N x, and scale * ... * w), to 1e-12 relative to the
 largest output; the kernels themselves are held against their plain
 versions on the card (tests/test_torch_cuda.py).
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,6 +46,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from hisstools_library_tpu_torch.fft import hopper_fft  # noqa: E402
+from hisstools_library_tpu_torch.fft import hopper_kernels as hk  # noqa: E402
 
 TOL = 1e-12
 SIZES = [1 << k for k in range(5, 12)]   # N = 32..2048
@@ -346,3 +358,277 @@ def test_windowed_inverse_model_matches_irfft(n, batch, grid):
     got = _inverse_model(re, im, w, scale, n, grid)
     want = _irfft_packed(re, im) * (scale * w)
     assert np.abs(got - want).max() <= TOL * np.abs(want).max()
+
+
+# -----------------------------------------------------------------------------
+# K9 hop_fire (csrc/hop_fire.cu): the fused firing on the same core
+
+FIRE_SRC = Path(hk.__file__).resolve().parents[1] / "csrc" / "hop_fire.cu"
+FIRE_SIZES = [1 << k for k in range(5, 11)]   # N = 32..1024
+GROUP = hk.FIRE_LANES * hk.FIRE_POINTS        # a frame group's plane row: 512 floats
+
+
+def test_fire_plan_constants_match_the_kernel():
+    """hopper_kernels' FIRE_* constants are hop_fire.cu's, and the launch
+    takes ceil(C / F) blocks of 32 (1 + H) threads with the plan's bytes,
+    under an opt-in of the most any P = 1..256 asks."""
+    text = FIRE_SRC.read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", text))
+    assert int(const["kLanes"]) == hk.FIRE_LANES
+    assert hk.FIRE_POINTS == R
+    assert int(const["kMaxHelpers"]) == hk.FIRE_MAX_HELPERS
+    assert int(const["kLagsPerHelper"]) == hk.FIRE_LAGS_PER_HELPER
+    assert int(const["kMaxStages"]) == hk.FIRE_MAX_STAGES
+    assert int(const["kStageBudget"]) == hk.FIRE_STAGE_BUDGET
+    assert int(const["kPlanes"]) == hk.FIRE_PLANES
+    assert int(const["kMaxP"]) == hk.HOP_FIRE_MAX_P
+    assert "const unsigned blocks = (unsigned)((channels + F - 1) / F);" in text
+    assert ("cudaFuncAttributeMaxDynamicSharedMemorySize, fire_max_bytes(LOG_M));"
+            in text)
+    assert "for (int p = 1; p <= kMaxP; ++p)" in text
+    assert "kernel<<<blocks, kLanes * (1 + pl.helpers), pl.bytes, stream>>>" in text
+    # no radix-2 pass of smem_fft.cuh is left in K9
+    assert not re.search(r"\b(dif|dit)\(", text)
+
+
+@pytest.mark.parametrize("n", FIRE_SIZES)
+@pytest.mark.parametrize("p", [1, 3, 9, 14, 17, 64, 256])
+@pytest.mark.parametrize("c", [1, 127, 129, 1000])
+def test_fire_plan_every_shape(c, n, p):
+    """One warp's lanes a frame group, a helper warp a 4 lags (1..7),
+    stages inside the block's budget, and shared memory inside the
+    kernel's opt-in and a block's 227 KB."""
+    m = n // 2
+    pl = hk._fire_plan(c, n, p)
+    assert pl.threads_per_frame * R == m
+    assert pl.frame_group * pl.threads_per_frame == hk.FIRE_LANES
+    assert pl.frame_group * m == GROUP
+    assert pl.blocks == -(-c // pl.frame_group)
+    assert 1 <= pl.helpers <= hk.FIRE_MAX_HELPERS
+    assert pl.threads == 32 * (1 + pl.helpers) <= 256
+    lags = p - 1
+    assert pl.lags_per_helper == -(-lags // pl.helpers)
+    assert (pl.lags_per_helper <= hk.FIRE_LAGS_PER_HELPER
+            or pl.helpers == hk.FIRE_MAX_HELPERS)
+    if pl.helpers > 1:  # one helper fewer would take more than 4 lags
+        assert -(-lags // (pl.helpers - 1)) > hk.FIRE_LAGS_PER_HELPER
+    assert pl.stages == min(pl.lags_per_helper, hk.FIRE_MAX_STAGES,
+                            hk.FIRE_STAGE_BUDGET // pl.helpers)
+    assert pl.helpers * pl.stages <= hk.FIRE_STAGE_BUDGET
+    assert pl.shared_bytes <= hk._fire_max_bytes(n) <= 227 * 1024
+    assert pl.shared_bytes % 16 == 0
+
+
+@pytest.mark.parametrize("n", FIRE_SIZES)
+def test_fire_opt_in_covers_every_p(n):
+    """The kernel's opt-in for dynamic shared memory covers the plan of
+    every P = 1..256 and is the plan of four helpers of four stages (P =
+    14..17), above the P = 256 plan (seven helpers of two stages): an
+    opt-in taken from one P alone would refuse the others' launches."""
+    most = hk._fire_max_bytes(n)
+    plans = {p: hk._fire_plan(1, n, p) for p in range(1, hk.HOP_FIRE_MAX_P + 1)}
+    assert max(pl.shared_bytes for pl in plans.values()) == most <= 227 * 1024
+    top = [p for p, pl in plans.items() if pl.shared_bytes == most]
+    assert top == [14, 15, 16, 17]
+    assert all((plans[p].helpers, plans[p].stages) == (4, 4) for p in top)
+    assert plans[256].shared_bytes < most
+    assert all(hk._fire_plan(c, n, 17).shared_bytes == most for c in (1, 128, 4099))
+
+
+def test_fire_plan_path_grid():
+    """A C = 128 firing at the Zero preset's P = 3 takes one helper and F
+    frames a block: 32 blocks at N = 256, 128 at N = 1024; at P = 64 the
+    same blocks with seven helpers."""
+    assert hk._fire_plan(128, 256, 3).blocks == 32
+    assert hk._fire_plan(128, 1024, 3).blocks == 128
+    assert hk._fire_plan(128, 1024, 3).helpers == 1
+    for n in FIRE_SIZES:
+        assert hk._fire_plan(128, n, 64).blocks == 128 // hk._fire_plan(128, n, 64).frame_group
+        assert hk._fire_plan(128, n, 64).helpers == 7
+    assert hk._fire_plan(128, 1024, 256).helpers == 7
+    assert hk._fire_plan(1000, 256, 64).blocks == 250
+
+
+@pytest.mark.parametrize("n,p", [(2048, 3), (16, 3), (256, 0), (256, 257), (96, 3)])
+def test_fire_plan_refuses_other_shapes(n, p):
+    with pytest.raises(ValueError, match="K9 serves"):
+        hk._fire_plan(4, n, p)
+
+
+def _lane_chunks(m):
+    """(lane, j) -> (e, frame, bin) of the lane chunks: float e = 4(lane +
+    32 j) of a group plane row, frame e >> log2 M, bin e & (M - 1)."""
+    e = 4 * (np.arange(hk.FIRE_LANES)[:, None] + hk.FIRE_LANES * np.arange(4)[None, :])
+    return e, e // m, e % m
+
+
+def _fire_model(frame, ring_re, ring_im, h_re, h_im, n):
+    """K9 as the kernel computes it, in float64: frame (C, N), ring (C, P,
+    M), H (C, P, M). Returns (ring' re, ring' im, y) and checks that every
+    element of ring' and y is stored once, each stage holds the item its
+    lane reads, and every bin warp 0 reads was written."""
+    c, p, m = ring_re.shape
+    pl = hk._fire_plan(c, n, p)
+    T, F, H, S = pl.threads_per_frame, pl.frame_group, pl.helpers, pl.stages
+    ld_fin = m + max(T, 4)
+    stw = _w(n, np.arange(m))
+    lags = p - 1
+    out_re = np.full((c, p, m), np.nan)
+    out_im = np.full((c, p, m), np.nan)
+    y = np.full((c, m), np.nan)
+    n_re = np.zeros((c, p, m), int)
+    n_y = np.zeros((c, m), int)
+    e, cf, cbin = _lane_chunks(m)
+    co = cf * ld_fin + cbin                                 # padded row offsets
+    tf = np.arange(T)
+    idx = tf[:, None] + T * np.arange(R)[None, :]          # (T, 16): bin tf + T*m
+    st, sm = _partner(tf[:, None], np.arange(R)[None, :], T)
+    for blk in range(pl.blocks):
+        c0 = blk * F
+        chans = c0 + np.arange(F)
+        live = chans < c
+        safe = np.where(live, chans, 0)
+        cch, clive = c0 + cf, (c0 + cf) < c                # (32, 4) lane chunks
+
+        def chunk(row):
+            """cp.async of the lane chunks of ``row`` (C, M) into a
+            512-float plane row (zero fill past the last channel)."""
+            out = np.full(GROUP, np.nan)
+            for q in range(4):
+                out[e + q] = np.where(clive, row[np.where(clive, cch, 0), cbin + q], 0)
+            return out
+
+        def padded(plane):
+            """A plane row's chunks stored at their padded row offsets."""
+            out = np.full(F * ld_fin, np.nan)
+            for q in range(4):
+                out[co + q] = plane[e + q]
+            return out
+
+        # helper h takes lags s = h + H i through S stages of its own
+        sums = []
+        for h in range(H):
+            mine = list(range(h, lags, H))
+            slots = {i: mine[i] for i in range(min(S, len(mine)))}  # issued at entry
+            ar = np.zeros(GROUP)
+            ai = np.zeros(GROUP)
+            for i, s in enumerate(mine):
+                assert slots[i % S] == s                   # the stage holds item i
+                vr, vi = chunk(ring_re[:, s + 1]), chunk(ring_im[:, s + 1])
+                hr, hi = chunk(h_re[:, p - 1 - s]), chunk(h_im[:, p - 1 - s])
+                for q in range(4):                         # ring' row s from the chunks
+                    out_re[cch[clive], s, cbin[clive] + q] = vr[e[clive] + q]
+                    out_im[cch[clive], s, cbin[clive] + q] = vi[e[clive] + q]
+                    n_re[cch[clive], s, cbin[clive] + q] += 1
+                lane0 = np.zeros(GROUP, bool)
+                lane0[e[cbin == 0]] = True                 # (DC, Nyquist) lanes
+                ar += np.where(lane0, vr * hr, vr * hr - vi * hi)
+                ai += np.where(lane0, vi * hi, vr * hi + vi * hr)
+                if i + S < len(mine):                      # the refill
+                    slots[i % S] = mine[i + S]
+            sums.append((padded(ar), padded(ai)))
+        h0r, h0i = padded(chunk(h_re[:, 0])), padded(chunk(h_im[:, 0]))  # helper 0
+        # warp 0: forward of the frames (frame f: lanes f*T + tf)
+        v = frame[safe][:, 2 * idx] + 1j * frame[safe][:, 2 * idx + 1]
+        v = np.where(live[:, None, None], v, 0)            # (F, T, 16)
+        z = _stages(v, n)[:, _pad(np.arange(m))]
+        zk = z[:, idx]
+        zm = z[:, (m - idx) % m]
+        ev = (zk + np.conj(zm)) - 1j * stw[idx] * (zk - np.conj(zm))
+        ev[:, 0, 0] = 2 * (zk[:, 0, 0].real + zk[:, 0, 0].imag) + 2j * (
+            zk[:, 0, 0].real - zk[:, 0, 0].imag)
+        rd = np.arange(F)[:, None, None] * ld_fin + idx[None]
+        # after the barrier: its bins of H[0] and of each helper's sum
+        sr = sum(a[rd] for a, _ in sums)
+        si = sum(b[rd] for _, b in sums)
+        hr0, hi0 = h0r[rd], h0i[rd]
+        assert not np.isnan(sr).any() and not np.isnan(hr0).any()
+        yv = np.where(idx == 0, ev.real * hr0 + sr + 1j * (ev.imag * hi0 + si),
+                      (ev.real * hr0 - ev.imag * hi0 + sr)
+                      + 1j * (ev.real * hi0 + ev.imag * hr0 + si))
+        # E into padded rows at warp 0's bins; helper 0 stores ring' row P-1
+        # from them by lane chunks after the barrier
+        erow = np.full((2, F * ld_fin), np.nan)
+        erow[0, rd], erow[1, rd] = ev.real, ev.imag
+        for q in range(4):
+            ok = clive
+            out_re[cch[ok], p - 1, cbin[ok] + q] = erow[0, co[ok] + q]
+            out_im[cch[ok], p - 1, cbin[ok] + q] = erow[1, co[ok] + q]
+            n_re[cch[ok], p - 1, cbin[ok] + q] += 1
+        # inverse: K11's loader, the stages, the kept half (frame slots past
+        # the last channel run on the zero fill and store nothing)
+        assert not yv[~live].any()
+        q = yv[:, st, sm]                                  # bin M - k
+        vv = np.conj(yv + np.conj(q) + 1j * np.conj(stw[idx]) * (yv - np.conj(q)))
+        p0 = yv[:, 0, 0]
+        vv[:, 0, 0] = np.conj(p0.real + p0.imag + 1j * (p0.real - p0.imag))
+        zz = _stages(vv, n)[:, _pad(idx)]                  # point tf + T*m
+        scale = 1.0 / (4.0 * n)
+        pts = idx[:, R // 2:]                              # n >= M/2
+        for f in np.flatnonzero(live):
+            y[c0 + f, 2 * pts - m] = scale * zz[f][:, R // 2:].real
+            y[c0 + f, 2 * pts - m + 1] = -scale * zz[f][:, R // 2:].imag
+            n_y[c0 + f, 2 * pts - m] += 1
+            n_y[c0 + f, 2 * pts - m + 1] += 1
+    assert (n_re == 1).all() and (n_y == 1).all()
+    return out_re, out_im, y
+
+
+def _fire_ref(frame, ring_re, ring_im, h_re, h_im, n):
+    """The firing by np.fft: the frame's packed spectrum joins the ring as
+    its newest slot, Y = sum_s ring'[s] H[P-1-s], y = irfft(Y)[N/2:] / (4N)."""
+    p = ring_re.shape[1]
+    er, ei = _packed_ref(frame)
+    nr = np.concatenate([ring_re[:, 1:], er[:, None]], axis=1)
+    ni = np.concatenate([ring_im[:, 1:], ei[:, None]], axis=1)
+    yr = np.zeros_like(er)
+    yi = np.zeros_like(ei)
+    for s in range(p):
+        a, b = nr[:, s], ni[:, s]
+        c, d = h_re[:, p - 1 - s], h_im[:, p - 1 - s]
+        pr, pi = a * c - b * d, a * d + b * c
+        pr[:, 0], pi[:, 0] = a[:, 0] * c[:, 0], b[:, 0] * d[:, 0]
+        yr, yi = yr + pr, yi + pi
+    return nr, ni, _irfft_packed(yr, yi)[:, n // 2:] / (4.0 * n)
+
+
+@pytest.mark.parametrize("n", FIRE_SIZES)
+@pytest.mark.parametrize("p", [1, 3, 20, 256])
+def test_fire_model_matches_fft(n, p):
+    """The fused firing's model against np.fft at every N: at P 1 over
+    4 F + 3 channels, at P 3, 20 and 256 over F + 3 (F frames a block, the
+    last block ragged; 2 channels at N >= 512 with P = 256); H broadcast
+    over the channels at P = 3; P = 20 takes five helpers of four lags,
+    P = 256 seven helpers through two stages each."""
+    f = hk._fire_plan(1, n, p).frame_group
+    c = 2 if p == 256 and n >= 512 else 4 * f + 3 if p == 1 else f + 3
+    rng = np.random.default_rng(n + p)
+    m = n // 2
+    frame = rng.standard_normal((c, n))
+    ring_re, ring_im = rng.standard_normal((2, c, p, m))
+    h_re, h_im = rng.standard_normal((2, 1 if p == 3 else c, p, m))
+    h_re, h_im = (np.broadcast_to(h, (c, p, m)) for h in (h_re, h_im))
+    got = _fire_model(frame, ring_re, ring_im, h_re, h_im, n)
+    want = _fire_ref(frame, ring_re, ring_im, h_re, h_im, n)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= TOL * np.abs(w).max()
+
+
+@pytest.mark.parametrize("n", FIRE_SIZES)
+def test_fire_sum_reads_hit_distinct_banks(n):
+    """The frame lanes' reads of the padded sum and H[0] rows (frame f's
+    bin tf + T*m at f (M + max(T, 4)) + tf + T*m) fall in 32 distinct banks
+    for every slot m where T >= 4; at T = 1, 2 (N = 32, 64) at most 4 lanes
+    share one. The chunk stores into those rows stay 16-byte aligned."""
+    m = n // 2
+    T = m // R
+    ld = m + max(T, 4)
+    lanes = np.arange(32)
+    f, tf = lanes // T, lanes % T
+    for slot in range(R):
+        banks = (f * ld + tf + T * slot) % 32
+        worst = np.bincount(banks).max()
+        assert worst == 1 if T >= 4 else worst <= 4
+    e, cf, cbin = _lane_chunks(m)
+    assert ((cf * ld + cbin) % 4 == 0).all()

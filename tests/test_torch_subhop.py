@@ -96,7 +96,8 @@ def _section(rng, fft_size, taps, lead=(), dtype=np.float64):
 
 # -- kernels' plain versions ---------------------------------------------------------
 
-@pytest.mark.parametrize("n,p,shared", [(64, 1, False), (256, 3, True), (1024, 3, False)])
+@pytest.mark.parametrize("n,p,shared", [(64, 1, False), (256, 3, True), (1024, 3, False),
+                                         (1024, 256, False)])
 def test_hop_fire_matches_pallas(rng, highest, n, p, shared):
     """K9 against the TPU kernel: the new ring (oldest leaves, the frame's
     spectrum enters as the newest slot) and the kept output half. ``shared``:

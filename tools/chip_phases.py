@@ -1,6 +1,7 @@
 """Phases of ``chip_smoke.py`` from one checkout, for an A/B run.
 
-    python3 tools/chip_phases.py [--small | --k1 | --k4 | --k5 | --k7 | --k14 | --large] CHECKOUT
+    python3 tools/chip_phases.py [--small | --k1 | --k4 | --k5 | --k7 | --k9 | --k14 | --large]
+        CHECKOUT
 
 Runs, from the checkout at CHECKOUT (its ``chip_smoke.py`` and its
 ``hisstools_library_tpu_torch``, kernels built under its own ``build/``), on
@@ -65,6 +66,21 @@ one CUDA card:
   32); K8 fastfir_chain_stream at chip_smoke's
   four 128-channel shapes, each of its three launches' device ms (its state
   kernel is the ring MAC);
+* with ``--k9`` K9 hop_fire: at the sample-granular paths' (128, 256, P 3)
+  and (128, 1024, P 3), at (128, 256, P 64) and (128, 1024, P 256), and at
+  the hop_fire shapes of ``SLICE_CASES`` in this tool's own
+  ``tests/test_torch_cuda.py``: device ms (``torch.profiler``), the device
+  ms of a launch in a CUDA graph (20 launches replayed between CUDA
+  events), event ms, SNR against ``hop_fire_plain`` and the bound (bytes);
+  the device ms with L2 cold (``torch.profiler``, K9's kernel alone, each of
+  20 launches after a 256 MB write, so its inputs come from HBM, as the
+  byte bound assumes; the repeated launches of the other timings find their
+  inputs in the 50 MB L2 where they fit);
+  beside them the device time of an empty kernel launch (built here from
+  a one-line source: the floor any launch pays); then ``process_any`` at
+  128 channels (Zero preset, the 10 s IRs, 256-sample callbacks): ms per
+  callback (CUDA events over 128 callbacks) and device busy per callback
+  with K9's share (``torch.profiler`` over 64 callbacks);
 * with ``--k14`` K14 rifft_packed_split and K13 rfft_packed_split at (128,
   N), N = 2^18, 2^19 and 2^20: device ms (``torch.profiler``) and event ms,
   each launch's device ms and the TB/s it reaches (a complex frame of N/2
@@ -101,10 +117,11 @@ def main() -> None:
     k4 = "--k4" in args
     k5 = "--k5" in args
     k7 = "--k7" in args
+    k9 = "--k9" in args
     k14 = "--k14" in args
     large = "--large" in args
     args = [a for a in args
-            if a not in ("--small", "--k1", "--k4", "--k5", "--k7", "--k14", "--large")]
+            if a not in ("--small", "--k1", "--k4", "--k5", "--k7", "--k9", "--k14", "--large")]
     if len(args) != 1:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
@@ -139,6 +156,9 @@ def main() -> None:
         return
     if k7:
         k7_phase(cs, hopper_fft, randn, dev, smi)
+        return
+    if k9:
+        k9_phase(cs, hopper_kernels, randn, dev, smi)
         return
     if k14:
         k14_phase(cs, hopper_fft, randn, dev, smi)
@@ -497,8 +517,121 @@ def card_test_cases(name: str) -> list:
         if isinstance(node, ast.Assign) and [getattr(t, "id", None)
                                              for t in node.targets] == [name]:
             expr = compile(ast.Expression(node.value), str(path), "eval")
-            return eval(expr, {"__builtins__": {}})
+            return eval(expr, {"__builtins__": {}, "range": range})
     raise SystemExit(f"chip_phases: no {name} in {path}")
+
+
+EMPTY_SRC = """__global__ void hst_empty_kernel() {}
+extern "C" int hst_empty(void* stream) {
+  hst_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def empty_launch(dev):
+    """A call that launches one empty kernel (one block of 32 threads), built
+    here with nvcc under ``build/empty_launch/``: the floor any launch pays."""
+    import ctypes
+    import shutil
+
+    out = Path(__file__).resolve().parents[1] / "build" / "empty_launch"
+    out.mkdir(parents=True, exist_ok=True)
+    src, lib = out / "empty.cu", out / "libempty.so"
+    src.write_text(EMPTY_SRC)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-Xcompiler",
+                    "-fPIC", "-shared", str(src), "-o", str(lib)], check=True)
+    so = ctypes.CDLL(str(lib))
+    so.hst_empty.argtypes = [ctypes.c_void_p]
+
+    def call():
+        if so.hst_empty(torch.cuda.current_stream(dev).cuda_stream):
+            raise SystemExit("chip_phases: the empty kernel did not launch")
+    return call
+
+
+def k9_phase(cs, hk, randn, dev, smi) -> None:
+    """The ``--k9`` mode (see the module docstring). Uses only what the
+    parent checkouts also have, so the same mode times either."""
+    from layouts import graph_ms
+    from torch.profiler import ProfilerActivity, profile
+
+    from hisstools_library_tpu_torch.models import mono
+
+    def cold_ms(call, runs: int = 20) -> float:
+        """K9's own device ms a launch, each launch after a write of more
+        than the L2 holds."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                flush.zero_()
+                call()
+            torch.cuda.synchronize()
+        return sum(e.device_time_total for e in prof.key_averages()
+                   if e.device_type.name == "CUDA" and "hop_fire" in e.key) / runs / 1e3
+
+    flush = torch.empty(1 << 26, device=dev)  # 256 MB
+    empty = empty_launch(dev)
+    print(f"empty kernel launch: device {cs.device_ms(empty):.4f} ms, graph "
+          f"{graph_ms(empty):.4f} ms, events {cs.median_ms(empty):.4f} ms [{smi}]", flush=True)
+    c = cs.CHANNELS
+    cases = [(c, 256, 3, False), (c, 1024, 3, False), (c, 256, 64, False),
+             (c, 1024, 256, False)]
+    cases += [s for name, s in card_test_cases("SLICE_CASES") if name == "hop_fire"]
+    for cc, n, p, shared, *layout in cases:
+        k = n // 2
+        lead = () if shared else (cc,)
+        frame = randn(cc, n)
+        if layout == ["slice"]:
+            frame = randn(cc, n + 38)[:, 6:6 + n]
+        elif layout == ["odd"]:
+            frame = randn(cc, n + 37)[:, 5:5 + n]
+        a = (frame, randn(cc, p, k), randn(cc, p, k), randn(*lead, p, k) * 1e-3,
+             randn(*lead, p, k) * 1e-3)
+        got, want = hk.hop_fire(*a), hk.hop_fire_plain(*a)
+        snr = min(cs.snr_db(w, g) for w, g in zip(want, got))
+        b_ms, b_by = cs.bound("hop_fire", a, {}, got)
+        del got, want
+        call = lambda: hk.hop_fire(*a)  # noqa: E731
+        tag = f"{', H broadcast' if shared else ''}{', ' + layout[0] if layout else ''}"
+        print(f"K9 hop_fire ({cc}, {n}, P {p}{tag}): device {cs.device_ms(call):.4f} ms, graph "
+              f"{graph_ms(call):.4f} ms, events {cs.median_ms(call):.4f} ms, L2 cold "
+              f"{cold_ms(call):.4f} ms; bound {b_ms:.4f} ms ({b_by}); SNR vs plain {snr:.2f} dB "
+              f"[{smi}]", flush=True)
+        del a
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    irs = (rng.standard_normal((c, cs.IR_LEN)) *
+           np.exp(-np.arange(cs.IR_LEN) / (0.5 * cs.FS))).astype(np.float32)
+    zero = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+    ir = mono.prepare_ir(zero, irs, offline_tail=False, device=dev)
+    calls, cb = 128, cs.CALLBACK
+    xd = torch.from_numpy(rng.standard_normal((c, calls * cb)).astype(np.float32)).to(dev)
+    blocks = [xd[:, i * cb:(i + 1) * cb].contiguous() for i in range(calls)]
+    carry = {"s": mono.init_stream_state(zero, ir, batch_shape=(c,))}
+
+    def run(n_calls):
+        for blk in blocks[:n_calls]:
+            carry["s"], _ = mono.process_any(ir, carry["s"], blk)
+
+    run(calls)  # warm-up: every section fires
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    run(calls)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / calls
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(64)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total) for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    busy = sum(t for _, t in rows) / 64 / 1e3
+    fire = sum(t for key, t in rows if "hop_fire" in key) / 64 / 1e3
+    print(f"process_any (128 channels, 256-sample callbacks): {ms:.4f} ms/callback (events "
+          f"over {calls}), device busy {busy:.4f} ms/callback, K9 {fire:.4f} ms/callback "
+          f"(profiler over 64) [{smi}]", flush=True)
 
 
 def k5_phase(cs, hf, randn, dev, smi) -> None:

@@ -8,9 +8,8 @@ an SM for ``__launch_bounds__``; and text replacements in ``fft_large.cuh``
 that make a variant of the kernel), copies ``hisstools_library_tpu_torch/csrc``
 under ``build/k1_layouts/NAME/``, puts the plans in ``fft_large.cuh`` in
 place of ``K1Plan`` at those sizes, applies the replacements, and builds
-``rfft_packed.cu`` alone into a shared library (one ``nvcc`` for each entry,
-all started together, with ``-fno-gnu-unique`` so that the libraries' static
-launch state stays their own). It then prints, for each entry, ptxas's
+``rfft_packed.cu`` alone (``tools/layouts.py``). It then prints, for each
+entry, ptxas's
 registers and stack of the instantiations at M = 2^13..2^16, and, on the
 same card in one process, the device time of ``hst_rfft_packed`` at (1920,
 2^16) (the FastFIR IR preparation) and at (128, N), N = 2^14..2^17 (CUDA
@@ -35,18 +34,15 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Exits non-zero
 without a card.
 """
 
-import ctypes
 import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+from layouts import build, card, device_ms, events_ms, ptxas, replace_once, snr
+from layouts import variant_names
 
 from hisstools_library_tpu_torch import _build  # noqa: E402
 from hisstools_library_tpu_torch.fft import hopper_fft  # noqa: E402
@@ -65,8 +61,8 @@ NO_PACK = [("    for (int k1 = 0; k1 < A; ++k1) g[k1] = w[k1];",
            ("    pack_rows_tile<L, G::kLdR", "    if (false) pack_rows_tile<L, G::kLdR")]
 
 # No frame read from HBM: synthetic column data (frame and thread numbers).
-NO_LOAD = [("        v[u][j2] = load_elem<kLoad>(a, lo, tw, frame, c0 + f + G::kCols * "
-            "(j1 + CA * j2), m,\n                                    first);",
+NO_LOAD = [("        v[u][j2] = load_elem<kPair ? kLoadSplit : kLoad>(a, lo, tw, frame,\n"
+            + " " * 57 + "col + G::kCols * (j1 + CA * j2), m,\n" + " " * 57 + "first);",
             "        v[u][j2] = make_float2((float)(frame + j2), (float)(t + j1));")]
 
 # Each block's column outputs stored into its own row tiles, behind block
@@ -102,8 +98,7 @@ LAYOUTS = {
 SHAPES = ((1920, 1 << 16), (128, 1 << 17), (128, 1 << 16), (128, 1 << 15), (128, 1 << 14))
 
 
-def _source(layout) -> str:
-    text = (ROOT / "hisstools_library_tpu_torch/csrc/fft_large.cuh").read_text()
+def _source(text: str, layout) -> str:
     for lm, p in layout.items():
         text, n = re.subn(rf"(struct K1Plan<{lm}> {{\n  using T = )OnePass<[^>]*>",
                           rf"\g<1>OnePass<{lm}, {', '.join(map(str, p))}>", text)
@@ -112,45 +107,11 @@ def _source(layout) -> str:
     return text
 
 
-def _build_all(names):
-    out = ROOT / "build" / "k1_layouts"
-    jobs = {}
-    for name in names:
-        d = out / name
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(ROOT / "hisstools_library_tpu_torch" / "csrc", d)
-        layout, patches = LAYOUTS[name]
-        large = _source(layout)
-        for old, new in patches:
-            if old not in large:
-                raise SystemExit(f"k1_layouts: {name}: no {old!r} in fft_large.cuh")
-            large = large.replace(old, new)
-        (d / "fft_large.cuh").write_text(large)
-        lib = d / "libk1.so"
-        jobs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique", "-shared",
-             str(d / "rfft_packed.cu"),
-             "-o", str(lib)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            print(f"{name}: nvcc failed\n{log}", flush=True)
-            continue
-        entry = None
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-            elif entry and "OnePassILi1" in entry and ("registers" in line or "stack" in line):
-                lm = re.search(r"OnePassILi(\d+)E", entry).group(1)
-                if lm in ("13", "14", "15", "16"):
-                    print(f"{name} M = 2^{lm}: {line.split('ptxas info    :')[-1].strip()}",
-                          flush=True)
-        so = ctypes.CDLL(str(lib))
-        so.hst_rfft_packed.argtypes = _build._SIGNATURES["hst_rfft_packed"]
-        so.hst_rfft_packed_resident.argtypes = _build._SIGNATURES["hst_rfft_packed_resident"]
-        libs[name] = so
-    return libs
+def _change(name: str, d: Path) -> None:
+    layout, patches = LAYOUTS[name]
+    large = d / "fft_large.cuh"
+    large.write_text(replace_once(_source(large.read_text(), layout), patches,
+                                  f"{name}: fft_large.cuh"))
 
 
 def _sass_counts(lib: Path, lm: int = 15) -> dict:
@@ -170,58 +131,22 @@ def _sass_counts(lib: Path, lm: int = 15) -> dict:
     return counts
 
 
-def _median_ms(fn, runs: int = 20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def _device_ms(fn, runs: int = 10) -> float:
-    """Device time per call of the CUDA kernels ``fn`` launches."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / runs / 1e3
-
-
-def _snr(want, got) -> float:
-    err = sum(float(((g.double() - w.double()) ** 2).sum()) for w, g in zip(want, got))
-    ref = sum(float((w.double() ** 2).sum()) for w in want)
-    return float("inf") if err == 0 else 10 * np.log10(ref / err)
-
-
 def main() -> None:
     args = sys.argv[1:]
-    names = list(LAYOUTS)
     sass = "--sass" in args
-    args = [a for a in args if a != "--sass"]
-    if args[:1] == ["--only"] and len(args) == 2:
-        names = args[1].split(",")
-    elif args:
-        raise SystemExit(__doc__)
-    if not torch.cuda.is_available():
-        raise SystemExit("k1_layouts: no CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    libs = _build_all(names)
+    names = variant_names([a for a in args if a != "--sass"], LAYOUTS, __doc__)
+    smi = card("k1_layouts")
+    libs = build("k1_layouts", names, ["rfft_packed.cu"], _change,
+                 ["hst_rfft_packed", "hst_rfft_packed_resident"])
+    for name, v in libs.items():
+        for entry, lines in ptxas(v.log, "OnePassILi1").items():
+            lm = re.search(r"OnePassILi(\d+)E", entry).group(1)
+            if lm in ("13", "14", "15", "16"):
+                for line in lines:
+                    print(f"{name} M = 2^{lm}: {line}", flush=True)
     if sass:
-        for name in libs:
-            counts = _sass_counts(ROOT / "build" / "k1_layouts" / name / "libk1.so")
+        for name, v in libs.items():
+            counts = _sass_counts(v.lib)
             top = sorted(counts.items(), key=lambda kv: -kv[1])
             print(f"{name} M = 2^15 SASS: {sum(counts.values())} instructions; "
                   f"{', '.join(f'{k} {v}' for k, v in top[:28])}", flush=True)
@@ -237,23 +162,22 @@ def main() -> None:
         def rfft():
             return torch.fft.rfft(x, dim=-1)
 
-        copy_ms = _median_ms(lambda: y.copy_(x))
-        print(f"({b}, {n}): torch.fft.rfft {_median_ms(rfft):.4f} ms (device "
-              f"{_device_ms(rfft):.4f}), copy of the same bytes {copy_ms:.4f} ms [{smi}]",
+        copy_ms = events_ms(lambda: y.copy_(x))
+        print(f"({b}, {n}): torch.fft.rfft {events_ms(rfft):.4f} ms (device "
+              f"{device_ms(rfft):.4f}), copy of the same bytes {copy_ms:.4f} ms [{smi}]",
               flush=True)
         del y
-        for name, so in libs.items():
-            def call():
+        for name, v in libs.items():
+            def call(so=v.so):
                 rc = so.hst_rfft_packed(x.data_ptr(), re_.data_ptr(), im_.data_ptr(),
                                         tw.data_ptr(), b, n, stream)
                 if rc:
                     raise SystemExit(f"{name}: CUDA error {rc}")
             call()
             torch.cuda.synchronize()
-            snr = _snr(want, (re_, im_))
-            print(f"({b}, {n}) {name}: {_median_ms(call):.4f} ms (device {_device_ms(call):.4f}), "
-                  f"SNR vs plain {snr:.2f} dB, "
-                  f"{so.hst_rfft_packed_resident(n)} frames resident [{smi}]", flush=True)
+            print(f"({b}, {n}) {name}: {events_ms(call):.4f} ms (device {device_ms(call):.4f}), "
+                  f"SNR vs plain {snr(want, (re_, im_)):.2f} dB, "
+                  f"{v.so.hst_rfft_packed_resident(n)} frames resident [{smi}]", flush=True)
         del x, re_, im_, want
         torch.cuda.empty_cache()
 

@@ -5,11 +5,10 @@ and ``csrc/rifft_packed.cu``) with other one-pass plans, side by side.
 
 For each entry of ``LAYOUTS`` (``OnePass`` parameters at complex M = 2^LM:
 log2 of the columns, blocks a frame, threads a block, blocks an SM for
-``__launch_bounds__``), copies ``hisstools_library_tpu_torch/csrc`` under
-``build/k4_layouts/NAME/``, puts those plans in place of ``K1Pass`` (K1's
-plan, which ``shipped`` keeps) in the two files at those sizes, and builds
-them alone into a shared library (one ``nvcc`` each, all started together,
-``-fno-gnu-unique``). Then, on one card in one process, it prints ptxas's
+``__launch_bounds__``), it puts those plans in place of ``K1Pass`` (K1's
+plan, which ``shipped`` keeps) in the two files at those sizes, in a copy of
+``csrc/`` under ``build/k4_layouts/NAME/``, and builds them alone
+(``tools/layouts.py``). Then, on one card in one process, it prints ptxas's
 registers, stack frame and spills of each inverse instantiation, the local
 loads and stores (``LDL`` / ``STL``) in its SASS where ``cuobjdump`` is
 there, and at K4's path shapes ((128, 16, 2^15), (128, 4, 2^15),
@@ -21,7 +20,6 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Exits non-zero
 without a card.
 """
 
-import ctypes
 import re
 import shutil
 import subprocess
@@ -30,8 +28,7 @@ from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+from layouts import build, card, graph_ms, ptxas, snr, variant_names
 
 from hisstools_library_tpu_torch import _build  # noqa: E402
 from hisstools_library_tpu_torch.fft import hopper_fft  # noqa: E402
@@ -67,44 +64,6 @@ def _source(text: str, layout: dict) -> str:
         "using T = K4Pass<LM>;", "using T = K1Pass<LM>;")
 
 
-def _build_all(names):
-    out = ROOT / "build" / "k4_layouts"
-    jobs = {}
-    for name in names:
-        d = out / name
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(ROOT / "hisstools_library_tpu_torch" / "csrc", d)
-        for src in SRCS:
-            (d / src).write_text(_source((d / src).read_text(), LAYOUTS[name]))
-        lib = d / "libk4.so"
-        jobs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique", "-shared",
-             *(str(d / s) for s in SRCS), "-o", str(lib)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs, logs = {}, {}
-    for name, (lib, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            print(f"{name}: nvcc failed\n{log}", flush=True)
-            continue
-        so = ctypes.CDLL(str(lib))
-        for fn in ("hst_rifft_packed_tail", "hst_rifft_packed"):
-            getattr(so, fn).argtypes = _build._SIGNATURES[fn]
-        libs[name], logs[name] = (so, lib), log
-    return libs, logs
-
-
-def _resources(log: str) -> dict:
-    """ptxas's stack, spill and register lines by fft_onepass instantiation."""
-    out, entry = {}, ""
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif "fft_onepass" in entry and ("registers" in line or "stack frame" in line):
-            out.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
-    return out
-
-
 def _local_ops(lib: Path) -> dict:
     """LDL / STL instructions in each fft_onepass function's SASS."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -123,46 +82,16 @@ def _local_ops(lib: Path) -> dict:
     return out
 
 
-def _graph_ms(call, reps: int = 20, runs: int = 5) -> float:
-    """Device ms of one launch: ``reps`` launches captured in a CUDA graph,
-    the graph replayed ``runs`` times between CUDA events (median), so the
-    host's launch time is not in it."""
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            call()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return sorted(times)[runs // 2]
-
-
-def _snr(want, got) -> float:
-    err = float(((got.double() - want.double()) ** 2).sum())
-    ref = float((want.double() ** 2).sum())
-    return float("inf") if err == 0 else 10 * torch.log10(torch.tensor(ref / err)).item()
+def _change(name: str, d: Path) -> None:
+    for src in SRCS:
+        (d / src).write_text(_source((d / src).read_text(), LAYOUTS[name]))
 
 
 def main() -> None:
-    args = sys.argv[1:]
-    names = list(LAYOUTS)
-    if args[:1] == ["--only"] and len(args) == 2:
-        names = args[1].split(",")
-    elif args:
-        raise SystemExit(__doc__)
-    if not torch.cuda.is_available():
-        raise SystemExit("k4_layouts: no CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    libs, logs = _build_all(names)
+    names = variant_names(sys.argv[1:], LAYOUTS, __doc__)
+    smi = card("k4_layouts")
+    libs = build("k4_layouts", names, SRCS, _change,
+                 ["hst_rifft_packed_tail", "hst_rifft_packed"])
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(4)
     inputs = {}
@@ -174,9 +103,9 @@ def main() -> None:
                 else hopper_fft.rifft_packed_plain(re_, im_))
         inputs[(kernel, shape)] = (re_, im_, scale, want, torch.empty_like(want),
                                    hopper_fft._twiddles(n, dev))
-    for name, (so, lib) in libs.items():
-        local = _local_ops(lib)
-        for entry, lines in _resources(logs[name]).items():
+    for name, v in libs.items():
+        so, local = v.so, _local_ops(v.lib)
+        for entry, lines in ptxas(v.log, "fft_onepass").items():
             lm = re.search(r"OnePassILi(\d+)E", entry).group(1)
             store = "tail" if entry.endswith("ELi2ELi1EEEvPKfS4_PfS5_PK6float2iif") else "full"
             print(f"{name} M = 2^{lm} {store}: {'; '.join(lines)}; LDL/STL "
@@ -197,8 +126,8 @@ def main() -> None:
                     raise SystemExit(f"k4_layouts: {name}: CUDA error {rc}")
             call()
             torch.cuda.synchronize()
-            print(f"{kernel} {shape} {name}: device {_graph_ms(call):.4f} ms, SNR vs plain "
-                  f"{_snr(want, out):.2f} dB [{smi}]", flush=True)
+            print(f"{kernel} {shape} {name}: device {graph_ms(call):.4f} ms, SNR vs plain "
+                  f"{snr(want, out):.2f} dB [{smi}]", flush=True)
 
 
 if __name__ == "__main__":

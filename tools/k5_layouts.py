@@ -3,12 +3,11 @@
     python3 tools/k5_layouts.py [--only NAME,...] [--shape C,T,P,N]
 
 For each entry of ``VARIANTS`` (text replacements in
-``csrc/fastfir_chain.cu``), copies ``hisstools_library_tpu_torch/csrc`` under
-``build/k5_layouts/NAME/``, applies the replacements, appends a C entry that
-reports the middle phase's blocks resident on the card, and builds
-``fastfir_chain.cu`` alone into a shared library (one ``nvcc`` for each
-entry, all started together, ``-fno-gnu-unique`` so that each library keeps
-its own launch state). Then, on one card in one process, at the main path's
+``csrc/fastfir_chain.cu``) it applies the replacements in a copy of
+``csrc/`` under ``build/k5_layouts/NAME/``, appends a C entry that reports
+the middle phase's blocks resident on the card, and builds
+``fastfir_chain.cu`` alone (``tools/layouts.py``). Then, on one card in one
+process, at the main path's
 (C 128, T 16, P 15, N 2^16) unless ``--shape`` names another:
 
 * ptxas's registers, stack and spills of each ``chain_mid`` instantiation,
@@ -40,16 +39,13 @@ without a card.
 
 import ctypes
 import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+from layouts import build, card, events_ms, kernel_ms, ptxas, replace_once, snr
 
 from hisstools_library_tpu_torch import _build  # noqa: E402
 from hisstools_library_tpu_torch.fft import hopper_fft  # noqa: E402
@@ -122,46 +118,10 @@ extern "C" int hst_fastfir_chain_resident(int n, int t, int p) {
 PHASES = (("A", "fft_cols"), ("B", "chain_mid"), ("C", "fft_cols_tail"))
 
 
-def _build_all(names):
-    out = ROOT / "build" / "k5_layouts"
-    jobs = {}
-    for name in names:
-        d = out / name
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(ROOT / "hisstools_library_tpu_torch" / "csrc", d)
-        text = (d / SRC).read_text()
-        for old, new in VARIANTS[name]:
-            if text.count(old) != 1:
-                raise SystemExit(f"k5_layouts: {name}: {old!r} is not once in {SRC}")
-            text = text.replace(old, new)
-        clustered = "__cluster_dims__" in text
-        (d / SRC).write_text(text + RESIDENT.replace("#if CLUSTERED", f"#if {int(clustered)}"))
-        lib = d / "libk5.so"
-        jobs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique", "-shared",
-             str(d / SRC), "-o", str(lib)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            print(f"{name}: nvcc failed\n{log}", flush=True)
-            continue
-        entry = None
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-            elif entry and "chain_mid" in entry and ("registers" in line or "spill" in line):
-                m = re.search(r"chain_midILi(\d+)E", entry)
-                print(f"{name} chain_mid<{m.group(1) if m else '?'}>: "
-                      f"{line.split('ptxas info    :')[-1].strip()}", flush=True)
-        so = ctypes.CDLL(str(lib))
-        for fn in ("hst_fastfir_chain", "hst_fastfir_chain_ring_scratch"):
-            getattr(so, fn).argtypes = _build._SIGNATURES[fn]
-        so.hst_fastfir_chain_resident.argtypes = [ctypes.c_int] * 3
-        so.hst_fastfir_chain_ring_scratch.restype = ctypes.c_longlong
-        libs[name] = so
-    return libs
+def _change(name: str, d: Path) -> None:
+    text = replace_once((d / SRC).read_text(), VARIANTS[name], f"{name}: {SRC}")
+    clustered = "__cluster_dims__" in text
+    (d / SRC).write_text(text + RESIDENT.replace("#if CLUSTERED", f"#if {int(clustered)}"))
 
 
 def _resource_usage(lib: Path, l_last: int) -> str:
@@ -176,46 +136,12 @@ def _resource_usage(lib: Path, l_last: int) -> str:
     return "not found"
 
 
-def _median_ms(fn, runs: int = 20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def _phase_ms(fn, runs: int = 10) -> dict:
-    """Device ms per call of each CUDA kernel ``fn`` launches, by name."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.device_time_total / runs / 1e3 for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.device_time_total > 0}
-
-
 def _by_phase(times: dict) -> dict:
     out = {}
     for label, stem in PHASES:
         out[label] = sum(v for k, v in times.items() if re.search(rf"\b{stem}<", k))
     out["total"] = sum(times.values())
     return out
-
-
-def _snr(want, got) -> float:
-    err = float(((got.double() - want.double()) ** 2).sum())
-    ref = float((want.double() ** 2).sum())
-    return float("inf") if err == 0 else 10 * np.log10(ref / err)
 
 
 def main() -> None:
@@ -230,12 +156,17 @@ def main() -> None:
         else:
             raise SystemExit(__doc__)
         args = args[2:]
-    if not torch.cuda.is_available():
-        raise SystemExit("k5_layouts: no CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    libs = _build_all(names)
+    smi = card("k5_layouts")
+    libs = build("k5_layouts", names, [SRC], _change, {
+        "hst_fastfir_chain": (_build._SIGNATURES["hst_fastfir_chain"], None),
+        "hst_fastfir_chain_ring_scratch": (_build._SIGNATURES["hst_fastfir_chain_ring_scratch"],
+                                           ctypes.c_longlong),
+        "hst_fastfir_chain_resident": ([ctypes.c_int] * 3, None)})
+    for name, v in libs.items():
+        for entry, lines in ptxas(v.log, "chain_mid", ("registers", "spill")).items():
+            m = re.search(r"chain_midILi(\d+)E", entry)
+            for line in lines:
+                print(f"{name} chain_mid<{m.group(1) if m else '?'}>: {line}", flush=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(11)
     k = n // 2
@@ -249,11 +180,12 @@ def main() -> None:
     tw = hopper_fft._twiddles(n, dev)
     stream = _build.stream(dev)
     l_last = hopper_fft._plan(n).lengths[1]
-    staged = _by_phase(_phase_ms(lambda: hopper_fft.fastfir_chain_staged(x2d, hr, hi, scale)))
+    staged = _by_phase(kernel_ms(lambda: hopper_fft.fastfir_chain_staged(x2d, hr, hi, scale)))
     print(f"({c}, T {t}, P {p}, {n}): staged K2 -> K3 -> K4 device {staged['total']:.4f} ms, "
-          f"events {_median_ms(lambda: hopper_fft.fastfir_chain_staged(x2d, hr, hi, scale)):.4f}"
+          f"events {events_ms(lambda: hopper_fft.fastfir_chain_staged(x2d, hr, hi, scale)):.4f}"
           f" ms [{smi}]", flush=True)
-    for name, so in libs.items():
+    for name, v in libs.items():
+        so = v.so
         floats2 = so.hst_fastfir_chain_ring_scratch(n, p)
         gring = (torch.empty(c, floats2, 2, device=dev) if floats2 else None)
 
@@ -266,12 +198,12 @@ def main() -> None:
                 raise SystemExit(f"{name}: CUDA error {rc}")
         call()
         torch.cuda.synchronize()
-        ph = _by_phase(_phase_ms(call))
+        ph = _by_phase(kernel_ms(call))
         print(f"({c}, T {t}, P {p}, {n}) {name}: device A {ph['A']:.4f} B {ph['B']:.4f} "
-              f"C {ph['C']:.4f} total {ph['total']:.4f} ms, events {_median_ms(call):.4f} ms, "
-              f"SNR vs plain {_snr(want, y):.2f} dB, {so.hst_fastfir_chain_resident(n, t, p)} "
+              f"C {ph['C']:.4f} total {ph['total']:.4f} ms, events {events_ms(call):.4f} ms, "
+              f"SNR vs plain {snr(want, y):.2f} dB, {so.hst_fastfir_chain_resident(n, t, p)} "
               f"middle-phase blocks resident; "
-              f"{_resource_usage(ROOT / 'build' / 'k5_layouts' / name / 'libk5.so', l_last)} "
+              f"{_resource_usage(v.lib, l_last)} "
               f"[{smi}]", flush=True)
 
 

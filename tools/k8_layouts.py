@@ -9,8 +9,7 @@ log2 of the columns, blocks a frame, threads a block, blocks an SM for
 ``build/k8_layouts/NAME/``, puts those plans in place of ``K8Pass`` (K1's
 plan, which ``shipped`` keeps) at those sizes, and builds
 ``fastfir_stream.cu`` with the ring MAC (``ring_mac.cu``, its state kernel)
-into a shared library (one ``nvcc`` each, all
-started together, ``-fno-gnu-unique``). Then, on one card in one process,
+(``tools/layouts.py``). Then, on one card in one process,
 at the two-tier near tier (C 128, T 16, P 3, N 2^14) unless ``--shape``
 names another, with and without lag0, it prints ptxas's registers of each
 transform's instantiation at the shape's size, the device ms of K8's three
@@ -23,17 +22,13 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Exits non-zero
 without a card.
 """
 
-import ctypes
 import re
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+from layouts import build, card, kernel_ms, ptxas, snr
 
 from hisstools_library_tpu_torch import _build  # noqa: E402
 from hisstools_library_tpu_torch.fft import hopper_fft  # noqa: E402
@@ -59,65 +54,25 @@ def _source(text: str, layout: dict) -> str:
                         + plans + "template <int LM>\nusing K8Pass = typename K8Plan<LM>::T;\n")
 
 
-def _build_all(names):
-    out = ROOT / "build" / "k8_layouts"
-    jobs = {}
-    for name in names:
-        d = out / name
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(ROOT / "hisstools_library_tpu_torch" / "csrc", d)
-        (d / SRC).write_text(_source((d / SRC).read_text(), LAYOUTS[name]))
-        lib = d / "libk8.so"
-        jobs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique", "-shared",
-             str(d / SRC), str(d / "ring_mac.cu"), "-o", str(lib)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs, logs = {}, {}
-    for name, (lib, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            print(f"{name}: nvcc failed\n{log}", flush=True)
-            continue
-        so = ctypes.CDLL(str(lib))
-        so.hst_fastfir_stream.argtypes = _build._SIGNATURES["hst_fastfir_stream"]
-        libs[name], logs[name] = so, log
-    return libs, logs
-
-
 def _registers(log: str, lm: int) -> list:
     """ptxas's register lines of the fft_onepass instantiations at M = 2^lm."""
-    out, entry = [], ""
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif f"OnePassILi{lm}E" in entry and "registers" in line:
-            kind = "forward" if entry.endswith("ELi4ELi0EEEvPKfS4_PfS5_PK6float2iif") else "inverse"
-            out.append(f"{kind} {line.split('ptxas info    :')[-1].strip()}")
-    return out
+    return [f"{'forward' if e.endswith('ELi4ELi0EEEvPKfS4_PfS5_PK6float2iif') else 'inverse'} "
+            f"{line}" for e, lines in ptxas(log, f"OnePassILi{lm}E", ("registers",)).items()
+            for line in lines]
 
 
 def _launch_ms(fn, runs: int = 10) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
+    """Device ms of K8's three launches: the forward, the state kernel, the
+    inverse."""
     out = {"forward": 0.0, "state": 0.0, "inverse": 0.0}
-    for e in prof.key_averages():
-        if e.device_type.name != "CUDA" or e.device_time_total <= 0:
-            continue
-        key = ("state" if "ring_mac" in e.key else
-               "forward" if re.search(r", 4, 0>", e.key) else "inverse")
-        out[key] += e.device_time_total / runs / 1e3
+    for key, ms in kernel_ms(fn, runs).items():
+        out["state" if "ring_mac" in key else
+            "forward" if re.search(r", 4, 0>", key) else "inverse"] += ms
     return out
 
 
-def _snr(want, got) -> float:
-    err = float(((got.double() - want.double()) ** 2).sum())
-    ref = float((want.double() ** 2).sum())
-    return float("inf") if err == 0 else 10 * torch.log10(torch.tensor(ref / err)).item()
+def _change(name: str, d: Path) -> None:
+    (d / SRC).write_text(_source((d / SRC).read_text(), LAYOUTS[name]))
 
 
 def main() -> None:
@@ -132,12 +87,8 @@ def main() -> None:
         else:
             raise SystemExit(__doc__)
         args = args[2:]
-    if not torch.cuda.is_available():
-        raise SystemExit("k8_layouts: no CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    libs, logs = _build_all(names)
+    smi = card("k8_layouts")
+    libs = build("k8_layouts", names, [SRC, "ring_mac.cu"], _change, ["hst_fastfir_stream"])
     dev = torch.device("cuda", 0)
     stream = _build.stream(dev)
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -154,8 +105,9 @@ def main() -> None:
     spectra = torch.empty(4, c * t, k, device=dev)
     tw = hopper_fft._twiddles(n, dev)
     lm = n.bit_length() - 2
-    for name, so in libs.items():
-        print(f"{name} M = 2^{lm}: {'; '.join(_registers(logs[name], lm))}", flush=True)
+    for name, v in libs.items():
+        so = v.so
+        print(f"{name} M = 2^{lm}: {'; '.join(_registers(v.log, lm))}", flush=True)
         for l0 in ((None, None), lag0):
             def call():
                 rc = so.hst_fastfir_stream(
@@ -170,12 +122,12 @@ def main() -> None:
             call()
             torch.cuda.synchronize()
             want = hopper_fft.fastfir_chain_stream_plain(x2d, prev, rr, ri, hr, hi, scale, *l0)
-            snr = min(_snr(w, g) for w, g in zip(want, (y, nr, ni)))
+            db = min(snr(w, g) for w, g in zip(want, (y, nr, ni)))
             ms = _launch_ms(call)
             print(f"K8 ({c}, T {t}, P {p}, {n}{', lag0' if l0[0] is not None else ''}) {name}: "
                   f"device forward {ms['forward']:.4f} state {ms['state']:.4f} inverse "
                   f"{ms['inverse']:.4f} total {sum(ms.values()):.4f} ms, SNR vs plain "
-                  f"{snr:.2f} dB [{smi}]", flush=True)
+                  f"{db:.2f} dB [{smi}]", flush=True)
 
 
 if __name__ == "__main__":

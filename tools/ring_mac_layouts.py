@@ -5,10 +5,9 @@ other layouts, side by side.
 
 For each entry of ``LAYOUTS`` (text replacements of ``ring_mac.cu``'s
 constants: rows of V a row item carries, shared-memory stages, the blocks an
-SM that ``__launch_bounds__`` asks registers for), copies
-``hisstools_library_tpu_torch/csrc`` under ``build/ring_mac_layouts/NAME/``
-and builds ``ring_mac.cu`` alone into a shared library (one ``nvcc`` each,
-all started together, ``-fno-gnu-unique``). Then, on one card in one
+SM that ``__launch_bounds__`` asks registers for) it builds ``ring_mac.cu``
+alone in a copy of ``csrc/`` under ``build/ring_mac_layouts/NAME/``
+(``tools/layouts.py``). Then, on one card in one
 process, at 128 channels, it prints ptxas's registers of each
 instantiation and, at each of ``SHAPES`` (the paths' K7, K15 and K8 state
 kernel shapes), the device ms of the launch (``torch.profiler``, mean of
@@ -19,19 +18,14 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Exits non-zero
 without a card.
 """
 
-import ctypes
 import re
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+from layouts import build, card, device_ms, ptxas, snr, variant_names
 
-from hisstools_library_tpu_torch import _build  # noqa: E402
 from hisstools_library_tpu_torch.fft import hopper_fft, hopper_kernels  # noqa: E402
 
 SRC = "ring_mac.cu"
@@ -65,60 +59,17 @@ def _source(text: str, layout: dict) -> str:
     return text
 
 
-def _build_all(names):
-    out = ROOT / "build" / "ring_mac_layouts"
-    jobs = {}
-    for name in names:
-        d = out / name
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(ROOT / "hisstools_library_tpu_torch" / "csrc", d)
-        (d / SRC).write_text(_source((d / SRC).read_text(), LAYOUTS[name]))
-        lib = d / "libring_mac.so"
-        jobs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique", "-shared",
-             str(d / SRC), "-o", str(lib)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs, logs = {}, {}
-    for name, (lib, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            print(f"{name}: nvcc failed\n{log}", flush=True)
-            continue
-        so = ctypes.CDLL(str(lib))
-        for fn in ("hst_lag_mac_ring", "hst_lag_mac", "hst_stream_state"):
-            getattr(so, fn).argtypes = _build._SIGNATURES[fn]
-        libs[name], logs[name] = so, log
-    return libs, logs
-
-
 def _registers(log: str) -> list:
     """ptxas's register lines of the ring_mac<TU> instantiations."""
-    out, entry = [], ""
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif "ring_mac" in entry and "registers" in line:
-            tu = re.search(r"ring_macILi(\d+)E", entry).group(1)
-            out.append(f"TU {tu}: {line.split('ptxas info    :')[-1].strip()}")
+    out = []
+    for entry, lines in ptxas(log, "ring_mac", ("registers",)).items():
+        tu = re.search(r"ring_macILi(\d+)E", entry).group(1)
+        out += [f"TU {tu}: {line}" for line in lines]
     return out
 
 
-def _device_ms(fn, runs: int = 10) -> float:
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / runs / 1e3
-
-
-def _snr(want, got) -> float:
-    err = sum(float(((g.double() - w.double()) ** 2).sum()) for w, g in zip(want, got))
-    ref = sum(float((w.double() ** 2).sum()) for w in want)
-    return float("inf") if err == 0 else 10 * torch.log10(torch.tensor(ref / err)).item()
+def _change(name: str, d: Path) -> None:
+    (d / SRC).write_text(_source((d / SRC).read_text(), LAYOUTS[name]))
 
 
 def _case(kind, c, t, p, k, extra, randn):
@@ -164,20 +115,12 @@ def _case(kind, c, t, p, k, extra, randn):
 
 
 def main() -> None:
-    args = sys.argv[1:]
-    names = list(LAYOUTS)
-    if args[:1] == ["--only"] and len(args) > 1:
-        names = args[1].split(",")
-    elif args:
-        raise SystemExit(__doc__)
-    if not torch.cuda.is_available():
-        raise SystemExit("ring_mac_layouts: no CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    libs, logs = _build_all(names)
-    for name in libs:
-        print(f"{name} {LAYOUTS[name]}: {'; '.join(_registers(logs[name]))}", flush=True)
+    names = variant_names(sys.argv[1:], LAYOUTS, __doc__)
+    smi = card("ring_mac_layouts")
+    libs = build("ring_mac_layouts", names, [SRC], _change,
+                 ["hst_lag_mac_ring", "hst_lag_mac", "hst_stream_state"])
+    for name, v in libs.items():
+        print(f"{name} {LAYOUTS[name]}: {'; '.join(_registers(v.log))}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def randn(*shape):
@@ -186,14 +129,15 @@ def main() -> None:
     for label, kind, c, t, p, k, extra in SHAPES:
         launch, want, out = _case(kind, c, t, p, k, extra, randn)
         row = []
-        for name, so in libs.items():
+        for name, v in libs.items():
+            so = v.so
             rc = launch(so)
             torch.cuda.synchronize()
             if rc != 0:
                 row.append(f"{name} CUDA error {rc}")
                 continue
-            snr = _snr(want, out)
-            row.append(f"{name} {_device_ms(lambda: launch(so)):.4f} ms ({snr:.1f} dB)")
+            row.append(f"{name} {device_ms(lambda: launch(so)):.4f} ms "
+                       f"({snr(want, out):.1f} dB)")
         print(f"{label} ({c}, T {t}, P {p}, K {k}): {'; '.join(row)} [{smi}]", flush=True)
         del launch, want, out
         torch.cuda.empty_cache()

@@ -2,11 +2,10 @@
 
     python3 tools/small_layouts.py [--only NAME,...]
 
-For each entry of ``VARIANTS`` (text replacements in ``rifft_small.cu``),
-copies ``hisstools_library_tpu_torch/csrc`` under
-``build/small_layouts/NAME/``, applies the replacements and builds that file
-alone into a shared library (one ``nvcc`` each, all started together,
-``-fno-gnu-unique``). Then, on one card in one process, it prints ptxas's
+For each entry of ``VARIANTS`` (text replacements in ``rifft_small.cu``) it
+builds that file alone in a copy of ``csrc/`` under
+``build/small_layouts/NAME/`` (``tools/layouts.py``). Then, on one card in
+one process, it prints ptxas's
 registers, stack frame and spills of each kernel instantiation, and at K11's
 path shapes ((128, 256), (128, 1024), the staged FastFIR's (6144, 2048)) and
 K11w's (the STFT's 128 x 938 frames of 1024, the pipeline's 511) the device
@@ -30,22 +29,16 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Exits non-zero
 without a card.
 """
 
-import ctypes
 import re
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
-sys.path.insert(0, str(ROOT / "tools"))
+from layouts import build, card, edit, graph_ms, ptxas, snr, variant_names
 
 from hisstools_library_tpu_torch import _build  # noqa: E402
 from hisstools_library_tpu_torch.fft import hopper_fft  # noqa: E402
-from k4_layouts import _graph_ms, _snr  # noqa: E402
 
 SRC = "rifft_small.cu"
 _GRID = ("const unsigned blocks = hst_reg::round_grid(per_sm, (batch + F - 1) / F);",
@@ -133,64 +126,15 @@ CASES = [("K11", 128, 256), ("K11", 128, 1024), ("K11", 6144, 2048),
          ("K11w", 128 * 938, 1024), ("K11w", 511, 1024)]
 
 
-def _source(text: str, edits) -> str:
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise SystemExit(f"small_layouts: {SRC} no longer holds {old.strip()[:60]!r}")
-        text = text.replace(old, new)
-    return text
-
-
-def _build_all(names):
-    out = ROOT / "build" / "small_layouts"
-    jobs = {}
-    for name in names:
-        d = out / name
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(ROOT / "hisstools_library_tpu_torch" / "csrc", d)
-        (d / SRC).write_text(_source((d / SRC).read_text(), VARIANTS[name]))
-        lib = d / "libsmall.so"
-        jobs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique", "-shared",
-             str(d / SRC), "-o", str(lib)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            print(f"{name}: nvcc failed\n{log}", flush=True)
-            continue
-        so = ctypes.CDLL(str(lib))
-        for fn in ("hst_rifft_small", "hst_rifft_small_windowed"):
-            getattr(so, fn).argtypes = _build._SIGNATURES[fn]
-        libs[name] = (so, log)
-    return libs
-
-
-def _resources(log: str) -> dict:
-    """ptxas's register, stack and spill lines by kernel instantiation."""
-    out, entry = {}, ""
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif "rifft_small_kernel" in entry and ("registers" in line or "stack frame" in line):
-            out.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
-    return out
+def _change(name: str, d: Path) -> None:
+    edit(d, SRC, VARIANTS[name])
 
 
 def main() -> None:
-    args = sys.argv[1:]
-    names = list(VARIANTS)
-    if args[:1] == ["--only"] and len(args) == 2:
-        names = args[1].split(",")
-    elif args:
-        raise SystemExit(__doc__)
-    if not torch.cuda.is_available():
-        raise SystemExit("small_layouts: no CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    libs = _build_all(names)
+    names = variant_names(sys.argv[1:], VARIANTS, __doc__)
+    smi = card("small_layouts")
+    libs = build("small_layouts", names, [SRC], _change,
+                 ["hst_rifft_small", "hst_rifft_small_windowed"])
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(4)
     inputs = {}
@@ -202,8 +146,9 @@ def main() -> None:
                 else hopper_fft.rifft_small_windowed_plain(re_, im_, w, scale))
         inputs[(kernel, frames, n)] = (re_, im_, w, scale, want, torch.empty_like(want),
                                        hopper_fft._twiddles(n, dev))
-    for name, (so, log) in libs.items():
-        for entry, lines in _resources(log).items():
+    for name, v in libs.items():
+        so = v.so
+        for entry, lines in ptxas(v.log, "rifft_small_kernel").items():
             lm, win = re.search(r"rifft_small_kernelILi(\d+)ELb(\d)E", entry).groups()
             print(f"{name} M = 2^{lm}{' windowed' if win == '1' else ''}: "
                   f"{'; '.join(lines)}", flush=True)
@@ -223,8 +168,8 @@ def main() -> None:
                     raise SystemExit(f"small_layouts: {name}: CUDA error {rc}")
             call()
             torch.cuda.synchronize()
-            print(f"{kernel} ({frames}, {n}) {name}: device {_graph_ms(call):.4f} ms, SNR vs "
-                  f"plain {_snr(want, out):.2f} dB [{smi}]", flush=True)
+            print(f"{kernel} ({frames}, {n}) {name}: device {graph_ms(call):.4f} ms, SNR vs "
+                  f"plain {snr(want, out):.2f} dB [{smi}]", flush=True)
 
 
 if __name__ == "__main__":
