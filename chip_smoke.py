@@ -14,9 +14,12 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
    device and event ms, bound, ``torch.fft.rfft`` ms and the frames its
    one-pass route holds on the card at once; K4 also at its paths' shapes
    (128, 4, 2^15), (128, 16, 2^13) and (128, 236, 2^11), each with its device
-   and event ms, bound and ``torch.fft.irfft`` ms; K2 also at its only path
-   shape, process_offline's 4096 section (128, 236 hops of 2^11), with its
-   device and event ms and bound; K5 also at (2, 5, P 7, 2^14),
+   and event ms, bound and ``torch.fft.irfft`` ms; K2 (on K1's one-pass
+   route, frames read in place) also at its only path shape,
+   process_offline's 4096 section (128, 236 hops of 2^11), with its device
+   and event ms, bound, ``torch.stft`` ms and the frames its route holds on
+   the card at once, and at (3, 5 hops) of every N = 8192..2^17; K5 also at
+   (2, 5, P 7, 2^14),
    (2, 3, P 2, 2^17), T = 1 and a P beyond shared memory, with the staged
    K2 -> K3 -> K4 timed beside it on the main path's inputs;
 4. drives the main path: ``FastFIR`` at 128 channels x 480 000 taps (a 10 s
@@ -578,7 +581,8 @@ def fastfir_kernels(randn, mods, smi) -> dict:
           + [(k1(CHANNELS, 1 << e), True) for e in range(12, 18)])]
         + [("rfft_packed_stream", [inputs("rfft_packed_stream", 4096, False),
                                    inputs("rfft_packed_stream", n_main, True),
-                                   (k2(CHANNELS, *K2_PATH_SHAPE), True)])]
+                                   (k2(CHANNELS, *K2_PATH_SHAPE), True)]
+            + [(k2(3, 5, 1 << e), False) for e in range(12, 17)])]
         + [("lag_mac_causal", [inputs("lag_mac_causal", 4096, False),
                                inputs("lag_mac_causal", n_main, True)])]
         + [("rifft_packed_tail", [inputs("rifft_packed_tail", 4096, False),
@@ -600,10 +604,13 @@ def fastfir_kernels(randn, mods, smi) -> dict:
               f"torch.fft.rfft {e['library_ms']:.4f} ms, SNR vs plain {e['snr_db']:.2f} dB, "
               f"{e['resident']} frames resident at once ({hf._onepass_plan(n).blocks} "
               f"blocks a frame) [{smi}]", flush=True)
-    for e in results["rfft_packed_stream"]["shapes"][2:]:
+    for e in results["rfft_packed_stream"]["shapes"][2:3]:
+        n = 2 * e["shapes"][0][-1]
+        e["resident"] = hf.rfft_packed_stream_resident(n)
         print(f"K2 at its path shape {e['shapes'][0]}: device {e['device_ms']:.4f} ms, "
               f"events {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
-              f"SNR vs plain {e['snr_db']:.2f} dB [{smi}]", flush=True)
+              f"torch.stft {e['library_ms']:.4f} ms, SNR vs plain {e['snr_db']:.2f} dB, "
+              f"{e['resident']} frames resident at once [{smi}]", flush=True)
     for e in results["rifft_packed_tail"]["shapes"]:
         if "ms" in e:
             print(f"K4 one pass at {e['shapes'][0]}: device {e['device_ms']:.4f} ms, events "

@@ -35,8 +35,10 @@ _SIGNATURES = {
     "hst_rfft_packed": [_P, _P, _P, _P, _L, _I, _P],
     # n -> frames K1 holds on the card at once (or minus a CUDA error)
     "hst_rfft_packed_resident": [_I],
-    # x, re, im, scratch_y, tw, channels, hops, n, stream
-    "hst_rfft_packed_stream": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
+    # x, re, im, tw, channels, hops, n, stream
+    "hst_rfft_packed_stream": [_P, _P, _P, _P, _L, _I, _I, _P],
+    # n -> frames K2 holds on the card at once (or minus a CUDA error)
+    "hst_rfft_packed_stream_resident": [_I],
     # re, im, out, tw, frames, n, scale, stream
     "hst_rifft_packed_tail": [_P, _P, _P, _P, _L, _I, _F, _P],
     # xr, xi, hr, hi, yr, yi, channels, t, p, k, stream

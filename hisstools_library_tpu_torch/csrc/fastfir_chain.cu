@@ -17,7 +17,8 @@
 // (fft_common.cuh, M = N/2 = M1 * R: rows of M1 = l_last points) in three
 // phases on one stream:
 //   A. the forward column pass of every frame, reading [x[t-1] | x[t]] in
-//      place (K2's pass 1), into a scratch frame per hop;
+//      place (fft_common.cuh's fft_cols, kLoadStream), into a scratch
+//      frame per hop;
 //   B. one block per (channel, row pair (j, R-j)) walks the channel's hops
 //      in chunks of kRows / 2 (32 rows up to M1 = 128, 16 at 256): the
 //      forward row pass and the pack (bins k and M-k sit in rows j and

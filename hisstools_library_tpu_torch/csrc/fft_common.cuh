@@ -1,19 +1,19 @@
-// Shared multi-pass FFT core on Hopper: the real forward K2
-// rfft_packed_stream, the complex K12 fft_split at 2048..2^16 points, and K5's
-// FastFIR chain (fastfir_chain.cu: this file's column pass for its forward,
-// and the row-first inverse at the end of this file). The plan (make_plan)
-// also routes the large sizes, complex M = 2^17..2^28, which fft_large.cuh
-// serves (K12 there, K13 rfft_packed_split and K14 rifft_packed_split). K1
-// rfft_packed, K4 rifft_packed_tail and K6 rifft_packed take none of
-// make_plan's routes: they run fft_large.cuh's one-pass kernel on K1's own
-// plan (K1Pass) at every size they serve.
+// Shared multi-pass FFT core on Hopper: the complex K12 fft_split at
+// 2048..2^16 points, and K5's FastFIR chain (fastfir_chain.cu: this file's
+// column pass for its forward, and the row-first inverse at the end of this
+// file). The plan (make_plan) also routes the large sizes, complex M =
+// 2^17..2^28, which fft_large.cuh serves (K12 there, K13 rfft_packed_split
+// and K14 rifft_packed_split). K1 rfft_packed, K2 rfft_packed_stream, K4
+// rifft_packed_tail and K6 rifft_packed take none of make_plan's routes:
+// they run fft_large.cuh's one-pass kernel on K1's own plan (K1Pass) at
+// every size they serve.
 //
 // A real transform of length N is an M = N/2 point complex FFT of
 // z[n] = x[2n] + i x[2n+1], plus the split step that pairs bins k and M-k.
 // The complex K12 is the M-point FFT alone, split planes in and out. A
 // complex frame of M = 2048..2^16 points is 16 KB-512 KB, beyond one block's
-// shared memory at the top of the range, so the FFT runs as two passes over
-// an HBM scratch frame, each pass a set of sub-FFTs of length <= 256,
+// shared memory at the top of the range, so here the FFT runs as two passes
+// over an HBM scratch frame, each pass a set of sub-FFTs of length <= 256,
 // M = M1 * M2:
 //     pass 1 (columns): for each column n1 < M1, the M2-point FFT of
 //             z[n1 + M1*n2] over n2, times the inter-pass twiddle W_M^(n1*k2);
@@ -22,12 +22,9 @@
 //             over n1, which is Z[k2 + M2*k1].
 //
 // Bin k = j + R*k1 (R = M/M1 rows) and its partner M-k = (R-j) + R*(M1-1-k1)
-// (row 0: column M1-k1) sit in rows j and R-j. The forward split step
-// therefore stays in the row pass's store, with no extra pass over the
-// frame: a row-pass block holds rows j and R-j together (8 such pairs), so
-// every bin k meets its partner M-k in shared memory and Z never goes to HBM.
-// K12's split planes are the row pass's store too, and the column pass's
-// loader.
+// (row 0: column M1-k1) sit in rows j and R-j: the pairs that K5's middle
+// phase and fft_large.cuh's packs (pack_row_of) hold in one block. K12's
+// split planes are the row pass's store and the column pass's loader.
 //
 // A block runs kTile = 16 neighbouring sub-FFTs of length L = A*B, each as a
 // four-step of its own: every thread takes one B-point DFT in registers
@@ -200,7 +197,8 @@ __device__ __forceinline__ void step1_store(float2* s, const float2 (&v)[Sub<L>:
 //                real signal, or a scratch frame of an earlier pass).
 //   kLoadStream: frame = hop block b of (C, T, H) blocks; the frame is
 //                [x[b-1] | x[b]] read in place, with block -1 taken as zeros
-//                when b is a channel's first hop (`first`).
+//                when b is a channel's first hop (`first`): K2's forward
+//                (fft_large.cuh's one-pass kernel) and K5's column pass.
 //   kLoadStreamPrev: kLoadStream, with block -1 read from `a_im`, the
 //                channel's carried previous block (H floats), instead (K8's
 //                forward, fft_large.cuh's one-pass kernel).
@@ -282,8 +280,8 @@ fft_cols(const float* __restrict__ a, const float* __restrict__ a_im,
 
 // Slot f (< 2H) of pack tile `tile` over R = `rows` rows: slots 0..H-1 hold
 // rows H*tile + f, slots H..2H-1 their partners R - row; tile 0 holds the
-// two self-paired rows 0 (slot 0) and R/2 (slot H). The row pass packs with
-// H = kTile/2 = 8.
+// two self-paired rows 0 (slot 0) and R/2 (slot H). fft_large.cuh's packs
+// and paired unpacks place their rows or columns with it.
 template <int H>
 __device__ __forceinline__ int pack_row_of(int tile, int f, int rows) {
   const int lo = f & (H - 1);
@@ -293,34 +291,25 @@ __device__ __forceinline__ int pack_row_of(int tile, int f, int rows) {
 }
 
 // Row pass, sub-FFT length L = M1, over R = M/M1 rows a frame:
-// grid = frames * (R / kTile) blocks. Z[j + R*k1] = FFT_M1(Y[j*M1 + n1])[k1].
-//   kStorePack:  the packed planes `out` (re) and `out_im` (im), M per frame:
-//                P[k] = (Z[k] + conj Z[M-k]) - i W_N^k (Z[k] - conj Z[M-k]),
-//                k >= 1; re[0] = 2(Re Z0 + Im Z0) (DC), im[0] =
-//                2(Re Z0 - Im Z0) (Nyquist). Z[M-k] is at row R-j, column
-//                M1-1-k1 (row 0: column M1-k1), in the same block.
-//   kStoreSplit: Z[k] itself into the (frames, M) planes `out` (re) and
-//                `out_im` (im).
-template <int kStore, int L>
+// grid = frames * (R / kTile) blocks. Z[j + R*k1] = FFT_M1(Y[j*M1 + n1])[k1],
+// stored into the (frames, M) split planes `out` (re) and `out_im` (im).
+template <int L>
 __global__ void __launch_bounds__(kThreads)
 fft_rows(const float2* __restrict__ y, float* __restrict__ out,
          float* __restrict__ out_im, const float2* __restrict__ tw, int log_n,
          int rows) {
-  static_assert(kStore == kStorePack || kStore == kStoreSplit, "the pack or the split planes");
   constexpr int A = Sub<L>::kA, B = Sub<L>::kB;
   __shared__ float2 s[kTile * kLd];
   const int m = 1 << (log_n - 1);
   const int tiles = rows / kTile;
   const long long frame = blockIdx.x / tiles;
-  const int tile = (int)(blockIdx.x - frame * tiles);
-  const int r0 = tile * kTile;
+  const int r0 = (int)(blockIdx.x - frame * tiles) * kTile;
   const int tid = threadIdx.x;
   // Step 1: thread (j1, f), j1 fastest so loads run along rows.
   if (tid < kTile * A) {
     const int j1 = tid % A;
     const int f = tid / A;
-    const int row = kStore == kStorePack ? pack_row_of<kTile / 2>(tile, f, rows) : r0 + f;
-    const float2* yr = y + frame * m + (long long)row * L;
+    const float2* yr = y + frame * m + (long long)(r0 + f) * L;
     float2 v[B];
 #pragma unroll
     for (int j2 = 0; j2 < B; ++j2) v[j2] = yr[j1 + A * j2];
@@ -328,55 +317,21 @@ fft_rows(const float2* __restrict__ y, float* __restrict__ out,
     step1_store<L>(s, v, f, j1, tw, log_n);
   }
   __syncthreads();
-  // Step 2: thread (f, k2) holds outputs k = k2 + B*k1 of sub-FFT f.
-  const bool active = tid < kTile * B;
-  const int f = tid % kTile;
-  const int k2 = tid / kTile;
-  float2 v[A];
-  if (active) {
+  // Step 2: thread (f, k2) stores outputs k = k2 + B*k1 of sub-FFT f.
+  if (tid < kTile * B) {
+    const int f = tid % kTile;
+    const int k2 = tid / kTile;
+    float2 v[A];
 #pragma unroll
     for (int j1 = 0; j1 < A; ++j1) v[j1] = s[f * kLd + k2 * A + j1];
     reg_dft<A>(v, tw, log_n);
-  }
-  if (kStore == kStoreSplit) {
-    if (active) {
-      const long long base = frame * m + r0 + f;
+    const long long base = frame * m + r0 + f;
 #pragma unroll
-      for (int k1 = 0; k1 < A; ++k1) {
-        const long long i = base + (long long)rows * (k2 + B * k1);
-        out[i] = v[k1].x;
-        out_im[i] = v[k1].y;
-      }
+    for (int k1 = 0; k1 < A; ++k1) {
+      const long long i = base + (long long)rows * (k2 + B * k1);
+      out[i] = v[k1].x;
+      out_im[i] = v[k1].y;
     }
-    return;
-  }
-  __syncthreads();  // every step-2 read of s is done
-  if (active) {
-#pragma unroll
-    for (int k1 = 0; k1 < A; ++k1) s[f * kLd + k2 + B * k1] = v[k1];
-  }
-  __syncthreads();
-  float* re = out + frame * m;
-  float* im = out_im + frame * m;
-  for (int i = tid; i < kTile * L; i += blockDim.x) {
-    const int sf = i % kTile;
-    const int k1 = i / kTile;
-    const int row = pack_row_of<kTile / 2>(tile, sf, rows);
-    const int k = row + rows * k1;
-    const float2 zk = s[sf * kLd + k1];
-    if (k == 0) {
-      re[0] = 2.f * (zk.x + zk.y);
-      im[0] = 2.f * (zk.x - zk.y);
-      continue;
-    }
-    const int g = (row == 0 || row == (rows >> 1)) ? sf : (sf ^ 8);
-    const int c = row == 0 ? L - k1 : L - 1 - k1;
-    const float2 zm = s[g * kLd + c];
-    const float2 sum = make_float2(zk.x + zm.x, zk.y - zm.y);
-    const float2 dif = make_float2(zk.x - zm.x, zk.y + zm.y);
-    const float2 wd = cmul(__ldg(&tw[k]), dif);
-    re[k] = sum.x + wd.y;
-    im[k] = sum.y - wd.x;
   }
 }
 
@@ -401,7 +356,6 @@ inline void launch_cols(int len, long long frames, int ncol, const float* a,
   }
 }
 
-template <int kStore>
 inline void launch_rows(const Plan& p, long long frames, const float2* y,
                         float* out, float* out_im, const float2* tw,
                         cudaStream_t st) {
@@ -409,29 +363,28 @@ inline void launch_rows(const Plan& p, long long frames, const float2* y,
   const unsigned grid = (unsigned)(frames * (rows / kTile));
   switch (p.l_last) {
     case 32:
-      fft_rows<kStore, 32><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows);
+      fft_rows<32><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows);
       break;
     case 64:
-      fft_rows<kStore, 64><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows);
+      fft_rows<64><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows);
       break;
     case 128:
-      fft_rows<kStore, 128><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows);
+      fft_rows<128><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows);
       break;
     default:
-      fft_rows<kStore, 256><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows);
+      fft_rows<256><<<grid, kThreads, 0, st>>>(y, out, out_im, tw, p.log_n, rows);
   }
 }
 
-// The whole two-pass transform (M <= 2^16) of `frames` frames: the column
-// pass loads with kLoad (a, a_im; `hops` for kLoadStream), the row pass
-// stores with kStore (out, out_im). `scratch` holds frames * M float2.
-template <int kLoad, int kStore>
+// The whole two-pass complex transform (M <= 2^16, K12) of `frames` frames:
+// split planes in (a, a_im) and out (out, out_im). `scratch` holds
+// frames * M float2.
 inline void run_fft(const Plan& p, long long frames, const float* a, const float* a_im,
                     float2* scratch, float* out, float* out_im, const float2* tw,
-                    int hops, cudaStream_t st) {
-  launch_cols<kLoad>(p.l_first, frames, p.m / p.l_first, a, a_im, scratch, tw, p.log_n,
-                     p.log_n - 1, hops, st);
-  launch_rows<kStore>(p, frames, scratch, out, out_im, tw, st);
+                    cudaStream_t st) {
+  launch_cols<kLoadSplit>(p.l_first, frames, p.m / p.l_first, a, a_im, scratch, tw, p.log_n,
+                          p.log_n - 1, 1, st);
+  launch_rows(p, frames, scratch, out, out_im, tw, st);
 }
 
 // -----------------------------------------------------------------------------

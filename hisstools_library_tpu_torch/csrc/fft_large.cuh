@@ -65,11 +65,13 @@
 // memory, and each bin is read from HBM once (unpack_pairs).
 //
 // K1's one pass (fft_onepass, below) serves complex M = 2^11..2^16 on one
-// block or a cluster of 2..8: K1's forward (kLoadReal, kStorePack), K4's
-// overlap-save inverse and K6's full inverse (the paired unpack kLoadUnpack,
-// with kStoreTail and kStoreFull); K8's split chain (fastfir_stream.cu) runs
-// it twice, as the forward of its frames read in place (kLoadStreamPrev)
-// and as K4's inverse.
+// block or a cluster of 2..8: K1's forward (kLoadReal, kStorePack), K2's
+// overlap-save forward of frames read in place with a zero first half at
+// each channel's first hop (kLoadStream), K4's overlap-save inverse and K6's
+// full inverse (the paired unpack kLoadUnpack, with kStoreTail and
+// kStoreFull); K8's split chain (fastfir_stream.cu) runs it twice, as the
+// forward of its frames read in place with the carried block as hop 0's
+// first half (kLoadStreamPrev) and as K4's inverse.
 #pragma once
 
 #include <climits>
@@ -856,9 +858,10 @@ __device__ __forceinline__ float2* frame_smem(float2* lsm, int r) {
 }
 
 // grid = frames * C blocks, block r of frame blockIdx.x / C (its rank in the
-// cluster). Loads with kLoad (a, a_im): kLoadReal; kLoadStreamPrev with
-// frame = hop t of (C, hops, M/2 float2) blocks and a_im the (C, M/2
-// float2) carried blocks; or kLoadUnpack, the packed planes a (re) and a_im
+// cluster). Loads with kLoad (a, a_im): kLoadReal; kLoadStream with
+// frame = hop t of (C, hops, M/2 float2) blocks, the first half zero at a
+// channel's hop 0 (a_im unused); kLoadStreamPrev, the same with a_im the
+// (C, M/2 float2) carried blocks as hop 0's first half; or kLoadUnpack, the packed planes a (re) and a_im
 // (im) of the real inverse, unpacked in pairs (below). Stores with kStore:
 // kStorePack, the packed planes out (re) and out_im (im); kStoreTail, the
 // kept half of the real inverse, times `scale`, into the (frames, M) floats
@@ -893,9 +896,9 @@ fft_onepass(const float* __restrict__ a, const float* __restrict__ a_im,
   if constexpr (C > 1) rank = (int)cg::this_cluster().block_rank();
   const long long frame = blockIdx.x / C;
   const int tid = threadIdx.x;
-  // kLoadStreamPrev: hop 0 of a channel takes its first half from the
-  // channel's carried block.
-  const bool first = kLoad == kLoadStreamPrev && frame % hops == 0;
+  // Hop 0 of a channel takes its first half as zeros (kLoadStream) or from
+  // the channel's carried block (kLoadStreamPrev).
+  const bool first = (kLoad == kLoadStream || kLoad == kLoadStreamPrev) && frame % hops == 0;
   const float* lo = kLoad == kLoadStreamPrev ? a_im + (frame / hops) * (long long)m : a_im;
   // The twiddle tables after the frame: the pack's, then load_twiddles'
   // layout (tl, thi, tlo).
@@ -1089,8 +1092,8 @@ fft_onepass(const float* __restrict__ a, const float* __restrict__ a_im,
   }
 }
 
-// K1's one-pass plan of complex M = 2^LM, M = 2^11..2^16 (also K8's two
-// transforms at 2^13..2^16; hopper_fft._onepass_plan mirrors it): M1
+// K1's one-pass plan of complex M = 2^LM, M = 2^11..2^16 (also K2's
+// forward and K8's two transforms at 2^13..2^16; hopper_fft._onepass_plan mirrors it): M1
 // columns of M2 points on C blocks, two blocks an SM (<= 128 registers a
 // thread at 256 threads, <= 64 at 512). A block holds 2048..8192 points;
 // its columns give it runs of 32..128 points of every row. The threads

@@ -77,9 +77,8 @@ extern "C" int hst_fft_split(const float* re, const float* im, float* out_re,
     cfft_small_kernel<<<blocks, kSmallThreads, 0, st>>>(re, im, out_re, out_im, w, batch,
                                                          hst::ilog2(n));
   } else if (n <= (1 << 16)) {
-    hst::run_fft<hst::kLoadSplit, hst::kStoreSplit>(
-        hst::make_plan(2 * n), batch, re, im, static_cast<float2*>(scratch), out_re,
-        out_im, w, 1, st);
+    hst::run_fft(hst::make_plan(2 * n), batch, re, im, static_cast<float2*>(scratch), out_re,
+                 out_im, w, st);
   } else {
     return hst::run_fft_large<hst::kLoadSplit, hst::kStoreSplit>(
         hst::make_plan(2 * n), batch, re, im, static_cast<float2*>(scratch), out_re,

@@ -41,7 +41,7 @@ and :func:`fft_tiny` (``csrc/fft_tiny.cu``: one thread a frame, the DFT in
 registers), so every power of two up to the limits below has a kernel.
 :func:`fft_split` (K12) serves complex N = 32..2^28: frames of up to 1024
 points in shared memory, 2048..2^16 in two passes over an HBM scratch frame
-(``csrc/fft_common.cuh``, which K2 and K5 share), 2^17 in one pass
+(``csrc/fft_common.cuh``, whose column pass K5 shares), 2^17 in one pass
 on an 8-block thread-block cluster that holds the frame in its shared memory,
 2^18..2^20 in two passes of 512..1024-point sub-FFTs and 2^21..2^28 in three
 passes of 128..1024-point sub-FFTs (``csrc/fft_large.cuh``, which K13 and
@@ -50,13 +50,15 @@ twiddles: the sub-FFTs' come from a table of 2048 (:func:`_large_twiddles`),
 the rest are computed in float64 for each block's columns or rows.
 :func:`_plan` mirrors the kernels' plan, and the wrappers size their scratch
 from it: one frame per transform for two or three passes (the middle one in
-place), none for the cluster. K1, and the inverses K4 and K6
-(real 4096..2^17), take one pass at every size, with no scratch: the frame of
-M = N/2 points in the shared memory of one block or of a 2-, 4- or 8-block
-cluster (``csrc/fft_large.cuh``'s one-pass kernel, the cluster route's
-generalisation); :func:`_onepass_plan` mirrors its plan. The inverses unpack
-the packed planes in pairs in its column stage, a block's columns n1 and
-M1 - n1 together, so each packed bin is read from HBM once.
+place), none for the cluster. K1, the overlap-save forward K2 and the
+inverses K4 and K6 (real 4096..2^17) take one pass at every size, with no
+scratch: the frame of M = N/2 points in the shared memory of one block or of
+a 2-, 4- or 8-block cluster (``csrc/fft_large.cuh``'s one-pass kernel, the
+cluster route's generalisation); :func:`_onepass_plan` mirrors its plan. K2
+reads each frame [x[t-1] | x[t]] in place from the hop blocks, its first
+half zero at a channel's first hop. The inverses unpack the packed planes in
+pairs in its column stage, a block's columns n1 and M1 - n1 together, so
+each packed bin is read from HBM once.
 
 The windowed forms K10w and K11w (N = 32..2048, the STFT's frames) are
 instantiations of K10's and K11's kernels that multiply by the window in the
@@ -168,9 +170,9 @@ def chain_eligible(n: int) -> bool:
 
 def stream_feasible(n: int) -> bool:
     """True when the streaming forward (K2) and tail inverse (K4) serve real
-    size ``n``. K2 runs two passes over a scratch frame and K4 one pass on
-    K1's plan, so no on-chip memory model limits them below
-    :data:`MAX_SINGLE_REAL`."""
+    size ``n``. Both run one pass on K1's plan, the frame in one block's or
+    one cluster's shared memory at every size to :data:`MAX_SINGLE_REAL`, so
+    no further on-chip memory model limits them."""
     return real_eligible(n)
 
 
@@ -268,8 +270,8 @@ def _plan(n: int) -> Plan:
 
 class OnePassPlan(NamedTuple):
     """How K1's one-pass route (``csrc/rfft_packed.cu``, ``K1Pass``; also
-    K4's, K6's and K8's transforms) serves one complex size M: the frame in
-    the shared memory of ``blocks`` blocks."""
+    K2's, K4's, K6's and K8's transforms) serves one complex size M: the
+    frame in the shared memory of ``blocks`` blocks."""
     route: str                # "one-pass"
     lengths: Tuple[int, int]  # (column, row) sub-FFT lengths: M1 columns of
                               # lengths[0] = M2 points, M2 rows of lengths[1] = M1
@@ -603,6 +605,17 @@ def rfft_packed_resident(n: int) -> int:
     got = _build.load().hst_rfft_packed_resident(n)
     if got < 0:
         _build.check(-got, "K1 rfft_packed")
+    return got
+
+
+def rfft_packed_stream_resident(n: int) -> int:
+    """Frames of real size ``n`` that K2 holds on the current card at once,
+    as :func:`rfft_packed_resident` counts K1's."""
+    if not real_eligible(n):
+        raise ValueError(f"K2 serves real N = {MIN_REAL_SIZE}..{MAX_SINGLE_REAL}, got {n}")
+    got = _build.load().hst_rfft_packed_stream_resident(n)
+    if got < 0:
+        _build.check(-got, "K2 rfft_packed_stream")
     return got
 
 
@@ -1001,7 +1014,9 @@ fft_split.launches = 0
 def rfft_packed_stream(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: overlap-save forward. ``x2d``: (..., T, H) hop blocks; returns
     packed planes (..., T, N/2), N = 2H, spectrum t = rfft([x2d[t-1] |
-    x2d[t]]) with x2d[-1] = 0, read in place with no frames buffer."""
+    x2d[t]]) with x2d[-1] = 0: one HBM pass on K1's plan
+    (:func:`_onepass_plan`), each frame read in place from the hop blocks,
+    no frames buffer and no scratch."""
     if x2d.device.type == "cpu":
         return rfft_packed_stream_plain(x2d)
     t, hop = x2d.shape[-2], x2d.shape[-1]
@@ -1013,10 +1028,9 @@ def rfft_packed_stream(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     im = torch.empty_like(re)
     if c * t == 0:
         return re, im
-    scratch = torch.empty(c * t, n, dtype=torch.float32, device=x2d.device)
     rc = _build.load().hst_rfft_packed_stream(
-        x2d.data_ptr(), re.data_ptr(), im.data_ptr(), scratch.data_ptr(),
-        _twiddles(n, x2d.device).data_ptr(), c, t, n, _build.stream(x2d.device))
+        x2d.data_ptr(), re.data_ptr(), im.data_ptr(), _twiddles(n, x2d.device).data_ptr(),
+        c, t, n, _build.stream(x2d.device))
     _build.check(rc, "K2 rfft_packed_stream")
     rfft_packed_stream.launches += 1
     return re, im

@@ -131,6 +131,51 @@ def test_k1_frames_resident(cuda):
         assert hopper_fft.rfft_packed_resident(1 << e) >= 1
 
 
+# K2 on K1's one-pass route (csrc/rfft_packed_stream.cu): every real N =
+# 4096..2^17 with T = 1 (the lower half of every frame zero) and with C = 3,
+# T = 5 (frames that cross channel boundaries at frame % T == 0), and the
+# offline path's (128, 236, 2048).
+K2_CASES = ([(c, t, 1 << (e - 1)) for e in range(12, 18) for c, t in ((2, 1), (3, 5))]
+            + [(128, 236, 1 << 11)])
+
+
+@pytest.mark.parametrize("shape", K2_CASES)
+def test_k2_one_pass_matches_plain(cuda, shape):
+    x = torch.randn(*shape, generator=torch.Generator(device=cuda).manual_seed(shape[1]),
+                    device=cuda)
+    before = hopper_fft.rfft_packed_stream.launches
+    got = hopper_fft.rfft_packed_stream(x)
+    want = hopper_fft.rfft_packed_stream_plain(x)
+    torch.cuda.synchronize()
+    assert hopper_fft.rfft_packed_stream.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == shape and g.device.type == "cuda"
+        assert bool(torch.isfinite(g).all())
+        assert snr_db(w.cpu().numpy(), g.cpu().numpy()) >= SNR_KERNEL_DB
+
+
+def test_k2_allocates_only_its_outputs(cuda):
+    """One K2 call at the offline path's (128, 236, 2048) raises the peak
+    allocation by its two output planes and at most 1 MB more: no scratch
+    frame."""
+    x = torch.randn(128, 236, 1 << 11, device=cuda)
+    hopper_fft.rfft_packed_stream(x[:1, :1])  # the twiddle table, cached for the size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = hopper_fft.rfft_packed_stream(x)
+    torch.cuda.synchronize()
+    out_bytes = 2 * x.numel() * 4
+    assert sum(t.numel() * 4 for t in out) == out_bytes
+    assert torch.cuda.max_memory_allocated() - base <= out_bytes + (1 << 20)
+
+
+def test_k2_frames_resident(cuda):
+    """At least one frame of every K2 size fits the card at once."""
+    for e in range(12, 18):
+        assert hopper_fft.rfft_packed_stream_resident(1 << e) >= 1
+
+
 # K4 and K6 on the one-pass route with the paired unpack (csrc/rifft_packed_tail.cu,
 # csrc/rifft_packed.cu): every real N = 4096..2^17 at 1, 3 and 128 frames,
 # and K4 at its paths' shapes (the far tier's (128, 4, 32768), the collapsed

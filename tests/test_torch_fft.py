@@ -46,12 +46,16 @@ def test_rfft_packed_matches_pallas(rng, n):
 
 @pytest.mark.parametrize("n", [4096, 16384])
 def test_rfft_packed_stream_matches_pallas(rng, n):
-    x2d = rng.standard_normal((2, 4, n // 2)).astype(np.float32)
-    jre, jim = pallas_fft.rfft_packed_stream(jnp.asarray(x2d), mode="highest")
-    tre, tim = hopper_fft.rfft_packed_stream(torch.from_numpy(x2d))
-    assert tre.shape == (2, 4, n // 2)
-    assert snr_db(jre, tre) >= SNR_MIN_DB
-    assert snr_db(jim, tim) >= SNR_MIN_DB
+    """K2 against the JAX K2 (interpret mode) at (C, T) = (2, 4), at T = 1
+    (every frame's lower half zero) and at C * T = 15, not a multiple of 4
+    (frames that cross channel boundaries)."""
+    for c, t in ((2, 4), (2, 1), (3, 5)):
+        x2d = rng.standard_normal((c, t, n // 2)).astype(np.float32)
+        jre, jim = pallas_fft.rfft_packed_stream(jnp.asarray(x2d), mode="highest")
+        tre, tim = hopper_fft.rfft_packed_stream(torch.from_numpy(x2d))
+        assert tre.shape == (c, t, n // 2)
+        assert snr_db(jre, tre) >= SNR_MIN_DB
+        assert snr_db(jim, tim) >= SNR_MIN_DB
 
 
 @pytest.mark.parametrize("n", [4096, 16384])

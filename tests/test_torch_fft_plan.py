@@ -19,6 +19,8 @@ index maps, written to follow the kernels step by step:
   ncol - c), so each packed bin is loaded once and meets its partner in
   the block's tile) and the float32 error of the twiddles formed from two
   factors;
+* K2's loader on K1's one-pass route: frames [x[t-1] | x[t]] read in
+  place from the hop blocks, the lower half zero at a channel's first hop;
 * the real inverse on K1's one-pass route (K4, K6, K8's inverse): the
   paired unpack at every K1 plan (a block's column slots hold columns n1
   and M1 - n1), the exchange of the paired columns to the rows, and the
@@ -339,8 +341,8 @@ def test_onepass_plan_every_k1_size(lm):
 
 @pytest.mark.parametrize("lm", range(11, 17))
 def test_k1_route_leaves_make_plan_unchanged(lm):
-    """K1's plan is its own: make_plan's mirror for K2 / K12 keeps
-    two passes and one scratch frame at every M <= 2^16."""
+    """K1's plan is its own (K2, K4, K6 and K8 share it): make_plan's mirror
+    for K12 keeps two passes and one scratch frame at every M <= 2^16."""
     m = 1 << lm
     assert hopper_fft._plan(2 * m) == ("two-pass", TWO_PASS[lm], 2, 1)
     assert tuple(hopper_fft._scratch(2, m, torch.device("meta")).shape) == (2, 2 * m)
@@ -373,6 +375,40 @@ def test_onepass_model_matches_numpy_small(m, blocks):
     x, z = _signal(m, seed=m + blocks)
     got = _cluster_route(z, cols, blocks, True, split=16, push=True)
     assert _close(got, _packed_ref(x))
+
+
+def _stream_frame(x2d, frame, m):
+    """K2's loader (fft_common.cuh load_elem<kLoadStream>) for one frame of
+    the (C, T, H) blocks x2d, frame = c * T + t: element idx < M of the
+    float2 view z of [x[t-1] | x[t]], read at float2 frame * M/2 + idx - M/2
+    of the flat signal, zero for idx < M/2 at a channel's first hop."""
+    hops = x2d.shape[1]
+    flat = x2d.reshape(-1)
+    z2 = flat[0::2] + 1j * flat[1::2]
+    half = m // 2
+    idx = np.arange(m)
+    z = np.zeros(m, complex)
+    read = (idx >= half) | (frame % hops != 0)
+    z[read] = z2[frame * half + idx[read] - half]
+    return z
+
+
+@pytest.mark.parametrize("c,t,m,blocks", [(2, 1, 1 << 8, 1), (3, 5, 1 << 8, 1),
+                                          (3, 5, 1 << 10, 2), (2, 3, 1 << 11, 1)])
+def test_stream_loader_model_matches_plain(c, t, m, blocks):
+    """K2 on the one-pass route: frames read in place by the loader's index
+    map (a channel's first hop with a zero lower half, later hops reading
+    the block before, frames crossing channel boundaries at T = 5) through
+    the one-pass model, against the plain version in float64."""
+    rng = np.random.default_rng(m + t)
+    x2d = rng.standard_normal((c, t, m))
+    cols = 1 << (m.bit_length() - 1) // 2
+    want_re, want_im = hopper_fft.rfft_packed_stream_plain(torch.from_numpy(x2d))
+    want = (want_re.numpy() + 1j * want_im.numpy()).reshape(c * t, m)
+    for frame in range(c * t):
+        got = _cluster_route(_stream_frame(x2d, frame, m), cols, blocks, True, split=16,
+                             push=True)
+        assert _close(got, want[frame])
 
 
 @pytest.mark.parametrize("blocks,rows", [(1, 32), (2, 128), (4, 256), (8, 512), (8, 64),

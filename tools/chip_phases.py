@@ -1,7 +1,7 @@
 """Phases of ``chip_smoke.py`` from one checkout, for an A/B run.
 
-    python3 tools/chip_phases.py [--small | --k1 | --k4 | --k5 | --k7 | --k9 | --k14 | --large]
-        CHECKOUT
+    python3 tools/chip_phases.py [--small | --k1 | --k2 | --k4 | --k5 | --k7 | --k9 | --k14
+        | --large] CHECKOUT
 
 Runs, from the checkout at CHECKOUT (its ``chip_smoke.py`` and its
 ``hisstools_library_tpu_torch``, kernels built under its own ``build/``), on
@@ -29,6 +29,24 @@ one CUDA card:
   that launch K1: the FastFIR IR preparation (128 x 480 000 taps), the
   two-tier ``mono.process`` (ms per 131 072-sample call) and the 1 s
   spectral convolve (128 x 48 000);
+* with ``--k2`` K2 rfft_packed_stream at its path shape (128, 236, 2^11)
+  (``process_offline``'s 4096 section without the tail), at (128, 16, 2^15)
+  and at 128 channels of every N = 4096..2^17 at that path's 236 hops:
+  device ms (``torch.profiler``), event ms, SNR against the plain version
+  (taken 16 channels at a time), the bound (bytes: x once and the packed
+  spectra, 12 H bytes a hop) and the TB/s those bytes reach in the device
+  time, the frames resident at once where the checkout reports them, and
+  ``torch.stft`` (a rectangular window, the signal padded by one hop in
+  front) on the same input beside each; then the device ms of the kernels
+  that share its one-pass kernel at their path shapes (K1 at (1920, 2^16)
+  and (128, 4096); K4 at (128, 16, 2^15), (128, 4, 2^15), (128, 16, 2^13)
+  and (128, 236, 2^11); K6 at (128, 2^14) and (128, 4096); K8's three
+  launches at chip_smoke's four shapes); the staged chain K2 -> K3 -> K4
+  (``fastfir_chain_staged``) at that section's (128, 236, 2^11) with its
+  P = 3: device ms and the peak memory a call adds above its inputs; and
+  ``mono.process_offline`` without the tail at 128 channels (Zero preset,
+  the 10 s IRs), ms per call, the peak memory a call adds and its device
+  time by kernel (``torch.profiler``);
 * with ``--k4`` the real inverses on the one-pass route: the shapes K4
   rifft_packed_tail and K6 rifft_packed launch at on the streaming and
   offline paths at 128 channels (two-tier, collapsed, matched, the two
@@ -114,6 +132,7 @@ def main() -> None:
     args = sys.argv[1:]
     small = "--small" in args
     k1 = "--k1" in args
+    k2 = "--k2" in args
     k4 = "--k4" in args
     k5 = "--k5" in args
     k7 = "--k7" in args
@@ -121,7 +140,8 @@ def main() -> None:
     k14 = "--k14" in args
     large = "--large" in args
     args = [a for a in args
-            if a not in ("--small", "--k1", "--k4", "--k5", "--k7", "--k9", "--k14", "--large")]
+            if a not in ("--small", "--k1", "--k2", "--k4", "--k5", "--k7", "--k9", "--k14",
+                         "--large")]
     if len(args) != 1:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
@@ -147,6 +167,9 @@ def main() -> None:
 
     if k1:
         k1_phase(cs, hopper_fft, randn, dev, smi)
+        return
+    if k2:
+        k2_phase(cs, hopper_fft, randn, dev, smi)
         return
     if k4:
         k4_phase(cs, hopper_fft, randn, dev, smi)
@@ -270,6 +293,94 @@ def k1_phase(cs, hf, randn, dev, smi) -> None:
     h1 = torch.from_numpy(np.ascontiguousarray(irs[:, :cs.FS])).to(dev)
     print(f"spectral-convolve-1s: {cs.median_ms(lambda: sp.convolve(s1, h1)):.4f} ms/call "
           f"(events, median of 5) [{smi}]", flush=True)
+
+
+def k2_phase(cs, hf, randn, dev, smi) -> None:
+    """The ``--k2`` mode (see the module docstring). Uses only what the
+    parent checkouts also have, so the same mode times either."""
+    from hisstools_library_tpu_torch.models import mono
+
+    c, t = cs.CHANNELS, cs.K2_PATH_SHAPE[0]
+    resident = getattr(hf, "rfft_packed_stream_resident", None)
+    shapes = [(c, t, 1 << 11), (c, 16, 1 << 15)] + [(c, t, 1 << e) for e in range(12, 17)]
+    for shape in shapes:
+        h = shape[-1]
+        x = randn(*shape)
+        got = hf.rfft_packed_stream(x)
+        err = ref = 0.0
+        for c0 in range(0, c, 16):
+            want = hf.rfft_packed_stream_plain(x[c0:c0 + 16])
+            for w, g in zip(want, got):
+                err += float(((g[c0:c0 + 16].double() - w.double()) ** 2).sum())
+                ref += float((w.double() ** 2).sum())
+            del want
+        del got
+        snr = float("inf") if err == 0 else 10 * np.log10(ref / err)
+        call = lambda: hf.rfft_packed_stream(x)  # noqa: E731
+        dev_ms, ev_ms = cs.device_ms(call), cs.median_ms(call)
+        nbytes = 12 * x.numel()  # 12 H a hop: x once (4 H), two packed planes (8 H)
+        bound = nbytes / cs.HBM_BYTES_PER_S * 1e3
+        sig = torch.nn.functional.pad(x.reshape(c, -1), (h, 0))
+        win = torch.ones(2 * h, device=dev)
+        lib = lambda: torch.stft(sig, 2 * h, hop_length=h, window=win,  # noqa: E731
+                                 center=False, return_complex=True)
+        res = "not reported" if resident is None else resident(2 * h)
+        print(f"K2 rfft_packed_stream {shape}: device {dev_ms:.4f} ms, events {ev_ms:.4f} ms; "
+              f"bound {bound:.4f} ms (bytes, {nbytes / 1e9:.3f} GB), "
+              f"{nbytes / dev_ms / 1e9:.3f} TB/s; torch.stft device "
+              f"{cs.device_ms(lib):.4f} ms, events {cs.median_ms(lib):.4f} ms; SNR vs plain "
+              f"{snr:.2f} dB; frames resident {res} [{smi}]", flush=True)
+        del x, sig
+        torch.cuda.empty_cache()
+
+    others = {
+        "K1 rfft_packed (1920, 2^16)": (hf.rfft_packed, lambda: (randn(1920, 1 << 16),)),
+        "K1 rfft_packed (128, 4096)": (hf.rfft_packed, lambda: (randn(c, 4096),)),
+        "K6 rifft_packed (128, 2^14)":
+            (hf.rifft_packed, lambda: (randn(c, 1 << 13), randn(c, 1 << 13))),
+        "K6 rifft_packed (128, 4096)":
+            (hf.rifft_packed, lambda: (randn(c, 1 << 11), randn(c, 1 << 11))),
+    }
+    for tk in ((16, 1 << 15), (4, 1 << 15), (16, 1 << 13), (t, 1 << 11)):
+        others[f"K4 rifft_packed_tail {(c, *tk)}"] = (
+            hf.rifft_packed_tail,
+            lambda tk=tk: (randn(c, *tk), randn(c, *tk), 1.0 / (8.0 * tk[1])))
+    for label, (fn, make) in others.items():
+        args = make()
+        print(f"{label}: device {cs.device_ms(lambda: fn(*args)):.4f} ms [{smi}]", flush=True)
+        del args
+        torch.cuda.empty_cache()
+    k8_shapes(cs, hf, randn, smi)
+
+    def peak_gib(call):
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        call()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    a = (randn(c, t, 1 << 11), randn(c, 3, 1 << 11) * 1e-3, randn(c, 3, 1 << 11) * 1e-3,
+         1.0 / (1 << 14))
+    staged = lambda: hf.fastfir_chain_staged(*a)  # noqa: E731
+    print(f"staged K2 -> K3 -> K4 {(c, t, 1 << 11)} P 3: device {cs.device_ms(staged):.4f} ms, "
+          f"peak memory above its inputs {peak_gib(staged):.3f} GiB [{smi}]", flush=True)
+    del a
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    irs = (rng.standard_normal((c, cs.IR_LEN)) *
+           np.exp(-np.arange(cs.IR_LEN) / (0.5 * cs.FS))).astype(np.float32)
+    xd = torch.from_numpy(rng.standard_normal((c, cs.SIG_LEN)).astype(np.float32)).to(dev)
+    zero = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+    ir = mono.prepare_ir(zero, irs, offline_tail=False, device=dev)
+    offline = lambda: mono.process_offline(ir, xd)  # noqa: E731
+    peak = peak_gib(offline)
+    ms, _ = cs.time_calls(offline, runs=5)
+    print(f"offline-no-tail mono.process_offline: {ms:.4f} ms/call (events, median of 5), "
+          f"peak memory above its inputs {peak:.3f} GiB [{smi}]", flush=True)
+    cs.profile_calls(offline, "offline-no-tail", ms, smi)
 
 
 def path_shapes(cs, dev, smi, mod, names, shape_of, offline=True) -> dict:
