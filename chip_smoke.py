@@ -65,6 +65,33 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
     and one collapsed call then ``stream_state_from_aligned``, each followed by
     128 callbacks of 256 samples (K11 and K6 must launch); the joined output
     must hold >= 99 dB;
+11a. serves the same stream through ``utils.serving.StreamingServer`` (128
+    channels, Zero preset, the native swap cell: ``native=True`` fails if the
+    runtime does not build): ``set_ir`` of the 10 s IRs (capacity grows to
+    2^19), 128 x 32 768 samples of the signal written to a float32 WAV by
+    ``io.OAudioFile`` and read back by ``io.AudioBlockReader`` through the
+    native loader and codec in 256-sample blocks, 128 callbacks (K1, K6, K9
+    and K10 must launch; channel 0 >= 99 dB against float64; the output equal,
+    bit for bit, to ``mono.process_any`` on the capacity-padded IR); a
+    callback while the cell is held must be silent; then a loader thread sets
+    a second bank from the same generator while the audio thread keeps
+    making complete callbacks (host block in, output on the host): every
+    silent callback must be zeros, and from the state's reset point channel 0
+    must hold >= 99 dB against the new IR's float64 convolution. Prints
+    ``set_ir`` ms, ms per callback by events and by host clock, the
+    callbacks' ms before, during and after the loader's preparation (the
+    worst while it prepares) and the swap cell's class;
+11b. checkpoints that stream: 64 callbacks of ``process_any`` at the serving
+    shape, the state and the ``MonoIR`` through ``utils.checkpoint.save`` /
+    ``restore`` (then ``save_npz`` / ``restore_npz``) into fresh exemplars on
+    the card, 64 more; the output must equal the uninterrupted stream bit for
+    bit;
+11c. runs the per-stage SNR reports on the card (``utils.debug_stages``):
+    ``stage_report`` at 4 channels, a 2^15-tap IR and 2^17 samples,
+    ``stream_stage_report`` and ``two_tier_stage_report`` at the JAX tests'
+    schemes and inputs, ``pipeline_stage_report`` at its test's inputs; each
+    printed with the kernels it launched and held to the JAX tests' bars
+    (95 / 200 for the doling / 90 / 80 and 50 for the deconvolution);
 12. runs ``mono.process_offline`` on the 128 x 483 328 signal as ``bench.py``'s
     ``scheme`` mode does, with the offline tail (K5; none of K2, K3, K4) and
     without it (direct sections through K11 and conv1d, the 4096 section
@@ -1119,6 +1146,300 @@ def subhop_paths(dev, irs, x, launches, smi, profile) -> None:
     torch.cuda.empty_cache()
 
 
+SERVE_PRE_SWAP = 32     # complete callbacks before the loader thread starts
+SERVE_CAPACITY = 1 << 19  # the server's IR capacity once 480 000 taps are set
+
+
+def _callback_rows(srv, x, start: int, count: int, wrap: int, rows: list) -> int:
+    """``count`` complete audio callbacks through the server: a host block
+    in, the output copied back to the host. Each row holds the input's
+    channel 0, the output, ``live``, the state's IR version and the host ms
+    from the call to the output on the host. Input positions wrap below
+    ``wrap``; returns the next position."""
+    pos = start
+    for _ in range(count):
+        if pos + CALLBACK > wrap:
+            pos = CALLS * CALLBACK
+        blk = x[:, pos:pos + CALLBACK]
+        t0 = time.perf_counter()
+        y, live = srv.process(blk)
+        out = y.cpu()
+        rows.append((blk[0], out, live, srv._state_version,
+                     (time.perf_counter() - t0) * 1e3))
+        pos += CALLBACK
+    return pos
+
+
+def serving_paths(dev, irs, irs2, x, launches, smi) -> None:
+    """Phases 11a and 11b: the StreamingServer at full width (a WAV read back
+    by AudioBlockReader through the native codec, an IR hot swap from a
+    loader thread) and checkpoint resume at its shape."""
+    import tempfile
+    import threading
+
+    from hisstools_library_tpu_torch.io import FileType, OAudioFile, PCMFormat
+    from hisstools_library_tpu_torch.io.streaming import AudioBlockReader
+    from hisstools_library_tpu_torch.models import mono
+    from hisstools_library_tpu_torch.utils import native_rt
+    from hisstools_library_tpu_torch.utils.serving import StreamingServer
+
+    zero = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+    n = CALLS * CALLBACK
+    launches.reset()
+    torch.cuda.reset_peak_memory_stats()
+    srv = StreamingServer(CHANNELS, latency=mono.LatencyMode.Zero, native=True, device=dev)
+    t0 = time.perf_counter()
+    v1 = srv.set_ir(irs)
+    set_ir_ms = (time.perf_counter() - t0) * 1e3
+    if srv.capacity != SERVE_CAPACITY:
+        fail(f"serving: capacity {srv.capacity} after {IR_LEN} taps, not {SERVE_CAPACITY}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "signal.wav")
+        with OAudioFile(path, FileType.WAVE, PCMFormat.Float32, CHANNELS, float(FS)) as f:
+            f.write_interleaved(x[:, :n].T)
+            if f.get_is_error():
+                fail(f"serving: writing the WAV failed: {f.get_errors()}")
+        with AudioBlockReader(path, CALLBACK, native=True) as reader:
+            blocks = list(reader)  # (CALLBACK, CHANNELS) float32 each
+    if not np.array_equal(np.concatenate(blocks).T, x[:, :n]):
+        fail("serving: the WAV read back differs from the signal written")
+    ys, host_ms, lives = [], [], []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for blk in blocks:
+        t0 = time.perf_counter()
+        y, live = srv.process(blk.T)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ys.append(y)
+        lives.append(live)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / CALLS
+    launches.read("serving", ("hop_fire", "rifft_packed", "rfft_packed", "rfft_small"), smi)
+    if not all(lives):
+        fail("serving: a callback was silent with no loader running")
+    y_srv = torch.cat(ys, dim=-1)
+    del ys
+    check_path_snr("serving", y_srv[0], x[0], irs[0], smi)
+    print(f"serving: StreamingServer({CHANNELS}, Zero preset, native=True), swap cell "
+          f"{type(srv._swap).__name__} (native runtime {native_rt.available()}); set_ir "
+          f"{set_ir_ms:.2f} ms ({IR_LEN} taps, capacity {srv.capacity}); {CALLS} callbacks "
+          f"of {CALLBACK} samples from the WAV (AudioBlockReader, native codec): "
+          f"{ms:.4f} ms/callback (CUDA events over the {CALLS}), host "
+          f"{float(np.mean(host_ms)):.4f} ms/call mean, {float(np.median(host_ms)):.4f} "
+          f"median, {max(host_ms):.4f} max (enqueue, no sync); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]", flush=True)
+
+    # The same blocks through process_any on the capacity-padded IR.
+    padded = np.zeros((CHANNELS, srv.capacity), np.float32)
+    padded[:, :IR_LEN] = irs
+    ir_direct = mono.prepare_ir(zero, padded, offline_tail=False, device=dev)
+    del padded
+    state = mono.init_stream_state(zero, ir_direct, (CHANNELS,))
+    ys = []
+    for blk in blocks:
+        state, y = mono.process_any(ir_direct, state,
+                                    torch.from_numpy(np.ascontiguousarray(blk.T)).to(dev))
+        ys.append(y)
+    y_direct = torch.cat(ys, dim=-1)
+    del ys, state
+    if not torch.equal(y_srv, y_direct):
+        fail(f"serving: the server differs from process_any on the padded IR (max abs "
+             f"{float((y_srv - y_direct).abs().max()):.3e})")
+    print(f"serving: output equals process_any on the capacity-padded IR, bit for bit, "
+          f"{CALLS} callbacks x {CHANNELS} channels [{smi}]", flush=True)
+    del y_srv
+
+    # The silence path: the loader holds the cell, the audio thread gets zeros.
+    handle = srv._swap.access()
+    y, live = srv.process(x[:, n:n + CALLBACK])
+    handle.release()
+    if live or bool(y.any()):
+        fail("serving: a callback while the cell was held was not silent")
+
+    # Hot swap: a loader thread sets the second bank while the audio thread
+    # keeps calling; complete callbacks (host block in, output on the host).
+    rows: list = []
+    pos = _callback_rows(srv, x, n, SERVE_PRE_SWAP, x.shape[1], rows)
+    pre = len(rows)
+    loader = {}
+
+    def load():
+        t0 = time.perf_counter()
+        loader["version"] = srv.set_ir(irs2)
+        loader["ms"] = (time.perf_counter() - t0) * 1e3
+
+    th = threading.Thread(target=load)
+    th.start()
+    while th.is_alive():
+        pos = _callback_rows(srv, x, pos, 1, x.shape[1], rows)
+    th.join()
+    during = len(rows) - pre
+    pos = _callback_rows(srv, x, pos, CALLS, x.shape[1], rows)
+    v2 = loader.get("version")
+    if v2 != v1 + 1:
+        fail(f"serving: the loader's set_ir gave version {v2}, not {v1 + 1}")
+    silent = [r for r in rows if not r[2]]
+    if any(bool(r[1].any()) for r in silent):
+        fail("serving: a live=False callback was not zeros")
+    reset = next((i for i, r in enumerate(rows) if r[2] and r[3] == v2), None)
+    if reset is None or len(rows) - reset < CALLS:
+        fail("serving: fewer than CALLS live callbacks after the swap")
+    post = rows[reset:]
+    if not all(r[2] and r[3] == v2 for r in post):
+        fail("serving: a callback after the swap's reset point was silent or stale")
+    x0 = np.concatenate([r[0] for r in post])
+    check_path_snr("serving-after-swap", torch.cat([r[1][0] for r in post]), x0,
+                   irs2[0], smi)
+    period = CALLBACK / FS * 1e3
+
+    def summary(ms):
+        late = sum(m > period for m in ms)
+        return (f"{float(np.median(ms)):.4f} ms median, {max(ms):.4f} max, {late} of "
+                f"{len(ms)} over the {period:.2f} ms period")
+
+    print(f"serving-swap: swap cell {type(srv._swap).__name__}; loader set_ir "
+          f"{loader['ms']:.2f} ms; complete callbacks (host block in, output on the "
+          f"host): before the swap {summary([r[4] for r in rows[:pre]])}; while the "
+          f"loader prepares {summary([r[4] for r in rows[pre:pre + during]] or [0.0])}; "
+          f"after {summary([r[4] for r in rows[pre + during:]])}; {len(silent)} silent "
+          f"callbacks (all zeros); state reset at callback {reset - pre} after the loader "
+          f"started [{smi}]", flush=True)
+    del rows, post, srv
+    torch.cuda.empty_cache()
+    checkpoint_paths(dev, zero, blocks, ir_direct, y_direct, launches, smi)
+
+
+def checkpoint_paths(dev, zero, blocks, ir, y_ref, launches, smi) -> None:
+    """Phase 11b: CALLS / 2 callbacks of process_any at the serving shape,
+    the state and the MonoIR checkpointed (``save`` / ``restore``, then
+    ``save_npz`` / ``restore_npz``) and restored into fresh exemplars on the
+    card, CALLS / 2 more; the output must equal the uninterrupted stream
+    ``y_ref`` bit for bit."""
+    import tempfile
+
+    from hisstools_library_tpu_torch.models import mono
+    from hisstools_library_tpu_torch.utils import checkpoint
+
+    half = CALLS // 2
+    host = [torch.from_numpy(np.ascontiguousarray(blk.T)) for blk in blocks]
+    for fmt, save, restore in (("torch", checkpoint.save, checkpoint.restore),
+                               ("npz", checkpoint.save_npz, checkpoint.restore_npz)):
+        label = f"checkpoint-{fmt}"
+        launches.reset()
+        state = mono.init_stream_state(zero, ir, (CHANNELS,))
+        ys = []
+        for blk in host[:half]:
+            state, y = mono.process_any(ir, state, blk.to(dev))
+            ys.append(y)
+        payload = {"state": state, "ir": ir}
+        like = checkpoint.rebuild(payload, [torch.empty_like(t) if isinstance(t, torch.Tensor)
+                                            else t for t in checkpoint.leaves(payload)])
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f"ck.{fmt}")
+            t0 = time.perf_counter()
+            save(path, payload)
+            save_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            t0 = time.perf_counter()
+            restored = restore(path, like)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        del payload, like, state
+        rir, state = restored["ir"], restored["state"]
+        if rir.head_taps.device != dev or state.head.device != dev:
+            fail(f"{label}: restored tensors are not on {dev}")
+        for blk in host[half:]:
+            state, y = mono.process_any(rir, state, blk.to(dev))
+            ys.append(y)
+        torch.cuda.synchronize()
+        launches.read(label, ("hop_fire", "rifft_packed", "rfft_packed"), smi)
+        y = torch.cat(ys, dim=-1)
+        if not torch.equal(y, y_ref):
+            fail(f"{label}: resumed stream differs from the uninterrupted one (max abs "
+                 f"{float((y - y_ref).abs().max()):.3e})")
+        print(f"{label}: {half} + {half} callbacks, state and MonoIR "
+              f"({size / 2**30:.3f} GiB) saved in {save_s:.2f} s, restored onto the card in "
+              f"{restore_s:.2f} s; resumed output equals the uninterrupted stream bit for "
+              f"bit [{smi}]", flush=True)
+        del restored, rir, state, ys, y
+        torch.cuda.empty_cache()
+
+
+# The JAX tests' inputs (tests/conftest.py's rng seed) and schemes.
+STAGE_SEED = 0x1557
+
+
+def stage_report_paths(dev, irs, x, launches, smi) -> None:
+    """Phase 11c: the per-stage SNR reports on the card, each with the
+    kernels it launched, held to the JAX tests' bars."""
+    from hisstools_library_tpu_torch.models import mono
+    from hisstools_library_tpu_torch.utils import debug_stages as ds
+
+    def run(label, call, need, stages, bar):
+        launches.reset()
+        t0 = time.perf_counter()
+        report = call()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches.read(label, need, smi)
+        print(f"{label} ({secs:.2f} s, float64 oracles included):\n"
+              f"{ds.format_report(report)} [{smi}]", flush=True)
+        got = {s.stage: s.snr_db for s in report}
+        if not set(stages) <= set(got):
+            fail(f"{label}: stages {sorted(set(stages) - set(got))} missing")
+        for stage, db in got.items():
+            need_db = bar(stage)
+            if need_db is not None and not db > need_db:
+                fail(f"{label}: {stage} {db:.2f} dB <= {need_db}")
+
+    xd = torch.from_numpy(np.ascontiguousarray(x[:4, :1 << 17])).to(dev)
+    run("stage-report", lambda: ds.stage_report(irs[:4, :1 << 15], xd),
+        ("rfft_packed", "lag_mac", "rifft_packed"),
+        ("impulse_spectra", "hop_rfft", "partition_mac", "rifft_overlap", "engine_output"),
+        lambda s: 95.0)
+
+    rng = np.random.default_rng(STAGE_SEED)
+    scheme = mono.PartitionScheme((256, 1024), zero_latency=True)
+    b = scheme.sizes[-1] >> 1
+    ir = (rng.standard_normal((2, 3000)) * 0.3).astype(np.float32)
+    xw = rng.standard_normal((2, 2 * b)).astype(np.float32)
+    xb = torch.from_numpy(rng.standard_normal((2, 2 * b)).astype(np.float32)).to(dev)
+    run("stream-stage-report",
+        lambda: ds.stream_stage_report(ir, xw, xb, scheme=scheme),
+        ("rfft_small", "lag_mac_ring", "hop_fire"),
+        ("frame_rfft", "ring_mac", "lag0_product", "rifft_tail", "section_refresh",
+         "collapsed_output", "subhop_fire", "subhop_doling"),
+        lambda s: 200.0 if s == "subhop_doling" else 95.0)
+
+    rng = np.random.default_rng(STAGE_SEED)
+    scheme = mono.PartitionScheme((32, 64, 128, 256), zero_latency=True)
+    ir = (rng.standard_normal((2, 4096)) * 0.3).astype(np.float32)
+    h2 = mono.prepare_ir(scheme, ir, offline_tail=False, device="cpu").far.shape[-1]
+    xw = rng.standard_normal((2, 2 * h2)).astype(np.float32)
+    xb = torch.from_numpy(rng.standard_normal((2, h2)).astype(np.float32)).to(dev)
+    run("two-tier-stage-report",
+        lambda: ds.two_tier_stage_report(ir, xw, xb, scheme=scheme),
+        ("rfft_small", "rifft_small"),
+        ("near_block", "far_block", "two_tier_output", "handoff_continuation"),
+        lambda s: 90.0)
+
+    rng = np.random.default_rng(STAGE_SEED)
+    t = np.arange(16384) / 48000.0
+    exc = np.sin(2 * np.pi * (20.0 * (1000.0 ** (t / t[-1]))) * t)
+    measured = np.convolve(exc, rng.standard_normal(1024) * np.exp(-np.arange(1024) / 1200.0))
+    run("pipeline-stage-report",
+        lambda: ds.pipeline_stage_report(measured, exc, regularization=1e-9, stft_size=256,
+                                         stft_hop=128, n_peaks=8, device=dev),
+        ("rfft_packed", "rifft_packed", "rfft_small_windowed"),
+        ("deconvolve", "stft_amp", "smooth", "peaks", "track", "stft_amp cum",
+         "smooth cum", "track cum"),
+        lambda s: {"stft_amp": 80.0, "smooth": 80.0, "peaks": 80.0,
+                   "deconvolve": 50.0}.get(s))
+    torch.cuda.empty_cache()
+
+
 def offline_paths(dev, irs, x, launches, smi) -> None:
     """Phases 12 and 13: mono.process_offline with and without the offline
     tail, and the staged FastFIR at N = 2048."""
@@ -1988,6 +2309,9 @@ def main() -> None:
     irs = (rng.standard_normal((CHANNELS, IR_LEN)) *
            np.exp(-np.arange(IR_LEN) / (0.5 * FS))).astype(np.float32)
     x = rng.standard_normal((CHANNELS, SIG_LEN)).astype(np.float32)
+    # The serving phase's second bank, the next draws of the same generator.
+    irs2 = (rng.standard_normal((CHANNELS, IR_LEN)) *
+            np.exp(-np.arange(IR_LEN) / (0.5 * FS))).astype(np.float32)
     launches = Launches(mods)
     fastfir_path(dev, irs, x, launches, smi)
     results.update(stream_kernels(randn, mods, smi))
@@ -1996,6 +2320,9 @@ def main() -> None:
     results.update(slice_kernels(randn, mods, smi))
     one_pass_inverses(randn, mods, smi)
     subhop_paths(dev, irs, x, launches, smi, profile)
+    serving_paths(dev, irs, irs2, x, launches, smi)
+    del irs2
+    stage_report_paths(dev, irs, x, launches, smi)
     offline_paths(dev, irs, x, launches, smi)
     results.update(spectral_kernels(randn, mods, smi))
     spectral_paths(dev, irs, x, launches, smi)

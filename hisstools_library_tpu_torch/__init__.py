@@ -15,7 +15,12 @@ it never imports), with the same layout and names:
 - :mod:`.models` FastFIR, the partitioned and mono engines, the multichannel
                  ``Convolver``, the time-domain head, the partial tracker and
                  the IR pipeline
-- :mod:`.utils`  the random number generators
+- :mod:`.utils`  the random number generators, the hot-swap cell and its
+                 native runtime, profiling, checkpoints, the serving loop
+                 (``StreamingServer``) and per-stage SNR reports
+- :mod:`.io`     audio files (WAVE / AIFF / AIFC), the native PCM codec and
+                 constant-memory block streaming; native host libraries are
+                 built on first use by :mod:`._native`
 
 Kernels run on CUDA tensors; CPU tensors take each kernel's plain PyTorch
 version.

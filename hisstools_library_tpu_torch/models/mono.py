@@ -33,9 +33,10 @@ K5 at 16384).
 Every function returns new states and leaves the ones it was given as they
 were. States and prepared IRs convert to and from numpy (``from_numpy`` /
 ``numpy``), so a stream of the JAX package continues here and the reverse.
-Entry points build on the card unless ``device`` names another.
-
-Not ported yet: the ``debug_stages`` hook of ``MonoConvolve.set``.
+Entry points build on the card unless ``device`` names another. With
+``HISSTOOLS_DEBUG_STAGES=1``, :meth:`MonoConvolve.set` keeps the host IR and
+:meth:`MonoConvolve.process_offline` first prints a per-stage SNR report
+(:func:`utils.debug_stages.maybe_report`).
 """
 
 from __future__ import annotations
@@ -209,7 +210,9 @@ class MonoIR:
     head_taps: torch.Tensor
     spectra: Tuple[Split, ...]
     tail: Optional[Split] = None
-    tail_shift: int = 0
+    # Structure, not a leaf: the JAX twin keeps it in its treedef, so
+    # utils.checkpoint's leaves match that package's tree_flatten.
+    tail_shift: int = dataclasses.field(default=0, metadata={"static": True})
     block0: Optional[Split] = None
     far: Optional[Split] = None
 
@@ -272,6 +275,7 @@ class MonoConvolve:
         self.ir: Optional[MonoIR] = None
         self.length = 0
         self._ir_host = None  # held only until a lazy offline tail is built
+        self._ir_debug = None  # the host IR, kept while debug_stages is enabled
 
     def resize(self, length: int) -> ConvolveError:
         """Grow the final section's capacity (reference MonoConvolve::resize,
@@ -302,8 +306,10 @@ class MonoConvolve:
                 # capacity, and the error reports the truncation.
                 err = ConvolveError.MEM_ALLOC_TOO_SMALL
                 ir = ir[..., :self.max_length]
+        from ..utils import debug_stages
         # The host IR is kept only to build a lazy tail, and released then.
         self._ir_host = ir if offline_tail is None else None
+        self._ir_debug = ir if debug_stages.enabled() else None
         self._dtype, self._backend = dtype, backend
         self.ir = prepare_ir(self.scheme, ir, self.max_length, dtype, backend,
                              offline_tail=bool(offline_tail), device=device)
@@ -354,6 +360,10 @@ class MonoConvolve:
                                              self._backend, self.ir.head_taps.device)
             self.ir = dataclasses.replace(self.ir, tail=tail, tail_shift=shift)
             self._ir_host = None
+        if self._ir_debug is not None:
+            from ..utils import debug_stages
+            debug_stages.maybe_report(self._ir_debug, x, None, backend,
+                                      "MonoConvolve.process_offline")
         return process_offline(self.ir, x, backend=backend)
 
 

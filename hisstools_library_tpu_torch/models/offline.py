@@ -8,6 +8,8 @@ Use :class:`FastFIR` when the same IR convolves many signals (spectra prepared
 once), or :func:`fast_fir` for one-shot use. On a CUDA device the default
 backend runs the chain on the Hopper kernels (K1 for the IR spectra, then
 one K5 call per pass at N = 2^14..2^17, K2 -> K3 -> K4 at 4096..8192).
+With ``HISSTOOLS_DEBUG_STAGES=1`` a :class:`FastFIR` call first prints a
+per-stage SNR report (:func:`utils.debug_stages.maybe_report`).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ class FastFIR:
     def __init__(self, ir, fft_size: Optional[int] = None,
                  dtype: torch.dtype = torch.float32,
                  backend: Optional[str] = None, device=None):
+        from ..utils import debug_stages
         ir = np.asarray(ir)
         self.ir_len = ir.shape[-1]
         self.fft_size = fft_size or choose_fft_size(self.ir_len)
@@ -45,6 +48,9 @@ class FastFIR:
         self.spectra = part.impulse_spectra(ir, self.fft_size, 0, 0, dtype,
                                             backend, device=device)
         self.backend = backend
+        # Host IR copy kept only when per-stage debugging is on (the report
+        # needs the raw taps for its float64 oracles).
+        self._ir_debug = ir if debug_stages.enabled() else None
 
     @classmethod
     def from_spectra(cls, re, im, device=None,
@@ -60,6 +66,7 @@ class FastFIR:
         eng.fft_size = 2 * eng.hop
         eng.ir_len = spectra.shape[-2] * eng.hop
         eng.backend = backend
+        eng._ir_debug = None
         return eng
 
     def spectra_numpy(self) -> Tuple[np.ndarray, np.ndarray]:
@@ -69,6 +76,10 @@ class FastFIR:
 
     def __call__(self, x: torch.Tensor, mac_backend: str = "auto") -> torch.Tensor:
         """conv(x, ir)[: len(x)], the steady-state causal convolution."""
+        if self._ir_debug is not None:
+            from ..utils import debug_stages
+            debug_stages.maybe_report(self._ir_debug, x, self.fft_size,
+                                      self.backend, "FastFIR")
         return self.apply(self.spectra, x, backend=self.backend,
                           mac_backend=mac_backend)
 

@@ -12,6 +12,8 @@ above 2^16 points, whose sums run over 2^17..2^28 points), >= 110 dB for the
 FastFIR chain and the streaming engines against the CPU path, >= 100 dB for
 the streaming engines and the spectral ops and >= 120 dB for
 the time-domain FIR against float64 (a TF32 convolution would give ~60 dB).
+The serving loop and a checkpointed stream are held bit-equal to
+``mono.process_any`` run directly.
 """
 
 import numpy as np
@@ -1266,3 +1268,78 @@ def test_frames_pipeline_log_sweep_on_cuda(cuda):
         assert snr_db(want, getattr(got, field)) >= bar
     assert np.array_equal(cpu64.track_states[:7], got.track_states[:7])
     assert np.any(got.track_states[1:7] != 0)
+
+
+# -- the serving loop and checkpoints on the card ---------------------------------
+
+SERVE_SCHEME = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+SERVE_CUTS = (17, 256, 1, 300, 2048, 126, 4096, 5000)
+
+
+def test_server_equals_process_any_on_cuda(cuda):
+    """The StreamingServer on the card adds no arithmetic: its output over
+    ragged numpy callbacks equals process_any on the capacity-padded IR bit
+    for bit, holds >= 100 dB against float64, and runs K9, K1 and K6."""
+    from hisstools_library_tpu_torch.utils.serving import StreamingServer
+
+    rng = np.random.default_rng(20)
+    c, taps = 4, 20000
+    irs = (rng.standard_normal((c, taps)) * np.exp(-np.arange(taps) / 4000.0)).astype(np.float32)
+    x = rng.standard_normal((c, sum(SERVE_CUTS))).astype(np.float32)
+    srv = StreamingServer(c, capacity=1 << 14, device=cuda)
+    srv.set_ir(irs)
+    assert srv.capacity == 1 << 15
+    padded = np.zeros((c, srv.capacity), np.float32)
+    padded[:, :taps] = irs
+    ir = mono.prepare_ir(SERVE_SCHEME, padded, offline_tail=False, device=cuda)
+    state = mono.init_stream_state(SERVE_SCHEME, ir, (c,))
+    names = ("hop_fire", "rfft_packed", "rifft_packed")
+    mods = {"hop_fire": hopper_kernels, "rfft_packed": hopper_fft, "rifft_packed": hopper_fft}
+    for k in names:
+        getattr(mods[k], k).launches = 0
+    outs, i = [], 0
+    for b in SERVE_CUTS:
+        y, live = srv.process(x[:, i:i + b])
+        state, y_ref = mono.process_any(ir, state, torch.from_numpy(x[:, i:i + b]).to(cuda))
+        assert live and y.device.type == "cuda"
+        assert torch.equal(y, y_ref)
+        outs.append(y.cpu().numpy())
+        i += b
+    for k in names:
+        assert getattr(mods[k], k).launches > 0, k
+    y = np.concatenate(outs, axis=-1)
+    for ch in range(c):
+        ref = np.convolve(x[ch].astype(np.float64), irs[ch].astype(np.float64))[:i]
+        assert snr_db(ref, y[ch]) >= 100.0
+
+
+@pytest.mark.parametrize("fmt", ["torch", "npz"])
+def test_checkpoint_resume_bitexact_on_cuda(cuda, tmp_path, fmt):
+    """A process_any stream on the card checkpointed mid-stream (state and
+    MonoIR), restored into fresh exemplars on the card, continues bit-exactly."""
+    from hisstools_library_tpu_torch.utils import checkpoint
+
+    rng = np.random.default_rng(21)
+    c = 4
+    irs = (rng.standard_normal((c, 20000)) * 0.1).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((c, 32 * 256)).astype(np.float32)).to(cuda)
+    ir = mono.prepare_ir(SERVE_SCHEME, irs, offline_tail=False, device=cuda)
+
+    def run(ir, state, start, stop):
+        ys = []
+        for j in range(start, stop):
+            state, y = mono.process_any(ir, state, x[:, j * 256:(j + 1) * 256])
+            ys.append(y)
+        return state, ys
+
+    _, ref = run(ir, mono.init_stream_state(SERVE_SCHEME, ir, (c,)), 0, 32)
+    state, ys = run(ir, mono.init_stream_state(SERVE_SCHEME, ir, (c,)), 0, 16)
+    payload = {"state": state, "ir": ir}
+    path = str(tmp_path / f"ck.{fmt}")
+    (checkpoint.save if fmt == "torch" else checkpoint.save_npz)(path, payload)
+    like = checkpoint.rebuild(payload, [torch.empty_like(t) if isinstance(t, torch.Tensor)
+                                        else t for t in checkpoint.leaves(payload)])
+    restored = (checkpoint.restore if fmt == "torch" else checkpoint.restore_npz)(path, like)
+    assert restored["ir"].spectra[-1].re.device.type == "cuda"
+    _, ys2 = run(restored["ir"], restored["state"], 16, 32)
+    assert torch.equal(torch.cat(ys + ys2, -1), torch.cat(ref, -1))
