@@ -179,7 +179,26 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
     convolve`` of 128 channels of 20 s signals with the 10 s IRs (N = 2^21)
     and ``pipeline.ir_deconvolve`` of a 30 s capture of a 25 s log sweep at
     96 kHz through the IRs (N = 2^22), each against a float64 numpy mirror
-    of channel 0 (>= 99 dB), with ms per call and peak memory.
+    of channel 0 (>= 99 dB), with ms per call and peak memory;
+24. runs the six gradient cases of ``tests/test_torch_autograd.py`` (the
+    tests' seed and shapes) on the card: each must either give the CPU
+    run's gradient (>= 110 dB) or raise ``_build.NoBackwardError`` naming a
+    hand kernel (the kernels have no backward); then ``mono.process`` at
+    the stream shape (Zero preset, 128 channels, the 10 s IRs, one two-tier
+    call of 131 072 samples) with an input that requires grad must raise it;
+25. drives ``parallel`` at world size 1 over NCCL (a process group made and
+    destroyed in the phase; collectives across cards are not exercised on
+    a one-card host): (a) ``scheme_offline_sharded`` of the Zero scheme
+    without the tail on the 128 x 483 328 signal, its 4096 and 16384
+    sections as K2 -> K15 (lead_skip 1) -> K4 (each must launch, K5 must
+    not), channel 0 >= 99 dB against float64 and >= 110 dB against
+    ``process_offline``, with ms/pass, peak memory, K15's shapes there and
+    K15 against its plain version at the largest; (b) ``n_to_one_offline``
+    against (a)'s channel sum; (c) ``scheme_stream_sharded``, two two-tier
+    calls bit-equal to ``mono.process``; (d) ``scheme_stream_any_sharded``,
+    128 callbacks of 256 samples bit-equal to ``process_any``; (e) the
+    sharded FFTs and ``convolve_sharded`` against their single-card
+    counterparts (>= 110 dB) and the convolution against float64.
 
 Every path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel the path needs that was not launched fails the run,
@@ -2261,6 +2280,288 @@ def large_paths(dev, irs, launches, smi) -> None:
     torch.cuda.empty_cache()
 
 
+GRAD_SEED = 0x1557  # the autograd tests' seed (tests/conftest.py's rng)
+
+
+def _grad_cases():
+    """The six cases of tests/test_torch_autograd.py, inputs drawn from the
+    tests' seed in their order: name -> f(device) returning the gradient (a
+    host array) of the case's loss."""
+    from hisstools_library_tpu_torch.core.types import Split
+    from hisstools_library_tpu_torch.models import mono, time_domain
+    from hisstools_library_tpu_torch.ops import spectral_processor as sp
+
+    scheme = mono.PartitionScheme((32, 128), zero_latency=True)
+
+    def leaf(a, dev):
+        return torch.tensor(a, device=dev, requires_grad=True)
+
+    def scheme_input(dev, batch=()):
+        rng = np.random.default_rng(GRAD_SEED)
+        ir = rng.standard_normal(300 if batch else 500).astype(np.float32)
+        x = leaf(rng.standard_normal(batch + (512,)).astype(np.float32), dev)
+        mir = mono.prepare_ir(scheme, ir, offline_tail=False, device=dev)
+        _, y = mono.process(mir, mono.init_state(scheme, mir, batch), x)
+        torch.sum(y * y).backward()
+        return x.grad.cpu().numpy()
+
+    def ir_spectra(dev):
+        rng = np.random.default_rng(GRAD_SEED)
+        ir = (rng.standard_normal(200) * 0.1).astype(np.float32)
+        target = (rng.standard_normal(200) * 0.1).astype(np.float32)
+        target[:scheme.head_taps] = ir[:scheme.head_taps]
+        x = torch.from_numpy(rng.standard_normal(512).astype(np.float32)).to(dev)
+        mir = mono.prepare_ir(scheme, ir, offline_tail=False, device=dev)
+        st = mono.init_state(scheme, mir, ())
+        _, y_target = mono.process(mono.prepare_ir(scheme, target, offline_tail=False,
+                                                   device=dev), st, x)
+        ps = [p.clone().requires_grad_(True) for s in mir.spectra for p in (s.re, s.im)]
+        spectra = tuple(Split(ps[2 * k], ps[2 * k + 1]) for k in range(len(ps) // 2))
+        _, y = mono.process(mono.MonoIR(mir.head_taps, spectra, None, 0), st, x)
+        torch.mean((y - y_target) ** 2).backward()
+        return np.concatenate([p.grad.cpu().numpy().ravel() for p in ps])
+
+    def taps(dev):
+        rng = np.random.default_rng(GRAD_SEED)
+        x = torch.from_numpy(rng.standard_normal(300).astype(np.float32)).to(dev)
+        h = leaf(rng.standard_normal(16).astype(np.float32), dev)
+        torch.sum(time_domain.fir_offline(x, h) ** 2).backward()
+        return h.grad.cpu().numpy()
+
+    def convolve(dev):
+        rng = np.random.default_rng(GRAD_SEED)
+        x = leaf(rng.standard_normal(256).astype(np.float32), dev)
+        h = torch.from_numpy(rng.standard_normal(64).astype(np.float32)).to(dev)
+        torch.sum(sp.convolve(x, h, sp.EdgeMode.Linear) ** 2).backward()
+        return x.grad.cpu().numpy()
+
+    def change_phase(dev):
+        rng = np.random.default_rng(GRAD_SEED)
+        x = leaf((rng.standard_normal(256) * np.exp(-np.arange(256) / 40.0))
+                 .astype(np.float32), dev)
+        torch.sum(sp.change_phase(x, 0.0) ** 2).backward()
+        return x.grad.cpu().numpy()
+
+    return {"scheme-input": scheme_input, "ir-spectra-first-step": ir_spectra,
+            "fir-taps": taps, "spectral-convolve": convolve,
+            "change-phase-0": change_phase,
+            "batched-4x512": lambda dev: scheme_input(dev, (4,))}
+
+
+def _raised_kernel(err) -> str:
+    """The kernel a no-backward error names (its message starts "K.. name:")."""
+    head = str(err).split(":")[0]
+    name = head.split(" ")[-1]
+    if not head.startswith("K") or name not in KERNELS:
+        fail(f"gradient error names no hand kernel: {err}")
+    return head
+
+
+def gradient_paths(dev, irs, x, smi) -> None:
+    """Phase 24: the autograd tests' six cases on the card. Each either
+    gives the CPU run's gradient (>= 110 dB) or raises the no-backward error
+    naming a hand kernel (``_build.NoBackwardError``: the kernels have no
+    backward, and a launch would return an output cut off from autograd);
+    a gradient that differs fails the run. Then ``mono.process`` at the
+    stream shape (Zero preset, 128 channels, the 10 s IRs, one two-tier call
+    of 131 072 samples) with an input that requires grad must raise."""
+    from hisstools_library_tpu_torch import _build
+    from hisstools_library_tpu_torch.models import mono
+
+    outcomes = {}
+    for name, case in _grad_cases().items():
+        want = case(torch.device("cpu"))
+        try:
+            got = case(dev)
+        except _build.NoBackwardError as err:
+            outcomes[name] = f"raised ({_raised_kernel(err)})"
+            continue
+        snr = snr_db(torch.from_numpy(want), torch.from_numpy(got))
+        if not (snr >= SNR_MIN_KERNEL_DB and np.isfinite(got).all()):
+            fail(f"gradient {name}: the card's gradient is {snr:.2f} dB from the CPU's")
+        outcomes[name] = f"gradient, {snr:.2f} dB vs the CPU's"
+    for name, what in outcomes.items():
+        print(f"gradient {name}: {what} [{smi}]", flush=True)
+
+    zero = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+    ir = mono.prepare_ir(zero, irs, offline_tail=False, device=dev)
+    state = mono.init_block_state(zero, ir, batch_shape=(CHANNELS,))
+    xg = torch.from_numpy(np.ascontiguousarray(x[:, :STREAM_BLOCK])).to(dev).requires_grad_()
+    try:
+        mono.process(ir, state, xg)
+    except _build.NoBackwardError as err:
+        print(f"gradient stream-shape mono.process ({CHANNELS} x {STREAM_BLOCK}, two-tier): "
+              f"raised ({_raised_kernel(err)}) [{smi}]", flush=True)
+    else:
+        fail("mono.process at the stream shape returned with an input that requires "
+             "grad: its hand kernels' part of the gradient would be missing")
+    del ir, state, xg
+    torch.cuda.empty_cache()
+
+
+def parallel_paths(dev, irs, x, launches, smi, results) -> None:
+    """Phase 25: ``parallel`` at world size 1 over NCCL (the process group
+    made here and destroyed at the end), at full width. (a)
+    ``scheme_offline_sharded`` of the Zero scheme (prepare_ir without the
+    tail) on the 128 x 483 328 signal: the 4096 and 16384 sections as K2 ->
+    K15 (lead_skip 1) -> K4 (each must launch; K5 must not), channel 0 >=
+    99 dB against float64, the whole output >= 110 dB against
+    ``process_offline``; ms/pass, peak memory, K15's shapes there and K15
+    against its plain version at the largest; (b) ``n_to_one_offline``
+    against (a)'s channel sum in float64 (>= 110 dB); (c)
+    ``scheme_stream_sharded`` on the two-tier Zero stream, two calls of
+    131 072 samples, bit-equal to ``mono.process``; (d)
+    ``scheme_stream_any_sharded``, 128 callbacks of 256 samples, bit-equal
+    to ``process_any``; (e) ``fft_sharded`` (complex 2^17), ``rfft_sharded``
+    / ``rifft_sharded`` (real 2^17) and ``convolve_sharded`` (channel 0's
+    signal and IR, N = 2^20) against their single-card counterparts."""
+    import torch.distributed as dist
+
+    from hisstools_library_tpu_torch import parallel
+    from hisstools_library_tpu_torch.fft import api as fft_api
+    from hisstools_library_tpu_torch.fft import hopper_kernels
+    from hisstools_library_tpu_torch.models import mono
+    from hisstools_library_tpu_torch.ops import spectral_processor as sp
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    mesh = parallel.make_mesh()
+    print(f"parallel: process group {dist.get_backend()}, world size "
+          f"{dist.get_world_size()}, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}; "
+          f"collectives across cards are unverified on a one-card host [{smi}]", flush=True)
+    zero = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+    xd = torch.from_numpy(x).to(dev)
+    ir = mono.prepare_ir(zero, irs, offline_tail=False, device=dev)
+
+    # (a) The sharded offline scheme; K15's calls recorded by a wrapper.
+    k15_calls = []
+    k15 = hopper_kernels.lag_mac
+
+    def recording(*args, **kwargs):
+        k15_calls.append((args, kwargs))
+        return k15(*args, **kwargs)
+
+    recording.launches = 0  # K15 counts its launches on its module name
+    hopper_kernels.lag_mac = recording
+    launches.reset()
+    torch.cuda.reset_peak_memory_stats()
+    y = parallel.scheme_offline_sharded(mesh, zero, ir, xd)
+    torch.cuda.synchronize()
+    hopper_kernels.lag_mac = k15
+    k15.launches += recording.launches
+    launches.read("parallel-offline", ("rfft_packed_stream", "lag_mac", "rifft_packed_tail"),
+                  smi, forbid=("fastfir_chain",))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    y = y.full_tensor()
+    if tuple(y.shape) != (CHANNELS, SIG_LEN):
+        fail(f"parallel-offline: output shape {tuple(y.shape)}")
+    check_path_snr("parallel-offline", y[0], x[0], irs[0], smi)
+    ref = mono.process_offline(ir, xd)
+    snr = snr_db(ref, y)
+    ms = median_ms(lambda: parallel.scheme_offline_sharded(mesh, zero, ir, xd), runs=3)
+    shapes = [(tuple(a[0].shape), tuple(a[2].shape), a[4], kw) for a, kw in k15_calls]
+    print(f"parallel-offline: SNR vs process_offline (no tail, all channels) {snr:.2f} dB; "
+          f"{ms:.4f} ms/pass (CUDA events, median of 3 after a warm-up), "
+          f"{CHANNELS * SIG_LEN / (ms * 1e-3):.6e} samples/s; peak memory {peak:.2f} GiB; "
+          f"K15 at (X, H, T, opts) {shapes} [{smi}]", flush=True)
+    if not snr >= SNR_MIN_KERNEL_DB:
+        fail(f"parallel-offline: SNR vs process_offline {snr:.2f} dB < {SNR_MIN_KERNEL_DB}")
+    args, kwargs = max(k15_calls, key=lambda c: c[0][0].numel())
+    del k15_calls, ref
+    entry = compare("lag_mac", k15, hopper_kernels.lag_mac_plain, args, kwargs, True, smi)
+    entry["path"] = "parallel-offline"
+    results["lag_mac"]["shapes"].append(entry)
+    del args, kwargs
+
+    # (b) N-to-mono against (a)'s channel sum.
+    launches.reset()
+    y1 = parallel.n_to_one_offline(mesh, zero, ir, xd)
+    torch.cuda.synchronize()
+    launches.read("parallel-n-to-one", ("rfft_packed_stream", "lag_mac",
+                                        "rifft_packed_tail"), smi, forbid=("fastfir_chain",))
+    snr = snr_db(y.double().sum(0), y1.full_tensor())
+    print(f"parallel-n-to-one: SNR vs the channel sum of parallel-offline (float64) "
+          f"{snr:.2f} dB [{smi}]", flush=True)
+    if not snr >= SNR_MIN_KERNEL_DB:
+        fail(f"parallel-n-to-one: SNR {snr:.2f} dB < {SNR_MIN_KERNEL_DB}")
+    del y, y1, xd
+    torch.cuda.empty_cache()
+
+    # (c) Channel-parallel two-tier streaming, the state carried as DTensors.
+    blocks = [torch.from_numpy(np.ascontiguousarray(x[:, i * STREAM_BLOCK:(i + 1) *
+                                                      STREAM_BLOCK])).to(dev)
+              for i in range(2)]
+    launches.reset()
+    st = mono.init_block_state(zero, ir, batch_shape=(CHANNELS,))
+    got = []
+    for blk in blocks:
+        st, yb = parallel.scheme_stream_sharded(mesh, ir, st, blk)
+        got.append(yb.full_tensor())
+    torch.cuda.synchronize()
+    launches.read("parallel-stream", ("fastfir_chain_stream", "rfft_packed", "lag_mac_ring",
+                                      "rifft_packed_tail"), smi)
+    ref = mono.init_block_state(zero, ir, batch_shape=(CHANNELS,))
+    for i, blk in enumerate(blocks):
+        ref, yr = mono.process(ir, ref, blk)
+        if not torch.equal(got[i], yr):
+            fail(f"parallel-stream call {i}: not bit-equal to mono.process")
+    print(f"parallel-stream: two two-tier calls of {STREAM_BLOCK} samples bit-equal to "
+          f"mono.process [{smi}]", flush=True)
+    del blocks, got, st, ref
+
+    # (d) Sample-granular streaming, 128 callbacks.
+    xa = torch.from_numpy(np.ascontiguousarray(x[:, :CALLS * CALLBACK])).to(dev)
+    launches.reset()
+    st = mono.init_stream_state(zero, ir, batch_shape=(CHANNELS,))
+    got = []
+    for i in range(CALLS):
+        st, ya = parallel.scheme_stream_any_sharded(
+            mesh, ir, st, xa[:, i * CALLBACK:(i + 1) * CALLBACK].contiguous())
+        got.append(ya.full_tensor())
+    torch.cuda.synchronize()
+    launches.read("parallel-stream-any", ("hop_fire", "rifft_packed", "rfft_packed"), smi)
+    ref = mono.init_stream_state(zero, ir, batch_shape=(CHANNELS,))
+    for i in range(CALLS):
+        ref, yr = mono.process_any(ir, ref, xa[:, i * CALLBACK:(i + 1) * CALLBACK].contiguous())
+        if not torch.equal(got[i], yr):
+            fail(f"parallel-stream-any callback {i}: not bit-equal to process_any")
+    print(f"parallel-stream-any: {CALLS} callbacks of {CALLBACK} samples bit-equal to "
+          f"process_any [{smi}]", flush=True)
+    del xa, got, st, ref, ir
+    torch.cuda.empty_cache()
+
+    # (e) The sharded transforms against their single-card counterparts.
+    gen = torch.Generator(device=dev).manual_seed(25)
+    zr, zi = (torch.randn(1 << 17, generator=gen, device=dev) for _ in range(2))
+    xr = torch.randn(1 << 17, generator=gen, device=dev)
+    sig = torch.from_numpy(x[0]).to(dev)
+    h0 = torch.from_numpy(irs[0]).to(dev)
+    launches.reset()
+    fr, fi = parallel.fft_sharded(mesh, zr, zi)
+    pr, pi = parallel.rfft_sharded(mesh, xr)
+    back = parallel.rifft_sharded(mesh, pr, pi)
+    yc = parallel.convolve_sharded(mesh, sig, h0)
+    torch.cuda.synchronize()
+    launches.read("parallel-fft", ("fft_split", "rfft_packed", "rifft_packed",
+                                   "rfft_packed_split", "rifft_packed_split"), smi)
+    pairs = {"fft_sharded vs fft.api.fft": (fft_api.fft(zr, zi), (fr, fi)),
+             "rfft_sharded vs fft.api.rfft": (fft_api.rfft(xr), (pr, pi)),
+             "rifft_sharded vs fft.api.rifft": ((fft_api.rifft(pr.to_local(), pi.to_local()),),
+                                                (back,)),
+             "convolve_sharded vs spectral_processor.convolve": ((sp.convolve(sig, h0),), (yc,))}
+    for label, (want, got) in pairs.items():
+        snr = min(snr_db(w, g.full_tensor()) for w, g in zip(want, got))
+        print(f"parallel-fft: {label}: SNR {snr:.2f} dB [{smi}]", flush=True)
+        if not snr >= SNR_MIN_KERNEL_DB:
+            fail(f"parallel-fft: {label} SNR {snr:.2f} dB < {SNR_MIN_KERNEL_DB}")
+    n = SIG_LEN + IR_LEN - 1
+    check_path_snr("parallel-convolve", yc.full_tensor(), x[0], irs[0], smi)
+    if tuple(yc.shape) != (n,):
+        fail(f"parallel-convolve: shape {tuple(yc.shape)}, expected ({n},)")
+    dist.destroy_process_group()
+    del zr, zi, xr, sig, h0, fr, fi, pr, pi, back, yc
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -2334,6 +2635,8 @@ def main() -> None:
     tiny_paths(dev, launches, smi)
     large_kernels(randn, mods, smi, results)
     large_paths(dev, irs, launches, smi)
+    gradient_paths(dev, irs, x, smi)
+    parallel_paths(dev, irs, x, launches, smi, results)
 
     for name in KERNELS:
         by_path = {p: c[name] for p, c in launches.by_path.items()}

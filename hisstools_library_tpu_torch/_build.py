@@ -92,6 +92,10 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
+class NoBackwardError(RuntimeError):
+    """A hand kernel was asked to launch on an operand that requires grad."""
+
+
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
@@ -167,7 +171,16 @@ def load() -> ctypes.CDLL:
 def check_tensors(kernel: str, *tensors, contiguous: bool = True) -> None:
     """Raise unless every tensor is float32, contiguous (when asked) and on
     one CUDA device (float64 raises NotImplementedError: no float64 kernel is
-    ported)."""
+    ported). First of all, raise :class:`NoBackwardError` when grad is enabled
+    and an operand requires grad: a launch writes its output through raw
+    pointers, so the output would carry no ``grad_fn`` and a backward pass
+    would silently leave this kernel's part of the function out."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NoBackwardError(
+            f"{kernel}: an operand requires grad, but the hand kernels have no backward "
+            "(as the TPU package's Pallas kernels have no VJP). Take gradients on CPU "
+            "tensors (the plain versions) or on a path that launches no hand kernel; "
+            "run inference under torch.no_grad() or torch.inference_mode()")
     for t in tensors:
         if t.dtype == torch.float64:
             raise NotImplementedError(

@@ -61,10 +61,18 @@ def _causal_fir(x: torch.Tensor, h: torch.Tensor, history: int = 0) -> torch.Ten
         xr = F.pad(xr, (taps - 1 - history, 0))
     hb = h.expand(lead + (taps,)) if lead else h
     hr = torch.flip(hb, dims=(-1,)).reshape(c, 1, taps).to(x.dtype)
+    if c == 1:
+        # A lone channel runs beside a zero one, so that it takes the same
+        # depthwise kernel as many channels do (groups=1 is another kernel
+        # that sums in another order): a channel's output is then the same
+        # bits however many channels share the call, as the channel-sharded
+        # engines (parallel.sharded) need.
+        xr = F.pad(xr, (0, 0, 0, 1))
+        hr = F.pad(hr, (0, 0, 0, 0, 0, 1))
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                      deterministic=cudnn.deterministic, allow_tf32=False):
-        y = F.conv1d(xr, hr, groups=c)
+        y = F.conv1d(xr, hr, groups=xr.shape[1])[:, :c]
     return y.reshape(*lead, y.shape[-1])[..., y.shape[-1] - (L - history):]
 
 

@@ -21,6 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from hisstools_library_tpu_torch import _build  # noqa: E402
 from hisstools_library_tpu_torch.core.types import Split  # noqa: E402
 from hisstools_library_tpu_torch.fft import hopper_fft, hopper_kernels  # noqa: E402
 from hisstools_library_tpu_torch.models import mono, offline, pipeline, time_domain  # noqa: E402
@@ -1343,3 +1344,106 @@ def test_checkpoint_resume_bitexact_on_cuda(cuda, tmp_path, fmt):
     assert restored["ir"].spectra[-1].re.device.type == "cuda"
     _, ys2 = run(restored["ir"], restored["state"], 16, 32)
     assert torch.equal(torch.cat(ys + ys2, -1), torch.cat(ref, -1))
+
+
+def _grad_operands(name, dev):
+    """Each kernel's operands at a small shape: (fn, args), the first
+    argument the one that will require grad."""
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    if name == "rfft_packed":
+        return hopper_fft.rfft_packed, (randn(4, 4096),)
+    if name == "rfft_packed_stream":
+        return hopper_fft.rfft_packed_stream, (randn(2, 5, 2048),)
+    if name == "lag_mac_ring":
+        return hopper_kernels.lag_mac_ring, (randn(2, 3, 256), randn(2, 3, 256),
+                                             randn(2, 2, 256), randn(2, 2, 256),
+                                             randn(2, 3, 256), randn(2, 3, 256))
+    return hopper_kernels.lag_mac, (randn(2, 1 + 4 + 3, 256), randn(2, 8, 256),
+                                    randn(2, 3, 256), randn(2, 3, 256), 4, 1)
+
+
+@pytest.mark.parametrize("name,i", [("rfft_packed", 0), ("lag_mac_ring", 0),
+                                    ("lag_mac_ring", 2), ("lag_mac_ring", 4),
+                                    ("lag_mac", 0), ("lag_mac", 2),
+                                    ("rfft_packed_stream", 0)])
+def test_kernels_refuse_operands_that_require_grad(cuda, name, i):
+    """K1 / K7 / K15 / K2: an operand that requires grad (argument ``i``:
+    the signal, spectra, ring or H), with grad enabled, raises the
+    no-backward error (a launch would return an output with no grad_fn);
+    under no_grad the same call returns what it returns on the detached
+    operands."""
+    fn, args = _grad_operands(name, cuda)
+    want = fn(*args)
+    args = list(args)
+    args[i] = args[i].clone().requires_grad_(True)
+    before = fn.launches
+    with pytest.raises(_build.NoBackwardError, match="no backward"):
+        fn(*args)
+    assert fn.launches == before
+    with torch.no_grad():
+        got = fn(*args)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert not a.requires_grad
+        assert torch.equal(a, b)
+
+
+def test_gradient_paths_on_cuda(cuda):
+    """The autograd twin's engines on the card: fir_offline (conv1d, no hand
+    kernel) gives the CPU gradient; mono.process, whose sections run hand
+    kernels, raises instead of returning a gradient without them."""
+    rng = np.random.default_rng(0x1557)
+    x = rng.standard_normal(300).astype(np.float32)
+    taps = rng.standard_normal(16).astype(np.float32)
+    grads = []
+    for dev in (CPU, cuda):
+        t = torch.tensor(taps, device=dev, requires_grad=True)
+        torch.sum(time_domain.fir_offline(torch.from_numpy(x).to(dev), t) ** 2).backward()
+        grads.append(t.grad.cpu().numpy())
+    assert snr_db(grads[0], grads[1]) >= SNR_CHAIN_DB
+    scheme = mono.PartitionScheme((32, 128), zero_latency=True)
+    ir = mono.prepare_ir(scheme, rng.standard_normal(500).astype(np.float32),
+                         offline_tail=False, device=cuda)
+    st = mono.init_state(scheme, ir, ())
+    xg = torch.randn(512, device=cuda, requires_grad=True)
+    with pytest.raises(_build.NoBackwardError, match="K10 rfft_small"):
+        mono.process(ir, st, xg)
+
+
+def test_parallel_world_one_on_cuda(cuda):
+    """``parallel`` on one card over NCCL (world size 1): the sharded
+    offline scheme runs its fused section as K2 -> K15 (lead_skip 1) -> K4
+    and matches process_offline; N-to-mono sums it; the FFT pair round-trips."""
+    import torch.distributed as dist
+
+    from hisstools_library_tpu_torch import parallel
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = parallel.make_mesh()
+        rng = np.random.default_rng(5)
+        scheme = mono.PartitionScheme((4096,), zero_latency=False)
+        ir = mono.prepare_ir(scheme, (rng.standard_normal((4, 3 * 2048 + 100)) * 0.2)
+                             .astype(np.float32), offline_tail=False, device=cuda)
+        x = torch.from_numpy(rng.standard_normal((4, 2048 * 8)).astype(np.float32)).to(cuda)
+        for name in ("rfft_packed_stream", "rifft_packed_tail"):
+            getattr(hopper_fft, name).launches = 0
+        hopper_kernels.lag_mac.launches = 0
+        y = parallel.scheme_offline_sharded(mesh, scheme, ir, x).full_tensor()
+        assert hopper_fft.rfft_packed_stream.launches == 1
+        assert hopper_kernels.lag_mac.launches == 1
+        assert hopper_fft.rifft_packed_tail.launches == 1
+        ref = mono.process_offline(ir, x)
+        assert snr_db(ref.cpu().numpy(), y.cpu().numpy()) >= SNR_CHAIN_DB
+        y1 = parallel.n_to_one_offline(mesh, scheme, ir, x).full_tensor()
+        assert snr_db(ref.sum(0).cpu().numpy(), y1.cpu().numpy()) >= SNR_CHAIN_DB
+        xr = x[0, :1 << 14].contiguous()
+        pr, pi = parallel.rfft_sharded(mesh, xr)
+        back = parallel.rifft_sharded(mesh, pr, pi).full_tensor() / (2 << 14)
+        assert snr_db(xr.cpu().numpy(), back.cpu().numpy()) >= SNR_CHAIN_DB
+    finally:
+        dist.destroy_process_group()
