@@ -198,7 +198,35 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
     calls bit-equal to ``mono.process``; (d) ``scheme_stream_any_sharded``,
     128 callbacks of 256 samples bit-equal to ``process_any``; (e) the
     sharded FFTs and ``convolve_sharded`` against their single-card
-    counterparts (>= 110 dB) and the convolution against float64.
+    counterparts (>= 110 dB) and the convolution against float64;
+26. runs the double-float FFT (``fft.df64``) on the card: ``selfcheck()``
+    (< 1e-10: the compensation survived), the round trip ``rifft_df64(
+    rfft_df64(x)) == 2N x`` and ``fft_df64`` forward and inverse at 128 x
+    2^16 against float64 numpy (>= 250 dB), with ms per call;
+27. runs the ``convolve_wav`` tool (``tools/convolve_wav.main``) at full
+    width: the 128 x 483 328 signal and the 10 s IRs written as float32
+    WAVs to a temporary directory (removed at the phase's end), then
+    ``--engine fast``, ``--engine scheme`` and ``--stream``, each with its
+    read, convolve and write times; channel 0 of each output WAV >= 120 dB
+    against a float64 FFT convolution, scaled as the tool scales its output
+    (peak-normalised to -1 dBFS by the peak of the float64 convolution's
+    channel that holds the output's peak; ``--stream`` writes unscaled);
+28. runs the ``serve_demo`` tool with ``--channels 128 --seconds 2 --swaps
+    2``, as a Python callback and with ``--native-host``: each must return
+    0 (its own post-swap parity check, and the native host's overruns);
+    its median / p99 callback ms and late callbacks are information;
+29. runs the ``fuzz_oracle`` tool for 0.5 minutes from seed 0 on the card:
+    it must return 0 (every draw above 85 dB against float64);
+30. holds determinism on the card: every kernel of ``KERNELS`` launched
+    twice on the same inputs at its first path shape, with a NaN-filled
+    block (large and small pools) handed back by the caching allocator
+    before the second launch, must give the same bits (an output element a
+    kernel never writes would show) and leave its inputs as they were; the
+    same for whole paths, each from a fresh state: one FastFIR pass, 128
+    ``process_any`` callbacks and two two-tier ``mono.process`` calls; then
+    the long stream: 64 two-tier calls of 131 072 samples at 128 channels
+    with the 10 s IRs, channel 0's first and last calls >= 120 dB against
+    a float64 FFT convolution and within 15 dB of each other.
 
 Every path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel the path needs that was not launched fails the run,
@@ -239,6 +267,8 @@ STREAM_BLOCK = 131072       # bench.py's stream call: 16 hops of 8192
 CALLBACK, CALLS = 256, 128  # bench.py's latency mode: 256-sample callbacks, 2 x 64
 STAGED_TAPS, STAGED_N = 48000, 2048
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak rate
+SNR_MIN_DF64_DB = 250.0     # double-float vs float64 (the JAX package's chip: 281-283)
+SNR_MIN_CLI_DB = 120.0      # the tools' WAVs and the long stream vs float64
 FP32_FLOPS = 67e12          # H100 SXM FP32 outside the tensor cores
 
 # Every kernel of the port: (wrapper module, CUDA source, TPU kernel replaced).
@@ -470,7 +500,8 @@ def compare(name, fn, plain, args, kwargs, big, smi):
 
 def check_kernels(specs, mods, smi) -> dict:
     """Each kernel against its plain version over its cases; the first path
-    shape (``big``) gives the kernel's times and bound."""
+    shape (``big``) gives the kernel's times and bound, and its input maker
+    (``path_case``) phase 30's inputs."""
     results = {}
     for name, cases in specs:
         mod = mods[KERNELS[name][0]]
@@ -490,7 +521,10 @@ def check_kernels(specs, mods, smi) -> dict:
             snr_db=min(e["snr_db"] for e in entries),
             **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                                     "bound_by")},
-            shapes=entries)
+            shapes=entries,
+            # The first path shape's input maker, for phase 30 (taken out
+            # before the kernels' line is printed).
+            path_case=next(make for make, big in cases if big))
     return results
 
 
@@ -2562,6 +2596,291 @@ def parallel_paths(dev, irs, x, launches, smi, results) -> None:
     torch.cuda.empty_cache()
 
 
+def df64_paths(dev, smi) -> None:
+    """Phase 26: the double-float FFT on the card (no hand kernel: element-wise
+    torch ops, one rounding each, the JAX package's float32 sequence)."""
+    from hisstools_library_tpu_torch.fft import df64
+
+    err = df64.selfcheck(device=dev)
+    print(f"df64: selfcheck {err:.3e} (< 1e-10: the compensation survived) [{smi}]",
+          flush=True)
+    if not err < 1e-10:
+        fail(f"df64: selfcheck {err:.3e} >= 1e-10")
+    n = 1 << 16
+    gen = torch.Generator(device=dev).manual_seed(26)
+    x, re, im = (torch.randn(CHANNELS, n, generator=gen, device=dev) for _ in range(3))
+    zero = torch.zeros_like(x)
+
+    def run(label, call, want, got_of):
+        got = got_of(call())
+        torch.cuda.synchronize()
+        snr = min(snr_db(torch.from_numpy(w), torch.from_numpy(g)) for w, g in zip(want, got))
+        ms = median_ms(call, runs=3)
+        print(f"df64 {label} ({CHANNELS} x 2^16): SNR vs float64 {snr:.2f} dB, {ms:.3f} ms/call "
+              f"(CUDA events, median of 3 after a warm-up) [{smi}]", flush=True)
+        if not snr >= SNR_MIN_DF64_DB:
+            fail(f"df64 {label}: SNR {snr:.2f} dB < {SNR_MIN_DF64_DB}")
+
+    x64 = x.double().cpu().numpy()
+    run("rifft(rfft(x)) == 2N x", lambda: df64.rifft_df64(*df64.rfft_df64(x)),
+        (2.0 * n * x64,), lambda y: (df64.dd_to_f64(*y),))
+    z = re.double().cpu().numpy() + 1j * im.double().cpu().numpy()
+    fwd = np.fft.fft(z, axis=-1)
+    run("fft_df64 forward", lambda: df64.fft_df64(re, zero, im, zero),
+        (fwd.real, fwd.imag),
+        lambda y: (df64.dd_to_f64(y[0], y[1]), df64.dd_to_f64(y[2], y[3])))
+    run("fft_df64 inverse (unscaled)", lambda: df64.fft_df64(re, zero, im, zero, inverse=True),
+        ((n * np.fft.ifft(z, axis=-1)).real, (n * np.fft.ifft(z, axis=-1)).imag),
+        lambda y: (df64.dd_to_f64(y[0], y[1]), df64.dd_to_f64(y[2], y[3])))
+    del x, re, im, zero
+    torch.cuda.empty_cache()
+
+
+def _tool_lines(tool, argv) -> tuple:
+    """Run a tool's ``main`` in this process; its return value and what it
+    printed (to standard output and error), echoed here line by line."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = tool.main(argv)
+    text = out.getvalue() + err.getvalue()
+    for line in text.splitlines():
+        print(f"  | {line}", flush=True)
+    return rc, text
+
+
+def cli_paths(dev, irs, x, launches, smi) -> None:
+    """Phase 27: the convolve_wav tool at full width, in process."""
+    import re
+    import tempfile
+
+    from hisstools_library_tpu_torch.io import FileType, IAudioFile, OAudioFile, PCMFormat
+    from hisstools_library_tpu_torch.tools import convolve_wav
+
+    n_out = SIG_LEN + IR_LEN - 1
+    ref0 = convolve_f64(x[0], irs[0], n_out)
+    with tempfile.TemporaryDirectory() as tmp:
+        sig, ir_p = os.path.join(tmp, "signal.wav"), os.path.join(tmp, "ir.wav")
+        t0 = time.perf_counter()
+        for path, data in ((sig, x), (ir_p, irs)):
+            with OAudioFile(path, FileType.WAVE, PCMFormat.Float32, CHANNELS, float(FS)) as f:
+                f.write_interleaved(data.T)
+                if f.get_is_error():
+                    fail(f"cli: writing {path} failed: {f.get_errors()}")
+        print(f"cli: wrote the {CHANNELS} x {SIG_LEN} signal and the {CHANNELS} x {IR_LEN} IRs "
+              f"as float32 "
+              f"WAVs in {time.perf_counter() - t0:.2f} s [{smi}]", flush=True)
+        for label, flags, need, forbid in (
+                ("cli-fast", ["--engine", "fast"], ("rfft_packed", "fastfir_chain"), STAGED),
+                ("cli-scheme", ["--engine", "scheme"], ("rfft_packed", "fastfir_chain"), ()),
+                ("cli-stream", ["--stream"], ("rfft_packed", "rifft_packed_tail",
+                                              "lag_mac_ring", "rfft_small"), ())):
+            out = os.path.join(tmp, label + ".wav")
+            launches.reset()
+            t0 = time.perf_counter()
+            rc, text = _tool_lines(convolve_wav, [sig, ir_p, out, *flags])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches.read(label, need, smi, forbid)
+            if rc != 0:
+                fail(f"{label}: convolve_wav returned {rc}")
+            with IAudioFile(out) as f:
+                if f.get_is_error() or f.frames != n_out or f.channels != CHANNELS:
+                    fail(f"{label}: output {f.channels} x {f.frames}, errors {f.get_errors()}")
+                yall = f.read_interleaved(dtype=np.float32)  # (frames, channels)
+            y0 = yall[:, 0].astype(np.float64)
+            peak_at = None
+            if "--stream" not in flags:
+                # The tool scales its output to -1 dBFS by its peak: find the
+                # sample and channel of the file's peak, and scale the
+                # reference by the float64 convolution there.
+                peak_at = np.unravel_index(int(np.argmax(np.abs(yall))), yall.shape)
+            del yall
+            if not np.isfinite(y0).all():
+                fail(f"{label}: non-finite output")
+            scale = 1.0
+            if peak_at is not None:
+                n_pk, c_pk = peak_at
+                peak = abs(convolve_f64(x[c_pk], irs[c_pk], n_pk + 1)[n_pk])
+                scale = 10 ** (-1 / 20) / peak
+            snr = snr_db(torch.from_numpy(ref0 * scale), torch.from_numpy(y0))
+            times = "; ".join(f"{m.group(1)} {m.group(2)}" for m in re.finditer(
+                r"^(read|convolved|streamed|wrote) .*? in ([0-9.]+ ?m?s)", text, re.M))
+            print(f"{label}: channel 0 of the output WAV ({n_out} frames) vs float64 FFT "
+                  f"convolution{' x the tool scale' if peak_at else ''}: {snr:.2f} dB; "
+                  f"tool wall {wall:.3f} s ({times}) [{smi}]", flush=True)
+            if not snr >= SNR_MIN_CLI_DB:
+                fail(f"{label}: SNR {snr:.2f} dB < {SNR_MIN_CLI_DB}")
+            os.remove(out)
+    torch.cuda.empty_cache()
+
+
+def serve_demo_paths(launches, smi) -> None:
+    """Phase 28: the serve_demo tool at 128 channels, both hosts."""
+    from hisstools_library_tpu_torch.tools import serve_demo
+
+    for label, extra in (("serve-demo", []), ("serve-demo-native", ["--native-host"])):
+        launches.reset()
+        rc, _ = _tool_lines(serve_demo, ["--channels", str(CHANNELS), "--seconds", "2",
+                                         "--swaps", "2", *extra])
+        torch.cuda.synchronize()
+        launches.read(label, ("hop_fire", "rfft_packed", "rifft_packed"), smi)
+        print(f"{label}: serve_demo returned {rc} [{smi}]", flush=True)
+        if rc != 0:
+            fail(f"{label}: serve_demo returned {rc}")
+    torch.cuda.empty_cache()
+
+
+def fuzz_paths(launches, smi) -> None:
+    """Phase 29: the fuzz_oracle tool on the card for half a minute."""
+    import re
+
+    from hisstools_library_tpu_torch.tools import fuzz_oracle
+
+    launches.reset()
+    t0 = time.perf_counter()
+    rc, text = _tool_lines(fuzz_oracle, ["--minutes", "0.5", "--seed", "0"])
+    torch.cuda.synchronize()
+    launches.read("fuzz", (), smi)
+    m = re.search(r"(\d+) cases, (\d+) failures", text)
+    print(f"fuzz: returned {rc}, {m.group(1) if m else '?'} draws, "
+          f"{m.group(2) if m else '?'} failures in {time.perf_counter() - t0:.1f} s [{smi}]",
+          flush=True)
+    if rc != 0:
+        fail(f"fuzz: fuzz_oracle returned {rc}")
+    torch.cuda.empty_cache()
+
+
+def _dirty_allocator(nbytes: int) -> None:
+    """Hand the caching allocator's free lists back full of NaN: one large
+    block of ``nbytes`` and 64 small-pool blocks of 1 MiB, filled and freed,
+    after the cache is emptied, so the next allocations are carved from
+    them."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    big = torch.full((max(nbytes, 1 << 30) // 4,), float("nan"), device="cuda")
+    small = [torch.full(((1 << 20) // 4,), float("nan"), device="cuda") for _ in range(64)]
+    torch.cuda.synchronize()
+    del big, small
+
+
+def _outputs(got) -> list:
+    return list(got) if isinstance(got, tuple) else [got]
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def determinism_kernels(mods, path_cases, smi) -> None:
+    """Phase 30a: each kernel twice on the same inputs at its first path
+    shape, a NaN-dirtied allocator before the second launch."""
+    for name in KERNELS:
+        fn = getattr(mods[KERNELS[name][0]], name)
+        args, kwargs = path_cases[name]()
+        tensors = [a for a in list(args) + list(kwargs.values()) if isinstance(a, torch.Tensor)]
+        before = [t.clone() for t in tensors]
+        first = _outputs(fn(*args, **kwargs))
+        torch.cuda.synchronize()
+        if not all(_same_bits(t, b) for t, b in zip(tensors, before)):
+            fail(f"determinism: {name} changed its inputs")
+        _dirty_allocator(4 * sum(t.numel() * t.element_size() for t in first))
+        second = _outputs(fn(*args, **kwargs))
+        torch.cuda.synchronize()
+        shapes = [tuple(t.shape) for t in tensors]
+        if not all(_same_bits(a, b) for a, b in zip(first, second)):
+            bad = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                      for a, b in zip(first, second))
+            fail(f"determinism: {name} at {shapes}: {bad} output elements differ between "
+                 "two launches on the same inputs")
+        print(f"determinism: {name} at {shapes}: two launches bit-equal "
+              f"(the second into NaN-filled blocks) [{smi}]", flush=True)
+        del args, kwargs, tensors, before, first, second
+        torch.cuda.empty_cache()
+
+
+def determinism_paths(dev, irs, x, launches, smi) -> None:
+    """Phase 30b-c: whole paths twice from fresh states, bit-equal, and the
+    long stream's accuracy at its first and last calls."""
+    from hisstools_library_tpu_torch.models import mono
+    from hisstools_library_tpu_torch.models.offline import FastFIR
+
+    zero = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+    launches.reset()
+    xd = torch.from_numpy(x).to(dev)
+    eng = FastFIR(irs, device=dev)
+    ir = mono.prepare_ir(zero, irs, offline_tail=False, device=dev)
+
+    def fastfir():
+        return [FastFIR.apply(eng.spectra, xd)]
+
+    def callbacks_128():
+        st = mono.init_stream_state(zero, ir, batch_shape=(CHANNELS,))
+        ys = []
+        for i in range(CALLS):
+            st, y = mono.process_any(ir, st, xd[:, i * CALLBACK:(i + 1) * CALLBACK].contiguous())
+            ys.append(y)
+        return ys
+
+    def two_tier():
+        st = mono.init_block_state(zero, ir, batch_shape=(CHANNELS,))
+        ys = []
+        for i in range(2):
+            st, y = mono.process(ir, st, xd[:, i * STREAM_BLOCK:(i + 1) * STREAM_BLOCK]
+                                 .contiguous())
+            ys.append(y)
+        return ys
+
+    for label, run in (("FastFIR pass", fastfir), (f"{CALLS} process_any callbacks", callbacks_128),
+                       ("two two-tier mono.process calls", two_tier)):
+        first = run()
+        torch.cuda.synchronize()
+        _dirty_allocator(4 * sum(t.numel() * t.element_size() for t in first))
+        second = run()
+        torch.cuda.synchronize()
+        if not all(_same_bits(a, b) for a, b in zip(first, second)):
+            fail(f"determinism: {label}: two runs from fresh states differ")
+        print(f"determinism: {label}, twice from fresh states: bit-equal [{smi}]", flush=True)
+        del first, second
+    del eng, xd
+    torch.cuda.empty_cache()
+
+    # The long stream: 64 two-tier calls, each block drawn on the card.
+    calls = 64
+    gen = torch.Generator(device=dev).manual_seed(30)
+    st = mono.init_block_state(zero, ir, batch_shape=(CHANNELS,))
+    x0, y0 = [], {}
+    t0 = time.perf_counter()
+    for j in range(calls):
+        blk = torch.randn(CHANNELS, STREAM_BLOCK, generator=gen, device=dev)
+        st, y = mono.process(ir, st, blk)
+        x0.append(blk[0].cpu().numpy())
+        if j in (0, calls - 1):
+            y0[j] = y[0].cpu()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.read("determinism", ("fastfir_chain", "hop_fire", "rifft_packed",
+                                  "fastfir_chain_stream", "lag_mac_ring",
+                                  "rifft_packed_tail"), smi)
+    n = calls * STREAM_BLOCK
+    ref = convolve_f64(np.concatenate(x0), irs[0], n)
+    snrs = {j: snr_db(torch.from_numpy(ref[j * STREAM_BLOCK:(j + 1) * STREAM_BLOCK]), y)
+            for j, y in y0.items()}
+    first, last = snrs[0], snrs[calls - 1]
+    print(f"drift: {calls} two-tier calls of {STREAM_BLOCK} samples x {CHANNELS} channels, "
+          f"the 10 s IRs ({wall:.2f} s with the host copies): channel 0 vs float64 FFT "
+          f"convolution, call 0 {first:.2f} dB, call {calls - 1} {last:.2f} dB [{smi}]",
+          flush=True)
+    if not (first >= SNR_MIN_CLI_DB and last >= SNR_MIN_CLI_DB and abs(first - last) < 15.0):
+        fail(f"drift: first {first:.2f} / last {last:.2f} dB (>= {SNR_MIN_CLI_DB} each and "
+             "within 15 dB)")
+    del st, ir
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -2637,6 +2956,13 @@ def main() -> None:
     large_paths(dev, irs, launches, smi)
     gradient_paths(dev, irs, x, smi)
     parallel_paths(dev, irs, x, launches, smi, results)
+    path_cases = {name: results[name].pop("path_case") for name in KERNELS}
+    df64_paths(dev, smi)
+    cli_paths(dev, irs, x, launches, smi)
+    serve_demo_paths(launches, smi)
+    fuzz_paths(launches, smi)
+    determinism_kernels(mods, path_cases, smi)
+    determinism_paths(dev, irs, x, launches, smi)
 
     for name in KERNELS:
         by_path = {p: c[name] for p, c in launches.by_path.items()}

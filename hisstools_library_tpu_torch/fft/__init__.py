@@ -13,3 +13,4 @@ from .api import (  # noqa: F401
     set_default_backend,
     get_default_backend,
 )
+from .df64 import fft_df64, rfft_df64, rifft_df64  # noqa: F401

@@ -53,7 +53,7 @@ def _causal_fir(x: torch.Tensor, h: torch.Tensor, history: int = 0) -> torch.Ten
     taps = h.shape[-1]
     lead = x.shape[:-1]
     L = x.shape[-1]
-    if taps == 0:
+    if taps == 0 or L == history:  # no taps, or no new sample: nothing to sum
         return x.new_zeros(lead + (L - history,))
     c = int(np.prod(lead)) if lead else 1
     xr = x.reshape(1, c, L)

@@ -1447,3 +1447,105 @@ def test_parallel_world_one_on_cuda(cuda):
         assert snr_db(xr.cpu().numpy(), back.cpu().numpy()) >= SNR_CHAIN_DB
     finally:
         dist.destroy_process_group()
+
+
+# -- double-float FFT and determinism on the card ------------------------------
+
+def test_df64_selfcheck_on_cuda(cuda):
+    """The compensated arithmetic survives the card's element-wise kernels
+    (a contracted FMA or a reassociated sum would give ~1e-7)."""
+    from hisstools_library_tpu_torch.fft import df64
+    assert df64.selfcheck(device=cuda) < 1e-10
+
+
+def test_df64_round_trip_on_cuda(cuda):
+    """rifft_df64(rfft_df64(x)) == 2N x at (4, 4096) on the card, >= 250 dB
+    against float64, and the same planes as the CPU's (one rounding an op
+    on both)."""
+    from hisstools_library_tpu_torch.fft import df64
+    x = np.random.default_rng(0xDF64).standard_normal((4, 4096)).astype(np.float32)
+    planes = df64.rfft_df64(torch.from_numpy(x).to(cuda))
+    y_h, y_l = df64.rifft_df64(*planes)
+    assert y_h.device.type == "cuda"
+    y = df64.dd_to_f64(y_h, y_l)
+    assert snr_db(2.0 * 4096 * x.astype(np.float64), y) >= 250.0
+    for card, cpu in zip(planes, df64.rfft_df64(x, device=CPU)):
+        assert snr_db(cpu.numpy(), card.cpu().numpy()) >= 250.0
+
+
+def _twice_case(name, dev):
+    """(wrapper, args, kwargs) of each kernel at a small shape."""
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def randn(*sh):
+        return torch.randn(*sh, generator=g, device=dev)
+
+    mod = (hopper_kernels if name in ("lag_mac_causal", "lag_mac_ring", "hop_fire", "lag_mac")
+           else hopper_fft)
+    fn = getattr(mod, name)
+    if name in ("rfft_packed_stream", "lag_mac_causal", "rifft_packed_tail"):
+        return fn, _inputs(name, 4096, dev), {}
+    if name == "rfft_packed":
+        return fn, (randn(3, 4096),), {}
+    if name in ("rifft_packed", "rifft_small", "hop_fire", "lag_mac"):
+        shape = {"rifft_packed": (3, 4096), "rifft_small": (385, 256),
+                 "hop_fire": (128, 256, 3, False), "lag_mac": (3, 1, 48, 47, 1024)}[name]
+        return (fn, *_slice_inputs(name, shape, dev))
+    if name in ("lag_mac_ring", "rfft_small", "fastfir_chain_stream"):
+        shape = {"lag_mac_ring": (3, 4, 14, 4096), "rfft_small": (385, 128),
+                 "fastfir_chain_stream": (2, 3, 2, 1 << 14, True)}[name]
+        return (fn, *_stream_inputs(name, shape, dev))
+    if name == "fastfir_chain":
+        x2d, (hr, hi) = _chain_inputs(2, 5, 7, 1 << 14, dev)
+        return fn, (x2d, hr, hi, 1.0 / (4.0 * (1 << 14))), {}
+    if name in ("fft_split", "fft_tiny"):
+        n = 2048 if name == "fft_split" else 16
+        return fn, (randn(3, n), randn(3, n)), dict(inverse=True)
+    if name == "rfft_packed_split":
+        return fn, (randn(1, 1 << 18),), {}
+    if name == "rifft_packed_split":
+        return fn, (randn(1, 1 << 17), randn(1, 1 << 17)), {}
+    if name == "rfft_tiny":
+        return fn, (randn(257, 16),), {}
+    if name == "rifft_tiny":
+        return fn, (randn(3, 86, 8), randn(3, 86, 8)), {}
+    n = 1024 if "small" in name else 16
+    w = _window(n, dev)
+    if name.startswith("rfft"):  # frames in place from an unfold view
+        return fn, (randn(2, 8 * (n // 2) + n).unfold(-1, n, n // 2), w), {}
+    return fn, (randn(2, 9, n // 2), randn(2, 9, n // 2), w, 0.5 / n), {}
+
+
+TWICE_KERNELS = ["rfft_packed", "rfft_packed_stream", "lag_mac_causal", "rifft_packed_tail",
+                 "rifft_packed", "lag_mac_ring", "fastfir_chain", "fastfir_chain_stream",
+                 "hop_fire", "rfft_small", "rifft_small", "lag_mac", "fft_split",
+                 "rfft_packed_split", "rifft_packed_split", "rfft_small_windowed",
+                 "rifft_small_windowed", "rfft_tiny", "rifft_tiny", "rfft_tiny_windowed",
+                 "rifft_tiny_windowed", "fft_tiny"]
+
+
+@pytest.mark.parametrize("name", TWICE_KERNELS)
+def test_kernel_twice_bit_equal(cuda, name):
+    """Two launches on the same inputs give the same bits and leave the
+    inputs as they were, the second into blocks the caching allocator hands
+    back full of NaN (so an output element the kernel never writes shows)."""
+    fn, args, kw = _twice_case(name, cuda)
+    tensors = [a for a in list(args) + list(kw.values()) if torch.is_tensor(a)]
+    before = [t.clone() for t in tensors]
+    first = fn(*args, **kw)
+    first = first if isinstance(first, tuple) else (first,)
+    torch.cuda.synchronize()
+    assert all(torch.equal(t, b) for t, b in zip(tensors, before))
+    torch.cuda.empty_cache()
+    dirty = [torch.full((1 << 26,), float("nan"), device=cuda)]
+    dirty += [torch.full((1 << 18,), float("nan"), device=cuda) for _ in range(16)]
+    torch.cuda.synchronize()
+    del dirty
+    launches = fn.launches
+    second = fn(*args, **kw)
+    second = second if isinstance(second, tuple) else (second,)
+    torch.cuda.synchronize()
+    assert fn.launches == launches + 1
+    for a, b in zip(first, second):
+        assert a.shape == b.shape
+        assert torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))

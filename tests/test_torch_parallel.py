@@ -71,6 +71,9 @@ def _inputs() -> dict:
     inp["fused"] = dict(x=rng.standard_normal((4, 2048 * 8)).astype(f32),
                         irs=(rng.standard_normal((4, 3 * 2048 + 100)) * 0.2).astype(f32))
     rng = np.random.default_rng(SEED)
+    inp["sharded_twice"] = dict(irs=(rng.standard_normal((4, 5000)) * 0.2).astype(f32),
+                                x=rng.standard_normal((4, 2048 * 8)).astype(f32))
+    rng = np.random.default_rng(SEED)
     inp["invariance"] = dict(x=rng.standard_normal((8, 2048)).astype(f32),
                              irs=(rng.standard_normal((8, 1000)) * 0.2).astype(f32))
     rng = np.random.default_rng(SEED)
@@ -185,6 +188,19 @@ def test_sharded_pallas_fused_matches_single_device(ranks):
     jax_y = _jax_offline((2, 4), JScheme((4096,), zero_latency=False), inp["fused"],
                          dtype=jnp.float32, backend="pallas")
     assert snr_db(jax_y, out["fused"]) >= SNR_F32_JAX_DB
+
+
+def test_sharded_bitwise_reproducible(ranks):
+    """The twin of tests/test_determinism.py's sharded case: the fused
+    section on a 2 x 4 mesh, called twice, gives the same bits (a uint32
+    view), and matches the JAX sharded function on the same inputs."""
+    inp, out = ranks
+    y1, y2 = out["sharded_twice"]
+    assert y1.dtype == np.float32
+    assert np.array_equal(y1.view(np.uint32), y2.view(np.uint32))
+    jax_y = _jax_offline((2, 4), JScheme((4096,), zero_latency=False), inp["sharded_twice"],
+                         dtype=jnp.float32, backend="pallas", offline_tail=False)
+    assert snr_db(jax_y, y1) >= SNR_F32_JAX_DB
 
 
 def test_mesh_shape_invariance(ranks):

@@ -69,6 +69,23 @@ def test_streaming_head_matches_jax_and_offline(rng):
     assert snr_db(off, torch.cat(ys, -1)) >= 250.0
 
 
+def test_empty_block_matches_jax(rng):
+    """A block of no samples gives no output and keeps the state, as in the
+    JAX package (a grouped conv1d refuses an input shorter than its taps)."""
+    ir = rng.standard_normal((2, 5000))
+    jeng, teng = jtd.TimeDomainConvolve(length=128), ttd.TimeDomainConvolve(length=128)
+    teng.set(ir, dtype=torch.float64, device=CPU)
+    jeng.set(ir, dtype=jnp.float64)
+    tst = teng.init_state((2,), torch.float64)
+    tst, _ = ttd.TimeDomainConvolve.process(teng.taps, tst, torch.from_numpy(ir[:, :300]))
+    jst = jnp.asarray(tst.numpy())
+    jst, jy = jtd.TimeDomainConvolve.process(jeng.taps, jst, jnp.zeros((2, 0)))
+    new, ty = ttd.TimeDomainConvolve.process(teng.taps, tst, torch.zeros(2, 0, dtype=torch.float64))
+    assert ty.shape == jy.shape == (2, 0)
+    assert np.array_equal(np.asarray(jst), new.numpy())
+    assert ttd.fir_offline(torch.zeros(3, 0), teng.taps[0].float()).shape == (3, 0)
+
+
 def test_make_taps_and_errors(rng):
     ir = rng.standard_normal(3000)
     for off, length in ((0, 0), (100, 50), (2999, 0), (4000, 0)):

@@ -110,6 +110,16 @@ def parallel_cases(inp: dict) -> dict:
                                               _t(c["x"]), backend="pallas"))
     out["fused_single"] = mono.process_offline(ir, _t(c["x"])).numpy()
 
+    # The same sharded call twice (tests/test_determinism.py's sharded case):
+    # the fused section on a 2 x 4 mesh, bits compared in the test.
+    c = inp["sharded_twice"]
+    scheme = PartitionScheme((4096,), zero_latency=False)
+    ir = mono.prepare_ir(scheme, c["irs"], offline_tail=False, device=CPU)
+    m24 = _mesh(channel=2, block=4)
+    out["sharded_twice"] = [_np(scheme_offline_sharded(m24, scheme, ir, _t(c["x"]),
+                                                       backend="pallas"))
+                            for _ in range(2)]
+
     # Mesh-shape invariance of one section at N = 512.
     c = inp["invariance"]
     scheme = PartitionScheme((512,), zero_latency=False)
