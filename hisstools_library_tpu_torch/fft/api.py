@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.types import Split
+from ..utils.profiling import span
 from . import hopper_fft
 
 # Max size parity with the reference: setups up to 2^28 (HISSTools_FFT.h:87-98).
@@ -100,6 +101,7 @@ def ifft(re: torch.Tensor, im: torch.Tensor, backend: Optional[str] = None
     return fi, fr
 
 
+@span("fft.rfft")
 def rfft(x: torch.Tensor, backend: Optional[str] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Real FFT of size N -> packed N/2-bin split spectrum (x2 scale, Nyquist
@@ -113,6 +115,7 @@ def rfft(x: torch.Tensor, backend: Optional[str] = None
     return hopper_fft.rfft_packed_plain(x)
 
 
+@span("fft.rifft")
 def rifft(re: torch.Tensor, im: torch.Tensor, backend: Optional[str] = None
           ) -> torch.Tensor:
     """Unscaled inverse of the packed real spectrum: ``rifft(rfft(x)) == 2N x``,
@@ -125,6 +128,7 @@ def rifft(re: torch.Tensor, im: torch.Tensor, backend: Optional[str] = None
     return hopper_fft.rifft_packed_plain(re, im)
 
 
+@span("fft.rfft_padded")
 def rfft_padded(x: torch.Tensor, fft_size: int, backend: Optional[str] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Zero-pad the signal to ``fft_size`` (or cut it there), then
@@ -170,6 +174,7 @@ def unzip_zero(x: torch.Tensor, fft_size: int) -> Tuple[torch.Tensor, torch.Tens
 # Packed <-> standard complex-bin conversion
 # -----------------------------------------------------------------------------
 
+@span("fft.pack_spectrum")
 def pack_spectrum(re_full: torch.Tensor, im_full: torch.Tensor) -> Split:
     """(N/2+1)-bin textbook spectrum -> packed N/2-bin Split with the x2
     scale."""
@@ -179,6 +184,7 @@ def pack_spectrum(re_full: torch.Tensor, im_full: torch.Tensor) -> Split:
     return Split(re[..., :-1], im)
 
 
+@span("fft.unpack_spectrum")
 def unpack_spectrum(s: Split) -> Tuple[torch.Tensor, torch.Tensor]:
     """Packed N/2-bin Split -> (N/2+1)-bin textbook spectrum (the x2 scale
     undone)."""

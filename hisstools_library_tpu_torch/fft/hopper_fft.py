@@ -104,6 +104,7 @@ import torch
 
 from .. import _build
 from ..core.types import Split, packed_mul
+from ..utils.profiling import span
 from .hopper_kernels import (_ring_mac_design_bytes, _ring_mac_plan, _ring_mac_shape,
                              lag_mac_causal, lag_mac_causal_plain, lag_mac_ring_plain)
 
@@ -578,19 +579,20 @@ def rfft_packed(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return rfft_small(x)
     if split_eligible(n):
         return rfft_packed_split(x)
-    _check("K1 rfft_packed", n, x)
-    lead = x.shape[:-1]
-    b = math.prod(lead)
-    re = torch.empty(*lead, n // 2, dtype=torch.float32, device=x.device)
-    im = torch.empty_like(re)
-    if b == 0:
+    with span("kernel.K1.rfft_packed"):
+        _check("K1 rfft_packed", n, x)
+        lead = x.shape[:-1]
+        b = math.prod(lead)
+        re = torch.empty(*lead, n // 2, dtype=torch.float32, device=x.device)
+        im = torch.empty_like(re)
+        if b == 0:
+            return re, im
+        rc = _build.load().hst_rfft_packed(
+            x.data_ptr(), re.data_ptr(), im.data_ptr(), _twiddles(n, x.device).data_ptr(), b,
+            n, _build.stream(x.device))
+        _build.check(rc, "K1 rfft_packed")
+        rfft_packed.launches += 1
         return re, im
-    rc = _build.load().hst_rfft_packed(
-        x.data_ptr(), re.data_ptr(), im.data_ptr(), _twiddles(n, x.device).data_ptr(), b,
-        n, _build.stream(x.device))
-    _build.check(rc, "K1 rfft_packed")
-    rfft_packed.launches += 1
-    return re, im
 
 
 rfft_packed.launches = 0
@@ -628,20 +630,21 @@ def rfft_small(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     n = x.shape[-1]
     if n < SMALL_MIN_REAL and small_eligible(n):
         return rfft_tiny(x)
-    _check_small(kernel, n)
-    _build.check_tensors(kernel, x)
-    lead = x.shape[:-1]
-    b = math.prod(lead)
-    re = torch.empty(*lead, n // 2, dtype=torch.float32, device=x.device)
-    im = torch.empty_like(re)
-    if b == 0:
+    with span("kernel.K10.rfft_small"):
+        _check_small(kernel, n)
+        _build.check_tensors(kernel, x)
+        lead = x.shape[:-1]
+        b = math.prod(lead)
+        re = torch.empty(*lead, n // 2, dtype=torch.float32, device=x.device)
+        im = torch.empty_like(re)
+        if b == 0:
+            return re, im
+        rc = _build.load().hst_rfft_small(
+            x.data_ptr(), re.data_ptr(), im.data_ptr(),
+            _twiddles(n, x.device).data_ptr(), b, n, _build.stream(x.device))
+        _build.check(rc, kernel)
+        rfft_small.launches += 1
         return re, im
-    rc = _build.load().hst_rfft_small(
-        x.data_ptr(), re.data_ptr(), im.data_ptr(),
-        _twiddles(n, x.device).data_ptr(), b, n, _build.stream(x.device))
-    _build.check(rc, kernel)
-    rfft_small.launches += 1
-    return re, im
 
 
 rfft_small.launches = 0
@@ -659,21 +662,22 @@ def rifft_packed(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
         return rifft_small(re, im)
     if split_eligible(n):
         return rifft_packed_split(re, im)
-    kernel = "K6 rifft_packed"
-    _check(kernel, n, re, im)
-    if im.shape != re.shape:
-        raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")
-    lead = re.shape[:-1]
-    b = math.prod(lead)
-    out = torch.empty(*lead, n, dtype=torch.float32, device=re.device)
-    if b == 0:
+    with span("kernel.K6.rifft_packed"):
+        kernel = "K6 rifft_packed"
+        _check(kernel, n, re, im)
+        if im.shape != re.shape:
+            raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")
+        lead = re.shape[:-1]
+        b = math.prod(lead)
+        out = torch.empty(*lead, n, dtype=torch.float32, device=re.device)
+        if b == 0:
+            return out
+        rc = _build.load().hst_rifft_packed(
+            re.data_ptr(), im.data_ptr(), out.data_ptr(), _twiddles(n, re.device).data_ptr(), b,
+            n, _build.stream(re.device))
+        _build.check(rc, kernel)
+        rifft_packed.launches += 1
         return out
-    rc = _build.load().hst_rifft_packed(
-        re.data_ptr(), im.data_ptr(), out.data_ptr(), _twiddles(n, re.device).data_ptr(), b,
-        n, _build.stream(re.device))
-    _build.check(rc, kernel)
-    rifft_packed.launches += 1
-    return out
 
 
 rifft_packed.launches = 0
@@ -689,21 +693,22 @@ def rifft_small(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     n = 2 * re.shape[-1]
     if n < SMALL_MIN_REAL and small_eligible(n):
         return rifft_tiny(re, im)
-    _check_small(kernel, n)
-    _build.check_tensors(kernel, re, im)
-    if im.shape != re.shape:
-        raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")
-    lead = re.shape[:-1]
-    b = math.prod(lead)
-    out = torch.empty(*lead, n, dtype=torch.float32, device=re.device)
-    if b == 0:
+    with span("kernel.K11.rifft_small"):
+        _check_small(kernel, n)
+        _build.check_tensors(kernel, re, im)
+        if im.shape != re.shape:
+            raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")
+        lead = re.shape[:-1]
+        b = math.prod(lead)
+        out = torch.empty(*lead, n, dtype=torch.float32, device=re.device)
+        if b == 0:
+            return out
+        rc = _build.load().hst_rifft_small(
+            re.data_ptr(), im.data_ptr(), out.data_ptr(),
+            _twiddles(n, re.device).data_ptr(), b, n, _build.stream(re.device))
+        _build.check(rc, kernel)
+        rifft_small.launches += 1
         return out
-    rc = _build.load().hst_rifft_small(
-        re.data_ptr(), im.data_ptr(), out.data_ptr(),
-        _twiddles(n, re.device).data_ptr(), b, n, _build.stream(re.device))
-    _build.check(rc, kernel)
-    rifft_small.launches += 1
-    return out
 
 
 rifft_small.launches = 0
@@ -730,25 +735,26 @@ def rfft_small_windowed(frames: torch.Tensor, window: torch.Tensor
     t, n = frames.shape[-2], frames.shape[-1]
     if n < SMALL_MIN_REAL and small_eligible(n):
         return rfft_tiny_windowed(frames, window)
-    _check_small(kernel, n)
-    _build.check_tensors(kernel, frames, window, contiguous=False)
-    _check_window(kernel, window, n)
-    lead = frames.shape[:-2]
-    b = math.prod(lead) * t
-    re = torch.empty(*lead, t, n // 2, dtype=torch.float32, device=frames.device)
-    im = torch.empty_like(re)
-    if b == 0:
+    with span("kernel.K10w.rfft_small_windowed"):
+        _check_small(kernel, n)
+        _build.check_tensors(kernel, frames, window, contiguous=False)
+        _check_window(kernel, window, n)
+        lead = frames.shape[:-2]
+        b = math.prod(lead) * t
+        re = torch.empty(*lead, t, n // 2, dtype=torch.float32, device=frames.device)
+        im = torch.empty_like(re)
+        if b == 0:
+            return re, im
+        f3 = frames.reshape(-1, t, n)  # a view where the leading axes merge
+        if f3.stride(-1) != 1:
+            f3 = f3.contiguous()
+        rc = _build.load().hst_rfft_small_windowed(
+            f3.data_ptr(), f3.stride(0), f3.stride(1), t, window.data_ptr(), re.data_ptr(),
+            im.data_ptr(), _twiddles(n, frames.device).data_ptr(), b, n,
+            _build.stream(frames.device))
+        _build.check(rc, kernel)
+        rfft_small_windowed.launches += 1
         return re, im
-    f3 = frames.reshape(-1, t, n)  # a view where the leading axes merge
-    if f3.stride(-1) != 1:
-        f3 = f3.contiguous()
-    rc = _build.load().hst_rfft_small_windowed(
-        f3.data_ptr(), f3.stride(0), f3.stride(1), t, window.data_ptr(), re.data_ptr(),
-        im.data_ptr(), _twiddles(n, frames.device).data_ptr(), b, n,
-        _build.stream(frames.device))
-    _build.check(rc, kernel)
-    rfft_small_windowed.launches += 1
-    return re, im
 
 
 rfft_small_windowed.launches = 0
@@ -765,22 +771,23 @@ def rifft_small_windowed(re: torch.Tensor, im: torch.Tensor, window: torch.Tenso
     n = 2 * re.shape[-1]
     if n < SMALL_MIN_REAL and small_eligible(n):
         return rifft_tiny_windowed(re, im, window, scale)
-    _check_small(kernel, n)
-    _build.check_tensors(kernel, re, im, window)
-    _check_window(kernel, window, n)
-    if im.shape != re.shape:
-        raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")
-    lead = re.shape[:-1]
-    b = math.prod(lead)
-    out = torch.empty(*lead, n, dtype=torch.float32, device=re.device)
-    if b == 0:
+    with span("kernel.K11w.rifft_small_windowed"):
+        _check_small(kernel, n)
+        _build.check_tensors(kernel, re, im, window)
+        _check_window(kernel, window, n)
+        if im.shape != re.shape:
+            raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")
+        lead = re.shape[:-1]
+        b = math.prod(lead)
+        out = torch.empty(*lead, n, dtype=torch.float32, device=re.device)
+        if b == 0:
+            return out
+        rc = _build.load().hst_rifft_small_windowed(
+            re.data_ptr(), im.data_ptr(), window.data_ptr(), float(scale), out.data_ptr(),
+            _twiddles(n, re.device).data_ptr(), b, n, _build.stream(re.device))
+        _build.check(rc, kernel)
+        rifft_small_windowed.launches += 1
         return out
-    rc = _build.load().hst_rifft_small_windowed(
-        re.data_ptr(), im.data_ptr(), window.data_ptr(), float(scale), out.data_ptr(),
-        _twiddles(n, re.device).data_ptr(), b, n, _build.stream(re.device))
-    _build.check(rc, kernel)
-    rifft_small_windowed.launches += 1
-    return out
 
 
 rifft_small_windowed.launches = 0
@@ -812,6 +819,7 @@ def _rfft_tiny(kernel: str, frames: torch.Tensor, window: Optional[torch.Tensor]
     return re, im
 
 
+@span("kernel.tiny.rfft_tiny")
 def rfft_tiny(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10's tiny form: real FFT of N = 2..16 -> packed N/2 bins (x2 scale,
     Nyquist in im[0]), batched over the leading axes."""
@@ -825,6 +833,7 @@ def rfft_tiny(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 rfft_tiny.launches = 0
 
 
+@span("kernel.tiny.rfft_tiny_windowed")
 def rfft_tiny_windowed(frames: torch.Tensor, window: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10w's tiny form: rfft(frames * window) for frames (..., T, N), N =
@@ -862,6 +871,7 @@ def _rifft_tiny(kernel: str, re: torch.Tensor, im: torch.Tensor,
     return out
 
 
+@span("kernel.tiny.rifft_tiny")
 def rifft_tiny(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     """K11's tiny form: unscaled inverse (N = 2..16) of packed N/2-bin planes,
     rifft(rfft(x)) == 2N x; returns (..., N)."""
@@ -875,6 +885,7 @@ def rifft_tiny(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
 rifft_tiny.launches = 0
 
 
+@span("kernel.tiny.rifft_tiny_windowed")
 def rifft_tiny_windowed(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor,
                         scale: float) -> torch.Tensor:
     """K11w's tiny form: scale * rifft(spec) * window, N = 2..16."""
@@ -888,6 +899,7 @@ def rifft_tiny_windowed(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor
 rifft_tiny_windowed.launches = 0
 
 
+@span("kernel.tiny.fft_tiny")
 def fft_tiny(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K12's tiny form: unscaled complex DFT (or N x IDFT, by swapped
@@ -917,6 +929,7 @@ def fft_tiny(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
 fft_tiny.launches = 0
 
 
+@span("kernel.K13.rfft_packed_split")
 def rfft_packed_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K13: real FFT of N = 2^18..2^28 -> packed N/2 bins (x2 scale, Nyquist
     in im[0]), batched over the leading axes, natural bin order."""
@@ -943,6 +956,7 @@ def rfft_packed_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 rfft_packed_split.launches = 0
 
 
+@span("kernel.K14.rifft_packed_split")
 def rifft_packed_split(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     """K14: unscaled inverse (N = 2^18..2^28) of packed N/2-bin planes,
     rifft(rfft(x)) == 2N x, batched over the leading axes; returns (..., N)."""
@@ -988,29 +1002,31 @@ def fft_split(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
             + (OVER_MAX if n > MAX_COMPLEX else "not a power of two"))
     if n < MIN_COMPLEX:
         return fft_tiny(re, im, inverse)
-    _build.check_tensors(kernel, re, im)
-    if im.shape != re.shape:
-        raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")
-    lead = re.shape[:-1]
-    b = math.prod(lead)
-    out_re = torch.empty(re.shape, dtype=torch.float32, device=re.device)
-    out_im = torch.empty_like(out_re)
-    if b == 0:
+    with span("kernel.K12.fft_split"):
+        _build.check_tensors(kernel, re, im)
+        if im.shape != re.shape:
+            raise ValueError(f"{kernel}: re {tuple(re.shape)} and im {tuple(im.shape)} differ")
+        lead = re.shape[:-1]
+        b = math.prod(lead)
+        out_re = torch.empty(re.shape, dtype=torch.float32, device=re.device)
+        out_im = torch.empty_like(out_re)
+        if b == 0:
+            return out_re, out_im
+        src, dst = ((im, re), (out_im, out_re)) if inverse else ((re, im), (out_re, out_im))
+        scratch = None if n <= MAX_COMPLEX_SMEM else _scratch(b, n, re.device)
+        rc = _build.load().hst_fft_split(
+            src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(), dst[1].data_ptr(),
+            _ptr(scratch),
+            _large_twiddles(2 * n, re.device).data_ptr(), b, n, _build.stream(re.device))
+        _build.check(rc, kernel)
+        fft_split.launches += 1
         return out_re, out_im
-    src, dst = ((im, re), (out_im, out_re)) if inverse else ((re, im), (out_re, out_im))
-    scratch = None if n <= MAX_COMPLEX_SMEM else _scratch(b, n, re.device)
-    rc = _build.load().hst_fft_split(
-        src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(), dst[1].data_ptr(),
-        _ptr(scratch),
-        _large_twiddles(2 * n, re.device).data_ptr(), b, n, _build.stream(re.device))
-    _build.check(rc, kernel)
-    fft_split.launches += 1
-    return out_re, out_im
 
 
 fft_split.launches = 0
 
 
+@span("kernel.K2.rfft_packed_stream")
 def rfft_packed_stream(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: overlap-save forward. ``x2d``: (..., T, H) hop blocks; returns
     packed planes (..., T, N/2), N = 2H, spectrum t = rfft([x2d[t-1] |
@@ -1039,6 +1055,7 @@ def rfft_packed_stream(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 rfft_packed_stream.launches = 0
 
 
+@span("kernel.K4.rifft_packed_tail")
 def rifft_packed_tail(re: torch.Tensor, im: torch.Tensor,
                       scale: float = 1.0) -> torch.Tensor:
     """K4: overlap-save inverse. ``re``/``im``: (..., T, N/2) packed hop
@@ -1096,6 +1113,7 @@ def _check_chain(kernel: str, x2d, h_re, h_im, prev=None, ring=None, lag0=None) 
                          + " do not fit (C, T, H), (C, P, H), (C, H), (C, P, H)")
 
 
+@span("kernel.K5.fastfir_chain")
 def fastfir_chain(x2d: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,
                   scale: float) -> torch.Tensor:
     """K5: the whole FastFIR chain as one kernel family call. ``x2d``:
@@ -1150,6 +1168,7 @@ def _state_args(ring, h_re, h_im, lag0):
             *_build.aligned_rows(h_re, h_im), l0)
 
 
+@span("kernel.K8.stream_state")
 def stream_state(x_re: torch.Tensor, x_im: torch.Tensor, ring_re: torch.Tensor,
                  ring_im: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,
                  l0_re: Optional[torch.Tensor] = None, l0_im: Optional[torch.Tensor] = None):
@@ -1195,6 +1214,7 @@ def stream_state(x_re: torch.Tensor, x_im: torch.Tensor, ring_re: torch.Tensor,
 stream_state.launches = 0
 
 
+@span("kernel.K8.fastfir_chain_stream")
 def fastfir_chain_stream(x2d: torch.Tensor, prev: torch.Tensor,
                          ring_re: torch.Tensor, ring_im: torch.Tensor,
                          h_re: torch.Tensor, h_im: torch.Tensor, scale: float,

@@ -31,6 +31,7 @@ import torch
 
 from .. import _build
 from ..core.types import Split, packed_mul
+from ..utils.profiling import span
 
 # K9's envelope: the TPU kernel's sizes (N <= 1024, P <= 256, its unroll
 # bound) without its VMEM model; N >= 32 is the engine's smallest FFT size.
@@ -181,6 +182,7 @@ def lag_mac_causal_plain(x_re: torch.Tensor, x_im: torch.Tensor,
     return y_re, y_im
 
 
+@span("kernel.K3.lag_mac_causal")
 def lag_mac_causal(x_re: torch.Tensor, x_im: torch.Tensor,
                    h_re: torch.Tensor, h_im: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -237,6 +239,7 @@ def lag_mac_ring_plain(hist_re: torch.Tensor, hist_im: torch.Tensor,
     return y_re, y_im, v_re[..., t:, :], v_im[..., t:, :]
 
 
+@span("kernel.K7.lag_mac_ring")
 def lag_mac_ring(hist_re: torch.Tensor, hist_im: torch.Tensor,
                  x_re: torch.Tensor, x_im: torch.Tensor,
                  h_re: torch.Tensor, h_im: torch.Tensor):
@@ -305,6 +308,7 @@ def lag_mac_plain(xpad_re: torch.Tensor, xpad_im: torch.Tensor,
     return acc_re, acc_im
 
 
+@span("kernel.K15.lag_mac")
 def lag_mac(xpad_re: torch.Tensor, xpad_im: torch.Tensor, h_re: torch.Tensor,
             h_im: torch.Tensor, t: int, lead_skip: int = 0
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -379,6 +383,7 @@ def hop_fire_plain(frame: torch.Tensor, ring_re: torch.Tensor, ring_im: torch.Te
     return new_re, new_im, y
 
 
+@span("kernel.K9.hop_fire")
 def hop_fire(frame: torch.Tensor, ring_re: torch.Tensor, ring_im: torch.Tensor,
              spec_re: torch.Tensor, spec_im: torch.Tensor):
     """K9: one hop-boundary firing of a small section (N = 32..1024, P <= 256).

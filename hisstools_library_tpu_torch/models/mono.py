@@ -51,6 +51,7 @@ import torch
 from ..core.errors import ConvolveError, ConvolveException
 from ..core.types import Split, array_from, resolve_device, tensor_from
 from ..fft import api as fft_api
+from ..utils.profiling import span
 from . import partitioned as part
 from . import time_domain as td
 from .offline import choose_fft_size
@@ -659,6 +660,7 @@ def block_state_from_hist(ir: MonoIR, hist: torch.Tensor,
     return MonoBlockState(near_full, far_full, rows, 0)
 
 
+@span("engine.mono.process")
 def process(ir: MonoIR, state: Union[MonoState, MonoBlockState], x: torch.Tensor,
             backend: Optional[str] = None
             ) -> Tuple[Union[MonoState, MonoBlockState], torch.Tensor]:
@@ -688,6 +690,7 @@ def process(ir: MonoIR, state: Union[MonoState, MonoBlockState], x: torch.Tensor
     return MonoState(head_state, tuple(new_sections)), out
 
 
+@span("engine.mono.refresh_section")
 def _refresh_aligned_section(spec: Split, tail: torch.Tensor,
                              backend: Optional[str]) -> part.PartitionedState:
     """Rebuild a section's hop-aligned state from the last input samples
@@ -705,6 +708,7 @@ def _refresh_aligned_section(spec: Split, tail: torch.Tensor,
                                  pos=0)
 
 
+@span("engine.mono.collapsed")
 def _process_block_collapsed(ir: MonoIR, state: MonoState, x: torch.Tensor,
                              backend: Optional[str]
                              ) -> Tuple[MonoState, torch.Tensor]:
@@ -762,6 +766,7 @@ def _section_offline_direct(spec: Split, x: torch.Tensor) -> torch.Tensor:
     return td.fir_offline(x, section_taps_from_spectra(spec)).to(x.dtype)
 
 
+@span("engine.mono.tail_offline")
 def _tail_offline(tail: Split, x: torch.Tensor, shift: int,
                   backend: Optional[str]) -> torch.Tensor:
     """The re-partitioned IR as one uniform engine, its output realigned by
@@ -777,6 +782,7 @@ def _tail_offline(tail: Split, x: torch.Tensor, shift: int,
     return y[..., shift:shift + L]
 
 
+@span("engine.mono.process_offline")
 def process_offline(ir: MonoIR, x: torch.Tensor,
                     backend: Optional[str] = None) -> torch.Tensor:
     """Whole-signal convolution through the scheme, with no sequential

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..core.errors import ConvolveError, ConvolveException
+from ..utils.profiling import span
 from . import mono
 from .mono import LatencyMode, PartitionScheme
 
@@ -213,6 +214,7 @@ class Convolver:
     def init_state(self, dtype: torch.dtype = torch.float32) -> mono.MonoState:
         return mono.init_state(self.scheme, self._prepared(dtype), self._batch, dtype)
 
+    @span("entry.Convolver.process")
     def process(self, state, ins: torch.Tensor, backend: Optional[str] = None):
         """ins: (N, L) -> outs (M, L) [parallel: (C, L) -> (C, L)]; streaming,
         L a multiple of the block size (with a two-tier state, of the far
@@ -236,6 +238,7 @@ class Convolver:
         takes any numSamples, Convolver.cpp:138-154)."""
         return process_any(self.ir, state, ins, self.parallel, backend=backend)
 
+    @span("entry.Convolver.process_offline")
     def process_offline(self, ins: torch.Tensor,
                         backend: Optional[str] = None) -> torch.Tensor:
         """Convolve whole signals. The first call on a lazily prepared bank

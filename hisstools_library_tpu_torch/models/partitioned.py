@@ -31,6 +31,7 @@ from ..core.errors import ConvolveError, ConvolveException
 from ..core.types import Split, array_from, packed_mul, resolve_device, tensor_from
 from ..fft import api as fft_api
 from ..fft import hopper_fft, hopper_kernels
+from ..utils.profiling import span
 
 MIN_FFT_SIZE_LOG2 = 5
 MAX_FFT_SIZE_LOG2 = 20
@@ -389,6 +390,7 @@ class PartitionedConvolve:
         return PartitionedConvolve.process_block(spectra, state, x, backend=backend)
 
     @staticmethod
+    @span("engine.partitioned.process_block")
     def process_block(spectra: Split, state: PartitionedState, x: torch.Tensor,
                       backend: Optional[str] = None, mac_backend: str = "auto",
                       lag0: Optional[Split] = None, assume_pos0: bool = False
@@ -547,6 +549,7 @@ class PartitionedConvolve:
         return out.reshape(*out.shape[:-2], t * h)[..., :L]
 
     @staticmethod
+    @span("engine.partitioned.offline_fused")
     def _process_offline_fused(spectra: Split, x: torch.Tensor,
                                shift: int = 0) -> Optional[torch.Tensor]:
         """The offline chain as kernels: the rFFT of the hop blocks read in

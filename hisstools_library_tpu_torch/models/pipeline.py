@@ -39,9 +39,11 @@ from ..fft import api as fft_api
 from ..ops import smoothing, spectral_processor as sp
 from ..ops import stft as stft_mod
 from ..ops import windows
+from ..utils.profiling import span
 from . import partial_tracker as pt
 
 
+@span("entry.pipeline.ir_deconvolve")
 def ir_deconvolve(measured: torch.Tensor, excitation: torch.Tensor,
                   regularization: float = 1e-4,
                   backend: Optional[str] = None) -> torch.Tensor:
@@ -61,11 +63,12 @@ def ir_deconvolve(measured: torch.Tensor, excitation: torch.Tensor,
     # Unpacked full spectra keep the DC/Nyquist handling plain.
     yr, yi = fft_api.unpack_spectrum(Y)
     xr, xi = fft_api.unpack_spectrum(X)
-    power = xr * xr + xi * xi
-    floor = regularization * power.amax(dim=-1, keepdim=True)
-    denom = power + floor
-    num = cmul_conj(Split(yr, yi), Split(xr, xi))
-    H = fft_api.pack_spectrum(num.re / denom, num.im / denom)
+    with span("engine.deconvolve.divide"):
+        power = xr * xr + xi * xi
+        floor = regularization * power.amax(dim=-1, keepdim=True)
+        denom = power + floor
+        num = cmul_conj(Split(yr, yi), Split(xr, xi))
+        H = fft_api.pack_spectrum(num.re / denom, num.im / denom)
     return fft_api.rifft(H.re, H.im, backend=backend) * (0.5 / n)
 
 

@@ -24,6 +24,7 @@ import torch
 from ..core.types import (Split, cmul, cmul_conj, packed_mul, packed_mul_conj,
                           resolve_device)
 from ..fft import api as fft_api
+from ..utils.profiling import span
 
 # Reference floors log-power at -300 dB (SpectralFunctions.hpp:176-184).
 _MIN_POWER = 10.0 ** (-300.0 / 10.0)
@@ -202,6 +203,7 @@ def ir_convolve_complex(a: Split, b: Split, scale=1.0) -> Split:
     return out * scale if scale != 1.0 else out
 
 
+@span("engine.spectral.ir_convolve_real")
 def ir_convolve_real(a: Split, b: Split, scale=1.0) -> Split:
     """Packed real-spectrum multiply, DC/Nyquist independent
     (SpectralFunctions.hpp:420-424)."""
@@ -214,6 +216,7 @@ def ir_correlate_complex(a: Split, b: Split, scale=1.0) -> Split:
     return out * scale if scale != 1.0 else out
 
 
+@span("engine.spectral.ir_correlate_real")
 def ir_correlate_real(a: Split, b: Split, scale=1.0) -> Split:
     """Packed real-spectrum correlation (SpectralFunctions.hpp:432-436)."""
     return packed_mul_conj(a, b, scale)

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from ..core.types import Split, cmul, cmul_conj
 from ..fft import api as fft_api
+from ..utils.profiling import span
 from . import spectral
 
 
@@ -96,6 +97,7 @@ def required_fft_size(size1: int, size2: int) -> int:
 # Folding edge preparation
 # -----------------------------------------------------------------------------
 
+@span("engine.spectral.fold_pad")
 def _fold_pad(x: torch.Tensor, fold_size: int, repeat: bool) -> torch.Tensor:
     """Reflect ``fold_size`` samples of each edge around the signal
     (reference fold/copy_fold, SpectralProcessor.hpp:358-372). ``repeat``
@@ -113,6 +115,7 @@ def _fold_pad(x: torch.Tensor, fold_size: int, repeat: bool) -> torch.Tensor:
 # Arrange: scatter the circular result into the requested edge layout
 # -----------------------------------------------------------------------------
 
+@span("engine.spectral.arrange_convolve")
 def _arrange_convolve(full: torch.Tensor, s: _OpSizes) -> torch.Tensor:
     """Reference arrange_convolve (SpectralProcessor.hpp:445-481)."""
     min_m1 = s.min - 1
@@ -132,6 +135,7 @@ def _arrange_convolve(full: torch.Tensor, s: _OpSizes) -> torch.Tensor:
     return full[..., min_m1 : min_m1 + s.max]
 
 
+@span("engine.spectral.arrange_correlate")
 def _arrange_correlate(full: torch.Tensor, s: _OpSizes) -> torch.Tensor:
     """Reference arrange_correlate (SpectralProcessor.hpp:483-538)."""
     s2m1 = s.size2 - 1
@@ -205,6 +209,7 @@ def _binary_op_real(x1: torch.Tensor, x2: torch.Tensor, mode: EdgeMode,
     return arrange(full, s)
 
 
+@span("entry.spectral_processor.convolve")
 def convolve(x1: torch.Tensor, x2: torch.Tensor, mode: EdgeMode = EdgeMode.Linear,
              backend: Optional[str] = None) -> torch.Tensor:
     """FFT convolution of real signals with edge handling (reference
@@ -212,6 +217,7 @@ def convolve(x1: torch.Tensor, x2: torch.Tensor, mode: EdgeMode = EdgeMode.Linea
     return _binary_op_real(x1, x2, mode, correlate_op=False, backend=backend)
 
 
+@span("entry.spectral_processor.correlate")
 def correlate(x1: torch.Tensor, x2: torch.Tensor, mode: EdgeMode = EdgeMode.Linear,
               backend: Optional[str] = None) -> torch.Tensor:
     """FFT cross-correlation c[m] = sum_n x1[n+m] x2[n] of real signals, the

@@ -8,14 +8,26 @@ wall-clock timers. Here the equivalents are:
   before the device finishes);
 - :class:`Timer` — wall-clock timing that synchronises before it stops;
 - :func:`trace` — a ``torch.profiler`` window written as a Chrome trace;
+- :class:`span` — a named span of the port's own (``hst::<layer>.<name>``)
+  at the entries, the engines, the FFT routing and the kernel wrappers,
+  recorded only while a ``torch.profiler`` is recording;
 - :func:`convolve_roofline` — analytic bytes/flops model of the
   partitioned-convolve hot loop, for the achieved fraction of the H100's
   bandwidth speed-of-light.
+
+A trace from :func:`trace` (or from any ``torch.profiler.profile``) shows
+the port's spans as ``user_annotation`` events among the operators, on the
+clock of the device trace: ``hst::entry.*`` (the calls users make),
+``hst::engine.*`` (schemes and engines), ``hst::fft.*`` (``fft/api``'s
+routing and spectrum packing) and ``hst::kernel.*`` (each kernel wrapper,
+named as PERF.md's kernel table names the kernel). PERF.md §3 lists every
+span. With no profiler recording, a span costs one check of a flag.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import tempfile
 import time
@@ -24,8 +36,11 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from .checkpoint import leaves
+
+SPAN_PREFIX = "hst::"
 
 
 def enable_compile_cache() -> str:
@@ -87,6 +102,52 @@ def trace(log_dir: Optional[str] = None):
         yield prof
     prof.export_chrome_trace(
         os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+class span:
+    """A span of the port named ``hst::<name>``, as a decorator
+    (``@span("engine.mono.process")``) or a context manager (``with
+    span("engine.deconvolve.divide"):``).
+
+    While a ``torch.profiler`` is recording, the span is a
+    ``torch.profiler.record_function``: the profiler keeps it in memory and
+    its Chrome trace exports it, on the thread that ran it and on the clock
+    of the device operations launched inside it. Otherwise the span calls
+    straight through: the only cost is a check of
+    ``torch.autograd.profiler._is_profiler_enabled``, the flag the profiler
+    sets while it records (``record_function`` itself costs microseconds
+    even with no profiler). Spans nest on the calling thread, so each
+    device operation can be put down to the innermost span that launched
+    it."""
+
+    __slots__ = ("name", "_open")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._open = None
+
+    def __enter__(self) -> "span":
+        if _autograd_profiler._is_profiler_enabled:
+            self._open = torch.profiler.record_function(SPAN_PREFIX + self.name)
+            self._open.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._open is not None:
+            rf, self._open = self._open, None
+            rf.__exit__(*exc)
+
+    def __call__(self, fn):
+        name = SPAN_PREFIX + self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            if not _autograd_profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+
+        return spanned
 
 
 @dataclass
