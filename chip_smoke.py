@@ -228,6 +228,21 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
     with the 10 s IRs, channel 0's first and last calls >= 120 dB against
     a float64 FFT convolution and within 15 dB of each other.
 
+Phase 14b, run after phase 14 (its kernels' path cases serve phase 30),
+times K16 (``csrc/bin_product.cu``, the per-bin products of packed spectra)
+alone at its two path shapes, the 20 s convolution's (128, 2^20)
+(``bin_mul``, ``bin_mul_conj``; bound 0.96 ms) and the sweep
+deconvolution's (128, 2^21) against one excitation row (``bin_deconvolve``
+with its floor; bound 1.29 ms), and ``bin_floor`` at that row: a launch's
+device ms in a CUDA graph, from which the rate and the share of the bound
+its bytes reach come, beside the event ms, the profiler's device ms and the
+plain version (``packed_mul`` for the products, the glue they replaced);
+each kernel against its plain version at small shapes too (one float a
+lane, K = 1, a broadcast first operand, a floor a row). The deconvolution's
+old glue (unpack, division, pack, copy, scale) is timed by
+``tools/chip_phases.py --k16`` on a parent checkout.
+Phase 15's convolutions, correlation and deconvolution launch it.
+
 Every path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel the path needs that was not launched fails the run,
 and so does any kernel below 110 dB against its plain version, any path below
@@ -297,6 +312,11 @@ KERNELS = {
     "rfft_tiny_windowed": ("hopper_fft", "fft_tiny.cu", "fft/pallas_fft.py:471"),
     "rifft_tiny_windowed": ("hopper_fft", "fft_tiny.cu", "fft/pallas_fft.py:529"),
     "fft_tiny": ("hopper_fft", "fft_tiny.cu", "fft/pallas_fft.py:868"),
+    # K16 replaces no TPU kernel: the JAX package's jnp steps.
+    "bin_mul": ("hopper_kernels", "bin_product.cu", "ops/spectral.py:208 (jnp)"),
+    "bin_mul_conj": ("hopper_kernels", "bin_product.cu", "ops/spectral.py:220 (jnp)"),
+    "bin_deconvolve": ("hopper_kernels", "bin_product.cu", "models/pipeline.py:51-58 (jnp)"),
+    "bin_floor": ("hopper_kernels", "bin_product.cu", "models/pipeline.py:53-54 (jnp)"),
 }
 STAGED = ("rfft_packed_stream", "lag_mac_causal", "rifft_packed_tail")
 # (T, K) of K4's launches on the paths at 128 channels: the two-tier far
@@ -334,19 +354,75 @@ def median_ms(fn, runs: int = 5) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, runs: int = 5) -> float:
-    """Device time per call by ``torch.profiler``: the sum of the CUDA
-    kernels one call launches, without the host time between them (which
-    ``median_ms`` includes, as the events wait for the wrapper's enqueue)."""
+def graph_ms(call, reps: int = 20, runs: int = 5) -> float:
+    """Device ms of one call: ``reps`` calls captured in a CUDA graph (after
+    one warm-up call), the graph replayed ``runs`` times between CUDA events
+    (median), so the host's launch time is not in it."""
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            call()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return sorted(times)[runs // 2]
+
+
+SPAN_PREFIX = "hst::"  # the port's spans (utils/profiling.span)
+
+
+def device_events(prof) -> list:
+    """The profiler's averages of what ran on the card: its CUDA events less
+    the port's spans, which the profiler gives the device time of the
+    kernels they hold (so a sum over both counts each kernel twice), and
+    less :func:`profiled`'s opening launches."""
+    return [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+            and e.device_time_total > 0 and not e.key.startswith(SPAN_PREFIX)
+            and OPENING_KERNEL not in e.key]
+
+
+# torch.cuda._sleep's kernel, which no call of the port launches.
+OPENING_KERNEL = "spin_kernel"
+
+
+def profiled(fn, runs: int = 5, warm_up: bool = True) -> list:
+    """:func:`device_events` of ``runs`` calls of ``fn`` under
+    ``torch.profiler``, after a warm-up call unless ``warm_up`` is False.
+    With the card's torch 2.11 a profiling session can lose the kernel
+    records of its first launches, one or two calls' worth once this
+    script's serving paths (phase 11) have run. So each session opens with
+    a few launches of ``torch.cuda._sleep`` and a pause, and those launches
+    are left out of the events."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.02)
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / runs / 1e3
+    return device_events(prof)
+
+
+def device_ms(fn, runs: int = 5) -> float:
+    """Device time per call by ``torch.profiler`` (:func:`profiled`): the
+    sum of the CUDA kernels one call launches, without the host time between
+    them (which ``median_ms`` includes, as the events wait for the wrapper's
+    enqueue)."""
+    return sum(e.device_time_total for e in profiled(fn, runs)) / runs / 1e3
 
 
 def convolve_f64(x: np.ndarray, h: np.ndarray, n: int) -> np.ndarray:
@@ -379,6 +455,12 @@ def kernel_flops(name, args, kwargs) -> float:
         return fft_flops(2 * a.shape[-1], a.numel() // a.shape[-1])
     if name == "rfft_packed_stream":
         return fft_flops(2 * a.shape[-1], a.numel() // a.shape[-1])
+    if name in ("bin_mul", "bin_mul_conj", "bin_deconvolve"):
+        # a complex product and its scale; the division's power, floor,
+        # quarter scales and two quotients
+        return (14.0 if name == "bin_deconvolve" else 8.0) * max(a.numel(), args[2].numel())
+    if name == "bin_floor":
+        return 3.0 * a.numel()
     if name == "lag_mac_causal":
         c, t, k = a.shape
         p = args[2].shape[-2]
@@ -548,13 +630,8 @@ def time_calls(step, runs: int = 10):
 def profile_calls(step, label: str, ms_per_call: float, smi: str, calls: int = 5) -> None:
     """Device time by kernel over ``calls`` calls, and the busy share: device
     time per call over the unprofiled call time ``ms_per_call``."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            step()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.device_time_total, e.count) for e in prof.key_averages()
-            if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+    rows = [(e.key, e.device_time_total, e.count)
+            for e in profiled(step, calls, warm_up=False)]
     busy_ms = sum(r[1] for r in rows) / calls / 1e3
     print(f"profile {label}: device busy {busy_ms:.4f} ms/call over {calls} calls; "
           f"busy share {busy_ms / ms_per_call:.3f} of the {ms_per_call:.4f} ms/call "
@@ -593,16 +670,8 @@ class Launches:
 
 def phase_ms(fn, smi: str, label: str, runs: int = 5) -> dict:
     """Device ms per call of each CUDA kernel ``fn`` launches (its phases),
-    by ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    out = {e.key[:60]: e.device_time_total / runs / 1e3 for e in prof.key_averages()
-           if e.device_type.name == "CUDA" and e.device_time_total > 0}
+    by ``torch.profiler`` (:func:`profiled`)."""
+    out = {e.key[:60]: e.device_time_total / runs / 1e3 for e in profiled(fn, runs)}
     print(f"{label} phases (device ms per call): "
           f"{ {k: round(v, 4) for k, v in out.items()} } [{smi}]", flush=True)
     return out
@@ -728,18 +797,10 @@ def k8_launches(fn, smi: str, label: str, runs: int = 5) -> dict:
     """Device ms per call of K8's three launches (csrc/fastfir_stream.cu):
     the forward (``fft_onepass`` with the in-place stream loader), the state
     kernel (the ring MAC, ``ring_mac`` in csrc/ring_mac.cu) and the inverse
-    (``fft_onepass`` with the tail store), by ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
+    (``fft_onepass`` with the tail store), by ``torch.profiler``
+    (:func:`profiled`)."""
     out = {"forward": 0.0, "state": 0.0, "inverse": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        if e.device_type.name != "CUDA" or e.device_time_total <= 0:
-            continue
+    for e in profiled(fn, runs):
         ms = e.device_time_total / runs / 1e3
         key = ("state" if "ring_mac" in e.key else
                "forward" if "fft_onepass" in e.key and ", 4, 0>" in e.key else
@@ -1690,7 +1751,7 @@ def spectral_paths(dev, irs, x, launches, smi) -> None:
 
     # (a) Linear convolution of each IR with its channel's 10 s signal, N = 2^20.
     n_lin = 2 * IR_LEN - 1
-    run("spectral-convolve", lambda: sp.convolve(sig, ird), k13k14,
+    run("spectral-convolve", lambda: sp.convolve(sig, ird), k13k14 + ("bin_mul",),
         convolve_f64(sig_np, irs[0], n_lin))
 
     # (b) Wrap correlation and Fold convolution with the first 48 000 taps.
@@ -1700,13 +1761,13 @@ def spectral_paths(dev, irs, x, launches, smi) -> None:
     wrap = c[:s1].copy()
     wrap[s1 - (s2 - 1):] += c[(1 << 20) - (s2 - 1):]
     run("spectral-correlate-wrap",
-        lambda: sp.correlate(sig, short, sp.EdgeMode.Wrap), k13k14, wrap)
+        lambda: sp.correlate(sig, short, sp.EdgeMode.Wrap), k13k14 + ("bin_mul_conj",), wrap)
     fold = s2 >> 1
     padded = np.concatenate([sig_np[1:fold + 1][::-1], sig_np,
                              sig_np[s1 - fold - 1:s1 - 1][::-1]])
     lin = _f64_linear(padded, h0, 1 << 21, correlate=False)
     run("spectral-convolve-fold",
-        lambda: sp.convolve(sig, short, sp.EdgeMode.Fold), k13k14,
+        lambda: sp.convolve(sig, short, sp.EdgeMode.Fold), k13k14 + ("bin_mul",),
         lin[s2 - 1:s2 - 1 + s1])
     del short
 
@@ -1744,17 +1805,67 @@ def spectral_paths(dev, irs, x, launches, smi) -> None:
     # (e) ir_deconvolve of a 12 s capture: a 10 s log sweep through the IRs
     # plus a 2 s tail (built in float64 on the card, outside the timing).
     capture, sweep32, ref = sweep_capture(dev, ird, FS, IR_LEN, IR_LEN + 2 * FS)
-    run("spectral-ir-deconvolve", lambda: pipeline.ir_deconvolve(capture, sweep32), k13k14,
-        ref)
+    run("spectral-ir-deconvolve", lambda: pipeline.ir_deconvolve(capture, sweep32),
+        k13k14 + ("bin_deconvolve", "bin_floor"), ref)
     del capture, sweep32
 
     # (f) 1 s x 1 s convolution, N = 2^17: K1 (one pass) and K6 (two passes).
     s1 = sig[:, :FS].contiguous()
     h1 = ird[:, :FS].contiguous()
-    run("spectral-convolve-1s", lambda: sp.convolve(s1, h1), ("rfft_packed", "rifft_packed"),
+    run("spectral-convolve-1s", lambda: sp.convolve(s1, h1),
+        ("rfft_packed", "rifft_packed", "bin_mul"),
         convolve_f64(x[0, :FS], irs[0, :FS], 2 * FS - 1))
     del s1, h1, sig, ird
     torch.cuda.empty_cache()
+
+
+def bin_kernels(randn, mods, smi) -> dict:
+    """Phase 14b (see the module docstring): K16 against its plain versions
+    and its times at the two path shapes."""
+    def pair(a_lead, b_lead, k, extra):
+        def make():
+            planes = [randn(*lead, k) for lead in (a_lead, a_lead, b_lead, b_lead)]
+            return tuple(planes) + extra(k), {}
+        return make
+
+    def conv(k):
+        return (0.25 / (2 * k),)
+
+    def deconv(k):
+        return (1e-4, 0.5 / (2 * k))
+
+    def floor(lead, k):
+        return lambda: ((randn(*lead, k), randn(*lead, k), 1e-4), {})
+
+    c, kc, kd = CHANNELS, 1 << 20, 1 << 21
+    results = check_kernels([
+        ("bin_mul", [(pair((c,), (c,), kc, conv), True), (pair((3,), (3,), 6, conv), False),
+                     (pair((1,), (5,), 4100, conv), False), (pair((c,), (c,), kd, conv), False)]),
+        ("bin_mul_conj", [(pair((c,), (c,), kc, conv), True),
+                          (pair((2, 3), (1,), 1, conv), False),
+                          (pair((c,), (c,), kd, conv), False)]),
+        ("bin_deconvolve", [(pair((c,), (), kd, deconv), True),
+                            (pair((5,), (5,), 4096, deconv), False),
+                            (pair((), (7,), 1000, deconv), False)]),
+        ("bin_floor", [(floor((), kd), True), (floor((300,), 4096), False),
+                       (floor((3,), 5), False)]),
+    ], mods, smi)
+    hk = mods["hopper_kernels"]
+    for name, k in (("bin_mul", kc), ("bin_mul_conj", kc), ("bin_deconvolve", kd)):
+        r = results[name]
+        args, _ = r["path_case"]()
+        fn = getattr(hk, name)
+        r["graph_ms"] = graph_ms(lambda: fn(*args))
+        nbytes = 8 * k * (3 * c if name != "bin_deconvolve" else 2 * c + 1)
+        r["tb_per_s"] = nbytes / (r["graph_ms"] * 1e-3) / 1e12
+        r["bound_share"] = r["bound_ms"] / r["graph_ms"]
+        print(f"{name} ({c}, {k}): {r['graph_ms']:.4f} ms a launch in a CUDA graph "
+              f"({r['tb_per_s']:.3f} TB/s, {100 * r['bound_share']:.1f}% of its "
+              f"{r['bound_ms']:.4f} ms bound), events {r['ms']:.4f} ms, profiler device "
+              f"{r['device_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms [{smi}]", flush=True)
+        del args
+    torch.cuda.empty_cache()
+    return results
 
 
 STFT_N, STFT_HOP, STFT_LEN = 1024, 512, 479744   # bench.py's stft mode: 10 s // hop * hop
@@ -2945,6 +3056,7 @@ def main() -> None:
     stage_report_paths(dev, irs, x, launches, smi)
     offline_paths(dev, irs, x, launches, smi)
     results.update(spectral_kernels(randn, mods, smi))
+    results.update(bin_kernels(randn, mods, smi))
     spectral_paths(dev, irs, x, launches, smi)
     results.update(windowed_kernels(randn, mods, smi))
     stft_path(dev, launches, smi, profile)

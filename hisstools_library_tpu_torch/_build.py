@@ -86,6 +86,10 @@ _SIGNATURES = {
     "hst_rifft_tiny": [_P, _P, _P, _F, _P, _L, _I, _P],
     # re, im, out_re, out_im, batch, n, stream
     "hst_fft_tiny": [_P, _P, _P, _P, _L, _I, _P],
+    # ar, ai, a_rs, br, bi, b_rs, floor, f_rs, yr, yi, rows, k, epilogue, scale, stream
+    "hst_bin_product": [_P, _P, _L, _P, _P, _L, _P, _L, _P, _P, _L, _L, _I, _F, _P],
+    # xr, xi, rows, k, regularization, work, floor, stream
+    "hst_bin_floor": [_P, _P, _L, _L, _F, _P, _P, _P],
 }
 
 _lock = threading.Lock()

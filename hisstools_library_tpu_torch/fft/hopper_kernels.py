@@ -7,6 +7,10 @@ function                      replaces (hisstools_library_tpu/...)    CUDA sourc
 :func:`lag_mac_ring` (K7)     fft/pallas_kernels.py: lag_mac_ring     csrc/ring_mac.cu
 :func:`hop_fire` (K9)         fft/pallas_kernels.py: hop_fire         csrc/hop_fire.cu
 :func:`lag_mac` (K15)         fft/pallas_kernels.py: lag_mac          csrc/ring_mac.cu
+:func:`bin_mul` (K16)         none (ops/spectral.py: jnp)             csrc/bin_product.cu
+:func:`bin_mul_conj` (K16)    none (ops/spectral.py: jnp)             csrc/bin_product.cu
+:func:`bin_deconvolve` (K16)  none (models/pipeline.py: jnp)          csrc/bin_product.cu
+:func:`bin_floor` (K16)       none (models/pipeline.py: jnp)          csrc/bin_product.cu
 ============================  ======================================  ======================
 
 K7, K15 and K8's state kernel (``hopper_fft.stream_state``) are three entry
@@ -16,9 +20,12 @@ new ring, streamed by bulk copies through shared-memory stages;
 :func:`_ring_mac_plan` mirrors its plan. K9 fires a small section in one
 launch on the register-DFT core of K10 / K11 (``csrc/reg_fft.cuh``), the old
 ring's lag sum staged while the forward runs; :func:`_fire_plan` mirrors its
-plan. Each wrapper runs its plain PyTorch
-version (``<name>_plain``) only for tensors on the CPU; for CUDA tensors it
-launches the kernel or raises. Launches are counted in
+plan. K16 is one streaming pass over packed bins for the per-bin products
+of the spectral ops: ``bin_mul`` (convolution), ``bin_mul_conj``
+(correlation) and ``bin_deconvolve`` (the regularised division, its floor
+from ``bin_floor``), the TPU package's ``jnp`` steps. Each wrapper runs its
+plain PyTorch version (``<name>_plain``) only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises. Launches are counted in
 ``<wrapper>.launches``.
 """
 
@@ -27,10 +34,11 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from .. import _build
-from ..core.types import Split, packed_mul
+from ..core.types import Split, packed_mul, packed_mul_conj
 from ..utils.profiling import span
 
 # K9's envelope: the TPU kernel's sizes (N <= 1024, P <= 256, its unroll
@@ -435,3 +443,220 @@ def hop_fire(frame: torch.Tensor, ring_re: torch.Tensor, ring_im: torch.Tensor,
 
 
 hop_fire.launches = 0
+
+
+# -----------------------------------------------------------------------------
+# K16: per-bin products of packed spectra (csrc/bin_product.cu)
+# -----------------------------------------------------------------------------
+
+_BIN_CONV, _BIN_CORR, _BIN_DECONV = 0, 1, 2  # csrc/bin_product.cu's epilogues
+
+
+def bin_mul_plain(a_re: torch.Tensor, a_im: torch.Tensor, b_re: torch.Tensor,
+                  b_im: torch.Tensor, scale=1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a * b * scale of packed spectra, DC and Nyquist apart (:func:`packed_mul`)."""
+    out = packed_mul(Split(a_re, a_im), Split(b_re, b_im), scale)
+    return out.re, out.im
+
+
+def bin_mul_conj_plain(a_re: torch.Tensor, a_im: torch.Tensor, b_re: torch.Tensor,
+                       b_im: torch.Tensor, scale=1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a * conj(b) * scale of packed spectra (:func:`packed_mul_conj`)."""
+    out = packed_mul_conj(Split(a_re, a_im), Split(b_re, b_im), scale)
+    return out.re, out.im
+
+
+def bin_floor_plain(x_re: torch.Tensor, x_im: torch.Tensor,
+                    regularization: float) -> torch.Tensor:
+    """``regularization * max_k |X_k|^2`` over the N/2 + 1 true bins of each
+    row of packed planes (their x2 scale undone: DC ``re[0] / 2``, Nyquist
+    ``im[0] / 2``), as (..., 1)."""
+    power = torch.cat([x_re[..., :1] * x_re[..., :1], x_im[..., :1] * x_im[..., :1],
+                       (x_re * x_re + x_im * x_im)[..., 1:]], dim=-1)
+    return regularization * (power.amax(dim=-1, keepdim=True) * 0.25)
+
+
+def bin_deconvolve_plain(y_re: torch.Tensor, y_im: torch.Tensor, x_re: torch.Tensor,
+                         x_im: torch.Tensor, regularization: float, scale=1.0
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The regularised quotient ``Y conj(X) / (|X|^2 + floor)`` of the true
+    spectra (packed halves), ``floor`` from :func:`bin_floor_plain`, as a
+    packed spectrum (x2 scale) times ``scale``; lane 0's DC and Nyquist each
+    divided by its own power."""
+    floor = bin_floor_plain(x_re, x_im, regularization)
+    power = (x_re * x_re + x_im * x_im) * 0.25
+    num_re = (y_re * x_re + y_im * x_im) * 0.25
+    num_im = (y_im * x_re - y_re * x_im) * 0.25
+    dc = (y_re[..., :1] * x_re[..., :1]) * 0.25 / (x_re[..., :1] * x_re[..., :1] * 0.25 + floor)
+    nyq = (y_im[..., :1] * x_im[..., :1]) * 0.25 / (x_im[..., :1] * x_im[..., :1] * 0.25 + floor)
+    denom = power + floor
+    re = torch.cat([dc, (num_re / denom)[..., 1:]], dim=-1)
+    im = torch.cat([nyq, (num_im / denom)[..., 1:]], dim=-1)
+    return re * (2.0 * scale), im * (2.0 * scale)
+
+
+def _bin_lead(kernel: str, a_shape, b_shape) -> Tuple[int, ...]:
+    """The output's leading shape: the two operands' leading shapes broadcast."""
+    try:  # numpy's: torch.broadcast_shapes imports sympy (seconds) on its first call
+        return np.broadcast_shapes(tuple(a_shape[:-1]), tuple(b_shape[:-1]))
+    except ValueError as e:
+        raise ValueError(f"{kernel}: {e}") from None
+
+
+def _row_stride(lead_of, lead: Tuple[int, ...], k: int):
+    """K16's layout rule: an operand's planes (..., K) hold one row,
+    broadcast over the output's rows (row stride 0), or every row of the
+    output's leading shape ``lead`` (row stride K); None for any other."""
+    if math.prod(lead_of) == 1:
+        return 0
+    return k if tuple(lead_of) == lead else None
+
+
+def bin_operands(a_re: torch.Tensor, a_im: torch.Tensor, b_re: torch.Tensor,
+                 b_im: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The planes of two packed operands in the layout K16 takes: an operand
+    that is neither one row nor every row of the broadcast shape is expanded
+    to every row, and each plane is made contiguous (copied only where it is
+    not)."""
+    lead = _bin_lead("K16", a_re.shape, b_re.shape)
+    planes = []
+    for re, im in ((a_re, a_im), (b_re, b_im)):
+        if _row_stride(re.shape[:-1], lead, re.shape[-1]) is None:
+            re, im = re.expand(lead + re.shape[-1:]), im.expand(lead + im.shape[-1:])
+        planes += [re.contiguous(), im.contiguous()]
+    return tuple(planes)
+
+
+def _bin_layout(kernel: str, a_re: torch.Tensor, a_im: torch.Tensor, b_re: torch.Tensor,
+                b_im: torch.Tensor) -> Tuple[Tuple[int, ...], int, int, int]:
+    """K16's operand layout: (the output's leading shape, K, a's row stride,
+    b's row stride). Each operand is two contiguous float32 planes (..., K)
+    in the layout of :func:`_row_stride`; any other layout raises
+    (:func:`bin_operands` makes it)."""
+    _build.check_tensors(kernel, a_re, a_im, b_re, b_im)
+    k = a_re.shape[-1] if a_re.dim() else 0
+    if (a_re.dim() == 0 or b_re.dim() == 0 or a_im.shape != a_re.shape
+            or b_im.shape != b_re.shape or b_re.shape[-1] != k):
+        raise ValueError(f"{kernel}: planes must be (..., K) with one K and each pair of "
+                         f"one shape, got {tuple(a_re.shape)}, {tuple(a_im.shape)}, "
+                         f"{tuple(b_re.shape)} and {tuple(b_im.shape)}")
+    lead = _bin_lead(kernel, a_re.shape, b_re.shape)
+    strides = [_row_stride(t.shape[:-1], lead, k) for t in (a_re, b_re)]
+    for t, stride in zip((a_re, b_re), strides):
+        if stride is None:
+            raise ValueError(f"{kernel}: an operand of {tuple(t.shape)} is neither one row "
+                             f"nor every row of {lead + (k,)}; expand it first "
+                             f"(bin_operands)")
+    return lead, k, strides[0], strides[1]
+
+
+def _bin_product(wrapper, kernel: str, epilogue: int, a_re, a_im, b_re, b_im, scale,
+                 regularization=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K16's pass (the division's after :func:`bin_floor` of ``b``), counted
+    on ``wrapper``; an empty output launches and counts nothing."""
+    lead, k, a_rs, b_rs = _bin_layout(kernel, a_re, a_im, b_re, b_im)
+    y_re = torch.empty(lead + (k,), dtype=torch.float32, device=a_re.device)
+    y_im = torch.empty_like(y_re)
+    rows = math.prod(lead)
+    if rows * k == 0:
+        return y_re, y_im
+    floor = None if regularization is None else bin_floor(b_re, b_im, regularization)
+    rc = _build.load().hst_bin_product(
+        a_re.data_ptr(), a_im.data_ptr(), a_rs, b_re.data_ptr(), b_im.data_ptr(), b_rs,
+        None if floor is None else floor.data_ptr(), 1 if b_rs else 0,
+        y_re.data_ptr(), y_im.data_ptr(), rows, k, epilogue, scale,
+        _build.stream(a_re.device))
+    _build.check(rc, kernel)
+    wrapper.launches += 1
+    return y_re, y_im
+
+
+@span("kernel.K16.bin_mul")
+def bin_mul(a_re: torch.Tensor, a_im: torch.Tensor, b_re: torch.Tensor, b_im: torch.Tensor,
+            scale=1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K16, convolution: ``a * b * scale`` of packed spectra (N/2 bins, DC in
+    re[0], Nyquist in im[0], each multiplied apart) in one pass; ``b`` (or
+    ``a``) may be one row broadcast over the other's rows. Returns new
+    contiguous planes."""
+    if a_re.device.type == "cpu":
+        return bin_mul_plain(a_re, a_im, b_re, b_im, scale)
+    return _bin_product(bin_mul, "K16 bin_mul", _BIN_CONV, a_re, a_im, b_re, b_im, scale)
+
+
+bin_mul.launches = 0
+
+
+@span("kernel.K16.bin_mul_conj")
+def bin_mul_conj(a_re: torch.Tensor, a_im: torch.Tensor, b_re: torch.Tensor,
+                 b_im: torch.Tensor, scale=1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K16, correlation: ``a * conj(b) * scale`` of packed spectra, as
+    :func:`bin_mul`."""
+    if a_re.device.type == "cpu":
+        return bin_mul_conj_plain(a_re, a_im, b_re, b_im, scale)
+    return _bin_product(bin_mul_conj, "K16 bin_mul_conj", _BIN_CORR, a_re, a_im, b_re, b_im,
+                        scale)
+
+
+bin_mul_conj.launches = 0
+
+
+# bin_floor's work words (a row's maximum and its count of blocks done), zero
+# before a launch and left zero by it, by (device, stream): launches on one
+# stream run in turn, and two streams never share them.
+_FLOOR_WORK: dict = {}
+
+
+def _floor_work(rows: int, device: torch.device) -> torch.Tensor:
+    key = (device, _build.stream(device))
+    work = _FLOOR_WORK.get(key)
+    if work is None or work.numel() < 2 * rows:
+        work = torch.zeros(max(2 * rows, 256), dtype=torch.int32, device=device)
+        _FLOOR_WORK[key] = work
+    return work
+
+
+@span("kernel.K16.bin_floor")
+def bin_floor(x_re: torch.Tensor, x_im: torch.Tensor, regularization: float) -> torch.Tensor:
+    """K16's reduction: ``regularization * max_k |X_k|^2`` over the N/2 + 1
+    true bins of each row of packed planes (..., K), as (..., 1) on the
+    device, in one launch."""
+    if x_re.device.type == "cpu":
+        return bin_floor_plain(x_re, x_im, regularization)
+    kernel = "K16 bin_floor"
+    _build.check_tensors(kernel, x_re, x_im)
+    if x_re.dim() == 0 or x_im.shape != x_re.shape:
+        raise ValueError(f"{kernel}: planes must be (..., K) of one shape, got "
+                         f"{tuple(x_re.shape)} and {tuple(x_im.shape)}")
+    lead, k = tuple(x_re.shape[:-1]), x_re.shape[-1]
+    out = torch.empty(lead + (1,), dtype=torch.float32, device=x_re.device)
+    rows = math.prod(lead)
+    if rows * k == 0:
+        return out.zero_()
+    rc = _build.load().hst_bin_floor(
+        x_re.data_ptr(), x_im.data_ptr(), rows, k, regularization,
+        _floor_work(rows, x_re.device).data_ptr(), out.data_ptr(),
+        _build.stream(x_re.device))
+    _build.check(rc, kernel)
+    bin_floor.launches += 1
+    return out
+
+
+bin_floor.launches = 0
+
+
+@span("kernel.K16.bin_deconvolve")
+def bin_deconvolve(y_re: torch.Tensor, y_im: torch.Tensor, x_re: torch.Tensor,
+                   x_im: torch.Tensor, regularization: float, scale=1.0
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K16, deconvolution: the regularised quotient ``Y conj(X) / (|X|^2 +
+    regularization * max|X|^2)`` of the true spectra that the packed planes
+    stand for, returned as a packed spectrum times ``scale``, in one pass
+    after :func:`bin_floor` (one launch an excitation ``x``). ``x`` may be
+    one row broadcast over ``y``'s rows, or a row each."""
+    if y_re.device.type == "cpu":
+        return bin_deconvolve_plain(y_re, y_im, x_re, x_im, regularization, scale)
+    return _bin_product(bin_deconvolve, "K16 bin_deconvolve", _BIN_DECONV, y_re, y_im, x_re,
+                        x_im, scale, regularization)
+
+
+bin_deconvolve.launches = 0

@@ -7,8 +7,9 @@ N-to-mono reduction -> (optional) phase reshaping -> spectral smoothing ->
 peak finding -> sinusoidal partial tracking.
 
 - :func:`ir_deconvolve` -- regularised spectral division
-  ``H = Y * conj(X) / (|X|^2 + eps)`` on unpacked spectra (the HIRT
-  deconvolution core built from the reference's per-bin machinery).
+  ``H = Y * conj(X) / (|X|^2 + eps)`` on the packed spectra, DC and Nyquist
+  apart (the HIRT deconvolution core built from the reference's per-bin
+  machinery; the JAX package unpacks them first).
 - :func:`find_peaks` -- local spectral maxima with parabolic (log-amplitude)
   interpolation of frequency and amplitude, top-K by amplitude.
 - :func:`run_ir_pipeline` -- the whole-IR chain, one spectrum, with the
@@ -18,12 +19,12 @@ peak finding -> sinusoidal partial tracking.
 
 The JAX package's ``lru_cache`` + ``jit`` programs are plain functions here.
 On a CUDA tensor the transforms launch the Hopper kernels by size
-(``ir_deconvolve`` at a 2^17-sample capture: K13 twice and K14 once at N =
-2^18; the STFT of 1024-point frames: K10w). The frame chain's tracker loop
-(the JAX ``lax.scan``) calls :func:`partial_tracker.process` once a frame
-with no host sync; on the card one frame's step is captured once in a
-``torch.cuda.CUDAGraph`` and replayed per frame, since a step is some 400
-small launches. Each result comes back with one device-to-host copy.
+(``ir_deconvolve`` at a 2^17-sample capture: K13 twice, K16's floor and
+division, and K14 once at N = 2^18; the STFT of 1024-point frames: K10w).
+The frame chain's tracker loop (the JAX ``lax.scan``) calls
+:func:`partial_tracker.process` once a frame with no host sync; on the card
+one frame's step is captured once in a ``torch.cuda.CUDAGraph`` and
+replayed per frame, since a step is some 400 small launches. Each result comes back with one device-to-host copy.
 """
 
 from __future__ import annotations
@@ -34,9 +35,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.types import Split, array_from, cmul_conj
+from ..core.types import Split, array_from
 from ..fft import api as fft_api
-from ..ops import smoothing, spectral_processor as sp
+from ..ops import smoothing, spectral, spectral_processor as sp
 from ..ops import stft as stft_mod
 from ..ops import windows
 from ..utils.profiling import span
@@ -59,17 +60,10 @@ def ir_deconvolve(measured: torch.Tensor, excitation: torch.Tensor,
 
     Y = Split(*fft_api.rfft_padded(measured, n, backend=backend))
     X = Split(*fft_api.rfft_padded(excitation, n, backend=backend))
-
-    # Unpacked full spectra keep the DC/Nyquist handling plain.
-    yr, yi = fft_api.unpack_spectrum(Y)
-    xr, xi = fft_api.unpack_spectrum(X)
+    # The quotient's packed spectrum with the inverse's 1 / (2N) folded in.
     with span("engine.deconvolve.divide"):
-        power = xr * xr + xi * xi
-        floor = regularization * power.amax(dim=-1, keepdim=True)
-        denom = power + floor
-        num = cmul_conj(Split(yr, yi), Split(xr, xi))
-        H = fft_api.pack_spectrum(num.re / denom, num.im / denom)
-    return fft_api.rifft(H.re, H.im, backend=backend) * (0.5 / n)
+        H = spectral.ir_deconvolve_real(Y, X, regularization, 0.5 / n, backend=backend)
+    return fft_api.rifft(H.re, H.im, backend=backend)
 
 
 def find_peaks(amp_spectrum: torch.Tensor, n_peaks: int, bin_hz: float = 1.0,

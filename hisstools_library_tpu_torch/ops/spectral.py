@@ -7,7 +7,10 @@ DC in ``re[0]``, Nyquist in ``im[0]``); the reference's ``real_operation``
 DC/Nyquist special-casing (SpectralFunctions.hpp:63-129) is lane-0 handling
 on the packed planes, as in the JAX package. Tables built with numpy go to the
 input's device; the transforms in :func:`minimum_phase_components` follow
-:mod:`..fft.api` (the Hopper kernels on a CUDA tensor).
+:mod:`..fft.api` (the Hopper kernels on a CUDA tensor), and so do the real
+binary ops :func:`ir_convolve_real`, :func:`ir_correlate_real` and
+:func:`ir_deconvolve_real`, which take the backend's route to K16 (one pass
+over the packed bins, ``csrc/bin_product.cu``) or to their plain versions.
 
 ``fft_size`` below always refers to the *full* transform size N (= 2 x bins),
 as in the reference.
@@ -21,9 +24,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.types import (Split, cmul, cmul_conj, packed_mul, packed_mul_conj,
-                          resolve_device)
+from ..core.types import Split, cmul, cmul_conj, resolve_device
 from ..fft import api as fft_api
+from ..fft import hopper_kernels
 from ..utils.profiling import span
 
 # Reference floors log-power at -300 dB (SpectralFunctions.hpp:176-184).
@@ -197,6 +200,16 @@ def ir_phase(s: Split, fft_size: int, phase: float, zero_center: bool = False,
 # Binary ops (convolution / correlation in the frequency domain)
 # -----------------------------------------------------------------------------
 
+def _per_bin(kernel, plain, a: Split, b: Split, backend: Optional[str], *args) -> Split:
+    """One per-bin product of packed spectra: K16 (``kernel``, on its
+    operands' layout, :func:`..fft.hopper_kernels.bin_operands`) where the
+    FFT backend resolves to the kernels, as :mod:`..fft.api` routes a
+    transform, else ``plain``."""
+    if fft_api._resolve(backend, a.re.device) != "pallas":
+        return Split(*plain(a.re, a.im, b.re, b.im, *args))
+    return Split(*kernel(*hopper_kernels.bin_operands(a.re, a.im, b.re, b.im), *args))
+
+
 def ir_convolve_complex(a: Split, b: Split, scale=1.0) -> Split:
     """Per-bin complex multiply with scale (SpectralFunctions.hpp:414-418)."""
     out = cmul(a, b)
@@ -204,10 +217,11 @@ def ir_convolve_complex(a: Split, b: Split, scale=1.0) -> Split:
 
 
 @span("engine.spectral.ir_convolve_real")
-def ir_convolve_real(a: Split, b: Split, scale=1.0) -> Split:
+def ir_convolve_real(a: Split, b: Split, scale=1.0, backend: Optional[str] = None) -> Split:
     """Packed real-spectrum multiply, DC/Nyquist independent
-    (SpectralFunctions.hpp:420-424)."""
-    return packed_mul(a, b, scale)
+    (SpectralFunctions.hpp:420-424); on the card K16 ``bin_mul``."""
+    return _per_bin(hopper_kernels.bin_mul, hopper_kernels.bin_mul_plain, a, b, backend,
+                    scale)
 
 
 def ir_correlate_complex(a: Split, b: Split, scale=1.0) -> Split:
@@ -217,6 +231,20 @@ def ir_correlate_complex(a: Split, b: Split, scale=1.0) -> Split:
 
 
 @span("engine.spectral.ir_correlate_real")
-def ir_correlate_real(a: Split, b: Split, scale=1.0) -> Split:
-    """Packed real-spectrum correlation (SpectralFunctions.hpp:432-436)."""
-    return packed_mul_conj(a, b, scale)
+def ir_correlate_real(a: Split, b: Split, scale=1.0, backend: Optional[str] = None) -> Split:
+    """Packed real-spectrum correlation (SpectralFunctions.hpp:432-436); on
+    the card K16 ``bin_mul_conj``."""
+    return _per_bin(hopper_kernels.bin_mul_conj, hopper_kernels.bin_mul_conj_plain, a, b,
+                    backend, scale)
+
+
+def ir_deconvolve_real(y: Split, x: Split, regularization: float, scale=1.0,
+                       backend: Optional[str] = None) -> Split:
+    """Regularised packed real-spectrum division ``Y conj(X) / (|X|^2 +
+    regularization * max|X|^2)`` of the true spectra the packed planes stand
+    for (the floor per row of ``x``, over every bin, DC and Nyquist
+    included), as a packed spectrum times ``scale``; DC and Nyquist divide
+    apart. The division of ``models/pipeline.ir_deconvolve``; on the card
+    K16 ``bin_floor`` then ``bin_deconvolve``."""
+    return _per_bin(hopper_kernels.bin_deconvolve, hopper_kernels.bin_deconvolve_plain, y, x,
+                    backend, regularization, scale)

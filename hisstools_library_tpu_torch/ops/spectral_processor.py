@@ -22,7 +22,8 @@ Scaling matches the reference exactly: real path ``0.25/N``
 (SpectralProcessor.hpp:643), complex path ``1/N`` (:573), ``change_phase``
 ``0.5/N`` (:207). The transforms follow :mod:`..fft.api`: on a CUDA tensor
 the real ops launch K10/K11, K1/K6 or K13/K14 by size (a 10 s x 10 s
-convolution at 48 kHz is N = 2^20), the complex ops K12.
+convolution at 48 kHz is N = 2^20) and K16 for the product between them,
+the complex ops K12.
 """
 
 from __future__ import annotations
@@ -201,9 +202,9 @@ def _binary_op_real(x1: torch.Tensor, x2: torch.Tensor, mode: EdgeMode,
     X2 = Split(*fft_api.rfft_padded(x2, s.fft, backend=backend))
     scale = 0.25 / s.fft
     if correlate_op:
-        P = spectral.ir_correlate_real(X1, X2, scale)
+        P = spectral.ir_correlate_real(X1, X2, scale, backend=backend)
     else:
-        P = spectral.ir_convolve_real(X1, X2, scale)
+        P = spectral.ir_convolve_real(X1, X2, scale, backend=backend)
     full = fft_api.rifft(P.re, P.im, backend=backend)
     arrange = _arrange_correlate if correlate_op else _arrange_convolve
     return arrange(full, s)

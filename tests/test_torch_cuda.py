@@ -965,6 +965,176 @@ def test_ir_deconvolve_on_cuda(cuda):
     assert snr_db(want.numpy(), h.cpu().numpy()) >= 100.0
 
 
+# K16 (csrc/bin_product.cu): the per-bin products of packed spectra. Path
+# shapes: the 10 s and 20 s convolutions' (128, 2^19..2^20 bins) and the sweep
+# deconvolution's (128, 2^21) against one broadcast excitation row. Small
+# shapes: one float a lane (K not a multiple of 4, or a plane not 16-byte
+# aligned), K = 1 (lane 0 alone), a broadcast first operand and a floor a row.
+K16_PATH_CASES = [("bin_mul", (128,), (128,), 1 << 20), ("bin_mul", (128,), (128,), 1 << 21),
+                  ("bin_mul_conj", (128,), (128,), 1 << 20),
+                  ("bin_mul_conj", (128,), (128,), 1 << 21),
+                  ("bin_deconvolve", (128,), (), 1 << 21)]
+K16_SMALL_CASES = [("bin_mul", (3,), (3,), 6), ("bin_mul_conj", (2, 3), (1,), 1),
+                   ("bin_mul", (1,), (5,), 4100), ("bin_mul_conj", (4,), (), 1 << 12),
+                   ("bin_deconvolve", (5,), (5,), 4096), ("bin_deconvolve", (), (7,), 1000),
+                   ("bin_deconvolve", (2, 3), (), 1 << 14), ("bin_deconvolve", (3,), (), 1)]
+
+
+def _k16_args(op, a_lead, b_lead, k, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    planes = [torch.randn(*lead, k, generator=g, device=dev)
+              for lead in (a_lead, a_lead, b_lead, b_lead)]
+    planes[0][..., 0] += 4.0   # DC and Nyquist of unlike size and sign
+    planes[3][..., 0] -= 6.0
+    return planes + ([1e-4, 0.5 / (2 * k)] if op == "bin_deconvolve" else [0.25 / (2 * k)])
+
+
+def _rel_err(want, got):
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+@pytest.mark.parametrize("op,a_lead,b_lead,k", K16_PATH_CASES + K16_SMALL_CASES)
+def test_k16_matches_plain(cuda, op, a_lead, b_lead, k):
+    """K16 against its plain version: relative error <= 1e-6 a plane, DC and
+    Nyquist exact for the products, one launch a call (and one of the floor
+    a deconvolution)."""
+    args = _k16_args(op, a_lead, b_lead, k, cuda)
+    fn = getattr(hopper_kernels, op)
+    before = (fn.launches, hopper_kernels.bin_floor.launches)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    floors = 1 if op == "bin_deconvolve" else 0
+    assert (fn.launches - before[0], hopper_kernels.bin_floor.launches - before[1]) == (1, floors)
+    want = getattr(hopper_kernels, op + "_plain")(*args)
+    lead = torch.broadcast_shapes(a_lead, b_lead)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == lead + (k,) and g.is_contiguous()
+        assert bool(torch.isfinite(g).all())
+        assert _rel_err(w, g) <= 1e-6
+        if op != "bin_deconvolve":
+            assert torch.equal(g[..., 0], w[..., 0])
+    del args, got, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("op", ["bin_mul", "bin_mul_conj", "bin_deconvolve"])
+def test_k16_unaligned_planes(cuda, op):
+    """Contiguous planes that start one float past a 16-byte boundary take
+    K16's one-float-a-lane form and match the plain version."""
+    k = 4096
+    args = _k16_args(op, (3,), (3,), k, cuda, seed=1)
+    for i in range(4):
+        shifted = torch.empty(3 * k + 1, device=cuda)[1:].view(3, k)
+        shifted.copy_(args[i])
+        args[i] = shifted
+    assert args[0].data_ptr() % 16 and args[0].is_contiguous()
+    got = getattr(hopper_kernels, op)(*args)
+    want = getattr(hopper_kernels, op + "_plain")(*args)
+    for g, w in zip(got, want):
+        assert _rel_err(w, g) <= 1e-6
+
+
+@pytest.mark.parametrize("rows,k", [(1, 1 << 21), (3, 5), (300, 4096), (2, 1), (70000, 8)])
+def test_k16_floor_matches_plain(cuda, rows, k):
+    """K16's floor reduction: one launch, every row's floor equal to the
+    plain version's, twice in a row (its work words left zero), and a NaN
+    in a row gives that row a NaN floor as ``amax`` does."""
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    x_re, x_im = (torch.randn(rows, k, generator=g, device=cuda) for _ in range(2))
+    x_im[..., 0] *= 9.0  # a Nyquist that dominates its row
+    want = hopper_kernels.bin_floor_plain(x_re, x_im, 1e-4)
+    for _ in range(2):
+        before = hopper_kernels.bin_floor.launches
+        got = hopper_kernels.bin_floor(x_re, x_im, 1e-4)
+        torch.cuda.synchronize()
+        assert hopper_kernels.bin_floor.launches == before + 1
+        assert got.shape == (rows, 1) and torch.equal(got, want)
+    x_re[0, k // 2] = float("nan")
+    got = hopper_kernels.bin_floor(x_re, x_im, 1e-4)
+    assert bool(torch.isnan(got[0]).all()) and bool(torch.isfinite(got[1:]).all())
+
+
+def test_k16_refuses_layouts(cuda):
+    """A float32 CUDA call with a layout K16 does not take raises, and
+    launches nothing: a strided plane, operands that broadcast only in
+    part, unequal K, float64."""
+    a = torch.randn(2, 3, 64, device=cuda)
+    cases = [
+        ((a[..., ::2], a[..., ::2], a[0, :, :32], a[0, :, :32]), ValueError, "contiguous"),
+        ((a[:, :1].contiguous(), a[:, :1].contiguous(), a[:1].contiguous(),
+          a[:1].contiguous()), ValueError, "neither one row"),
+        ((a, a, a[..., :32].contiguous(), a[..., :32].contiguous()), ValueError, "one K"),
+        ((a.double(), a.double(), a.double(), a.double()), NotImplementedError, "float64"),
+    ]
+    before = {n: getattr(hopper_kernels, n).launches
+              for n in ("bin_mul", "bin_mul_conj", "bin_deconvolve", "bin_floor")}
+    for planes, exc, match in cases:
+        for op, extra in (("bin_mul", ()), ("bin_mul_conj", ()), ("bin_deconvolve", (1e-4,))):
+            with pytest.raises(exc, match=match):
+                getattr(hopper_kernels, op)(*planes, *extra)
+    assert {n: getattr(hopper_kernels, n).launches for n in before} == before
+
+
+@pytest.mark.parametrize("a_lead,b_lead,k", [((0,), (0,), 64), ((0,), (), 4096),
+                                             ((2, 0), (1,), 8), ((3,), (3,), 0)])
+def test_k16_empty_output_launches_nothing(cuda, a_lead, b_lead, k):
+    """An empty output (no rows, or K = 0) launches and counts nothing, the
+    floor's reduction included, and comes back as empty planes of the
+    broadcast shape."""
+    names = ("bin_mul", "bin_mul_conj", "bin_deconvolve", "bin_floor")
+    before = {n: getattr(hopper_kernels, n).launches for n in names}
+    planes = [torch.randn(*lead, k, device=cuda) for lead in (a_lead, a_lead, b_lead, b_lead)]
+    for op, extra in (("bin_mul", (0.5,)), ("bin_mul_conj", (0.5,)),
+                      ("bin_deconvolve", (1e-4, 0.5))):
+        re, im = getattr(hopper_kernels, op)(*planes, *extra)
+        assert re.shape == im.shape == np.broadcast_shapes(a_lead, b_lead) + (k,)
+        assert re.device.type == "cuda"
+    torch.cuda.synchronize()
+    assert {n: getattr(hopper_kernels, n).launches for n in names} == before
+
+
+@pytest.mark.parametrize("op", ["convolve", "correlate"])
+@pytest.mark.parametrize("mode", list(sp.EdgeMode), ids=lambda m: m.name)
+def test_spectral_edge_modes_on_cuda(cuda, mode, op):
+    """convolve and correlate in every EdgeMode on the card (K13 twice, K16
+    once, K14 once at N = 2^19..2^20) against the float64 CPU path."""
+    rng = np.random.default_rng(0x16)
+    x = (rng.standard_normal((3, 300000)) * np.exp(-np.arange(300000) / 90000)).astype(np.float32)
+    h = (rng.standard_normal((3, 70000)) * np.exp(-np.arange(70000) / 20000)).astype(np.float32)
+    k16 = hopper_kernels.bin_mul_conj if op == "correlate" else hopper_kernels.bin_mul
+    before = (k16.launches, hopper_fft.rfft_packed_split.launches,
+              hopper_fft.rifft_packed_split.launches)
+    got = getattr(sp, op)(torch.from_numpy(x).to(cuda), torch.from_numpy(h).to(cuda), mode)
+    torch.cuda.synchronize()
+    assert (k16.launches - before[0], hopper_fft.rfft_packed_split.launches - before[1],
+            hopper_fft.rifft_packed_split.launches - before[2]) == (1, 2, 1)
+    want = getattr(sp, op)(torch.from_numpy(x).double(), torch.from_numpy(h).double(), mode)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert snr_db(want.numpy(), got.cpu().numpy()) >= 100.0
+
+
+@pytest.mark.parametrize("excitation", ["broadcast", "batched"])
+def test_ir_deconvolve_k16_on_cuda(cuda, excitation):
+    """ir_deconvolve on the card at N = 2^18 (K13 / K14) and 2^17 (K1 / K6):
+    one floor and one division of K16 a call, one excitation row broadcast
+    over the captures or one a capture, against the float64 CPU path."""
+    rng = np.random.default_rng(0x5D)
+    for length in (200000, 100000):
+        exc = rng.standard_normal((3, length) if excitation == "batched" else length)
+        measured = rng.standard_normal((3, length + 3000)).astype(np.float32)
+        exc = exc.astype(np.float32)
+        before = (hopper_kernels.bin_deconvolve.launches, hopper_kernels.bin_floor.launches)
+        h = pipeline.ir_deconvolve(torch.from_numpy(measured).to(cuda),
+                                   torch.from_numpy(exc).to(cuda))
+        torch.cuda.synchronize()
+        assert (hopper_kernels.bin_deconvolve.launches - before[0],
+                hopper_kernels.bin_floor.launches - before[1]) == (1, 1)
+        want = pipeline.ir_deconvolve(torch.from_numpy(measured).double(),
+                                      torch.from_numpy(exc).double())
+        assert h.shape == want.shape == (3, 1 << (length + 3000 - 1).bit_length())
+        assert snr_db(want.numpy(), h.cpu().numpy()) >= 100.0
+
+
 # (frames as (C, T, N) strided views of (C, (T-1) hop + N) signals, or a
 # contiguous (B, N) batch when hop is None)
 WINDOWED_CASES = [(3, 256, None, 1), (2, 1024, 341, 9), (128, 1024, 512, 938),

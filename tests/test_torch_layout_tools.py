@@ -21,7 +21,7 @@ sys.path.insert(0, str(TOOLS))
 import layouts  # noqa: E402
 
 SCRIPTS = ("fire_layouts", "small_layouts", "k1_layouts", "k2_layouts", "k4_layouts",
-           "k5_layouts", "k8_layouts", "ring_mac_layouts")
+           "k5_layouts", "k8_layouts", "ring_mac_layouts", "bin_layouts")
 
 
 def _table(mod):

@@ -31,7 +31,7 @@ from hisstools_library_tpu.models import pipeline as jax_pipeline  # noqa: E402
 from hisstools_library_tpu.ops import spectral as jax_spectral  # noqa: E402
 from hisstools_library_tpu.ops import spectral_processor as jax_sp  # noqa: E402
 from hisstools_library_tpu_torch.core.types import Split  # noqa: E402
-from hisstools_library_tpu_torch.fft import api  # noqa: E402
+from hisstools_library_tpu_torch.fft import api, hopper_kernels  # noqa: E402
 from hisstools_library_tpu_torch.models import pipeline  # noqa: E402
 from hisstools_library_tpu_torch.ops import spectral, spectral_processor as sp  # noqa: E402
 
@@ -328,6 +328,153 @@ def test_ir_deconvolve_matches_jax(rng, dtype):
         got = pipeline.ir_deconvolve(tm, te, reg, backend=backend)
         assert got.shape == (3, 2048)
         assert_close(want, got, dtype)
+
+
+# -- the real per-bin products: the plain versions of K16's epilogues ---------------
+
+def _jax_divide(jy, jx, reg, scale):
+    """The JAX package's ir_deconvolve division on packed spectra (its
+    models/pipeline.py steps: unpack, floor over every bin, divide, pack),
+    times ``scale``."""
+    from hisstools_library_tpu.core.types import cmul_conj as jax_cmul_conj
+
+    yr, yi = jax_api.unpack_spectrum(jy)
+    xr, xi = jax_api.unpack_spectrum(jx)
+    power = xr * xr + xi * xi
+    denom = power + reg * jnp.max(power, axis=-1, keepdims=True)
+    num = jax_cmul_conj(JSplit(yr, yi), JSplit(xr, xi))
+    h = jax_api.pack_spectrum(num.re / denom, num.im / denom)
+    return JSplit(h.re * scale, h.im * scale)
+
+
+def _lane0_apart(rng, dtype, lead):
+    """A packed spectrum whose DC and Nyquist differ in size and sign, so a
+    product that mixed them (a complex bin 0) would be far off."""
+    (jre, tre), (jim, tim) = spectrum(rng, dtype, lead=lead)
+    re, im = np.array(jre), np.array(jim)
+    re[..., 0] = rng.uniform(3.0, 6.0, lead)
+    im[..., 0] = -rng.uniform(7.0, 11.0, lead)
+    (jre, tre), (jim, tim) = both(re), both(im)
+    return JSplit(jre, jim), Split(tre, tim)
+
+
+@pytest.mark.parametrize("backend", [None, "pallas"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_real_products_keep_dc_and_nyquist_apart(rng, dtype, backend):
+    """ir_convolve_real, ir_correlate_real and ir_deconvolve_real on odd
+    batch shapes (2, 3, N/2) against (3, N/2) and against one row, with DC
+    and Nyquist lanes that would be wrong if mixed; ``"pallas"`` takes the
+    kernels' route, whose wrappers run the plain versions on the CPU."""
+    n = 512
+    ja, ta = _lane0_apart(rng, dtype, (2, 3))
+    for lead in ((3,), (1,)):
+        jb, tb = _lane0_apart(rng, dtype, lead)
+        for name in ("ir_convolve_real", "ir_correlate_real"):
+            got = getattr(spectral, name)(ta, tb, 0.25 / n, backend=backend)
+            assert_split_close(getattr(jax_spectral, name)(ja, jb, 0.25 / n), got, dtype)
+            np.testing.assert_array_equal(got.re[..., 0].numpy(),
+                                          (ta.re[..., 0] * tb.re[..., 0] * (0.25 / n)).numpy())
+            np.testing.assert_array_equal(got.im[..., 0].numpy(),
+                                          (ta.im[..., 0] * tb.im[..., 0] * (0.25 / n)).numpy())
+        for reg in (1e-4, 1e-12):
+            got = spectral.ir_deconvolve_real(ta, tb, reg, 0.5 / n, backend=backend)
+            assert got.re.shape == (2, 3, n // 2)
+            assert_split_close(_jax_divide(ja, jb, reg, 0.5 / n), got, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ir_deconvolve_real_floor_bounds_zero_bins(rng, dtype):
+    """An excitation with zero bins (DC, Nyquist and body, exactly zero and
+    1e-6 of the rest) and a row with one bin above 1e-6: there the floor
+    alone bounds the quotient, which stays finite and matches the JAX
+    division; exact zeros give exact zeros."""
+    jy, ty = _lane0_apart(rng, dtype, (2, 3))
+    jx, tx = _lane0_apart(rng, dtype, (3,))
+    re, im = np.array(jx.re), np.array(jx.im)
+    re[:, 5:9] = im[:, 5:9] = 0.0
+    re[:, 20:30] = im[:, 20:30] = 1e-6
+    re[0, 0] = 0.0   # no DC in row 0
+    im[1, 0] = 0.0   # no Nyquist in row 1
+    re[2], im[2] = 1e-6, 1e-6  # row 2: one bin, the floor bounds the rest
+    re[2, 40] = 1.0
+    (jre, tre), (jim, tim) = both(re), both(im)
+    jx, tx = JSplit(jre, jim), Split(tre, tim)
+    for backend in (None, "pallas"):
+        got = spectral.ir_deconvolve_real(ty, tx, 1e-4, 1.0, backend=backend)
+        assert bool(torch.isfinite(got.re).all() and torch.isfinite(got.im).all())
+        assert_split_close(_jax_divide(jy, jx, 1e-4, 1.0), got, dtype)
+        assert not got.re[:, :2, 5:9].any() and not got.im[:, :2, 5:9].any()
+        assert not got.re[:, 0, 0].any() and not got.im[:, 1, 0].any()
+
+
+@pytest.mark.parametrize("layout", ["broadcast", "batched", "rows"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ir_deconvolve_excitation_layouts_match_jax(rng, dtype, layout):
+    """Captures of shape (2, 3, L) against one excitation row broadcast, an
+    excitation a capture (batched) and one a column of captures (3, L),
+    on the default route and the kernels' route."""
+    exc = rng.standard_normal({"broadcast": (700,), "batched": (2, 3, 700),
+                               "rows": (3, 700)}[layout])
+    hs = rng.standard_normal((2, 3, 30)) * np.exp(-np.arange(30) / 8)
+    ex = np.broadcast_to(exc, (2, 3, 700))
+    measured = np.stack([[np.convolve(ex[i, j], hs[i, j]) for j in range(3)]
+                         for i in range(2)]).astype(dtype)
+    (jm, tm), (je, te) = both(measured), both(exc.astype(dtype))
+    want = jax_pipeline.ir_deconvolve(jm, je, 1e-4,
+                                      backend=None if dtype == np.float32 else "xla")
+    for backend in (None if dtype == np.float32 else "xla", "pallas"):
+        got = pipeline.ir_deconvolve(tm, te, 1e-4, backend=backend)
+        assert got.shape == (2, 3, 1024)
+        assert_close(want, got, dtype)
+
+
+@pytest.mark.parametrize("op", ["ir_convolve_real", "ir_correlate_real",
+                                "ir_deconvolve_real"])
+def test_real_products_route_to_k16_off_cpu(op):
+    """Off the CPU the real per-bin products reach K16's wrappers, which
+    refuse the meta device by the kernel's name."""
+    a = Split(torch.empty(2, 8, device="meta"), torch.empty(2, 8, device="meta"))
+    args = (1e-4,) if op == "ir_deconvolve_real" else ()
+    with pytest.raises(ValueError, match="K16 .*CUDA"):
+        getattr(spectral, op)(a, a, *args, backend="pallas")
+
+
+@pytest.mark.parametrize("a_lead,b_lead,expand_a,expand_b", [
+    ((2, 3), (3,), False, True),    # b broadcasts only in part: expanded
+    ((2, 3), (1,), False, False),   # one row: kept, broadcast by its stride
+    ((2, 3), (), False, False),
+    ((3,), (2, 3), True, False),
+    ((1, 3), (2, 1), True, True),   # each broadcasts only in part
+    ((4,), (4,), False, False),     # every row: kept
+])
+def test_bin_operands_layout(a_lead, b_lead, expand_a, expand_b):
+    """K16's operand layout rule: an operand that holds neither one row nor
+    every row of the broadcast shape is expanded to every row; the planes
+    come back contiguous, and an operand already in the layout is the same
+    tensor (no copy)."""
+    k = 6
+    planes = [torch.randn(*lead, k) for lead in (a_lead, a_lead, b_lead, b_lead)]
+    got = hopper_kernels.bin_operands(*planes)
+    lead = np.broadcast_shapes(a_lead, b_lead)
+    for i, (plane, out) in enumerate(zip(planes, got)):
+        expanded = expand_a if i < 2 else expand_b
+        assert out.is_contiguous()
+        if expanded:
+            assert out.shape == lead + (k,)
+            assert torch.equal(out, plane.expand(lead + (k,)))
+        else:
+            assert out is plane
+
+
+def test_bin_operands_copies_strided_planes():
+    """A strided plane in the layout is copied once to a contiguous one."""
+    a = torch.randn(3, 2 * 8)[:, ::2]
+    b = torch.randn(1, 8)
+    got = hopper_kernels.bin_operands(a, a, b, b)
+    assert all(t.is_contiguous() for t in got)
+    assert torch.equal(got[0], a) and got[2] is b
+    with pytest.raises(ValueError, match="K16"):
+        hopper_kernels.bin_operands(a, a, torch.randn(2, 8), torch.randn(2, 8))
 
 
 def test_ir_spike_builds_on_the_card_by_default():

@@ -63,10 +63,22 @@ def _correlate():
     return lambda: sp.correlate(x, ir, sp.EdgeMode.Fold)
 
 
-def _deconvolve():
+def _deconvolve(backend=None):
     excitation = _signal(9, 3000, 1)[0]
     measured = _signal(10, 4000)
-    return lambda: pipeline.ir_deconvolve(measured, excitation, 1e-4)
+    return lambda: pipeline.ir_deconvolve(measured, excitation, 1e-4, backend=backend)
+
+
+# The kernels' route on CPU tensors (the wrappers run their plain versions):
+# K16's spans, which the card's default route opens.
+def _convolve_kernels():
+    x, ir = _signal(5, 4000), _signal(6, 900)
+    return lambda: sp.convolve(x, ir, sp.EdgeMode.Linear, backend="pallas")
+
+
+def _correlate_kernels():
+    x, ir = _signal(7, 4000), _signal(8, 900)
+    return lambda: sp.correlate(x, ir, sp.EdgeMode.Wrap, backend="pallas")
 
 
 # each entry's call, the spans it opens on the CPU, and for some of them the
@@ -107,9 +119,20 @@ CASES = {
         "entry.pipeline.ir_deconvolve": None,
         "fft.rfft_padded": "entry.pipeline.ir_deconvolve",
         "fft.rfft": "fft.rfft_padded",
-        "fft.unpack_spectrum": "entry.pipeline.ir_deconvolve",
         "engine.deconvolve.divide": "entry.pipeline.ir_deconvolve",
-        "fft.pack_spectrum": "engine.deconvolve.divide",
+        "fft.rifft": "entry.pipeline.ir_deconvolve"}),
+    "convolve_kernels": (_convolve_kernels, {
+        "entry.spectral_processor.convolve": None,
+        "engine.spectral.ir_convolve_real": "entry.spectral_processor.convolve",
+        "kernel.K16.bin_mul": "engine.spectral.ir_convolve_real"}),
+    "correlate_kernels": (_correlate_kernels, {
+        "entry.spectral_processor.correlate": None,
+        "engine.spectral.ir_correlate_real": "entry.spectral_processor.correlate",
+        "kernel.K16.bin_mul_conj": "engine.spectral.ir_correlate_real"}),
+    "ir_deconvolve_kernels": (lambda: _deconvolve("pallas"), {
+        "entry.pipeline.ir_deconvolve": None,
+        "engine.deconvolve.divide": "entry.pipeline.ir_deconvolve",
+        "kernel.K16.bin_deconvolve": "engine.deconvolve.divide",
         "fft.rifft": "entry.pipeline.ir_deconvolve"}),
 }
 

@@ -1,7 +1,7 @@
 """Phases of ``chip_smoke.py`` from one checkout, for an A/B run.
 
     python3 tools/chip_phases.py [--small | --k1 | --k2 | --k4 | --k5 | --k7 | --k9 | --k14
-        | --large] CHECKOUT
+        | --k16 | --large] CHECKOUT
 
 Runs, from the checkout at CHECKOUT (its ``chip_smoke.py`` and its
 ``hisstools_library_tpu_torch``, kernels built under its own ``build/``), on
@@ -105,6 +105,15 @@ one CUDA card:
   points in and out per transform), SNR against the plain version, and
   ``torch.fft.irfft`` / ``rfft`` on the same input beside them; then the
   spectral ``convolve`` of 128 x 10 s signals (N = 2^20);
+* with ``--k16`` phase 14b where the checkout has it (K16, the per-bin
+  products of packed spectra, against its plain versions and timed at its
+  two path shapes), then the benchmark cells' two calls on seeded noise:
+  ``spectral_processor.convolve`` of 128 x 960 000 samples with 128 x
+  480 000 taps (N = 2^21) and ``pipeline.ir_deconvolve`` of 128 x 2 880 000
+  samples by one 2 400 000-sample excitation (N = 2^22): event ms (median
+  of 5), device ms and launches a call, the top device operations
+  (``torch.profiler``) and the peak memory a call adds. On a checkout
+  without K16 the top operations are the torch glue K16 replaced;
 * with ``--large`` phases 22 and 23 of a checkout that has them (K12 at
   complex 2^20..2^28 and K13 / K14 at real 2^21..2^28 against their plain
   versions, with their times; the 20 s convolve and the 30 s deconvolve).
@@ -138,10 +147,11 @@ def main() -> None:
     k7 = "--k7" in args
     k9 = "--k9" in args
     k14 = "--k14" in args
+    k16 = "--k16" in args
     large = "--large" in args
     args = [a for a in args
             if a not in ("--small", "--k1", "--k2", "--k4", "--k5", "--k7", "--k9", "--k14",
-                         "--large")]
+                         "--k16", "--large")]
     if len(args) != 1:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
@@ -186,6 +196,9 @@ def main() -> None:
     if k14:
         k14_phase(cs, hopper_fft, randn, dev, smi)
         return
+    if k16:
+        k16_phase(cs, mods, randn, dev, smi)
+        return
     if small:
         cs.windowed_kernels(randn, mods, smi)
         cs.stft_path(dev, cs.Launches(mods), smi, False)
@@ -213,6 +226,14 @@ def main() -> None:
                        ("K6 rifft_packed", lambda: hopper_fft.rifft_packed(re, im))):
         print(f"{name} (128, 2^17): device {cs.device_ms(call):.4f} ms, events "
               f"{cs.median_ms(call):.4f} ms [{smi}]", flush=True)
+
+
+def _device_events(prof) -> list:
+    """The profiler's averages of what ran on the card, less the port's
+    ``hst::`` spans (which carry the device time of the kernels they hold;
+    chip_smoke.device_events, which older checkouts lack)."""
+    return [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+            and e.device_time_total > 0 and not e.key.startswith("hst::")]
 
 
 def k1_phase(cs, hf, randn, dev, smi) -> None:
@@ -619,6 +640,47 @@ def k14_phase(cs, hf, randn, dev, smi) -> None:
           f"device {cs.device_ms(lambda: sp.convolve(sig, ird)):.4f} ms [{smi}]", flush=True)
 
 
+def k16_phase(cs, mods, randn, dev, smi) -> None:
+    """The ``--k16`` mode (see the module docstring). The cells' calls use
+    only what the parent checkouts also have, so the same mode times
+    either."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hisstools_library_tpu_torch.models import pipeline
+    from hisstools_library_tpu_torch.ops import spectral_processor as sp
+
+    if hasattr(cs, "bin_kernels"):
+        cs.bin_kernels(randn, mods, smi)
+    c = cs.CHANNELS
+    calls = {}
+    x, h = randn(c, 960000), randn(c, 480000)
+    calls["convolve (128 x 960 000, N = 2^21)"] = (lambda: sp.convolve(x, h), (x, h))
+    cap, sweep = randn(c, 2880000), randn(2400000)
+    calls["ir_deconvolve (128 x 2 880 000, N = 2^22)"] = (
+        lambda: pipeline.ir_deconvolve(cap, sweep, 1e-4), (cap, sweep))
+    for label, (call, _) in calls.items():
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = cs.median_ms(call)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.device_time_total / 3e3, e.count // 3) for e in _device_events(prof)]
+        busy = sum(r[1] for r in rows)
+        print(f"{label}: {ms:.4f} ms/call (events, median of 5), device {busy:.4f} ms in "
+              f"{sum(r[2] for r in rows)} launches, peak memory above the inputs "
+              f"{peak} bytes [{smi}]", flush=True)
+        for key, dms, count in sorted(rows, key=lambda r: -r[1])[:10]:
+            print(f"  {dms:9.4f} ms x{count:<3d} {key[:90]}", flush=True)
+        torch.cuda.empty_cache()
+
+
 def card_test_cases(name: str) -> list:
     """The list ``name`` of this tool's own ``tests/test_torch_cuda.py``, read
     from the file's text (an expression of int literals and ``<<``), so that
@@ -678,8 +740,8 @@ def k9_phase(cs, hk, randn, dev, smi) -> None:
                 flush.zero_()
                 call()
             torch.cuda.synchronize()
-        return sum(e.device_time_total for e in prof.key_averages()
-                   if e.device_type.name == "CUDA" and "hop_fire" in e.key) / runs / 1e3
+        return sum(e.device_time_total for e in _device_events(prof)
+                   if "hop_fire" in e.key) / runs / 1e3
 
     flush = torch.empty(1 << 26, device=dev)  # 256 MB
     empty = empty_launch(dev)
@@ -736,8 +798,7 @@ def k9_phase(cs, hk, randn, dev, smi) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(64)
         torch.cuda.synchronize()
-    rows = [(e.key, e.device_time_total) for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    rows = [(e.key, e.device_time_total) for e in _device_events(prof)]
     busy = sum(t for _, t in rows) / 64 / 1e3
     fire = sum(t for key, t in rows if "hop_fire" in key) / 64 / 1e3
     print(f"process_any (128 channels, 256-sample callbacks): {ms:.4f} ms/callback (events "

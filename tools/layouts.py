@@ -31,6 +31,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from chip_smoke import graph_ms, profiled  # noqa: E402,F401  (graph_ms re-exported)
 from hisstools_library_tpu_torch import _build  # noqa: E402
 
 CSRC = ROOT / "hisstools_library_tpu_torch" / "csrc"
@@ -106,27 +107,6 @@ def ptxas(log: str, kernel: str, what: Sequence[str] = ("registers", "stack fram
     return out
 
 
-def graph_ms(call, reps: int = 20, runs: int = 5) -> float:
-    """Device ms of one launch: ``reps`` launches captured in a CUDA graph,
-    the graph replayed ``runs`` times between CUDA events (median), so the
-    host's launch time is not in it."""
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            call()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return sorted(times)[runs // 2]
-
-
 def events_ms(call, runs: int = 20) -> float:
     """Median ms of a call between CUDA events, after a warm-up (the
     host's launch time included)."""
@@ -145,16 +125,9 @@ def events_ms(call, runs: int = 20) -> float:
 
 def kernel_ms(call, runs: int = 10) -> Dict[str, float]:
     """Device ms per call of each CUDA kernel ``call`` launches, by name
-    (``torch.profiler``, mean of ``runs`` after a warm-up)."""
-    from torch.profiler import ProfilerActivity, profile
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            call()
-        torch.cuda.synchronize()
-    return {e.key: e.device_time_total / runs / 1e3 for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.device_time_total > 0}
+    (``torch.profiler``, mean of ``runs`` after a warm-up;
+    ``chip_smoke.profiled``)."""
+    return {e.key: e.device_time_total / runs / 1e3 for e in profiled(call, runs)}
 
 
 def device_ms(call, runs: int = 10) -> float:
