@@ -28,7 +28,8 @@ tensor it launches its kernel or raises: ``NotImplementedError`` names what
 the kernels do not take (float64; sizes above 2^28, the largest FFT size of
 the reference and of :mod:`.api`), and no path falls back to ``torch.fft``.
 Each wrapper counts its
-launches in ``<wrapper>.launches``. :func:`rfft_packed` sends N = 32..2048 to
+launches in ``<wrapper>.launches`` and the points they transform (frames x
+N) in ``<wrapper>.points``. :func:`rfft_packed` sends N = 32..2048 to
 K10, N = 4096..2^17 to K1 and N = 2^18..2^28 to K13, and :func:`rifft_packed`
 sends N = 32..2048 to K11, N = 4096..2^17 to K6 and N = 2^18..2^28 to K14, as
 the TPU package's ``rfft_packed`` / ``rifft_packed`` send their small sizes to
@@ -592,10 +593,12 @@ def rfft_packed(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
             n, _build.stream(x.device))
         _build.check(rc, "K1 rfft_packed")
         rfft_packed.launches += 1
+        rfft_packed.points += b * n
         return re, im
 
 
 rfft_packed.launches = 0
+rfft_packed.points = 0
 
 
 def rfft_packed_resident(n: int) -> int:
@@ -644,10 +647,12 @@ def rfft_small(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
             _twiddles(n, x.device).data_ptr(), b, n, _build.stream(x.device))
         _build.check(rc, kernel)
         rfft_small.launches += 1
+        rfft_small.points += b * n
         return re, im
 
 
 rfft_small.launches = 0
+rfft_small.points = 0
 
 
 def rifft_packed(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
@@ -677,10 +682,12 @@ def rifft_packed(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
             n, _build.stream(re.device))
         _build.check(rc, kernel)
         rifft_packed.launches += 1
+        rifft_packed.points += b * n
         return out
 
 
 rifft_packed.launches = 0
+rifft_packed.points = 0
 
 
 def rifft_small(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
@@ -708,10 +715,12 @@ def rifft_small(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
             _twiddles(n, re.device).data_ptr(), b, n, _build.stream(re.device))
         _build.check(rc, kernel)
         rifft_small.launches += 1
+        rifft_small.points += b * n
         return out
 
 
 rifft_small.launches = 0
+rifft_small.points = 0
 
 
 def _check_window(kernel: str, window: torch.Tensor, n: int) -> None:
@@ -754,10 +763,12 @@ def rfft_small_windowed(frames: torch.Tensor, window: torch.Tensor
             _build.stream(frames.device))
         _build.check(rc, kernel)
         rfft_small_windowed.launches += 1
+        rfft_small_windowed.points += b * n
         return re, im
 
 
 rfft_small_windowed.launches = 0
+rfft_small_windowed.points = 0
 
 
 def rifft_small_windowed(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor,
@@ -787,10 +798,12 @@ def rifft_small_windowed(re: torch.Tensor, im: torch.Tensor, window: torch.Tenso
             _twiddles(n, re.device).data_ptr(), b, n, _build.stream(re.device))
         _build.check(rc, kernel)
         rifft_small_windowed.launches += 1
+        rifft_small_windowed.points += b * n
         return out
 
 
 rifft_small_windowed.launches = 0
+rifft_small_windowed.points = 0
 
 
 def _rfft_tiny(kernel: str, frames: torch.Tensor, window: Optional[torch.Tensor]
@@ -827,10 +840,12 @@ def rfft_tiny(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return rfft_tiny_plain(x)
     out = _rfft_tiny("K10 rfft_tiny", x if x.dim() > 1 else x[None], None)
     rfft_tiny.launches += 1
+    rfft_tiny.points += x.numel()
     return out if x.dim() > 1 else (out[0][0], out[1][0])
 
 
 rfft_tiny.launches = 0
+rfft_tiny.points = 0
 
 
 @span("kernel.tiny.rfft_tiny_windowed")
@@ -842,10 +857,12 @@ def rfft_tiny_windowed(frames: torch.Tensor, window: torch.Tensor
         return rfft_tiny_windowed_plain(frames, window)
     out = _rfft_tiny("K10w rfft_tiny_windowed", frames, window)
     rfft_tiny_windowed.launches += 1
+    rfft_tiny_windowed.points += frames.numel()
     return out
 
 
 rfft_tiny_windowed.launches = 0
+rfft_tiny_windowed.points = 0
 
 
 def _rifft_tiny(kernel: str, re: torch.Tensor, im: torch.Tensor,
@@ -879,10 +896,12 @@ def rifft_tiny(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
         return rifft_tiny_plain(re, im)
     out = _rifft_tiny("K11 rifft_tiny", re, im, None, 1.0)
     rifft_tiny.launches += 1
+    rifft_tiny.points += out.numel()
     return out
 
 
 rifft_tiny.launches = 0
+rifft_tiny.points = 0
 
 
 @span("kernel.tiny.rifft_tiny_windowed")
@@ -893,10 +912,12 @@ def rifft_tiny_windowed(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor
         return rifft_tiny_windowed_plain(re, im, window, scale)
     out = _rifft_tiny("K11w rifft_tiny_windowed", re, im, window, scale)
     rifft_tiny_windowed.launches += 1
+    rifft_tiny_windowed.points += out.numel()
     return out
 
 
 rifft_tiny_windowed.launches = 0
+rifft_tiny_windowed.points = 0
 
 
 @span("kernel.tiny.fft_tiny")
@@ -923,10 +944,12 @@ def fft_tiny(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
                                     dst[1].data_ptr(), b, n, _build.stream(re.device))
     _build.check(rc, kernel)
     fft_tiny.launches += 1
+    fft_tiny.points += b * n
     return out_re, out_im
 
 
 fft_tiny.launches = 0
+fft_tiny.points = 0
 
 
 @span("kernel.K13.rfft_packed_split")
@@ -950,10 +973,12 @@ def rfft_packed_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         _large_twiddles(n, x.device).data_ptr(), b, n, _build.stream(x.device))
     _build.check(rc, kernel)
     rfft_packed_split.launches += 1
+    rfft_packed_split.points += b * n
     return re, im
 
 
 rfft_packed_split.launches = 0
+rfft_packed_split.points = 0
 
 
 @span("kernel.K14.rifft_packed_split")
@@ -978,10 +1003,12 @@ def rifft_packed_split(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
         _large_twiddles(n, re.device).data_ptr(), b, n, _build.stream(re.device))
     _build.check(rc, kernel)
     rifft_packed_split.launches += 1
+    rifft_packed_split.points += b * n
     return out
 
 
 rifft_packed_split.launches = 0
+rifft_packed_split.points = 0
 
 
 def fft_split(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
@@ -1020,10 +1047,12 @@ def fft_split(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
             _large_twiddles(2 * n, re.device).data_ptr(), b, n, _build.stream(re.device))
         _build.check(rc, kernel)
         fft_split.launches += 1
+        fft_split.points += b * n
         return out_re, out_im
 
 
 fft_split.launches = 0
+fft_split.points = 0
 
 
 @span("kernel.K2.rfft_packed_stream")
@@ -1049,10 +1078,12 @@ def rfft_packed_stream(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         c, t, n, _build.stream(x2d.device))
     _build.check(rc, "K2 rfft_packed_stream")
     rfft_packed_stream.launches += 1
+    rfft_packed_stream.points += c * t * n
     return re, im
 
 
 rfft_packed_stream.launches = 0
+rfft_packed_stream.points = 0
 
 
 @span("kernel.K4.rifft_packed_tail")
@@ -1079,10 +1110,12 @@ def rifft_packed_tail(re: torch.Tensor, im: torch.Tensor,
         frames, n, float(scale), _build.stream(re.device))
     _build.check(rc, "K4 rifft_packed_tail")
     rifft_packed_tail.launches += 1
+    rifft_packed_tail.points += frames * n
     return out
 
 
 rifft_packed_tail.launches = 0
+rifft_packed_tail.points = 0
 
 
 def fastfir_chain_staged(x2d: torch.Tensor, h_re: torch.Tensor, h_im: torch.Tensor,

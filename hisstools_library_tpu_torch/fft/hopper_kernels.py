@@ -26,7 +26,8 @@ of the spectral ops: ``bin_mul`` (convolution), ``bin_mul_conj``
 from ``bin_floor``), the TPU package's ``jnp`` steps. Each wrapper runs its
 plain PyTorch version (``<name>_plain``) only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises. Launches are counted in
-``<wrapper>.launches``.
+``<wrapper>.launches``; K9, which transforms, also counts the points of its
+forward and inverse transforms (2 x frames x N) in ``hop_fire.points``.
 """
 
 from __future__ import annotations
@@ -439,10 +440,12 @@ def hop_fire(frame: torch.Tensor, ring_re: torch.Tensor, ring_im: torch.Tensor,
         _build.stream(frame.device))
     _build.check(rc, kernel)
     hop_fire.launches += 1
+    hop_fire.points += 2 * c * n  # the frame's forward and the inverse
     return new_re, new_im, y
 
 
 hop_fire.launches = 0
+hop_fire.points = 0
 
 
 # -----------------------------------------------------------------------------

@@ -614,6 +614,7 @@ def stream_state_from_aligned(ir: MonoIR, state: MonoState,
     return MonoStreamState(state.head, sections)
 
 
+@span("engine.mono.process_any")
 def process_any(ir: MonoIR, state: MonoStreamState, x: torch.Tensor,
                 backend: Optional[str] = None
                 ) -> Tuple[MonoStreamState, torch.Tensor]:

@@ -231,6 +231,7 @@ class Convolver:
         """Fresh sample-granular state for :meth:`process_any`."""
         return mono.init_stream_state(self.scheme, self._prepared(dtype), self._batch, dtype)
 
+    @span("entry.Convolver.process_any")
     def process_any(self, state: mono.MonoStreamState, ins: torch.Tensor,
                     backend: Optional[str] = None
                     ) -> Tuple[mono.MonoStreamState, torch.Tensor]:
@@ -302,6 +303,12 @@ def _broadcast(ir: mono.MonoIR, ins: torch.Tensor) -> torch.Tensor:
     return ins[None].expand((ir.head_taps.shape[0],) + tuple(ins.shape))
 
 
+@span("engine.matrix.reduce")
+def _reduce(y: torch.Tensor) -> torch.Tensor:
+    """The N2M matrix's (M, N, L) outputs summed over the input axis."""
+    return y.sum(dim=-2)
+
+
 def process(ir: mono.MonoIR, state, ins: torch.Tensor, parallel: bool,
             backend: Optional[str] = None):
     """Streaming multichannel step. N2M: ir leading dims (M, N), ins (N, L)
@@ -309,8 +316,9 @@ def process(ir: mono.MonoIR, state, ins: torch.Tensor, parallel: bool,
     accumulate loop). Parallel: ir leading dim (C,), ins (C, L) -> (C, L)."""
     if parallel:
         return mono.process(ir, state, ins, backend=backend)
-    new_state, y = mono.process(ir, state, _broadcast(ir, ins), backend=backend)
-    return new_state, y.sum(dim=-2)
+    with span("engine.matrix.process"):
+        new_state, y = mono.process(ir, state, _broadcast(ir, ins), backend=backend)
+        return new_state, _reduce(y)
 
 
 def process_any(ir: mono.MonoIR, state: mono.MonoStreamState, ins: torch.Tensor,
@@ -320,8 +328,9 @@ def process_any(ir: mono.MonoIR, state: mono.MonoStreamState, ins: torch.Tensor,
     :func:`process`."""
     if parallel:
         return mono.process_any(ir, state, ins, backend=backend)
-    new_state, y = mono.process_any(ir, state, _broadcast(ir, ins), backend=backend)
-    return new_state, y.sum(dim=-2)
+    with span("engine.matrix.process"):
+        new_state, y = mono.process_any(ir, state, _broadcast(ir, ins), backend=backend)
+        return new_state, _reduce(y)
 
 
 def process_offline(ir: mono.MonoIR, ins: torch.Tensor, parallel: bool,
@@ -329,4 +338,5 @@ def process_offline(ir: mono.MonoIR, ins: torch.Tensor, parallel: bool,
     """Whole-signal multichannel convolution, routed as :func:`process`."""
     if parallel:
         return mono.process_offline(ir, ins, backend=backend)
-    return mono.process_offline(ir, _broadcast(ir, ins), backend=backend).sum(dim=-2)
+    with span("engine.matrix.process"):
+        return _reduce(mono.process_offline(ir, _broadcast(ir, ins), backend=backend))

@@ -232,6 +232,7 @@ class PartitionedConvolve:
     # -- sample-granular path ------------------------------------------------
 
     @staticmethod
+    @span("engine.partitioned.emit")
     def _emit(spectra: Split, ring: Split, pos: int,
               backend: Optional[str] = None) -> torch.Tensor:
         """Output store for the hop period starting now: the MAC across
@@ -273,6 +274,7 @@ class PartitionedConvolve:
         return Split(new_re, new_im)
 
     @staticmethod
+    @span("engine.partitioned.fire")
     def _fire(spectra: Split, ring: Split, pos: int, frame: torch.Tensor,
               backend: Optional[str] = None) -> Tuple[Split, int, torch.Tensor]:
         """Hop-boundary work (reference PartitionedConvolve.cpp:352-377): the
@@ -332,6 +334,7 @@ class PartitionedConvolve:
                                 pos=state.pos)
 
     @staticmethod
+    @span("engine.partitioned.step_any")
     def step_any(spectra: Split, state: StreamState, x: torch.Tensor,
                  backend: Optional[str] = None) -> Tuple[StreamState, torch.Tensor]:
         """Process a block of ANY length, the reference's main loop semantics

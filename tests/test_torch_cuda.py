@@ -699,6 +699,49 @@ def test_slice_wrappers_refuse_on_cuda(cuda, call, match):
         call(cuda)
 
 
+@pytest.mark.parametrize("path", ["process", "process_any", "process_offline"])
+def test_convolver_n2m_matrix_on_cuda(cuda, path):
+    """The N-in / M-out route at 5 x 5 with 90 000-tap IRs on the Zero
+    preset (10 partitions of the 16384 section): ``process`` on
+    ``init_state`` runs the collapsed engine over the 25 pairs (K1 -> K7 ->
+    K4, a launch each a block, every pair's frames counted in ``.points``),
+    ``process_any`` the sample-granular path, ``process_offline`` the lazy
+    tail; each matches the CPU path."""
+    from hisstools_library_tpu_torch.models.multichannel import Convolver
+    rng = np.random.default_rng(0x27)
+    ins = outs = 5
+    taps, block = 90000, 16384
+    bank = (rng.standard_normal((outs, ins, taps)) / np.sqrt(taps)).astype(np.float32)
+    xs = [rng.standard_normal((ins, block)).astype(np.float32) for _ in range(3)]
+    res = []
+    for dev in (cuda, CPU):
+        conv = Convolver(ins, outs, latency=mono.LatencyMode.Zero, max_length=taps, device=dev)
+        conv.set_all(bank)
+        conv.prepare()
+        if path == "process_offline":
+            res.append(conv.process_offline(torch.from_numpy(np.concatenate(xs, -1)).to(dev))
+                       .cpu().numpy())
+            continue
+        st = conv.init_state() if path == "process" else conv.init_stream_state()
+        step = conv.process if path == "process" else conv.process_any
+        counted = (hopper_fft.rfft_packed, hopper_kernels.lag_mac_ring,
+                   hopper_fft.rifft_packed_tail)
+        before = [(fn.launches, fn.points if hasattr(fn, "points") else 0) for fn in counted]
+        ys = []
+        for x in xs:
+            st, y = step(st, torch.from_numpy(x).to(dev))
+            ys.append(y.cpu().numpy())
+        if dev == cuda and path == "process":
+            grew = [(fn.launches - b[0], (fn.points if hasattr(fn, "points") else 0) - b[1])
+                    for fn, b in zip(counted, before)]
+            pairs = outs * ins
+            assert grew == [(6, 3 * pairs * (2 * 16384 + 3 * 4096)), (3, 0),
+                            (3, 3 * pairs * 2 * 16384)], grew
+        res.append(np.concatenate(ys, axis=-1))
+    assert res[0].shape == (outs, 3 * block)
+    assert snr_db(res[1], res[0]) >= SNR_CHAIN_DB
+
+
 def test_process_any_on_cuda(cuda):
     """The Zero preset's sample-granular path on the card: 48 callbacks of
     256 samples fire every section (K9 at N = 256, 1024; K1 -> MAC -> K6 at

@@ -1,6 +1,7 @@
 """The port's spans (``utils/profiling.span``) on the CPU: at tiny sizes, each
-benchmarked entry under ``torch.profiler`` opens its ``hst::`` spans with the
-layer prefixes and nesting of PERF.md §3, every operator of a call lies
+benchmarked entry (the Convolver's N-in / M-out routing and its
+sample-granular ``process_any`` among them) under ``torch.profiler`` opens
+its ``hst::`` spans with the layer prefixes and nesting of PERF.md §3, every operator of a call lies
 inside the call's entry span, and with no profiler recording no span calls
 ``record_function``. The flag the spans test (``torch.autograd.profiler.
 _is_profiler_enabled``) is private to torch: a test pins it."""
@@ -81,6 +82,46 @@ def _correlate_kernels():
     return lambda: sp.correlate(x, ir, sp.EdgeMode.Wrap, backend="pallas")
 
 
+def _n2m_convolver(seed, taps=TAPS, outs=2):
+    rng = np.random.default_rng(seed)
+    conv = Convolver(CHANNELS, outs, latency=LatencyMode.Zero, max_length=taps, device="cpu")
+    conv.set_all(rng.standard_normal((outs, CHANNELS, taps)) / np.sqrt(taps))
+    conv.prepare(dtype=torch.float32)
+    return conv
+
+
+def _n2m_process():
+    conv = _n2m_convolver(11)
+    state = conv.init_state(torch.float32)
+    blocks = [_signal(12 + k, 8192) for k in range(2)]
+    state, _ = conv.process(state, blocks[0])
+    return lambda: conv.process(state, blocks[1])[1]
+
+
+def _n2m_process_any():
+    conv = _n2m_convolver(14)
+    state, _ = conv.process_any(conv.init_stream_state(torch.float32), _signal(15, 300))
+    x = _signal(16, 700)
+    return lambda: conv.process_any(state, x)[1]
+
+
+def _n2m_process_offline():
+    conv = _n2m_convolver(17, taps=20000)
+    x = _signal(18, 30000)
+    conv.process_offline(x)  # attaches the lazy offline tail
+    return lambda: conv.process_offline(x)
+
+
+def _process_any(backend=None):
+    # a callback that fires the 256, 1024 and 4096 sections after one that
+    # left each of them between hop boundaries
+    conv = _convolver(19, taps=20000)
+    state, _ = conv.process_any(conv.init_stream_state(torch.float32), _signal(20, 300),
+                                backend=backend)
+    x = _signal(21, 2100)
+    return lambda: conv.process_any(state, x, backend=backend)[1]
+
+
 # each entry's call, the spans it opens on the CPU, and for some of them the
 # span that holds them
 CASES = {
@@ -134,6 +175,37 @@ CASES = {
         "engine.deconvolve.divide": "entry.pipeline.ir_deconvolve",
         "kernel.K16.bin_deconvolve": "engine.deconvolve.divide",
         "fft.rifft": "entry.pipeline.ir_deconvolve"}),
+    "process_any": (_process_any, {
+        "entry.Convolver.process_any": None,
+        "engine.mono.process_any": "entry.Convolver.process_any",
+        "engine.partitioned.step_any": "engine.mono.process_any",
+        "engine.partitioned.fire": "engine.partitioned.step_any",
+        "engine.partitioned.emit": "engine.partitioned.fire"}),
+    "process_any_kernels": (lambda: _process_any("pallas"), {
+        "entry.Convolver.process_any": None,
+        "engine.mono.process_any": "entry.Convolver.process_any",
+        "engine.partitioned.step_any": "engine.mono.process_any",
+        "engine.partitioned.fire": "engine.partitioned.step_any",
+        "kernel.K9.hop_fire": "engine.partitioned.fire",
+        "engine.partitioned.emit": "engine.partitioned.fire"}),
+    "n2m_process": (_n2m_process, {
+        "entry.Convolver.process": None,
+        "engine.matrix.process": "entry.Convolver.process",
+        "engine.mono.process": "engine.matrix.process",
+        "engine.mono.collapsed": "engine.mono.process",
+        "engine.matrix.reduce": "engine.matrix.process"}),
+    "n2m_process_any": (_n2m_process_any, {
+        "entry.Convolver.process_any": None,
+        "engine.matrix.process": "entry.Convolver.process_any",
+        "engine.mono.process_any": "engine.matrix.process",
+        "engine.partitioned.step_any": "engine.mono.process_any",
+        "engine.partitioned.fire": "engine.partitioned.step_any",
+        "engine.matrix.reduce": "engine.matrix.process"}),
+    "n2m_process_offline": (_n2m_process_offline, {
+        "entry.Convolver.process_offline": None,
+        "engine.matrix.process": "entry.Convolver.process_offline",
+        "engine.mono.process_offline": "engine.matrix.process",
+        "engine.matrix.reduce": "engine.matrix.process"}),
 }
 
 
