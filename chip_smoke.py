@@ -32,13 +32,15 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
 6. compares each kernel of the hop-aligned streaming path (K7 lag_mac_ring,
    also at K = 64 and 16 bins, the ring MAC's narrow tiles; K8
    fastfir_chain_stream, K10 rfft_small) with its plain version; K8 also at
-   (128, T 2, P 8, 2^17), (128, T 4, P 8, 2^16) and a small lag-0 case at
-   2^16; at each 128-channel K8 shape (the near tier with and without lag0)
+   (128, T 2, P 8, 2^17), (128, T 4, P 8, 2^16), the collapsed 16384
+   sections of the benchmark's render (128, T 8, P 58, 2^14) and matrix
+   (625, T 8, P 17, 2^14) cells with lag0, and a small lag-0 case at 2^16;
+   at each of those path shapes (and the near tier with and without lag0)
    K8's three launches (forward, state kernel, inverse) by
-   ``torch.profiler`` beside its design bytes and its bound, and
-   ``process_block``'s staged path (frames, K1 -> K7 (+ the lag-0 product)
-   -> K4) on the same inputs; K8's state kernel alone against its plain
-   version at (128, T 2, P 8, 2^17);
+   ``torch.profiler`` beside its design bytes and its bound, and the staged
+   path ``process_block`` keeps where K8 does not serve (frames, K1 -> K7
+   (+ the lag-0 product) -> K4) on the same inputs; K8's state kernel alone
+   against its plain version at (128, T 2, P 8, 2^17);
 7. drives ``mono.process`` as ``bench.py``'s ``stream`` mode configures it
    (Zero preset, ``prepare_ir(offline_tail=False)`` of the same IRs, calls of
    131 072 samples) through the two-tier, collapsed and matched paths;
@@ -319,10 +321,9 @@ KERNELS = {
     "bin_floor": ("hopper_kernels", "bin_product.cu", "models/pipeline.py:53-54 (jnp)"),
 }
 STAGED = ("rfft_packed_stream", "lag_mac_causal", "rifft_packed_tail")
-# (T, K) of K4's launches on the paths at 128 channels: the two-tier far
-# tier (N = 2^16), the collapsed and matched final sections (2^14), the
-# offline 4096 section without the tail (tools/chip_phases.py --k4 records
-# them).
+# (T, K) at which K4's kernel runs at 128 channels: as K8's inverse at the
+# two-tier far tier (N = 2^16) and the collapsed and matched final sections
+# (2^14), and as K4 at the offline 4096 section without the tail.
 K4_PATH_SHAPES = ((4, 1 << 15), (16, 1 << 13), (236, 1 << 11))
 K2_PATH_SHAPE = (236, 1 << 11)  # (T, hop): process_offline's 4096 section, no tail
 
@@ -812,18 +813,21 @@ def k8_launches(fn, smi: str, label: str, runs: int = 5) -> dict:
 
 
 def stream_kernels(randn, mods, smi) -> dict:
-    """Phase 6: K7, K8 and K10 at the hop-aligned paths' shapes: the two-tier
-    far tier (T = 4, P = 14, K = 32768) and the collapsed final section
-    (T = 16, P = 58, K = 8192) for K7, and K7 on the ring MAC's narrow tiles
-    (K = 64 and K = 16: a block of one warp a channel); for K8 the near tier (T = 16, H =
+    """Phase 6: K7, K8 and K10 at the hop-aligned paths' shapes. K7 at two
+    wide shapes, (128, T 4, P 14, K 32768) and (128, T 16, P 58, K 8192),
+    which every path now sends to K8 and which stand for the staged route's
+    state step at many lags, and on the ring MAC's narrow tiles (K = 64 and
+    K = 16: a block of one warp a channel). K8 at the near tier (T = 16, H =
     8192, P = 3) with and without lag0, a small 2^15 case, a single 2^17
     section over a 10 s IR (T = 2, P = 8), the far tier of a 290 000-tap IR
-    (2^16, T = 4, P = 8) and a small lag-0 case at 2^16, with K8's three
-    launches, its design bytes, its bound and process_block's staged path
-    (frames, K1 -> K7 (+ the lag-0 product) -> K4) timed at each 128-channel
-    shape, and K8's state kernel against its plain version at the 2^17
-    section's shape; the IR preparation and refresh sizes (384 rows) for
-    K10."""
+    (2^16, T = 4, P = 8), the collapsed 16384 sections of the benchmark's
+    render (128 channels, T = 8, P = 58) and matrix (625 pairs, T = 8,
+    P = 17) cells with lag0, and a small lag-0 case at 2^16; at each path
+    shape K8 is compared with its plain version and timed beside its bound,
+    with its three launches, its design bytes and the staged path (frames,
+    K1 -> K7 (+ the lag-0 product) -> K4) on the same inputs; and K8's state
+    kernel against its plain version at the 2^17 section's shape. K10 at the
+    IR preparation and refresh sizes (384 rows)."""
     def ring(c, t, p, k):
         return lambda: (tuple(randn(c, r, k) for r in (p, p, t, t, p, p)), {})
 
@@ -838,15 +842,18 @@ def stream_kernels(randn, mods, smi) -> dict:
     def small(b, n):
         return lambda: ((randn(b, n),), {})
 
-    wide = ((16, 3, 1 << 14, True), (16, 3, 1 << 14, False), (2, 8, 1 << 17, False),
-            (4, 8, 1 << 16, False))
+    # (C, T, P, N, lag0) of K8's path shapes; the last two are the
+    # collapsed 16384 sections of the render and matrix cells.
+    wide = ((CHANNELS, 16, 3, 1 << 14, True), (CHANNELS, 16, 3, 1 << 14, False),
+            (CHANNELS, 2, 8, 1 << 17, False), (CHANNELS, 4, 8, 1 << 16, False),
+            (CHANNELS, 8, 58, 1 << 14, True), (625, 8, 17, 1 << 14, True))
     results = check_kernels([
         ("lag_mac_ring", [(ring(2, 3, 5, 1024), False), (ring(CHANNELS, 4, 14, 32768), True),
                           (ring(CHANNELS, 16, 58, 8192), True), (ring(CHANNELS, 4, 14, 64), False),
                           (ring(19, 3, 5, 16), False)]),
         ("fastfir_chain_stream", [(chain(2, 3, 2, 1 << 14, True), False),
                                   (chain(2, 11, 8, 1 << 15, True), False)]
-         + [(chain(CHANNELS, *w), True) for w in wide]
+         + [(chain(*w), True) for w in wide]
          + [(chain(2, 3, 4, 1 << 16, True), False)]),
         ("rfft_small", [(small(7, 32), False), (small(384, 256), True), (small(384, 128), True),
                         (small(384, 1024), True), (small(384, 2048), True)]),
@@ -866,12 +873,12 @@ def stream_kernels(randn, mods, smi) -> dict:
         return hf.rifft_packed_tail(yre, yim, scale)
 
     per_shape = {}
-    for t, p, n, lag0 in wide:
-        label = f"({CHANNELS}, T {t}, P {p}, {n}{', lag0' if lag0 else ''})"
-        args, kw = chain(CHANNELS, t, p, n, lag0)()
+    for c, t, p, n, lag0 in wide:
+        label = f"({c}, T {t}, P {p}, {n}{', lag0' if lag0 else ''})"
+        args, kw = chain(c, t, p, n, lag0)()
         got = hf.fastfir_chain_stream(*args, **kw)
         b_ms, b_by = bound("fastfir_chain_stream", args, kw, got)
-        design = hf._stream_design_bytes(CHANNELS, t, p, n, lag0)
+        design = hf._stream_design_bytes(c, t, p, n, lag0)
         split = k8_launches(lambda: hf.fastfir_chain_stream(*args, **kw), smi,
                             f"fastfir_chain_stream {label}")
         entry = dict(launches_ms=split, device_ms=sum(split.values()),
@@ -1075,9 +1082,11 @@ def peak_pass(eng, xd, smi) -> None:
 
 def stream_paths(dev, irs, x, launches, smi, profile) -> None:
     """Phase 7: mono.process through the two-tier, collapsed and matched
-    paths (two-tier: IR prep + 3 calls; K1, K4, K7, K8, K10 must launch;
-    collapsed: 2 calls; K1, K4, K7, K10; matched: IR prep + 2 calls; K1, K4,
-    K7), each >= 99 dB on channel 0's whole output, then timed over ten calls."""
+    paths (two-tier: IR prep + 3 calls; K1, K8, K10 must launch; collapsed:
+    2 calls; K1 (the 4096 section's refresh), K8, K10; matched: IR prep + 2
+    calls; K1, K8; K8 serves every section of N = 2^14..2^17 at any P, so
+    none launches K7 or K4), each >= 99 dB on channel 0's whole output, then
+    timed over ten calls."""
     from hisstools_library_tpu_torch.models import mono
 
     blk = STREAM_BLOCK
@@ -1087,7 +1096,7 @@ def stream_paths(dev, irs, x, launches, smi, profile) -> None:
     zero = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
     matched = mono.PartitionScheme.for_latency_budget(8192)
 
-    def run(label, scheme, ir, init, calls, need):
+    def run(label, scheme, ir, init, calls, need, forbid=("lag_mac_ring", "rifft_packed_tail")):
         launches.reset()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1110,7 +1119,7 @@ def stream_paths(dev, irs, x, launches, smi, profile) -> None:
         print(f"{label}: sections {[tuple(s.shape) for s in ir.spectra]}, far "
               f"{None if ir.far is None else tuple(ir.far.shape)}, IR prep {prep_s:.3f} s, "
               f"calls {[round(v, 3) for v in host_ms]} ms (host clock) [{smi}]", flush=True)
-        launches.read(label, need, smi)
+        launches.read(label, need, smi, forbid)
         n = calls * blk
         lat = scheme.latency
         ref = convolve_f64(x[0, :n], irs[0], n - lat)
@@ -1133,9 +1142,8 @@ def stream_paths(dev, irs, x, launches, smi, profile) -> None:
         del carry, state
         return ir
 
-    k_all = ("rfft_packed", "rifft_packed_tail", "lag_mac_ring")
-    ir = run("two-tier", zero, None, mono.init_block_state, 3,
-             k_all + ("fastfir_chain_stream", "rfft_small"))
+    k_all = ("rfft_packed", "fastfir_chain_stream")
+    ir = run("two-tier", zero, None, mono.init_block_state, 3, k_all + ("rfft_small",))
     run("collapsed", zero, ir, mono.init_state, 2, k_all + ("rfft_small",))
     del ir
     torch.cuda.empty_cache()
@@ -2642,8 +2650,8 @@ def parallel_paths(dev, irs, x, launches, smi, results) -> None:
         st, yb = parallel.scheme_stream_sharded(mesh, ir, st, blk)
         got.append(yb.full_tensor())
     torch.cuda.synchronize()
-    launches.read("parallel-stream", ("fastfir_chain_stream", "rfft_packed", "lag_mac_ring",
-                                      "rifft_packed_tail"), smi)
+    launches.read("parallel-stream", ("fastfir_chain_stream",), smi,
+                  ("lag_mac_ring", "rifft_packed_tail"))
     ref = mono.init_block_state(zero, ir, batch_shape=(CHANNELS,))
     for i, blk in enumerate(blocks):
         ref, yr = mono.process(ir, ref, blk)
@@ -2786,8 +2794,9 @@ def cli_paths(dev, irs, x, launches, smi) -> None:
         for label, flags, need, forbid in (
                 ("cli-fast", ["--engine", "fast"], ("rfft_packed", "fastfir_chain"), STAGED),
                 ("cli-scheme", ["--engine", "scheme"], ("rfft_packed", "fastfir_chain"), ()),
-                ("cli-stream", ["--stream"], ("rfft_packed", "rifft_packed_tail",
-                                              "lag_mac_ring", "rfft_small"), ())):
+                ("cli-stream", ["--stream"], ("rfft_packed", "fastfir_chain_stream",
+                                              "rfft_small"),
+                 ("lag_mac_ring", "rifft_packed_tail"))):
             out = os.path.join(tmp, label + ".wav")
             launches.reset()
             t0 = time.perf_counter()
@@ -2974,8 +2983,7 @@ def determinism_paths(dev, irs, x, launches, smi) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches.read("determinism", ("fastfir_chain", "hop_fire", "rifft_packed",
-                                  "fastfir_chain_stream", "lag_mac_ring",
-                                  "rifft_packed_tail"), smi)
+                                  "fastfir_chain_stream"), smi)
     n = calls * STREAM_BLOCK
     ref = convolve_f64(np.concatenate(x0), irs[0], n)
     snrs = {j: snr_db(torch.from_numpy(ref[j * STREAM_BLOCK:(j + 1) * STREAM_BLOCK]), y)

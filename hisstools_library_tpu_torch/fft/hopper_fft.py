@@ -29,7 +29,8 @@ the kernels do not take (float64; sizes above 2^28, the largest FFT size of
 the reference and of :mod:`.api`), and no path falls back to ``torch.fft``.
 Each wrapper counts its
 launches in ``<wrapper>.launches`` and the points they transform (frames x
-N) in ``<wrapper>.points``. :func:`rfft_packed` sends N = 32..2048 to
+N) in ``<wrapper>.points``, K8 its forward's and its inverse's.
+:func:`rfft_packed` sends N = 32..2048 to
 K10, N = 4096..2^17 to K1 and N = 2^18..2^28 to K13, and :func:`rifft_packed`
 sends N = 32..2048 to K11, N = 4096..2^17 to K6 and N = 2^18..2^28 to K14, as
 the TPU package's ``rfft_packed`` / ``rifft_packed`` send their small sizes to
@@ -1295,7 +1296,9 @@ def fastfir_chain_stream(x2d: torch.Tensor, prev: torch.Tensor,
         float(scale), _build.stream(x2d.device))
     _build.check(rc, kernel)
     fastfir_chain_stream.launches += 1
+    fastfir_chain_stream.points += 2 * c * t * n  # the frames' forward and inverse
     return y, n_re, n_im
 
 
 fastfir_chain_stream.launches = 0
+fastfir_chain_stream.points = 0

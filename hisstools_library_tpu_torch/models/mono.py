@@ -11,9 +11,10 @@ blocks that are whole multiples of the largest hop (:func:`process`).
 - a :class:`MonoBlockState` (:func:`init_block_state`): the TWO-TIER path. A
   near ring (the final section's first G-1 partitions plus the zero-delay
   ``block0`` term) runs as one K8 call; the far ring (the IR past G hops,
-  re-partitioned at hop G*h) runs as K1 -> K7 -> K4.
+  re-partitioned at hop G*h) as another at N = 2^14..2^17, at any P.
 - a :class:`MonoState` and an IR with ``block0``: the COLLAPSED path. The final
-  section plus ``block0`` replace every section (K1 -> K7 -> lag-0 product ->
+  section plus ``block0`` replace every section (one K8 call, ``block0`` as
+  its lag-0 operand; where K8 does not serve, K1 -> K7 -> lag-0 product ->
   K4); the smaller sections' states are refreshed from the block's tail (K10
   at N = 256, 1024 and K1 at 4096).
 - otherwise the per-section path: the head (``time_domain``) and each section

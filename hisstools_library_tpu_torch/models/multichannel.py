@@ -20,10 +20,10 @@ version).
 
 On the card, the paths launch what ``mono`` launches for them:
 ``process_offline`` the prepared offline tail's chain, K5 ``fastfir_chain``
-(one call over all M x N pairs; a 10 s IR is N = 2^16); ``process`` with a
-single-section scheme of N = 2^16..2^17 or a two-tier state whose far tier is
-2^16..2^17 at P <= 8, K8 ``fastfir_chain_stream`` (its forward, state kernel
-and inverse; the near tier's 2^14 runs it too); ``process_any`` K9
+(one call over all M x N pairs; a 10 s IR is N = 2^16); ``process`` K8
+``fastfir_chain_stream`` (its forward, state kernel and inverse) for every
+section of N = 2^14..2^17 it runs at any P: the collapsed engine's final
+section, a single section, both tiers of a two-tier state; ``process_any`` K9
 ``hop_fire`` for the sections at N <= 1024 and K1 -> MAC -> K6 above.
 
 The N2M broadcast is ``expand`` (a stride-0 view over M). What copies it out

@@ -35,10 +35,6 @@ from ..utils.profiling import span
 
 MIN_FFT_SIZE_LOG2 = 5
 MAX_FFT_SIZE_LOG2 = 20
-# process_block takes the whole-block stream chain (K8) only at P <= 8: the
-# TPU package's default policy (partitioned.py:494-496), kept so both packages
-# route a given shape alike.
-STREAM_CHAIN_MAX_P = 8
 
 
 def validate_fft_size(fft_size: int) -> int:
@@ -412,13 +408,16 @@ class PartitionedConvolve:
         promise that ``state.pos == 0`` (states from init or a previous
         process_block).
 
-        Routing, as the TPU package routes it (``backend=None`` resolves by
-        the device: the kernels on CUDA, ``torch.fft`` on the CPU):
+        Routing, by N, P, T and dtype alone (``backend=None`` resolves by the
+        device: the kernels on CUDA, ``torch.fft`` on the CPU):
 
-        - ``"pallas"``, float32, P <= 8, N = 2^14..2^17: the whole block as one
-          call of K8 :func:`hopper_fft.fastfir_chain_stream` (three launches:
-          the frames' forward in one HBM pass, the state kernel, the inverse
-          in one pass);
+        - ``"pallas"``, float32, N = 2^14..2^17, any P and T: the whole block
+          as one call of K8 :func:`hopper_fft.fastfir_chain_stream` (three
+          launches: the frames' forward in one HBM pass reading [prev | cur]
+          in place, the ring MAC with lag0 as its L0 operand, the inverse in
+          one pass). The TPU package stops at P <= 8, its VMEM policy; on the
+          card K8 is the staged route's kernels less its glue and measured
+          faster at every P up to 58 (PERF.md §6);
         - otherwise the frames [prev | cur] are materialised and transformed
           (``fft_api.rfft``: K1, or K10 below 4096), the MAC runs as K7
           :func:`hopper_kernels.lag_mac_ring` when T <= P (any P: the TPU
@@ -450,8 +449,7 @@ class PartitionedConvolve:
             return plane.expand(lead + (rows, h)).reshape(c, rows, h)
 
         if (resolved == "pallas" and mac_backend in ("auto", "pallas")
-                and x.dtype == torch.float32 and p <= STREAM_CHAIN_MAX_P
-                and hopper_fft.chain_eligible(n)):
+                and x.dtype == torch.float32 and hopper_fft.chain_eligible(n)):
             l0r = l0i = None
             if lag0 is not None:
                 l0r = per_channel(lag0.re, 1)[:, 0, :]

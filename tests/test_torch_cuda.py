@@ -451,6 +451,47 @@ def test_convolver_stream_paths_launch_k8_on_cuda(cuda, path):
     assert snr_db(outs[1], outs[0]) >= SNR_CHAIN_DB
 
 
+@pytest.mark.parametrize("path", ["parallel-p58", "n2m-5x5"])
+def test_collapsed_engine_takes_k8_at_any_p_on_cuda(cuda, path):
+    """The collapsed engine's 16384 section on K8 above P = 8: parallel 2
+    channels with 10 s IRs (P = 58) and N2M 5 x 5 with 3 s IRs (P = 17, 25
+    pairs), blocks of 8 hops on ``init_state``. Each call launches K8 once
+    (the lag-0 partition as its L0 operand) and no K7, K8's points grow by
+    its forward's and its inverse's frames x N (2 C T N), and two calls
+    match the CPU path."""
+    from hisstools_library_tpu_torch.models.multichannel import Convolver
+    rng = np.random.default_rng(0xC8)
+    scheme = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
+    if path == "parallel-p58":
+        args, taps, ins = (2,), 480000, 2
+        bank = rng.standard_normal((2, taps)) * np.exp(-np.arange(taps) / 96000)
+    else:
+        args, taps, ins = (5, 5), 144000, 5
+        bank = rng.standard_normal((5, 5, taps)) * np.exp(-np.arange(taps) / 28800)
+    bank = (bank / np.sqrt(taps)).astype(np.float32)
+    pairs, block, n = int(np.prod(bank.shape[:-1])), 65536, 16384
+    xs = [rng.standard_normal((ins, block)).astype(np.float32) for _ in range(2)]
+    outs = []
+    for dev in (cuda, CPU):
+        conv = Convolver(*args, scheme=scheme, max_length=taps, device=dev)
+        conv.set_all(bank)
+        conv.prepare(offline_tail=False)
+        st = conv.init_state()
+        assert st.sections[-1].ring.re.shape[-2] == (58 if path == "parallel-p58" else 17)
+        k8 = hopper_fft.fastfir_chain_stream
+        before = (k8.launches, k8.points, hopper_kernels.lag_mac_ring.launches)
+        ys = []
+        for x in xs:
+            st, y = conv.process(st, torch.from_numpy(x).to(dev))
+            ys.append(y.cpu().numpy())
+        if dev == cuda:
+            assert k8.launches - before[0] == len(xs)
+            assert k8.points - before[1] == len(xs) * 2 * pairs * (block // (n // 2)) * n
+            assert hopper_kernels.lag_mac_ring.launches == before[2]
+        outs.append(np.concatenate(ys, axis=-1))
+    assert snr_db(outs[1], outs[0]) >= SNR_CHAIN_DB
+
+
 @pytest.mark.parametrize("call,exc,match", [
     (lambda d: hopper_fft.rfft_packed(torch.zeros(2, 4096, dtype=torch.float64,
                                                   device=d)),
@@ -552,10 +593,11 @@ def test_stream_wrappers_refuse_on_cuda(cuda, call, match):
 
 
 def test_two_tier_stream_on_cuda(cuda):
-    """The Zero preset's two-tier path on the card (near tier K8, far tier
-    K1 -> K7 -> K4, IR preparation K10 and K1) matches the CPU path and a
-    float64 convolution over three carried blocks. 160 000 taps give a far
-    tier of G = 2 and P2 = 9 partitions, above K8's P <= 8."""
+    """The Zero preset's two-tier path on the card (near and far tier K8,
+    IR preparation K10 and K1) matches the CPU path and a float64
+    convolution over three carried blocks. 160 000 taps give a far tier of
+    G = 2 and P2 = 9 partitions, above the TPU package's P <= 8 for its K8:
+    K8 here too, with no K7 or K4 launch."""
     rng = np.random.default_rng(0x57E4)
     ir = (rng.standard_normal((2, 160000)) * np.exp(-np.arange(160000) / 24000)
           ).astype(np.float32)
@@ -577,8 +619,8 @@ def test_two_tier_stream_on_cuda(cuda):
         ys.append(y.cpu().numpy())
         ys_cpu.append(y_cpu.numpy())
     grew = [fn.launches - b for fn, b in zip(counted, before)]
-    assert all(n >= 1 for n in grew), grew
-    assert grew[3] == 3  # one K8 launch per near-tier call
+    assert grew[0] >= 1 and grew[1] >= 1, grew  # the IR's preparation
+    assert grew[2:] == [0, 6, 0], grew  # one K8 launch per tier a call
     y, y_cpu, x = (np.concatenate(a, axis=-1) for a in (ys, ys_cpu, xs))
     assert snr_db(y_cpu, y) >= SNR_CHAIN_DB
     for c in range(2):
@@ -703,10 +745,10 @@ def test_slice_wrappers_refuse_on_cuda(cuda, call, match):
 def test_convolver_n2m_matrix_on_cuda(cuda, path):
     """The N-in / M-out route at 5 x 5 with 90 000-tap IRs on the Zero
     preset (10 partitions of the 16384 section): ``process`` on
-    ``init_state`` runs the collapsed engine over the 25 pairs (K1 -> K7 ->
-    K4, a launch each a block, every pair's frames counted in ``.points``),
-    ``process_any`` the sample-granular path, ``process_offline`` the lazy
-    tail; each matches the CPU path."""
+    ``init_state`` runs the collapsed engine over the 25 pairs (K8, a launch
+    a block, every pair's frames counted in its ``.points``; K1 for the 4096
+    section's refresh), ``process_any`` the sample-granular path,
+    ``process_offline`` the lazy tail; each matches the CPU path."""
     from hisstools_library_tpu_torch.models.multichannel import Convolver
     rng = np.random.default_rng(0x27)
     ins = outs = 5
@@ -725,7 +767,7 @@ def test_convolver_n2m_matrix_on_cuda(cuda, path):
         st = conv.init_state() if path == "process" else conv.init_stream_state()
         step = conv.process if path == "process" else conv.process_any
         counted = (hopper_fft.rfft_packed, hopper_kernels.lag_mac_ring,
-                   hopper_fft.rifft_packed_tail)
+                   hopper_fft.rifft_packed_tail, hopper_fft.fastfir_chain_stream)
         before = [(fn.launches, fn.points if hasattr(fn, "points") else 0) for fn in counted]
         ys = []
         for x in xs:
@@ -735,8 +777,8 @@ def test_convolver_n2m_matrix_on_cuda(cuda, path):
             grew = [(fn.launches - b[0], (fn.points if hasattr(fn, "points") else 0) - b[1])
                     for fn, b in zip(counted, before)]
             pairs = outs * ins
-            assert grew == [(6, 3 * pairs * (2 * 16384 + 3 * 4096)), (3, 0),
-                            (3, 3 * pairs * 2 * 16384)], grew
+            assert grew == [(3, 3 * pairs * 3 * 4096), (0, 0), (0, 0),
+                            (3, 3 * pairs * 2 * 2 * 16384)], grew
         res.append(np.concatenate(ys, axis=-1))
     assert res[0].shape == (outs, 3 * block)
     assert snr_db(res[1], res[0]) >= SNR_CHAIN_DB

@@ -3,9 +3,10 @@ process_block, models/mono.py block paths, state converters).
 
 The same numpy inputs go through the JAX package and the port. Routes:
 
-- ``process_block`` with ``backend="pallas"`` at N = 2^14, P <= 8: the whole
-  block as one chain kernel (JAX K8 in interpret mode, the port's K8 plain
-  version);
+- ``process_block`` with ``backend="pallas"`` at N = 2^14: the whole block as
+  one chain kernel (JAX K8 in interpret mode, the port's K8 plain version;
+  the port takes K8 at every P, the JAX package at P <= 8, and at P = 17 the
+  port's K8 is held to its own staged route);
 - ``process_block`` with no backend at N = 4096, T <= P: materialised frames,
   the ring MAC (JAX K7 in interpret mode, the port's K7 plain version) and
   the inverse, with the lag-0 term; and with T > P the lag loop;
@@ -350,18 +351,47 @@ def test_process_block_ring_mac_routing_off_cpu(p):
             spectra, state, torch.empty(2, t * h, device="meta"), backend="xla")
 
 
-@pytest.mark.parametrize("n,p", [(1 << 16, 8), (1 << 17, 8), (1 << 17, 1)])
-def test_process_block_reaches_k8_at_wide_sizes_off_cpu(n, p):
-    """At N = 2^16..2^17 and P <= 8 (a single 2^17 section over a 10 s IR,
-    the two-tier far tier of a 5.5-6.1 s IR) process_block reaches K8's
-    wrapper, which refuses only the meta device, by name."""
-    h, t = n // 2, 2
+@pytest.mark.parametrize("n,p,t", [
+    (1 << 16, 8, 2), (1 << 17, 8, 2), (1 << 17, 1, 2),
+    (1 << 14, 17, 8), (1 << 14, 58, 8),   # the 16384 section's P of a 3 s / 10 s IR
+    (1 << 16, 64, 2), (1 << 14, 4, 8),    # P above 40; T > P
+])
+def test_process_block_reaches_k8_at_wide_sizes_off_cpu(n, p, t):
+    """At N = 2^14..2^17 in float32, with no lag0 (the two-tier far tier's
+    call, P2 > 8 included; a single 2^17 section over a 10 s IR), at any P
+    and T, process_block reaches K8's wrapper, which refuses only the meta
+    device, by name. The calls with lag0 (the collapsed engine's 16384
+    section) are pinned by their launches in test_torch_transform_points."""
+    h = n // 2
     spectra = Split(*_meta_spectra(p, h))
     state = tpart.PartitionedState(torch.empty(2, h, device="meta"),
                                    Split(*_meta_spectra(p, h)), 0)
     with pytest.raises(ValueError, match="K8 fastfir_chain_stream: .*CUDA"):
         tpart.PartitionedConvolve.process_block(
             spectra, state, torch.empty(2, t * h, device="meta"), backend="pallas")
+
+
+def test_process_block_chain_matches_staged_route_on_cpu(rng):
+    """At the matrix cell's P = 17 (N = 2^14, 2 channels, 2 hops, lag0)
+    process_block with ``backend="pallas"`` (K8's plain version) agrees with
+    the torch route (the frames, K7's plain version, the lag-0 product,
+    ``torch.fft``) over three carried calls: outputs and the new ring."""
+    c, t, p, h = 2, 2, 17, 8192
+    _, spec = _spectra(rng, (c,), p, h)
+    _, l0 = _spectra(rng, (c,), 1, h)
+    st = {b: tpart.PartitionedState(torch.zeros(c, h), Split.zeros((c, p, h), device=CPU), 0)
+          for b in ("pallas", "xla")}
+    for _ in range(3):
+        x = torch.from_numpy(rng.standard_normal((c, t * h)).astype(np.float32))
+        ys = {}
+        for b in st:
+            st[b], ys[b] = tpart.PartitionedConvolve.process_block(spec, st[b], x, backend=b,
+                                                                   lag0=l0)
+        assert snr_db(ys["xla"], ys["pallas"]) >= SNR_JAX_DB
+    for plane in ("re", "im"):
+        assert snr_db(getattr(st["xla"].ring, plane), getattr(st["pallas"].ring, plane)) \
+            >= SNR_JAX_DB
+    assert torch.equal(st["xla"].prev, st["pallas"].prev) and st["pallas"].pos == 0
 
 
 @pytest.mark.parametrize("call,match", [

@@ -1,6 +1,6 @@
 """The transform wrappers' ``<wrapper>.points`` counters: each launch adds
-its frames x N (K9 adds its forward's and its inverse's, 2 x frames x N)
-beside ``<wrapper>.launches``, counted here by hand.
+its frames x N (K8 and K9 add their forward's and their inverse's, 2 x
+frames x N) beside ``<wrapper>.launches``, counted here by hand.
 
 No kernel runs on the CPU, so the wrappers take meta tensors (which take
 the card's branch) with the kernel library replaced by one whose every
@@ -81,6 +81,10 @@ CASES = {
            "rifft_packed_tail", 10 * 4096),
     "K9": (lambda: hk.hop_fire(_m(3, 256), _m(3, 2, 128), _m(3, 2, 128), _m(2, 128),
                                _m(2, 128)), "hop_fire", 2 * 3 * 256),
+    "K8": (lambda: hf.fastfir_chain_stream(_m(3, 4, 8192), _m(3, 8192),
+                                           *(_m(3, 17, 8192) for _ in range(4)), 0.5,
+                                           _m(3, 8192), _m(3, 8192)),
+           "fastfir_chain_stream", 2 * 3 * 4 * 16384),
 }
 
 
@@ -101,11 +105,12 @@ def test_the_cpu_counts_nothing(launches):
 
 def test_n2m_collapsed_call_counts_every_pair(launches):
     """``Convolver.process`` of 3 inputs into 4 outputs on the Zero preset,
-    IRs of 80 000 taps (9 partitions of the 16384 section, so the collapsed
-    engine runs K1 -> K7 -> K4), a block of two 8192-sample hops: each of
-    the 12 pairs transforms its 2 frames of 16384 forward (K1) and back (K4),
-    and the refreshed sections' 3 frames of 256 and 1024 (K10) and of 4096
-    (K1); the inputs are transformed once a pair, not once."""
+    IRs of 80 000 taps (9 partitions of the 16384 section, which the
+    collapsed engine runs on K8), a block of two 8192-sample hops: each of
+    the 12 pairs transforms its 2 frames of 16384 forward and back (K8's
+    points, as K1 and K4 counted them on the staged route), and the
+    refreshed sections' 3 frames of 256 and 1024 (K10) and of 4096 (K1);
+    the inputs are transformed once a pair, not once."""
     pairs = 12
     conv = Convolver(3, 4, latency=LatencyMode.Zero, max_length=80000, device=META)
     conv.set_all(np.zeros((4, 3, 80000)))
@@ -117,11 +122,46 @@ def test_n2m_collapsed_call_counts_every_pair(launches):
     _, y = conv.process(state, _m(3, 16384), backend="pallas")
     assert y.shape == (4, 16384)
     assert launches() == {
-        "rfft_packed": (2, pairs * (2 * 16384 + 3 * 4096)),
+        "fastfir_chain_stream": (1, pairs * 2 * 2 * 16384),
+        "rfft_packed": (1, pairs * 3 * 4096),
         "rfft_small": (2, pairs * 3 * (256 + 1024)),
-        "lag_mac_ring": (1, None),
-        "rifft_packed_tail": (1, pairs * 2 * 16384),
     }
+
+
+@pytest.mark.parametrize("n,p,t,dtype,want", [
+    # K8 at N = 2^14..2^17 in float32, at any P and T.
+    (1 << 14, 17, 8, torch.float32, {"fastfir_chain_stream": (1, 2 * 2 * 8 * 16384)}),
+    (1 << 14, 58, 8, torch.float32, {"fastfir_chain_stream": (1, 2 * 2 * 8 * 16384)}),
+    (1 << 17, 64, 2, torch.float32, {"fastfir_chain_stream": (1, 2 * 2 * 2 * (1 << 17))}),
+    (1 << 14, 4, 8, torch.float32, {"fastfir_chain_stream": (1, 2 * 2 * 8 * 16384)}),
+    # Below 2^14 the staged route: K1, K7 (K15 where T > P), K4.
+    (1 << 13, 17, 8, torch.float32, {"rfft_packed": (1, 2 * 8 * 8192), "lag_mac_ring": (1, None),
+                                     "rifft_packed_tail": (1, 2 * 8 * 8192)}),
+    (1 << 13, 4, 8, torch.float32, {"rfft_packed": (1, 2 * 8 * 8192), "lag_mac": (1, None),
+                                    "rifft_packed_tail": (1, 2 * 8 * 8192)}),
+    # float64: the staged route with the MAC dispatch and K6's full inverse.
+    (1 << 14, 17, 8, torch.float64, {"rfft_packed": (1, 2 * 8 * 16384), "lag_mac": (1, None),
+                                     "rifft_packed": (1, 2 * 8 * 16384)}),
+])
+def test_process_block_launches_by_shape(launches, n, p, t, dtype, want):
+    """``process_block``'s route, by N, P, T and dtype alone, read from the
+    wrappers that launched (2 channels, lag0 given, as the collapsed
+    engine's sections give it; test_torch_stream pins the route without
+    lag0)."""
+    from hisstools_library_tpu_torch.core.types import Split
+    from hisstools_library_tpu_torch.models import partitioned as part
+
+    h = n // 2
+
+    def m(*shape):
+        return torch.empty(*shape, dtype=dtype, device=META)
+
+    state = part.PartitionedState(m(2, h), Split(m(2, p, h), m(2, p, h)), 0)
+    _, y = part.PartitionedConvolve.process_block(
+        Split(m(2, p, h), m(2, p, h)), state, m(2, t * h), backend="pallas",
+        lag0=Split(m(2, 1, h), m(2, 1, h)))
+    assert y.shape == (2, t * h)
+    assert launches() == want
 
 
 def test_process_any_counts_each_firing(launches):

@@ -65,10 +65,13 @@ one CUDA card:
   shapes of ``CHAIN_CASES`` in this tool's own ``tests/test_torch_cuda.py``
   (read from the file, not imported); K8 fastfir_chain_stream
   at chip_smoke's four 128-channel shapes (the device ms of each launch and
-  their sum, event ms) with process_block's staged path (frames, K1 -> K7
-  (+ the lag-0 product) -> K4) on the same inputs, and both at the two-tier
-  far tier (128, T 4, P, 2^16) for P = 8, 14, 20, 28, 40 (where K8 and the
-  staged path cross); the FastFIR main path (ms/pass),
+  their sum, event ms) with the staged path (frames, K1 -> K7 (+ the lag-0
+  product) -> K4, which process_block keeps for the shapes K8 does not
+  serve) on the same inputs and the SNR between the two, both also at the
+  two-tier far tier (128, T 4, P, 2^16) for P = 8, 14, 20, 28, 40 and at
+  the benchmark's collapsed 16384 sections with lag0, render's (128, T 8,
+  P 58, 2^14) and the matrix's (625, T 8, P 17, 2^14) (where K8 and the
+  staged path would cross); the FastFIR main path (ms/pass),
   ``mono.process_offline`` with the offline tail, the ``Convolver``'s
   offline paths (parallel 128, N2M 8 x 8); K2, K4 and K6 (which share
   ``fft_common.cuh``);
@@ -843,19 +846,26 @@ def k5_phase(cs, hf, randn, dev, smi) -> None:
         got, want = hf.fastfir_chain(*a), hf.fastfir_chain_plain(*a)
         print(f"K5 ({cc}, {t}, P {p}, {n}): device {cs.device_ms(lambda: hf.fastfir_chain(*a)):.4f}"
               f" ms, SNR vs plain {cs.snr_db(want, got):.2f} dB [{smi}]", flush=True)
-    for t, p, n, lag0 in ((16, 3, 1 << 14, True), (16, 3, 1 << 14, False), (2, 8, 1 << 17, False),
-                          (4, 8, 1 << 16, False), *((4, p, 1 << 16, False)
-                                                    for p in (14, 20, 28, 40))):
+    # chip_smoke's four shapes, the two-tier far tier at P 14..40, and the
+    # collapsed 16384 section of the benchmark's render (128 channels, P 58)
+    # and matrix (625 pairs, P 17) cells, 8 hops a call with lag0.
+    for cc, t, p, n, lag0 in ((c, 16, 3, 1 << 14, True), (c, 16, 3, 1 << 14, False),
+                              (c, 2, 8, 1 << 17, False), (c, 4, 8, 1 << 16, False),
+                              *((c, 4, p, 1 << 16, False) for p in (14, 20, 28, 40)),
+                              (c, 8, 58, 1 << 14, True), (625, 8, 17, 1 << 14, True)):
         kk = n // 2
-        kw = dict(l0_re=randn(c, kk) * 1e-3, l0_im=randn(c, kk) * 1e-3) if lag0 else {}
-        a = (randn(c, t, kk), randn(c, kk), randn(c, p, kk), randn(c, p, kk),
-             randn(c, p, kk) * 1e-3, randn(c, p, kk) * 1e-3, 1.0 / (4.0 * n))
-        shape = f"(128, T {t}, P {p}, {n}{', lag0' if lag0 else ''})"
+        kw = dict(l0_re=randn(cc, kk) * 1e-3, l0_im=randn(cc, kk) * 1e-3) if lag0 else {}
+        a = (randn(cc, t, kk), randn(cc, kk), randn(cc, p, kk), randn(cc, p, kk),
+             randn(cc, p, kk) * 1e-3, randn(cc, p, kk) * 1e-3, 1.0 / (4.0 * n))
+        shape = f"({cc}, T {t}, P {p}, {n}{', lag0' if lag0 else ''})"
         for label, fn in (("K8 fastfir_chain_stream", hf.fastfir_chain_stream),
                           ("staged frames -> K1 -> K7 -> K4", staged_stream)):
             phases = cs.phase_ms(lambda: fn(*a, **kw), smi, f"{label} {shape}")
             print(f"{label} {shape}: device {sum(phases.values()):.4f} ms, events "
                   f"{cs.median_ms(lambda: fn(*a, **kw)):.4f} ms [{smi}]", flush=True)
+        snr = cs.snr_db(staged_stream(*a, **kw).cpu(),
+                        hf.fastfir_chain_stream(*a, **kw)[0].cpu())
+        print(f"K8 against the staged path {shape}: SNR {snr:.2f} dB [{smi}]", flush=True)
         del a, kw
         torch.cuda.empty_cache()
     others = {
