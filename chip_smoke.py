@@ -100,8 +100,8 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
     through K2 -> K3 -> K4 and the 16384 section through K5), >= 99 dB each,
     and times each;
 13. runs the staged offline path: ``FastFIR`` of the first 48 000 taps at
-    N = 2048 (outside the fused chain) on one second of signal, K10 -> K15 ->
-    K11 (each must launch), >= 99 dB;
+    N = 2048 (outside the fused chain) on one second of signal, K10 -> K7 ->
+    K11 (each must launch, K15 must not), >= 99 dB;
 14. compares the spectral layer's kernels (K12 fft_split, K13
     rfft_packed_split, K14 rifft_packed_split) with their plain versions:
     K12 forward and inverse at (128, 2^17) and at (3, 1024), (2, 2^14), (1,
@@ -816,8 +816,9 @@ def stream_kernels(randn, mods, smi) -> dict:
     """Phase 6: K7, K8 and K10 at the hop-aligned paths' shapes. K7 at two
     wide shapes, (128, T 4, P 14, K 32768) and (128, T 16, P 58, K 8192),
     which every path now sends to K8 and which stand for the staged route's
-    state step at many lags, and on the ring MAC's narrow tiles (K = 64 and
-    K = 16: a block of one warp a channel). K8 at the near tier (T = 16, H =
+    state step at many lags, at the staged FastFIR's (128, T 48, P 47,
+    K 1024) (phase 13's path, a zero ring), and on the ring MAC's narrow
+    tiles (K = 64 and K = 16: a block of one warp a channel). K8 at the near tier (T = 16, H =
     8192, P = 3) with and without lag0, a small 2^15 case, a single 2^17
     section over a 10 s IR (T = 2, P = 8), the far tier of a 290 000-tap IR
     (2^16, T = 4, P = 8), the collapsed 16384 sections of the benchmark's
@@ -842,6 +843,8 @@ def stream_kernels(randn, mods, smi) -> dict:
     def small(b, n):
         return lambda: ((randn(b, n),), {})
 
+    t_staged = -(-(STAGED_TAPS + STAGED_N // 2) // (STAGED_N // 2))
+    p_staged = -(-STAGED_TAPS // (STAGED_N // 2))
     # (C, T, P, N, lag0) of K8's path shapes; the last two are the
     # collapsed 16384 sections of the render and matrix cells.
     wide = ((CHANNELS, 16, 3, 1 << 14, True), (CHANNELS, 16, 3, 1 << 14, False),
@@ -849,8 +852,9 @@ def stream_kernels(randn, mods, smi) -> dict:
             (CHANNELS, 8, 58, 1 << 14, True), (625, 8, 17, 1 << 14, True))
     results = check_kernels([
         ("lag_mac_ring", [(ring(2, 3, 5, 1024), False), (ring(CHANNELS, 4, 14, 32768), True),
-                          (ring(CHANNELS, 16, 58, 8192), True), (ring(CHANNELS, 4, 14, 64), False),
-                          (ring(19, 3, 5, 16), False)]),
+                          (ring(CHANNELS, 16, 58, 8192), True),
+                          (ring(CHANNELS, t_staged, p_staged, STAGED_N // 2), True),
+                          (ring(CHANNELS, 4, 14, 64), False), (ring(19, 3, 5, 16), False)]),
         ("fastfir_chain_stream", [(chain(2, 3, 2, 1 << 14, True), False),
                                   (chain(2, 11, 8, 1 << 15, True), False)]
          + [(chain(*w), True) for w in wide]
@@ -929,8 +933,9 @@ def slice_kernels(randn, mods, smi) -> dict:
     and 16384 (``_emit`` of the Zero preset's two large sections); K11 at
     (128, 256) and (128, 1024) (hand-offs, direct-section taps) and at the
     staged FastFIR's 128 x 48 frames of 2048; K9 at (C = 128, N = 256, P = 3)
-    and (128, 1024, 3); K15 at the staged FastFIR's (C = 128, T = 48, P = 47,
-    K = 1024). Small and edge shapes: K6 at (3, 4096) and (2, 2^17), K11 at
+    and (128, 1024, 3); K15 at (C = 128, T = 48, P = 47, K = 1024), the
+    staged FastFIR's shape before that path took K7 (phase 6 checks K7
+    there; ``parallel``'s K15 shapes are recorded in its own phase). Small and edge shapes: K6 at (3, 4096) and (2, 2^17), K11 at
     (7, 32), K9 at (3, 32, P = 1), (9, 64, P = 20), at ragged channel
     counts (127 at N = 256, 33 at N = 32; 1001 at N = 256, four frames a
     block and a ragged last block), at (128, 128, P = 15) (the N = 128
@@ -1518,7 +1523,7 @@ def stage_report_paths(dev, irs, x, launches, smi) -> None:
 
     xd = torch.from_numpy(np.ascontiguousarray(x[:4, :1 << 17])).to(dev)
     run("stage-report", lambda: ds.stage_report(irs[:4, :1 << 15], xd),
-        ("rfft_packed", "lag_mac", "rifft_packed"),
+        ("rfft_packed", "lag_mac_ring", "rifft_packed_tail"),
         ("impulse_spectra", "hop_rfft", "partition_mac", "rifft_overlap", "engine_output"),
         lambda s: 95.0)
 
@@ -1599,7 +1604,8 @@ def offline_paths(dev, irs, x, launches, smi) -> None:
     xs = xd[:, :FS].contiguous()
     y = eng(xs)
     torch.cuda.synchronize()
-    launches.read("staged-offline", ("rfft_small", "lag_mac", "rifft_small"), smi)
+    launches.read("staged-offline", ("rfft_small", "lag_mac_ring", "rifft_small"), smi,
+                  forbid=("lag_mac",))
     check_path_snr("staged-offline", y[0], x[0], irs[0, :STAGED_TAPS], smi)
     ms = median_ms(lambda: eng(xs), runs=3)
     print(f"staged-offline: FastFIR N={eng.fft_size}, P={eng.spectra.shape[-2]}, "

@@ -142,7 +142,10 @@ def get_mode() -> str:
 
 
 def real_eligible(n: int) -> bool:
-    """True when the real-FFT kernels serve size ``n`` (4096..2^17)."""
+    """True when the real-FFT kernels serve size ``n`` (4096..2^17), the
+    streaming forward (K2) and tail inverse (K4) among them: both run one
+    pass on K1's plan, the frame in one block's or one cluster's shared
+    memory, so no further on-chip memory model limits them."""
     return MIN_REAL_SIZE <= n <= MAX_SINGLE_REAL and (n & (n - 1)) == 0
 
 
@@ -169,14 +172,6 @@ def chain_eligible(n: int) -> bool:
     (N = 2^14..2^17), as the TPU package's ``fastfir_feasible`` and its
     process_block route gate them (less their VMEM models)."""
     return CHAIN_MIN <= n <= CHAIN_MAX and (n & (n - 1)) == 0
-
-
-def stream_feasible(n: int) -> bool:
-    """True when the streaming forward (K2) and tail inverse (K4) serve real
-    size ``n``. Both run one pass on K1's plan, the frame in one block's or
-    one cluster's shared memory at every size to :data:`MAX_SINGLE_REAL`, so
-    no further on-chip memory model limits them."""
-    return real_eligible(n)
 
 
 @functools.lru_cache(maxsize=16)
@@ -1276,8 +1271,7 @@ def fastfir_chain_stream(x2d: torch.Tensor, prev: torch.Tensor,
     p = h_re.shape[-2]
     if not chain_eligible(n):
         raise NotImplementedError(
-            f"{kernel}: serves N = {CHAIN_MIN}..{CHAIN_MAX}; N = {n}: "
-            + "process_block takes its staged path there, as the TPU package does")
+            f"{kernel}: serves N = {CHAIN_MIN}..{CHAIN_MAX}; N = {n} is not among them")
     lag0 = None if l0_re is None else (l0_re, l0_im)
     _check_chain(kernel, x2d, h_re, h_im, prev, (ring_re, ring_im), lag0)
     if p == 0:

@@ -654,11 +654,12 @@ def block_state_from_hist(ir: MonoIR, hist: torch.Tensor,
     need = max(p + 1, (p2 + 1) * g) * h
     if hist.shape[-1] != need:
         raise ValueError(f"hist must carry {need} samples, got {hist.shape[-1]}")
+    rows = hist.reshape(*hist.shape[:-1], need // h, h).clone()
+    own = rows.reshape(hist.shape)  # the refreshed prevs view the copy, not hist
     near_full = _refresh_aligned_section(
         Split(ir.spectra[-1].re[..., :g - 1, :],
-              ir.spectra[-1].im[..., :g - 1, :]), hist, backend)
-    far_full = _refresh_aligned_section(ir.far, hist, backend)
-    rows = hist.reshape(*hist.shape[:-1], need // h, h).clone()
+              ir.spectra[-1].im[..., :g - 1, :]), own, backend)
+    far_full = _refresh_aligned_section(ir.far, own, backend)
     return MonoBlockState(near_full, far_full, rows, 0)
 
 
@@ -697,17 +698,16 @@ def _refresh_aligned_section(spec: Split, tail: torch.Tensor,
                              backend: Optional[str]) -> part.PartitionedState:
     """Rebuild a section's hop-aligned state from the last input samples
     ``tail``: its ring holds the newest P frame spectra, reaching back
-    (P-1)*h + N samples, oldest-first with pos = 0 (process_block's layout)."""
+    (P-1)*h + N samples, oldest-first with pos = 0 (process_block's layout).
+    Its ``prev`` is a view of ``tail``'s last hop, so ``tail`` is a tensor
+    that nothing writes to later (no caller's input)."""
     h = spec.shape[-1]
     n = 2 * h
     p = spec.shape[-2]
     b = tail.shape[-1]
-    frames = torch.stack(
-        [tail[..., b - (p - 1 - k) * h - n: b - (p - 1 - k) * h] for k in range(p)],
-        dim=-2)
+    frames = tail[..., b - (p - 1) * h - n:].unfold(-1, n, h)  # (..., P, N), hop apart
     re, im = fft_api.rfft(frames, backend=backend)
-    return part.PartitionedState(prev=tail[..., b - h:].clone(), ring=Split(re, im),
-                                 pos=0)
+    return part.PartitionedState(prev=tail[..., b - h:], ring=Split(re, im), pos=0)
 
 
 @span("engine.mono.collapsed")
@@ -720,15 +720,16 @@ def _process_block_collapsed(ir: MonoIR, state: MonoState, x: torch.Tensor,
     partition equals the sum of every section and the TD head once the caller
     hands over whole largest-hop blocks. The non-final section states and the
     head tail are refreshed from the block's tail, so a later hand-off to
-    another path continues as if the per-section path had run."""
+    another path continues as if the per-section path had run: all of them
+    views of the final section's new ``prev``, the block's last hop, which
+    process_block copied once."""
     b = ir.spectra[-1].shape[-1]  # largest hop = final section's N/2
     new_big, out = part.PartitionedConvolve.process_block(
         ir.spectra[-1], state.sections[-1], x, backend=backend, lag0=ir.block0)
-    tail = x[..., x.shape[-1] - b:]
+    tail = new_big.prev
     head_state = state.head
     if ir.head_taps.shape[-1]:
-        keep = state.head.shape[-1]
-        head_state = tail[..., b - keep:].clone()
+        head_state = tail[..., b - state.head.shape[-1]:]
     new_sections = [_refresh_aligned_section(spec, tail, backend)
                     for spec in ir.spectra[:-1]]
     new_sections.append(new_big)
@@ -774,14 +775,7 @@ def _tail_offline(tail: Split, x: torch.Tensor, shift: int,
     """The re-partitioned IR as one uniform engine, its output realigned by
     dropping ``shift`` leading samples. With the "pallas" backend (the
     default on CUDA) it is the fused chain, K5 at N = 2^14..2^17."""
-    if fft_api._resolve(backend, x.device) == "pallas":
-        y = part.PartitionedConvolve._process_offline_fused(tail, x, shift=shift)
-        if y is not None:
-            return y
-    L = x.shape[-1]
-    y = part.PartitionedConvolve.process_offline(
-        tail, torch.nn.functional.pad(x, (0, shift)), backend=backend)
-    return y[..., shift:shift + L]
+    return part._offline(tail, x, shift, backend, "auto")
 
 
 @span("engine.mono.process_offline")

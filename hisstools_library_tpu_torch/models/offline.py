@@ -18,10 +18,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..core.types import Split, resolve_device
-from ..fft import api as fft_api
 from . import partitioned as part
 
 
@@ -90,19 +88,9 @@ class FastFIR:
 
         ``backend=None`` resolves by the device of ``x`` ("pallas" on CUDA,
         so the kernels run; "xla" on the CPU)."""
-        resolved = fft_api._resolve(backend, x.device)
-        if resolved == "pallas" and mac_backend in ("auto", "pallas"):
-            # The fused chain with the look-ahead folded into its one pad.
-            y = part.PartitionedConvolve._process_offline_fused(
-                spectra, x, shift=spectra.shape[-1])
-            if y is not None:
-                return y
-        h = spectra.shape[-1]
-        L = x.shape[-1]
-        y = part.PartitionedConvolve.process_offline(
-            spectra, F.pad(x, (0, h)), backend=resolved, mac_backend=mac_backend)
-        # The o=0 engine emits conv delayed by one hop; shift left (look-ahead).
-        return y[..., h:h + L]
+        # The fused chain where it serves, with the look-ahead folded into
+        # its one pad; else the staged form shifted left by one hop.
+        return part._offline(spectra, x, spectra.shape[-1], backend, mac_backend)
 
 
 def fast_fir(x: torch.Tensor, ir, fft_size: Optional[int] = None,

@@ -1,14 +1,21 @@
 """Uniform partitioned overlap-save FFT convolution: the section engine.
 
 Counterpart of ``hisstools_library_tpu/models/partitioned.py``:
-``validate_fft_size``, ``impulse_spectra``, ``_lag_mac_dispatch``,
-``PartitionedState``, ``StreamState``, and ``PartitionedConvolve`` with its
-offline path (``process_offline`` / ``_process_offline_fused``), its
+``validate_fft_size``, ``impulse_spectra``, ``PartitionedState``,
+``StreamState``, and ``PartitionedConvolve`` with its offline path
+(``process_offline`` / ``_process_offline_fused``), its
 hop-aligned streaming path (``set``, ``init_state``, ``process``,
 ``process_block``, ``_slot_normalise``) and its sample-granular path
 (``init_stream_state``, ``step_any``, ``step``, ``_fire``, ``_emit``,
 ``stream_from_aligned``, ``stream_to_aligned``), which takes blocks of any
 length and fires a section only where a hop boundary falls.
+
+The overlap-save chain's kernels are chosen in one place: the stages
+``_hop_spectra`` (frames [prev | cur] and their forward), ``_ring_mac`` (the
+lag MAC over a ring of past spectra) and ``_tail`` (the scaled kept-half
+inverse) serve the staged ``process_block``, the staged offline form
+(``_offline``, behind ``process_offline``, ``FastFIR`` and the scheme's
+offline tail) and the stage reports of ``utils/debug_stages.py``.
 
 A section with FFT size N (hop H = N/2) emits ``conv(x, ir)`` delayed by one
 hop. Output = inverse of the accumulated spectra x ``1/(4N)``, the reference's
@@ -75,28 +82,89 @@ def impulse_spectra(ir, fft_size: int, offset: int = 0, length: int = 0,
     return Split(re, im)
 
 
-def _lag_mac_dispatch(xp_re: torch.Tensor, xp_im: torch.Tensor,
-                      h_re: torch.Tensor, h_im: torch.Tensor, t: int,
-                      mac_backend: str):
-    """Partition MAC over zero-padded spectra.
+def _per_channel(plane: torch.Tensor, lead: Tuple[int, ...], c: int,
+                 rows: int) -> torch.Tensor:
+    """(..., rows, K) broadcast to the channels ``lead`` (C of them), as
+    (C, rows, K); a view wherever the layout allows one."""
+    return plane.expand(lead + (rows, plane.shape[-1])).reshape(c, rows, plane.shape[-1])
 
-    ``xp_*``: (..., T+P, K) zero-padded spectra; ``h_*``: (..., P, K).
-    Returns packed-correct (..., T, K) accumulations. ``mac_backend="pallas"``,
-    and ``"auto"`` off the CPU, take K15 :func:`hopper_kernels.lag_mac` (its
-    plain version on a CPU tensor) at any P: the TPU package's partition
-    bound is its VMEM budget, which the card does not share. ``"xla"``, and
-    ``"auto"`` on the CPU, run the loop form in torch ops."""
-    p = h_re.shape[-2]
-    k = xp_re.shape[-1]
-    if mac_backend == "pallas" or (mac_backend == "auto" and xp_re.device.type != "cpu"):
-        lead = xp_re.shape[:-2]
-        c = math.prod(lead)
-        y_re, y_im = hopper_kernels.lag_mac(
-            xp_re.reshape(c, t + p, k), xp_im.reshape(c, t + p, k),
-            h_re.expand(lead + (p, k)).reshape(c, p, k),
-            h_im.expand(lead + (p, k)).reshape(c, p, k), t)
-        return y_re.reshape(lead + (t, k)), y_im.reshape(lead + (t, k))
-    return hopper_kernels.lag_mac_plain(xp_re, xp_im, h_re, h_im, t)
+
+def _hop_spectra(prev: torch.Tensor, blocks: torch.Tensor,
+                 backend: Optional[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed spectra (..., T, K) of the frames [hop_{j-1} | hop_j] of
+    ``blocks`` (..., T, H), with hop_{-1} = ``prev`` (..., H): ``fft_api.rfft``
+    (K1, or K10 below 4096, on the card)."""
+    prev_rows = torch.cat([prev[..., None, :], blocks], dim=-2)[..., :-1, :]
+    return fft_api.rfft(torch.cat([prev_rows, blocks], dim=-1), backend=backend)
+
+
+def _ring_mac(ring: Split, x_re: torch.Tensor, x_im: torch.Tensor, spectra: Split,
+              mac_backend: str) -> Tuple[torch.Tensor, torch.Tensor, Split]:
+    """The lag MAC over the oldest-first ``ring`` (..., P, K) followed by the
+    hop spectra ``x_*`` (..., T, K): Y_t = sum_p V[P+t-1-p] * H_p over
+    V = [ring | X]. Returns (acc_re, acc_im, new ring V[T:T+P]).
+
+    ``mac_backend`` "auto" and "pallas" run K7 :func:`hopper_kernels.lag_mac_ring`
+    (its plain version on a CPU tensor) at any T and P: the TPU package's
+    bounds are its VMEM budget, which the card does not share. ``"xla"`` runs
+    the loop form in torch ops on any device. ``spectra`` (..., P, K)
+    broadcasts to the hops' channels."""
+    if mac_backend not in ("auto", "pallas"):
+        y_re, y_im, n_re, n_im = hopper_kernels.lag_mac_ring_plain(
+            ring.re, ring.im, x_re, x_im, spectra.re, spectra.im)
+        return y_re, y_im, Split(n_re, n_im)
+    lead = x_re.shape[:-2]
+    c = math.prod(lead)
+    t, k = x_re.shape[-2:]
+    p = ring.shape[-2]
+    y_re, y_im, n_re, n_im = hopper_kernels.lag_mac_ring(
+        ring.re.reshape(c, p, k).contiguous(), ring.im.reshape(c, p, k).contiguous(),
+        x_re.reshape(c, t, k), x_im.reshape(c, t, k),
+        _per_channel(spectra.re, lead, c, p).to(x_re.dtype),
+        _per_channel(spectra.im, lead, c, p).to(x_re.dtype))
+    return (y_re.reshape(lead + (t, k)), y_im.reshape(lead + (t, k)),
+            Split(n_re.reshape(lead + (p, k)), n_im.reshape(lead + (p, k))))
+
+
+def _tail(acc_re: torch.Tensor, acc_im: torch.Tensor, scale: float,
+          backend: Optional[str]) -> torch.Tensor:
+    """The kept half (..., T, H) of the scaled inverse of the accumulations
+    (..., T, K): K4 :func:`hopper_fft.rifft_packed_tail` with the "pallas"
+    backend at the real kernels' sizes outside float64, else
+    ``fft_api.rifft`` (K6, or K11 below 4096, on the card)."""
+    h = acc_re.shape[-1]
+    resolved = fft_api._resolve(backend, acc_re.device)
+    if (resolved == "pallas" and hopper_fft.real_eligible(2 * h)
+            and acc_re.dtype != torch.float64):
+        return hopper_fft.rifft_packed_tail(acc_re, acc_im, scale)
+    return (fft_api.rifft(acc_re, acc_im, backend=resolved) * scale)[..., h:]
+
+
+def _offline(spectra: Split, x: torch.Tensor, shift: int, backend: Optional[str],
+             mac_backend: str) -> torch.Tensor:
+    """The offline engine's output over ``x`` extended by ``shift`` trailing
+    zeros, less its first ``shift`` samples (shift = hop is FastFIR's
+    look-ahead). The fused chain (:meth:`PartitionedConvolve._process_offline_fused`)
+    where it serves the shapes, else the staged form: the three stages
+    from a zero state, over the first min(P, T) lags."""
+    resolved = fft_api._resolve(backend, x.device)
+    if resolved == "pallas" and mac_backend in ("auto", "pallas"):
+        y = PartitionedConvolve._process_offline_fused(spectra, x, shift)
+        if y is not None:
+            return y
+    h = spectra.shape[-1]
+    L = x.shape[-1]
+    t = -(-(L + shift) // h)
+    lead = x.shape[:-1]
+    blocks = F.pad(x, (0, t * h - L)).reshape(*lead, t, h)
+    x_re, x_im = _hop_spectra(x.new_zeros(lead + (h,)), blocks, resolved)
+    lags = min(spectra.shape[-2], t)
+    ring = Split.zeros(lead + (lags, h), x_re.dtype, x_re.device)
+    acc_re, acc_im, _ = _ring_mac(
+        ring, x_re, x_im, Split(spectra.re[..., :lags, :], spectra.im[..., :lags, :]),
+        mac_backend)
+    out = _tail(acc_re, acc_im, 1.0 / (4.0 * (2 * h)), resolved)
+    return out.reshape(*lead, t * h)[..., shift:shift + L]
 
 
 @dataclasses.dataclass
@@ -418,12 +486,10 @@ class PartitionedConvolve:
           one pass). The TPU package stops at P <= 8, its VMEM policy; on the
           card K8 is the staged route's kernels less its glue and measured
           faster at every P up to 58 (PERF.md §6);
-        - otherwise the frames [prev | cur] are materialised and transformed
-          (``fft_api.rfft``: K1, or K10 below 4096), the MAC runs as K7
-          :func:`hopper_kernels.lag_mac_ring` when T <= P (any P: the TPU
-          package's bound of 512 is its VMEM budget) and else as
-          :func:`_lag_mac_dispatch`, the lag-0 product runs in torch ops, and
-          the kept halves come from K4 (N >= 4096) or ``fft_api.rifft``."""
+        - otherwise the three stages that :meth:`process_offline` shares:
+          :func:`_hop_spectra` (K1, or K10 below 4096), :func:`_ring_mac`
+          (K7 at any T and P), the lag-0 product in torch ops, and
+          :func:`_tail` (K4 at N >= 4096, else ``fft_api.rifft``)."""
         h = spectra.shape[-1]
         n = 2 * h
         p = spectra.shape[-2]
@@ -442,66 +508,31 @@ class PartitionedConvolve:
             ring = PartitionedConvolve._slot_normalise(ring, state.pos)
         new_prev = blocks[..., -1, :].clone()
         scale = 1.0 / (4.0 * n)
-
-        def per_channel(plane: torch.Tensor, rows: int) -> torch.Tensor:
-            # (..., rows, K) broadcast to x's channels, as (C, rows, K); a
-            # view wherever the layout allows one.
-            return plane.expand(lead + (rows, h)).reshape(c, rows, h)
-
         if (resolved == "pallas" and mac_backend in ("auto", "pallas")
                 and x.dtype == torch.float32 and hopper_fft.chain_eligible(n)):
             l0r = l0i = None
             if lag0 is not None:
-                l0r = per_channel(lag0.re, 1)[:, 0, :]
-                l0i = per_channel(lag0.im, 1)[:, 0, :]
+                l0r = _per_channel(lag0.re, lead, c, 1)[:, 0, :]
+                l0i = _per_channel(lag0.im, lead, c, 1)[:, 0, :]
             y, nr, ni = hopper_fft.fastfir_chain_stream(
                 blocks.reshape(c, t, h).contiguous(),
                 state.prev.reshape(c, h).contiguous(),
                 ring.re.reshape(c, p, h).contiguous(),
                 ring.im.reshape(c, p, h).contiguous(),
-                per_channel(spectra.re, p), per_channel(spectra.im, p),
+                _per_channel(spectra.re, lead, c, p), _per_channel(spectra.im, lead, c, p),
                 scale, l0r, l0i)
             new_state = PartitionedState(
                 new_prev, Split(nr.reshape(lead + (p, h)), ni.reshape(lead + (p, h))), 0)
             return new_state, y.reshape(*lead, L)
 
-        # Frames [hop_{j-1} | hop_j] with hop_{-1} = the carried block.
-        prev_rows = torch.cat([state.prev[..., None, :], blocks[..., :-1, :]], dim=-2)
-        frames = torch.cat([prev_rows, blocks], dim=-1)
-        xre, xim = fft_api.rfft(frames, backend=resolved)      # (..., T, K)
-
-        if (mac_backend in ("auto", "pallas") and x.dtype != torch.float64
-                and t <= p):
-            yre, yim, nre, nim = hopper_kernels.lag_mac_ring(
-                ring.re.reshape(c, p, h).contiguous(),
-                ring.im.reshape(c, p, h).contiguous(),
-                xre.reshape(c, t, h), xim.reshape(c, t, h),
-                per_channel(spectra.re, p).to(xre.dtype),
-                per_channel(spectra.im, p).to(xre.dtype))
-            acc_re = yre.reshape(lead + (t, h))
-            acc_im = yim.reshape(lead + (t, h))
-            new_ring = Split(nre.reshape(lead + (p, h)), nim.reshape(lead + (p, h)))
-        else:
-            xp_re = torch.cat([ring.re, xre], dim=-2)             # (..., P+T, K)
-            xp_im = torch.cat([ring.im, xim], dim=-2)
-            h_re = spectra.re.expand(lead + spectra.re.shape[-2:])
-            h_im = spectra.im.expand(lead + spectra.im.shape[-2:])
-            acc_re, acc_im = _lag_mac_dispatch(xp_re, xp_im, h_re, h_im, t,
-                                               mac_backend)
-            new_ring = Split(xp_re[..., t:, :].contiguous(),
-                             xp_im[..., t:, :].contiguous())
-
+        xre, xim = _hop_spectra(state.prev, blocks, resolved)    # (..., T, K)
+        acc_re, acc_im, new_ring = _ring_mac(ring, xre, xim, spectra, mac_backend)
         if lag0 is not None:
             # Zero-delay partition: each hop's own spectrum times lag0.
             prod = packed_mul(Split(xre, xim), lag0)
             acc_re = acc_re + prod.re
             acc_im = acc_im + prod.im
-
-        if (resolved == "pallas" and hopper_fft.stream_feasible(n)
-                and x.dtype != torch.float64):
-            out = hopper_fft.rifft_packed_tail(acc_re, acc_im, scale)
-        else:
-            out = (fft_api.rifft(acc_re, acc_im, backend=resolved) * scale)[..., h:]
+        out = _tail(acc_re, acc_im, scale, resolved)
         return PartitionedState(new_prev, new_ring, 0), out.reshape(*lead, L)
 
     @staticmethod
@@ -515,39 +546,11 @@ class PartitionedConvolve:
 
         With the "pallas" backend (the default on CUDA) and eligible shapes
         the chain runs as K5 at N = 2^14..2^17, or as K2 -> K3 -> K4 at
-        4096..8192 (:meth:`_process_offline_fused`).
-        Otherwise the staged form below runs: the forward transform
-        (``fft_api.rfft``: K1, or K10 below 4096), the MAC
-        (:func:`_lag_mac_dispatch`: K15 or the torch loop) and the inverse
-        (``fft_api.rifft``: K6, or K11 below 4096)."""
-        resolved = fft_api._resolve(backend, x.device)
-        if resolved == "pallas" and mac_backend in ("auto", "pallas"):
-            out = PartitionedConvolve._process_offline_fused(spectra, x)
-            if out is not None:
-                return out
-        h = spectra.shape[-1]
-        n = 2 * h
-        p = spectra.shape[-2]
-        L = x.shape[-1]
-        if L % h:
-            x = F.pad(x, (0, h - L % h))
-        t = x.shape[-1] // h
-        blocks = x.reshape(*x.shape[:-1], t, h)
-        prev = torch.cat([torch.zeros_like(blocks[..., :1, :]), blocks[..., :-1, :]],
-                         dim=-2)
-        frames = torch.cat([prev, blocks], dim=-1)  # (..., T, N)
-        X = Split(*fft_api.rfft(frames, backend=resolved))
-
-        # Y_t = sum_p X_{t-1-p} Hhat_p : lag-accumulate along the hop axis.
-        lags = min(p, t)
-        pad = (0, 0, lags, 0)
-        acc_re, acc_im = _lag_mac_dispatch(
-            F.pad(X.re, pad), F.pad(X.im, pad),
-            spectra.re[..., :lags, :], spectra.im[..., :lags, :], t, mac_backend)
-
-        y = fft_api.rifft(acc_re, acc_im, backend=resolved) * (1.0 / (4.0 * n))
-        out = y[..., h:]  # (..., T, H)
-        return out.reshape(*out.shape[:-2], t * h)[..., :L]
+        4096..8192 (:meth:`_process_offline_fused`). Otherwise the staged
+        form runs :meth:`process_block`'s stages from a zero state:
+        :func:`_hop_spectra`, :func:`_ring_mac` over a zero ring of min(P, T)
+        rows, :func:`_tail`."""
+        return _offline(spectra, x, 0, backend, mac_backend)
 
     @staticmethod
     @span("engine.partitioned.offline_fused")
@@ -570,7 +573,7 @@ class PartitionedConvolve:
         eff = L + shift
         t = -(-eff // h)
         lags = min(p, t - 1) if t > 1 else 0
-        if (not hopper_fft.stream_feasible(n) or x.dtype != torch.float32
+        if (not hopper_fft.real_eligible(n) or x.dtype != torch.float32
                 or lags < 1):
             return None
         lead = x.shape[:-1]
@@ -578,9 +581,8 @@ class PartitionedConvolve:
         x2d = F.pad(x, (0, t * h - L)).reshape(c, t, h)
         # H as (C, lags, K) views where the layout allows: K5 reads row
         # slices and channel-broadcast planes in place.
-        hr = spectra.re[..., :lags, :].expand(lead + (lags, h)).reshape(c, lags, h)
-        hi = spectra.im[..., :lags, :].expand(lead + (lags, h)).reshape(c, lags, h)
-        hr, hi = hr.to(torch.float32), hi.to(torch.float32)
+        hr = _per_channel(spectra.re[..., :lags, :], lead, c, lags).to(torch.float32)
+        hi = _per_channel(spectra.im[..., :lags, :], lead, c, lags).to(torch.float32)
         if hopper_fft.chain_eligible(n):
             y = hopper_fft.fastfir_chain(x2d, hr, hi, scale=1.0 / (4.0 * n))
         else:

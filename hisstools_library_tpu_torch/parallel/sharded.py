@@ -89,7 +89,7 @@ def _section_local_fused(spectra: Split, blocks: torch.Tensor, fft_size: int,
     h = fft_size >> 1
     p = spectra.shape[-2]
     lead = blocks.shape[:-2]
-    if not hopper_fft.stream_feasible(fft_size) or blocks.dtype != torch.float32:
+    if not hopper_fft.real_eligible(fft_size) or blocks.dtype != torch.float32:
         return None
     c = math.prod(lead)
     t_rows = blocks.shape[-2]                       # t_loc + P + 1

@@ -3,11 +3,11 @@
 Counterpart of ``hisstools_library_tpu/utils/debug_stages.py``. SURVEY §5
 promises optional per-block debug dumps — "SNR vs reference per stage".
 :func:`stage_report` runs the uniform partitioned-convolution chain stage by
-stage with the SAME functions the engine dispatches to (so on a CUDA tensor
-the float32 side runs the hand kernels: ``fft.api.rfft`` / ``rifft``, K15
-through ``partitioned._lag_mac_dispatch``), mirrors every stage in float64
-numpy, and reports the SNR at each boundary. An accuracy regression is
-thereby localised to the stage that introduced it:
+stage with the SAME functions the engine runs (``partitioned._hop_spectra``,
+``_ring_mac`` and ``_tail``, so on a CUDA tensor the float32 side runs the
+hand kernels), mirrors every stage in float64 numpy, and reports the SNR at
+each boundary. An accuracy regression is thereby localised to the stage
+that introduced it:
 
 - ``impulse_spectra``: IR chunk rFFTs (PartitionedConvolve::set analogue,
   reference PartitionedConvolve.cpp:173-225),
@@ -127,13 +127,12 @@ def stage_report(ir, x, fft_size: Optional[int] = None,
 
     ``ir``: (..., L_ir) host array; ``x``: (..., L) signal (a tensor, or a
     host array placed on ``device``) with the same leading shape. The f32
-    side runs the port's own stage functions (fft.api.rfft,
-    models.partitioned._lag_mac_dispatch, fft.api.rifft) plus the production
+    side runs the engine's own stage functions (models.partitioned's
+    _hop_spectra, _ring_mac on a zero ring, _tail) plus the production
     engine end to end; each is compared against its float64 numpy mirror.
     The scheme engines' offline path delegates to this same chain
     (mono.process_offline -> offline tail), so one report covers them.
     """
-    from ..fft import api as fft_api
     from ..models import partitioned as part
     from ..models.offline import FastFIR, choose_fft_size
 
@@ -167,20 +166,22 @@ def stage_report(ir, x, fft_size: Optional[int] = None,
     prev = np.concatenate(
         [np.zeros_like(blocks[..., :1, :]), blocks[..., :-1, :]], axis=-2)
     hop_frames64 = np.concatenate([prev, blocks], axis=-1)
-    xre, xim = fft_api.rfft(f32(hop_frames64), backend=backend)
+    xre, xim = part._hop_spectra(f32(np.zeros_like(blocks[..., 0, :])), f32(blocks),
+                                 backend)
     xre64, xim64 = packed_rfft64(hop_frames64)
     report.append(StageSNR(
         "hop_rfft", min(snr_db(xre64, xre), snr_db(xim64, xim))))
 
-    # Stage 3: partition MAC (the engine's own dispatch on the f32 side;
-    # feed both sides the f64-exact spectra so the stage is isolated).
+    # Stage 3: partition MAC (the engine's own ring MAC from a zero ring on
+    # the f32 side; feed both sides the f64-exact spectra so the stage is
+    # isolated).
     lags = min(p, t)
     pad = np.zeros(xre64.shape[:-2] + (lags,) + xre64.shape[-1:])
     xp_re64 = np.concatenate([pad, xre64], axis=-2)
     xp_im64 = np.concatenate([pad, xim64], axis=-2)
-    acc_re, acc_im = part._lag_mac_dispatch(
-        f32(xp_re64), f32(xp_im64), f32(sre64[..., :lags, :]),
-        f32(sim64[..., :lags, :]), t, mac_backend)
+    acc_re, acc_im, _ = part._ring_mac(
+        Split(f32(pad), f32(pad)), f32(xre64), f32(xim64),
+        Split(f32(sre64[..., :lags, :]), f32(sim64[..., :lags, :])), mac_backend)
     acc_re64 = np.zeros_like(xre64)
     acc_im64 = np.zeros_like(xim64)
     for lag in range(lags):
@@ -194,12 +195,11 @@ def stage_report(ir, x, fft_size: Optional[int] = None,
         "partition_mac", min(snr_db(acc_re64, acc_re),
                              snr_db(acc_im64, acc_im))))
 
-    # Stage 4: riFFT + 1/(4N) + overlap-save half (from f64-exact accums).
-    y32 = fft_api.rifft(f32(acc_re64), f32(acc_im64),
-                        backend=backend) * (1.0 / (4.0 * n))
+    # Stage 4: riFFT + 1/(4N) + overlap-save half (from f64-exact accums;
+    # the engine's own tail).
+    y32 = part._tail(f32(acc_re64), f32(acc_im64), 1.0 / (4.0 * n), backend)
     y64 = packed_rifft64(acc_re64, acc_im64) * (1.0 / (4.0 * n))
-    report.append(StageSNR(
-        "rifft_overlap", snr_db(y64[..., h:], y32[..., h:])))
+    report.append(StageSNR("rifft_overlap", snr_db(y64[..., h:], y32)))
 
     # Stage 5: the production engine end to end (whatever fused path it
     # takes) vs float64 direct convolution. FastFIR.apply (not __call__):
@@ -227,10 +227,11 @@ def stream_stage_report(ir, x_warm, x_block, scheme=None,
 
     - ``frame_rfft``       hop-frame spectra from the carried prev block
     - ``ring_mac``         the block lag MAC over the carried ring
-                           (hopper_kernels.lag_mac_ring, K7, or the
-                           ``_lag_mac_dispatch`` with ``mac_backend="xla"``)
+                           (the engine's ``_ring_mac``: K7, or the torch
+                           loop with ``mac_backend="xla"``)
     - ``lag0_product``     the collapsed scheme's zero-delay partition
-    - ``rifft_tail``       scaled tail riFFT (K4 where the engine uses it)
+    - ``rifft_tail``       scaled tail riFFT (the engine's ``_tail``: K4
+                           where it serves)
     - ``section_refresh``  non-final-section state rebuild (mono.
                            _refresh_aligned_section)
     - ``collapsed_output`` mono.process end-to-end vs f64 direct conv
@@ -239,8 +240,6 @@ def stream_stage_report(ir, x_warm, x_block, scheme=None,
     - ``subhop_doling``    ragged-callback staging/doling vs one whole-block
                            process_any call (pure data movement — near-exact)
     """
-    from ..fft import api as fft_api
-    from ..fft import hopper_fft, hopper_kernels
     from ..models import mono
     from ..models import partitioned as part
     from ..models.mono import LatencyMode, PartitionScheme
@@ -280,25 +279,15 @@ def stream_stage_report(ir, x_warm, x_block, scheme=None,
     prev_rows64 = np.concatenate([prev64[..., None, :], blocks64[..., :-1, :]],
                                  axis=-2)
     frames64 = np.concatenate([prev_rows64, blocks64], axis=-1)
-    xre, xim = fft_api.rfft(f32(frames64), backend=backend)
+    xre, xim = part._hop_spectra(f32(prev64), f32(blocks64), backend)
     xre64, xim64 = packed_rfft64(frames64)
     report.append(StageSNR(
         "frame_rfft", min(snr_db(xre64, xre), snr_db(xim64, xim))))
 
-    # Stage 2: the block ring MAC (process_block's dispatch), f64-exact feeds.
-    lead_n = int(np.prod(lead)) if lead else 1
-    fr32 = (lambda a: f32(a).reshape((lead_n,) + a.shape[len(lead):]))
-    if mac_backend in ("auto", "pallas"):
-        acc_re, acc_im, _, _ = hopper_kernels.lag_mac_ring(
-            fr32(ring_re64), fr32(ring_im64), fr32(xre64), fr32(xim64),
-            fr32(h_re64), fr32(h_im64))
-        acc_re = acc_re.reshape(lead + (t, h))
-        acc_im = acc_im.reshape(lead + (t, h))
-    else:
-        xp_re = torch.cat([f32(ring_re64), f32(xre64)], dim=-2)
-        xp_im = torch.cat([f32(ring_im64), f32(xim64)], dim=-2)
-        acc_re, acc_im = part._lag_mac_dispatch(
-            xp_re, xp_im, f32(h_re64), f32(h_im64), t, mac_backend)
+    # Stage 2: the block ring MAC (process_block's own), f64-exact feeds.
+    acc_re, acc_im, _ = part._ring_mac(
+        Split(f32(ring_re64), f32(ring_im64)), f32(xre64), f32(xim64),
+        Split(f32(h_re64), f32(h_im64)), mac_backend)
     acc_re64 = np.zeros(lead + (t, h))
     acc_im64 = np.zeros(lead + (t, h))
     virt_re = np.concatenate([ring_re64, xre64], axis=-2)  # rows j-p..t-1
@@ -325,15 +314,9 @@ def stream_stage_report(ir, x_warm, x_block, scheme=None,
         acc_re64 = acc_re64 + pr64
         acc_im64 = acc_im64 + pi64
 
-    # Stage 4: scaled tail riFFT (K4 where the engine uses it).
+    # Stage 4: scaled tail riFFT (process_block's own).
     scale = 1.0 / (4.0 * n)
-    if (fft_api._resolve(backend, dev) == "pallas"
-            and hopper_fft.stream_feasible(n)):
-        y32 = hopper_fft.rifft_packed_tail(f32(acc_re64), f32(acc_im64),
-                                           scale=scale)
-    else:
-        y32 = fft_api.rifft(f32(acc_re64), f32(acc_im64),
-                            backend=backend)[..., h:] * scale
+    y32 = part._tail(f32(acc_re64), f32(acc_im64), scale, backend)
     y64 = packed_rifft64(acc_re64, acc_im64)[..., h:] * scale
     report.append(StageSNR("rifft_tail", snr_db(y64, y32)))
 

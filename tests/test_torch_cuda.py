@@ -820,17 +820,19 @@ def test_process_any_on_cuda(cuda):
 
 
 def test_staged_offline_on_cuda(cuda):
-    """FastFIR at N = 2048 (outside the fused chain) runs K10 -> K15 -> K11
-    once each; mono.process_offline without the tail launches K11 (the direct
-    sections' taps) and the fused chain; both match the CPU path."""
+    """FastFIR at N = 2048 (outside the fused chain) runs K10 -> K7 -> K11
+    once each and no K15; mono.process_offline without the tail launches K11
+    (the direct sections' taps) and the fused chain; both match the CPU
+    path."""
     rng = np.random.default_rng(0x2B)
     ir = rng.standard_normal((2, 20000)).astype(np.float32)
     x = rng.standard_normal((2, 30000)).astype(np.float32)
-    counted = (hopper_fft.rfft_small, hopper_kernels.lag_mac, hopper_fft.rifft_small)
+    counted = (hopper_fft.rfft_small, hopper_kernels.lag_mac_ring, hopper_fft.rifft_small,
+               hopper_kernels.lag_mac)
     eng = offline.FastFIR(ir, fft_size=2048, device=cuda)
     before = [fn.launches for fn in counted]
     y = eng(torch.from_numpy(x).to(cuda))
-    assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 1, 1]
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 1, 1, 0]
     y_cpu = offline.FastFIR(ir, fft_size=2048, device=CPU)(torch.from_numpy(x))
     assert snr_db(y_cpu, y.cpu()) >= SNR_CHAIN_DB
     scheme = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
@@ -845,15 +847,17 @@ def test_staged_offline_on_cuda(cuda):
 
 def test_mac_routes_above_512_partitions_on_cuda(cuda):
     """Above 512 partitions (the TPU package's VMEM bound, which the card does
-    not share) "auto" still launches the kernels: K15 in the staged FastFIR
-    and K7 in process_block (P = 625 at N = 64), each matching the CPU path."""
+    not share) "auto" still launches the kernels: K7 (and no K15) in the
+    staged FastFIR and in process_block (P = 625 at N = 64), each matching
+    the CPU path."""
     from hisstools_library_tpu_torch.models import partitioned
     rng = np.random.default_rng(0x2C)
     ir = rng.standard_normal((2, 20000)).astype(np.float32)
     x = rng.standard_normal((2, 30000)).astype(np.float32)
-    before = hopper_kernels.lag_mac.launches
+    before = (hopper_kernels.lag_mac_ring.launches, hopper_kernels.lag_mac.launches)
     y = offline.FastFIR(ir, fft_size=64, device=cuda)(torch.from_numpy(x).to(cuda))
-    assert hopper_kernels.lag_mac.launches - before == 1
+    assert (hopper_kernels.lag_mac_ring.launches - before[0],
+            hopper_kernels.lag_mac.launches - before[1]) == (1, 0)
     y_cpu = offline.FastFIR(ir, fft_size=64, device=CPU)(torch.from_numpy(x))
     assert snr_db(y_cpu, y.cpu()) >= SNR_CHAIN_DB
     outs = []
@@ -868,6 +872,37 @@ def test_mac_routes_above_512_partitions_on_cuda(cuda):
             assert hopper_kernels.lag_mac_ring.launches - before == 1
         outs.append(y.cpu())
     assert snr_db(outs[1], outs[0]) >= SNR_CHAIN_DB
+
+
+def test_staged_process_block_t_above_p_on_cuda(cuda):
+    """Below K8's sizes (N = 4096, P = 3) a block of T = 8 > P hops runs the
+    staged route, K1 -> K7 -> K4 once each and no K15, over three carried
+    calls; outputs and the new ring match the CPU path."""
+    from hisstools_library_tpu_torch.models import partitioned
+    rng = np.random.default_rng(0x2D)
+    ir = rng.standard_normal((2, 5000)).astype(np.float32)
+    counted = (hopper_fft.rfft_packed, hopper_kernels.lag_mac_ring,
+               hopper_fft.rifft_packed_tail, hopper_kernels.lag_mac)
+    engs = []
+    for dev in (cuda, CPU):
+        eng = partitioned.PartitionedConvolve(4096)
+        eng.set(ir, device=dev)
+        engs.append((eng, eng.init_state((2,))))
+    assert engs[0][0].num_partitions == 3
+    for _ in range(3):
+        x = rng.standard_normal((2, 8 * 2048)).astype(np.float32)
+        outs = []
+        for i, (eng, st) in enumerate(engs):
+            dev = st.prev.device
+            before = [fn.launches for fn in counted]
+            st, y = partitioned.PartitionedConvolve.process_block(
+                eng.spectra, st, torch.from_numpy(x).to(dev))
+            if dev.type == "cuda":
+                assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 1, 1, 0]
+            engs[i] = (eng, st)
+            outs.append(y.cpu())
+        assert snr_db(outs[1], outs[0]) >= SNR_CHAIN_DB
+    assert snr_db(engs[1][1].ring.re, engs[0][1].ring.re.cpu()) >= SNR_CHAIN_DB
 
 
 SPECTRAL_CASES = [

@@ -198,15 +198,15 @@ def test_stage_report_healthy(rng):
 
 
 def test_stage_report_localises_mac_perturbation(rng, monkeypatch):
-    """A corrupted partition MAC dispatch drops partition_mac while the
-    transforms around it stay clean."""
-    real = part._lag_mac_dispatch
+    """A corrupted partition MAC (the engine's ``_ring_mac``) drops
+    partition_mac while the transforms around it stay clean."""
+    real = part._ring_mac
 
     def bad(*args):
-        re, im = real(*args)
-        return re * (1.0 + 1e-3), im
+        re, im, ring = real(*args)
+        return re * (1.0 + 1e-3), im, ring
 
-    monkeypatch.setattr(part, "_lag_mac_dispatch", bad)
+    monkeypatch.setattr(part, "_ring_mac", bad)
     snrs = {s.stage: s.snr_db for s in debug_stages.stage_report(*_offline_inputs(rng))}
     assert snrs["hop_rfft"] > 95.0 and snrs["rifft_overlap"] > 95.0
     assert snrs["partition_mac"] < 80.0

@@ -181,10 +181,10 @@ def _meta_engine(n, p=3):
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(backend="pallas"), "K10 rfft_small"),       # N = 2048: staged pallas
-    (dict(backend="xla", mac_backend="pallas"), "K15 lag_mac"),
+    (dict(backend="xla", mac_backend="pallas"), "K7 lag_mac_ring"),
 ])
 def test_gpu_staged_path_raises(kwargs, match):
-    """Off the CPU the staged path runs on kernels (K10 -> K15 -> K11 at
+    """Off the CPU the staged path runs on kernels (K10 -> K7 -> K11 at
     N = 2048): a meta tensor takes the GPU branch without a card and reaches
     the first kernel's wrapper, which refuses a device that is not CUDA."""
     eng = _meta_engine(2048)

@@ -120,3 +120,46 @@ def test_mono_process_matches_jax_and_float64(zero_preset, path):
     latency = tscheme.latency
     ref = convolve_f64(x, ir, len(x) - latency)
     assert snr_db(ref, y[latency:]) >= SNR_F64_DB
+
+
+def test_collapsed_state_views_one_copy_of_the_block_tail(zero_preset):
+    """The collapsed path's refreshed states (the head and every non-final
+    section's prev) are views of the final section's new prev, the one copy
+    of the block's last hop: writing to the input afterwards changes no
+    state, the rings are the transforms of the newest P frames, and the
+    hand-off to the sample-granular path reads the views exactly as it
+    reads copies."""
+    from hisstools_library_tpu_torch.fft import api as fft_api
+    from hisstools_library_tpu_torch.models import partitioned as tpart
+
+    _, _, tir = zero_preset
+    scheme = tmono.PartitionScheme.from_latency(tmono.LatencyMode.Zero)
+    rng = np.random.default_rng(0x32)
+    b = tir.spectra[-1].shape[-1]
+    x = torch.from_numpy(rng.standard_normal(2 * b).astype(np.float32))
+    st, _ = tmono.process(tir, tmono.init_state(scheme, tir), x)
+    big = st.sections[-1].prev
+    keep = st.head.shape[-1]
+    assert torch.equal(big, x[-b:])
+    assert st.head.untyped_storage().data_ptr() == big.untyped_storage().data_ptr()
+    assert torch.equal(st.head, x[-keep:])
+    for spec, sec in zip(tir.spectra[:-1], st.sections[:-1]):
+        h, p = spec.shape[-1], spec.shape[-2]
+        assert sec.prev.untyped_storage().data_ptr() == big.untyped_storage().data_ptr()
+        assert torch.equal(sec.prev, x[-h:]) and sec.pos == 0
+        frames = torch.stack([x[len(x) - (p - 1 - k) * h - 2 * h: len(x) - (p - 1 - k) * h]
+                              for k in range(p)])
+        re, im = fft_api.rfft(frames)
+        assert torch.equal(sec.ring.re, re) and torch.equal(sec.ring.im, im)
+    snapshot = [t.clone() for t in (st.head, *(s.prev for s in st.sections))]
+    x.fill_(7.0)
+    assert all(torch.equal(a, t) for a, t in
+               zip(snapshot, (st.head, *(s.prev for s in st.sections))))
+
+    copied = tmono.MonoState(st.head.clone(), tuple(
+        tpart.PartitionedState(s.prev.clone(), s.ring, s.pos) for s in st.sections))
+    y_block = torch.from_numpy(rng.standard_normal(3000).astype(np.float32))
+    _, y_views = tmono.process_any(tir, tmono.stream_state_from_aligned(tir, st), y_block)
+    _, y_copies = tmono.process_any(tir, tmono.stream_state_from_aligned(tir, copied),
+                                    y_block)
+    assert torch.equal(y_views, y_copies)

@@ -1,6 +1,7 @@
 """Port parity: offline scheme processing (models/mono.py process_offline,
 section_taps_from_spectra, MonoConvolve's lazy offline tail) and the staged
-offline engine's kernels (K15 lag_mac; K10 -> K15 -> K11 at N = 2048).
+offline engine's kernels (K15 lag_mac, which ``parallel`` runs; K10 -> K7 ->
+K11 at N = 2048).
 
 The same numpy inputs go through the JAX package and the port:
 
@@ -14,7 +15,10 @@ The same numpy inputs go through the JAX package and the port:
   the Pallas kernels in interpret mode in JAX);
 - ``FastFIR`` at N = 2048, which is outside the fused chain: with
   ``backend="pallas", mac_backend="pallas"`` both packages take the staged
-  path (small forward, lag_mac, small inverse).
+  path (small forward, the lag MAC, small inverse);
+- the staged ``process_offline`` and ``FastFIR.apply`` on the CPU, bit for
+  bit against the formula they had before they shared process_block's
+  stages (``lag_mac_plain`` over zero-padded spectra).
 
 Tolerances: >= 110 dB SNR in float32 (transforms and sums in another order),
 >= 250 dB in float64, >= 100 dB against a float64 convolution in float32;
@@ -171,7 +175,7 @@ def test_mono_convolve_lazy_offline_tail(signals):
 def test_fastfir_staged_n2048_matches_jax(highest):
     """FastFIR at N = 2048 is outside the fused chain (N = 4096..2^17): with
     ``backend="pallas", mac_backend="pallas"`` both packages run the staged
-    path, small forward -> lag_mac -> small inverse (the port's K10 -> K15 ->
+    path, small forward -> lag MAC -> small inverse (the port's K10 -> K7 ->
     K11, here their plain versions)."""
     rng = np.random.default_rng(0x2048)
     ir = rng.standard_normal((2, 9000)).astype(np.float32)
@@ -181,12 +185,61 @@ def test_fastfir_staged_n2048_matches_jax(highest):
                             mac_backend="pallas")
     eng = toff.FastFIR(ir, fft_size=2048, backend="pallas", device=CPU)
     assert eng.spectra.shape[-2] == 9  # P = ceil(9000 / 1024)
-    before = hopper_kernels.lag_mac.launches
+    before = hopper_kernels.lag_mac_ring.launches
     ty = eng(torch.from_numpy(x), mac_backend="pallas")
-    assert hopper_kernels.lag_mac.launches == before  # the CPU runs the plain version
+    assert hopper_kernels.lag_mac_ring.launches == before  # the CPU runs the plain version
     assert snr_db(jy, ty) >= SNR_JAX_DB
     assert snr_db(joff.FastFIR.apply(JSplit(jnp.asarray(eng.spectra.re.numpy()),
                                             jnp.asarray(eng.spectra.im.numpy())),
                                      jnp.asarray(x), backend="xla"), ty) >= SNR_JAX_DB
     for c in range(2):
         assert snr_db(convolve_f64(x[c], ir[c], 12000), ty[c]) >= SNR_F64_DB
+
+
+def _staged_offline_formula(spectra, x):
+    """The staged offline form as ``process_offline`` computed it over
+    zero-padded spectra: frames, ``lag_mac_plain`` over min(P, T) lags
+    behind zero rows, the scaled inverse's kept half."""
+    from hisstools_library_tpu_torch.core.types import Split
+    from hisstools_library_tpu_torch.fft import api as fft_api
+
+    h = spectra.shape[-1]
+    L = x.shape[-1]
+    if L % h:
+        x = torch.nn.functional.pad(x, (0, h - L % h))
+    t = x.shape[-1] // h
+    blocks = x.reshape(*x.shape[:-1], t, h)
+    prev = torch.cat([torch.zeros_like(blocks[..., :1, :]), blocks[..., :-1, :]], dim=-2)
+    X = Split(*fft_api.rfft(torch.cat([prev, blocks], dim=-1)))
+    lags = min(spectra.shape[-2], t)
+    pad = (0, 0, lags, 0)
+    acc_re, acc_im = hopper_kernels.lag_mac_plain(
+        torch.nn.functional.pad(X.re, pad), torch.nn.functional.pad(X.im, pad),
+        spectra.re[..., :lags, :], spectra.im[..., :lags, :], t)
+    y = fft_api.rifft(acc_re, acc_im) * (1.0 / (4.0 * (2 * h)))
+    out = y[..., h:]
+    return out.reshape(*out.shape[:-2], t * h)[..., :L]
+
+
+@pytest.mark.parametrize("mac_backend", ["auto", "xla"])
+@pytest.mark.parametrize("length,dtype", [
+    (3000, torch.float32),     # T = 3 < P = 9, a partial last hop
+    (12000, torch.float32),    # T > P
+    (9216, torch.float64),     # T = P, whole hops
+])
+def test_staged_offline_bit_equal_on_cpu(length, dtype, mac_backend):
+    """``process_offline``'s staged form (a zero ring through process_block's
+    stages) and ``FastFIR.apply``'s (the same with the one-hop look-ahead)
+    are bit for bit the zero-padded formula at N = 2048, P = 9."""
+    from hisstools_library_tpu_torch.models.partitioned import PartitionedConvolve
+
+    rng = np.random.default_rng(length)
+    ir = rng.standard_normal((2, 9000))
+    eng = toff.FastFIR(ir, fft_size=2048, dtype=dtype, device=CPU)
+    assert eng.spectra.shape[-2] == 9
+    x = torch.from_numpy(rng.standard_normal((2, length))).to(dtype)
+    y = PartitionedConvolve.process_offline(eng.spectra, x, mac_backend=mac_backend)
+    assert torch.equal(y, _staged_offline_formula(eng.spectra, x))
+    y = toff.FastFIR.apply(eng.spectra, x, mac_backend=mac_backend)
+    want = _staged_offline_formula(eng.spectra, torch.nn.functional.pad(x, (0, 1024)))
+    assert torch.equal(y, want[..., 1024:1024 + length])

@@ -9,7 +9,9 @@ The same numpy inputs go through the JAX package and the port. Routes:
   port's K8 is held to its own staged route);
 - ``process_block`` with no backend at N = 4096, T <= P: materialised frames,
   the ring MAC (JAX K7 in interpret mode, the port's K7 plain version) and
-  the inverse, with the lag-0 term; and with T > P the lag loop;
+  the inverse, with the lag-0 term; and with T > P (the JAX package's lag
+  loop, the port's K7 at any T), bit for bit against the formula of
+  ``lag_mac_plain`` over [ring | X] at T <= P and T > P too;
 - a JAX state made by ``step`` (pos != 0) continued by both packages.
 
 The mono block paths at the repo's real preset sizes are in
@@ -80,7 +82,7 @@ def test_process_block_matches_jax(rng, route):
         c, h, p, t, backend = 1, 8192, 2, 1, "pallas"
     elif route == "ring":     # K7: T <= P, lag0
         c, h, p, t, backend = 2, 2048, 3, 2, None
-    else:                     # T > P: the lag loop
+    else:                     # T > P: JAX's lag loop, the port's K7
         c, h, p, t, backend = 2, 2048, 2, 3, None
     jspec, tspec = _spectra(rng, (c,), p, h)
     jl0, tl0 = _spectra(rng, (c,), 1, h)
@@ -315,40 +317,80 @@ def _meta_spectra(p, k):
 
 
 @pytest.mark.parametrize("p,mac_backend,match", [
-    (3, "auto", "K15"),          # "auto" off the CPU is K15
-    (3, "pallas", "K15"),
-    (5, "auto", "K15"),
-    (600, "auto", "K15"),        # above the TPU package's VMEM bound of 512 too
+    (3, "auto", "K7"),           # "auto" off the CPU is K7
+    (3, "pallas", "K7"),
+    (5, "auto", "K7"),
+    (600, "auto", "K7"),         # above the TPU package's VMEM bound of 512 too
     (3, "xla", None),            # "xla" is the torch loop on any device
 ])
 def test_lag_mac_dispatch_routing_off_cpu(p, mac_backend, match):
-    """Off the CPU, _lag_mac_dispatch launches K15 at any P (a meta tensor
-    takes the GPU branch without a card): the K15 routes reach the kernel's
-    wrapper, which refuses a device that is not CUDA, and the loop route
-    runs."""
+    """Off the CPU, the engine's one lag-MAC dispatch (``_ring_mac``)
+    launches K7 at any P (a meta tensor takes the GPU branch without a
+    card): the K7 routes reach the kernel's wrapper, which refuses a device
+    that is not CUDA, and the loop route runs."""
     t, k = 4, 64
-    xp = [torch.empty(2, t + p, k, device="meta") for _ in range(2)]
-    h = _meta_spectra(p, k)
+    ring, h = Split(*_meta_spectra(p, k)), Split(*_meta_spectra(p, k))
+    x = [torch.empty(2, t, k, device="meta") for _ in range(2)]
     if match is None:
-        acc_re, _ = tpart._lag_mac_dispatch(*xp, *h, t, mac_backend)
+        acc_re, _, new_ring = tpart._ring_mac(ring, *x, h, mac_backend)
         assert acc_re.shape == (2, t, k) and acc_re.device.type == "meta"
+        assert new_ring.shape == (2, p, k)
         return
-    with pytest.raises(ValueError, match=f"{match} lag_mac: .*CUDA"):
-        tpart._lag_mac_dispatch(*xp, *h, t, mac_backend)
+    with pytest.raises(ValueError, match=f"{match} lag_mac_ring: .*CUDA"):
+        tpart._ring_mac(ring, *x, h, mac_backend)
 
 
-@pytest.mark.parametrize("p", [3, 600])
-def test_process_block_ring_mac_routing_off_cpu(p):
-    """Off the CPU, process_block's MAC takes K7 whenever T <= P, above the
-    TPU package's bound of 512 partitions too: the wrapper refuses the meta
-    device by name, so no torch loop ran in its place."""
-    h, t = 32, 2
+@pytest.mark.parametrize("p,t", [
+    pytest.param(3, 2, id="3"), pytest.param(600, 2, id="600"),
+    pytest.param(1, 2, id="1-t2"), pytest.param(3, 8, id="3-t8"),   # T > P
+])
+def test_process_block_ring_mac_routing_off_cpu(p, t):
+    """Off the CPU, process_block's MAC takes K7 at any T and P, above the
+    TPU package's bound of 512 partitions and with T > P too: the wrapper
+    refuses the meta device by name, so no torch loop ran in its place."""
+    h = 32
     spectra = Split(*_meta_spectra(p, h))
     state = tpart.PartitionedState(torch.empty(2, h, device="meta"),
                                    Split(*_meta_spectra(p, h)), 0)
     with pytest.raises(ValueError, match="K7 lag_mac_ring: .*CUDA"):
         tpart.PartitionedConvolve.process_block(
             spectra, state, torch.empty(2, t * h, device="meta"), backend="xla")
+
+
+@pytest.mark.parametrize("mac_backend", ["auto", "xla"])
+@pytest.mark.parametrize("p,t", [(3, 2), (1, 2), (3, 8)])   # T <= P and T > P
+def test_process_block_staged_bit_equal_on_cpu(rng, p, t, mac_backend):
+    """The staged process_block on the CPU (N = 4096, two carried calls,
+    lag0, a ring at pos != 0) is bit for bit the frames' rFFT,
+    ``lag_mac_plain`` over [ring | X], the lag-0 product and the kept half
+    of the scaled inverse, and its new ring is [ring | X]'s last P rows."""
+    from hisstools_library_tpu_torch.core.types import packed_mul
+    from hisstools_library_tpu_torch.fft import api as fft_api, hopper_kernels
+
+    c, h = 2, 2048
+    _, spec = _spectra(rng, (c,), p, h)
+    _, l0 = _spectra(rng, (c,), 1, h)
+    ring = Split(*(torch.from_numpy(rng.standard_normal((c, p, h)).astype(np.float32))
+                   for _ in range(2)))
+    state = tpart.PartitionedState(torch.from_numpy(
+        rng.standard_normal((c, h)).astype(np.float32)), ring, p - 1)
+    for _ in range(2):
+        x = torch.from_numpy(rng.standard_normal((c, t * h)).astype(np.float32))
+        new, y = tpart.PartitionedConvolve.process_block(spec, state, x,
+                                                         mac_backend=mac_backend, lag0=l0)
+        ring = tpart.PartitionedConvolve._slot_normalise(state.ring, state.pos)
+        blocks = x.reshape(c, t, h)
+        prev_rows = torch.cat([state.prev[:, None, :], blocks[:, :-1, :]], dim=-2)
+        xre, xim = fft_api.rfft(torch.cat([prev_rows, blocks], dim=-1))
+        v_re, v_im = torch.cat([ring.re, xre], dim=-2), torch.cat([ring.im, xim], dim=-2)
+        acc_re, acc_im = hopper_kernels.lag_mac_plain(v_re, v_im, spec.re, spec.im, t)
+        prod = packed_mul(Split(xre, xim), l0)
+        want = (fft_api.rifft(acc_re + prod.re, acc_im + prod.im) * (1.0 / (4.0 * 2 * h)))
+        want = want[..., h:]
+        assert torch.equal(y, want.reshape(c, t * h))
+        assert torch.equal(new.ring.re, v_re[:, t:]) and torch.equal(new.ring.im, v_im[:, t:])
+        assert new.pos == 0 and torch.equal(new.prev, blocks[:, -1])
+        state = new
 
 
 @pytest.mark.parametrize("n,p,t", [

@@ -134,13 +134,14 @@ def test_n2m_collapsed_call_counts_every_pair(launches):
     (1 << 14, 58, 8, torch.float32, {"fastfir_chain_stream": (1, 2 * 2 * 8 * 16384)}),
     (1 << 17, 64, 2, torch.float32, {"fastfir_chain_stream": (1, 2 * 2 * 2 * (1 << 17))}),
     (1 << 14, 4, 8, torch.float32, {"fastfir_chain_stream": (1, 2 * 2 * 8 * 16384)}),
-    # Below 2^14 the staged route: K1, K7 (K15 where T > P), K4.
+    # Below 2^14 the staged route: K1, K7 (at T > P too), K4.
     (1 << 13, 17, 8, torch.float32, {"rfft_packed": (1, 2 * 8 * 8192), "lag_mac_ring": (1, None),
                                      "rifft_packed_tail": (1, 2 * 8 * 8192)}),
-    (1 << 13, 4, 8, torch.float32, {"rfft_packed": (1, 2 * 8 * 8192), "lag_mac": (1, None),
+    (1 << 13, 4, 8, torch.float32, {"rfft_packed": (1, 2 * 8 * 8192), "lag_mac_ring": (1, None),
                                     "rifft_packed_tail": (1, 2 * 8 * 8192)}),
-    # float64: the staged route with the MAC dispatch and K6's full inverse.
-    (1 << 14, 17, 8, torch.float64, {"rfft_packed": (1, 2 * 8 * 16384), "lag_mac": (1, None),
+    # float64: the staged route with K7 and K6's full inverse.
+    (1 << 14, 17, 8, torch.float64, {"rfft_packed": (1, 2 * 8 * 16384),
+                                     "lag_mac_ring": (1, None),
                                      "rifft_packed": (1, 2 * 8 * 16384)}),
 ])
 def test_process_block_launches_by_shape(launches, n, p, t, dtype, want):

@@ -82,9 +82,10 @@ one CUDA card:
   collapsed section (128, T 16, P 58, 2^13) and every recorded shape: device
   ms (``torch.profiler``), event ms, SNR against ``lag_mac_ring_plain`` and
   the bound (bytes), and at the narrow tiles (128, T 4, P 14, K 64 / 16)
-  and (2, T 4, P 625, K 32); K15 lag_mac at the staged FastFIR's (128, T
-  48, P 47, 1024) with ``lead_skip`` 0 and 1 and at (2, T 938, P 625, K
-  32); K8 fastfir_chain_stream at chip_smoke's
+  and (2, T 4, P 625, K 32), and at the staged FastFIR's (128, T 48, P 47,
+  1024) and (2, T 938, P 625, K 32), a zero ring; K15 lag_mac at those two
+  shapes (the staged FastFIR's before it took K7) with ``lead_skip`` 0 and
+  1; K8 fastfir_chain_stream at chip_smoke's
   four 128-channel shapes, each of its three launches' device ms (its state
   kernel is the ring MAC);
 * with ``--k9`` K9 hop_fire: at the sample-granular paths' (128, 256, P 3)
@@ -573,6 +574,8 @@ def k7_phase(cs, hf, randn, dev, smi) -> None:
     # the narrow tiles (K < 256): the far tier's (T, P) at K = 64 and 16, and
     # process_block at N = 64 over a 20 000-tap IR (P = 625)
     cases += [(c, 4, 14, 64), (c, 4, 14, 16), (2, 4, 625, 32)]
+    # the staged FastFIR at N = 2048 and at N = 64 over a 20 000-tap IR
+    cases += [(c, 48, 47, 1024), (2, 938, 625, 32)]
     for cc, t, p, k in cases:
         a = (randn(cc, p, k), randn(cc, p, k), randn(cc, t, k), randn(cc, t, k),
              randn(cc, p, k) * 1e-3, randn(cc, p, k) * 1e-3)
@@ -586,7 +589,7 @@ def k7_phase(cs, hf, randn, dev, smi) -> None:
               f"plain {snr:.2f} dB [{smi}]", flush=True)
         del a
         torch.cuda.empty_cache()
-    # the staged FastFIR's (N = 2048), and its N = 64 over a 20 000-tap IR
+    # K15 at the staged FastFIR's shapes of before it took K7 (above)
     for cc, t, p, k, skip in ((c, 48, 47, 1024, 0), (c, 48, 47, 1024, 1), (2, 938, 625, 32, 0)):
         a = (randn(cc, skip + t + p, k), randn(cc, skip + t + p, k), randn(cc, p, k) * 1e-3,
              randn(cc, p, k) * 1e-3, t)
