@@ -41,6 +41,10 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
    path ``process_block`` keeps where K8 does not serve (frames, K1 -> K7
    (+ the lag-0 product) -> K4) on the same inputs; K8's state kernel alone
    against its plain version at (128, T 2, P 8, 2^17);
+   6b. K8's matrix form at the matrix cell's 25 x 25 (T 8, P 17, 2^14,
+   lag0) and two small shapes against its plain version, its three launches
+   beside its state kernel's design bytes, and K8 at render's shape in the
+   same call;
 7. drives ``mono.process`` as ``bench.py``'s ``stream`` mode configures it
    (Zero preset, ``prepare_ir(offline_tail=False)`` of the same IRs, calls of
    131 072 samples) through the two-tier, collapsed and matched paths;
@@ -159,7 +163,9 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; imports nothing of JAX. It
     section, P = 8), three ``process`` calls of 131 072 samples (K8); (d)
     N2M 8 x 8, Zero preset, IRs cut to 290 000 taps, ``init_block_state``,
     three calls of 131 072 samples (near tier K8 at 2^14, far tier K8 at
-    2^16 with P2 = 8; no K7); (e) N2M 2 x 2, 64 callbacks of 256 samples
+    2^16 with P2 = 8; no K7); (d2) the same 8 x 8 bank from ``init_state``,
+    three calls of 131 072 samples through the matrix route (K8's matrix
+    form, no per-pair K8); (e) N2M 2 x 2, 64 callbacks of 256 samples
     through ``process_any``. Output 0 of each holds >= 99 dB against a
     float64 FFT convolution (N2M: summed over the inputs); ms per call by
     CUDA events and peak memory;
@@ -277,6 +283,7 @@ import numpy as np
 import torch
 
 SNR_MIN_KERNEL_DB = 110.0   # kernel vs plain version, f32 sums in another order
+SNR_MIN_MATRIX_DB = 126.0   # K8's matrix form vs plain at the matrix cell (K8's own reads 127.6)
 SNR_MIN_PATH_DB = 99.0      # main path vs float64 oracle
 SNR_MIN_TD_DB = 120.0       # conv1d head vs float64 (TF32 would give ~60 dB)
 CHANNELS, FS, IR_LEN, SIG_LEN = 128, 48000, 480000, 483328
@@ -298,6 +305,9 @@ KERNELS = {
     "lag_mac_ring": ("hopper_kernels", "ring_mac.cu", "fft/pallas_kernels.py:566"),
     "fastfir_chain": ("hopper_fft", "fastfir_chain.cu", "fft/pallas_fft.py:1685"),
     "fastfir_chain_stream": ("hopper_fft", "fastfir_stream.cu", "fft/pallas_fft.py:1943"),
+    # K8's matrix form: the TPU package runs an N2M matrix's pairs through K8.
+    "fastfir_chain_stream_matrix": ("hopper_fft", "fastfir_stream.cu",
+                                    "fft/pallas_fft.py:1943"),
     "hop_fire": ("hopper_kernels", "hop_fire.cu", "fft/pallas_kernels.py:383"),
     "rfft_small": ("hopper_fft", "rfft_small.cu", "fft/pallas_fft.py:1079"),
     "rifft_small": ("hopper_fft", "rifft_small.cu", "fft/pallas_fft.py:1114"),
@@ -481,6 +491,11 @@ def kernel_flops(name, args, kwargs) -> float:
         p = args[1].shape[-2]
         return (c * t * 2 * fft_flops(2 * h, 1)
                 + 8.0 * c * h * sum(min(p, i) for i in range(t)))
+    if name == "fastfir_chain_stream_matrix":  # each input's and output's transforms once
+        ins, t, h = a.shape
+        outs, _, p = args[4].shape[:3]
+        return ((ins + outs) * t * fft_flops(2 * h, 1)
+                + 8.0 * outs * ins * t * (p + ("l0_re" in kwargs)) * h)
     # fastfir_chain_stream: two transforms and the P-lag MAC per hop (+ lag 0)
     c, t, h = a.shape
     p = args[2].shape[1]
@@ -924,6 +939,71 @@ def stream_kernels(randn, mods, smi) -> dict:
         fail(f"stream_state at ({c}, {t}, {p}, {k}): SNR {snr:.2f} dB < {SNR_MIN_KERNEL_DB}")
     results["fastfir_chain_stream"]["state_kernel"] = state
     del args, got, want
+    torch.cuda.empty_cache()
+    return results
+
+
+def stream_matrix_kernel(randn, mods, smi) -> dict:
+    """Phase 6b: K8's matrix form (``fastfir_chain_stream_matrix``) against
+    its plain version at the benchmark's matrix cell, 25 inputs x 25
+    outputs, T 8, P 17, N = 2^14 with lag0 (SNR >= SNR_MIN_MATRIX_DB), and
+    at (2 in, 3 out, T 3, P 2, 2^14) and (3 in, 2 out, T 2, P 20, 2^16,
+    no lag0): its three launches' device ms beside its state kernel's design
+    bytes (H and L0 once, each input's ring in and out once, X and Y once)
+    and the function's bound, event ms and the plain version's ms; then K8
+    at render's (128, T 8, P 58, 2^14, lag0) in the same call, which the
+    matrix form leaves as it was."""
+    hf = mods["hopper_fft"]
+
+    def matrix(ins, outs, t, p, n, lag0):
+        def make():
+            k = n // 2
+            kw = (dict(l0_re=randn(outs, ins, k) * 1e-3, l0_im=randn(outs, ins, k) * 1e-3)
+                  if lag0 else {})
+            return (randn(ins, t, k), randn(ins, k), randn(ins, p, k), randn(ins, p, k),
+                    randn(outs, ins, p, k) * 1e-3, randn(outs, ins, p, k) * 1e-3,
+                    1.0 / (4.0 * n)), kw
+        return make
+
+    cell = (25, 25, 8, 17, 1 << 14, True)
+    results = check_kernels([("fastfir_chain_stream_matrix", [
+        (matrix(2, 3, 3, 2, 1 << 14, True), False), (matrix(*cell), True),
+        (matrix(3, 2, 2, 20, 1 << 16, False), False)])], mods, smi)
+    r = results["fastfir_chain_stream_matrix"]
+    cell_snr = r["shapes"][1]["snr_db"]
+    if cell_snr < SNR_MIN_MATRIX_DB:
+        fail(f"fastfir_chain_stream_matrix at the matrix cell: SNR {cell_snr:.2f} dB < "
+             f"{SNR_MIN_MATRIX_DB}")
+    ins, outs, t, p, n, _ = cell
+    k = n // 2
+    # The state kernel's bytes: H and L0 of the pairs, the inputs' rings in
+    # and out, X and Y.
+    design = 8 * k * (outs * ins * (p + 1) + 2 * ins * p + ins * t + outs * t)
+    args, kw = matrix(*cell)()
+    r["launches_ms"] = k8_launches(lambda: hf.fastfir_chain_stream_matrix(*args, **kw), smi,
+                                   "fastfir_chain_stream_matrix (25 x 25, T 8, P 17, 16384, "
+                                   "lag0)")
+    r["state_design_ms"] = design / HBM_BYTES_PER_S * 1e3
+    print(f"fastfir_chain_stream_matrix (25 x 25, T 8, P 17, 16384, lag0): device "
+          f"{r['device_ms']:.4f} ms, events {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; "
+          f"state kernel {r['launches_ms']['state']:.4f} ms against its design bytes "
+          f"{design / 1e9:.4f} GB ({r['state_design_ms']:.4f} ms at 3.35 TB/s); the function's "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); SNR vs plain {cell_snr:.2f} dB "
+          f"[{smi}]", flush=True)
+    del args, kw
+    torch.cuda.empty_cache()
+    c, t, p, n = CHANNELS, 8, 58, 1 << 14
+    k = n // 2
+    args = (randn(c, t, k), randn(c, k), randn(c, p, k), randn(c, p, k),
+            randn(c, p, k) * 1e-3, randn(c, p, k) * 1e-3, 1.0 / (4.0 * n))
+    kw = dict(l0_re=randn(c, k) * 1e-3, l0_im=randn(c, k) * 1e-3)
+    split = k8_launches(lambda: hf.fastfir_chain_stream(*args, **kw), smi,
+                        "fastfir_chain_stream render (128, T 8, P 58, 16384, lag0)")
+    print(f"fastfir_chain_stream render (128, T 8, P 58, 16384, lag0): device "
+          f"{sum(split.values()):.4f} ms, events "
+          f"{median_ms(lambda: hf.fastfir_chain_stream(*args, **kw)):.4f} ms [{smi}]",
+          flush=True)
+    del args, kw
     torch.cuda.empty_cache()
     return results
 
@@ -2229,6 +2309,17 @@ def convolver_paths(dev, irs, x, launches, smi) -> None:
         fail("convolver-n2m-two-tier: K8 did not launch twice a call (near and far tier)")
     del conv, xs
 
+    # (d2) N2M 8 x 8, Zero preset, 290 000 taps, init_state: the matrix route
+    # (K8's matrix form; no per-pair K8), three calls of 131 072 samples.
+    conv = Convolver(n2m, n2m, scheme=zero, device=dev)
+    conv.set_all(cut)
+    conv.prepare(offline_tail=False)
+    xs = xin[:, :3 * blk].contiguous()
+    run("convolver-n2m-matrix", ("fastfir_chain_stream_matrix",),
+        STAGED + ("lag_mac_ring", "fastfir_chain_stream"),
+        lambda: three_calls(conv, conv.init_state, xs), 3 * blk, range(n2m), cut[0])
+    del conv, xs
+
     # (e) N2M 2 x 2, 64 callbacks of 256 samples through process_any.
     small = bank[:2, :2]
     conv = Convolver(2, 2, scheme=zero, device=dev)
@@ -3060,6 +3151,7 @@ def main() -> None:
     launches = Launches(mods)
     fastfir_path(dev, irs, x, launches, smi)
     results.update(stream_kernels(randn, mods, smi))
+    results.update(stream_matrix_kernel(randn, mods, smi))
     stream_paths(dev, irs, x, launches, smi, profile)
     time_domain_check(dev, smi)
     results.update(slice_kernels(randn, mods, smi))

@@ -55,6 +55,10 @@ _SIGNATURES = {
     # rout_im, spectra, tw, channels, t, p, n, scale, stream
     "hst_fastfir_stream": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _L, _P, _P, _P, _P, _P, _L,
                            _I, _I, _I, _F, _P],
+    # x, prev, rin_re, rin_im, h_re, h_im, h_cs, l0_re, l0_im, l0_cs, y, rout_re,
+    # rout_im, spectra, tw, outputs, inputs, t, p, n, scale, stream
+    "hst_fastfir_stream_matrix": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _L, _P, _P, _P, _P, _P,
+                                  _L, _L, _I, _I, _I, _F, _P],
     # xr, xi, rr, ri, hr, hi, h_cs, l0r, l0i, l0_cs, yr, yi, nr, ni, channels, t, p, k,
     # stream
     "hst_stream_state": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _L, _P, _P, _P, _P, _L, _I, _I,

@@ -106,3 +106,40 @@ extern "C" int hst_fastfir_stream(const float* x, const float* prev, const float
   if (rc != 0) return rc;
   return transform(n, false, frames, yr, yi, y, nullptr, w, 1, scale, st);
 }
+
+// K8's matrix form, three launches on `stream`: an I-in / O-out matrix whose
+// pairs share one carried history an input. x (I, T, H) hops and prev (I, H)
+// of the inputs, ring (I, P, N/2) in and out, H (O * I, P, N/2) and L0
+// (O * I, N/2) of the pairs (pair (o, i) at channel o * I + i, channels h_cs /
+// l0_cs floats apart), y (O, T, H):
+//   y_o,t = scale * rifft(sum_i [ring MAC of input i with H_o,i (+ X_i,t L0_o,i)])[H:].
+// The forward transforms the I inputs' T frames, the ring MAC's matrix form
+// sums over the inputs in its accumulators, the inverse turns the O outputs'
+// T frames. `spectra` holds 2 (I + O) T rows of N/2 floats: X re, X im (I T
+// rows each), Y re, Y im (O T rows each). N = 2^14..2^17.
+extern "C" int hst_fastfir_stream_matrix(const float* x, const float* prev, const float* rin_re,
+                                         const float* rin_im, const float* h_re,
+                                         const float* h_im, long long h_cs, const float* l0_re,
+                                         const float* l0_im, long long l0_cs, float* y,
+                                         float* rout_re, float* rout_im, float* spectra,
+                                         const void* tw, long long outputs, long long inputs,
+                                         int t, int p, int n, float scale, void* stream) {
+  if (n < (1 << 14) || n > (1 << 17) || inputs < 1 || inputs > (1 << 30))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float2* w = static_cast<const float2*>(tw);
+  const long long xf = inputs * t, yf = outputs * t;  // the inputs' and the outputs' frames
+  const int k = n / 2;
+  float* xr = spectra;
+  float* xi = xr + xf * k;
+  float* yr = xi + xf * k;
+  float* yi = yr + yf * k;
+  int rc = transform(n, true, xf, x, prev, xr, xi, w, t, 1.f, st);
+  if (rc != 0) return rc;
+  const RingMac a{rin_re, rin_im, (long long)p * k, p, xr, xi, (long long)t * k,
+                  h_re, h_im, h_cs, l0_re, l0_im, l0_cs, yr, yi, rout_re, rout_im,
+                  outputs, t, p, k};
+  rc = launch_ring_mac_matrix(a, (int)inputs, st);
+  if (rc != 0) return rc;
+  return transform(n, false, yf, yr, yi, y, nullptr, w, 1, scale, st);
+}

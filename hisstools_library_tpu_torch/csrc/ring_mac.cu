@@ -17,6 +17,9 @@
 // - K8's state kernel (hst_stream_state, and the middle launch of
 //   hst_fastfir_stream in fastfir_stream.cu): K7's operands and the
 //   optional lag-0 term X_t * L0.
+// The matrix form (launch_ring_mac_matrix, the middle launch of
+// hst_fastfir_stream_matrix) is a kernel of its own below: an N-in / M-out
+// matrix whose pairs share one ring an input.
 //
 // Bound on the H100: HBM bytes. K7 reads H and hist (8*C*P*K each) and X
 // (8*C*T*K) and writes Y (8*C*T*K) and the new ring (8*C*P*K): 1.68 GB at
@@ -291,6 +294,255 @@ bool served(int k) {
   return k % kBins == 0 || (k >= kMinBins && k < kBins && (k & (k - 1)) == 0);
 }
 
+// -----------------------------------------------------------------------------
+// The matrix form: Y_m = sum over inputs n of the ring MAC of V_n with H_m,n
+// (ring_mac.cuh). Bound on the H100: HBM bytes, H (M N P K complex) once;
+// at the 25 x 25 matrix's (T 8, P 17, K 8192) H and L0 are 0.737 of the
+// 0.82 GB. So the design reads H once, and each input's V rows once a group
+// of outputs:
+// - A block takes a tile of kMxBins bins and a group of kMxGroup outputs
+//   (blocks tile-major, group-minor, so the groups of one tile read its V
+//   rows from L2 after the first), one consumer thread a bin.
+// - A lag item is the group's H_m,n,q rows and the row V_n[P+t0-1-q], a row
+//   item up to kMxGroup + 1 rows of V_n: 2 kMxGroup + 2 plane runs of
+//   kMxBins floats a stage, filled by lanes of the producer warp in
+//   parallel (one 1-D bulk copy each) on the stage's `full` mbarrier.
+// - The producer walks the items in loops (no division per item): for each
+//   chunk of TU <= kMxHops hops, for each input, its row items, then its P
+//   lag items.
+// - A thread keeps kMxGroup x TU accumulators and K7's window of TU V
+//   values in registers, and adds the accumulators into a shared-memory
+//   total after each input: each input's terms (1 + P a hop) are summed
+//   apart, then the inputs, so the float32 sums stay as short as one
+//   pair's (one chain over all inputs measured 11 dB lower SNR against
+//   float64 at the matrix's shape).
+// - The blocks of the first group store each input's new ring as its rows
+//   pass.
+// Five outputs a block and 128 bins: 128 registers a thread, three blocks an
+// SM (the stages and the total, 70 KB a block); 1-D copies of 512 bytes.
+constexpr int kMxBins = 128;   // bins a block: its consumer threads
+constexpr int kMxGroup = 5;    // outputs a block
+constexpr int kMxStages = 5;   // items in shared memory
+constexpr int kMxHops = 8;     // hops a chunk: accumulators an output
+constexpr int kMxPlanes = 2 * kMxGroup + 2;
+constexpr int kMxDevices = 64;  // devices whose shared-memory opt-in is remembered
+
+// V_n row u, plane im, from bin b0: the ring's rows first, then X's.
+__device__ __forceinline__ const float* matrix_vrow(const RingMac& a, int n, int u, int im,
+                                                    int b0) {
+  if (u < a.s_rows) return (im ? a.si : a.sr) + n * a.s_cs + (long long)u * a.k + b0;
+  return (im ? a.xi : a.xr) + n * a.x_cs + (long long)(u - a.s_rows) * a.k + b0;
+}
+
+// Dynamic shared memory: kMxStages stages of kMxPlanes runs, the total
+// (kMxGroup x TU accumulators, re and im, a run each), then the mbarriers.
+template <int TU>
+constexpr int matrix_shared_bytes() {
+  return (kMxStages * kMxPlanes + kMxGroup * TU * 2) * kMxBins * 4 + 2 * kMxStages * 8;
+}
+
+template <int TU>
+__global__ void __launch_bounds__(kMxBins + 32) ring_mac_matrix(RingMac a, int inputs) {
+  constexpr int kItemRows = kMxGroup + 1;  // V rows a row item carries
+  constexpr unsigned kRun = kMxBins * sizeof(float);
+  extern __shared__ __align__(128) float smem[];
+  float(*stage)[kMxPlanes][kMxBins] = reinterpret_cast<float(*)[kMxPlanes][kMxBins]>(smem);
+  float* total = smem + kMxStages * kMxPlanes * kMxBins;  // [kMxGroup * TU * 2][kMxBins]
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(total + kMxGroup * TU * 2 * kMxBins);
+  unsigned long long* empty = full + kMxStages;
+  const int t = a.t, p = a.p, k = a.k;
+  const int outs = (int)a.channels;
+  const int groups = (outs + kMxGroup - 1) / kMxGroup;
+  const int tb = blockIdx.x / groups;
+  const int m0 = (blockIdx.x - tb * groups) * kMxGroup;
+  const int gn = min(kMxGroup, outs - m0);  // the group's outputs
+  const int b0 = tb * kMxBins;
+  const int chunks = (t + TU - 1) / TU;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kMxStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], kMxBins / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers are initialised
+
+  if (tid >= kMxBins) {
+    // The producer warp: lane 0 claims a stage, the lanes copy its runs.
+    const int lane = tid - kMxBins;
+    int g = 0;
+    auto claim = [&](int s, unsigned bytes) {
+      if (lane == 0) {
+        if (g >= kMxStages) bar_wait(&empty[s], (unsigned)(g / kMxStages - 1) & 1u);
+        bar_expect(&full[s], bytes);
+      }
+      __syncwarp();
+    };
+    for (int ci = 0; ci < chunks; ++ci) {
+      const int t0 = ci * TU, tc = min(TU, t - t0);
+      for (int n = 0; n < inputs; ++n) {
+        for (int j0 = 0; j0 < tc; j0 += kItemRows, ++g) {  // rows V_n[P+t0+j0 ..]
+          const int s = g % kMxStages;
+          const int rows = min(kItemRows, tc - j0);
+          claim(s, 2u * rows * kRun);
+          if (lane < 2 * rows)
+            bulk_copy(stage[s][lane], matrix_vrow(a, n, p + t0 + j0 + (lane >> 1), lane & 1, b0),
+                      kRun, &full[s]);
+        }
+        // H of the pair (m0 + o, n) at channel (m0 + o) * inputs + n.
+        const long long hn = ((long long)m0 * inputs + n) * a.h_cs + b0;
+        for (int q = 0; q < p; ++q, ++g) {  // (H_m,n,q for the group, V_n[P+t0-1-q])
+          const int s = g % kMxStages;
+          claim(s, 2u * (gn + 1) * kRun);
+          if (lane < 2 * gn) {
+            const long long ho = hn + (long long)(lane >> 1) * inputs * a.h_cs + (long long)q * k;
+            bulk_copy(stage[s][lane], (lane & 1 ? a.hi : a.hr) + ho, kRun, &full[s]);
+          } else if (lane < 2 * gn + 2) {
+            const int im = lane - 2 * gn;
+            bulk_copy(stage[s][2 * kMxGroup + im], matrix_vrow(a, n, p + t0 - 1 - q, im, b0),
+                      kRun, &full[s]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumers: thread tid owns bin b0 + tid of the group's outputs.
+  const int bin = b0 + tid;
+  const bool lane0 = bin == 0;
+  const bool lag0 = a.l0r != nullptr;
+  const bool ring_out = a.nr != nullptr && m0 == 0;
+  int g = 0;
+  auto take = [&]() {
+    const int s = g % kMxStages;
+    bar_wait(&full[s], (unsigned)(g / kMxStages) & 1u);
+    return s;
+  };
+  auto release = [&](int s) {
+    __syncwarp();
+    if ((tid & 31) == 0) bar_arrive(&empty[s]);
+    ++g;
+  };
+  for (int ci = 0; ci < chunks; ++ci) {
+    const int t0 = ci * TU, tc = min(TU, t - t0);
+#pragma unroll
+    for (int r = 0; r < kMxGroup * TU * 2; ++r) total[r * kMxBins + tid] = 0.f;
+    for (int n = 0; n < inputs; ++n) {
+      const long long rc = (long long)n * p * k + bin;  // input n's new ring, slot 0
+      float2 acc[kMxGroup][TU], win[TU];
+#pragma unroll
+      for (int i = 0; i < TU; ++i) {
+        win[i] = make_float2(0.f, 0.f);
+#pragma unroll
+        for (int o = 0; o < kMxGroup; ++o) acc[o][i] = make_float2(0.f, 0.f);
+      }
+      // win[j mod TU] holds V_n[P+t0+j]: first the chunk's rows, with lag 0.
+#pragma unroll
+      for (int j0 = 0; j0 < TU; j0 += kItemRows) {
+        if (j0 < tc) {
+          const int s = take();
+#pragma unroll
+          for (int r = 0; r < kItemRows; ++r) {
+            const int j = j0 + r;
+            if (j < TU && j < tc) {
+              const float2 x = make_float2(stage[s][2 * r][tid], stage[s][2 * r + 1][tid]);
+              win[j] = x;
+              if (lag0) {
+#pragma unroll
+                for (int o = 0; o < kMxGroup; ++o) {
+                  if (o < gn) {
+                    const long long lc = ((long long)(m0 + o) * inputs + n) * a.l0_cs + bin;
+                    const float l0r = __ldg(&a.l0r[lc]), l0i = __ldg(&a.l0i[lc]);
+                    mac(acc[o][j], x, l0r, lane0 ? 0.f : l0i, lane0 ? l0i : l0r);
+                  }
+                }
+              }
+              const int slot = t0 + j - t + p;  // V_n[P+t0+j] is the new ring's slot
+              if (ring_out && slot >= 0) {
+                a.nr[rc + (long long)slot * k] = x.x;
+                a.ni[rc + (long long)slot * k] = x.y;
+              }
+            }
+          }
+          release(s);
+        }
+      }
+      // Lag q, as ring_mac's: V_n[P+t0-1-q] takes window slot (TU-1-q) mod TU.
+      for (int q0 = 0; q0 < p; q0 += TU) {
+#pragma unroll
+        for (int qq = 0; qq < TU; ++qq) {
+          const int q = q0 + qq;
+          if (q < p) {
+            const int s = take();
+            const float2 v = make_float2(stage[s][2 * kMxGroup][tid],
+                                         stage[s][2 * kMxGroup + 1][tid]);
+            win[TU - 1 - qq] = v;
+#pragma unroll
+            for (int o = 0; o < kMxGroup; ++o) {
+              if (o < gn) {
+                const float hr = stage[s][2 * o][tid], hi = stage[s][2 * o + 1][tid];
+                const float hm = lane0 ? 0.f : hi, hx = lane0 ? hi : hr;
+#pragma unroll
+                for (int i = 0; i < TU; ++i) mac(acc[o][i], win[(i - 1 - qq + TU) % TU], hr, hm, hx);
+              }
+            }
+            const int slot = p - 1 - q - t;  // the old ring's row V_n[P-1-q], in chunk 0
+            if (ring_out && ci == 0 && slot >= 0) {
+              a.nr[rc + (long long)slot * k] = v.x;
+              a.ni[rc + (long long)slot * k] = v.y;
+            }
+            release(s);
+          }
+        }
+      }
+      // Input n's terms into the total (each thread its own bin's column).
+#pragma unroll
+      for (int o = 0; o < kMxGroup; ++o)
+#pragma unroll
+        for (int i = 0; i < TU; ++i) {
+          total[(2 * (o * TU + i)) * kMxBins + tid] += acc[o][i].x;
+          total[(2 * (o * TU + i) + 1) * kMxBins + tid] += acc[o][i].y;
+        }
+    }
+#pragma unroll
+    for (int o = 0; o < kMxGroup; ++o) {
+      if (o < gn) {
+        const long long yc = (long long)(m0 + o) * t * k + bin;
+#pragma unroll
+        for (int i = 0; i < TU; ++i) {
+          if (i < tc) {
+            a.yr[yc + (long long)(t0 + i) * k] = total[(2 * (o * TU + i)) * kMxBins + tid];
+            a.yi[yc + (long long)(t0 + i) * k] = total[(2 * (o * TU + i) + 1) * kMxBins + tid];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int TU>
+int launch_matrix(const RingMac& a, int inputs, cudaStream_t st) {
+  constexpr int bytes = matrix_shared_bytes<TU>();
+  // The opt-in above 48 KB, once a device.
+  static bool opted[kMxDevices] = {};
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc != 0) return rc;
+  if (dev >= kMxDevices || !opted[dev]) {
+    rc = (int)cudaFuncSetAttribute(ring_mac_matrix<TU>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc != 0) return rc;
+    if (dev < kMxDevices) opted[dev] = true;
+  }
+  const int groups = (int)((a.channels + kMxGroup - 1) / kMxGroup);
+  const unsigned grid = (unsigned)(groups * (a.k / kMxBins));
+  ring_mac_matrix<TU><<<grid, kMxBins + 32, bytes, st>>>(a, inputs);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 int launch_ring_mac(const RingMac& a, cudaStream_t st) {
@@ -306,6 +558,21 @@ int launch_ring_mac(const RingMac& a, cudaStream_t st) {
     default: ring_mac<16><<<grid, threads, 0, st>>>(a);
   }
   return (int)cudaGetLastError();
+}
+
+// Chunks of the least power of two >= min(T, kMxHops) hops, as ring_mac's
+// (hopper_kernels._ring_mac_matrix_plan mirrors it).
+int launch_ring_mac_matrix(const RingMac& a, int inputs, cudaStream_t st) {
+  if (a.k % kMxBins || a.t < 1 || a.p < 1 || a.channels < 1 || inputs < 1)
+    return (int)cudaErrorInvalidValue;
+  int tu = 1;
+  while (tu < a.t && tu < kMxHops) tu <<= 1;
+  switch (tu) {
+    case 1: return launch_matrix<1>(a, inputs, st);
+    case 2: return launch_matrix<2>(a, inputs, st);
+    case 4: return launch_matrix<4>(a, inputs, st);
+    default: return launch_matrix<8>(a, inputs, st);
+  }
 }
 
 }  // namespace hst

@@ -39,4 +39,13 @@ struct RingMac {
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape it does not serve.
 int launch_ring_mac(const RingMac& a, cudaStream_t st);
 
+// The matrix form, a kernel of its own: `a.channels` = M outputs over
+// `inputs` = N inputs, each output the sum over the inputs,
+//   Y_m,t = sum_n [ sum_{q < P} V_n[P + t - 1 - q] * H_m,n,q  (+ V_n[P + t] * L0_m,n) ].
+// V_n comes from the sources at input n (s_cs / x_cs floats apart an input),
+// H and L0 of the pair (m, n) at channel m * N + n (h_cs / l0_cs apart), Y is
+// (M, T, K) and the new ring (N, P, K), one an input. K a multiple of 128;
+// T, P >= 1; alignment as launch_ring_mac.
+int launch_ring_mac_matrix(const RingMac& a, int inputs, cudaStream_t st);
+
 }  // namespace hst

@@ -86,7 +86,12 @@ chain where that state moves: the forward of every frame in one HBM pass on
 K1's route, the state kernel :func:`stream_state` (the ring MAC of K7 and
 K15, ``csrc/ring_mac.cu``: the ring, H, X and lag 0 by bulk copies over
 contiguous bin ranges, each byte once), the inverse in one pass;
-:func:`_stream_plan` mirrors its plan.
+:func:`_stream_plan` mirrors its plan. Its matrix form
+(:func:`fastfir_chain_stream_matrix`) runs an N-in / M-out matrix whose
+pairs share one history an input as the same three launches: each input's
+frames forward once, the ring MAC's matrix form (``ring_mac_matrix``:
+blocks of 128 bins and five outputs, each output summed over the inputs,
+H read once, one ring an input), each output's frames back once.
 
 Precision: :func:`set_mode` keeps the TPU package's knob (``"bf16x3"`` or
 ``"highest"``). On Hopper both modes run the same FP32 SIMT kernels, with
@@ -557,6 +562,43 @@ def fastfir_chain_stream_plain(x2d, prev, ring_re, ring_im, h_re, h_im,
     x_re, x_im = rfft_packed_plain(torch.cat([prev_rows, x2d], dim=-1))
     y_re, y_im, n_re, n_im = stream_state_plain(x_re, x_im, ring_re, ring_im, h_re, h_im,
                                                 l0_re, l0_im)
+    return rifft_packed_tail_plain(y_re, y_im, scale), n_re, n_im
+
+
+def stream_state_matrix_plain(x_re, x_im, ring_re, ring_im, h_re, h_im, l0_re=None,
+                              l0_im=None):
+    """The matrix form of K8's state kernel by packed products: for inputs
+    n < N with spectra ``x_*`` (N, T, K) and rings ``ring_*`` (N, P, K), and
+    pairs (m, n) with ``h_*`` (M, N, P, K) and ``l0_*`` optional (M, N, K),
+    Y_m,t = sum_n [sum_{lag < P} V_n,t-1-lag H_m,n,lag (+ X_n,t l0_m,n)] over
+    V_n = [ring_n | X_n], each lag's products summed over the inputs; returns
+    (y_re (M, T, K), y_im, new_ring_re (N, P, K), new_ring_im)."""
+    p, t = ring_re.shape[-2], x_re.shape[-2]
+    v_re = torch.cat([ring_re, x_re], dim=-2)
+    v_im = torch.cat([ring_im, x_im], dim=-2)
+    shape = h_re.shape[:1] + x_re.shape[1:]
+    y_re = x_re.new_zeros(shape)
+    y_im = x_im.new_zeros(shape)
+    terms = [(p - 1 - q, h_re[..., q:q + 1, :], h_im[..., q:q + 1, :]) for q in range(p)]
+    if l0_re is not None:
+        terms.append((p, l0_re[..., None, :], l0_im[..., None, :]))
+    for s, hr, hi in terms:
+        prod = packed_mul(Split(v_re[..., s:s + t, :], v_im[..., s:s + t, :]), Split(hr, hi))
+        y_re += prod.re.sum(dim=1)
+        y_im += prod.im.sum(dim=1)
+    return y_re, y_im, v_re[..., t:, :], v_im[..., t:, :]
+
+
+def fastfir_chain_stream_matrix_plain(x2d, prev, ring_re, ring_im, h_re, h_im,
+                                      scale: float, l0_re=None, l0_im=None):
+    """K8's matrix form by ``torch.fft``: each input's spectra of [x2d[t-1] |
+    x2d[t]] (x2d[-1] = prev) once, the state kernel's matrix form
+    (:func:`stream_state_matrix_plain`), each output's scale * rifft(Y_t)[H:]
+    once; returns (y (M, T, H), new_ring_re (N, P, K), new_ring_im)."""
+    prev_rows = torch.cat([prev[:, None, :], x2d[:, :-1, :]], dim=1)
+    x_re, x_im = rfft_packed_plain(torch.cat([prev_rows, x2d], dim=-1))
+    y_re, y_im, n_re, n_im = stream_state_matrix_plain(x_re, x_im, ring_re, ring_im, h_re,
+                                                       h_im, l0_re, l0_im)
     return rifft_packed_tail_plain(y_re, y_im, scale), n_re, n_im
 
 
@@ -1296,3 +1338,70 @@ def fastfir_chain_stream(x2d: torch.Tensor, prev: torch.Tensor,
 
 fastfir_chain_stream.launches = 0
 fastfir_chain_stream.points = 0
+
+
+@span("kernel.K8.fastfir_chain_stream_matrix")
+def fastfir_chain_stream_matrix(x2d: torch.Tensor, prev: torch.Tensor,
+                                ring_re: torch.Tensor, ring_im: torch.Tensor,
+                                h_re: torch.Tensor, h_im: torch.Tensor, scale: float,
+                                l0_re: Optional[torch.Tensor] = None,
+                                l0_im: Optional[torch.Tensor] = None):
+    """K8's matrix form: a streaming process_block of an N-in / M-out matrix
+    whose pairs share one carried history an input, in one call of three
+    launches.
+
+    ``x2d``: (N, T, H) the inputs' hop blocks; ``prev``: (N, H) their carried
+    previous blocks; ``ring_*``: (N, P, N_fft/2) their oldest-first spectra
+    rings; ``h_*``: (M, N, P, N_fft/2) the pairs' packed impulse spectra;
+    ``l0_*``: optional (M, N, N_fft/2) their zero-delay partitions. Returns
+    (y (M, T, H), new_ring_re, new_ring_im): y_m = the sum over inputs n of
+    :func:`fastfir_chain_stream`'s output for the pair (m, n), the new rings
+    one an input, in new tensors. ``csrc/fastfir_stream.cu``'s
+    ``hst_fastfir_stream_matrix``: the forward of each input's frames once,
+    the ring MAC's matrix form (``csrc/ring_mac.cu``: each output's sum over
+    the inputs in its accumulators, the rings read and written once an
+    input), the inverse of each output's frames once."""
+    if x2d.device.type == "cpu":
+        return fastfir_chain_stream_matrix_plain(x2d, prev, ring_re, ring_im, h_re, h_im,
+                                                 scale, l0_re, l0_im)
+    kernel = "K8 fastfir_chain_stream_matrix"
+    ins, t, hop = x2d.shape
+    n = 2 * hop
+    if not chain_eligible(n):
+        raise NotImplementedError(
+            f"{kernel}: serves N = {CHAIN_MIN}..{CHAIN_MAX}; N = {n} is not among them")
+    if h_re.dim() != 4 or h_re.shape[1] != ins:
+        raise ValueError(f"{kernel}: H {tuple(h_re.shape)} is not (M, N, P, H) over the "
+                         f"{ins} inputs of x2d {tuple(x2d.shape)}")
+    outs, _, p = h_re.shape[:3]
+    if p == 0 or outs == 0:
+        raise ValueError(f"{kernel}: needs P >= 1 lags and M >= 1 outputs")
+    _check_chain(kernel, x2d, ring_re, ring_im, prev, (ring_re, ring_im))
+    pairs = outs * ins
+    if h_im.shape != h_re.shape or h_re.shape[3] != hop or ring_re.shape[1] != p or (
+            l0_re is not None and (l0_re.shape != (outs, ins, hop)
+                                   or l0_im.shape != l0_re.shape)):
+        raise ValueError(f"{kernel}: H {tuple(h_re.shape)}, ring {tuple(ring_re.shape)} and "
+                         f"L0 do not fit (M, N, P, H), (N, P, H) and (M, N, H) at H = {hop}")
+    lag0 = None if l0_re is None else (l0_re.reshape(pairs, hop), l0_im.reshape(pairs, hop))
+    _build.check_tensors(kernel, x2d, h_re, h_im, *(lag0 or ()), contiguous=False)
+    y = x2d.new_empty(outs, t, hop)
+    if t == 0:
+        return y, ring_re.clone(), ring_im.clone()
+    rr, ri, hr, hi, hcs, (l0r, l0i, lcs) = _state_args(
+        (ring_re, ring_im), h_re.reshape(pairs, p, hop), h_im.reshape(pairs, p, hop), lag0)
+    n_re, n_im = torch.empty_like(ring_re), torch.empty_like(ring_im)
+    spectra = torch.empty(2 * (ins + outs) * t, hop, dtype=torch.float32, device=x2d.device)
+    rc = _build.load().hst_fastfir_stream_matrix(
+        x2d.data_ptr(), prev.data_ptr(), rr.data_ptr(), ri.data_ptr(), hr.data_ptr(),
+        hi.data_ptr(), hcs, _ptr(l0r), _ptr(l0i), lcs, y.data_ptr(), n_re.data_ptr(),
+        n_im.data_ptr(), spectra.data_ptr(), _twiddles(n, x2d.device).data_ptr(), outs, ins,
+        t, p, n, float(scale), _build.stream(x2d.device))
+    _build.check(rc, kernel)
+    fastfir_chain_stream_matrix.launches += 1
+    fastfir_chain_stream_matrix.points += (ins + outs) * t * n  # inputs forward, outputs back
+    return y, n_re, n_im
+
+
+fastfir_chain_stream_matrix.launches = 0
+fastfir_chain_stream_matrix.points = 0

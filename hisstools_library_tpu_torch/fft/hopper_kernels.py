@@ -67,6 +67,11 @@ RING_MAC_STAGES = 8      # shared-memory stages, an item each
 RING_MAC_MAX_HOPS = 16   # hops a chunk: accumulators a thread
 RING_MAC_MIN_BINS = 16   # the least K: 64-byte rows for the bulk copies
 RING_MAC_ROWS = 2        # rows of V a row item carries
+# The ring MAC's matrix form (csrc/ring_mac.cu ring_mac_matrix, K8's matrix form)
+RING_MAC_MATRIX_BINS = 128   # bins a block, one a consumer thread
+RING_MAC_MATRIX_GROUP = 5    # outputs a block
+RING_MAC_MATRIX_STAGES = 5   # shared-memory stages, an item each
+RING_MAC_MATRIX_HOPS = 8     # hops a chunk: accumulators an output
 
 
 class FirePlan(NamedTuple):
@@ -154,6 +159,43 @@ def _ring_mac_plan(c: int, t: int, p: int, k: int) -> RingMacPlan:
     shared = RING_MAC_STAGES * (4 * RING_MAC_BINS * 4 + 2 * 8)
     return RingMacPlan(bins, k // bins, c * (k // bins), tu, chunks, items, RING_MAC_STAGES,
                        -(-bins // 32) * 32 + 32, shared)
+
+
+class RingMacMatrixPlan(NamedTuple):
+    """How the ring MAC's matrix form runs one call over M outputs, N
+    inputs, T hops, P lags and K bins."""
+    groups: int              # ceil(M / 5): outputs five a block
+    tiles: int               # K / 128 * groups: the grid, tile-major, group-minor
+    hops_per_chunk: int      # TU: the least power of two >= min(T, 8)
+    chunks: int              # ceil(T / TU)
+    rows_per_item: int       # V rows a row item carries: 6
+    items: int               # a block: for each chunk and input, its row items and P lag items
+    threads: int             # 128 consumers and a producer warp
+    shared_bytes: int        # dynamic shared memory: 5 stages of 12 runs, the total, mbarriers
+
+
+def _ring_mac_matrix_plan(m: int, n: int, t: int, p: int, k: int) -> RingMacMatrixPlan:
+    """The plan of ``csrc/ring_mac.cu``'s ``ring_mac_matrix`` at (M outputs,
+    N inputs, T, P, K): a block a tile of 128 bins and a group of five
+    outputs; chunks of the least power of two >= min(T, 8) hops; for each
+    chunk and input, row items of up to six V rows, then P lag items (the
+    group's H rows and one V row), through 5 stages of 12 plane runs of 128
+    floats; a shared-memory total of the group's 5 x TU accumulators."""
+    if k % RING_MAC_MATRIX_BINS or min(m, n, t, p) < 1:
+        raise ValueError(f"the ring MAC's matrix form serves M, N, T, P >= 1 and K a "
+                         f"multiple of 128, got M = {m}, N = {n}, T = {t}, P = {p}, K = {k}")
+    group = RING_MAC_MATRIX_GROUP
+    tu = 1
+    while tu < min(t, RING_MAC_MATRIX_HOPS):
+        tu *= 2
+    chunks = -(-t // tu)
+    rows = group + 1
+    items = n * sum(-(-min(tu, t - t0) // rows) + p for t0 in range(0, t, tu))
+    groups = -(-m // group)
+    runs = RING_MAC_MATRIX_STAGES * (2 * group + 2) + group * tu * 2
+    return RingMacMatrixPlan(groups, k // RING_MAC_MATRIX_BINS * groups, tu, chunks, rows,
+                             items, RING_MAC_MATRIX_BINS + 32,
+                             runs * RING_MAC_MATRIX_BINS * 4 + 2 * RING_MAC_MATRIX_STAGES * 8)
 
 
 def _ring_mac_design_bytes(c: int, t: int, p: int, k: int, ring_out: bool,

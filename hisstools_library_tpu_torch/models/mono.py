@@ -20,6 +20,12 @@ blocks that are whole multiples of the largest hop (:func:`process`).
 - otherwise the per-section path: the head (``time_domain``) and each section
   through :meth:`PartitionedConvolve.process`.
 
+:func:`process_matrix` is the collapsed path of an N-in / M-out matrix whose
+pairs share one history an input (:func:`shares_inputs`; the multichannel
+Convolver's N2M ``init_state``): the final section as
+:meth:`partitioned.PartitionedConvolve.process_block_matrix` (K8's matrix
+form), the refresh once an input.
+
 :func:`process_any` is the sample-granular path: blocks of ANY length (an
 audio callback's), each section firing only where its own hop boundary falls
 (:meth:`partitioned.PartitionedConvolve.step_any`; K9 for the sections at N <=
@@ -608,7 +614,11 @@ def stream_state_from_aligned(ir: MonoIR, state: MonoState,
     """Lift a hop-aligned :class:`MonoState` into the sample-granular form;
     streaming continues from the hop boundary as if it had never left the
     aligned form (each section's output store comes from its ring: K11 at
-    N = 256, 1024 and K6 at 4096, 16384 on the card)."""
+    N = 256, 1024 and K6 at 4096, 16384 on the card). A state whose pairs
+    share their inputs' history (:func:`shares_inputs`) is first copied out
+    to one history a pair, which the sample-granular path keeps."""
+    if shares_inputs(state):
+        state = _per_pair(state)
     sections = tuple(
         part.PartitionedConvolve.stream_from_aligned(spec, sec, backend)
         for spec, sec in zip(ir.spectra, state.sections))
@@ -661,6 +671,41 @@ def block_state_from_hist(ir: MonoIR, hist: torch.Tensor,
               ir.spectra[-1].im[..., :g - 1, :]), own, backend)
     far_full = _refresh_aligned_section(ir.far, own, backend)
     return MonoBlockState(near_full, far_full, rows, 0)
+
+
+def _state_tensors(state: MonoState) -> List[torch.Tensor]:
+    return [state.head] + [t for sec in state.sections
+                           for t in (sec.prev, sec.ring.re, sec.ring.im)]
+
+
+def _map_state(state: MonoState, fn) -> MonoState:
+    return MonoState(fn(state.head), tuple(
+        part.PartitionedState(fn(sec.prev), Split(fn(sec.ring.re), fn(sec.ring.im)), sec.pos)
+        for sec in state.sections))
+
+
+def shares_inputs(state) -> bool:
+    """True for a hop-aligned state of an N-in / M-out matrix whose pairs
+    share one history an input: every tensor (the head and each section's
+    prev and ring) is a view broadcast over its first, the output, axis
+    (stride 0), as :func:`share_inputs` makes it. A state whose tensors hold
+    a history a pair (one from ``from_numpy``, or after a per-pair reset,
+    whose copy gave each pair its own) is not."""
+    return isinstance(state, MonoState) and all(
+        t.dim() >= 2 and t.shape[0] > 1 and t.stride(0) == 0 for t in _state_tensors(state))
+
+
+def share_inputs(state: MonoState, outputs: int) -> MonoState:
+    """The state of N inputs (batch (N,)) as the (M, N) state of a matrix of
+    ``outputs`` = M outputs whose pairs share it: each tensor a view
+    broadcast over a new leading output axis. The JAX package's (M, N, ...)
+    shapes, one history an input in memory."""
+    return _map_state(state, lambda t: t.expand((outputs,) + tuple(t.shape)))
+
+
+def _per_pair(state: MonoState) -> MonoState:
+    """A state that :func:`shares_inputs` copied out to one history a pair."""
+    return _map_state(state, lambda t: t.contiguous())
 
 
 @span("engine.mono.process")
@@ -734,6 +779,45 @@ def _process_block_collapsed(ir: MonoIR, state: MonoState, x: torch.Tensor,
                     for spec in ir.spectra[:-1]]
     new_sections.append(new_big)
     return MonoState(head_state, tuple(new_sections)), out
+
+
+def matrix_route(ir: MonoIR, state, x: torch.Tensor) -> bool:
+    """True when :func:`process_matrix` takes the N-in / M-out block: the IR
+    has ``block0``, ``x`` (N, L) is whole largest hops, and ``state``
+    :func:`shares_inputs`."""
+    return (ir.block0 is not None and x.shape[-1] > 0
+            and x.shape[-1] % ir.spectra[-1].shape[-1] == 0 and shares_inputs(state))
+
+
+@span("engine.mono.collapsed_matrix")
+def process_matrix(ir: MonoIR, state: MonoState, x: torch.Tensor,
+                   backend: Optional[str] = None) -> Tuple[MonoState, torch.Tensor]:
+    """The collapsed path of an N-in / M-out matrix whose pairs share one
+    history an input (:func:`matrix_route`): ``ir`` with (M, N) leading
+    dims, ``x`` (N, L) the inputs; returns the new shared state and (M, L),
+    each output summed over the inputs.
+
+    The final section runs as
+    :meth:`partitioned.PartitionedConvolve.process_block_matrix` with
+    ``block0`` as its lag-0 term: each input's frames transformed once,
+    each output's spectra summed over the inputs before its frames are
+    inverted once (K8's matrix form on the card). The smaller sections and
+    the head are refreshed from the inputs' tail, one an input, as
+    :func:`_process_block_collapsed` refreshes them, and the new state
+    shares them over the outputs again."""
+    b = ir.spectra[-1].shape[-1]
+    final = state.sections[-1]  # the inputs' history: its prev and ring at output 0
+    own = part.PartitionedState(final.prev[0], Split(final.ring.re[0], final.ring.im[0]),
+                                final.pos)
+    new_big, out = part.PartitionedConvolve.process_block_matrix(
+        ir.spectra[-1], own, x, backend=backend, lag0=ir.block0)
+    tail = new_big.prev
+    head = state.head[0]
+    if ir.head_taps.shape[-1]:
+        head = tail[..., b - head.shape[-1]:]
+    sections = [_refresh_aligned_section(spec, tail, backend) for spec in ir.spectra[:-1]]
+    sections.append(new_big)
+    return share_inputs(MonoState(head, tuple(sections)), out.shape[0]), out
 
 
 # Sections at or below this FFT size run as direct FIRs offline (the TPU

@@ -26,15 +26,23 @@ section of N = 2^14..2^17 it runs at any P: the collapsed engine's final
 section, a single section, both tiers of a two-tier state; ``process_any`` K9
 ``hop_fire`` for the sections at N <= 1024 and K1 -> MAC -> K6 above.
 
-The N2M broadcast is ``expand`` (a stride-0 view over M). What copies it out
-to (M, N, L): the offline chain's padding (``_process_offline_fused`` pads the
-signal to whole hops; M x N x L float32 once, 124 MB for 8 x 8 pairs of
-483 328 samples), ``process_block``'s contiguous (M*N, T, H) hop blocks for
-K8 (the block's M x N x L floats), and ``process_any``'s window
+N2M ``process`` on a state whose pairs share one history an input
+(:meth:`Convolver.init_state`'s: the (M, N, ...) tensors are views
+broadcast over the output axis, one history an input in memory) runs
+:func:`mono.process_matrix`: K8's matrix form transforms each input's frames
+once, sums each output over the inputs in the spectral domain and inverts
+each output's frames once, with no (M, N, L) copy of the inputs and no sum
+of M x N outputs. Any other state (a history a pair: after
+:func:`reset_channel`, whose copy gives each pair its own, from
+``from_numpy``, a two-tier state) and the other paths run the pairs as one
+batched mono engine over the broadcast input, ``expand`` (a stride-0 view
+over M), and sum the outputs over the input axis. What copies the broadcast
+out to (M, N, L) there: the offline chain's padding
+(``_process_offline_fused`` pads the signal to whole hops; M x N x L float32
+once, 124 MB for 8 x 8 pairs of 483 328 samples), ``process_block``'s
+contiguous (M*N, T, H) hop blocks for K8, and ``process_any``'s window
 concatenation per section; the K8 and K5 wrappers read H and the lag-0
-planes in place. Each copy is one pass over the broadcast signal, small
-beside the kernels' traffic over the spectra (2 x 8 bytes a bin a partition
-for each of the M x N pairs).
+planes in place.
 """
 
 from __future__ import annotations
@@ -212,7 +220,14 @@ class Convolver:
         return self.ir
 
     def init_state(self, dtype: torch.dtype = torch.float32) -> mono.MonoState:
-        return mono.init_state(self.scheme, self._prepared(dtype), self._batch, dtype)
+        """A fresh hop-aligned state. N2M: the (M, N) state in which every
+        output's pairs share one history an input (:func:`mono.share_inputs`),
+        the state :func:`process` runs as one engine over the inputs."""
+        ir = self._prepared(dtype)
+        if self.parallel:
+            return mono.init_state(self.scheme, ir, self._batch, dtype)
+        return mono.share_inputs(mono.init_state(self.scheme, ir, (self.num_ins,), dtype),
+                                 self.num_outs)
 
     @span("entry.Convolver.process")
     def process(self, state, ins: torch.Tensor, backend: Optional[str] = None):
@@ -313,10 +328,21 @@ def process(ir: mono.MonoIR, state, ins: torch.Tensor, parallel: bool,
             backend: Optional[str] = None):
     """Streaming multichannel step. N2M: ir leading dims (M, N), ins (N, L)
     -> (M, L) by the sum over the input axis (reference NToMonoConvolve's
-    accumulate loop). Parallel: ir leading dim (C,), ins (C, L) -> (C, L)."""
+    accumulate loop). Parallel: ir leading dim (C,), ins (C, L) -> (C, L).
+
+    N2M routes by what the state holds: one whose pairs share one history
+    an input (:meth:`Convolver.init_state`'s, and every state this route
+    returns) with whole largest hops runs :func:`mono.process_matrix`, each
+    input transformed once and the sum over inputs taken in the spectral
+    domain before each output's inverse; any other state (a history a pair:
+    after :func:`reset_channel`, from ``from_numpy``, a two-tier state) runs
+    the M x N pairs as one batched mono engine over the broadcast inputs
+    and sums their outputs."""
     if parallel:
         return mono.process(ir, state, ins, backend=backend)
     with span("engine.matrix.process"):
+        if mono.matrix_route(ir, state, ins):
+            return mono.process_matrix(ir, state, ins, backend=backend)
         new_state, y = mono.process(ir, state, _broadcast(ir, ins), backend=backend)
         return new_state, _reduce(y)
 

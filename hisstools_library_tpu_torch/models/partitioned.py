@@ -13,9 +13,10 @@ length and fires a section only where a hop boundary falls.
 The overlap-save chain's kernels are chosen in one place: the stages
 ``_hop_spectra`` (frames [prev | cur] and their forward), ``_ring_mac`` (the
 lag MAC over a ring of past spectra) and ``_tail`` (the scaled kept-half
-inverse) serve the staged ``process_block``, the staged offline form
-(``_offline``, behind ``process_offline``, ``FastFIR`` and the scheme's
-offline tail) and the stage reports of ``utils/debug_stages.py``.
+inverse) serve the staged ``process_block`` and ``process_block_matrix`` (an
+N-in / M-out matrix whose pairs share one history an input), the staged
+offline form (``_offline``, behind ``process_offline``, ``FastFIR`` and the
+scheme's offline tail) and the stage reports of ``utils/debug_stages.py``.
 
 A section with FFT size N (hop H = N/2) emits ``conv(x, ir)`` delayed by one
 hop. Output = inverse of the accumulated spectra x ``1/(4N)``, the reference's
@@ -138,6 +139,13 @@ def _tail(acc_re: torch.Tensor, acc_im: torch.Tensor, scale: float,
             and acc_re.dtype != torch.float64):
         return hopper_fft.rifft_packed_tail(acc_re, acc_im, scale)
     return (fft_api.rifft(acc_re, acc_im, backend=resolved) * scale)[..., h:]
+
+
+def _k8_serves(resolved: str, mac_backend: str, dtype: torch.dtype, n: int) -> bool:
+    """True where a hop-aligned block runs as one K8 call (its matrix form
+    for a matrix): the "pallas" backend, float32, N = 2^14..2^17."""
+    return (resolved == "pallas" and mac_backend in ("auto", "pallas")
+            and dtype == torch.float32 and hopper_fft.chain_eligible(n))
 
 
 def _offline(spectra: Split, x: torch.Tensor, shift: int, backend: Optional[str],
@@ -508,8 +516,7 @@ class PartitionedConvolve:
             ring = PartitionedConvolve._slot_normalise(ring, state.pos)
         new_prev = blocks[..., -1, :].clone()
         scale = 1.0 / (4.0 * n)
-        if (resolved == "pallas" and mac_backend in ("auto", "pallas")
-                and x.dtype == torch.float32 and hopper_fft.chain_eligible(n)):
+        if _k8_serves(resolved, mac_backend, x.dtype, n):
             l0r = l0i = None
             if lag0 is not None:
                 l0r = _per_channel(lag0.re, lead, c, 1)[:, 0, :]
@@ -534,6 +541,71 @@ class PartitionedConvolve:
             acc_im = acc_im + prod.im
         out = _tail(acc_re, acc_im, scale, resolved)
         return PartitionedState(new_prev, new_ring, 0), out.reshape(*lead, L)
+
+    @staticmethod
+    @span("engine.partitioned.process_block_matrix")
+    def process_block_matrix(spectra: Split, state: PartitionedState, x: torch.Tensor,
+                             backend: Optional[str] = None, lag0: Optional[Split] = None
+                             ) -> Tuple[PartitionedState, torch.Tensor]:
+        """:meth:`process_block` for an N-in / M-out matrix whose pairs share
+        one history an input: ``spectra`` (M, N, P, K) and ``lag0`` optional
+        (M, N, 1, K) of the pairs, ``state`` ((N, H) prev, (N, P, K) ring)
+        and ``x`` (N, L) of the inputs. Returns the inputs' new state
+        (slot-normalised) and y (M, L): output m is the sum over inputs n of
+        :meth:`process_block`'s output for the pair (m, n). Each input's
+        frames are transformed once, and each output's spectra are summed
+        over the inputs before its frames are inverted once.
+
+        Routing, as :meth:`process_block`'s: ``"pallas"``, float32, N =
+        2^14..2^17, any P and T: K8's matrix form
+        :func:`hopper_fft.fastfir_chain_stream_matrix`, one call of three
+        launches (the ring MAC sums over the inputs); otherwise the staged
+        stages: :func:`_hop_spectra` of the inputs, :func:`_ring_mac` of the
+        pairs over views of the inputs' rings and spectra, the lag-0
+        product, the sum over inputs and :func:`_tail` of the outputs."""
+        h = spectra.shape[-1]
+        n = 2 * h
+        p = spectra.shape[-2]
+        outs, ins = spectra.shape[:2]
+        L = x.shape[-1]
+        if tuple(x.shape[:-1]) != (ins,):
+            raise ValueError(f"inputs {tuple(x.shape)} are not (N, L) for the {ins} inputs "
+                             f"of spectra {tuple(spectra.shape)}")
+        if L % h:
+            raise ValueError(f"signal length {L} not a multiple of hop {h}")
+        if L == 0:
+            return state, x.new_zeros(outs, 0)
+        t = L // h
+        blocks = x.reshape(ins, t, h)
+        resolved = fft_api._resolve(backend, x.device)
+        ring = state.ring
+        if state.pos % p:
+            ring = PartitionedConvolve._slot_normalise(ring, state.pos)
+        new_prev = blocks[:, -1, :].clone()
+        scale = 1.0 / (4.0 * n)
+        if _k8_serves(resolved, "auto", x.dtype, n):
+            l0r = l0i = None
+            if lag0 is not None:
+                l0r, l0i = lag0.re[..., 0, :], lag0.im[..., 0, :]
+            y, nr, ni = hopper_fft.fastfir_chain_stream_matrix(
+                blocks.contiguous(), state.prev.contiguous(), ring.re.contiguous(),
+                ring.im.contiguous(), spectra.re, spectra.im, scale, l0r, l0i)
+            return PartitionedState(new_prev, Split(nr, ni), 0), y.reshape(outs, L)
+
+        xre, xim = _hop_spectra(state.prev, blocks, resolved)    # (N, T, K)
+
+        def pairs(a: torch.Tensor) -> torch.Tensor:
+            return a.expand((outs,) + tuple(a.shape))
+
+        acc_re, acc_im, new_ring = _ring_mac(Split(pairs(ring.re), pairs(ring.im)),
+                                             pairs(xre), pairs(xim), spectra, "auto")
+        if lag0 is not None:
+            prod = packed_mul(Split(xre, xim), lag0)
+            acc_re = acc_re + prod.re
+            acc_im = acc_im + prod.im
+        out = _tail(acc_re.sum(dim=1), acc_im.sum(dim=1), scale, resolved)
+        new_ring = Split(new_ring.re[0].clone(), new_ring.im[0].clone())
+        return PartitionedState(new_prev, new_ring, 0), out.reshape(outs, L)
 
     @staticmethod
     def process_offline(spectra: Split, x: torch.Tensor,

@@ -333,6 +333,65 @@ def test_wide_stream_chain_matches_plain(cuda, c, t, p, n, lag0):
         assert snr_db(w.cpu().numpy(), gt.cpu().numpy()) >= SNR_KERNEL_DB
 
 
+# K8's matrix form, (inputs, outputs, T, P, N, lag0): the 25 x 25 cell's
+# shape, M != N, a partial group of outputs (7 = 5 + 2), chunks past 8 hops
+# (T 17), P = 1, and 2^15..2^17.
+MATRIX_CASES = [(25, 25, 8, 17, 1 << 14, True), (3, 4, 2, 9, 1 << 14, True),
+                (2, 7, 1, 3, 1 << 15, True), (1, 1, 17, 2, 1 << 14, False),
+                (4, 3, 5, 1, 1 << 17, True), (2, 5, 3, 4, 1 << 16, False)]
+
+
+@pytest.mark.parametrize("ins,outs,t,p,n,lag0", MATRIX_CASES)
+def test_stream_chain_matrix_matches_plain(cuda, ins, outs, t, p, n, lag0):
+    """K8's matrix form (``fastfir_chain_stream_matrix``: each input's
+    frames forward once, the ring MAC's matrix form summing over the inputs,
+    each output's inverse once) against its plain version: the outputs and
+    the inputs' new rings; one launch counted, (N + M) x T x 2H points."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    k = n // 2
+
+    def randn(*sh):
+        return torch.randn(*sh, generator=g, device=cuda)
+
+    args = (randn(ins, t, k), randn(ins, k), randn(ins, p, k), randn(ins, p, k),
+            randn(outs, ins, p, k) * 1e-3, randn(outs, ins, p, k) * 1e-3, 1.0 / (4.0 * n))
+    kw = dict(l0_re=randn(outs, ins, k) * 1e-3, l0_im=randn(outs, ins, k) * 1e-3) if lag0 else {}
+    fn = hopper_fft.fastfir_chain_stream_matrix
+    before = (fn.launches, fn.points)
+    got = fn(*args, **kw)
+    want = hopper_fft.fastfir_chain_stream_matrix_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.points) == (before[0] + 1, before[1] + (ins + outs) * t * n)
+    assert [tuple(a.shape) for a in got] == [(outs, t, k), (ins, p, k), (ins, p, k)]
+    for gt, w in zip(got, want):
+        assert bool(torch.isfinite(gt).all())
+        assert snr_db(w.cpu().numpy(), gt.cpu().numpy()) >= SNR_KERNEL_DB
+
+
+@pytest.mark.parametrize("call,exc,match", [
+    (lambda d: hopper_fft.fastfir_chain_stream_matrix(
+        *(torch.zeros(2, *sh, dtype=torch.float64, device=d)
+          for sh in ((1, 8192), (8192,), (3, 8192), (3, 8192))),
+        *(torch.zeros(4, 2, 3, 8192, dtype=torch.float64, device=d) for _ in range(2)), 0.5),
+     NotImplementedError, "float64"),
+    (lambda d: hopper_fft.fastfir_chain_stream_matrix(
+        *(torch.zeros(2, *sh, device=d) for sh in ((1, 8192), (8192,), (3, 8192), (3, 8192))),
+        *(torch.zeros(4, 3, 3, 8192, device=d) for _ in range(2)), 0.5),
+     ValueError, "inputs"),
+    (lambda d: hopper_fft.fastfir_chain_stream_matrix(
+        *(torch.zeros(2, *sh, device=d) for sh in ((1, 8192), (8192,), (2, 8192), (2, 8192))),
+        *(torch.zeros(4, 2, 3, 8192, device=d) for _ in range(2)), 0.5),
+     ValueError, "ring"),
+    (lambda d: hopper_fft.fastfir_chain_stream_matrix(
+        *(torch.zeros(2, *sh, device=d) for sh in ((1, 2048), (2048,), (3, 2048), (3, 2048))),
+        *(torch.zeros(4, 2, 3, 2048, device=d) for _ in range(2)), 0.5),
+     NotImplementedError, "serves N"),
+])
+def test_stream_chain_matrix_refuses_on_cuda(cuda, call, exc, match):
+    with pytest.raises(exc, match=match):
+        call(cuda)
+
+
 # K8's state kernel alone (csrc/fastfir_stream.cu stream_state), (C, T, P, K,
 # lag0, H layout): T < P, T = P, T > P, P = 1, T = 1, a chunk of 16 hops and
 # chunks past it (17, 40 hops), K at its smallest (256 bins, one block a
@@ -456,9 +515,10 @@ def test_collapsed_engine_takes_k8_at_any_p_on_cuda(cuda, path):
     """The collapsed engine's 16384 section on K8 above P = 8: parallel 2
     channels with 10 s IRs (P = 58) and N2M 5 x 5 with 3 s IRs (P = 17, 25
     pairs), blocks of 8 hops on ``init_state``. Each call launches K8 once
-    (the lag-0 partition as its L0 operand) and no K7, K8's points grow by
-    its forward's and its inverse's frames x N (2 C T N), and two calls
-    match the CPU path."""
+    (the lag-0 partition as its L0 operand; for N2M, whose pairs share one
+    history an input, K8's matrix form and no per-pair K8) and no K7, K8's
+    points grow by its forward's and its inverse's frames x N (2 C T N; the
+    matrix form (N + M) T N), and two calls match the CPU path."""
     from hisstools_library_tpu_torch.models.multichannel import Convolver
     rng = np.random.default_rng(0xC8)
     scheme = mono.PartitionScheme.from_latency(mono.LatencyMode.Zero)
@@ -478,16 +538,21 @@ def test_collapsed_engine_takes_k8_at_any_p_on_cuda(cuda, path):
         conv.prepare(offline_tail=False)
         st = conv.init_state()
         assert st.sections[-1].ring.re.shape[-2] == (58 if path == "parallel-p58" else 17)
-        k8 = hopper_fft.fastfir_chain_stream
-        before = (k8.launches, k8.points, hopper_kernels.lag_mac_ring.launches)
+        matrix = path != "parallel-p58"
+        k8 = hopper_fft.fastfir_chain_stream_matrix if matrix else hopper_fft.fastfir_chain_stream
+        before = (k8.launches, k8.points, hopper_kernels.lag_mac_ring.launches,
+                  hopper_fft.fastfir_chain_stream.launches)
         ys = []
         for x in xs:
             st, y = conv.process(st, torch.from_numpy(x).to(dev))
             ys.append(y.cpu().numpy())
         if dev == cuda:
+            frames = (ins + args[0] if matrix else 2 * pairs) * (block // (n // 2))
             assert k8.launches - before[0] == len(xs)
-            assert k8.points - before[1] == len(xs) * 2 * pairs * (block // (n // 2)) * n
+            assert k8.points - before[1] == len(xs) * frames * n
             assert hopper_kernels.lag_mac_ring.launches == before[2]
+            if matrix:
+                assert hopper_fft.fastfir_chain_stream.launches == before[3]
         outs.append(np.concatenate(ys, axis=-1))
     assert snr_db(outs[1], outs[0]) >= SNR_CHAIN_DB
 
@@ -745,10 +810,12 @@ def test_slice_wrappers_refuse_on_cuda(cuda, call, match):
 def test_convolver_n2m_matrix_on_cuda(cuda, path):
     """The N-in / M-out route at 5 x 5 with 90 000-tap IRs on the Zero
     preset (10 partitions of the 16384 section): ``process`` on
-    ``init_state`` runs the collapsed engine over the 25 pairs (K8, a launch
-    a block, every pair's frames counted in its ``.points``; K1 for the 4096
-    section's refresh), ``process_any`` the sample-granular path,
-    ``process_offline`` the lazy tail; each matches the CPU path."""
+    ``init_state`` (the pairs share one history an input) runs the
+    collapsed engine as K8's matrix form (a launch a block, the inputs' and
+    the outputs' frames counted in its ``.points``; K1 for the 4096
+    section's refresh, once an input; no per-pair K8), ``process_any`` the
+    sample-granular path, ``process_offline`` the lazy tail; each matches
+    the CPU path."""
     from hisstools_library_tpu_torch.models.multichannel import Convolver
     rng = np.random.default_rng(0x27)
     ins = outs = 5
@@ -767,7 +834,8 @@ def test_convolver_n2m_matrix_on_cuda(cuda, path):
         st = conv.init_state() if path == "process" else conv.init_stream_state()
         step = conv.process if path == "process" else conv.process_any
         counted = (hopper_fft.rfft_packed, hopper_kernels.lag_mac_ring,
-                   hopper_fft.rifft_packed_tail, hopper_fft.fastfir_chain_stream)
+                   hopper_fft.rifft_packed_tail, hopper_fft.fastfir_chain_stream,
+                   hopper_fft.fastfir_chain_stream_matrix)
         before = [(fn.launches, fn.points if hasattr(fn, "points") else 0) for fn in counted]
         ys = []
         for x in xs:
@@ -776,9 +844,8 @@ def test_convolver_n2m_matrix_on_cuda(cuda, path):
         if dev == cuda and path == "process":
             grew = [(fn.launches - b[0], (fn.points if hasattr(fn, "points") else 0) - b[1])
                     for fn, b in zip(counted, before)]
-            pairs = outs * ins
-            assert grew == [(3, 3 * pairs * 3 * 4096), (0, 0), (0, 0),
-                            (3, 3 * pairs * 2 * 2 * 16384)], grew
+            assert grew == [(3, 3 * ins * 3 * 4096), (0, 0), (0, 0), (0, 0),
+                            (3, 3 * (ins + outs) * 2 * 16384)], grew
         res.append(np.concatenate(ys, axis=-1))
     assert res[0].shape == (outs, 3 * block)
     assert snr_db(res[1], res[0]) >= SNR_CHAIN_DB

@@ -66,6 +66,43 @@ def test_plan_constants_match_the_kernel():
     assert tus == {1 << e for e in range(hk.RING_MAC_MAX_HOPS.bit_length())}
 
 
+def test_matrix_plan_constants_match_the_kernel():
+    """The RING_MAC_MATRIX_* constants are ring_mac_matrix's, the launch
+    instantiates every chunk length the plan can choose, and the per-channel
+    kernel ring_mac is launched by its own entries only."""
+    text = SRC.read_text()
+    const = dict(re.findall(r"constexpr int (kMx\w+) = ([^;]+);", text))
+    assert int(const["kMxBins"]) == hk.RING_MAC_MATRIX_BINS == 128
+    assert int(const["kMxGroup"]) == hk.RING_MAC_MATRIX_GROUP == 5
+    assert int(const["kMxStages"]) == hk.RING_MAC_MATRIX_STAGES == 5
+    assert int(const["kMxHops"]) == hk.RING_MAC_MATRIX_HOPS == 8
+    assert const["kMxPlanes"] == "2 * kMxGroup + 2"
+    assert "const unsigned grid = (unsigned)(groups * (a.k / kMxBins));" in text
+    assert "ring_mac_matrix<TU><<<grid, kMxBins + 32, bytes, st>>>(a, inputs);" in text
+    tus = {int(v) for v in re.findall(r"return launch_matrix<(\d+)>", text)}
+    assert tus == {1 << e for e in range(hk.RING_MAC_MATRIX_HOPS.bit_length())}
+
+
+@pytest.mark.parametrize("m,n,t,p,k", [(25, 25, 8, 17, 8192), (4, 3, 1, 3, 8192),
+                                       (3, 4, 17, 2, 65536), (1, 1, 5, 1, 128)])
+def test_matrix_plan(m, n, t, p, k):
+    """Groups of five outputs cover every output once, tiles of 128 bins
+    every bin; chunks of the least power of two >= min(T, 8) hops; a row
+    item carries up to six rows; the shared memory fits three blocks an SM
+    (227 KB) at every chunk length."""
+    plan = hk._ring_mac_matrix_plan(m, n, t, p, k)
+    assert plan.groups * 5 >= m > (plan.groups - 1) * 5
+    assert plan.tiles == plan.groups * k // 128 and plan.threads == 160
+    tu = plan.hops_per_chunk
+    assert tu & (tu - 1) == 0 and min(t, 8) <= tu <= 8 and tu < 2 * min(t, 8)
+    assert plan.chunks == -(-t // tu) and plan.rows_per_item == 6
+    assert plan.items == n * sum(-(-min(tu, t - t0) // 6) + p for t0 in range(0, t, tu))
+    assert 3 * (plan.shared_bytes + 1024) <= 228 * 1024
+    for bad in ((m, n, t, p, k + 64), (0, n, t, p, k), (m, n, 0, p, k), (m, n, t, 0, k)):
+        with pytest.raises(ValueError):
+            hk._ring_mac_matrix_plan(*bad)
+
+
 @pytest.mark.parametrize("t", [1, 2, 4, 15, 16, 17, 40, 48])
 @pytest.mark.parametrize("k", [16, 32, 64, 128, 256, 768, 1024, 1 << 15])
 def test_ring_mac_plan(k, t):
@@ -337,6 +374,109 @@ def test_state_model_matches_plain(k, t, p):
         *(v[None].expand(c, k) for v in _planes(l0)))
     wy = want[0].numpy() + 1j * want[1].numpy()
     assert snr_db(_ri(wy), _ri(y)) >= SNR_F64_DB
+    assert np.array_equal(new, want[2].numpy() + 1j * want[3].numpy())
+
+
+def _matrix_run(m, n, t, p, k, ring, x, h, l0):
+    """ring_mac_matrix in numpy, block by block as its threads run it:
+    the producer's items (for each chunk and input, row items of up to six
+    V rows, then P items of the group's H rows and one V row), each copied
+    into stage g mod 5 and taken from there, the bytes each full barrier
+    expects; the consumers' accumulators summed apart for each input, then
+    into the total; the new rings stored by the first group's blocks. Returns
+    Y (M, T, K), the new rings (N, P, K) and each ring slot's write count."""
+    plan = hk._ring_mac_matrix_plan(m, n, t, p, k)
+    group, bins, rows_per = hk.RING_MAC_MATRIX_GROUP, hk.RING_MAC_MATRIX_BINS, plan.rows_per_item
+    tu, stages = plan.hops_per_chunk, hk.RING_MAC_MATRIX_STAGES
+    v = np.concatenate([ring, x], axis=1)                # V_n = [ring_n | X_n]
+    y = np.full((m, t, k), np.nan + 0j)
+    new = np.full((n, p, k), np.nan + 0j)
+    writes = np.zeros((n, p, k), int)
+    for block in range(plan.tiles):
+        tb, gi = divmod(block, plan.groups)
+        m0, b0 = gi * group, tb * bins
+        gn = min(group, m - m0)
+        cols = slice(b0, b0 + bins)
+        lane0 = (b0 + np.arange(bins)) == 0
+        items = []                                       # (planes, the bytes expected)
+        for ci in range(plan.chunks):
+            t0 = ci * tu
+            tc = min(tu, t - t0)
+            for nn in range(n):
+                for j0 in range(0, tc, rows_per):
+                    rows = min(rows_per, tc - j0)
+                    items.append(({2 * r: v[nn, p + t0 + j0 + r, cols] for r in range(rows)},
+                                  2 * rows * bins * 4))
+                for q in range(p):
+                    planes = {2 * o: h[m0 + o, nn, q, cols] for o in range(gn)}
+                    planes[2 * group] = v[nn, p + t0 - 1 - q, cols]
+                    items.append((planes, 2 * (gn + 1) * bins * 4))
+        assert len(items) == plan.items
+        assert all(b == 8 * bins * len(pl) for pl, b in items)   # re and im a plane pair
+        g = 0
+
+        def mac(vv, hh):
+            return np.where(lane0, vv.real * hh.real + 1j * vv.imag * hh.imag, vv * hh)
+
+        for ci in range(plan.chunks):
+            t0 = ci * tu
+            tc = min(tu, t - t0)
+            total = np.zeros((group, tu, bins), complex)
+            for nn in range(n):
+                acc = np.zeros((group, tu, bins), complex)
+                win = [np.zeros(bins, complex) for _ in range(tu)]
+                for j0 in range(0, tc, rows_per):
+                    stage = items[g][0]
+                    g += 1
+                    for r in range(min(rows_per, tc - j0)):
+                        j = j0 + r
+                        xv = stage[2 * r]
+                        win[j] = xv
+                        for o in range(gn):
+                            acc[o, j] += mac(xv, l0[m0 + o, nn, cols])
+                        slot = t0 + j - t + p
+                        if gi == 0 and slot >= 0:
+                            new[nn, slot, cols] = xv
+                            writes[nn, slot, cols] += 1
+                for q in range(p):
+                    stage = items[g][0]
+                    g += 1
+                    qq = q % tu
+                    vv = stage[2 * group]
+                    win[tu - 1 - qq] = vv
+                    for o in range(gn):
+                        for i in range(tu):
+                            acc[o, i] += mac(win[(i - 1 - qq + tu) % tu], stage[2 * o])
+                    slot = p - 1 - q - t
+                    if gi == 0 and ci == 0 and slot >= 0:
+                        new[nn, slot, cols] = vv
+                        writes[nn, slot, cols] += 1
+                total += acc
+            for o in range(gn):
+                y[m0 + o, t0:t0 + tc, cols] = total[o, :tc]
+        assert g == plan.items
+    return y, new, writes
+
+
+@pytest.mark.parametrize("m,n,t,p", [(4, 3, 1, 3), (3, 4, 3, 1), (7, 2, 8, 4), (2, 3, 11, 2),
+                                     (6, 1, 2, 9)])
+def test_matrix_model_matches_plain(m, n, t, p):
+    """The matrix form (blocks tile-major, group-minor; V from each input's
+    ring and spectra; H and L0 of the pair) through the model equals
+    stream_state_matrix_plain in float64: Y >= 250 dB, bin 0 as two real
+    products, the new rings exactly and each slot once; partial groups (M
+    not a multiple of five) and chunks above eight hops included."""
+    k = 256
+    rng = np.random.default_rng(m * 1000 + n * 100 + t * 10 + p)
+    ring, x = _cplx(rng, n, p, k), _cplx(rng, n, t, k)
+    h, l0 = _cplx(rng, m, n, p, k), _cplx(rng, m, n, k)
+    y, new, writes = _matrix_run(m, n, t, p, k, ring, x, h, l0)
+    want = hopper_fft.stream_state_matrix_plain(*_planes(x), *_planes(ring), *_planes(h),
+                                                *_planes(l0))
+    wy = want[0].numpy() + 1j * want[1].numpy()
+    assert snr_db(_ri(wy), _ri(y)) >= SNR_F64_DB
+    assert snr_db(_ri(wy[..., 0]), _ri(y[..., 0])) >= SNR_F64_DB
+    assert (writes == 1).all()
     assert np.array_equal(new, want[2].numpy() + 1j * want[3].numpy())
 
 

@@ -90,11 +90,15 @@ def _n2m_convolver(seed, taps=TAPS, outs=2):
     return conv
 
 
-def _n2m_process():
+def _n2m_process(per_pair=False):
+    # init_state's pairs share one history an input (the matrix route); a
+    # per-pair reset gives each pair its own (the pairs' route)
     conv = _n2m_convolver(11)
     state = conv.init_state(torch.float32)
     blocks = [_signal(12 + k, 8192) for k in range(2)]
     state, _ = conv.process(state, blocks[0])
+    if per_pair:
+        state = conv.reset(in_chan=0, out_chan=0, state=state)
     return lambda: conv.process(state, blocks[1])[1]
 
 
@@ -189,6 +193,12 @@ CASES = {
         "kernel.K9.hop_fire": "engine.partitioned.fire",
         "engine.partitioned.emit": "engine.partitioned.fire"}),
     "n2m_process": (_n2m_process, {
+        "entry.Convolver.process": None,
+        "engine.matrix.process": "entry.Convolver.process",
+        "engine.mono.collapsed_matrix": "engine.matrix.process",
+        "engine.partitioned.process_block_matrix": "engine.mono.collapsed_matrix",
+        "engine.mono.refresh_section": "engine.mono.collapsed_matrix"}),
+    "n2m_process_per_pair": (lambda: _n2m_process(per_pair=True), {
         "entry.Convolver.process": None,
         "engine.matrix.process": "entry.Convolver.process",
         "engine.mono.process": "engine.matrix.process",

@@ -1,6 +1,7 @@
 """The transform wrappers' ``<wrapper>.points`` counters: each launch adds
 its frames x N (K8 and K9 add their forward's and their inverse's, 2 x
-frames x N) beside ``<wrapper>.launches``, counted here by hand.
+frames x N; K8's matrix form its inputs' and its outputs' frames x N)
+beside ``<wrapper>.launches``, counted here by hand.
 
 No kernel runs on the CPU, so the wrappers take meta tensors (which take
 the card's branch) with the kernel library replaced by one whose every
@@ -85,6 +86,11 @@ CASES = {
                                            *(_m(3, 17, 8192) for _ in range(4)), 0.5,
                                            _m(3, 8192), _m(3, 8192)),
            "fastfir_chain_stream", 2 * 3 * 4 * 16384),
+    # K8's matrix form: 3 inputs' 4 frames forward, 2 outputs' back
+    "K8-matrix": (lambda: hf.fastfir_chain_stream_matrix(
+        _m(3, 4, 8192), _m(3, 8192), _m(3, 17, 8192), _m(3, 17, 8192), _m(2, 3, 17, 8192),
+        _m(2, 3, 17, 8192), 0.5, _m(2, 3, 8192), _m(2, 3, 8192)),
+        "fastfir_chain_stream_matrix", (3 + 2) * 4 * 16384),
 }
 
 
@@ -103,29 +109,44 @@ def test_the_cpu_counts_nothing(launches):
     assert launches() == {}
 
 
-def test_n2m_collapsed_call_counts_every_pair(launches):
+@pytest.mark.parametrize("state", ["shared", "per_pair"])
+def test_n2m_collapsed_call_counts(launches, state):
     """``Convolver.process`` of 3 inputs into 4 outputs on the Zero preset,
-    IRs of 80 000 taps (9 partitions of the 16384 section, which the
-    collapsed engine runs on K8), a block of two 8192-sample hops: each of
-    the 12 pairs transforms its 2 frames of 16384 forward and back (K8's
-    points, as K1 and K4 counted them on the staged route), and the
-    refreshed sections' 3 frames of 256 and 1024 (K10) and of 4096 (K1);
-    the inputs are transformed once a pair, not once."""
+    IRs of 80 000 taps (9 partitions of the 16384 section), a block of two
+    8192-sample hops, by the state it is given.
+
+    ``shared`` (``init_state``: every output's pairs share one history an
+    input): one call of K8's matrix form transforms the 3 inputs' 2 frames
+    of 16384 forward and the 4 outputs' back; the refreshed sections' 3
+    frames of 256 and 1024 (K10) and of 4096 (K1) once an input; no
+    per-pair K8. ``per_pair`` (after a per-pair reset, each pair its own
+    history): each of the 12 pairs transforms its 2 frames forward and back
+    (K8's points) and its refreshed frames."""
     pairs = 12
     conv = Convolver(3, 4, latency=LatencyMode.Zero, max_length=80000, device=META)
     conv.set_all(np.zeros((4, 3, 80000)))
     conv.prepare(backend="pallas")
-    state = conv.init_state()
-    assert state.sections[-1].ring.re.shape == (4, 3, 9, 8192)
+    st = conv.init_state()
+    if state == "per_pair":
+        st = conv.reset(in_chan=0, out_chan=0, state=st)
+    assert st.sections[-1].ring.re.shape == (4, 3, 9, 8192)
     for fn in (hf.rfft_packed, hf.rfft_small):  # the IR's spectra, prepared above
         fn.launches = fn.points = 0
-    _, y = conv.process(state, _m(3, 16384), backend="pallas")
+    new, y = conv.process(st, _m(3, 16384), backend="pallas")
     assert y.shape == (4, 16384)
-    assert launches() == {
-        "fastfir_chain_stream": (1, pairs * 2 * 2 * 16384),
-        "rfft_packed": (1, pairs * 3 * 4096),
-        "rfft_small": (2, pairs * 3 * (256 + 1024)),
-    }
+    assert new.sections[-1].ring.re.shape == (4, 3, 9, 8192)
+    if state == "shared":
+        assert launches() == {
+            "fastfir_chain_stream_matrix": (1, (3 + 4) * 2 * 16384),
+            "rfft_packed": (1, 3 * 3 * 4096),
+            "rfft_small": (2, 3 * 3 * (256 + 1024)),
+        }
+    else:
+        assert launches() == {
+            "fastfir_chain_stream": (1, pairs * 2 * 2 * 16384),
+            "rfft_packed": (1, pairs * 3 * 4096),
+            "rfft_small": (2, pairs * 3 * (256 + 1024)),
+        }
 
 
 @pytest.mark.parametrize("n,p,t,dtype,want", [

@@ -1,7 +1,7 @@
 """Phases of ``chip_smoke.py`` from one checkout, for an A/B run.
 
-    python3 tools/chip_phases.py [--small | --k1 | --k2 | --k4 | --k5 | --k7 | --k9 | --k14
-        | --k16 | --large] CHECKOUT
+    python3 tools/chip_phases.py [--small | --k1 | --k2 | --k4 | --k5 | --k7 | --k8m | --k9
+        | --k14 | --k16 | --large] CHECKOUT
 
 Runs, from the checkout at CHECKOUT (its ``chip_smoke.py`` and its
 ``hisstools_library_tpu_torch``, kernels built under its own ``build/``), on
@@ -88,6 +88,11 @@ one CUDA card:
   1; K8 fastfir_chain_stream at chip_smoke's
   four 128-channel shapes, each of its three launches' device ms (its state
   kernel is the ring MAC);
+* with ``--k8m`` phase 6b of a checkout that has it (K8's matrix form
+  against its plain version at the matrix cell's 25 x 25, T 8, P 17, 2^14,
+  with its three launches beside its state kernel's design bytes, then K8
+  at render's (128, T 8, P 58, 2^14, lag0)); a checkout without it times
+  K8 at render's shape alone;
 * with ``--k9`` K9 hop_fire: at the sample-granular paths' (128, 256, P 3)
   and (128, 1024, P 3), at (128, 256, P 64) and (128, 1024, P 256), and at
   the hop_fire shapes of ``SLICE_CASES`` in this tool's own
@@ -149,13 +154,14 @@ def main() -> None:
     k4 = "--k4" in args
     k5 = "--k5" in args
     k7 = "--k7" in args
+    k8m = "--k8m" in args
     k9 = "--k9" in args
     k14 = "--k14" in args
     k16 = "--k16" in args
     large = "--large" in args
     args = [a for a in args
-            if a not in ("--small", "--k1", "--k2", "--k4", "--k5", "--k7", "--k9", "--k14",
-                         "--k16", "--large")]
+            if a not in ("--small", "--k1", "--k2", "--k4", "--k5", "--k7", "--k8m", "--k9",
+                         "--k14", "--k16", "--large")]
     if len(args) != 1:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
@@ -193,6 +199,9 @@ def main() -> None:
         return
     if k7:
         k7_phase(cs, hopper_fft, randn, dev, smi)
+        return
+    if k8m:
+        k8m_phase(cs, mods, randn, smi)
         return
     if k9:
         k9_phase(cs, hopper_kernels, randn, dev, smi)
@@ -540,6 +549,26 @@ def k8_shapes(cs, hf, randn, smi) -> None:
               f"plain {snr:.2f} dB [{smi}]", flush=True)
         del a, kw
         torch.cuda.empty_cache()
+
+
+def k8m_phase(cs, mods, randn, smi) -> None:
+    """K8's matrix form (chip_smoke's phase 6b) where the checkout has it,
+    else K8 at render's (128, T 8, P 58, 2^14, lag0) alone."""
+    if hasattr(cs, "stream_matrix_kernel"):
+        cs.stream_matrix_kernel(randn, mods, smi)
+        return
+    hf = mods["hopper_fft"]
+    c, t, p, n = cs.CHANNELS, 8, 58, 1 << 14
+    k = n // 2
+    a = (randn(c, t, k), randn(c, k), randn(c, p, k), randn(c, p, k),
+         randn(c, p, k) * 1e-3, randn(c, p, k) * 1e-3, 1.0 / (4.0 * n))
+    kw = dict(l0_re=randn(c, k) * 1e-3, l0_im=randn(c, k) * 1e-3)
+    split = cs.k8_launches(lambda: hf.fastfir_chain_stream(*a, **kw), smi,
+                           "fastfir_chain_stream render (128, T 8, P 58, 16384, lag0)")
+    print(f"fastfir_chain_stream render (128, T 8, P 58, 16384, lag0): device "
+          f"{sum(split.values()):.4f} ms, events "
+          f"{cs.median_ms(lambda: hf.fastfir_chain_stream(*a, **kw)):.4f} ms [{smi}]",
+          flush=True)
 
 
 def k11_shapes(cs, hf, randn, smi) -> None:
